@@ -1,0 +1,53 @@
+"""Carry the reference's state across to the port: numpy arrays (or
+anything ``np.asarray`` takes) in, tensors on ``device`` out, so both
+packages compute from the same numbers.  Nothing here imports the
+reference; it reads the fields it needs by name."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.quadratic import LeastSquares
+from repro_torch.device import resolve
+
+
+def tensor(a, device="cuda") -> torch.Tensor:
+    """One array -> a tensor with the same dtype and values on ``device``
+    (bf16 arrays carry across bit for bit)."""
+    arr = np.asarray(a)
+    dev = resolve(device)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(arr, copy=True)).to(dev)
+
+
+def params(tree, device="cuda"):
+    """A parameter vector, or a flat dict of arrays, -> the port's tree."""
+    if isinstance(tree, dict):
+        return {k: tensor(v, device) for k, v in tree.items()}
+    return tensor(tree, device)
+
+
+def least_squares(ref, device="cuda") -> LeastSquares:
+    """The reference's ``LeastSquares`` (its fields) -> the port's."""
+    fields = ("AtA", "Atb", "btb", "evals", "evecs", "x_star", "f_star")
+    return LeastSquares(**{f: tensor(getattr(ref, f), device) for f in fields},
+                        L=float(ref.L), mu=float(ref.mu), reg=float(ref.reg))
+
+
+def round_state(state: dict, device="cuda") -> dict:
+    """An arena round state ``{"x_s", "lam_s", "x_c"?, "round"}`` -> tensors;
+    the round counter becomes an int32 scalar tensor."""
+    out = {k: params(state[k], device) for k in ("x_s", "lam_s", "x_c") if k in state}
+    out["round"] = torch.tensor(int(np.asarray(state["round"])), dtype=torch.int32,
+                                device=resolve(device))
+    return out
+
+
+def to_numpy(tree):
+    """A tensor or a flat dict of tensors -> numpy (bf16 as its f32 value)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -1,0 +1,11 @@
+"""GPDMM/AGPDMM on the flat client arena (the port of ``repro.core``).
+
+    from repro_torch.core import make
+    fed = make(FederatedConfig(algorithm="agpdmm", inner_steps=5, eta=1e-4,
+                               use_arena=True))
+    state = fed.init(params, m)            # params on the card
+    state, metrics = fed.round(state, grad_fn, batch)
+"""
+from repro_torch.core.api import FedOpt, make, make_oracle, resolved_rho
+
+__all__ = ["FedOpt", "make", "make_oracle", "resolved_rho"]

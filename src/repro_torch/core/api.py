@@ -1,0 +1,203 @@
+"""Federated-optimiser interface (the port of ``src/repro/core/api.py``).
+
+Every algorithm is a pair of functions on tensors:
+
+    init(params, m)                  -> state
+    round(state, grad_fn, batch)     -> (state, metrics)
+
+``params`` is a tensor or a flat dict of tensors; per-client state is
+stacked with a leading client dim m (on the arena: one ``(m, width)``
+buffer).  ``batch`` leaves have leading dim m, or (K, m, ...) with
+``per_step_batches=True``.  The state lives on the device of ``params``.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import FederatedConfig
+from repro_torch.core import tree_util as T
+from repro_torch.kernels import ops
+
+
+class FedOpt(NamedTuple):
+    name: str
+    init: Callable  # (params, m) -> state
+    round: Callable  # (state, grad_fn, batch, per_step_batches=False) -> (state, metrics)
+    server_params: Callable  # (state) -> params
+
+
+# ---------------------------------------------------------------------------
+# gradient-oracle protocol (see the reference for the full contract)
+# ---------------------------------------------------------------------------
+#   grad_fn.grad_arena(spec)          -> ga(x_arena, batch) -> g_arena
+#   grad_fn.affine_arena(spec, batch) -> (H, c), grad_i(x) = H_i x - c_i
+
+def make_oracle(grad_fn, *, grad_arena=None, affine_arena=None):
+    """Annotate a per-client ``grad_fn`` with arena-native fast paths."""
+
+    def oracle(x, batch):
+        return grad_fn(x, batch)
+
+    if grad_arena is not None:
+        oracle.grad_arena = grad_arena
+    if affine_arena is not None:
+        oracle.affine_arena = affine_arena
+    return oracle
+
+
+def arena_grad(grad_fn, spec):
+    """``(ga, native)``: the stacked arena gradient for ``grad_fn``.  A plain
+    grad is vmapped through the tree boundary (unpack x, pack g)."""
+    factory = getattr(grad_fn, "grad_arena", None)
+    if factory is not None:
+        return factory(spec), True
+    vgrad = torch.func.vmap(grad_fn)
+
+    def ga(xa, b):
+        return spec.pack_stacked(vgrad(spec.unpack_stacked(xa), b))
+
+    return ga, False
+
+
+def use_arena(cfg: FederatedConfig, params=None) -> bool:
+    """The reference's layout policy: fsdp and mixed-dtype trees keep the
+    pytree path, and ``use_arena="auto"`` keeps widths below
+    ``arena_min_width`` there too."""
+    if cfg.use_arena is False or cfg.layout == "fsdp":
+        return False
+    if params is not None:
+        if len({leaf.dtype for leaf in T.leaves(params)}) > 1:
+            return False
+    if cfg.use_arena == "auto" and params is not None:
+        from repro_torch.core import arena
+
+        return arena.ArenaSpec.from_tree(params).width >= cfg.arena_min_width
+    return True
+
+
+def affine_case(grad_fn, spec, *, per_step=False):
+    """The oracle's ``affine_arena`` factory when the whole inner loop runs
+    as one kernel (affine oracle, one batch for all steps, width within the
+    kernel's shared-memory rule), else None."""
+    affine = getattr(grad_fn, "affine_arena", None)
+    if affine is None or per_step:
+        return None
+    return affine if ops.affine_inner_fits(spec.width) else None
+
+
+def mean_eta(cfg: FederatedConfig) -> float:
+    """The scalar eta server-side quantities derive from: the mean over
+    clients for a per-client tuple (``autotune.mean_eta`` of the reference)."""
+    if isinstance(cfg.eta, str):
+        raise ValueError("eta='auto' must be resolved host-side before the "
+                         "round is built")
+    if isinstance(cfg.eta, tuple):
+        return float(np.mean(np.asarray(cfg.eta, np.float64)))
+    return float(cfg.eta)
+
+
+def resolved_rho(cfg: FederatedConfig) -> float:
+    """The paper's default rho = 1/(K * eta), with the mean eta under
+    per-client stepsizes.  Always a Python float."""
+    if cfg.rho is not None:
+        return cfg.rho
+    rho = 1.0 / (cfg.inner_steps * mean_eta(cfg))
+    if not rho > 0.0:
+        raise ValueError(f"derived rho must be positive, got {rho}")
+    return rho
+
+
+def client_batches(batch, k: int, per_step: bool):
+    """The batch for inner step k (shared or per-step)."""
+    if not per_step:
+        return batch
+    return T.tmap(lambda x: x[k], batch)
+
+
+# ---------------------------------------------------------------------------
+# branches of the reference that this port does not run yet
+# ---------------------------------------------------------------------------
+
+def _unported(cfg: FederatedConfig):
+    """(what, ROADMAP item) for each configured branch the port lacks."""
+    out = []
+    if cfg.participation < 1.0:
+        out.append(("participation < 1", 3))
+    if cfg.uplink_bits is not None:
+        out.append(("uplink_bits (EF21)", 3))
+    if cfg.faults is not None:
+        out.append(("faults", 4))
+    if cfg.screen is True:
+        out.append(("screen=True", 4))
+    if cfg.async_rounds is True:
+        out.append(("async_rounds=True", 4))
+    if cfg.variance_reduction is not None:
+        out.append((f"variance_reduction={cfg.variance_reduction!r}", 1))
+    if cfg.topology != "star":
+        out.append((f"topology={cfg.topology!r}", 6))
+    if cfg.layout == "fsdp":
+        out.append(("layout='fsdp' (pytree path)", 1))
+    if cfg.tol > 0.0:
+        out.append(("tol > 0 (early exit)", 5))
+    return out
+
+
+def require_ported(cfg: FederatedConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for the first
+    configured branch the port does not run yet -- never a silent
+    substitute."""
+    unported = _unported(cfg)
+    if unported:
+        what, item = unported[0]
+        raise NotImplementedError(
+            f"{what} is not ported yet (ROADMAP.md, 'Modules to port', item {item})")
+
+
+def pytree_path_unported(cfg: FederatedConfig, params) -> NotImplementedError:
+    from repro_torch.core import arena
+
+    width = arena.ArenaSpec.from_tree(params).width
+    return NotImplementedError(
+        f"the per-leaf pytree path (use_arena={cfg.use_arena!r}, packed width "
+        f"{width}, arena_min_width={cfg.arena_min_width}) is not ported yet "
+        f"(ROADMAP.md, 'Modules to port', item 1); pass use_arena=True")
+
+
+def make(cfg: FederatedConfig) -> FedOpt:
+    from repro_torch.core import agpdmm, gpdmm
+
+    algos = {"gpdmm": gpdmm.make, "agpdmm": agpdmm.make}
+    later = {"scaffold": 1, "fedavg": 1, "fedsplit": 1, "pdmm_graph": 6,
+             "gpdmm_graph": 6}
+    if cfg.algorithm in later:
+        raise NotImplementedError(
+            f"algorithm {cfg.algorithm!r} is not ported yet (ROADMAP.md, "
+            f"'Modules to port', item {later[cfg.algorithm]})")
+    if cfg.algorithm not in algos:
+        raise KeyError(f"unknown federated algorithm {cfg.algorithm!r}")
+    if isinstance(cfg.eta, str):
+        raise ValueError(
+            "eta='auto' must be resolved host-side before the round is built "
+            "(autotune is not ported yet: ROADMAP.md, 'Modules to port', item 5)")
+    require_ported(cfg)
+    return algos[cfg.algorithm](cfg)
+
+
+def step_size(eta, rho: float, device):
+    """The eq. (20) stepsize 1/(1/eta + rho): a Python float for a scalar
+    eta; for a per-client tuple an (m,) f32 tensor on ``device``, computed
+    in f32 as the reference computes it from ``np.float32`` etas."""
+    if isinstance(eta, tuple):
+        e = torch.tensor(eta, dtype=torch.float32)
+        return (1.0 / (1.0 / e + rho)).to(device)
+    return 1.0 / (1.0 / eta + rho)
+
+
+__all__ = [
+    "FedOpt", "affine_case", "arena_grad", "client_batches", "make",
+    "make_oracle", "mean_eta", "require_ported", "resolved_rho", "step_size",
+    "use_arena",
+]

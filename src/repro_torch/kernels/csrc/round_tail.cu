@@ -1,0 +1,145 @@
+// One-pass elementwise kernels over the (m, W) client arena, each with the
+// (W,) server row broadcast inside the kernel (never materialised at
+// (m, W)).  They replace, in src/repro/kernels/round_tail.py:
+//
+//   round_tail_pallas         lam_is = rho (x_s - x_ref) - lam_s
+//                             u      = x_ref - lam_is / rho
+//                             (lam_is written only when asked)
+//   dual_from_uplink_pallas   lam'   = rho (u - x_s')
+//   fused_update_arena_pallas x'     = x - step_i (g + rho (x - x_s) + lam)
+//                             (lam optional, step per client or scalar)
+//
+// What bounds them on an H100: bytes.  Each does a handful of flops per
+// element against 8-20 bytes of traffic, so the least time is the arena's
+// reads and writes over the 3.35 TB/s of device memory; at the paper's sizes
+// (about 1 MiB per buffer) a launch costs more than that.  The design is the
+// plain one: one thread per element, a grid-stride loop, loads in the
+// arena's dtype, f32 math with the _rn intrinsics (bitwise the reference's
+// f32 operation order), one store per output.  The TPU's (rows, 128) tiles
+// and BlockSpec grids do not carry over; the server row is indexed as
+// t % W.  The division lam_is / rho stays a division, as in the reference.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <typename T, bool kLamIs>
+__global__ void __launch_bounds__(kThreads)
+round_tail_kernel(const T* __restrict__ xr, const T* __restrict__ lam,
+                  const T* __restrict__ xs, float rho, size_t n, int W,
+                  T* __restrict__ lam_is_out, T* __restrict__ up_out) {
+  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
+       t += (size_t)gridDim.x * blockDim.x) {
+    const float x = load_f32(xr, t);
+    const float l = load_f32(lam, t);
+    const float s = load_f32(xs, t % W);
+    const float li = __fsub_rn(__fmul_rn(rho, __fsub_rn(s, x)), l);
+    if (kLamIs) store_f32(lam_is_out, t, li);
+    store_f32(up_out, t, __fsub_rn(x, __fdiv_rn(li, rho)));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dual_from_uplink_kernel(const T* __restrict__ u, const T* __restrict__ xs, float rho,
+                        size_t n, int W, T* __restrict__ out) {
+  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
+       t += (size_t)gridDim.x * blockDim.x) {
+    store_f32(out, t, __fmul_rn(rho, __fsub_rn(load_f32(u, t), load_f32(xs, t % W))));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fused_update_arena_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                          const T* __restrict__ xs, const T* __restrict__ lam,
+                          const float* __restrict__ step_arr, float step, float rho,
+                          size_t n, int W, T* __restrict__ out) {
+  const bool has_lam = lam != nullptr;
+  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
+       t += (size_t)gridDim.x * blockDim.x) {
+    const float st = step_arr != nullptr ? step_arr[t / W] : step;
+    const float l = has_lam ? load_f32(lam, t) : 0.0f;
+    store_f32(out, t, eq20(load_f32(x, t), load_f32(g, t), load_f32(xs, t % W), l,
+                           has_lam, st, rho));
+  }
+}
+
+template <typename T>
+void round_tail_typed(const void* xr, const void* lam, const void* xs, float rho,
+                      size_t n, int W, void* lam_is_out, void* up_out,
+                      cudaStream_t stream) {
+  const unsigned blocks = elementwise_blocks(n, kThreads);
+  if (lam_is_out != nullptr) {
+    round_tail_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
+        (const T*)xr, (const T*)lam, (const T*)xs, rho, n, W, (T*)lam_is_out, (T*)up_out);
+  } else {
+    round_tail_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
+        (const T*)xr, (const T*)lam, (const T*)xs, rho, n, W, nullptr, (T*)up_out);
+  }
+}
+
+}  // namespace
+
+extern "C" int launch_round_tail(const void* xr, const void* lam, const void* xs, float rho,
+                                 long long m, int W, int dtype, void* lam_is_out,
+                                 void* up_out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)m * W;
+  if (n == 0) return (int)cudaGetLastError();
+  if (dtype == kF32) {
+    round_tail_typed<float>(xr, lam, xs, rho, n, W, lam_is_out, up_out, (cudaStream_t)stream);
+  } else if (dtype == kBF16) {
+    round_tail_typed<__nv_bfloat16>(xr, lam, xs, rho, n, W, lam_is_out, up_out,
+                                    (cudaStream_t)stream);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_dual_from_uplink(const void* u, const void* xs, float rho, long long m,
+                                       int W, int dtype, void* out, int device,
+                                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)m * W;
+  if (n == 0) return (int)cudaGetLastError();
+  const unsigned blocks = elementwise_blocks(n, kThreads);
+  if (dtype == kF32) {
+    dual_from_uplink_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)u, (const float*)xs, rho, n, W, (float*)out);
+  } else if (dtype == kBF16) {
+    dual_from_uplink_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)u, (const __nv_bfloat16*)xs, rho, n, W, (__nv_bfloat16*)out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_fused_update_arena(const void* x, const void* g, const void* xs,
+                                         const void* lam, const void* step_arr, float step,
+                                         float rho, long long m, int W, int dtype, void* out,
+                                         int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)m * W;
+  if (n == 0) return (int)cudaGetLastError();
+  const unsigned blocks = elementwise_blocks(n, kThreads);
+  if (dtype == kF32) {
+    fused_update_arena_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)g, (const float*)xs, (const float*)lam,
+        (const float*)step_arr, step, rho, n, W, (float*)out);
+  } else if (dtype == kBF16) {
+    fused_update_arena_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, (const __nv_bfloat16*)xs,
+        (const __nv_bfloat16*)lam, (const float*)step_arr, step, rho, n, W,
+        (__nv_bfloat16*)out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,62 @@
+"""Plain PyTorch versions of the four ported kernels.
+
+Each upcasts to f32 and casts back at exactly the points where the
+``"xla"`` branches of ``src/repro/kernels/ops.py`` do (lines 291-313,
+316-362, 401-439), so on the CPU they agree with the reference bitwise
+wherever both sides run the same f32 operations in the same order.  The
+wrappers in ``inner_loop`` and ``round_tail`` run these for CPU tensors
+only; ``chip_smoke.py`` holds each CUDA kernel against them on the card.
+
+``step`` is a Python float or an ``(m,)`` f32 tensor of per-client
+stepsizes.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.fused_update import eq20
+
+
+def _per_client(step):
+    return step[:, None] if torch.is_tensor(step) else step
+
+
+def fused_update_arena_ref(x, g, x_s, lam, step, rho):
+    """Eq. (20) step over the arena: x, g, lam (m, W); x_s (W,)."""
+    f32 = torch.float32
+    out = eq20(x.to(f32), g.to(f32), x_s.to(f32)[None],
+               None if lam is None else lam.to(f32), _per_client(step), rho)
+    return out.to(x.dtype)
+
+
+def inner_loop_affine_ref(x0, H, c, x_s, lam, step, rho, K: int, *, off=None):
+    """K eq. (20) steps with g = H x - (c + off); returns (x_K, mean_k x_k)."""
+    f32 = torch.float32
+    step_b = _per_client(step)
+    xs = x_s.to(f32)[None]
+    lam_f = None if lam is None else lam.to(f32)
+    Hf, cf = H.to(f32), c.to(f32)
+    if off is not None:
+        cf = cf + off.to(f32)
+    x = x0.to(f32)
+    xsum = torch.zeros_like(x)
+    for _ in range(K):
+        g = torch.einsum("mij,mj->mi", Hf, x) - cf
+        x = eq20(x, g, xs, lam_f, step_b, rho)
+        xsum = xsum + x
+    return x.to(x0.dtype), (xsum * (1.0 / K)).to(x0.dtype)
+
+
+def round_tail_ref(x_ref, lam_s, x_s, rho, *, with_lam_is: bool = True):
+    """lam_is = rho (x_s - x_ref) - lam_s;  uplink = x_ref - lam_is / rho."""
+    f32 = torch.float32
+    xr = x_ref.to(f32)
+    lam_is = rho * (x_s.to(f32)[None] - xr) - lam_s.to(f32)
+    uplink = (xr - lam_is / rho).to(x_ref.dtype)
+    return (lam_is.to(x_ref.dtype) if with_lam_is else None), uplink
+
+
+def dual_from_uplink_ref(uplink, x_s, rho):
+    """lam_s' = rho (u - x_s')."""
+    f32 = torch.float32
+    return (rho * (uplink.to(f32) - x_s.to(f32)[None])).to(uplink.dtype)

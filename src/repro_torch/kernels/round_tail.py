@@ -1,0 +1,94 @@
+"""The round-tail kernels over the flat client arena, each one CUDA pass
+(``csrc/round_tail.cu``); the port of three kernels of
+``src/repro/kernels/round_tail.py``:
+
+  * ``round_tail``         lam_is = rho (x_s - x_ref) - lam_s and the uplink
+                           u = x_ref - lam_is / rho; lam_is only when asked
+  * ``dual_from_uplink``   lam' = rho (u - x_s')
+  * ``fused_update_arena`` the eq. (20) step with a per-client or scalar step
+
+Client buffers are (m, W), the server row (W,) is broadcast inside the
+kernel.  CUDA operands are f32 or bf16 (all of one dtype), with f32 math.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _args, ref
+from repro_torch.kernels._build import LL, F, I, P, Kernel
+
+DTYPES = tuple(_args.DTYPE_CODES)
+
+ROUND_TAIL = Kernel(
+    "round_tail", "round_tail.cu", "launch_round_tail",
+    # xr lam xs rho m W dtype lam_is_out up_out dev stream
+    [P, P, P, F, LL, I, I, P, P, I, P],
+    replaces="src/repro/kernels/round_tail.py:89",
+)
+DUAL_FROM_UPLINK = Kernel(
+    "dual_from_uplink", "round_tail.cu", "launch_dual_from_uplink",
+    # u xs rho m W dtype out dev stream
+    [P, P, F, LL, I, I, P, I, P],
+    replaces="src/repro/kernels/round_tail.py:202",
+)
+FUSED_UPDATE_ARENA = Kernel(
+    "fused_update_arena", "round_tail.cu", "launch_fused_update_arena",
+    # x g xs lam step_arr step rho m W dtype out dev stream
+    [P, P, P, P, P, F, F, LL, I, I, P, I, P],
+    replaces="src/repro/kernels/round_tail.py:328",
+)
+
+
+def _client_and_server(name, client: dict, x_s):
+    """Check the (m, W) client operands and the (W,) server row; returns
+    (m, W, dtype code)."""
+    first = next(iter(client.values()))
+    m, w = first.shape
+    dev, dt = first.device, first.dtype
+    if dt not in DTYPES:
+        raise TypeError(f"{name}: dtype {dt} is not supported (f32 or bf16)")
+    for arg, t in client.items():
+        _args.check(name, arg, t, (m, w), (dt,), dev)
+    _args.check(name, "x_s", x_s, (w,), (dt,), dev)
+    return m, w, _args.DTYPE_CODES[dt]
+
+
+def round_tail(x_ref, lam_s, x_s, rho, *, with_lam_is: bool = True):
+    """Returns (lam_is, uplink); lam_is is None when ``with_lam_is=False``."""
+    k = ROUND_TAIL
+    if _args.on_cpu(k.name, x_ref):
+        return ref.round_tail_ref(x_ref, lam_s, x_s, rho, with_lam_is=with_lam_is)
+    m, w, code = _client_and_server(k.name, {"x_ref": x_ref, "lam_s": lam_s}, x_s)
+    uplink = torch.empty_like(x_ref)
+    lam_is = torch.empty_like(x_ref) if with_lam_is else None
+    k.launch(_args.ptr(x_ref), _args.ptr(lam_s), _args.ptr(x_s), float(rho), m, w,
+             code, _args.ptr(lam_is), _args.ptr(uplink), *_args.stream_args(x_ref.device))
+    return lam_is, uplink
+
+
+def dual_from_uplink(uplink, x_s, rho):
+    """lam_s' = rho (u - x_s'), (m, W)."""
+    k = DUAL_FROM_UPLINK
+    if _args.on_cpu(k.name, uplink):
+        return ref.dual_from_uplink_ref(uplink, x_s, rho)
+    m, w, code = _client_and_server(k.name, {"uplink": uplink}, x_s)
+    out = torch.empty_like(uplink)
+    k.launch(_args.ptr(uplink), _args.ptr(x_s), float(rho), m, w, code,
+             _args.ptr(out), *_args.stream_args(uplink.device))
+    return out
+
+
+def fused_update_arena(x, g, x_s, lam, step, rho):
+    """x - step (g + rho (x - x_s) + lam) over the arena; ``lam`` may be
+    None, ``step`` a Python float or an (m,) f32 tensor."""
+    k = FUSED_UPDATE_ARENA
+    if _args.on_cpu(k.name, x):
+        return ref.fused_update_arena_ref(x, g, x_s, lam, step, rho)
+    client = {"x": x, "g": g} if lam is None else {"x": x, "g": g, "lam": lam}
+    m, w, code = _client_and_server(k.name, client, x_s)
+    step_arr, step_f = _args.step_operand(k.name, step, m, x.device)
+    out = torch.empty_like(x)
+    k.launch(_args.ptr(x), _args.ptr(g), _args.ptr(x_s), _args.ptr(lam),
+             _args.ptr(step_arr), step_f, float(rho), m, w, code, _args.ptr(out),
+             *_args.stream_args(x.device))
+    return out

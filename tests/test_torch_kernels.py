@@ -1,0 +1,197 @@
+"""The port's four kernels against the reference's (``repro.kernels.ops``).
+
+On the CPU each port wrapper runs its plain PyTorch version, so these tests
+hold the plain versions -- the arithmetic every CUDA kernel is checked
+against on the card -- to the reference's ``"xla"`` branch and to its
+Pallas kernels in interpret mode.  Inputs come from numpy with a seed.
+
+Tolerances:
+  * elementwise kernels vs ``"xla"``: bitwise (both sides run the same f32
+    operations in the same order, and cast back at the same points);
+  * elementwise kernels vs ``"pallas_interpret"``: rtol 1e-6, atol 1e-5
+    on O(1)-O(10) values -- interpret mode compiles the kernel body as one
+    XLA computation, whose CPU backend may contract a multiply and an add
+    into one FMA (one rounding fewer), a few ulps apart; with bf16 outputs
+    such a difference can flip the final rounding, so rtol 8e-3 (one bf16
+    ulp) there;
+  * the K-step inner loop: rtol = atol = 1e-4 (as tests/test_inner_loop.py),
+    because the matvec sums in another order.
+
+``tests/test_torch_cuda.py`` holds the CUDA kernels to these plain versions
+on the card.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import ops as R
+from repro_torch.kernels import _build, inner_loop, ops as P
+
+BF16 = jnp.bfloat16
+M_W = [(3, 128), (8, 384)]
+
+
+def _draw(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _pair(a, dtype):
+    """The same numbers as a jax array and a torch tensor of ``dtype``."""
+    if dtype == "bf16":
+        return jnp.asarray(a).astype(BF16), torch.from_numpy(a.copy()).to(torch.bfloat16)
+    return jnp.asarray(a), torch.from_numpy(a.copy())
+
+
+def _np(x):
+    if torch.is_tensor(x):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def _same(ref_out, port_out, impl):
+    a, b = _np(ref_out), _np(port_out)
+    if impl == "xla":
+        np.testing.assert_array_equal(a, b)
+    elif port_out.dtype == torch.bfloat16:
+        np.testing.assert_allclose(b, a, rtol=8e-3, atol=1e-5)
+    else:
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-5)
+
+
+@pytest.fixture(params=["xla", "pallas_interpret"])
+def impl(request):
+    """Each reference call names its impl; the global default is restored
+    in any case."""
+    prev = R._DEFAULT_IMPL
+    try:
+        R.set_default_impl(request.param)
+        yield request.param
+    finally:
+        R.set_default_impl(prev)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("with_lam_is", [True, False])
+@pytest.mark.parametrize("m,w", M_W)
+def test_round_tail_matches_reference(impl, m, w, with_lam_is, dtype):
+    x, lam, xs = _draw(m * w, (m, w), (m, w), (w,))
+    (xj, xt), (lj, lt), (sj, st) = (_pair(a, dtype) for a in (x, lam, xs))
+    rho = 3.7
+    lam_is_r, up_r = R.round_tail(xj, lj, sj, rho, with_lam_is=with_lam_is, impl=impl)
+    lam_is_p, up_p = P.round_tail(xt, lt, st, rho, with_lam_is=with_lam_is)
+    assert up_p.dtype == xt.dtype and tuple(up_p.shape) == (m, w)
+    _same(up_r, up_p, impl)
+    if with_lam_is:
+        _same(lam_is_r, lam_is_p, impl)
+    else:
+        assert lam_is_p is None
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m,w", M_W)
+def test_dual_from_uplink_matches_reference(impl, m, w, dtype):
+    u, xs = _draw(m + w, (m, w), (w,))
+    (uj, ut), (sj, st) = _pair(u, dtype), _pair(xs, dtype)
+    _same(R.dual_from_uplink(uj, sj, 2.5, impl=impl), P.dual_from_uplink(ut, st, 2.5), impl)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("per_client_step", [False, True])
+@pytest.mark.parametrize("has_lam", [True, False])
+@pytest.mark.parametrize("m,w", M_W)
+def test_fused_update_arena_matches_reference(impl, m, w, has_lam, per_client_step, dtype):
+    x, g, lam, xs = _draw(7 * m + w, (m, w), (m, w), (m, w), (w,))
+    (xj, xt), (gj, gt), (lj, lt), (sj, st) = (_pair(a, dtype) for a in (x, g, lam, xs))
+    step_np = np.linspace(0.01, 0.3, m).astype(np.float32)
+    step_r = step_np if per_client_step else 0.13
+    step_p = torch.from_numpy(step_np) if per_client_step else 0.13
+    out_r = R.fused_update_arena(xj, gj, sj, lj if has_lam else None, step_r, 1.7, impl=impl)
+    out_p = P.fused_update_arena(xt, gt, st, lt if has_lam else None, step_p, 1.7)
+    assert out_p.dtype == xt.dtype
+    _same(out_r, out_p, impl)
+
+
+@pytest.mark.parametrize("per_client_step", [False, True])
+@pytest.mark.parametrize("has_off", [False, True])
+@pytest.mark.parametrize("has_lam", [True, False])
+@pytest.mark.parametrize("m,w", M_W)
+def test_inner_loop_affine_matches_reference(impl, m, w, has_lam, has_off, per_client_step):
+    K, rho = 4, 0.9
+    x0, c, lam, off, xs = _draw(11 * m + w, (m, w), (m, w), (m, w), (m, w), (w,))
+    A = _draw(m * w + 1, (m, w, w))[0] / np.sqrt(w)
+    H = (np.einsum("mij,mkj->mik", A, A) / 4.0).astype(np.float32)  # PSD, ||H|| ~ 1
+    step_np = np.linspace(0.05, 0.2, m).astype(np.float32)
+    step_r = step_np if per_client_step else 0.1
+    step_p = torch.from_numpy(step_np) if per_client_step else 0.1
+    t = lambda a: torch.from_numpy(a.copy())
+    j = jnp.asarray
+    out_r = R.inner_loop_affine(j(x0), j(H), j(c), j(xs), j(lam) if has_lam else None,
+                                step_r, rho, K, off=j(off) if has_off else None, impl=impl)
+    out_p = P.inner_loop_affine(t(x0), t(H), t(c), t(xs), t(lam) if has_lam else None,
+                                step_p, rho, K, off=t(off) if has_off else None)
+    for a, b in zip(out_r, out_p):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-4, atol=1e-4)
+
+
+def test_inner_loop_keeps_padding_zero():
+    """Zero H rows/cols and zero c/x/x_s/lam columns stay zero (arena
+    padding invariant)."""
+    m, d, w = 3, 50, 128
+    x0, c, lam, xs = _draw(5, (m, w), (m, w), (m, w), (w,))
+    for a in (x0, c, lam):
+        a[:, d:] = 0.0
+    xs[d:] = 0.0
+    H = np.zeros((m, w, w), np.float32)
+    H[:, :d, :d] = np.eye(d, dtype=np.float32)
+    t = lambda a: torch.from_numpy(a)
+    x_K, x_bar = P.inner_loop_affine(t(x0), t(H), t(c), t(xs), t(lam), 0.1, 0.5, 3)
+    assert torch.all(x_K[:, d:] == 0) and torch.all(x_bar[:, d:] == 0)
+
+
+def test_ops_surface_and_width_rule():
+    """The public names, the launch accounting, and the kernel's own width
+    rule (its shared-memory rows), which replaces the TPU's VMEM gate."""
+    assert [k.name for k in P.KERNELS] == [
+        "inner_loop_affine", "round_tail", "dual_from_uplink", "fused_update_arena"]
+    assert P.affine_inner_fits(512) and P.affine_inner_fits(7936)
+    assert not P.affine_inner_fits(500)  # not a multiple of 128
+    widest = inner_loop.SMEM_CAP_BYTES // (4 * inner_loop.SMEM_ROWS)
+    assert not P.affine_inner_fits((widest // 128 + 1) * 128)
+    P.reset_launches()
+    x = torch.zeros(2, 128)
+    P.dual_from_uplink(x, torch.zeros(128), 1.0)  # the CPU runs the plain version
+    assert P.launches() == {k.name: 0 for k in P.KERNELS}
+
+
+@pytest.mark.parametrize("fn", ["round_tail", "dual_from_uplink", "fused_update_arena",
+                                "inner_loop_affine"])
+def test_non_cpu_non_cuda_tensor_raises(fn):
+    """Only a CPU tensor reaches a plain version; any other device that is
+    not CUDA is refused, never computed some other way."""
+    x = torch.zeros(2, 128, device="meta")
+    xs = torch.zeros(128, device="meta")
+    calls = {
+        "round_tail": lambda: P.round_tail(x, x, xs, 1.0),
+        "dual_from_uplink": lambda: P.dual_from_uplink(x, xs, 1.0),
+        "fused_update_arena": lambda: P.fused_update_arena(x, x, xs, x, 0.1, 1.0),
+        "inner_loop_affine": lambda: P.inner_loop_affine(
+            x, torch.zeros(2, 128, 128, device="meta"), x, xs, x, 0.1, 1.0, 2),
+    }
+    with pytest.raises(ValueError, match="not supported"):
+        calls[fn]()
+
+
+def test_build_targets_hopper_and_sources_are_hand_written():
+    """Every source compiles for sm_90a with a plain C interface, and no
+    kernel leans on a library kernel."""
+    cmd = _build.nvcc_command("nvcc", "round_tail.cu", _build.BUILD_DIR / "x.so")
+    assert "-gencode=arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    assert _build.library_path("inner_loop.cu").parent == _build.BUILD_DIR
+    for src in _build.SOURCES + _build.HEADERS:
+        text = (_build.CSRC / src).read_text()
+        for banned in ("cublas", "cudnn", "torch/extension.h", "cutlass", "ATen"):
+            assert banned not in text, (src, banned)
+    for src in _build.SOURCES:
+        assert 'extern "C" int launch_' in (_build.CSRC / src).read_text()

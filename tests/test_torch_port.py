@@ -1,0 +1,118 @@
+"""The port as a package: it imports neither JAX nor the reference, it
+rejects the reference's branches it does not run yet, its configuration
+copy matches the reference's, and its quickstart converges on the CPU."""
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as ref_base
+from repro_torch.configs import base as port_base
+from repro_torch.configs.base import FaultConfig, FederatedConfig
+from repro_torch.core import make, quadratic
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(
+        "repro_torch" + "".join("." + p for p in f.relative_to(PKG).with_suffix("").parts)
+        .replace(".__init__", "")
+        for f in PKG.rglob("*.py"))
+
+
+def test_importing_every_module_pulls_in_no_jax_and_no_reference():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
+                         + ["chip_smoke.py"])
+def test_no_jax_or_reference_import_in_source(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, n)
+
+
+def test_config_copy_matches_reference_fields_and_defaults():
+    for ref_cls, port_cls in [(ref_base.FederatedConfig, port_base.FederatedConfig),
+                              (ref_base.FaultConfig, port_base.FaultConfig)]:
+        ref_f = [(f.name, f.default) for f in dataclasses.fields(ref_cls)]
+        port_f = [(f.name, f.default) for f in dataclasses.fields(port_cls)]
+        assert port_f == ref_f
+    assert FaultConfig.parse("dropout=0.1,seed=7") == FaultConfig(dropout=0.1, seed=7)
+    with pytest.raises(ValueError, match="cohort_tile"):
+        FederatedConfig(num_clients=100, participation=0.07, cohort_tile=3)
+    FederatedConfig(num_clients=100, participation=0.07, cohort_tile=7)  # 7 clients
+
+
+@pytest.mark.parametrize("kw", [
+    dict(participation=0.5), dict(uplink_bits=8), dict(faults=FaultConfig(dropout=0.1)),
+    dict(screen=True), dict(async_rounds=True), dict(variance_reduction="svrg"),
+    dict(topology="ring"), dict(layout="fsdp"), dict(tol=1e-6),
+    dict(algorithm="scaffold"), dict(algorithm="fedavg"), dict(algorithm="fedsplit"),
+])
+def test_unported_branches_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make(FederatedConfig(**{"use_arena": True, **kw}))
+
+
+@pytest.mark.parametrize("algo", ["gpdmm", "agpdmm"])
+def test_pytree_path_raises(algo):
+    """W = 128 under the default use_arena="auto" selects the reference's
+    per-leaf pytree path, which is not ported: it raises."""
+    opt = make(FederatedConfig(algorithm=algo))
+    with pytest.raises(NotImplementedError, match="pytree"):
+        opt.init(torch.zeros(64), 4)
+
+
+def test_eta_auto_is_rejected():
+    with pytest.raises(ValueError, match="auto"):
+        make(FederatedConfig(eta="auto"))
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quadratic.generate(torch.Generator().manual_seed(0), m=2, n=4, d=3)
+
+
+def test_quickstart_converges_on_cpu():
+    """The port of examples/quickstart.py on the fused affine path
+    (``use_arena=True``, ``oracle()``): ||x - x*|| < 1e-3 in 100 rounds."""
+    prob = quadratic.generate(torch.Generator().manual_seed(0), m=8, n=400, d=64,
+                              device="cpu")
+    cfg = FederatedConfig(algorithm="gpdmm", inner_steps=5, eta=0.5 / prob.L,
+                          use_arena=True)
+    opt = make(cfg)
+    state = opt.init(torch.zeros(prob.d), prob.m)
+    grad, batch = prob.oracle(), prob.batch()
+    for _ in range(100):
+        state, metrics = opt.round(state, grad, batch)
+    dist = float(prob.dist(opt.server_params(state)))
+    assert dist < 1e-3, dist
+    assert np.isfinite(float(metrics["lam_sum_norm"]))
