@@ -37,9 +37,12 @@ def least_squares(ref, device="cuda") -> LeastSquares:
 
 
 def round_state(state: dict, device="cuda") -> dict:
-    """An arena round state ``{"x_s", "lam_s", "x_c"?, "round"}`` -> tensors;
-    the round counter becomes an int32 scalar tensor."""
-    out = {k: params(state[k], device) for k in ("x_s", "lam_s", "x_c") if k in state}
+    """A round state of any ported algorithm -> tensors.  Every entry but
+    the round counter is an array or a flat dict of arrays: server trees
+    (``x_s``, SCAFFOLD's ``c``), arena buffers (``lam_s``, ``x_c``,
+    ``c_i``, FedSplit's ``z_s``) or, on the pytree path, stacked trees.
+    The round counter becomes an int32 scalar tensor."""
+    out = {k: params(v, device) for k, v in state.items() if k != "round"}
     out["round"] = torch.tensor(int(np.asarray(state["round"])), dtype=torch.int32,
                                 device=resolve(device))
     return out

@@ -1,4 +1,6 @@
-"""GPDMM/AGPDMM on the flat client arena (the port of ``repro.core``).
+"""The federated optimisers (the port of ``repro.core``): GPDMM, AGPDMM,
+SCAFFOLD, FedAvg and Inexact FedSplit, on the flat client arena or the
+per-leaf pytree path.
 
     from repro_torch.core import make
     fed = make(FederatedConfig(algorithm="agpdmm", inner_steps=5, eta=1e-4,

@@ -7,8 +7,9 @@ Every algorithm is a pair of functions on tensors:
 
 ``params`` is a tensor or a flat dict of tensors; per-client state is
 stacked with a leading client dim m (on the arena: one ``(m, width)``
-buffer).  ``batch`` leaves have leading dim m, or (K, m, ...) with
-``per_step_batches=True``.  The state lives on the device of ``params``.
+buffer; on the per-leaf pytree path: a tree of stacked leaves).  ``batch``
+leaves have leading dim m, or (K, m, ...) with ``per_step_batches=True``.
+The state lives on the device of ``params``.
 """
 from __future__ import annotations
 
@@ -34,6 +35,10 @@ class FedOpt(NamedTuple):
 # ---------------------------------------------------------------------------
 #   grad_fn.grad_arena(spec)          -> ga(x_arena, batch) -> g_arena
 #   grad_fn.affine_arena(spec, batch) -> (H, c), grad_i(x) = H_i x - c_i
+#
+# The exact (prox-based) PDMM / FedSplit variants instead take a stacked
+# ``prox_fn(v, rho) -> argmin_x f_i(x) + rho/2 ||x - v||^2`` oracle
+# (``core.pdmm`` / ``core.fedsplit``).
 
 def make_oracle(grad_fn, *, grad_arena=None, affine_arena=None):
     """Annotate a per-client ``grad_fn`` with arena-native fast paths."""
@@ -78,12 +83,12 @@ def use_arena(cfg: FederatedConfig, params=None) -> bool:
     return True
 
 
-def affine_case(grad_fn, spec, *, per_step=False):
+def affine_case(grad_fn, spec, *, per_step=False, vr_snapshot=None):
     """The oracle's ``affine_arena`` factory when the whole inner loop runs
-    as one kernel (affine oracle, one batch for all steps, width within the
-    kernel's shared-memory rule), else None."""
+    as one kernel (affine oracle, one batch for all steps, no SVRG
+    correction, width within the kernel's shared-memory rule), else None."""
     affine = getattr(grad_fn, "affine_arena", None)
-    if affine is None or per_step:
+    if affine is None or per_step or vr_snapshot is not None:
         return None
     return affine if ops.affine_inner_fits(spec.width) else None
 
@@ -117,6 +122,12 @@ def client_batches(batch, k: int, per_step: bool):
     return T.tmap(lambda x: x[k], batch)
 
 
+def n_steps(batch, K: int, per_step: bool) -> int:
+    """Inner steps of a round: K, or one per leading per-step batch entry
+    (as the reference's scan over the batch runs)."""
+    return T.leaves(batch)[0].shape[0] if per_step else K
+
+
 # ---------------------------------------------------------------------------
 # branches of the reference that this port does not run yet
 # ---------------------------------------------------------------------------
@@ -134,12 +145,8 @@ def _unported(cfg: FederatedConfig):
         out.append(("screen=True", 4))
     if cfg.async_rounds is True:
         out.append(("async_rounds=True", 4))
-    if cfg.variance_reduction is not None:
-        out.append((f"variance_reduction={cfg.variance_reduction!r}", 1))
     if cfg.topology != "star":
         out.append((f"topology={cfg.topology!r}", 6))
-    if cfg.layout == "fsdp":
-        out.append(("layout='fsdp' (pytree path)", 1))
     if cfg.tol > 0.0:
         out.append(("tol > 0 (early exit)", 5))
     return out
@@ -156,22 +163,19 @@ def require_ported(cfg: FederatedConfig) -> None:
             f"{what} is not ported yet (ROADMAP.md, 'Modules to port', item {item})")
 
 
-def pytree_path_unported(cfg: FederatedConfig, params) -> NotImplementedError:
-    from repro_torch.core import arena
-
-    width = arena.ArenaSpec.from_tree(params).width
-    return NotImplementedError(
-        f"the per-leaf pytree path (use_arena={cfg.use_arena!r}, packed width "
-        f"{width}, arena_min_width={cfg.arena_min_width}) is not ported yet "
-        f"(ROADMAP.md, 'Modules to port', item 1); pass use_arena=True")
-
-
 def make(cfg: FederatedConfig) -> FedOpt:
-    from repro_torch.core import agpdmm, gpdmm
+    """The optimiser of ``cfg.algorithm``; each algorithm's own ``make``
+    rejects the branches the port does not run yet (``require_ported``)."""
+    from repro_torch.core import agpdmm, fedavg, fedsplit, gpdmm, scaffold
 
-    algos = {"gpdmm": gpdmm.make, "agpdmm": agpdmm.make}
-    later = {"scaffold": 1, "fedavg": 1, "fedsplit": 1, "pdmm_graph": 6,
-             "gpdmm_graph": 6}
+    algos = {
+        "gpdmm": gpdmm.make,
+        "agpdmm": agpdmm.make,
+        "scaffold": scaffold.make,
+        "fedavg": fedavg.make,
+        "fedsplit": fedsplit.make_inexact,
+    }
+    later = {"pdmm_graph": 6, "gpdmm_graph": 6}
     if cfg.algorithm in later:
         raise NotImplementedError(
             f"algorithm {cfg.algorithm!r} is not ported yet (ROADMAP.md, "
@@ -182,22 +186,36 @@ def make(cfg: FederatedConfig) -> FedOpt:
         raise ValueError(
             "eta='auto' must be resolved host-side before the round is built "
             "(autotune is not ported yet: ROADMAP.md, 'Modules to port', item 5)")
-    require_ported(cfg)
     return algos[cfg.algorithm](cfg)
+
+
+def eta_val(eta, device):
+    """Kernel-ready eta: a Python float, or for a per-client tuple an (m,)
+    f32 tensor on ``device`` (the reference's ``np.float32`` array)."""
+    if isinstance(eta, tuple):
+        return torch.tensor(eta, dtype=torch.float32, device=device)
+    return eta
 
 
 def step_size(eta, rho: float, device):
     """The eq. (20) stepsize 1/(1/eta + rho): a Python float for a scalar
     eta; for a per-client tuple an (m,) f32 tensor on ``device``, computed
     in f32 as the reference computes it from ``np.float32`` etas."""
-    if isinstance(eta, tuple):
-        e = torch.tensor(eta, dtype=torch.float32)
-        return (1.0 / (1.0 / e + rho)).to(device)
-    return 1.0 / (1.0 / eta + rho)
+    e = eta_val(eta, device)
+    return 1.0 / (1.0 / e + rho)
+
+
+def step_for(step, leaf):
+    """Per-leaf view of a (possibly per-client) stepsize on the pytree path:
+    a float passes through, an (m,) tensor becomes (m, 1, ...) against the
+    leaf."""
+    if torch.is_tensor(step) and step.ndim > 0:
+        return step.reshape((-1,) + (1,) * (leaf.ndim - 1))
+    return step
 
 
 __all__ = [
-    "FedOpt", "affine_case", "arena_grad", "client_batches", "make",
-    "make_oracle", "mean_eta", "require_ported", "resolved_rho", "step_size",
-    "use_arena",
+    "FedOpt", "affine_case", "arena_grad", "client_batches", "eta_val", "make",
+    "make_oracle", "mean_eta", "n_steps", "require_ported", "resolved_rho",
+    "step_for", "step_size", "use_arena",
 ]

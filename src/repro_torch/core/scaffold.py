@@ -1,0 +1,189 @@
+"""SCAFFOLD (Karimireddy et al. 2020), eqs. (29)-(30) of the paper, the
+primary baseline; ported from ``src/repro/core/scaffold.py`` (full
+participation, star network), on the flat client arena and on the per-leaf
+pytree path.
+
+    x_i^{r,0}   = x_s^r
+    x_i^{r,k+1} = x_i^{r,k} - eta (grad f_i(x_i^{r,k}) - c_i^r + c^r)
+    c_i^{r+1}   = c_i^r - c^r + (x_s^r - x_i^{r,K}) / (K eta)
+    x_s^{r+1}   = x_s^r + eta_g mean_i (x_i^{r,K} - x_s^r)   (all-reduce 1)
+    c^{r+1}     = c^r + mean_i (c_i^{r+1} - c_i^r)           (all-reduce 2)
+
+Both directions carry two variables per round (x and c), the contrast the
+paper draws with GPDMM's one.  On the arena ``c_i`` is one ``(m, width)``
+buffer.  For an affine oracle the correction folds into the affine
+constant (``c`` into the constant, ``c_i`` as the kernel's ``off`` row), so
+the whole inner loop is one ``inner_loop_affine`` kernel; otherwise each
+step is one ``fused_update_arena`` kernel with rho = 0 and lam = c - c_i.
+The round tail is one ``scaffold_cv`` kernel and the two server means.  On
+the pytree path each step is one ``fused_update`` kernel per leaf and the
+tail is plain tensor ops, as in the reference.
+
+EF21 uplink quantisation is not offered for SCAFFOLD (``make`` says why).
+"""
+from __future__ import annotations
+
+from functools import partial
+
+import torch
+
+from repro_torch.configs.base import FederatedConfig
+from repro_torch.core import arena
+from repro_torch.core import tree_util as T
+from repro_torch.core.api import (
+    FedOpt, affine_case, arena_grad, client_batches, eta_val, n_steps, require_ported,
+    step_for, use_arena,
+)
+from repro_torch.core.gpdmm import arena_drift, broadcast_rows, round_counter
+from repro_torch.kernels import ops
+
+
+def inner_steps_plain_arena(spec, grad_fn, x0, x_s_row, batch, *, K, eta, per_step,
+                            c_i=None, c_row=None):
+    """K plain gradient steps over the arena, x <- x - eta (grad f_i(x) -
+    c_i + c), the correction only with ``c_i``/``c_row`` set (SCAFFOLD;
+    FedAvg runs without).  Returns x_K.
+
+    An affine oracle (one batch for all steps) runs one ``inner_loop_affine``
+    kernel: grad - c_i + c == H x - ((c_aff - c) + c_i), the server variate
+    into the constant and the client variate as the ``off`` row.  Otherwise
+    each step is one ``fused_update_arena`` kernel with rho = 0 and
+    lam = c - c_i, built once per round.  ``eta`` is a float or the
+    per-client tuple."""
+    eta = eta_val(eta, x0.device)
+    affine = affine_case(grad_fn, spec, per_step=per_step)
+    if affine is not None:
+        H, c = affine(spec, batch)
+        off = None
+        if c_i is not None:
+            c = c - c_row[None]
+            off = c_i
+        x_K, _ = ops.inner_loop_affine(x0, H, c, x_s_row, None, eta, 0.0, K, off=off)
+        return x_K
+
+    grad_a, _native = arena_grad(grad_fn, spec)
+    lam = None if c_i is None else c_row[None] - c_i
+    x = x0
+    for k in range(n_steps(batch, K, per_step)):
+        g = grad_a(x, client_batches(batch, k, per_step))
+        x = ops.fused_update_arena(x, g, x_s_row, lam, eta, 0.0)
+    return x
+
+
+def inner_steps_plain(grad_fn, x0, batch, *, K, eta, per_step, lam=None):
+    """The per-leaf counterpart: K steps x <- x - eta (grad f_i(x) + lam),
+    lam = c - c_i (SCAFFOLD) or none (FedAvg), each one ``fused_update``
+    kernel per leaf with rho = 0 (xs unused).  x0 and lam are stacked
+    trees; ``eta`` a float or an (m,) tensor.  Returns x_K."""
+    vgrad = torch.func.vmap(grad_fn)
+    lam = T.tmap(lambda _: None, x0) if lam is None else lam
+    x = x0
+    for k in range(n_steps(batch, K, per_step)):
+        g = T.tree_dense(vgrad(x, client_batches(batch, k, per_step)))
+        x = T.tmap(lambda xx, gg, ll: ops.fused_update(
+            xx, gg, xx, ll, step_for(eta, xx), 0.0), x, g, lam)
+    return x
+
+
+def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
+    K = cfg.inner_steps
+    spec = arena.ArenaSpec.from_tree(state["x_s"])
+    c_i = state["c_i"]
+    m = c_i.shape[0]
+    x_s_row = spec.pack(state["x_s"])
+    c_row = spec.pack(state["c"])
+    x0 = broadcast_rows(x_s_row, m)
+
+    x_K = inner_steps_plain_arena(
+        spec, grad_fn, x0, x_s_row, batch, K=K, eta=cfg.eta,
+        per_step=per_step_batches, c_i=c_i, c_row=c_row)
+
+    # c_i' = c_i - c + (x_s - x_K) / (K eta_i), as a multiply by the
+    # precomputed 1/(K eta) (the reference's rounding)
+    alpha = 1.0 / (K * eta_val(cfg.eta, c_i.device))
+    c_i_new = ops.scaffold_cv(c_i, x_K, c_row, x_s_row, alpha)
+    # server: two all-reduces (x-delta and c-delta)
+    x_s_new = x_s_row + cfg.eta_g * (torch.mean(x_K, dim=0) - x_s_row)
+    c_new = c_row + torch.mean(c_i_new - c_i, dim=0)
+
+    new_state = {
+        "x_s": spec.unpack(x_s_new),
+        "c": spec.unpack(c_new),
+        "c_i": c_i_new,
+        "round": state["round"] + 1,
+    }
+    f32 = torch.float32
+    metrics = {
+        # invariant: sum_i (c_i - c) = 0 given zero init
+        "c_sum_norm": torch.linalg.vector_norm(
+            torch.sum((c_i_new - c_new[None]).to(f32), dim=0)),
+        "client_drift": arena_drift(x_K, x_s_row),
+        "used_arena": torch.ones((), dtype=f32, device=c_i.device),
+    }
+    return new_state, metrics
+
+
+def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
+    if use_arena(cfg, state["x_s"]):
+        return _round_arena(cfg, state, grad_fn, batch, per_step_batches)
+    K = cfg.inner_steps
+    x_s, c, c_i = state["x_s"], state["c"], state["c_i"]
+    m = T.leaves(c_i)[0].shape[0]
+    eta = eta_val(cfg.eta, T.leaves(c_i)[0].device)
+    # lam := c - c_i enters the shared fused step with rho = 0
+    lam = T.tmap(lambda cc, ci: cc[None] - ci, c, c_i)
+    x_K = inner_steps_plain(grad_fn, T.tree_broadcast(x_s, m), batch, K=K, eta=eta,
+                            per_step=per_step_batches, lam=lam)
+
+    # multiply by the precomputed 1/(K eta), as the arena kernel does
+    alpha = 1.0 / (K * eta)
+    c_i_new = T.tmap(lambda ci, cc, s, xk: ci - cc[None] + (s[None] - xk) * step_for(alpha, xk),
+                     c_i, c, x_s, x_K)
+    # server: two all-reduces (x-delta and c-delta)
+    dx = T.tree_client_mean(T.tmap(lambda xk, s: xk - s[None], x_K, x_s))
+    dc = T.tree_client_mean(T.tree_sub(c_i_new, c_i))
+    x_s_new = T.tree_axpy(cfg.eta_g, dx, x_s)
+    c_new = T.tree_add(c, dc)
+
+    new_state = {"x_s": x_s_new, "c": c_new, "c_i": c_i_new, "round": state["round"] + 1}
+    metrics = {
+        "c_sum_norm": T.tree_norm(T.tree_client_sum(
+            T.tmap(lambda ci, cn: ci - cn[None], c_i_new, c_new))),
+        "client_drift": T.tree_client_drift(x_K, x_s),
+        "used_arena": torch.zeros((), dtype=torch.float32, device=T.leaves(x_K)[0].device),
+    }
+    return new_state, metrics
+
+
+def make(cfg: FederatedConfig) -> FedOpt:
+    if cfg.uplink_bits is not None:
+        raise NotImplementedError(
+            "SCAFFOLD+EF21 (uplink_bits is not None) is not supported: each "
+            "SCAFFOLD round uplinks two coupled variables per client -- the "
+            "model delta dx_i = x_i^{r,K} - x_s^r and the control-variate "
+            "delta dc_i = c_i^{r+1} - c_i^r = (x_s^r - x_i^{r,K})/(K eta) - "
+            "c^r.  EF21 integrates ONE error-feedback state u_hat_i per "
+            "client; quantising dx_i alone desynchronises the server's c = "
+            "mean_i c_i invariant, and a second integrator for dc_i is NOT "
+            "error-feedback (dc_i is a function of dx_i, so the two "
+            "quantisation errors are coupled).  Use algorithm='gpdmm' (one "
+            "uplink variable, EF21 supported) or drop uplink_bits."
+        )
+    require_ported(cfg)
+
+    def init(params, m):
+        st = {"x_s": params, "c": T.tree_zeros_like(params), "round": round_counter(params)}
+        if use_arena(cfg, params):
+            # control variates arena-resident; x_s and c stay trees
+            spec = arena.ArenaSpec.from_tree(params)
+            st["c_i"] = arena.zeros(spec, m, device=spec.pack(params).device)
+        else:
+            st["c_i"] = T.tmap(lambda p: p.new_zeros((m,) + tuple(p.shape)), params)
+        return st
+
+    return FedOpt(
+        name="scaffold",
+        init=init,
+        round=partial(_round, cfg),
+        server_params=lambda s: s["x_s"],
+    )

@@ -1,9 +1,11 @@
 """Parameter-tree helpers: the subset of ``src/repro/core/tree_util.py`` the
-ported path uses.
+ported paths use.
 
 A parameter tree here is a single tensor or a flat ``dict`` of tensors;
 dict leaves are visited in sorted key order, as ``jax.tree`` flattens a
-dict, so arena rows match the reference's element for element.
+dict, so arena rows match the reference's element for element.  Per-client
+state is stacked: every leaf gains a leading client dim m, and
+``tree_client_mean`` is the server aggregation of the star network.
 """
 from __future__ import annotations
 
@@ -24,6 +26,71 @@ def tmap(fn, *trees):
     if isinstance(trees[0], dict):
         return {k: fn(*(t[k] for t in trees)) for k in sorted(trees[0])}
     return fn(*trees)
+
+
+def tree_add(a, b):
+    return tmap(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tmap(torch.sub, a, b)
+
+
+def tree_scale(a, s):
+    return tmap(lambda x: x * s, a)
+
+
+def tree_axpy(alpha, x, y):
+    """alpha * x + y"""
+    return tmap(lambda a, b: alpha * a + b, x, y)
+
+
+def tree_zeros_like(a):
+    return tmap(torch.zeros_like, a)
+
+
+def tree_client_mean(stacked):
+    """Mean over the leading client dim: the server aggregation."""
+    return tmap(lambda x: torch.mean(x, dim=0), stacked)
+
+
+def tree_client_sum(stacked):
+    return tmap(lambda x: torch.sum(x, dim=0), stacked)
+
+
+def tree_broadcast(tree, m: int):
+    """The server tree replicated to the stacked (m, ...) layout, as a fresh
+    contiguous copy (a kernel operand or a state entry of its own)."""
+    return tmap(lambda x: x[None].expand((m,) + tuple(x.shape)).contiguous(), tree)
+
+
+def tree_dense(tree):
+    """Each leaf contiguous and 16-byte aligned, as the kernels take their
+    operands; a leaf that already is passes through uncopied."""
+    return tmap(lambda x: x if x.is_contiguous() and x.data_ptr() % 16 == 0
+                else x.clone(memory_format=torch.contiguous_format), tree)
+
+
+def tree_norm(a):
+    """sqrt(sum over leaves of sum(x * x)), accumulated in f32."""
+    f32 = torch.float32
+    return torch.sqrt(sum((torch.sum(x.to(f32) * x.to(f32)) for x in leaves(a)),
+                          start=torch.zeros((), dtype=f32, device=leaves(a)[0].device)))
+
+
+def tree_client_sqnorms(stacked):
+    """Per-client squared norms, ``(m,)``, summed over all leaves (f32)."""
+    def one(x):
+        sq = torch.square(x.to(torch.float32))
+        return sq if x.ndim == 1 else torch.sum(sq, dim=tuple(range(1, x.ndim)))
+
+    return sum(one(x) for x in leaves(stacked))
+
+
+def tree_client_drift(x_K, x_s):
+    """Mean over clients of ||x_K,i - x_s||^2 (f32), the server tree
+    broadcast by indexing."""
+    return torch.mean(tree_client_sqnorms(tmap(lambda xk, s: xk - s[None], x_K, x_s)))
 
 
 def cohort_count(m: int, frac: float) -> int:

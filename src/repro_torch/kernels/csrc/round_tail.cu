@@ -8,6 +8,9 @@
 //   dual_from_uplink_pallas   lam'   = rho (u - x_s')
 //   fused_update_arena_pallas x'     = x - step_i (g + rho (x - x_s) + lam)
 //                             (lam optional, step per client or scalar)
+//   scaffold_cv_pallas        c_i'   = (c_i - c) + alpha_i (x_s - x_K)
+//                             (SCAFFOLD's eq. (30); c and x_s are (W,)
+//                             rows, alpha per client or scalar)
 //
 // What bounds them on an H100: bytes.  Each does a handful of flops per
 // element against 8-20 bytes of traffic, so the least time is the arena's
@@ -17,7 +20,9 @@
 // arena's dtype, f32 math with the _rn intrinsics (bitwise the reference's
 // f32 operation order), one store per output.  The TPU's (rows, 128) tiles
 // and BlockSpec grids do not carry over; the server row is indexed as
-// t % W.  The division lam_is / rho stays a division, as in the reference.
+// t % W.  The division lam_is / rho stays a division, as in the reference;
+// SCAFFOLD's alpha = 1/(K eta) arrives precomputed and is multiplied, as the
+// reference multiplies it.
 #include "common.cuh"
 
 namespace {
@@ -63,6 +68,21 @@ fused_update_arena_kernel(const T* __restrict__ x, const T* __restrict__ g,
     const float l = has_lam ? load_f32(lam, t) : 0.0f;
     store_f32(out, t, eq20(load_f32(x, t), load_f32(g, t), load_f32(xs, t % W), l,
                            has_lam, st, rho));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scaffold_cv_kernel(const T* __restrict__ ci, const T* __restrict__ xk,
+                   const T* __restrict__ c, const T* __restrict__ xs,
+                   const float* __restrict__ alpha_arr, float alpha, size_t n, int W,
+                   T* __restrict__ out) {
+  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
+       t += (size_t)gridDim.x * blockDim.x) {
+    const size_t j = t % W;
+    const float a = alpha_arr != nullptr ? alpha_arr[t / W] : alpha;
+    const float cv = __fsub_rn(load_f32(ci, t), load_f32(c, j));
+    store_f32(out, t, __fadd_rn(cv, __fmul_rn(a, __fsub_rn(load_f32(xs, j), load_f32(xk, t)))));
   }
 }
 
@@ -138,6 +158,28 @@ extern "C" int launch_fused_update_arena(const void* x, const void* g, const voi
         (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, (const __nv_bfloat16*)xs,
         (const __nv_bfloat16*)lam, (const float*)step_arr, step, rho, n, W,
         (__nv_bfloat16*)out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_scaffold_cv(const void* ci, const void* xk, const void* c, const void* xs,
+                                  const void* alpha_arr, float alpha, long long m, int W,
+                                  int dtype, void* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)m * W;
+  if (n == 0) return (int)cudaGetLastError();
+  const unsigned blocks = elementwise_blocks(n, kThreads);
+  if (dtype == kF32) {
+    scaffold_cv_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)ci, (const float*)xk, (const float*)c, (const float*)xs,
+        (const float*)alpha_arr, alpha, n, W, (float*)out);
+  } else if (dtype == kBF16) {
+    scaffold_cv_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)ci, (const __nv_bfloat16*)xk, (const __nv_bfloat16*)c,
+        (const __nv_bfloat16*)xs, (const float*)alpha_arr, alpha, n, W, (__nv_bfloat16*)out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

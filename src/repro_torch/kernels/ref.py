@@ -1,24 +1,57 @@
-"""Plain PyTorch versions of the four ported kernels.
+"""Plain PyTorch versions of the six ported kernels.
 
 Each upcasts to f32 and casts back at exactly the points where the
-``"xla"`` branches of ``src/repro/kernels/ops.py`` do (lines 291-313,
-316-362, 401-439), so on the CPU they agree with the reference bitwise
-wherever both sides run the same f32 operations in the same order.  The
-wrappers in ``inner_loop`` and ``round_tail`` run these for CPU tensors
-only; ``chip_smoke.py`` holds each CUDA kernel against them on the card.
+``"xla"`` branches of ``src/repro/kernels/ops.py`` do (lines 276-278,
+291-313, 316-362, 380-386, 401-439), so on the CPU they agree with the
+reference bitwise wherever both sides run the same f32 operations in the
+same order.  The wrappers in ``fused_update``, ``inner_loop`` and
+``round_tail`` run these for CPU tensors only; ``chip_smoke.py`` holds each
+CUDA kernel against them on the card.
 
-``step`` is a Python float or an ``(m,)`` f32 tensor of per-client
-stepsizes.
+``step`` (and SCAFFOLD's ``alpha``) is a Python float or a tensor of
+per-client values: ``(m,)``, or ``(m, 1, ...)`` as the per-leaf rounds
+shape it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fused_update import eq20
+
+def eq20(x, g, xs, lam, step, rho: float):
+    """x - step * (g + rho * (x - xs) + lam) on f32 tensors, in the
+    reference's operation order (``src/repro/kernels/fused_update.py:46``);
+    ``lam=None`` drops the dual term.  ``step`` is a Python float or a
+    tensor broadcastable against ``x``."""
+    acc = g + rho * (x - xs)
+    if lam is not None:
+        acc = acc + lam
+    return x - step * acc
 
 
-def _per_client(step):
-    return step[:, None] if torch.is_tensor(step) else step
+def _per_client(step, ndim: int = 2):
+    """A per-client step as ``(m, 1, ...)`` against an ``ndim`` operand."""
+    if torch.is_tensor(step) and step.ndim > 0:
+        return step.reshape((-1,) + (1,) * (ndim - 1))
+    return step
+
+
+def fused_update_ref(x, g, xs, lam, step, rho):
+    """Eq. (20) step over one leaf of any shape: x, g, lam of one shape;
+    ``xs`` of that shape or without the client dim (broadcast); ``lam`` may
+    be None."""
+    f32 = torch.float32
+    out = eq20(x.to(f32), g.to(f32), xs.to(f32), None if lam is None else lam.to(f32),
+               _per_client(step, x.ndim), rho)
+    return out.to(x.dtype)
+
+
+def scaffold_cv_ref(c_i, x_K, c_s, x_s, alpha):
+    """SCAFFOLD's eq. (30): c_i' = (c_i - c) + alpha (x_s - x_K); c_i, x_K
+    (m, W); c_s, x_s (W,) rows."""
+    f32 = torch.float32
+    out = (c_i.to(f32) - c_s.to(f32)[None]
+           + _per_client(alpha) * (x_s.to(f32)[None] - x_K.to(f32)))
+    return out.to(c_i.dtype)
 
 
 def fused_update_arena_ref(x, g, x_s, lam, step, rho):

@@ -6,8 +6,9 @@
                            u = x_ref - lam_is / rho; lam_is only when asked
   * ``dual_from_uplink``   lam' = rho (u - x_s')
   * ``fused_update_arena`` the eq. (20) step with a per-client or scalar step
+  * ``scaffold_cv``        SCAFFOLD's c_i' = c_i - c + alpha (x_s - x_K)
 
-Client buffers are (m, W), the server row (W,) is broadcast inside the
+Client buffers are (m, W), the server rows (W,) are broadcast inside the
 kernel.  CUDA operands are f32 or bf16 (all of one dtype), with f32 math.
 """
 from __future__ import annotations
@@ -37,10 +38,16 @@ FUSED_UPDATE_ARENA = Kernel(
     [P, P, P, P, P, F, F, LL, I, I, P, I, P],
     replaces="src/repro/kernels/round_tail.py:328",
 )
+SCAFFOLD_CV = Kernel(
+    "scaffold_cv", "round_tail.cu", "launch_scaffold_cv",
+    # ci xk c xs alpha_arr alpha m W dtype out dev stream
+    [P, P, P, P, P, F, LL, I, I, P, I, P],
+    replaces="src/repro/kernels/round_tail.py:152",
+)
 
 
-def _client_and_server(name, client: dict, x_s):
-    """Check the (m, W) client operands and the (W,) server row; returns
+def _client_and_server(name, client: dict, x_s, *server):
+    """Check the (m, W) client operands and the (W,) server rows; returns
     (m, W, dtype code)."""
     first = next(iter(client.values()))
     m, w = first.shape
@@ -49,7 +56,8 @@ def _client_and_server(name, client: dict, x_s):
         raise TypeError(f"{name}: dtype {dt} is not supported (f32 or bf16)")
     for arg, t in client.items():
         _args.check(name, arg, t, (m, w), (dt,), dev)
-    _args.check(name, "x_s", x_s, (w,), (dt,), dev)
+    for arg, t in (("x_s", x_s),) + server:
+        _args.check(name, arg, t, (w,), (dt,), dev)
     return m, w, _args.DTYPE_CODES[dt]
 
 
@@ -91,4 +99,20 @@ def fused_update_arena(x, g, x_s, lam, step, rho):
     k.launch(_args.ptr(x), _args.ptr(g), _args.ptr(x_s), _args.ptr(lam),
              _args.ptr(step_arr), step_f, float(rho), m, w, code, _args.ptr(out),
              *_args.stream_args(x.device))
+    return out
+
+
+def scaffold_cv(c_i, x_K, c_s, x_s, alpha):
+    """SCAFFOLD's eq. (30) control-variate refresh, (c_i - c) + alpha
+    (x_s - x_K): c_i, x_K (m, W); c_s, x_s (W,); ``alpha`` = 1/(K eta), a
+    Python float or an (m,) f32 tensor."""
+    k = SCAFFOLD_CV
+    if _args.on_cpu(k.name, c_i):
+        return ref.scaffold_cv_ref(c_i, x_K, c_s, x_s, alpha)
+    m, w, code = _client_and_server(k.name, {"c_i": c_i, "x_K": x_K}, x_s, ("c_s", c_s))
+    alpha_arr, alpha_f = _args.step_operand(k.name, alpha, m, c_i.device)
+    out = torch.empty_like(c_i)
+    k.launch(_args.ptr(c_i), _args.ptr(x_K), _args.ptr(c_s), _args.ptr(x_s),
+             _args.ptr(alpha_arr), alpha_f, m, w, code, _args.ptr(out),
+             *_args.stream_args(c_i.device))
     return out

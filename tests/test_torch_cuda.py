@@ -6,9 +6,11 @@ them:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: bitwise where the kernel and the plain version run the same f32
-operations; the uplink of ``round_tail`` to one rounding (the plain version
-divides by a scalar as a multiply by its reciprocal on the card); the
-inner loop to rtol = atol = 1e-4 (the matvec sums in another order).
+operations (``fused_update``, ``scaffold_cv``, ``dual_from_uplink``,
+``fused_update_arena``, ``lam_is``); the uplink of ``round_tail`` to one
+rounding (the plain version divides by a scalar as a multiply by its
+reciprocal on the card); the inner loop to rtol = atol = 1e-4 (the matvec
+sums in another order).
 """
 import pytest
 import torch
@@ -50,6 +52,59 @@ def test_cuda_elementwise_kernels_match_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_update_matches_plain(cuda, dtype):
+    """Kernel 6 at the Fig. 2 leaf, the softmax arena and ragged leaves
+    (numel % 8 != 0, a 0-d leaf per client), with and without lam, scalar
+    and per-client (m, 1) steps, a full or a broadcast server leaf."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for shape in [(500, 500), (10, 7936), (7, 13), (6,), (3, 5, 3)]:
+        x, gr, lam, xs = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                          for _ in range(4))
+        step = torch.rand((shape[0],) + (1,) * (len(shape) - 1), generator=g, device=cuda)
+        for s_ in (xs, xs[0].contiguous()):
+            for st in (0.13, step):
+                for lm in (lam, None):
+                    torch.testing.assert_close(
+                        P.fused_update(x, gr, s_, lm, st, 1.7),
+                        ref.fused_update_ref(x, gr, s_, lm, st, 1.7), rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_scaffold_cv_matches_plain(cuda, dtype):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for m, w in [(500, 512), (10, 7936)]:
+        ci, xk = (torch.randn(m, w, generator=g, device=cuda).to(dtype) for _ in range(2))
+        c, xs = (torch.randn(w, generator=g, device=cuda).to(dtype) for _ in range(2))
+        alpha = 1.0 + 40.0 * torch.rand(m, generator=g, device=cuda)
+        for a in (37.5, alpha):
+            torch.testing.assert_close(P.scaffold_cv(ci, xk, c, xs, a),
+                                       ref.scaffold_cv_ref(ci, xk, c, xs, a), rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_inner_loop_with_off_and_no_lam_matches_plain(cuda):
+    """The variants SCAFFOLD and FedAvg run on the arena: an ``off`` row,
+    no lam and rho = 0, per-client or scalar step."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    m, w, K = 64, 512, 5
+    A = torch.randn(m, w, w, generator=g, device=cuda) / w ** 0.5
+    H = A @ A.transpose(1, 2) / 4.0
+    x0, c, off = (torch.randn(m, w, generator=g, device=cuda) for _ in range(3))
+    xs = torch.randn(w, generator=g, device=cuda)
+    step = 0.05 + 0.1 * torch.rand(m, generator=g, device=cuda)
+    for st in (0.1, step):
+        for o in (off, None):
+            got = P.inner_loop_affine(x0, H, c, xs, None, st, 0.0, K, off=o)
+            want = ref.inner_loop_affine_ref(x0, H, c, xs, None, st, 0.0, K, off=o)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_cuda_inner_loop_matches_plain(cuda):
     g = torch.Generator(device="cuda").manual_seed(1)
     m, w, K = 64, 512, 5
@@ -80,24 +135,60 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                             torch.zeros(200, device=cuda), None, 0.1, 1.0, 2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("algo", ["gpdmm", "agpdmm"])
-def test_cuda_rounds_match_cpu_and_count_launches(cuda, algo):
-    """Three rounds on the card (kernels) against the same rounds on the CPU
-    (plain versions), rtol = atol = 1e-4: the matvec and the client mean sum
-    in other orders on the two devices."""
+def _problems(cuda):
     prob = quadratic.generate(torch.Generator().manual_seed(0), m=8, n=64, d=64, device="cpu")
     fields = ("AtA", "Atb", "btb", "evals", "evecs", "x_star", "f_star")
     gprob = quadratic.LeastSquares(**{f: getattr(prob, f).to(cuda) for f in fields},
                                    L=prob.L, mu=prob.mu)
-    opt = make(FederatedConfig(algorithm=algo, inner_steps=5, eta=0.5 / prob.L,
-                               use_arena=True))
+    return prob, gprob
+
+
+# launches per round on the arena with the affine oracle
+ARENA_LAUNCHES = {
+    "gpdmm": {"inner_loop_affine": 1, "round_tail": 1, "dual_from_uplink": 1},
+    "agpdmm": {"inner_loop_affine": 1, "round_tail": 1, "dual_from_uplink": 1},
+    "scaffold": {"inner_loop_affine": 1, "scaffold_cv": 1},
+    "fedavg": {"inner_loop_affine": 1},
+}
+STATE = {"gpdmm": ("x_s", "lam_s"), "agpdmm": ("x_s", "lam_s"), "scaffold": ("x_s", "c_i"),
+         "fedavg": ("x_s",), "fedsplit": ("x_s", "z_s")}
+
+
+def _card_vs_cpu(cuda, cfg, grad_of, rounds=3):
+    """``rounds`` rounds on the card (kernels) and on the CPU (plain
+    versions); returns the launches on the card."""
+    prob, gprob = _problems(cuda)
+    opt = make(cfg)
     s_cpu, s_gpu = opt.init(torch.zeros(64), 8), opt.init(torch.zeros(64, device=cuda), 8)
     P.reset_launches()
-    for _ in range(3):
-        s_cpu, _ = opt.round(s_cpu, prob.oracle(), prob.batch())
-        s_gpu, _ = opt.round(s_gpu, gprob.oracle(), gprob.batch())
-    assert P.launches() == {"inner_loop_affine": 3, "round_tail": 3,
-                            "dual_from_uplink": 3, "fused_update_arena": 0}
-    for k in ("x_s", "lam_s"):
+    for _ in range(rounds):
+        s_cpu, _ = opt.round(s_cpu, grad_of(prob), prob.batch())
+        s_gpu, _ = opt.round(s_gpu, grad_of(gprob), gprob.batch())
+    counts = P.launches()
+    for k in STATE[cfg.algorithm]:
         torch.testing.assert_close(s_gpu[k].cpu(), s_cpu[k], rtol=1e-4, atol=1e-4)
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["gpdmm", "agpdmm", "scaffold", "fedavg"])
+def test_cuda_rounds_match_cpu_and_count_launches(cuda, algo):
+    """Three arena rounds on the card (kernels) against the same rounds on
+    the CPU (plain versions), rtol = atol = 1e-4: the matvec and the client
+    mean sum in other orders on the two devices."""
+    eta = 0.5 / _problems("cpu")[0].L
+    counts = _card_vs_cpu(cuda, FederatedConfig(algorithm=algo, inner_steps=5, eta=eta,
+                                                use_arena=True), lambda p: p.oracle())
+    want = {k.name: 0 for k in P.KERNELS} | {k: 3 * v for k, v in ARENA_LAUNCHES[algo].items()}
+    assert counts == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["gpdmm", "agpdmm", "scaffold", "fedavg", "fedsplit"])
+def test_cuda_pytree_rounds_match_cpu_and_count_launches(cuda, algo):
+    """The per-leaf path (``use_arena="auto"`` at W = 128, plain grad): one
+    ``fused_update`` per step and no arena kernel."""
+    eta = 0.5 / _problems("cpu")[0].L
+    counts = _card_vs_cpu(cuda, FederatedConfig(algorithm=algo, inner_steps=4, eta=eta),
+                          lambda p: p.grad)
+    assert counts == {k.name: 0 for k in P.KERNELS} | {"fused_update": 3 * 4}

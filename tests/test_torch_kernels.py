@@ -1,4 +1,4 @@
-"""The port's four kernels against the reference's (``repro.kernels.ops``).
+"""The port's six kernels against the reference's (``repro.kernels.ops``).
 
 On the CPU each port wrapper runs its plain PyTorch version, so these tests
 hold the plain versions -- the arithmetic every CUDA kernel is checked
@@ -9,11 +9,12 @@ Tolerances:
   * elementwise kernels vs ``"xla"``: bitwise (both sides run the same f32
     operations in the same order, and cast back at the same points);
   * elementwise kernels vs ``"pallas_interpret"``: rtol 1e-6, atol 1e-5
-    on O(1)-O(10) values -- interpret mode compiles the kernel body as one
-    XLA computation, whose CPU backend may contract a multiply and an add
-    into one FMA (one rounding fewer), a few ulps apart; with bf16 outputs
-    such a difference can flip the final rounding, so rtol 8e-3 (one bf16
-    ulp) there;
+    on O(1)-O(10) values (atol 1e-6 for ``fused_update`` and
+    ``scaffold_cv``) -- interpret mode compiles the kernel body as one XLA
+    computation, another program with the same operation order, whose CPU
+    backend may contract a multiply and an add into one FMA (one rounding
+    fewer), a few ulps apart; with bf16 outputs such a difference can flip
+    the final rounding, so rtol 8e-3 (one bf16 ulp) there;
   * the K-step inner loop: rtol = atol = 1e-4 (as tests/test_inner_loop.py),
     because the matvec sums in another order.
 
@@ -50,14 +51,14 @@ def _np(x):
     return np.asarray(x.astype(jnp.float32))
 
 
-def _same(ref_out, port_out, impl):
+def _same(ref_out, port_out, impl, atol=1e-5):
     a, b = _np(ref_out), _np(port_out)
     if impl == "xla":
         np.testing.assert_array_equal(a, b)
     elif port_out.dtype == torch.bfloat16:
-        np.testing.assert_allclose(b, a, rtol=8e-3, atol=1e-5)
+        np.testing.assert_allclose(b, a, rtol=8e-3, atol=atol)
     else:
-        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-5)
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=atol)
 
 
 @pytest.fixture(params=["xla", "pallas_interpret"])
@@ -113,6 +114,60 @@ def test_fused_update_arena_matches_reference(impl, m, w, has_lam, per_client_st
     _same(out_r, out_p, impl)
 
 
+# leaves of the per-leaf path: a 0-d leaf per client, ragged sizes
+# (numel % 4 != 0 and % 8 != 0), and the Fig. 2 leaf's shape family
+LEAF_SHAPES = [(6,), (6, 7), (4, 3, 50), (5, 130)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("per_client_step", [False, True])
+@pytest.mark.parametrize("has_lam", [True, False])
+@pytest.mark.parametrize("shape", LEAF_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fused_update_matches_reference(impl, shape, has_lam, per_client_step, dtype):
+    """Kernel 6 on one leaf.  A per-client step is (m, 1, ...), as the
+    pytree rounds pass it (the reference sends it to its plain version in
+    either impl)."""
+    x, g, xs, lam = _draw(sum(shape) + 3, shape, shape, shape, shape)
+    (xj, xt), (gj, gt), (sj, st), (lj, lt) = (_pair(a, dtype) for a in (x, g, xs, lam))
+    lead = (-1,) + (1,) * (len(shape) - 1)
+    step_np = np.linspace(0.01, 0.3, shape[0]).astype(np.float32).reshape(lead)
+    step_r = step_np if per_client_step else 0.13
+    step_p = torch.from_numpy(step_np) if per_client_step else 0.13
+    out_r = R.fused_update(xj, gj, sj, lj if has_lam else None, step_r, 1.7, impl=impl)
+    out_p = P.fused_update(xt, gt, st, lt if has_lam else None, step_p, 1.7)
+    assert out_p.dtype == xt.dtype and tuple(out_p.shape) == shape
+    _same(out_r, out_p, impl, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", LEAF_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fused_update_broadcasts_the_server_leaf(shape, dtype):
+    """The port's wrapper also takes the server leaf without the client dim
+    and broadcasts it (as the GPDMM/AGPDMM pytree rounds pass x_s): bitwise
+    the reference's step on the materialised broadcast."""
+    x, g, lam = _draw(len(shape), shape, shape, shape)
+    xs = _draw(7, shape[1:])[0]
+    (xj, xt), (gj, gt), (lj, lt), (sj, st) = (_pair(a, dtype) for a in (x, g, lam, xs))
+    out_r = R.fused_update(xj, gj, jnp.broadcast_to(sj, shape), lj, 0.2, 3.0, impl="xla")
+    _same(out_r, P.fused_update(xt, gt, st, lt, 0.2, 3.0), "xla")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("per_client_alpha", [False, True])
+@pytest.mark.parametrize("m,w", M_W)
+def test_scaffold_cv_matches_reference(impl, m, w, per_client_alpha, dtype):
+    """Kernel 5, SCAFFOLD's c_i' = (c_i - c) + alpha (x_s - x_K)."""
+    ci, xk, c, xs = _draw(5 * m + w, (m, w), (m, w), (w,), (w,))
+    (cij, cit), (xkj, xkt), (cj, ct), (sj, st) = (_pair(a, dtype) for a in (ci, xk, c, xs))
+    alpha_np = (1.0 / (3 * np.linspace(0.01, 0.03, m))).astype(np.float32)
+    alpha_r = alpha_np if per_client_alpha else 37.5
+    alpha_p = torch.from_numpy(alpha_np) if per_client_alpha else 37.5
+    out_r = R.scaffold_cv(cij, xkj, cj, sj, alpha_r, impl=impl)
+    out_p = P.scaffold_cv(cit, xkt, ct, st, alpha_p)
+    assert out_p.dtype == cit.dtype and tuple(out_p.shape) == (m, w)
+    _same(out_r, out_p, impl, atol=1e-6)
+
+
 @pytest.mark.parametrize("per_client_step", [False, True])
 @pytest.mark.parametrize("has_off", [False, True])
 @pytest.mark.parametrize("has_lam", [True, False])
@@ -154,7 +209,8 @@ def test_ops_surface_and_width_rule():
     """The public names, the launch accounting, and the kernel's own width
     rule (its shared-memory rows), which replaces the TPU's VMEM gate."""
     assert [k.name for k in P.KERNELS] == [
-        "inner_loop_affine", "round_tail", "dual_from_uplink", "fused_update_arena"]
+        "inner_loop_affine", "round_tail", "dual_from_uplink", "fused_update_arena",
+        "scaffold_cv", "fused_update"]
     assert P.affine_inner_fits(512) and P.affine_inner_fits(7936)
     assert not P.affine_inner_fits(500)  # not a multiple of 128
     widest = inner_loop.SMEM_CAP_BYTES // (4 * inner_loop.SMEM_ROWS)
@@ -166,7 +222,7 @@ def test_ops_surface_and_width_rule():
 
 
 @pytest.mark.parametrize("fn", ["round_tail", "dual_from_uplink", "fused_update_arena",
-                                "inner_loop_affine"])
+                                "inner_loop_affine", "scaffold_cv", "fused_update"])
 def test_non_cpu_non_cuda_tensor_raises(fn):
     """Only a CPU tensor reaches a plain version; any other device that is
     not CUDA is refused, never computed some other way."""
@@ -178,6 +234,8 @@ def test_non_cpu_non_cuda_tensor_raises(fn):
         "fused_update_arena": lambda: P.fused_update_arena(x, x, xs, x, 0.1, 1.0),
         "inner_loop_affine": lambda: P.inner_loop_affine(
             x, torch.zeros(2, 128, 128, device="meta"), x, xs, x, 0.1, 1.0, 2),
+        "scaffold_cv": lambda: P.scaffold_cv(x, x, xs, xs, 2.0),
+        "fused_update": lambda: P.fused_update(x, x, x, None, 0.1, 1.0),
     }
     with pytest.raises(ValueError, match="not supported"):
         calls[fn]()
