@@ -38,12 +38,31 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      at m = 25 (rho = L / 10, eta = 1 / L), init z and x_s, K in {1, 3},
      300 rounds; the x_s init's gap must be below 1e-3 of the z init's, as
      the benchmark computes it (f32) and in float64;
-  8. print one JSON line of per-kernel numbers, then the result line
+  8. partial participation and the EF21 uplink on phase 4's problem (30
+     rounds): GPDMM, AGPDMM, SCAFFOLD and FedAvg at participation 0.1 (the
+     cohort engine, 50 of 500 clients), GPDMM, AGPDMM and FedAvg with
+     8-bit EF21 on top, GPDMM with EF21 at full participation, and GPDMM
+     at participation 0.1 on the masked full-population round
+     (``cohort=False``), whose every state entry must equal the cohort
+     run's at each round (rtol 1e-5); GPDMM at participation 0.1, plain
+     and with 8-bit EF21, on the default config (the per-leaf pytree path,
+     the plain grad); ||x - x*|| falls, the invariants hold, the launches
+     per round are as derived from the code; then softmax at the Table I
+     size with participation 0.5 and 8-bit EF21 (GPDMM, FedAvg), whose loss
+     must fall;
+  9. print one JSON line of per-kernel numbers, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
+Phase 3 also holds the cohort kernels (``row_gather``, ``row_scatter``)
+and the EF21 kernels (``ef21_rowmax``, ``ef21_apply``) bitwise against
+their plain versions (f32 and bf16, a NaN included), and times the one
+PyTorch call that computes the same function where there is one
+(``index_select``, ``index_copy``).
+
 Launch counts are set to 0 just before each run of the main path (phases
-3-7) and read just after it; the launches of phase 3's comparisons do not
-count.  The script imports no JAX and nothing of the JAX package.
+3-8) and read just after it; the launches of phase 3's comparisons do not
+count.  Each phase draws its data from a generator of its own.  The script
+imports no JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -70,7 +89,8 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 3, prefill: bool = True) -> float:
+def cuda_time_ms(fn, iters: int, warmup: int = 3, prefill: bool = True,
+                 spin_cycles: int = 400_000) -> float:
     """Mean time per call between CUDA events around ``iters`` calls.
 
     With ``prefill`` the stream is first kept busy by a spin kernel long
@@ -84,7 +104,7 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3, prefill: bool = True) -> float
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     if prefill:
-        torch.cuda._sleep(iters * 400_000)  # ~200 us of spinning per call
+        torch.cuda._sleep(iters * spin_cycles)  # by default ~200 us of spinning per call
     start.record()
     for _ in range(iters):
         fn()
@@ -116,16 +136,27 @@ class Record:
         for k, n in counts.items():
             self.rows[k]["launches"] += n
 
-    def kernel(self, name, err, fn, plain_fn, iters, nbytes, flops):
-        """Time ``fn`` (the kernel) and ``plain_fn`` on the device, and the
+    def kernel(self, name, err, fn, plain_fn, iters, nbytes, flops, library_fn=None):
+        """Time ``fn`` (the kernel), ``plain_fn`` and, where one PyTorch call
+        computes the same function, ``library_fn`` on the device, and the
         kernel once more as the host enqueues it (``enqueue_ms``)."""
         ms, plain_ms = cuda_time_ms(fn, iters), cuda_time_ms(plain_fn, iters)
+        library_ms = None if library_fn is None else cuda_time_ms(library_fn, iters)
         enqueue_ms = cuda_time_ms(fn, iters, prefill=False)
         b, by = bound_ms(nbytes, flops)
         self.rows[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                               bound_by=by, library_ms=None, enqueue_ms=enqueue_ms)
+                               bound_by=by, library_ms=library_ms, enqueue_ms=enqueue_ms)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"kernel {name}: max_abs_err {err:.3e}  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"bound {b:.4f} ms ({by})  host-paced {enqueue_ms:.4f} ms")
+            f"library {lib}  bound {b:.4f} ms ({by})  host-paced {enqueue_ms:.4f} ms")
+
+
+def seeded(torch, seed: int):
+    """A generator of its own on the card for each phase's data, so that no
+    phase's problem depends on what an earlier phase drew.  The problems
+    take seed 0, as ``benchmarks/fig2_lsq.py``, ``fig1_fedsplit.py`` and
+    ``tab1_softmax.py`` draw theirs from ``jax.random.key(0)``."""
+    return torch.Generator(device="cuda").manual_seed(seed)
 
 
 def check(cond: bool, what: str) -> None:
@@ -269,6 +300,91 @@ def check_kernels(rec, prob, eta, rho, torch, ops, ref, gen):
     torch.cuda.synchronize()
 
 
+def same_bits(torch, got, want) -> bool:
+    """Bit for bit equal (so -0.0 differs from 0.0), a NaN matching a NaN in
+    the same place whatever its payload."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    nan = got.isnan()
+    if not torch.equal(nan, want.isnan()):
+        return False
+    ity = torch.int32 if got.element_size() == 4 else torch.int16
+    return torch.equal(got[~nan].view(ity), want[~nan].view(ity))
+
+
+def check_cohort_kernels(rec, torch, ops, ref, gen):
+    """Kernels 7-10 against their plain versions at phase 8's shapes, bitwise
+    (f32 and bf16, a NaN in one client's leaf for EF21), then timed: the
+    gather and scatter as phase 8's cohort round calls them (50 of 500 rows
+    of W = 512), the EF21 pair at the full (500, 512) arena of run (c)."""
+    from repro_torch.kernels import gather
+
+    dev = gen.device
+    sz = {torch.float32: 4, torch.bfloat16: 2}
+    for m, w, mc in ((500, 512, 50), (500, 512, 250), (10, 7936, 5), (65536, 512, 656)):
+        arr32 = torch.randn(m, w, generator=gen, device=dev)
+        rows32 = torch.randn(mc, w, generator=gen, device=dev)
+        idx = torch.sort(torch.randperm(m, generator=gen, device=dev)[:mc]).values
+        for dt in (torch.float32, torch.bfloat16):
+            arr, rows = arr32.to(dt), rows32.to(dt)
+            for ids in (idx, idx.to(torch.int32)):
+                check(torch.equal(ops.row_gather(arr, ids), ref.row_gather_ref(arr, ids)),
+                      f"row_gather {dt} ({m}, {w}) mc={mc} {ids.dtype}: differs")
+            before = arr.clone()
+            got = ops.row_scatter(arr, idx, rows)
+            check(torch.equal(arr, before), "row_scatter wrote its input")
+            check(torch.equal(got, arr.index_copy(0, idx, rows)),
+                  f"row_scatter {dt} ({m}, {w}) mc={mc}: differs from the plain version")
+        del arr32, rows32, arr, rows, before, got
+    log("row_gather / row_scatter: bitwise at (500, 512) mc 50 and 250, (10, 7936) mc 5, "
+        "(65536, 512) mc 656; f32 and bf16; int64 and int32 ids")
+
+    for (m, w), leaf_rows in (((500, 512), (4,)), ((500, 512), (3, 1)), ((10, 7936), (62,))):
+        uh32 = torch.randn(m, w, generator=gen, device=dev)
+        u32 = uh32 + 0.1 * torch.randn(m, w, generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            u, uh = u32.to(dt), uh32.to(dt)
+            u[1, 7] = float("nan")
+            rm = ops.ef21_rowmax(u, uh)
+            check(same_bits(torch, rm, ref.ef21_rowmax_ref(u, uh)) and int(rm.isnan().sum()) == 1,
+                  f"ef21_rowmax {dt} ({m}, {w}): differs")
+            for bits in (8, 4):
+                sc = ops._ef21_row_scales(rm, leaf_rows, float(2 ** (bits - 1) - 1))
+                check(same_bits(torch, ops.ef21_apply(u, uh, sc, bits),
+                                ref.ef21_apply_ref(u, uh, sc, bits)),
+                      f"ef21_apply {dt} ({m}, {w}) {leaf_rows} bits={bits}: differs")
+                want = ref.ef21_apply_ref(u, uh, ops._ef21_row_scales(
+                    ref.ef21_rowmax_ref(u, uh), leaf_rows, float(2 ** (bits - 1) - 1)), bits)
+                check(same_bits(torch, ops.ef21_update(u, uh, bits, leaf_rows), want),
+                      f"ef21_update {dt} ({m}, {w}) {leaf_rows} bits={bits}: differs")
+    log("ef21_rowmax / ef21_apply: bitwise at (500, 512) leaves (4,) and (3, 1), "
+        "(10, 7936) (62,); bits 8 and 4; f32 and bf16; a NaN in one client's leaf")
+
+    m, w, mc = 500, 512, 50
+    arr, rows = (torch.randn(n, w, generator=gen, device=dev) for n in (m, mc))
+    idx = torch.sort(torch.randperm(m, generator=gen, device=dev)[:mc]).values
+    rec.kernel("row_gather", 0.0, lambda: ops.row_gather(arr, idx),
+               lambda: ref.row_gather_ref(arr, idx), 200, 2 * mc * w * 4 + 8 * mc, 0,
+               library_fn=lambda: torch.index_select(arr, 0, idx))
+    pos = torch.zeros(m, dtype=torch.int32, device=dev).index_copy_(
+        0, idx, torch.arange(mc, dtype=torch.int32, device=dev))
+    mask = torch.zeros(m, dtype=torch.int32, device=dev).index_fill_(0, idx, 1)
+    rec.kernel("row_scatter", 0.0, lambda: gather.row_scatter(arr, pos, mask, rows),
+               lambda: ref.row_scatter_ref(arr, pos, mask, rows), 200,
+               2 * m * w * 4 + 8 * m, 0, library_fn=lambda: arr.index_copy(0, idx, rows))
+    uh = torch.randn(m, w, generator=gen, device=dev)
+    u = uh + 0.1 * torch.randn(m, w, generator=gen, device=dev)
+    rm = ops.ef21_rowmax(u, uh)
+    sc = ops._ef21_row_scales(rm, (w // 128,), 127.0)
+    rec.kernel("ef21_rowmax", 0.0, lambda: ops.ef21_rowmax(u, uh),
+               lambda: ref.ef21_rowmax_ref(u, uh), 200, 2 * m * w * 4 + m * w // 128 * 4,
+               3 * m * w)
+    rec.kernel("ef21_apply", 0.0, lambda: ops.ef21_apply(u, uh, sc, 8),
+               lambda: ref.ef21_apply_ref(u, uh, sc, 8), 200,
+               3 * m * w * 4 + m * w // 128 * 4, 7 * m * w)
+    torch.cuda.synchronize()
+
+
 def check_small_against_cpu(torch, make, FederatedConfig, quadratic):
     """The port on the card against the port on the CPU (plain versions),
     5 GPDMM rounds at quickstart size; rtol = atol = 1e-4: the matvec and
@@ -371,6 +487,174 @@ def lsq_phase(rec, prob, torch, ops, make, FederatedConfig, dev, prof=None):
     log(f"lsq info: ||x - x*|| at rounds 1, {R // 2}, {R}: {dists}")
 
 
+# phase 5: every algorithm at full participation, launches per round
+SOFTMAX_RUNS = {
+    "gpdmm": (dict(algorithm="gpdmm"),
+              dict(fused_update_arena=SOFTMAX["K"], round_tail=1, dual_from_uplink=1)),
+    "agpdmm": (dict(algorithm="agpdmm"),
+               dict(fused_update_arena=SOFTMAX["K"], round_tail=1, dual_from_uplink=1)),
+    "scaffold": (dict(algorithm="scaffold"), dict(fused_update_arena=SOFTMAX["K"], scaffold_cv=1)),
+    "fedavg": (dict(algorithm="fedavg"), dict(fused_update_arena=SOFTMAX["K"])),
+    "fedsplit_xs": (dict(algorithm="fedsplit", fedsplit_init="xs"),
+                    dict(fused_update=SOFTMAX["K"])),
+    "gpdmm_svrg": (dict(algorithm="gpdmm", variance_reduction="svrg"),
+                   dict(fused_update_arena=SOFTMAX["K"], round_tail=1, dual_from_uplink=1)),
+}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: partial participation, the cohort engine and the EF21 uplink
+# ---------------------------------------------------------------------------
+
+# launches per round, read off the rounds' code: the cohort rounds gather
+# the cohort's state rows and scatter them back, EF21 adds its two kernels
+# and, on the cohort, the gather of the cached u_hat rows; the masked round
+# selects with torch.where
+PARTICIPATION_RUNS = {
+    "a_gpdmm": (dict(algorithm="gpdmm", participation=0.1),
+                dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=2,
+                     row_scatter=2)),
+    "a_agpdmm": (dict(algorithm="agpdmm", participation=0.1),
+                 dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
+                      row_scatter=1)),
+    "a_scaffold": (dict(algorithm="scaffold", participation=0.1),
+                   dict(inner_loop_affine=1, scaffold_cv=1, row_gather=1, row_scatter=1)),
+    "a_fedavg": (dict(algorithm="fedavg", participation=0.1),
+                 dict(inner_loop_affine=1, row_scatter=1)),
+    "b_gpdmm": (dict(algorithm="gpdmm", participation=0.1, uplink_bits=8),
+                dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=3,
+                     row_scatter=2, ef21_rowmax=1, ef21_apply=1)),
+    "b_agpdmm": (dict(algorithm="agpdmm", participation=0.1, uplink_bits=8),
+                 dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=2,
+                      row_scatter=1, ef21_rowmax=1, ef21_apply=1)),
+    "b_fedavg": (dict(algorithm="fedavg", participation=0.1, uplink_bits=8),
+                 dict(inner_loop_affine=1, row_gather=1, row_scatter=1, ef21_rowmax=1,
+                      ef21_apply=1)),
+    "c_gpdmm": (dict(algorithm="gpdmm", uplink_bits=8),
+                dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, ef21_rowmax=1,
+                     ef21_apply=1)),
+    "d_gpdmm": (dict(algorithm="gpdmm", participation=0.1, cohort=False),
+                dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1)),
+}
+# the same at the Fig. 2 size on the default config (the per-leaf pytree
+# path at W = 512, the plain grad): the tail is plain torch ops, so only the
+# K fused_update steps launch a kernel
+PARTICIPATION_PYTREE_RUNS = {
+    "pytree_gpdmm": (dict(algorithm="gpdmm", participation=0.1),
+                     dict(fused_update=LSQ["K"])),
+    "pytree_gpdmm_ef21": (dict(algorithm="gpdmm", participation=0.1, uplink_bits=8),
+                          dict(fused_update=LSQ["K"])),
+}
+# softmax at the Table I size, participation 0.5 (5 of 10) with 8-bit EF21
+SOFTMAX_PARTIAL = {
+    "gpdmm_p50_ef21": (dict(algorithm="gpdmm", participation=0.5, uplink_bits=8),
+                       dict(fused_update_arena=SOFTMAX["K"], round_tail=1, dual_from_uplink=1,
+                            row_gather=3, row_scatter=2, ef21_rowmax=1, ef21_apply=1)),
+    "fedavg_p50_ef21": (dict(algorithm="fedavg", participation=0.5, uplink_bits=8),
+                        dict(fused_update_arena=SOFTMAX["K"], row_gather=1, row_scatter=1,
+                             ef21_rowmax=1, ef21_apply=1)),
+}
+
+
+def invariants(torch, met, state, rho, m):
+    """The invariant of a round over its rounding scale: (25) for
+    GPDMM/AGPDMM, sum_i (c_i - c) = 0 for SCAFFOLD (phase 4's scales); None
+    for FedAvg."""
+    if "lam_sum_norm" in met:
+        scale = rho * m * F32_EPS * max(1.0, float(torch.linalg.vector_norm(state["x_s"])))
+        return float(met["lam_sum_norm"]) / scale
+    if "c_sum_norm" in met:
+        scale = m * F32_EPS * max(1.0, float(torch.linalg.vector_norm(state["c_i"]))
+                                  / math.sqrt(m))
+        return float(met["c_sum_norm"]) / scale
+    return None
+
+
+def participation_phase(rec, prob, torch, ops, make, FederatedConfig, dev, out, prof=None):
+    R, K, m = LSQ["rounds"], LSQ["K"], LSQ["m"]
+    eta = 0.5 / prob.L
+    rho = 1.0 / (K * eta)
+    x0 = torch.zeros(prob.d, device=dev)
+    d0 = float(prob.dist(x0))
+    t_phase = time.perf_counter()
+    # the first participation draw of a process loads torch's integer and
+    # sort kernels; draw once before the timed runs, as phase 3 warms the
+    # kernels before phase 4
+    from repro_torch.core import gpdmm
+
+    cfg, st = (FederatedConfig(participation=0.1),
+               {"round": torch.zeros((), dtype=torch.int32, device=dev)})
+    gpdmm.round_cohort(cfg, st, m)
+    torch.cuda.synchronize()
+    log(f"participation: warm-up draw {time.perf_counter() - t_phase:.3f} s")
+    # the draw alone (threefry2x32 fold_in, split, bits, sort): as the host
+    # enqueues it, and on the device with the stream pre-filled; one draw
+    # per timing there (about 560 launches), since many more than the
+    # stream's queue of pending launches would let the host set the pace
+    draw_host = cuda_time_ms(lambda: gpdmm.round_cohort(cfg, st, m), 20, prefill=False)
+    draw_dev = sum(cuda_time_ms(lambda: gpdmm.round_cohort(cfg, st, m), 1, warmup=1,
+                                spin_cycles=40_000_000) for _ in range(5)) / 5
+    out["participation_draw_ms"] = {"host_paced": draw_host, "device": draw_dev}
+    log(f"participation draw (m = {m}, cohort 50): {draw_host:.4f} ms host-paced, "
+        f"{draw_dev:.4f} ms on the device")
+    trails = {}
+    for label, (kw, per_round) in (PARTICIPATION_RUNS | PARTICIPATION_PYTREE_RUNS).items():
+        pytree = label in PARTICIPATION_PYTREE_RUNS
+        opt = make(FederatedConfig(inner_steps=K, eta=eta, **kw) if pytree else
+                   FederatedConfig(inner_steps=K, eta=eta, use_arena=True, **kw))
+        states, trail, inv = [], [], []
+
+        def on_round(r, s, met):
+            if label in ("a_gpdmm", "d_gpdmm"):
+                states.append(s)
+            if r in (0, R // 2 - 1, R - 1):
+                trail.append(float(prob.dist(s["x_s"])))
+                v = invariants(torch, met, s, rho, m)
+                if v is not None:
+                    inv.append(v)
+
+        state, metrics, counts, secs = run_rounds(
+            torch, ops, opt, opt.init(x0, m), prob.grad if pytree else prob.oracle(),
+            lambda r: prob.batch(), R, False, on_round)
+        rec.add(counts)
+        check(float(metrics["used_arena"]) == (0.0 if pytree else 1.0),
+              f"participation {label}: took the wrong path")
+        out[f"participation_{label}_ms_per_round"] = 1e3 * secs / R
+        log(f"participation {label}: {R} rounds in {secs:.3f} s ({1e3 * secs / R:.3f} "
+            f"ms/round); ||x - x*|| {d0:.4e} -> {trail}; launches {counts}; "
+            f"invariant / rounding scale {[round(v, 3) for v in inv]}")
+        check(counts == expected(ops, R, **per_round), f"participation {label}: launches {counts}")
+        check(trail[-1] < trail[0] < d0, f"participation {label}: distance did not fall: {trail}")
+        if kw["algorithm"] in ("gpdmm", "agpdmm"):
+            check(max(inv) < 16.0, f"participation {label}: invariant (25) broken: {inv}")
+        if kw["algorithm"] == "scaffold":
+            check(max(inv) < 64.0, f"participation {label}: sum_i (c_i - c) = 0 broken: {inv}")
+        for k, v in state.items():
+            if k != "round":
+                check(bool(torch.isfinite(v).all()), f"participation {label}: {k} not finite")
+        trails[label] = states
+        if prof is not None and label in ("a_gpdmm", "b_gpdmm"):
+            prof(f"participation_{label}",
+                 lambda: run_rounds(torch, ops, opt, state, prob.oracle(),
+                                    lambda r: prob.batch(), 3, False),
+                 1e3 * secs / R, 3)
+
+    # the masked full-population round (d) against the cohort round (a),
+    # round by round: the reference's contract (tests/test_cohort.py)
+    worst = 0.0
+    for r, (sa, sd) in enumerate(zip(trails["a_gpdmm"], trails["d_gpdmm"])):
+        for k in ("x_s", "lam_s", "x_c", "u_hat"):
+            scale = max(1.0, float(sd[k].abs().max()))
+            err = float((sa[k] - sd[k]).abs().max()) / scale
+            worst = max(worst, err)
+            check(err <= 1e-5, f"participation: cohort != masked at round {r}: {k} {err}")
+    out["participation_cohort_vs_masked_max_rel_err"] = worst
+    log(f"participation: cohort (a) == masked (d) for x_s, lam_s, x_c, u_hat over {R} rounds "
+        f"(max relative error {worst:.3e}, bound 1e-5)")
+    del trails
+    log(f"participation phase (least squares): {time.perf_counter() - t_phase:.2f} s")
+
+
 def mixture_data(torch, gen, F, C, n, dev):
     """One class per client, n samples each: class means of norm ~ sqrt(F)
     * 0.12 plus unit noise, scaled by 1/10 (the Table I set-up)."""
@@ -380,8 +664,11 @@ def mixture_data(torch, gen, F, C, n, dev):
     return x, y
 
 
-def softmax_phase(rec, torch, ops, make, FederatedConfig, SoftmaxRegression, gen, dev,
+def softmax_phase(rec, torch, ops, make, FederatedConfig, SoftmaxRegression, gen, dev, runs,
                   prof=None):
+    """Softmax regression at the Table I size over ``runs`` (label ->
+    (config keywords, launches per round)): ``SOFTMAX_RUNS`` in phase 5,
+    ``SOFTMAX_PARTIAL`` in phase 8."""
     F, C, m, B, K, R, n = (SOFTMAX[k] for k in ("F", "C", "m", "B", "K", "rounds", "n"))
     prob = SoftmaxRegression(F, C)
     xs, ys = mixture_data(torch, gen, F, C, n, dev)
@@ -392,17 +679,6 @@ def softmax_phase(rec, torch, ops, make, FederatedConfig, SoftmaxRegression, gen
         return {"x": torch.stack([xs[:, s:s + B] for s in starts]),
                 "y": torch.stack([ys[:, s:s + B] for s in starts])}
 
-    runs = {
-        "gpdmm": (dict(algorithm="gpdmm"),
-                  dict(fused_update_arena=K, round_tail=1, dual_from_uplink=1)),
-        "agpdmm": (dict(algorithm="agpdmm"),
-                   dict(fused_update_arena=K, round_tail=1, dual_from_uplink=1)),
-        "scaffold": (dict(algorithm="scaffold"), dict(fused_update_arena=K, scaffold_cv=1)),
-        "fedavg": (dict(algorithm="fedavg"), dict(fused_update_arena=K)),
-        "fedsplit_xs": (dict(algorithm="fedsplit", fedsplit_init="xs"), dict(fused_update=K)),
-        "gpdmm_svrg": (dict(algorithm="gpdmm", variance_reduction="svrg"),
-                       dict(fused_update_arena=K, round_tail=1, dual_from_uplink=1)),
-    }
     for label, (kw, per_round) in runs.items():
         # the default use_arena="auto" takes the arena here: W = 7936 >= 1024
         opt = make(FederatedConfig(inner_steps=K, eta=0.05, **kw))
@@ -417,7 +693,7 @@ def softmax_phase(rec, torch, ops, make, FederatedConfig, SoftmaxRegression, gen
             f"loss {loss0:.4f} -> {loss1:.4f}, train accuracy {acc:.3f}; launches {counts}")
         check(counts == expected(ops, R, **per_round), f"softmax {label}: launches {counts}")
         check(math.isfinite(loss1) and loss1 < loss0, f"softmax {label}: loss {loss0} -> {loss1}")
-        for k in ("lam_s", "c_i", "z_s"):
+        for k in ("lam_s", "c_i", "z_s", "u_hat", "x_c"):
             if k in state:
                 check(bool(torch.isfinite(state[k]).all()), f"softmax {label}: {k} not finite")
         if prof is not None:
@@ -599,9 +875,9 @@ def main() -> int:
     out["build_s"] = build_s
 
     rec = Record(ops)
-    gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    prob = quadratic.generate(gen, m=LSQ["m"], n=LSQ["n"], d=LSQ["d"], device="cuda")
+    prob = quadratic.generate(seeded(torch, 0), m=LSQ["m"], n=LSQ["n"], d=LSQ["d"],
+                              device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     log(f"least squares m={LSQ['m']} n={LSQ['n']} d={LSQ['d']}: set-up (draw, Gram, "
@@ -609,7 +885,8 @@ def main() -> int:
     out["lsq_setup_s"] = setup_s
 
     eta = 0.5 / prob.L
-    check_kernels(rec, prob, eta, 1.0 / (LSQ["K"] * eta), torch, ops, ref, gen)
+    check_kernels(rec, prob, eta, 1.0 / (LSQ["K"] * eta), torch, ops, ref, seeded(torch, 3))
+    check_cohort_kernels(rec, torch, ops, ref, seeded(torch, 13))
     check_small_against_cpu(torch, make, FederatedConfig, quadratic)
 
     dev = torch.device("cuda")
@@ -618,16 +895,21 @@ def main() -> int:
         def prof(label, run, round_ms, rounds):
             profile_rounds(torch, label, run, round_ms, rounds, out)
     lsq_phase(rec, prob, torch, ops, make, FederatedConfig, dev, prof)
-    softmax_phase(rec, torch, ops, make, FederatedConfig, SoftmaxRegression, gen, dev, prof)
+    softmax_phase(rec, torch, ops, make, FederatedConfig, SoftmaxRegression, seeded(torch, 0),
+                  dev, SOFTMAX_RUNS, prof)
 
     t0 = time.perf_counter()
-    prob25 = quadratic.generate(gen, m=FIG1["m"], n=FIG1["n"], d=LSQ["d"], device="cuda")
+    prob25 = quadratic.generate(seeded(torch, 0), m=FIG1["m"], n=FIG1["n"], d=LSQ["d"],
+                                device="cuda")
     torch.cuda.synchronize()
     log(f"least squares m={FIG1['m']} n={FIG1['n']} d={LSQ['d']}: set-up "
         f"{time.perf_counter() - t0:.2f} s; L {prob25.L:.4e} mu {prob25.mu:.4e}")
     fig2_phase(rec, {LSQ["m"]: prob, FIG1["m"]: prob25}, torch, ops, make, FederatedConfig,
                dev, prof)
     fig1_phase(rec, prob25, torch, ops, make, FederatedConfig, dev)
+    participation_phase(rec, prob, torch, ops, make, FederatedConfig, dev, out, prof)
+    softmax_phase(rec, torch, ops, make, FederatedConfig, SoftmaxRegression, seeded(torch, 0),
+                  dev, SOFTMAX_PARTIAL, prof)
 
     kernels = {"kernels": list(rec.rows.values())}
     out |= kernels

@@ -1,12 +1,15 @@
 """AGPDMM (Algorithm 2, Zhang et al. 2021), ported from
-``src/repro/core/agpdmm.py`` (full participation, star network), on the
-flat client arena and on the per-leaf pytree path.
+``src/repro/core/agpdmm.py`` (star network), on the flat client arena and
+on the per-leaf pytree path, with GPDMM's partial participation, cohort
+engine and EF21 uplink.
 
 It differs from GPDMM in two places: every client starts the round from
 the fresh server iterate x_s^r (no primal carry is stored), and the dual
 update uses the last iterate x_i^{r,K} (eq. 24).  The inner loops and the
 round tails are GPDMM's.  With K = 1 and rho = 1/eta the round is gradient
-descent with stepsize eta (paper eq. (27)).
+descent with stepsize eta (paper eq. (27)).  The cohort round moves no
+primal carry: it gathers ``lam_s`` (and, with EF21, ``u_hat``) rows and
+scatters ``u_hat`` through GPDMM's ``cohort_tail``.
 """
 from __future__ import annotations
 
@@ -15,20 +18,57 @@ from functools import partial
 from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import arena
 from repro_torch.core import tree_util as T
-from repro_torch.core.api import FedOpt, require_ported, resolved_rho, use_arena
+from repro_torch.core.api import (
+    FedOpt, cohort_batch, require_ported, resolved_rho, run_cohort_inner, use_arena,
+    use_cohort,
+)
 from repro_torch.core.gpdmm import (
-    arena_metrics, arena_tail, broadcast_rows, inner_steps, inner_steps_arena,
-    round_counter, tree_metrics, tree_tail,
+    arena_metrics, arena_tail, broadcast_rows, cohort_eta, cohort_tail, inner_steps,
+    inner_steps_arena, needs_cache, round_cohort, round_counter, tree_metrics, tree_tail,
 )
 from repro_torch.kernels import ops
+
+
+def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
+    """AGPDMM over the round's sampled cohort (see gpdmm): the client init
+    is the fresh server row, so only the cohort's lam rows are gathered."""
+    rho = resolved_rho(cfg)
+    spec = arena.ArenaSpec.from_tree(state["x_s"])
+    lam = state["lam_s"]
+    m = lam.shape[0]
+    x_s_row = spec.pack(state["x_s"])
+    idx = round_cohort(cfg, state, m)
+    lam_c = ops.row_gather(lam, idx)
+    batch_c = cohort_batch(batch, idx, m, per_step_batches)
+    eta_c = cohort_eta(cfg, idx)
+
+    def inner(rows, b):
+        lam_t = rows[0]
+        x0 = broadcast_rows(x_s_row, lam_t.shape[0])
+        return inner_steps_arena(
+            spec, grad_fn, x0, x_s_row, lam_t, b, K=cfg.inner_steps,
+            eta=cfg.eta if eta_c is None else rows[1], rho=rho,
+            per_step=per_step_batches,
+            vr_snapshot=x0 if cfg.variance_reduction == "svrg" else None)
+
+    rows = (lam_c,) + (() if eta_c is None else (eta_c,))
+    x_K, _ = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
+
+    _, uplink = ops.round_tail(x_K, lam_c, x_s_row, rho, with_lam_is=False)
+    new_state, keep_c = cohort_tail(cfg, spec, state, uplink, idx)
+    new_state["round"] = state["round"] + 1
+    return new_state, arena_metrics(new_state["lam_s"], x_K, x_s_row, keep_c)
 
 
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
     rho = resolved_rho(cfg)
     spec = arena.ArenaSpec.from_tree(state["x_s"])
     lam = state["lam_s"]
+    m = lam.shape[0]
+    if use_cohort(cfg, m):
+        return _round_arena_cohort(cfg, state, grad_fn, batch, per_step_batches)
     x_s_row = spec.pack(state["x_s"])
-    x0 = broadcast_rows(x_s_row, lam.shape[0])
+    x0 = broadcast_rows(x_s_row, m)
 
     x_K, _ = inner_steps_arena(
         spec, grad_fn, x0, x_s_row, lam, batch, K=cfg.inner_steps, eta=cfg.eta,
@@ -36,13 +76,13 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
         vr_snapshot=x0 if cfg.variance_reduction == "svrg" else None)
 
     _, uplink = ops.round_tail(x_K, lam, x_s_row, rho, with_lam_is=False)
-    x_s_new, lam_s_new = arena_tail(cfg, uplink)
-    new_state = {
+    new_state, x_s_new, lam_s_new, mask = arena_tail(cfg, spec, state, uplink, m)
+    new_state |= {
         "x_s": spec.unpack(x_s_new),
         "lam_s": lam_s_new,
         "round": state["round"] + 1,
     }
-    return new_state, arena_metrics(lam_s_new, x_K, x_s_row)
+    return new_state, arena_metrics(lam_s_new, x_K, x_s_row, mask)
 
 
 def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
@@ -50,15 +90,16 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
         return _round_arena(cfg, state, grad_fn, batch, per_step_batches)
     rho = resolved_rho(cfg)
     x_s, lam_s = T.tree_dense(state["x_s"]), state["lam_s"]
-    x_s_b = T.tree_broadcast(x_s, T.leaves(lam_s)[0].shape[0])  # the client init
+    m = T.leaves(lam_s)[0].shape[0]
+    x_s_b = T.tree_broadcast(x_s, m)  # the client init
 
     x_K, _ = inner_steps(
         grad_fn, x_s_b, x_s, lam_s, batch, K=cfg.inner_steps, eta=cfg.eta, rho=rho,
         per_step=per_step_batches,
         vr_snapshot=x_s_b if cfg.variance_reduction == "svrg" else None)
-    _, x_s_new, lam_s_new = tree_tail(x_K, x_s, lam_s, rho)
-    new_state = {"x_s": x_s_new, "lam_s": lam_s_new, "round": state["round"] + 1}
-    return new_state, tree_metrics(lam_s_new, x_K, x_s)
+    _, new_state, mask = tree_tail(cfg, state, x_K, x_s, rho, m)
+    new_state["round"] = state["round"] + 1
+    return new_state, tree_metrics(new_state["lam_s"], x_K, x_s, mask)
 
 
 def make(cfg: FederatedConfig) -> FedOpt:
@@ -66,18 +107,24 @@ def make(cfg: FederatedConfig) -> FedOpt:
 
     def init(params, m):
         if not use_arena(cfg, params):
-            return {
+            st = {
                 "x_s": params,
                 "lam_s": T.tmap(lambda p: p.new_zeros((m,) + tuple(p.shape)), params),
                 "round": round_counter(params),
             }
+            if needs_cache(cfg):
+                st["u_hat"] = T.tree_broadcast(params, m)
+            return st
         spec = arena.ArenaSpec.from_tree(params)
-        device = spec.pack(params).device
-        return {
+        row = spec.pack(params)
+        st = {
             "x_s": params,
-            "lam_s": arena.zeros(spec, m, device=device),
+            "lam_s": arena.zeros(spec, m, device=row.device),
             "round": round_counter(params),
         }
+        if needs_cache(cfg):
+            st["u_hat"] = broadcast_rows(row, m)
+        return st
 
     return FedOpt(
         name="agpdmm",

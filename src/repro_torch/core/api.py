@@ -129,16 +129,97 @@ def n_steps(batch, K: int, per_step: bool) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the cohort-sampled round engine (partial participation on the arena)
+# ---------------------------------------------------------------------------
+# With participation < 1 the arena rounds of the four algorithms below gather
+# the round's active rows out of the population arena (``ops.row_gather``),
+# run the same kernels on the (m_active, width) cohort buffer and scatter
+# the updated rows back (``ops.row_scatter``).  The server mean is taken
+# over the scattered population buffer, so it equals the masked path's
+# mean of selected rows.  The per-algorithm cohort rounds live beside their
+# masked siblings.
+
+COHORT_ALGOS = ("gpdmm", "agpdmm", "scaffold", "fedavg")
+
+
+def use_cohort(cfg: FederatedConfig, m: int) -> bool:
+    """Does this arena round run the cohort engine?  With ``cohort="auto"``
+    whenever participation < 1 and the cohort is smaller than the
+    population; ``True`` forces it, ``False`` keeps the masked
+    full-population round.  Only the four ``COHORT_ALGOS`` on the star have
+    a cohort round.  (The reference also keeps async rounds masked; the port
+    refuses async rounds, ROADMAP item 4.)"""
+    if cfg.participation >= 1.0 or not cfg.cohort:
+        return False
+    if cfg.algorithm not in COHORT_ALGOS or cfg.topology != "star":
+        return False
+    if cfg.cohort == "auto":
+        return T.cohort_count(m, cfg.participation) < m
+    return True
+
+
+def cohort_batch(batch, idx, m: int, per_step: bool):
+    """The cohort's gradient batch: population-sized leaves (client dim m)
+    are gathered by ``idx``; leaves already sized to the cohort (rows in
+    ascending client id, ``cohort_indices``' order) pass through.  The
+    client dim is axis 0, or 1 for per-step (K, m, ...) batches."""
+    axis = 1 if per_step else 0
+    mc = idx.shape[0]
+
+    def one(x):
+        if x.shape[axis] == mc and mc != m:
+            return x
+        if x.shape[axis] != m:
+            raise ValueError(
+                f"batch leaf client dim {x.shape[axis]} matches neither the "
+                f"population ({m}) nor the cohort ({mc})")
+        return torch.index_select(x, axis, idx)
+
+    return T.tmap(one, batch)
+
+
+def _cat(outs):
+    """Concatenate the tiles' outputs (a tensor or a tuple of tensors)."""
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+    return torch.cat(outs, dim=0)
+
+
+def map_cohort_tiles(tile: int, fn, rows: tuple, batch, *, per_step: bool = False):
+    """Run ``fn(rows_tile, batch_tile)`` over fixed-size tiles of the cohort
+    in turn, so the inner loop's live state (the (tile, W, W) affine H
+    blocks) is O(tile); the outputs come back concatenated to the cohort.
+    ``rows`` are (mc, ...) tensors (may be empty: FedAvg carries none, the
+    count then comes from the batch); ``tile`` must divide the cohort."""
+    axis = 1 if per_step else 0
+    mc = rows[0].shape[0] if rows else T.leaves(batch)[0].shape[axis]
+    if mc % tile:
+        raise ValueError(f"cohort_tile={tile} must divide the cohort size {mc}")
+    outs = []
+    for t0 in range(0, mc, tile):
+        rows_t = tuple(r[t0:t0 + tile] for r in rows)
+        batch_t = T.tmap(lambda x: x.narrow(axis, t0, tile), batch)
+        outs.append(fn(rows_t, batch_t))
+    return _cat(outs)
+
+
+def run_cohort_inner(cfg: FederatedConfig, fn, rows: tuple, batch, *, per_step: bool = False):
+    """The cohort inner loop: tiled when ``cfg.cohort_tile`` is set and
+    smaller than the cohort, else one call."""
+    mc = rows[0].shape[0] if rows else T.leaves(batch)[0].shape[1 if per_step else 0]
+    tile = cfg.cohort_tile
+    if tile is not None and tile < mc:
+        return map_cohort_tiles(tile, fn, rows, batch, per_step=per_step)
+    return fn(rows, batch)
+
+
+# ---------------------------------------------------------------------------
 # branches of the reference that this port does not run yet
 # ---------------------------------------------------------------------------
 
 def _unported(cfg: FederatedConfig):
     """(what, ROADMAP item) for each configured branch the port lacks."""
     out = []
-    if cfg.participation < 1.0:
-        out.append(("participation < 1", 3))
-    if cfg.uplink_bits is not None:
-        out.append(("uplink_bits (EF21)", 3))
     if cfg.faults is not None:
         out.append(("faults", 4))
     if cfg.screen is True:
@@ -215,7 +296,8 @@ def step_for(step, leaf):
 
 
 __all__ = [
-    "FedOpt", "affine_case", "arena_grad", "client_batches", "eta_val", "make",
-    "make_oracle", "mean_eta", "n_steps", "require_ported", "resolved_rho",
-    "step_for", "step_size", "use_arena",
+    "COHORT_ALGOS", "FedOpt", "affine_case", "arena_grad", "client_batches", "cohort_batch",
+    "eta_val", "make", "make_oracle", "map_cohort_tiles", "mean_eta", "n_steps",
+    "require_ported", "resolved_rho", "run_cohort_inner", "step_for", "step_size",
+    "use_arena", "use_cohort",
 ]

@@ -1,6 +1,7 @@
 """GPDMM (Algorithm 1, Zhang et al. 2021), ported from
-``src/repro/core/gpdmm.py`` (full participation, star network), on the flat
-client arena and on the per-leaf pytree path.
+``src/repro/core/gpdmm.py`` (star network), on the flat client arena and on
+the per-leaf pytree path, with partial participation, the cohort engine and
+the EF21 uplink.
 
 Per round r (client i, K inner steps, rho = 1/(K eta) by default):
 
@@ -23,6 +24,17 @@ its tail as plain tensor ops, as the reference does.
 ``variance_reduction="svrg"`` (per-step batches) corrects the step-k
 gradient with the round's server iterate as snapshot z:
 g_k(x) - g_k(z) + mean_j g_j(z).
+
+Partial participation (``participation < 1``): the round's mask is drawn
+from ``cfg.seed`` and the round counter (``participation_key``, the
+reference's ``jax.random`` draw reproduced by ``core.prng``).  Silent
+clients transmit nothing: the server keeps its cached view ``u_hat`` of
+their uplink, and they keep their primal carry.  ``uplink_bits`` quantises
+the uplink's difference to ``u_hat`` (EF21; two kernels on the arena).  On
+the arena, ``cohort="auto"`` runs the round over the sampled cohort only:
+``row_gather`` the active rows, the same kernels on them, ``row_scatter``
+back (``_round_arena_cohort``); ``cohort=False`` keeps the masked
+full-population round.
 """
 from __future__ import annotations
 
@@ -33,9 +45,11 @@ import torch
 from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import arena
 from repro_torch.core import tree_util as T
+from repro_torch.core import prng
 from repro_torch.core.api import (
-    FedOpt, affine_case, arena_grad, client_batches, n_steps, require_ported,
-    resolved_rho, step_for, step_size, use_arena,
+    FedOpt, affine_case, arena_grad, client_batches, cohort_batch, eta_val, n_steps,
+    require_ported, resolved_rho, run_cohort_inner, step_for, step_size, use_arena,
+    use_cohort,
 )
 from repro_torch.kernels import ops
 
@@ -106,12 +120,85 @@ def inner_steps_arena(spec, grad_fn, x0, x_s_row, lam, batch, *, K, eta, rho, pe
     return x, xsum * (1.0 / K)
 
 
-def arena_tail(cfg: FederatedConfig, uplink):
-    """The full-participation round tail shared with AGPDMM: the client
-    mean (the round's single all-reduce) and the fused dual refresh.
-    Returns (x_s_new_row, lam_s_new)."""
+def participation_key(cfg: FederatedConfig, round_idx):
+    """The round's participation key, folded from ``cfg.seed``, so every
+    algorithm draws the same mask sequence; on the device of the round
+    counter."""
+    return prng.fold_in(prng.key(cfg.seed), round_idx)
+
+
+def participation(cfg: FederatedConfig, state, m: int):
+    """The round's participation mask (m,) bool, or None under full
+    participation."""
+    if cfg.participation >= 1.0:
+        return None
+    return T.participation_mask(participation_key(cfg, state["round"]), m, cfg.participation)
+
+
+def round_cohort(cfg: FederatedConfig, state, m: int):
+    """The round's cohort ids (mc,) int64, ascending."""
+    idx, _mask = T.cohort_indices(participation_key(cfg, state["round"]), m,
+                                  cfg.participation)
+    return idx
+
+
+def cached_uplink(cfg: FederatedConfig, state, uplink, m: int, spec=None):
+    """The uplink as the server's cache sees it (shared with AGPDMM and
+    FedAvg, on the arena with ``spec``, else on the pytree path): EF21
+    against ``u_hat``, then the participation select, silent clients' rows
+    taken from ``u_hat``.  Returns (uplink, mask), ``mask`` the round's
+    active mask (None: every uplink enters the mean); the result is the
+    state's new ``u_hat`` where it carries one.  Faults and screening
+    (ROADMAP item 4) combine into this mask and demote to silence, as in
+    the reference's ``arena_tail``."""
+    u_hat = state.get("u_hat")  # present with EF21 or participation < 1
+    if cfg.uplink_bits is not None:
+        uplink = (T.tree_quantize_delta(uplink, u_hat, cfg.uplink_bits) if spec is None
+                  else ops.ef21_update(uplink, u_hat, cfg.uplink_bits, spec.leaf_rows()))
+    mask = participation(cfg, state, m)
+    if mask is not None:
+        uplink = T.tree_select(mask, uplink, u_hat)
+    return uplink, mask
+
+
+def arena_tail(cfg: FederatedConfig, spec, state, uplink, m: int):
+    """The arena round tail shared with AGPDMM: ``cached_uplink``, the
+    client mean (the round's single all-reduce) and the fused dual
+    refresh.  Returns (state_updates, x_s_new_row, lam_s_new, mask)."""
+    uplink, mask = cached_uplink(cfg, state, uplink, m, spec)
+    new_state = {"u_hat": uplink} if "u_hat" in state else {}
     x_s_new = torch.mean(uplink, dim=0)
-    return x_s_new, ops.dual_from_uplink(uplink, x_s_new, resolved_rho(cfg))
+    return new_state, x_s_new, ops.dual_from_uplink(uplink, x_s_new, resolved_rho(cfg)), mask
+
+
+def cohort_cache(cfg: FederatedConfig, spec, u_hat, uplink, idx):
+    """The cohort's uplink into the population cache (shared with AGPDMM
+    and FedAvg): EF21 against the cohort's cached ``u_hat`` rows, then the
+    scatter.  Returns the new ``u_hat``, whose mean is the masked round's
+    mean of selected rows."""
+    if cfg.uplink_bits is not None:
+        uplink = ops.ef21_update(uplink, ops.row_gather(u_hat, idx), cfg.uplink_bits,
+                                 spec.leaf_rows())
+    return ops.row_scatter(u_hat, idx, uplink)
+
+
+def cohort_tail(cfg: FederatedConfig, spec, state, uplink, idx):
+    """The cohort sibling of ``arena_tail``, shared with AGPDMM:
+    ``cohort_cache``, the mean over the scattered buffer and the full dual
+    refresh.  Returns ({u_hat, x_s, lam_s}, keep_c); ``keep_c`` is the
+    cohort's surviving mask, None while faults are not ported (item 4)."""
+    u_hat_new = cohort_cache(cfg, spec, state["u_hat"], uplink, idx)
+    x_s_new = torch.mean(u_hat_new, dim=0)
+    lam_s_new = ops.dual_from_uplink(u_hat_new, x_s_new, resolved_rho(cfg))
+    return {"u_hat": u_hat_new, "x_s": spec.unpack(x_s_new), "lam_s": lam_s_new}, None
+
+
+def cohort_eta(cfg: FederatedConfig, idx):
+    """The cohort's rows of a per-client eta tuple, (mc,) f32, or None for
+    a scalar eta."""
+    if not isinstance(cfg.eta, tuple):
+        return None
+    return eta_val(cfg.eta, idx.device)[idx]
 
 
 def arena_drift(x_K, x_s_row, mask=None):
@@ -131,10 +218,52 @@ def arena_metrics(lam_s_new, x_K, x_s_row, mask=None):
     }
 
 
+def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
+    """GPDMM over the round's sampled cohort: gather its lam and carry rows,
+    run the inner loop and the uplink on the (mc, width) cohort buffer
+    (tiled by ``cohort_tile``), then ``cohort_tail`` and the carry scatter.
+    Row for row the masked round's arithmetic."""
+    rho = resolved_rho(cfg)
+    spec = arena.ArenaSpec.from_tree(state["x_s"])
+    lam, x_c = state["lam_s"], state["x_c"]
+    m = lam.shape[0]
+    x_s_row = spec.pack(state["x_s"])
+    idx = round_cohort(cfg, state, m)
+    lam_c = ops.row_gather(lam, idx)
+    x0_c = ops.row_gather(x_c, idx)
+    batch_c = cohort_batch(batch, idx, m, per_step_batches)
+    eta_c = cohort_eta(cfg, idx)
+
+    def inner(rows, b):
+        x0, lam_t = rows[0], rows[1]
+        snap = (broadcast_rows(x_s_row, x0.shape[0])
+                if cfg.variance_reduction == "svrg" else None)
+        return inner_steps_arena(
+            spec, grad_fn, x0, x_s_row, lam_t, b, K=cfg.inner_steps,
+            eta=cfg.eta if eta_c is None else rows[2], rho=rho,
+            per_step=per_step_batches, vr_snapshot=snap)
+
+    rows = (x0_c, lam_c) + (() if eta_c is None else (eta_c,))
+    x_K, x_bar = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
+    x_ref = x_bar if cfg.use_avg else x_K
+
+    _, uplink = ops.round_tail(x_ref, lam_c, x_s_row, rho, with_lam_is=False)
+    new_state, keep_c = cohort_tail(cfg, spec, state, uplink, idx)
+    new_state |= {
+        "x_c": ops.row_scatter(x_c, idx, x_K),  # silent clients keep their carry
+        "round": state["round"] + 1,
+    }
+    return new_state, arena_metrics(new_state["lam_s"], x_K, x_s_row, keep_c)
+
+
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, return_trace):
     rho = resolved_rho(cfg)
     spec = arena.ArenaSpec.from_tree(state["x_s"])
     lam, x_c = state["lam_s"], state["x_c"]
+    m = lam.shape[0]
+    if use_cohort(cfg, m) and not return_trace:
+        # a trace stacks the whole population, so traced rounds stay masked
+        return _round_arena_cohort(cfg, state, grad_fn, batch, per_step_batches)
     x_s_row = spec.pack(state["x_s"])
 
     snapshot = None
@@ -147,14 +276,15 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, 
 
     # the uplink, and lam_is only when a trace wants it
     lam_is, uplink = ops.round_tail(x_ref, lam, x_s_row, rho, with_lam_is=return_trace)
-    x_s_new, lam_s_new = arena_tail(cfg, uplink)
-    new_state = {
+    new_state, x_s_new, lam_s_new, mask = arena_tail(cfg, spec, state, uplink, m)
+    new_state |= {
         "x_s": spec.unpack(x_s_new),
         "lam_s": lam_s_new,
-        "x_c": x_K,
+        # silent clients did not run their inner steps: they keep their carry
+        "x_c": x_K if mask is None else torch.where(mask[:, None], x_K, x_c),
         "round": state["round"] + 1,
     }
-    metrics = arena_metrics(lam_s_new, x_K, x_s_row)
+    metrics = arena_metrics(lam_s_new, x_K, x_s_row, mask)
     if return_trace:
         metrics["trace"] = {
             "x_ref": spec.unpack_stacked(x_ref),
@@ -179,33 +309,38 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False,
         per_step=per_step_batches,
         vr_snapshot=T.tree_broadcast(x_s, m) if cfg.variance_reduction == "svrg" else None)
     x_ref = x_bar if cfg.use_avg else x_K
-    lam_is, x_s_new, lam_s_new = tree_tail(x_ref, x_s, lam_s, rho)
-    new_state = {"x_s": x_s_new, "lam_s": lam_s_new, "x_c": x_K,
-                 "round": state["round"] + 1}
-    metrics = tree_metrics(lam_s_new, x_K, x_s)
+    lam_is, new_state, mask = tree_tail(cfg, state, x_ref, x_s, rho, m)
+    new_state |= {"x_c": x_K if mask is None else T.tree_select(mask, x_K, x_c),
+                  "round": state["round"] + 1}
+    metrics = tree_metrics(new_state["lam_s"], x_K, x_s, mask)
     if return_trace:
         metrics["trace"] = {"x_ref": x_ref, "x_bar": x_bar, "lam_is": lam_is, "x_K": x_K}
     return new_state, metrics
 
 
-def tree_tail(x_ref, x_s, lam_s, rho: float):
+def tree_tail(cfg: FederatedConfig, state, x_ref, x_s, rho: float, m: int):
     """The pytree round tail shared with AGPDMM, as plain tensor ops (the
     reference's, the server tree broadcast by indexing): lam_is, the
-    uplink, its client mean and the dual refresh.  Returns (lam_is,
-    x_s_new, lam_s_new)."""
-    lam_is = T.tmap(lambda s, xr, l: rho * (s[None] - xr) - l, x_s, x_ref, lam_s)
+    uplink, EF21 against ``u_hat``, the participation select, the client
+    mean and the dual refresh.  Returns (lam_is, {x_s, lam_s[, u_hat]},
+    mask)."""
+    lam_is = T.tmap(lambda s, xr, l: rho * (s[None] - xr) - l, x_s, x_ref, state["lam_s"])
     uplink = T.tmap(lambda xr, l: xr - l / rho, x_ref, lam_is)
+    uplink, mask = cached_uplink(cfg, state, uplink, m)
+    new_state = {"u_hat": uplink} if "u_hat" in state else {}
     x_s_new = T.tree_client_mean(uplink)  # the round's single all-reduce
-    lam_s_new = T.tmap(lambda u, s: rho * (u - s[None]), uplink, x_s_new)
-    return lam_is, x_s_new, lam_s_new
+    new_state["x_s"] = x_s_new
+    new_state["lam_s"] = T.tmap(lambda u, s: rho * (u - s[None]), uplink, x_s_new)
+    return lam_is, new_state, mask
 
 
-def tree_metrics(lam_s_new, x_K, x_s):
-    """KKT invariant (25) and drift on the pytree path."""
+def tree_metrics(lam_s_new, x_K, x_s, mask=None):
+    """KKT invariant (25) and drift (over the active clients) on the
+    pytree path."""
     dev = T.leaves(x_K)[0].device
     return {
         "lam_sum_norm": T.tree_norm(T.tree_client_sum(lam_s_new)),
-        "client_drift": T.tree_client_drift(x_K, x_s),
+        "client_drift": T.tree_client_drift(x_K, x_s, mask),
         "used_arena": torch.zeros((), dtype=torch.float32, device=dev),
     }
 
@@ -213,6 +348,14 @@ def tree_metrics(lam_s_new, x_K, x_s):
 def broadcast_rows(row: torch.Tensor, m: int) -> torch.Tensor:
     """A fresh, contiguous ``(m, width)`` copy of the server row."""
     return row[None].expand(m, row.shape[0]).contiguous()
+
+
+def needs_cache(cfg: FederatedConfig) -> bool:
+    """Does the state carry ``u_hat``, the server's view of each client's
+    uplink (the EF21 integrator and the silent clients' stand-in)?  Its
+    init is the round-0 uplink of a client that never moved, x_s, as a
+    fresh buffer of its own."""
+    return cfg.uplink_bits is not None or cfg.participation < 1.0
 
 
 def round_counter(tree):
@@ -225,20 +368,26 @@ def make(cfg: FederatedConfig) -> FedOpt:
 
     def init(params, m):
         if not use_arena(cfg, params):
-            return {
+            st = {
                 "x_s": params,
                 "lam_s": T.tmap(lambda p: p.new_zeros((m,) + tuple(p.shape)), params),
                 "x_c": T.tree_broadcast(params, m),  # x_i^{0,K} = x_s^1 (Alg. 1)
                 "round": round_counter(params),
             }
+            if needs_cache(cfg):
+                st["u_hat"] = T.tree_broadcast(params, m)
+            return st
         spec = arena.ArenaSpec.from_tree(params)
         row = spec.pack(params)
-        return {
+        st = {
             "x_s": params,
             "lam_s": arena.zeros(spec, m, device=row.device),
             "x_c": broadcast_rows(row, m),  # x_i^{0,K} = x_s^1 (Alg. 1)
             "round": round_counter(params),
         }
+        if needs_cache(cfg):
+            st["u_hat"] = broadcast_rows(row, m)
+        return st
 
     return FedOpt(
         name="gpdmm",

@@ -1,7 +1,7 @@
 """SCAFFOLD (Karimireddy et al. 2020), eqs. (29)-(30) of the paper, the
-primary baseline; ported from ``src/repro/core/scaffold.py`` (full
-participation, star network), on the flat client arena and on the per-leaf
-pytree path.
+primary baseline; ported from ``src/repro/core/scaffold.py`` (star
+network), on the flat client arena and on the per-leaf pytree path, with
+partial participation and the cohort engine.
 
     x_i^{r,0}   = x_s^r
     x_i^{r,k+1} = x_i^{r,k} - eta (grad f_i(x_i^{r,k}) - c_i^r + c^r)
@@ -19,7 +19,10 @@ The round tail is one ``scaffold_cv`` kernel and the two server means.  On
 the pytree path each step is one ``fused_update`` kernel per leaf and the
 tail is plain tensor ops, as in the reference.
 
-EF21 uplink quantisation is not offered for SCAFFOLD (``make`` says why).
+With participation < 1 silent clients transmit nothing: zero delta on both
+server means, ``c_i`` kept.  The cohort round gathers the cohort's ``c_i``
+rows and decomposes both means over the cohort's deltas (sum / m).  EF21
+uplink quantisation is not offered for SCAFFOLD (``make`` says why).
 """
 from __future__ import annotations
 
@@ -31,10 +34,12 @@ from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import arena
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
-    FedOpt, affine_case, arena_grad, client_batches, eta_val, n_steps, require_ported,
-    step_for, use_arena,
+    FedOpt, affine_case, arena_grad, client_batches, cohort_batch, eta_val, n_steps,
+    require_ported, run_cohort_inner, step_for, use_arena, use_cohort,
 )
-from repro_torch.core.gpdmm import arena_drift, broadcast_rows, round_counter
+from repro_torch.core.gpdmm import (
+    arena_drift, broadcast_rows, cohort_eta, participation, round_cohort, round_counter,
+)
 from repro_torch.kernels import ops
 
 
@@ -85,11 +90,71 @@ def inner_steps_plain(grad_fn, x0, batch, *, K, eta, per_step, lam=None):
     return x
 
 
+def _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, mask):
+    """The new arena state and its metrics."""
+    f32 = torch.float32
+    new_state = {
+        "x_s": spec.unpack(x_s_new),
+        "c": spec.unpack(c_new),
+        "c_i": c_i_new,
+        "round": state["round"] + 1,
+    }
+    metrics = {
+        # invariant: sum_i (c_i - c) = 0 given zero init
+        "c_sum_norm": torch.linalg.vector_norm(
+            torch.sum((c_i_new - c_new[None]).to(f32), dim=0)),
+        "client_drift": arena_drift(x_K, x_s_row, mask),
+        "used_arena": torch.ones((), dtype=f32, device=c_i_new.device),
+    }
+    return new_state, metrics
+
+
+def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
+    """SCAFFOLD over the round's sampled cohort: gather the cohort's c_i
+    rows, run the offset inner loop and ``scaffold_cv`` on them, scatter
+    them back.  Silent clients send nothing, so both server means are sums
+    of the cohort's deltas over m (equal to the masked round's at f32: that
+    one adds the server row into the mean and subtracts it back out)."""
+    K = cfg.inner_steps
+    spec = arena.ArenaSpec.from_tree(state["x_s"])
+    c_i = state["c_i"]
+    m = c_i.shape[0]
+    x_s_row = spec.pack(state["x_s"])
+    c_row = spec.pack(state["c"])
+    idx = round_cohort(cfg, state, m)
+    c_i_c = ops.row_gather(c_i, idx)
+    batch_c = cohort_batch(batch, idx, m, per_step_batches)
+    eta_c = cohort_eta(cfg, idx)
+
+    def inner(rows, b):
+        ci_t = rows[0]
+        return inner_steps_plain_arena(
+            spec, grad_fn, broadcast_rows(x_s_row, ci_t.shape[0]), x_s_row, b, K=K,
+            eta=cfg.eta if eta_c is None else rows[1], per_step=per_step_batches,
+            c_i=ci_t, c_row=c_row)
+
+    rows = (c_i_c,) + (() if eta_c is None else (eta_c,))
+    x_K = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
+
+    alpha = 1.0 / (K * (cfg.eta if eta_c is None else eta_c))
+    c_i_new_c = ops.scaffold_cv(c_i_c, x_K, c_row, x_s_row, alpha)
+    # server: two all-reduces over the cohort's deltas (silent rows are zero)
+    f32 = torch.float32
+    inv_m = 1.0 / m
+    x_s_new = x_s_row + cfg.eta_g * inv_m * torch.sum(
+        (x_K - x_s_row[None]).to(f32), dim=0).to(x_s_row.dtype)
+    c_new = c_row + inv_m * torch.sum((c_i_new_c - c_i_c).to(f32), dim=0).to(c_row.dtype)
+    c_i_new = ops.row_scatter(c_i, idx, c_i_new_c)  # silent clients keep c_i
+    return _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, None)
+
+
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
     K = cfg.inner_steps
     spec = arena.ArenaSpec.from_tree(state["x_s"])
     c_i = state["c_i"]
     m = c_i.shape[0]
+    if use_cohort(cfg, m):
+        return _round_arena_cohort(cfg, state, grad_fn, batch, per_step_batches)
     x_s_row = spec.pack(state["x_s"])
     c_row = spec.pack(state["c"])
     x0 = broadcast_rows(x_s_row, m)
@@ -102,25 +167,17 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
     # precomputed 1/(K eta) (the reference's rounding)
     alpha = 1.0 / (K * eta_val(cfg.eta, c_i.device))
     c_i_new = ops.scaffold_cv(c_i, x_K, c_row, x_s_row, alpha)
+    x_up = x_K
+    mask = participation(cfg, state, m)
+    if mask is not None:
+        # silent clients transmit nothing: zero delta on both server means,
+        # control variate kept
+        c_i_new = torch.where(mask[:, None], c_i_new, c_i)
+        x_up = torch.where(mask[:, None], x_K, x_s_row[None])
     # server: two all-reduces (x-delta and c-delta)
-    x_s_new = x_s_row + cfg.eta_g * (torch.mean(x_K, dim=0) - x_s_row)
+    x_s_new = x_s_row + cfg.eta_g * (torch.mean(x_up, dim=0) - x_s_row)
     c_new = c_row + torch.mean(c_i_new - c_i, dim=0)
-
-    new_state = {
-        "x_s": spec.unpack(x_s_new),
-        "c": spec.unpack(c_new),
-        "c_i": c_i_new,
-        "round": state["round"] + 1,
-    }
-    f32 = torch.float32
-    metrics = {
-        # invariant: sum_i (c_i - c) = 0 given zero init
-        "c_sum_norm": torch.linalg.vector_norm(
-            torch.sum((c_i_new - c_new[None]).to(f32), dim=0)),
-        "client_drift": arena_drift(x_K, x_s_row),
-        "used_arena": torch.ones((), dtype=f32, device=c_i.device),
-    }
-    return new_state, metrics
+    return _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, mask)
 
 
 def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
@@ -139,8 +196,14 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
     alpha = 1.0 / (K * eta)
     c_i_new = T.tmap(lambda ci, cc, s, xk: ci - cc[None] + (s[None] - xk) * step_for(alpha, xk),
                      c_i, c, x_s, x_K)
+    x_up = x_K
+    mask = participation(cfg, state, m)
+    if mask is not None:
+        # silent clients transmit nothing (zero delta, c_i kept)
+        c_i_new = T.tree_select(mask, c_i_new, c_i)
+        x_up = T.tree_select(mask, x_K, T.tree_broadcast(x_s, m))
     # server: two all-reduces (x-delta and c-delta)
-    dx = T.tree_client_mean(T.tmap(lambda xk, s: xk - s[None], x_K, x_s))
+    dx = T.tree_client_mean(T.tmap(lambda xk, s: xk - s[None], x_up, x_s))
     dc = T.tree_client_mean(T.tree_sub(c_i_new, c_i))
     x_s_new = T.tree_axpy(cfg.eta_g, dx, x_s)
     c_new = T.tree_add(c, dc)
@@ -149,7 +212,7 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
     metrics = {
         "c_sum_norm": T.tree_norm(T.tree_client_sum(
             T.tmap(lambda ci, cn: ci - cn[None], c_i_new, c_new))),
-        "client_drift": T.tree_client_drift(x_K, x_s),
+        "client_drift": T.tree_client_drift(x_K, x_s, mask),
         "used_arena": torch.zeros((), dtype=torch.float32, device=T.leaves(x_K)[0].device),
     }
     return new_state, metrics

@@ -1,11 +1,11 @@
-"""Plain PyTorch versions of the six ported kernels.
+"""Plain PyTorch versions of the ten ported kernels.
 
 Each upcasts to f32 and casts back at exactly the points where the
 ``"xla"`` branches of ``src/repro/kernels/ops.py`` do (lines 276-278,
-291-313, 316-362, 380-386, 401-439), so on the CPU they agree with the
+291-313, 316-362, 380-386, 401-439, 546-615), so on the CPU they agree with the
 reference bitwise wherever both sides run the same f32 operations in the
 same order.  The wrappers in ``fused_update``, ``inner_loop`` and
-``round_tail`` run these for CPU tensors only; ``chip_smoke.py`` holds each
+``round_tail``, ``gather`` run these for CPU tensors only; ``chip_smoke.py`` holds each
 CUDA kernel against them on the card.
 
 ``step`` (and SCAFFOLD's ``alpha``) is a Python float or a tensor of
@@ -15,6 +15,8 @@ shape it.
 from __future__ import annotations
 
 import torch
+
+LANES = 128  # the arena's lane width (``fused_update.LANES``)
 
 
 def eq20(x, g, xs, lam, step, rho: float):
@@ -93,3 +95,38 @@ def dual_from_uplink_ref(uplink, x_s, rho):
     """lam_s' = rho (u - x_s')."""
     f32 = torch.float32
     return (rho * (uplink.to(f32) - x_s.to(f32)[None])).to(uplink.dtype)
+
+
+def ef21_rowmax_ref(u, u_hat):
+    """max |u - u_hat| over each client's 128-lane rows: (m, W / 128) f32.
+    ``torch.amax`` propagates a NaN, as ``jnp.max`` does."""
+    m, w = u.shape
+    d = u.to(torch.float32) - u_hat.to(torch.float32)
+    return torch.amax(torch.abs(d.reshape(m, w // LANES, LANES)), dim=-1)
+
+
+def ef21_apply_ref(u, u_hat, row_scales, bits: int):
+    """The integrated EF21 server view u_hat + clip(round((u - u_hat) / s),
+    +-lo) s with lo = 2^(bits-1) - 1 and s the (m, W / 128) f32 per-row
+    scale; ``torch.round`` rounds half to even, as ``jnp.round``."""
+    f32 = torch.float32
+    lo = float(2 ** (bits - 1) - 1)
+    m, w = u.shape
+    rows = w // LANES
+    d = (u.to(f32) - u_hat.to(f32)).reshape(m, rows, LANES)
+    s = row_scales[..., None]
+    q = torch.clamp(torch.round(d / s), -lo, lo)
+    out = u_hat.to(f32).reshape(m, rows, LANES) + q * s
+    return out.reshape(m, w).to(u.dtype)
+
+
+def row_gather_ref(arr, idx):
+    """The cohort gather out[t] = arr[idx[t]]; ``index_select`` checks that
+    every id is in range."""
+    return torch.index_select(arr, 0, idx)
+
+
+def row_scatter_ref(dst, pos, mask, rows):
+    """The cohort scatter as a gather over the population: out[i] =
+    rows[pos[i]] where mask[i] != 0, else dst[i]."""
+    return torch.where((mask != 0)[:, None], torch.index_select(rows, 0, pos), dst)

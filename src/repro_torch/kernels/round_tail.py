@@ -1,5 +1,5 @@
 """The round-tail kernels over the flat client arena, each one CUDA pass
-(``csrc/round_tail.cu``); the port of three kernels of
+(``csrc/round_tail.cu``); the port of six kernels of
 ``src/repro/kernels/round_tail.py``:
 
   * ``round_tail``         lam_is = rho (x_s - x_ref) - lam_s and the uplink
@@ -7,6 +7,10 @@
   * ``dual_from_uplink``   lam' = rho (u - x_s')
   * ``fused_update_arena`` the eq. (20) step with a per-client or scalar step
   * ``scaffold_cv``        SCAFFOLD's c_i' = c_i - c + alpha (x_s - x_K)
+  * ``ef21_rowmax``        max |u - u_hat| per (client, 128-lane row), f32
+  * ``ef21_apply``         u_hat + clip(round((u - u_hat) / s), +-lo) s with
+                           a per-row scale s (``ops.ef21_update`` runs the
+                           two around the per-leaf scale reduction)
 
 Client buffers are (m, W), the server rows (W,) are broadcast inside the
 kernel.  CUDA operands are f32 or bf16 (all of one dtype), with f32 math.
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.kernels import _args, ref
 from repro_torch.kernels._build import LL, F, I, P, Kernel
+from repro_torch.kernels.ref import LANES
 
 DTYPES = tuple(_args.DTYPE_CODES)
 
@@ -45,20 +50,43 @@ SCAFFOLD_CV = Kernel(
     replaces="src/repro/kernels/round_tail.py:152",
 )
 
+EF21_ROWMAX = Kernel(
+    "ef21_rowmax", "round_tail.cu", "launch_ef21_rowmax",
+    # u uh m W dtype out dev stream
+    [P, P, LL, I, I, P, I, P],
+    replaces="src/repro/kernels/round_tail.py:232",
+)
+EF21_APPLY = Kernel(
+    "ef21_apply", "round_tail.cu", "launch_ef21_apply",
+    # u uh scales lo m W dtype out dev stream
+    [P, P, P, F, LL, I, I, P, I, P],
+    replaces="src/repro/kernels/round_tail.py:263",
+)
 
-def _client_and_server(name, client: dict, x_s, *server):
-    """Check the (m, W) client operands and the (W,) server rows; returns
-    (m, W, dtype code)."""
+
+def _clients(name, client: dict):
+    """Check the (m, W) client operands, all of the first one's dtype and
+    device; returns (m, W, dtype code)."""
     first = next(iter(client.values()))
+    if first.ndim != 2:
+        raise ValueError(f"{name}: expected (m, W) client operands, got {tuple(first.shape)}")
     m, w = first.shape
     dev, dt = first.device, first.dtype
     if dt not in DTYPES:
         raise TypeError(f"{name}: dtype {dt} is not supported (f32 or bf16)")
     for arg, t in client.items():
         _args.check(name, arg, t, (m, w), (dt,), dev)
-    for arg, t in (("x_s", x_s),) + server:
-        _args.check(name, arg, t, (w,), (dt,), dev)
     return m, w, _args.DTYPE_CODES[dt]
+
+
+def _client_and_server(name, client: dict, x_s, *server):
+    """Check the (m, W) client operands and the (W,) server rows; returns
+    (m, W, dtype code)."""
+    m, w, code = _clients(name, client)
+    first = next(iter(client.values()))
+    for arg, t in (("x_s", x_s),) + server:
+        _args.check(name, arg, t, (w,), (first.dtype,), first.device)
+    return m, w, code
 
 
 def round_tail(x_ref, lam_s, x_s, rho, *, with_lam_is: bool = True):
@@ -115,4 +143,41 @@ def scaffold_cv(c_i, x_K, c_s, x_s, alpha):
     k.launch(_args.ptr(c_i), _args.ptr(x_K), _args.ptr(c_s), _args.ptr(x_s),
              _args.ptr(alpha_arr), alpha_f, m, w, code, _args.ptr(out),
              *_args.stream_args(c_i.device))
+    return out
+
+
+def _ef21_operands(name, u, u_hat):
+    """Check the (m, W) uplink and server view, W a multiple of the 128
+    lanes a row scale covers; returns (m, W, dtype code)."""
+    m, w, code = _clients(name, {"u": u, "u_hat": u_hat})
+    if w % LANES:
+        raise ValueError(f"{name}: width {w} is not a multiple of {LANES} (the arena's rows)")
+    return m, w, code
+
+
+def ef21_rowmax(u, u_hat):
+    """Per-(client, 128-lane row) max-abs of u - u_hat: (m, W / 128) f32.
+    A NaN in a row gives NaN, as ``jnp.max``."""
+    k = EF21_ROWMAX
+    if _args.on_cpu(k.name, u):
+        return ref.ef21_rowmax_ref(u, u_hat)
+    m, w, code = _ef21_operands(k.name, u, u_hat)
+    out = torch.empty((m, w // LANES), dtype=torch.float32, device=u.device)
+    k.launch(_args.ptr(u), _args.ptr(u_hat), m, w, code, _args.ptr(out),
+             *_args.stream_args(u.device))
+    return out
+
+
+def ef21_apply(u, u_hat, row_scales, bits: int):
+    """The integrated EF21 view u_hat' = u_hat + clip(round((u - u_hat) / s),
+    +-(2^(bits-1) - 1)) s, s the (m, W / 128) f32 per-row scale."""
+    k = EF21_APPLY
+    if _args.on_cpu(k.name, u):
+        return ref.ef21_apply_ref(u, u_hat, row_scales, bits)
+    m, w, code = _ef21_operands(k.name, u, u_hat)
+    _args.check(k.name, "row_scales", row_scales, (m, w // LANES), (torch.float32,), u.device)
+    out = torch.empty_like(u)
+    k.launch(_args.ptr(u), _args.ptr(u_hat), _args.ptr(row_scales),
+             float(2 ** (bits - 1) - 1), m, w, code, _args.ptr(out),
+             *_args.stream_args(u.device))
     return out

@@ -7,7 +7,8 @@ them:
 
 Tolerances: bitwise where the kernel and the plain version run the same f32
 operations (``fused_update``, ``scaffold_cv``, ``dual_from_uplink``,
-``fused_update_arena``, ``lam_is``); the uplink of ``round_tail`` to one
+``fused_update_arena``, ``lam_is``, the EF21 kernels, a NaN included) or
+copy (``row_gather``, ``row_scatter``); the uplink of ``round_tail`` to one
 rounding (the plain version divides by a scalar as a multiply by its
 reciprocal on the card); the inner loop to rtol = atol = 1e-4 (the matvec
 sums in another order).
@@ -133,6 +134,59 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         z = torch.zeros(2, 200, device=cuda)
         P.inner_loop_affine(z, torch.zeros(2, 200, 200, device=cuda), z,
                             torch.zeros(200, device=cuda), None, 0.1, 1.0, 2)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        z = torch.zeros(2, 200, device=cuda)
+        P.ef21_rowmax(z, z)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        P.row_gather(torch.zeros(4, 6, device=cuda), torch.zeros(1, dtype=torch.int64,
+                                                                 device=cuda))
+    with pytest.raises(TypeError, match="dtype"):
+        P.row_gather(x, torch.zeros(1, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ef21_kernels_match_plain(cuda, dtype):
+    """Kernels 7 and 8 at the least-squares arena (one leaf of 4 rows, and
+    two leaves of 3 and 1) and the softmax arena, bits 8 and 4, with a NaN
+    in one client's leaf."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for (m, w), leaf_rows in [((500, 512), (4,)), ((500, 512), (3, 1)), ((10, 7936), (62,))]:
+        u_hat = torch.randn(m, w, generator=g, device=cuda)
+        u = (u_hat + 0.1 * torch.randn(m, w, generator=g, device=cuda)).to(dtype)
+        u_hat = u_hat.to(dtype)
+        u[1, 7] = float("nan")
+        rowmax = P.ef21_rowmax(u, u_hat)
+        torch.testing.assert_close(rowmax, ref.ef21_rowmax_ref(u, u_hat), rtol=0, atol=0,
+                                   equal_nan=True)
+        assert torch.isnan(rowmax).sum() == 1
+        for bits in (8, 4):
+            scales = P._ef21_row_scales(rowmax, leaf_rows, float(2 ** (bits - 1) - 1))
+            torch.testing.assert_close(P.ef21_apply(u, u_hat, scales, bits),
+                                       ref.ef21_apply_ref(u, u_hat, scales, bits),
+                                       rtol=0, atol=0, equal_nan=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_row_gather_and_scatter_match_plain(cuda, dtype):
+    """Kernels 9 and 10 at the least-squares arena (cohorts of 50 and 250
+    of 500), the softmax arena (5 of 10) and a population of 65,536 (656,
+    1%: offsets past 2^31 bytes in bf16 and f32 alike), int32 and int64
+    ids; the scatter leaves its input as it was."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for m, w, mc in [(500, 512, 50), (500, 512, 250), (10, 7936, 5), (65536, 512, 656)]:
+        arr = torch.randn(m, w, generator=g, device=cuda).to(dtype)
+        idx = torch.sort(torch.randperm(m, generator=g, device=cuda)[:mc]).values
+        rows = torch.randn(mc, w, generator=g, device=cuda).to(dtype)
+        for ids in (idx, idx.to(torch.int32)):
+            assert torch.equal(P.row_gather(arr, ids), ref.row_gather_ref(arr, ids))
+        before = arr.clone()
+        got = P.row_scatter(arr, idx, rows)
+        assert torch.equal(arr, before)
+        assert torch.equal(got, arr.index_copy(0, idx, rows))
+    torch.cuda.synchronize()
 
 
 def _problems(cuda):
@@ -152,6 +206,7 @@ ARENA_LAUNCHES = {
 }
 STATE = {"gpdmm": ("x_s", "lam_s"), "agpdmm": ("x_s", "lam_s"), "scaffold": ("x_s", "c_i"),
          "fedavg": ("x_s",), "fedsplit": ("x_s", "z_s")}
+CACHE = ("u_hat",)
 
 
 def _card_vs_cpu(cuda, cfg, grad_of, rounds=3):
@@ -165,7 +220,7 @@ def _card_vs_cpu(cuda, cfg, grad_of, rounds=3):
         s_cpu, _ = opt.round(s_cpu, grad_of(prob), prob.batch())
         s_gpu, _ = opt.round(s_gpu, grad_of(gprob), gprob.batch())
     counts = P.launches()
-    for k in STATE[cfg.algorithm]:
+    for k in STATE[cfg.algorithm] + (CACHE if "u_hat" in s_cpu else ()):
         torch.testing.assert_close(s_gpu[k].cpu(), s_cpu[k], rtol=1e-4, atol=1e-4)
     return counts
 
@@ -192,3 +247,47 @@ def test_cuda_pytree_rounds_match_cpu_and_count_launches(cuda, algo):
     counts = _card_vs_cpu(cuda, FederatedConfig(algorithm=algo, inner_steps=4, eta=eta),
                           lambda p: p.grad)
     assert counts == {k.name: 0 for k in P.KERNELS} | {"fused_update": 3 * 4}
+
+
+# launches per round of the partial-participation rounds on the arena (the
+# affine oracle): the cohort rounds gather and scatter, the masked rounds
+# select; EF21 adds its two kernels (and, on the cohort, the u_hat gather)
+COHORT_LAUNCHES = {
+    "gpdmm": dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=2,
+                  row_scatter=2),
+    "agpdmm": dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
+                   row_scatter=1),
+    "scaffold": dict(inner_loop_affine=1, scaffold_cv=1, row_gather=1, row_scatter=1),
+    "fedavg": dict(inner_loop_affine=1, row_scatter=1),
+}
+EF21_LAUNCHES = dict(ef21_rowmax=1, ef21_apply=1)
+
+
+VARIANTS = [("gpdmm", None), ("gpdmm", 8), ("agpdmm", None), ("agpdmm", 8),
+            ("scaffold", None), ("fedavg", None), ("fedavg", 8)]  # SCAFFOLD refuses EF21
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cohort", [True, False], ids=["cohort", "masked"])
+@pytest.mark.parametrize("algo,bits", VARIANTS,
+                         ids=[f"{a}-{'ef21' if b else 'plain'}" for a, b in VARIANTS])
+def test_cuda_partial_participation_rounds_match_cpu(cuda, algo, bits, cohort):
+    """Three rounds at participation 0.5 (a cohort of 4 of 8) on the card
+    against the CPU, rtol = atol = 1e-4, with the launches of each path.
+    EF21's rounding to its grid can put one element a quantisation step
+    apart between the two devices (see tests/test_torch_participation.py),
+    so with EF21 only the first round, which starts from the same state,
+    is compared."""
+    eta = 0.5 / _problems("cpu")[0].L
+    cfg = FederatedConfig(algorithm=algo, inner_steps=5, eta=eta, use_arena=True,
+                          participation=0.5, cohort=cohort, uplink_bits=bits)
+    rounds = 1 if bits else 3
+    counts = _card_vs_cpu(cuda, cfg, lambda p: p.oracle(), rounds=rounds)
+    per_round = dict(COHORT_LAUNCHES[algo]) if cohort else {
+        k: v for k, v in COHORT_LAUNCHES[algo].items() if not k.startswith("row_")}
+    if bits:
+        per_round |= EF21_LAUNCHES
+        if cohort:
+            per_round["row_gather"] = per_round.get("row_gather", 0) + 1
+    assert counts == {k.name: 0 for k in P.KERNELS} | {k: rounds * v
+                                                        for k, v in per_round.items()}

@@ -1,4 +1,4 @@
-"""The port's six kernels against the reference's (``repro.kernels.ops``).
+"""The port's ten kernels against the reference's (``repro.kernels.ops``).
 
 On the CPU each port wrapper runs its plain PyTorch version, so these tests
 hold the plain versions -- the arithmetic every CUDA kernel is checked
@@ -16,7 +16,12 @@ Tolerances:
     fewer), a few ulps apart; with bf16 outputs such a difference can flip
     the final rounding, so rtol 8e-3 (one bf16 ulp) there;
   * the K-step inner loop: rtol = atol = 1e-4 (as tests/test_inner_loop.py),
-    because the matvec sums in another order.
+    because the matvec sums in another order;
+  * the cohort gather/scatter and the EF21 row max: bitwise against both
+    (copies and maxima round nothing), a NaN row included;
+  * EF21's apply pass: bitwise against ``"xla"``, and to ``pallas_interpret``
+    at the elementwise tolerance above (its body's u_hat + q s may become
+    one FMA there: measured differences of one f32 ulp).
 
 ``tests/test_torch_cuda.py`` holds the CUDA kernels to these plain versions
 on the card.
@@ -27,6 +32,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as R
+from repro.kernels import round_tail as ref_round_tail
 from repro_torch.kernels import _build, inner_loop, ops as P
 
 BF16 = jnp.bfloat16
@@ -190,6 +196,85 @@ def test_inner_loop_affine_matches_reference(impl, m, w, has_lam, has_off, per_c
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-4, atol=1e-4)
 
 
+# EF21 widths and per-leaf row counts: one leaf, two leaves, the softmax
+# arena (W = 7,936) as one leaf and as two
+EF21_CASES = [(128, (1,)), (384, (3,)), (384, (1, 2)), (7936, (62,)), (7936, (61, 1))]
+
+
+def _ef21_inputs(m, w, dtype, seed):
+    """u = u_hat + a delta of mixed scale, with a NaN in one element of
+    client 1 (it must turn that client's leaf to NaN on both sides)."""
+    u_hat, delta = _draw(seed, (m, w), (m, w))
+    u = u_hat + delta * np.linspace(0.01, 3.0, m, dtype=np.float32)[:, None]
+    u[1, 5] = np.nan
+    return _pair(u, dtype), _pair(u_hat, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("w,leaf_rows", EF21_CASES, ids=lambda c: str(c))
+def test_ef21_update_matches_reference(impl, w, leaf_rows, bits, dtype):
+    """Kernels 7 and 8 with the per-(client, leaf) scales between them."""
+    m = 4
+    (uj, ut), (hj, ht) = _ef21_inputs(m, w, dtype, seed=w + bits)
+    out_r = R.ef21_update(uj, hj, bits, leaf_rows, impl=impl)
+    out_p = P.ef21_update(ut, ht, bits, leaf_rows)
+    assert out_p.dtype == ut.dtype and tuple(out_p.shape) == (m, w)
+    n0 = 128 * leaf_rows[0]  # the NaN's leaf; a second leaf keeps its scale
+    assert torch.isnan(out_p[1, :n0]).all() and not torch.isnan(out_p[1, n0:]).any()
+    assert not torch.isnan(out_p[0]).any()
+    _same(out_r, out_p, impl)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("w", [128, 384, 7936])
+def test_ef21_rowmax_matches_reference(w, dtype):
+    """Kernel 7 alone against the reference's Pallas kernel in interpret
+    mode, bitwise; the NaN propagates to its row's max only."""
+    m = 3
+    (uj, ut), (hj, ht) = _ef21_inputs(m, w, dtype, seed=w)
+    got = P.ef21_rowmax(ut, ht)
+    want = np.asarray(ref_round_tail.ef21_rowmax_pallas(uj, hj, interpret=True))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, w // 128)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.isnan(got[1, 0]) and int(torch.isnan(got).sum()) == 1
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("w", [128, 384, 7936])
+def test_ef21_apply_matches_reference(w, bits, dtype):
+    """Kernel 8 alone, with given per-row scales, against the reference's
+    Pallas kernel in interpret mode (tolerance: module docstring)."""
+    m = 3
+    (uj, ut), (hj, ht) = _ef21_inputs(m, w, dtype, seed=2 * w + bits)
+    scales = (0.001 + np.random.default_rng(w).random((m, w // 128))).astype(np.float32)
+    out_r = ref_round_tail.ef21_apply_pallas(uj, hj, jnp.asarray(scales), bits,
+                                             interpret=True)
+    out_p = P.ef21_apply(ut, ht, torch.from_numpy(scales), bits)
+    _same(out_r, out_p, "pallas_interpret")
+
+
+@pytest.mark.parametrize("idx_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m,w,ids", [(10, 128, [0, 3, 4, 9]), (7, 384, [6]),
+                                     (5, 7936, [0, 1, 2, 3, 4])])
+def test_row_gather_and_scatter_match_reference(impl, m, w, ids, dtype, idx_dtype):
+    """Kernels 9 and 10: the cohort's rows out of the population arena, and
+    back in (a new buffer; the population buffer is left as it was)."""
+    arr, rows = _draw(m * w + len(ids), (m, w), (len(ids), w))
+    (aj, at), (rj, rt) = _pair(arr, dtype), _pair(rows, dtype)
+    idx = np.asarray(ids, np.int32)
+    it = torch.from_numpy(idx).to(getattr(torch, idx_dtype))
+    got = P.row_gather(at, it)
+    assert tuple(got.shape) == (len(ids), w) and got.dtype == at.dtype
+    _same(R.row_gather(aj, jnp.asarray(idx), impl=impl), got, "xla")
+    before = at.clone()
+    got = P.row_scatter(at, it, rt)
+    assert torch.equal(at, before) and got.data_ptr() != at.data_ptr()
+    _same(R.row_scatter(aj, jnp.asarray(idx), rj, impl=impl), got, "xla")
+
+
 def test_inner_loop_keeps_padding_zero():
     """Zero H rows/cols and zero c/x/x_s/lam columns stay zero (arena
     padding invariant)."""
@@ -210,7 +295,8 @@ def test_ops_surface_and_width_rule():
     rule (its shared-memory rows), which replaces the TPU's VMEM gate."""
     assert [k.name for k in P.KERNELS] == [
         "inner_loop_affine", "round_tail", "dual_from_uplink", "fused_update_arena",
-        "scaffold_cv", "fused_update"]
+        "scaffold_cv", "fused_update", "ef21_rowmax", "ef21_apply", "row_gather",
+        "row_scatter"]
     assert P.affine_inner_fits(512) and P.affine_inner_fits(7936)
     assert not P.affine_inner_fits(500)  # not a multiple of 128
     widest = inner_loop.SMEM_CAP_BYTES // (4 * inner_loop.SMEM_ROWS)
@@ -222,7 +308,8 @@ def test_ops_surface_and_width_rule():
 
 
 @pytest.mark.parametrize("fn", ["round_tail", "dual_from_uplink", "fused_update_arena",
-                                "inner_loop_affine", "scaffold_cv", "fused_update"])
+                                "inner_loop_affine", "scaffold_cv", "fused_update",
+                                "ef21_rowmax", "ef21_apply", "row_gather", "row_scatter"])
 def test_non_cpu_non_cuda_tensor_raises(fn):
     """Only a CPU tensor reaches a plain version; any other device that is
     not CUDA is refused, never computed some other way."""
@@ -236,6 +323,11 @@ def test_non_cpu_non_cuda_tensor_raises(fn):
             x, torch.zeros(2, 128, 128, device="meta"), x, xs, x, 0.1, 1.0, 2),
         "scaffold_cv": lambda: P.scaffold_cv(x, x, xs, xs, 2.0),
         "fused_update": lambda: P.fused_update(x, x, x, None, 0.1, 1.0),
+        "ef21_rowmax": lambda: P.ef21_rowmax(x, x),
+        "ef21_apply": lambda: P.ef21_apply(x, x, torch.ones(2, 1, device="meta"), 8),
+        "row_gather": lambda: P.row_gather(x, torch.zeros(1, dtype=torch.int64, device="meta")),
+        "row_scatter": lambda: P.row_scatter(
+            x, torch.zeros(1, dtype=torch.int64, device="meta"), x[:1]),
     }
     with pytest.raises(ValueError, match="not supported"):
         calls[fn]()

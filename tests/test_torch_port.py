@@ -1,5 +1,6 @@
 """The port as a package: it imports neither JAX nor the reference, it
-rejects the reference's branches it does not run yet, its configuration
+rejects the reference's branches it does not run yet (faults, screening,
+async rounds, other topologies, early exit, graph PDMM), its configuration
 copy matches the reference's, its per-leaf pytree path runs, and its
 quickstart converges on the CPU."""
 import ast
@@ -71,8 +72,9 @@ def test_config_copy_matches_reference_fields_and_defaults():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(participation=0.5), dict(uplink_bits=8), dict(faults=FaultConfig(dropout=0.1)),
-    dict(screen=True), dict(async_rounds=True), dict(topology="ring"), dict(tol=1e-6),
+    dict(algorithm="pdmm_graph"), dict(faults=FaultConfig(dropout=0.1), participation=0.5),
+    dict(faults=FaultConfig(dropout=0.1)), dict(screen=True), dict(async_rounds=True),
+    dict(topology="ring"), dict(tol=1e-6),
 ])
 def test_unported_branches_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -80,8 +82,10 @@ def test_unported_branches_raise(kw):
 
 
 def test_scaffold_partial_participation_raises():
-    with pytest.raises(NotImplementedError, match="participation < 1.*item 3"):
-        make(FederatedConfig(algorithm="scaffold", participation=0.5))
+    """SCAFFOLD runs partial participation, but with EF21 it is refused with
+    the reference's own message, participating or not."""
+    with pytest.raises(NotImplementedError, match="SCAFFOLD\\+EF21"):
+        make(FederatedConfig(algorithm="scaffold", participation=0.5, uplink_bits=8))
 
 
 @pytest.mark.parametrize("algo", ["gpdmm", "agpdmm"])
