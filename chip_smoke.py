@@ -50,17 +50,37 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      per round are as derived from the code; then softmax at the Table I
      size with participation 0.5 and 8-bit EF21 (GPDMM, FedAvg), whose loss
      must fall;
-  9. print one JSON line of per-kernel numbers, then the result line
+  9. faults, uplink screening and async rounds, with the reference
+     benchmark's configs (``benchmarks/round_bench.py:647-652, 733-737``):
+     (a) phase 4's problem, 30 rounds of GPDMM, AGPDMM, SCAFFOLD and FedAvg
+     with 10% dropout and 5% corruption, screened: finite, descending,
+     invariants as phase 4, every NaN or Inf row demoted each round; (b)
+     GPDMM at participation 0.1 through the cohort engine, screened, and
+     with finite-only screening (``screen_mult=0``, the blow-up scaled by
+     1) equal to the masked round state by state (rtol 1e-5); (c) async rounds (30% delay) at
+     ``max_staleness`` 0, 2 and 4, GPDMM on the arena and the pytree path,
+     AGPDMM, FedAvg and SCAFFOLD on the arena at 2: ``max_staleness=0``
+     equals the synchronous run bitwise round by round, at 4 rows buffer
+     and are admitted and none dropped; (d) the reference's acceptance
+     rules at m = 8, n = 60, d = 24 (screened within 10% and stale within
+     15% of the descent scale of the clean run); (e) the ``lm_flat`` shape
+     (m = 8, one 2^20 leaf, K = 4), screened and async; (f) the fault plan
+     drawn on the card equals the CPU's over 30 rounds of each config; the
+     launches per round are as derived from the code;
+ 10. print one JSON line of per-kernel numbers, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Phase 3 also holds the cohort kernels (``row_gather``, ``row_scatter``)
 and the EF21 kernels (``ef21_rowmax``, ``ef21_apply``) bitwise against
-their plain versions (f32 and bf16, a NaN included), and times the one
-PyTorch call that computes the same function where there is one
+their plain versions (f32 and bf16, a NaN included), ``stale_mix``
+bitwise and ``screen_uplink`` (finite flags exactly, sums to rtol
+1e-6 * sqrt(W / 128)) at (500, 512), (50, 512), (8, 2^20) and (5, 130),
+f32 and bf16, broadcast and per-row, with NaN and Inf rows, and times the
+one PyTorch call that computes the same function where there is one
 (``index_select``, ``index_copy``).
 
 Launch counts are set to 0 just before each run of the main path (phases
-3-8) and read just after it; the launches of phase 3's comparisons do not
+3-9) and read just after it; the launches of phase 3's comparisons do not
 count.  Each phase draws its data from a generator of its own.  The script
 imports no JAX and nothing of the JAX package.
 """
@@ -83,6 +103,8 @@ SOFTMAX = dict(F=784, C=10, m=10, B=300, K=5, rounds=10, n=1200)
 FIG2 = dict(rounds=200, methods=("fedavg", "gpdmm", "agpdmm", "scaffold"),
             settings=((500, 500, (1, 5, 20)), (25, 5000, (1, 3, 5, 10, 20))))
 FIG1 = dict(rounds=300, m=25, n=5000, inits=("z", "xs"), Ks=(1, 3))
+# kernels 11-12 are checked at the arena, the cohort, lm_flat and a ragged width
+FAULT_SHAPES = ((500, 512), (50, 512), (8, 1 << 20), (5, 130))
 
 
 def log(*a):
@@ -382,6 +404,98 @@ def check_cohort_kernels(rec, torch, ops, ref, gen):
     rec.kernel("ef21_apply", 0.0, lambda: ops.ef21_apply(u, uh, sc, 8),
                lambda: ref.ef21_apply_ref(u, uh, sc, 8), 200,
                3 * m * w * 4 + m * w // 128 * 4, 7 * m * w)
+    torch.cuda.synchronize()
+
+
+def fault_inputs(torch, gen, m, w, dtype, per_row):
+    """Uplink, reference row (or rows), stale buffer and the per-client
+    scalars for kernels 11-12: a NaN row, an Inf row, an Inf entry, a
+    blown-up row; w = 0 over a NaN and an Inf buffered row, w > 0 on the
+    odd rows; fresh and store patterns."""
+    dev = gen.device
+    u = torch.randn(m, w, generator=gen, device=dev)
+    u[1 % m] = float("nan")
+    u[2 % m, w // 3] = float("inf")
+    u[(m - 1)] = -float("inf")
+    u[3 % m] *= 1e4
+    other = torch.randn((m, w) if per_row else (w,), generator=gen, device=dev)
+    buf = torch.randn(m, w, generator=gen, device=dev)
+    buf[0] = float("nan")
+    buf[2 % m] = float("inf")
+    ar = torch.arange(m, device=dev)
+    fresh, store = ar % 2 == 0, ar % 3 == 0
+    wt = torch.where(ar % 2 == 1, 0.5 ** (1 + ar % 3).float(),
+                     torch.zeros((), device=dev))
+    return u.to(dtype), other.to(dtype), buf.to(dtype), fresh, store, wt
+
+
+def check_fault_kernels(rec, torch, ops, ref, gen, out):
+    """Kernels 11-12 against their plain versions at FAULT_SHAPES, f32 and
+    bf16, a broadcast and a per-row reference row (cache): ``stale_mix``
+    bitwise, ``screen_uplink``'s finite flags exactly and its sums to rtol
+    1e-6 sqrt(W / 128) (its own fixed order, not torch.sum's), the same
+    from run to run.  Then each is timed at every f32 shape: the JSON row
+    holds the main path's, (500, 512) with the server row as ``ref`` for the
+    screen and the (m, W) u_hat cache for the mix."""
+    worst = 0.0
+    for (m, w) in FAULT_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            for per_row in (False, True):
+                u, other, buf, fresh, store, wt = fault_inputs(torch, gen, m, w, dt, per_row)
+                fin, sq = ops.screen_uplink(u, other)
+                fin_p, sq_p = ref.screen_uplink_ref(u, other)
+                rtol = 1e-6 * math.sqrt(w / 128)
+                rel = float(((sq - sq_p).abs() / sq_p.abs().clamp(min=1e-30)).max())
+                worst = max(worst, rel / rtol)
+                check(torch.equal(fin, fin_p), f"screen_uplink {dt} ({m}, {w}) per_row={per_row}: "
+                                               f"finite flags differ")
+                check(rel <= rtol, f"screen_uplink {dt} ({m}, {w}) per_row={per_row}: relative "
+                                   f"error {rel} > {rtol}")
+                fin2, sq2 = ops.screen_uplink(u, other)
+                check(torch.equal(fin2, fin) and torch.equal(sq2, sq),
+                      f"screen_uplink {dt} ({m}, {w}): differs from run to run")
+                got = ops.stale_mix(u, other, buf, fresh, store, wt)
+                want = ref.stale_mix_ref(u, other, buf, fresh, store, wt)
+                check(all(same_bits(torch, a, b) for a, b in zip(got, want)),
+                      f"stale_mix {dt} ({m}, {w}) per_row={per_row}: differs")
+                del u, other, buf, got, want
+    out["screen_uplink_worst_rel_err_over_rtol"] = worst
+    log(f"screen_uplink: finite exact, sums within {worst:.3f} of rtol 1e-6 sqrt(W / 128); "
+        f"stale_mix bitwise; at {list(FAULT_SHAPES)}, f32 and bf16, broadcast and per-row")
+
+    times = []
+    for (m, w) in FAULT_SHAPES:
+        for per_row in (False, True):
+            u, other, buf, fresh, store, wt = fault_inputs(torch, gen, m, w, torch.float32,
+                                                           per_row)
+            u = torch.where(torch.isfinite(u), u, 0.0)  # timed on finite rows
+            iters = 200 if m * w < 1 << 22 else 50
+            nb_ref = 4 * (m * w if per_row else w)
+            sc_bytes = 4 * m * w + nb_ref + 5 * m
+            mx_bytes = 4 * 4 * m * w + nb_ref + 6 * m
+            row = {"shape": [m, w], "per_row": per_row}
+            for name, fn, plain, nbytes in (
+                    ("screen_uplink", lambda: ops.screen_uplink(u, other),
+                     lambda: ref.screen_uplink_ref(u, other), sc_bytes),
+                    ("stale_mix", lambda: ops.stale_mix(u, other, buf, fresh, store, wt),
+                     lambda: ref.stale_mix_ref(u, other, buf, fresh, store, wt), mx_bytes)):
+                b, _ = bound_ms(nbytes, 3 * m * w)
+                if (m, w) == (500, 512) and per_row == (name == "stale_mix"):  # the main path's
+                    err = (max_err(fn()[1], plain()[1]) if name == "screen_uplink" else 0.0)
+                    rec.kernel(name, err, fn, plain, iters, nbytes, 3 * m * w)
+                    r = rec.rows[name]
+                    k_ms, p_ms, host_ms = r["ms"], r["plain_ms"], r["enqueue_ms"]
+                else:
+                    k_ms, p_ms = cuda_time_ms(fn, iters), cuda_time_ms(plain, iters)
+                    host_ms = cuda_time_ms(fn, iters, prefill=False)
+                row[name] = {"ms": k_ms, "plain_ms": p_ms, "host_paced_ms": host_ms,
+                             "bound_ms": b}
+                log(f"{name} ({m}, {w}) {'per-row' if per_row else 'broadcast'}: {k_ms:.4f} ms "
+                    f"(bound {b:.4f} ms, {b / k_ms:.2f} of it), plain {p_ms:.4f} ms, "
+                    f"host-paced {host_ms:.4f} ms")
+            times.append(row)
+            del u, other, buf
+    out["fault_kernel_times"] = times
     torch.cuda.synchronize()
 
 
@@ -812,6 +926,280 @@ def fig1_phase(rec, prob, torch, ops, make, FederatedConfig, dev):
     log(f"fig1 phase: {time.perf_counter() - t_phase:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: faults, uplink screening and bounded-staleness async rounds
+# ---------------------------------------------------------------------------
+
+# the reference benchmark's robustness configs (benchmarks/round_bench.py:647-652
+# and 733-737)
+SCREENED = dict(faults=dict(dropout=0.1, corrupt=0.05, seed=7), screen=True)
+DELAYED = dict(faults=dict(delay=0.3, seed=9), async_rounds=True)
+# finite-only screening (the outlier rule off) for cohort == masked: the
+# cohort takes the rule's median over the cohort, the masked round over the
+# population (ROADMAP.md section 3).  Finite flags let the blow-up class
+# through, and 1e6 times a row drives the state to inf within two rounds,
+# so these runs keep every class but scale the blow-up by 1 (a sign flip and
+# an honest copy pass; the NaN and Inf rows are demoted)
+FINITE_ONLY = dict(faults=dict(dropout=0.1, corrupt=0.05, seed=7, blowup=1.0), screen=True,
+                   screen_mult=0.0)
+ARENA_TAIL = dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1)
+# launches per round, read off the rounds' code: every screened arena round
+# screens once (screen="auto" screens a delay-only schedule too), every
+# async arena round mixes once, the cohort gathers the cached u_hat rows
+# for its keep select besides its lam and carry rows; the pytree path
+# screens and mixes as plain tensor code
+FAULT_RUNS = {
+    "a_gpdmm": (dict(algorithm="gpdmm", **SCREENED), ARENA_TAIL | dict(screen_uplink=1)),
+    "a_agpdmm": (dict(algorithm="agpdmm", **SCREENED), ARENA_TAIL | dict(screen_uplink=1)),
+    "a_scaffold": (dict(algorithm="scaffold", **SCREENED),
+                   dict(inner_loop_affine=1, scaffold_cv=1, screen_uplink=1)),
+    "a_fedavg": (dict(algorithm="fedavg", **SCREENED), dict(inner_loop_affine=1, screen_uplink=1)),
+    "b_gpdmm": (dict(algorithm="gpdmm", participation=0.1, **SCREENED),
+                ARENA_TAIL | dict(screen_uplink=1, row_gather=3, row_scatter=2)),
+    "b_gpdmm_finite": (dict(algorithm="gpdmm", participation=0.1, **FINITE_ONLY),
+                       ARENA_TAIL | dict(screen_uplink=1, row_gather=3, row_scatter=2)),
+    "b_gpdmm_finite_masked": (dict(algorithm="gpdmm", participation=0.1, cohort=False,
+                                   **FINITE_ONLY), ARENA_TAIL | dict(screen_uplink=1)),
+    "c_gpdmm_sync": (dict(algorithm="gpdmm", faults=DELAYED["faults"], async_rounds=False),
+                     ARENA_TAIL | dict(screen_uplink=1)),
+    "c_gpdmm_ms0": (dict(algorithm="gpdmm", max_staleness=0, **DELAYED),
+                    ARENA_TAIL | dict(screen_uplink=1, stale_mix=1)),
+    "c_gpdmm_ms2": (dict(algorithm="gpdmm", max_staleness=2, **DELAYED),
+                    ARENA_TAIL | dict(screen_uplink=1, stale_mix=1)),
+    "c_gpdmm_ms4": (dict(algorithm="gpdmm", max_staleness=4, **DELAYED),
+                    ARENA_TAIL | dict(screen_uplink=1, stale_mix=1)),
+    "c_agpdmm_ms2": (dict(algorithm="agpdmm", max_staleness=2, **DELAYED),
+                     ARENA_TAIL | dict(screen_uplink=1, stale_mix=1)),
+    "c_fedavg_ms2": (dict(algorithm="fedavg", max_staleness=2, **DELAYED),
+                     dict(inner_loop_affine=1, screen_uplink=1, stale_mix=1)),
+    "c_scaffold_ms2": (dict(algorithm="scaffold", max_staleness=2, **DELAYED),
+                       dict(inner_loop_affine=1, scaffold_cv=1, screen_uplink=1, stale_mix=1)),
+}
+FAULT_PYTREE_RUNS = {
+    "c_pytree_sync": (dict(algorithm="gpdmm", faults=DELAYED["faults"], async_rounds=False),
+                      dict(fused_update=LSQ["K"])),
+    "c_pytree_ms0": (dict(algorithm="gpdmm", max_staleness=0, **DELAYED),
+                     dict(fused_update=LSQ["K"])),
+    "c_pytree_ms2": (dict(algorithm="gpdmm", max_staleness=2, **DELAYED),
+                     dict(fused_update=LSQ["K"])),
+    "c_pytree_ms4": (dict(algorithm="gpdmm", max_staleness=4, **DELAYED),
+                     dict(fused_update=LSQ["K"])),
+}
+STALE_KEYS = ("stale_buf", "stale_age", "stale_lat")
+# the runs whose states are compared round by round
+PAIRED = ("b_gpdmm_finite", "b_gpdmm_finite_masked", "c_gpdmm_sync", "c_gpdmm_ms0",
+          "c_pytree_sync", "c_pytree_ms0")
+# the reference's acceptance rules (tests/test_faults.py:332,
+# tests/test_staleness.py:371) and lm_flat (benchmarks/round_bench.py:61, 108-115)
+ACCEPT = dict(m=8, n=60, d=24, K=3, rounds=40)
+LM_FLAT = dict(m=8, width=1 << 20, K=4, eta=0.1, rounds=10)
+
+
+def fault_cfg(FederatedConfig, FaultConfig, kw, **base):
+    kw = dict(kw)
+    return FederatedConfig(faults=FaultConfig(**kw.pop("faults")), **base, **kw)
+
+
+def faults_phase(rec, prob, torch, ops, make, FederatedConfig, FaultConfig, quadratic, gen,
+                 dev, out, prof=None):
+    from repro_torch.core import faults, gpdmm
+    from repro_torch.core import tree_util as T
+    from repro_torch.core.api import make_oracle
+
+    R, K, m = LSQ["rounds"], LSQ["K"], LSQ["m"]
+    eta = 0.5 / prob.L
+    rho = 1.0 / (K * eta)
+    x0 = torch.zeros(prob.d, device=dev)
+    d0 = float(prob.dist(x0))
+    t_phase = time.perf_counter()
+    i32 = torch.int32
+
+    # the fault plan alone, as the host enqueues it and on the device
+    for label, kw in (("screened", SCREENED), ("async", DELAYED | dict(max_staleness=2))):
+        cfg = fault_cfg(FederatedConfig, FaultConfig, kw, inner_steps=K, eta=eta)
+        r0 = torch.zeros((), dtype=i32, device=dev)
+        host = cuda_time_ms(lambda: faults.plan(cfg, r0, m), 20, prefill=False)
+        devt = sum(cuda_time_ms(lambda: faults.plan(cfg, r0, m), 1, warmup=1,
+                                spin_cycles=40_000_000) for _ in range(5)) / 5
+        out[f"fault_plan_{label}_ms"] = {"host_paced": host, "device": devt}
+        log(f"fault plan ({label}, m = {m}): {host:.4f} ms host-paced, {devt:.4f} ms on the "
+            f"device")
+
+    runs = {}
+    for label, (kw, per_round) in (FAULT_RUNS | FAULT_PYTREE_RUNS).items():
+        pytree = label in FAULT_PYTREE_RUNS
+        base = dict(inner_steps=K, eta=eta) | ({} if pytree else dict(use_arena=True))
+        cfg = fault_cfg(FederatedConfig, FaultConfig, kw, **base)
+        opt = make(cfg)
+        states, mets, finite, trail, inv = [], [], [], [], []
+
+        def on_round(r, s, met):
+            if label in PAIRED:
+                states.append(s)
+            mets.append(met)
+            finite.append(torch.isfinite(s["x_s"]).all())
+            if r in (0, R // 2 - 1, R - 1):
+                trail.append(float(prob.dist(s["x_s"])))
+                v = invariants(torch, met, s, rho, m)
+                if v is not None:
+                    inv.append(v)
+
+        state, metrics, counts, secs = run_rounds(
+            torch, ops, opt, opt.init(x0, m), prob.grad if pytree else prob.oracle(),
+            lambda r: prob.batch(), R, False, on_round)
+        rec.add(counts)
+        tot = {k: sum(float(mt[k]) for mt in mets) for k in mets[0]
+               if k.startswith(("faults_", "stale_"))}
+        out[f"faults_{label}_ms_per_round"] = 1e3 * secs / R
+        log(f"faults {label}: {R} rounds in {secs:.3f} s ({1e3 * secs / R:.3f} ms/round); "
+            f"||x - x*|| {d0:.4e} -> {trail}; launches {counts}; invariant / rounding scale "
+            f"{[round(v, 3) for v in inv]}; totals {tot}")
+        check(float(metrics["used_arena"]) == (0.0 if pytree else 1.0),
+              f"faults {label}: took the wrong path")
+        check(counts == expected(ops, R, **per_round), f"faults {label}: launches {counts}")
+        check(all(bool(f) for f in finite), f"faults {label}: x_s not finite in some round")
+        check(trail[-1] < trail[0] < d0, f"faults {label}: distance did not fall: {trail}")
+        if kw["algorithm"] in ("gpdmm", "agpdmm"):
+            check(max(inv) < 16.0, f"faults {label}: invariant (25) broken: {inv}")
+        if kw["algorithm"] == "scaffold":
+            check(max(inv) < 64.0, f"faults {label}: sum_i (c_i - c) = 0 broken: {inv}")
+        for k, v in state.items():
+            if k != "round":
+                check(bool(torch.isfinite(v.float()).all()), f"faults {label}: {k} not finite")
+        if label.startswith("a_") or label == "b_gpdmm":
+            # every NaN or Inf row on the wire was demoted: x_s stayed
+            # finite, and the screen silenced at least that many each round
+            for r, mt in enumerate(mets):
+                rnd = {"round": torch.tensor(r, dtype=i32, device=dev)}
+                p = faults.plan(cfg, rnd["round"], m)
+                bad = p.corrupt & (p.kind < 2)
+                if label == "b_gpdmm":  # the cohort's rows only were sent
+                    bad = bad & gpdmm.participation(cfg, rnd, m)
+                check(float(mt["faults_demoted"]) >= float(bad.sum()),
+                      f"faults {label} round {r}: {float(mt['faults_demoted'])} demoted, "
+                      f"{float(bad.sum())} NaN or Inf rows sent")
+        if label.endswith("_ms4"):
+            check(tot["stale_buffered"] > 0 and tot["stale_admitted"] > 0
+                  and tot["stale_dropped"] == 0.0, f"faults {label}: stale totals {tot}")
+        runs[label] = states
+        if prof is not None and label in ("a_gpdmm", "c_gpdmm_ms2"):
+            prof(f"faults_{label}",
+                 lambda: run_rounds(torch, ops, opt, state, prob.oracle(),
+                                    lambda r: prob.batch(), 3, False),
+                 1e3 * secs / R, 3)
+
+    # (b) cohort == masked with finite-only screening (rtol 1e-5, as phase 8)
+    worst = 0.0
+    for r, (sa, sd) in enumerate(zip(runs["b_gpdmm_finite"], runs["b_gpdmm_finite_masked"])):
+        for k in ("x_s", "lam_s", "x_c", "u_hat"):
+            scale = max(1.0, float(sd[k].abs().max()))
+            err = float((sa[k] - sd[k]).abs().max()) / scale
+            worst = max(worst, err)
+            check(err <= 1e-5, f"faults: cohort != masked at round {r}: {k} {err}")
+    out["faults_cohort_vs_masked_max_rel_err"] = worst
+    log(f"faults: screened cohort == masked (screen_mult=0) for x_s, lam_s, x_c, u_hat over "
+        f"{R} rounds (max relative error {worst:.3e}, bound 1e-5)")
+    # (c) the synchronous collapse, bitwise, every round, every state entry
+    for a, b in (("c_gpdmm_ms0", "c_gpdmm_sync"), ("c_pytree_ms0", "c_pytree_sync")):
+        for r, (sa, sb) in enumerate(zip(runs[a], runs[b])):
+            keys = sorted(k for k in sa if k not in STALE_KEYS)
+            check(keys == sorted(sb), f"faults: {a} and {b} state keys differ")
+            for k in keys:
+                for x, y in zip(T.leaves(sa[k]), T.leaves(sb[k])):
+                    check(same_bits(torch, x, y), f"faults: {a} != {b} at round {r}: {k}")
+        log(f"faults: {a} == {b} bitwise, every state entry, {R} rounds")
+    del runs
+
+    accept_phase(torch, ops, make, FederatedConfig, FaultConfig, quadratic, dev, out)
+    lm_flat_phase(rec, torch, ops, make, make_oracle, FederatedConfig, FaultConfig, T, gen, dev,
+                  out)
+
+    # (f) the plan drawn on the card equals the CPU's, integer for integer
+    plan_cfgs = [fault_cfg(FederatedConfig, FaultConfig, kw, inner_steps=K, eta=eta)
+                 for kw, _ in list(FAULT_RUNS.values()) + list(FAULT_PYTREE_RUNS.values())]
+    plan_cfgs.append(fault_cfg(FederatedConfig, FaultConfig, dict(
+        faults=dict(delay=0.25, seed=7), max_staleness=3, stale_gamma=0.5), inner_steps=3,
+        eta=eta))
+    n_cmp = 0
+    for cfg in plan_cfgs:
+        for mm in (m, ACCEPT["m"]):
+            for r in range(R):
+                pc = faults.plan(cfg, torch.tensor(r, dtype=i32), mm)
+                pg = faults.plan(cfg, torch.tensor(r, dtype=i32, device=dev), mm)
+                for name, a, b in zip(faults.FaultPlan._fields, pg, pc):
+                    check(a.device.type == dev.type and torch.equal(a.cpu(), b),
+                          f"fault plan r={r} m={mm}: {name} differs between card and CPU")
+                n_cmp += 1
+    log(f"faults: card plan == CPU plan, all five fields, {n_cmp} draws "
+        f"({len(plan_cfgs)} configs x m in ({m}, {ACCEPT['m']}) x {R} rounds)")
+    log(f"faults phase: {time.perf_counter() - t_phase:.2f} s")
+
+
+def accept_phase(torch, ops, make, FederatedConfig, FaultConfig, quadratic, dev, out):
+    """(d) The reference's acceptance rules at their own size: the screened
+    run within 10%, the stale run within 15%, of the descent scale of the
+    fault-free run (``tests/test_faults.py:332``,
+    ``tests/test_staleness.py:371``)."""
+    a = ACCEPT
+    prob = quadratic.generate(seeded(torch, 0), m=a["m"], n=a["n"], d=a["d"], device=dev)
+    base = dict(algorithm="gpdmm", inner_steps=a["K"], eta=0.5 / prob.L, use_arena=True)
+
+    def obj(cfg):
+        opt = make(cfg)
+        s = opt.init(torch.zeros(prob.d, device=dev), prob.m)
+        for _ in range(a["rounds"]):
+            s, _ = opt.round(s, prob.oracle(), prob.batch())
+        return float(prob.F(opt.server_params(s)))
+
+    clean = obj(FederatedConfig(**base))
+    screened = obj(FederatedConfig(faults=FaultConfig(dropout=0.1, corrupt=0.05, seed=7),
+                                   **base))
+    stale = obj(FederatedConfig(faults=FaultConfig(delay=0.25, seed=7), max_staleness=3,
+                                stale_gamma=0.5, **base))
+    scale = float(prob.F(torch.zeros(prob.d, device=dev)) - prob.f_star)
+    res = {"clean": clean, "screened": screened, "stale": stale, "scale": scale,
+           "screened_off": abs(screened - clean) / scale, "stale_off": abs(stale - clean) / scale}
+    out["faults_acceptance"] = res
+    log(f"faults acceptance (m = {a['m']}, n = {a['n']}, d = {a['d']}, K = {a['K']}, "
+        f"{a['rounds']} rounds): {res}")
+    check(math.isfinite(screened) and res["screened_off"] <= 0.1,
+          f"faults: screened run {screened} not within 0.1 of {scale} of the clean {clean}")
+    check(math.isfinite(stale) and res["stale_off"] <= 0.15,
+          f"faults: stale run {stale} not within 0.15 of {scale} of the clean {clean}")
+
+
+def lm_flat_phase(rec, torch, ops, make, make_oracle, FederatedConfig, FaultConfig, T, gen, dev,
+                  out):
+    """(e) The reference benchmark's lm_flat shape: m = 8, one (2^20,) leaf,
+    K = 4, eta = 0.1, the arena-native gradient 0.3 x; GPDMM screened and
+    async at max_staleness 2.  Kernels 11-12 move 32 MB rows here."""
+    c = LM_FLAT
+    m, K, R = c["m"], c["K"], c["rounds"]
+    params = {"w": torch.randn(c["width"], generator=gen, device=dev)}
+    grad = make_oracle(lambda p, b: {k: 0.3 * v for k, v in p.items()},
+                       grad_arena=lambda spec: (lambda xa, b: 0.3 * xa))
+    batch = {"dummy": torch.zeros(m, 1, device=dev)}
+    tail = dict(fused_update_arena=K, round_tail=1, dual_from_uplink=1, screen_uplink=1)
+    for label, kw, per_round in (
+            ("screened", SCREENED, tail),
+            ("async_ms2", DELAYED | dict(max_staleness=2), tail | dict(stale_mix=1))):
+        opt = make(fault_cfg(FederatedConfig, FaultConfig, kw, algorithm="gpdmm",
+                             inner_steps=K, eta=c["eta"], use_arena=True))
+        state = opt.init(params, m)
+        state, _, _, _ = run_rounds(torch, ops, opt, state, grad, lambda r: batch, 2, False)
+        state, metrics, counts, secs = run_rounds(torch, ops, opt, state, grad,
+                                                  lambda r: batch, R, False)
+        rec.add(counts)
+        out[f"faults_lm_flat_{label}_ms_per_round"] = 1e3 * secs / R
+        log(f"faults lm_flat {label}: {R} rounds in {secs:.3f} s ({1e3 * secs / R:.3f} "
+            f"ms/round); launches {counts}")
+        check(counts == expected(ops, R, **per_round), f"lm_flat {label}: launches {counts}")
+        for k, v in state.items():
+            if k != "round":
+                check(all(bool(torch.isfinite(x.float()).all()) for x in T.leaves(v)),
+                      f"lm_flat {label}: {k} not finite")
+
+
 def profile_rounds(torch, label, run, round_ms, rounds, out):
     """torch.profiler over ``run`` (``rounds`` rounds): kernel time by name,
     device-busy time per round, and the device's idle share of the round
@@ -849,7 +1237,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.configs.base import FaultConfig, FederatedConfig
     from repro_torch.core import make, quadratic
     from repro_torch.core.softmax import SoftmaxRegression
     from repro_torch.kernels import _build, ops, ref
@@ -884,19 +1272,30 @@ def main() -> int:
         f"batched eigh, solve) {setup_s:.2f} s; L {prob.L:.4e} mu {prob.mu:.4e}")
     out["lsq_setup_s"] = setup_s
 
+    phase_s = out["phase_s"] = {}
+
+    def timed(label, fn, *a):
+        t = time.perf_counter()
+        fn(*a)
+        torch.cuda.synchronize()
+        phase_s[label] = time.perf_counter() - t
+        log(f"phase {label}: {phase_s[label]:.2f} s")
+
     eta = 0.5 / prob.L
-    check_kernels(rec, prob, eta, 1.0 / (LSQ["K"] * eta), torch, ops, ref, seeded(torch, 3))
-    check_cohort_kernels(rec, torch, ops, ref, seeded(torch, 13))
-    check_small_against_cpu(torch, make, FederatedConfig, quadratic)
+    timed("3 kernels", check_kernels, rec, prob, eta, 1.0 / (LSQ["K"] * eta), torch, ops, ref,
+          seeded(torch, 3))
+    timed("3 cohort kernels", check_cohort_kernels, rec, torch, ops, ref, seeded(torch, 13))
+    timed("3 fault kernels", check_fault_kernels, rec, torch, ops, ref, seeded(torch, 17), out)
+    timed("3 card vs cpu", check_small_against_cpu, torch, make, FederatedConfig, quadratic)
 
     dev = torch.device("cuda")
     prof = None
     if args.profile:
         def prof(label, run, round_ms, rounds):
             profile_rounds(torch, label, run, round_ms, rounds, out)
-    lsq_phase(rec, prob, torch, ops, make, FederatedConfig, dev, prof)
-    softmax_phase(rec, torch, ops, make, FederatedConfig, SoftmaxRegression, seeded(torch, 0),
-                  dev, SOFTMAX_RUNS, prof)
+    timed("4 lsq", lsq_phase, rec, prob, torch, ops, make, FederatedConfig, dev, prof)
+    timed("5 softmax", softmax_phase, rec, torch, ops, make, FederatedConfig, SoftmaxRegression,
+          seeded(torch, 0), dev, SOFTMAX_RUNS, prof)
 
     t0 = time.perf_counter()
     prob25 = quadratic.generate(seeded(torch, 0), m=FIG1["m"], n=FIG1["n"], d=LSQ["d"],
@@ -904,12 +1303,15 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"least squares m={FIG1['m']} n={FIG1['n']} d={LSQ['d']}: set-up "
         f"{time.perf_counter() - t0:.2f} s; L {prob25.L:.4e} mu {prob25.mu:.4e}")
-    fig2_phase(rec, {LSQ["m"]: prob, FIG1["m"]: prob25}, torch, ops, make, FederatedConfig,
-               dev, prof)
-    fig1_phase(rec, prob25, torch, ops, make, FederatedConfig, dev)
-    participation_phase(rec, prob, torch, ops, make, FederatedConfig, dev, out, prof)
-    softmax_phase(rec, torch, ops, make, FederatedConfig, SoftmaxRegression, seeded(torch, 0),
-                  dev, SOFTMAX_PARTIAL, prof)
+    timed("6 fig2", fig2_phase, rec, {LSQ["m"]: prob, FIG1["m"]: prob25}, torch, ops, make,
+          FederatedConfig, dev, prof)
+    timed("7 fig1", fig1_phase, rec, prob25, torch, ops, make, FederatedConfig, dev)
+    timed("8 participation", participation_phase, rec, prob, torch, ops, make, FederatedConfig,
+          dev, out, prof)
+    timed("8 softmax", softmax_phase, rec, torch, ops, make, FederatedConfig, SoftmaxRegression,
+          seeded(torch, 0), dev, SOFTMAX_PARTIAL, prof)
+    timed("9 faults", faults_phase, rec, prob, torch, ops, make, FederatedConfig, FaultConfig,
+          quadratic, seeded(torch, 21), dev, out, prof)
 
     kernels = {"kernels": list(rec.rows.values())}
     out |= kernels

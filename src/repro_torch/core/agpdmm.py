@@ -6,8 +6,9 @@ engine and EF21 uplink.
 It differs from GPDMM in two places: every client starts the round from
 the fresh server iterate x_s^r (no primal carry is stored), and the dual
 update uses the last iterate x_i^{r,K} (eq. 24).  The inner loops and the
-round tails are GPDMM's.  With K = 1 and rho = 1/eta the round is gradient
-descent with stepsize eta (paper eq. (27)).  The cohort round moves no
+round tails are GPDMM's, faults, screening and async rounds included.
+With K = 1 and rho = 1/eta the round is gradient descent with stepsize eta
+(paper eq. (27)).  The cohort round moves no
 primal carry: it gathers ``lam_s`` (and, with EF21, ``u_hat``) rows and
 scatters ``u_hat`` through GPDMM's ``cohort_tail``.
 """
@@ -16,7 +17,7 @@ from __future__ import annotations
 from functools import partial
 
 from repro_torch.configs.base import FederatedConfig
-from repro_torch.core import arena
+from repro_torch.core import arena, faults, staleness
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
     FedOpt, cohort_batch, require_ported, resolved_rho, run_cohort_inner, use_arena,
@@ -55,9 +56,9 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     x_K, _ = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
 
     _, uplink = ops.round_tail(x_K, lam_c, x_s_row, rho, with_lam_is=False)
-    new_state, keep_c = cohort_tail(cfg, spec, state, uplink, idx)
+    new_state, keep_c, fm = cohort_tail(cfg, spec, state, uplink, idx, x_s_row)
     new_state["round"] = state["round"] + 1
-    return new_state, arena_metrics(new_state["lam_s"], x_K, x_s_row, keep_c)
+    return new_state, arena_metrics(new_state["lam_s"], x_K, x_s_row, keep_c) | fm
 
 
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
@@ -76,13 +77,13 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
         vr_snapshot=x0 if cfg.variance_reduction == "svrg" else None)
 
     _, uplink = ops.round_tail(x_K, lam, x_s_row, rho, with_lam_is=False)
-    new_state, x_s_new, lam_s_new, mask = arena_tail(cfg, spec, state, uplink, m)
+    new_state, x_s_new, lam_s_new, mask, fm = arena_tail(cfg, spec, state, uplink, m, x_s_row)
     new_state |= {
         "x_s": spec.unpack(x_s_new),
         "lam_s": lam_s_new,
         "round": state["round"] + 1,
     }
-    return new_state, arena_metrics(lam_s_new, x_K, x_s_row, mask)
+    return new_state, arena_metrics(lam_s_new, x_K, x_s_row, mask) | fm
 
 
 def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
@@ -97,9 +98,9 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
         grad_fn, x_s_b, x_s, lam_s, batch, K=cfg.inner_steps, eta=cfg.eta, rho=rho,
         per_step=per_step_batches,
         vr_snapshot=x_s_b if cfg.variance_reduction == "svrg" else None)
-    _, new_state, mask = tree_tail(cfg, state, x_K, x_s, rho, m)
+    _, new_state, mask, fm = tree_tail(cfg, state, x_K, x_s, rho, m)
     new_state["round"] = state["round"] + 1
-    return new_state, tree_metrics(new_state["lam_s"], x_K, x_s, mask)
+    return new_state, tree_metrics(new_state["lam_s"], x_K, x_s, mask) | fm
 
 
 def make(cfg: FederatedConfig) -> FedOpt:
@@ -114,6 +115,8 @@ def make(cfg: FederatedConfig) -> FedOpt:
             }
             if needs_cache(cfg):
                 st["u_hat"] = T.tree_broadcast(params, m)
+            if faults.async_on(cfg):
+                st |= staleness.init_tree(params, m)
             return st
         spec = arena.ArenaSpec.from_tree(params)
         row = spec.pack(params)
@@ -124,6 +127,8 @@ def make(cfg: FederatedConfig) -> FedOpt:
         }
         if needs_cache(cfg):
             st["u_hat"] = broadcast_rows(row, m)
+        if faults.async_on(cfg):
+            st |= staleness.init_arena(spec, m, row.device)
         return st
 
     return FedOpt(

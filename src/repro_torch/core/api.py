@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FederatedConfig
+from repro_torch.core import faults
 from repro_torch.core import tree_util as T
 from repro_torch.kernels import ops
 
@@ -147,11 +148,14 @@ def use_cohort(cfg: FederatedConfig, m: int) -> bool:
     whenever participation < 1 and the cohort is smaller than the
     population; ``True`` forces it, ``False`` keeps the masked
     full-population round.  Only the four ``COHORT_ALGOS`` on the star have
-    a cohort round.  (The reference also keeps async rounds masked; the port
-    refuses async rounds, ROADMAP item 4.)"""
+    a cohort round.  Async rounds keep the masked full-population round, as
+    the reference's do: a delayed client outside the cohort still has a
+    stale slot to age and deliver."""
     if cfg.participation >= 1.0 or not cfg.cohort:
         return False
     if cfg.algorithm not in COHORT_ALGOS or cfg.topology != "star":
+        return False
+    if faults.async_on(cfg):
         return False
     if cfg.cohort == "auto":
         return T.cohort_count(m, cfg.participation) < m
@@ -220,12 +224,6 @@ def run_cohort_inner(cfg: FederatedConfig, fn, rows: tuple, batch, *, per_step: 
 def _unported(cfg: FederatedConfig):
     """(what, ROADMAP item) for each configured branch the port lacks."""
     out = []
-    if cfg.faults is not None:
-        out.append(("faults", 4))
-    if cfg.screen is True:
-        out.append(("screen=True", 4))
-    if cfg.async_rounds is True:
-        out.append(("async_rounds=True", 4))
     if cfg.topology != "star":
         out.append((f"topology={cfg.topology!r}", 6))
     if cfg.tol > 0.0:

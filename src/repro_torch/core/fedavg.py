@@ -6,7 +6,9 @@ heterogeneity when K > 1 (paper Fig. 2).  Ported from
 per-client state; EF21 and partial participation add GPDMM's ``u_hat``
 cache of each client's uplink (silent clients' cached uplink enters the
 mean), and on the arena ``cohort="auto"`` runs the round over the sampled
-cohort only, scattering its uplink into the cache.
+cohort only, scattering its uplink into the cache.  Faults, screening and
+async rounds run GPDMM's pipeline on the uplink x_K (``cached_uplink``,
+``cohort_cache``) against the same cache.
 
 On the arena the K steps are SCAFFOLD's loop without the correction: one
 ``inner_loop_affine`` kernel (no lam, rho = 0) for an affine oracle, else
@@ -20,7 +22,7 @@ from functools import partial
 import torch
 
 from repro_torch.configs.base import FederatedConfig
-from repro_torch.core import arena
+from repro_torch.core import arena, faults, staleness
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
     FedOpt, cohort_batch, eta_val, require_ported, run_cohort_inner, use_arena, use_cohort,
@@ -71,11 +73,11 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     rows = () if eta_c is None else (eta_c,)
     x_K = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
 
-    u_hat_new = cohort_cache(cfg, spec, u_hat, x_K, idx)
+    u_hat_new, keep_c, fm = cohort_cache(cfg, spec, state, x_K, idx, x_s_row)
     x_s_new = torch.mean(u_hat_new, dim=0)  # the round's single all-reduce
     new_state = {"u_hat": u_hat_new, "x_s": spec.unpack(x_s_new),
                  "round": state["round"] + 1}
-    return new_state, _arena_metrics(x_K, x_s_row)
+    return new_state, _arena_metrics(x_K, x_s_row, keep_c) | fm
 
 
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
@@ -89,11 +91,12 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
     x_K = inner_steps_plain_arena(
         spec, grad_fn, x0, x_s_row, batch, K=cfg.inner_steps, eta=cfg.eta,
         per_step=per_step_batches)
-    uplink, mask = cached_uplink(cfg, state, x_K, m, spec)
-    new_state = {"u_hat": uplink} if "u_hat" in state else {}
+    uplink, mask, new_state, fm = cached_uplink(cfg, state, x_K, m, x_s_row, spec)
+    if "u_hat" in state:
+        new_state["u_hat"] = uplink
     x_s_new = torch.mean(uplink, dim=0)  # the round's single all-reduce
     new_state |= {"x_s": spec.unpack(x_s_new), "round": state["round"] + 1}
-    return new_state, _arena_metrics(x_K, x_s_row, mask)
+    return new_state, _arena_metrics(x_K, x_s_row, mask) | fm
 
 
 def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
@@ -105,14 +108,15 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
     x_K = inner_steps_plain(grad_fn, T.tree_broadcast(x_s, m), batch, K=cfg.inner_steps,
                             eta=eta, per_step=per_step_batches)
 
-    uplink, mask = cached_uplink(cfg, state, x_K, m)
-    new_state = {"u_hat": uplink} if "u_hat" in state else {}
+    uplink, mask, new_state, fm = cached_uplink(cfg, state, x_K, m, x_s)
+    if "u_hat" in state:
+        new_state["u_hat"] = uplink
     new_state |= {"x_s": T.tree_client_mean(uplink), "round": state["round"] + 1}
     metrics = {
         "client_drift": T.tree_client_drift(x_K, x_s, mask),
         "used_arena": torch.zeros((), dtype=torch.float32, device=T.leaves(x_K)[0].device),
     }
-    return new_state, metrics
+    return new_state, metrics | fm
 
 
 def make(cfg: FederatedConfig) -> FedOpt:
@@ -120,13 +124,18 @@ def make(cfg: FederatedConfig) -> FedOpt:
 
     def init(params, m):
         st = {"x_s": params, "round": round_counter(params)}
+        on_arena = use_arena(cfg, params)
+        spec = arena.ArenaSpec.from_tree(params) if on_arena else None
         if needs_cache(cfg):
             # the server's cached view of each client's uplink: x_s, the
             # round-0 uplink of a client that never moved
-            if use_arena(cfg, params):
-                st["u_hat"] = broadcast_rows(arena.ArenaSpec.from_tree(params).pack(params), m)
+            if on_arena:
+                st["u_hat"] = broadcast_rows(spec.pack(params), m)
             else:
                 st["u_hat"] = T.tree_broadcast(params, m)
+        if faults.async_on(cfg):
+            st |= (staleness.init_arena(spec, m, T.leaves(params)[0].device) if on_arena
+                   else staleness.init_tree(params, m))
         return st
 
     return FedOpt(

@@ -35,6 +35,16 @@ the arena, ``cohort="auto"`` runs the round over the sampled cohort only:
 ``row_gather`` the active rows, the same kernels on them, ``row_scatter``
 back (``_round_arena_cohort``); ``cohort=False`` keeps the masked
 full-population round.
+
+Faults (``cfg.faults``, ``core.faults``), uplink screening and async rounds
+(``core.staleness``) run in the reference's order after EF21: the wire
+corrupts the transmitted rows, the participation mask, the plan's silence
+and the screen's keep mask (``screen_uplink``, one kernel on the arena)
+combine into the round's active mask, and either the stale-slot step
+(``stale_mix``, one kernel on the arena) or the masked select against
+``u_hat`` builds the rows the server averages.  Demoted and faulted
+clients are silent, full stop.  Async rounds keep the masked
+full-population path (``api.use_cohort``).
 """
 from __future__ import annotations
 
@@ -43,9 +53,8 @@ from functools import partial
 import torch
 
 from repro_torch.configs.base import FederatedConfig
-from repro_torch.core import arena
+from repro_torch.core import arena, faults, prng, staleness
 from repro_torch.core import tree_util as T
-from repro_torch.core import prng
 from repro_torch.core.api import (
     FedOpt, affine_case, arena_grad, client_batches, cohort_batch, eta_val, n_steps,
     require_ported, resolved_rho, run_cohort_inner, step_for, step_size, use_arena,
@@ -142,55 +151,108 @@ def round_cohort(cfg: FederatedConfig, state, m: int):
     return idx
 
 
-def cached_uplink(cfg: FederatedConfig, state, uplink, m: int, spec=None):
+def fault_report(cfg: FederatedConfig, fplan, pmask, keep, stale: dict) -> dict:
+    """The round's fault counters (``faults.fault_metrics``, with the stale
+    slots' under async rounds), or {} when no plan was drawn and nothing was
+    screened.  Transmitters are the participating, non-silent clients, less
+    the delayed ones under async rounds."""
+    if fplan is None and keep is None:
+        return {}
+    tx = faults.combine_mask(pmask, fplan, None)
+    if faults.async_on(cfg):
+        tx = staleness.fresh_mask(tx, fplan)
+    return faults.fault_metrics(fplan, tx, keep) | stale
+
+
+def cached_uplink(cfg: FederatedConfig, state, uplink, m: int, ref, spec=None):
     """The uplink as the server's cache sees it (shared with AGPDMM and
-    FedAvg, on the arena with ``spec``, else on the pytree path): EF21
-    against ``u_hat``, then the participation select, silent clients' rows
-    taken from ``u_hat``.  Returns (uplink, mask), ``mask`` the round's
-    active mask (None: every uplink enters the mean); the result is the
-    state's new ``u_hat`` where it carries one.  Faults and screening
-    (ROADMAP item 4) combine into this mask and demote to silence, as in
-    the reference's ``arena_tail``."""
-    u_hat = state.get("u_hat")  # present with EF21 or participation < 1
+    FedAvg, on the arena with ``spec``, else on the pytree path), in the
+    reference's order: EF21 against ``u_hat``; the wire's corruption of the
+    round's fault plan; the participation mask, the plan's silence and the
+    screen's keep mask (against the downlink ``ref``: the server row on the
+    arena, the server tree on the pytree path) combined; then either the
+    stale-slot step (async rounds) or the select, silent clients' rows taken
+    from ``u_hat``.  Returns (uplink, mask, stale state updates, fault
+    metrics); ``mask`` is the round's active mask (None: every uplink
+    entered the mean), the result the state's new ``u_hat`` where it
+    carries one."""
+    u_hat = state.get("u_hat")  # present with EF21, participation < 1 or faults
     if cfg.uplink_bits is not None:
         uplink = (T.tree_quantize_delta(uplink, u_hat, cfg.uplink_bits) if spec is None
                   else ops.ef21_update(uplink, u_hat, cfg.uplink_bits, spec.leaf_rows()))
-    mask = participation(cfg, state, m)
-    if mask is not None:
+    # the wire corrupts what was transmitted: the EF21-integrated view
+    fplan = faults.plan(cfg, state["round"], m)
+    uplink = (faults.inject_tree if spec is None else faults.inject)(cfg.faults, fplan, uplink)
+    pmask = participation(cfg, state, m)
+    keep = None
+    if faults.screening_on(cfg):
+        keep = (faults.screen_keep_tree(cfg, uplink, ref) if spec is None
+                else faults.screen_keep(cfg, uplink, ref))
+    mask = faults.combine_mask(pmask, fplan, keep)
+    stale_up, sm = {}, {}
+    if faults.async_on(cfg):
+        step = staleness.step_tree if spec is None else staleness.step_arena
+        uplink, mask, stale_up, sm = step(cfg, fplan, uplink, u_hat, mask, state)
+    elif mask is not None:
         uplink = T.tree_select(mask, uplink, u_hat)
-    return uplink, mask
+    return uplink, mask, stale_up, fault_report(cfg, fplan, pmask, keep, sm)
 
 
-def arena_tail(cfg: FederatedConfig, spec, state, uplink, m: int):
-    """The arena round tail shared with AGPDMM: ``cached_uplink``, the
-    client mean (the round's single all-reduce) and the fused dual
-    refresh.  Returns (state_updates, x_s_new_row, lam_s_new, mask)."""
-    uplink, mask = cached_uplink(cfg, state, uplink, m, spec)
-    new_state = {"u_hat": uplink} if "u_hat" in state else {}
+def arena_tail(cfg: FederatedConfig, spec, state, uplink, m: int, x_s_row):
+    """The arena round tail shared with AGPDMM: ``cached_uplink`` (screened
+    against the server row ``x_s_row``), the client mean (the round's
+    single all-reduce) and the fused dual refresh.  Returns (state_updates,
+    x_s_new_row, lam_s_new, mask, fault metrics)."""
+    uplink, mask, new_state, fm = cached_uplink(cfg, state, uplink, m, x_s_row, spec)
+    if "u_hat" in state:
+        new_state["u_hat"] = uplink
     x_s_new = torch.mean(uplink, dim=0)
-    return new_state, x_s_new, ops.dual_from_uplink(uplink, x_s_new, resolved_rho(cfg)), mask
+    lam_s_new = ops.dual_from_uplink(uplink, x_s_new, resolved_rho(cfg))
+    return new_state, x_s_new, lam_s_new, mask, fm
 
 
-def cohort_cache(cfg: FederatedConfig, spec, u_hat, uplink, idx):
+def cohort_cache(cfg: FederatedConfig, spec, state, uplink, idx, x_s_row):
     """The cohort's uplink into the population cache (shared with AGPDMM
-    and FedAvg): EF21 against the cohort's cached ``u_hat`` rows, then the
-    scatter.  Returns the new ``u_hat``, whose mean is the masked round's
-    mean of selected rows."""
+    and FedAvg): EF21 against the cohort's cached ``u_hat`` rows, the wire's
+    corruption of the population's fault plan restricted to the cohort, the
+    screen on the (mc, W) cohort uplink (its median over the cohort, as the
+    reference takes it), the keep select against the cached rows, then the
+    scatter.  Returns (new u_hat, keep_c, fault metrics): the new u_hat's
+    mean is the masked round's mean of selected rows; ``keep_c`` is the
+    cohort's surviving mask (None: every cohort uplink entered)."""
+    u_hat = state["u_hat"]
+    m = u_hat.shape[0]
     if cfg.uplink_bits is not None:
         uplink = ops.ef21_update(uplink, ops.row_gather(u_hat, idx), cfg.uplink_bits,
                                  spec.leaf_rows())
-    return ops.row_scatter(u_hat, idx, uplink)
+    fplan = faults.plan(cfg, state["round"], m)
+    plan_c = faults.take(fplan, idx)
+    uplink = faults.inject(cfg.faults, plan_c, uplink)
+    keep = faults.screen_keep(cfg, uplink, x_s_row) if faults.screening_on(cfg) else None
+    keep_c = faults.combine_mask(None, plan_c, keep)
+    if keep_c is not None:
+        uplink = torch.where(keep_c[:, None], uplink, ops.row_gather(u_hat, idx))
+    return ops.row_scatter(u_hat, idx, uplink), keep_c, cohort_fault_report(fplan, plan_c, keep)
 
 
-def cohort_tail(cfg: FederatedConfig, spec, state, uplink, idx):
+def cohort_fault_report(fplan, plan_c, keep) -> dict:
+    """``fault_report`` of a cohort round: injected over the population's
+    plan, demoted among the cohort's non-silent clients (``plan_c``, the
+    plan restricted to the cohort)."""
+    if fplan is None and keep is None:
+        return {}
+    return faults.fault_metrics(fplan, None if plan_c is None else ~plan_c.silent, keep)
+
+
+def cohort_tail(cfg: FederatedConfig, spec, state, uplink, idx, x_s_row):
     """The cohort sibling of ``arena_tail``, shared with AGPDMM:
     ``cohort_cache``, the mean over the scattered buffer and the full dual
-    refresh.  Returns ({u_hat, x_s, lam_s}, keep_c); ``keep_c`` is the
-    cohort's surviving mask, None while faults are not ported (item 4)."""
-    u_hat_new = cohort_cache(cfg, spec, state["u_hat"], uplink, idx)
+    refresh.  Returns ({u_hat, x_s, lam_s}, keep_c, fault metrics)."""
+    u_hat_new, keep_c, fm = cohort_cache(cfg, spec, state, uplink, idx, x_s_row)
     x_s_new = torch.mean(u_hat_new, dim=0)
     lam_s_new = ops.dual_from_uplink(u_hat_new, x_s_new, resolved_rho(cfg))
-    return {"u_hat": u_hat_new, "x_s": spec.unpack(x_s_new), "lam_s": lam_s_new}, None
+    return ({"u_hat": u_hat_new, "x_s": spec.unpack(x_s_new), "lam_s": lam_s_new},
+            keep_c, fm)
 
 
 def cohort_eta(cfg: FederatedConfig, idx):
@@ -248,12 +310,14 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     x_ref = x_bar if cfg.use_avg else x_K
 
     _, uplink = ops.round_tail(x_ref, lam_c, x_s_row, rho, with_lam_is=False)
-    new_state, keep_c = cohort_tail(cfg, spec, state, uplink, idx)
+    new_state, keep_c, fm = cohort_tail(cfg, spec, state, uplink, idx, x_s_row)
+    # demoted cohort rows are silent: they keep their round-start carry
+    x_K_kept = x_K if keep_c is None else torch.where(keep_c[:, None], x_K, x0_c)
     new_state |= {
-        "x_c": ops.row_scatter(x_c, idx, x_K),  # silent clients keep their carry
+        "x_c": ops.row_scatter(x_c, idx, x_K_kept),  # silent clients keep their carry
         "round": state["round"] + 1,
     }
-    return new_state, arena_metrics(new_state["lam_s"], x_K, x_s_row, keep_c)
+    return new_state, arena_metrics(new_state["lam_s"], x_K, x_s_row, keep_c) | fm
 
 
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, return_trace):
@@ -276,7 +340,7 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, 
 
     # the uplink, and lam_is only when a trace wants it
     lam_is, uplink = ops.round_tail(x_ref, lam, x_s_row, rho, with_lam_is=return_trace)
-    new_state, x_s_new, lam_s_new, mask = arena_tail(cfg, spec, state, uplink, m)
+    new_state, x_s_new, lam_s_new, mask, fm = arena_tail(cfg, spec, state, uplink, m, x_s_row)
     new_state |= {
         "x_s": spec.unpack(x_s_new),
         "lam_s": lam_s_new,
@@ -284,7 +348,7 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, 
         "x_c": x_K if mask is None else torch.where(mask[:, None], x_K, x_c),
         "round": state["round"] + 1,
     }
-    metrics = arena_metrics(lam_s_new, x_K, x_s_row, mask)
+    metrics = arena_metrics(lam_s_new, x_K, x_s_row, mask) | fm
     if return_trace:
         metrics["trace"] = {
             "x_ref": spec.unpack_stacked(x_ref),
@@ -309,10 +373,10 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False,
         per_step=per_step_batches,
         vr_snapshot=T.tree_broadcast(x_s, m) if cfg.variance_reduction == "svrg" else None)
     x_ref = x_bar if cfg.use_avg else x_K
-    lam_is, new_state, mask = tree_tail(cfg, state, x_ref, x_s, rho, m)
+    lam_is, new_state, mask, fm = tree_tail(cfg, state, x_ref, x_s, rho, m)
     new_state |= {"x_c": x_K if mask is None else T.tree_select(mask, x_K, x_c),
                   "round": state["round"] + 1}
-    metrics = tree_metrics(new_state["lam_s"], x_K, x_s, mask)
+    metrics = tree_metrics(new_state["lam_s"], x_K, x_s, mask) | fm
     if return_trace:
         metrics["trace"] = {"x_ref": x_ref, "x_bar": x_bar, "lam_is": lam_is, "x_K": x_K}
     return new_state, metrics
@@ -321,17 +385,18 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False,
 def tree_tail(cfg: FederatedConfig, state, x_ref, x_s, rho: float, m: int):
     """The pytree round tail shared with AGPDMM, as plain tensor ops (the
     reference's, the server tree broadcast by indexing): lam_is, the
-    uplink, EF21 against ``u_hat``, the participation select, the client
-    mean and the dual refresh.  Returns (lam_is, {x_s, lam_s[, u_hat]},
-    mask)."""
+    uplink, ``cached_uplink`` (screened against the server tree), the
+    client mean and the dual refresh.  Returns (lam_is, {x_s, lam_s[,
+    u_hat][, stale slots]}, mask, fault metrics)."""
     lam_is = T.tmap(lambda s, xr, l: rho * (s[None] - xr) - l, x_s, x_ref, state["lam_s"])
     uplink = T.tmap(lambda xr, l: xr - l / rho, x_ref, lam_is)
-    uplink, mask = cached_uplink(cfg, state, uplink, m)
-    new_state = {"u_hat": uplink} if "u_hat" in state else {}
+    uplink, mask, new_state, fm = cached_uplink(cfg, state, uplink, m, x_s)
+    if "u_hat" in state:
+        new_state["u_hat"] = uplink
     x_s_new = T.tree_client_mean(uplink)  # the round's single all-reduce
     new_state["x_s"] = x_s_new
     new_state["lam_s"] = T.tmap(lambda u, s: rho * (u - s[None]), uplink, x_s_new)
-    return lam_is, new_state, mask
+    return lam_is, new_state, mask, fm
 
 
 def tree_metrics(lam_s_new, x_K, x_s, mask=None):
@@ -352,10 +417,11 @@ def broadcast_rows(row: torch.Tensor, m: int) -> torch.Tensor:
 
 def needs_cache(cfg: FederatedConfig) -> bool:
     """Does the state carry ``u_hat``, the server's view of each client's
-    uplink (the EF21 integrator and the silent clients' stand-in)?  Its
-    init is the round-0 uplink of a client that never moved, x_s, as a
-    fresh buffer of its own."""
-    return cfg.uplink_bits is not None or cfg.participation < 1.0
+    uplink (the EF21 integrator and the silent, faulted or demoted clients'
+    stand-in)?  Its init is the round-0 uplink of a client that never
+    moved, x_s, as a fresh buffer of its own."""
+    return (cfg.uplink_bits is not None or cfg.participation < 1.0
+            or faults.needs_cache(cfg))
 
 
 def round_counter(tree):
@@ -376,6 +442,8 @@ def make(cfg: FederatedConfig) -> FedOpt:
             }
             if needs_cache(cfg):
                 st["u_hat"] = T.tree_broadcast(params, m)
+            if faults.async_on(cfg):
+                st |= staleness.init_tree(params, m)
             return st
         spec = arena.ArenaSpec.from_tree(params)
         row = spec.pack(params)
@@ -387,6 +455,8 @@ def make(cfg: FederatedConfig) -> FedOpt:
         }
         if needs_cache(cfg):
             st["u_hat"] = broadcast_rows(row, m)
+        if faults.async_on(cfg):
+            st |= staleness.init_arena(spec, m, row.device)
         return st
 
     return FedOpt(

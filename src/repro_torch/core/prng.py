@@ -1,10 +1,12 @@
-"""The ``jax.random`` functions the reference's participation draw calls
-(``key``, ``fold_in``, ``split``, 32-bit ``random_bits`` and
-``permutation``), in torch, bit for bit with jax's threefry2x32 under
-``jax_threefry_partitionable=True`` (the default since jax 0.5).
+"""The ``jax.random`` functions the reference's participation and fault
+draws call (``key``, ``fold_in``, ``split``, 32-bit ``random_bits``,
+``permutation``, ``uniform``, ``bernoulli`` and ``randint``), in torch, bit
+for bit with jax's threefry2x32 under ``jax_threefry_partitionable=True``
+(the default since jax 0.5).
 
-The port must draw the same participation mask as the reference for the
-same ``cfg.seed`` and round, so it cannot use ``torch.Generator``.  A key
+The port must draw the same participation mask and fault plan as the
+reference for the same seeds and round, so it cannot use
+``torch.Generator``.  A key
 is a pair ``(k0, k1)`` of 32-bit words, each a Python int (a key made from
 a host seed) or a 0-d int64 tensor (a key derived from a device value such
 as the round counter).  Words are held in int64 and masked to 32 bits after
@@ -17,6 +19,9 @@ This is plain tensor code, as the reference's is XLA outside any Pallas
 kernel: ``fold_in`` and ``split`` are one threefry hash over one or two
 counters, ``random_bits`` one over m counters, and ``permutation`` a few
 rounds of a stable sort by such bits (``jax._src.random._shuffle``).
+``uniform``, ``bernoulli`` and ``randint`` are ``jax._src.random``'s
+``_uniform``, ``_bernoulli`` (``mode="low"``) and ``_randint`` for f32 and
+int32 over one dim.
 """
 from __future__ import annotations
 
@@ -124,5 +129,37 @@ def permutation(k, n: int, device="cpu") -> torch.Tensor:
     return x
 
 
-__all__ = ["fold_in", "key", "permutation", "random_bits", "shuffle_rounds", "split",
-           "threefry2x32"]
+def uniform(k, n: int, device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(k, (n,), float32)`` in [0, 1): the top 23 of
+    32 random bits as the mantissa of a float in [1, 2), less 1.0 (exact).
+    An f32 tensor on the key's device (``device`` for a host key)."""
+    bits = random_bits(k, n, device)
+    one = 0x3F800000  # the bits of 1.0f
+    return ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(k, p: float, n: int, device="cpu") -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, (n,))`` for a Python float p: an f32
+    uniform draw below ``float32(p)``; (n,) bool."""
+    return uniform(k, n, device) < float(np.float32(p))
+
+
+def randint(k, n: int, minval: int, maxval: int, device="cpu") -> torch.Tensor:
+    """``jax.random.randint(k, (n,), minval, maxval, int32)``: two 32-bit
+    words per value from the key's split, combined as jax does in uint32
+    arithmetic, (hi % span) * ((2^16 % span)^2 % span) + lo % span, all mod
+    span (int64 here, masked to 32 bits after every product and sum, so
+    that it wraps where jax's uint32 does).  An (n,) int32 tensor."""
+    minval, maxval = int(minval), int(maxval)
+    if not (-2 ** 31 <= minval and maxval <= 2 ** 31 - 1):
+        raise ValueError(f"randint: [{minval}, {maxval}) is not an int32 range")
+    span = max(maxval - minval, 1)  # maxval <= minval returns minval, as jax
+    k1, k2 = split(k, device)
+    hi, lo = random_bits(k1, n, device), random_bits(k2, n, device)
+    mult = (((2 ** 16 % span) ** 2) & MASK) % span
+    off = ((((hi % span) * mult) & MASK) + lo % span) & MASK
+    return (minval + off % span).to(torch.int32)
+
+
+__all__ = ["bernoulli", "fold_in", "key", "permutation", "randint", "random_bits",
+           "shuffle_rounds", "split", "threefry2x32", "uniform"]

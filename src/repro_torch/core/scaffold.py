@@ -23,6 +23,12 @@ With participation < 1 silent clients transmit nothing: zero delta on both
 server means, ``c_i`` kept.  The cohort round gathers the cohort's ``c_i``
 rows and decomposes both means over the cohort's deltas (sum / m).  EF21
 uplink quantisation is not offered for SCAFFOLD (``make`` says why).
+
+Faults, as in the reference: the wire corrupts the transmitted x_K, and
+both ``scaffold_cv`` and the screen see the corrupted x_t; a demoted or
+silent client sends a zero delta and keeps c_i.  Under async rounds the
+stale-slot step mixes toward the broadcast server row (``stale_mix`` with a
+(W,) cache), and c_i refreshes only on the fresh mask.
 """
 from __future__ import annotations
 
@@ -31,14 +37,15 @@ from functools import partial
 import torch
 
 from repro_torch.configs.base import FederatedConfig
-from repro_torch.core import arena
+from repro_torch.core import arena, faults, staleness
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
     FedOpt, affine_case, arena_grad, client_batches, cohort_batch, eta_val, n_steps,
     require_ported, run_cohort_inner, step_for, use_arena, use_cohort,
 )
 from repro_torch.core.gpdmm import (
-    arena_drift, broadcast_rows, cohort_eta, participation, round_cohort, round_counter,
+    arena_drift, broadcast_rows, cohort_eta, cohort_fault_report, fault_report, participation,
+    round_cohort, round_counter,
 )
 from repro_torch.kernels import ops
 
@@ -136,16 +143,28 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     rows = (c_i_c,) + (() if eta_c is None else (eta_c,))
     x_K = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
 
+    # the wire corrupts the transmitted x_K: both uplinked deltas see it
+    fplan = faults.plan(cfg, state["round"], m)
+    plan_c = faults.take(fplan, idx)
+    x_t = faults.inject(cfg.faults, plan_c, x_K)
     alpha = 1.0 / (K * (cfg.eta if eta_c is None else eta_c))
-    c_i_new_c = ops.scaffold_cv(c_i_c, x_K, c_row, x_s_row, alpha)
+    c_i_new_c = ops.scaffold_cv(c_i_c, x_t, c_row, x_s_row, alpha)
+    keep = faults.screen_keep(cfg, x_t, x_s_row) if faults.screening_on(cfg) else None
+    keep_c = faults.combine_mask(None, plan_c, keep)
+    if keep_c is not None:
+        # demoted or silent cohort rows: zero delta on both means, c_i kept
+        c_i_new_c = torch.where(keep_c[:, None], c_i_new_c, c_i_c)
+        x_t = torch.where(keep_c[:, None], x_t, x_s_row[None])
     # server: two all-reduces over the cohort's deltas (silent rows are zero)
     f32 = torch.float32
     inv_m = 1.0 / m
     x_s_new = x_s_row + cfg.eta_g * inv_m * torch.sum(
-        (x_K - x_s_row[None]).to(f32), dim=0).to(x_s_row.dtype)
+        (x_t - x_s_row[None]).to(f32), dim=0).to(x_s_row.dtype)
     c_new = c_row + inv_m * torch.sum((c_i_new_c - c_i_c).to(f32), dim=0).to(c_row.dtype)
     c_i_new = ops.row_scatter(c_i, idx, c_i_new_c)  # silent clients keep c_i
-    return _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, None)
+    new_state, metrics = _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row,
+                                      keep_c)
+    return new_state, metrics | cohort_fault_report(fplan, plan_c, keep)
 
 
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
@@ -166,18 +185,30 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
     # c_i' = c_i - c + (x_s - x_K) / (K eta_i), as a multiply by the
     # precomputed 1/(K eta) (the reference's rounding)
     alpha = 1.0 / (K * eta_val(cfg.eta, c_i.device))
-    c_i_new = ops.scaffold_cv(c_i, x_K, c_row, x_s_row, alpha)
-    x_up = x_K
-    mask = participation(cfg, state, m)
-    if mask is not None:
+    # the wire corrupts the transmitted x_K: both uplinked deltas see it
+    fplan = faults.plan(cfg, state["round"], m)
+    x_t = faults.inject(cfg.faults, fplan, x_K)
+    c_i_new = ops.scaffold_cv(c_i, x_t, c_row, x_s_row, alpha)
+    x_up = x_t
+    pmask = participation(cfg, state, m)
+    keep = faults.screen_keep(cfg, x_t, x_s_row) if faults.screening_on(cfg) else None
+    mask = faults.combine_mask(pmask, fplan, keep)
+    stale_up, sm = {}, {}
+    if faults.async_on(cfg):
+        # a buffered x_t lands s rounds later and mixes toward the zero-delta
+        # server row; c_i refreshes on fresh participation only
+        x_up, mask, stale_up, sm = staleness.step_arena(cfg, fplan, x_t, x_s_row, mask, state)
+        c_i_new = torch.where(mask[:, None], c_i_new, c_i)
+    elif mask is not None:
         # silent clients transmit nothing: zero delta on both server means,
         # control variate kept
         c_i_new = torch.where(mask[:, None], c_i_new, c_i)
-        x_up = torch.where(mask[:, None], x_K, x_s_row[None])
+        x_up = torch.where(mask[:, None], x_t, x_s_row[None])
     # server: two all-reduces (x-delta and c-delta)
     x_s_new = x_s_row + cfg.eta_g * (torch.mean(x_up, dim=0) - x_s_row)
     c_new = c_row + torch.mean(c_i_new - c_i, dim=0)
-    return _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, mask)
+    new_state, metrics = _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, mask)
+    return new_state | stale_up, metrics | fault_report(cfg, fplan, pmask, keep, sm)
 
 
 def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
@@ -194,28 +225,40 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
 
     # multiply by the precomputed 1/(K eta), as the arena kernel does
     alpha = 1.0 / (K * eta)
+    fplan = faults.plan(cfg, state["round"], m)
+    x_t = faults.inject_tree(cfg.faults, fplan, x_K)
     c_i_new = T.tmap(lambda ci, cc, s, xk: ci - cc[None] + (s[None] - xk) * step_for(alpha, xk),
-                     c_i, c, x_s, x_K)
-    x_up = x_K
-    mask = participation(cfg, state, m)
-    if mask is not None:
+                     c_i, c, x_s, x_t)
+    x_up = x_t
+    pmask = participation(cfg, state, m)
+    keep = faults.screen_keep_tree(cfg, x_t, x_s) if faults.screening_on(cfg) else None
+    mask = faults.combine_mask(pmask, fplan, keep)
+    stale_up, sm = {}, {}
+    if faults.async_on(cfg):
+        # as on the arena: the broadcast server row is the zero-delta
+        # baseline, c_i refreshes on fresh participation only
+        x_up, mask, stale_up, sm = staleness.step_tree(
+            cfg, fplan, x_t, T.tree_broadcast(x_s, m), mask, state)
+        c_i_new = T.tree_select(mask, c_i_new, c_i)
+    elif mask is not None:
         # silent clients transmit nothing (zero delta, c_i kept)
         c_i_new = T.tree_select(mask, c_i_new, c_i)
-        x_up = T.tree_select(mask, x_K, T.tree_broadcast(x_s, m))
+        x_up = T.tree_select(mask, x_t, T.tree_broadcast(x_s, m))
     # server: two all-reduces (x-delta and c-delta)
     dx = T.tree_client_mean(T.tmap(lambda xk, s: xk - s[None], x_up, x_s))
     dc = T.tree_client_mean(T.tree_sub(c_i_new, c_i))
     x_s_new = T.tree_axpy(cfg.eta_g, dx, x_s)
     c_new = T.tree_add(c, dc)
 
-    new_state = {"x_s": x_s_new, "c": c_new, "c_i": c_i_new, "round": state["round"] + 1}
+    new_state = {"x_s": x_s_new, "c": c_new, "c_i": c_i_new, "round": state["round"] + 1,
+                 **stale_up}
     metrics = {
         "c_sum_norm": T.tree_norm(T.tree_client_sum(
             T.tmap(lambda ci, cn: ci - cn[None], c_i_new, c_new))),
         "client_drift": T.tree_client_drift(x_K, x_s, mask),
         "used_arena": torch.zeros((), dtype=torch.float32, device=T.leaves(x_K)[0].device),
     }
-    return new_state, metrics
+    return new_state, metrics | fault_report(cfg, fplan, pmask, keep, sm)
 
 
 def make(cfg: FederatedConfig) -> FedOpt:
@@ -239,9 +282,14 @@ def make(cfg: FederatedConfig) -> FedOpt:
         if use_arena(cfg, params):
             # control variates arena-resident; x_s and c stay trees
             spec = arena.ArenaSpec.from_tree(params)
-            st["c_i"] = arena.zeros(spec, m, device=spec.pack(params).device)
+            dev = T.leaves(params)[0].device
+            st["c_i"] = arena.zeros(spec, m, device=dev)
+            if faults.async_on(cfg):
+                st |= staleness.init_arena(spec, m, dev)
         else:
             st["c_i"] = T.tmap(lambda p: p.new_zeros((m,) + tuple(p.shape)), params)
+            if faults.async_on(cfg):
+                st |= staleness.init_tree(params, m)
         return st
 
     return FedOpt(

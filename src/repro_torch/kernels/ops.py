@@ -15,18 +15,22 @@ from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import gather as _ga
 from repro_torch.kernels import inner_loop as _il
 from repro_torch.kernels import round_tail as _rt
+from repro_torch.kernels import screen as _sc
+from repro_torch.kernels import stale_mix as _sm
 from repro_torch.kernels.fused_update import fused_update
 from repro_torch.kernels.gather import row_gather
 from repro_torch.kernels.inner_loop import inner_loop_affine
 from repro_torch.kernels.round_tail import (
     dual_from_uplink, ef21_apply, ef21_rowmax, fused_update_arena, round_tail, scaffold_cv,
 )
+from repro_torch.kernels.screen import screen_uplink
+from repro_torch.kernels.stale_mix import stale_mix
 
 # every kernel of the port, for launch accounting (chip_smoke.py), in the
 # order of the kernel table (ROADMAP.md)
 KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _rt.FUSED_UPDATE_ARENA,
            _rt.SCAFFOLD_CV, _fu.KERNEL, _rt.EF21_ROWMAX, _rt.EF21_APPLY, _ga.ROW_GATHER,
-           _ga.ROW_SCATTER)
+           _ga.ROW_SCATTER, _sc.SCREEN_UPLINK, _sm.STALE_MIX)
 
 
 def affine_inner_fits(width: int) -> bool:
@@ -86,5 +90,6 @@ def launches() -> dict[str, int]:
 __all__ = [
     "KERNELS", "affine_inner_fits", "dual_from_uplink", "ef21_apply", "ef21_rowmax",
     "ef21_update", "fused_update", "fused_update_arena", "inner_loop_affine", "launches",
-    "reset_launches", "round_tail", "row_gather", "row_scatter", "scaffold_cv",
+    "reset_launches", "round_tail", "row_gather", "row_scatter", "scaffold_cv", "screen_uplink",
+    "stale_mix",
 ]

@@ -1,12 +1,13 @@
-"""Plain PyTorch versions of the ten ported kernels.
+"""Plain PyTorch versions of the twelve ported kernels.
 
 Each upcasts to f32 and casts back at exactly the points where the
 ``"xla"`` branches of ``src/repro/kernels/ops.py`` do (lines 276-278,
-291-313, 316-362, 380-386, 401-439, 546-615), so on the CPU they agree with the
-reference bitwise wherever both sides run the same f32 operations in the
-same order.  The wrappers in ``fused_update``, ``inner_loop`` and
-``round_tail``, ``gather`` run these for CPU tensors only; ``chip_smoke.py`` holds each
-CUDA kernel against them on the card.
+291-313, 316-362, 380-386, 401-439, 458-465, 514-521, 546-615), so on the
+CPU they agree with the reference bitwise wherever both sides run the same
+f32 operations in the same order.  The wrappers in ``fused_update``,
+``inner_loop``, ``round_tail``, ``gather``, ``screen`` and ``stale_mix``
+run these for CPU tensors only; ``chip_smoke.py`` holds each CUDA kernel
+against them on the card.
 
 ``step`` (and SCAFFOLD's ``alpha``) is a Python float or a tensor of
 per-client values: ``(m,)``, or ``(m, 1, ...)`` as the per-leaf rounds
@@ -130,3 +131,30 @@ def row_scatter_ref(dst, pos, mask, rows):
     """The cohort scatter as a gather over the population: out[i] =
     rows[pos[i]] where mask[i] != 0, else dst[i]."""
     return torch.where((mask != 0)[:, None], torch.index_select(rows, 0, pos), dst)
+
+
+def screen_uplink_ref(u, ref):
+    """Per client row: every entry finite, and the f32 sum over the finite
+    entries of (u - ref)^2.  ``ref`` is a (W,) row or (m, W) per row.
+    Returns (finite (m,) bool, sq (m,) f32)."""
+    f32 = torch.float32
+    uf = u.to(f32)
+    rf = ref.to(f32)
+    if rf.ndim == 1:
+        rf = rf[None]
+    fin_e = torch.isfinite(uf)
+    d = torch.where(fin_e, uf - rf, 0.0)
+    return torch.all(fin_e, dim=1), torch.sum(d * d, dim=1)
+
+
+def stale_mix_ref(uplink, cache, buf, fresh, store, w):
+    """base = fresh ? uplink : cache; mixed = base + w (buf - base) in f32
+    where w > 0, else base bitwise; buf' = store ? uplink : buf.  ``cache``
+    (W,) or (m, W); fresh, store (m,) bool; w (m,) f32."""
+    f32 = torch.float32
+    cache2 = cache if cache.ndim == 2 else cache[None]
+    base = torch.where(fresh[:, None], uplink, cache2)
+    bf = base.to(f32)
+    mixf = bf + w[:, None].to(f32) * (buf.to(f32) - bf)
+    mixed = torch.where((w > 0)[:, None], mixf.to(base.dtype), base)
+    return mixed, torch.where(store[:, None], uplink, buf)

@@ -8,15 +8,17 @@ them:
 Tolerances: bitwise where the kernel and the plain version run the same f32
 operations (``fused_update``, ``scaffold_cv``, ``dual_from_uplink``,
 ``fused_update_arena``, ``lam_is``, the EF21 kernels, a NaN included) or
-copy (``row_gather``, ``row_scatter``); the uplink of ``round_tail`` to one
-rounding (the plain version divides by a scalar as a multiply by its
-reciprocal on the card); the inner loop to rtol = atol = 1e-4 (the matvec
-sums in another order).
+copy (``row_gather``, ``row_scatter``) or select and mix (``stale_mix``);
+``screen_uplink``'s finite flags exactly and its sums to rtol
+1e-6 * sqrt(W / 128) (a fixed order of its own, not torch.sum's); the
+uplink of ``round_tail`` to one rounding (the plain version divides by a
+scalar as a multiply by its reciprocal on the card); the inner loop to
+rtol = atol = 1e-4 (the matvec sums in another order).
 """
 import pytest
 import torch
 
-from repro_torch.configs.base import FederatedConfig
+from repro_torch.configs.base import FaultConfig, FederatedConfig
 from repro_torch.core import make, quadratic
 from repro_torch.kernels import ops as P, ref
 
@@ -291,3 +293,75 @@ def test_cuda_partial_participation_rounds_match_cpu(cuda, algo, bits, cohort):
             per_round["row_gather"] = per_round.get("row_gather", 0) + 1
     assert counts == {k.name: 0 for k in P.KERNELS} | {k: rounds * v
                                                         for k, v in per_round.items()}
+
+
+def _screen_and_mix_inputs(cuda, g, m, w, dtype, per_row):
+    u = torch.randn(m, w, generator=g, device=cuda)
+    u[1 % m, w // 2] = float("nan")
+    u[(m - 1), 0] = float("inf")
+    u[2 % m] *= 1e4
+    other = torch.randn((m, w) if per_row else (w,), generator=g, device=cuda)
+    buf = torch.randn(m, w, generator=g, device=cuda)
+    buf[0] = float("nan")  # w = 0 on row 0: must not leak
+    buf[1 % m] = float("inf")
+    return u.to(dtype), other.to(dtype), buf.to(dtype)
+
+
+SCREEN_SHAPES = [(500, 512), (50, 512), (8, 2 ** 20), (5, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row", [False, True], ids=["bcast", "per_row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_screen_uplink_matches_plain(cuda, dtype, per_row):
+    """Kernel 11 at the arena, cohort, lm_flat and a ragged width: finite
+    flags exactly, the sums to rtol 1e-6 * sqrt(W / 128), and the same
+    result from run to run (a fixed order, no atomics)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for m, w in SCREEN_SHAPES:
+        u, r, _ = _screen_and_mix_inputs(cuda, g, m, w, dtype, per_row)
+        fin, sq = P.screen_uplink(u, r)
+        fin_p, sq_p = ref.screen_uplink_ref(u, r)
+        assert torch.equal(fin, fin_p), (m, w)
+        torch.testing.assert_close(sq, sq_p, rtol=1e-6 * (w / 128) ** 0.5, atol=0)
+        fin2, sq2 = P.screen_uplink(u, r)
+        assert torch.equal(fin2, fin) and torch.equal(sq2, sq)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row", [False, True], ids=["bcast", "per_row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_stale_mix_matches_plain(cuda, dtype, per_row):
+    """Kernel 12, bitwise: rows with w = 0 over a NaN or Inf buffer, rows
+    with w > 0, fresh and cached bases, stored and carried slots."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for m, w in SCREEN_SHAPES:
+        u, c, buf = _screen_and_mix_inputs(cuda, g, m, w, dtype, per_row)
+        ar = torch.arange(m, device=cuda)
+        fresh, store = ar % 2 == 0, ar % 3 == 0
+        wt = torch.where(ar % 2 == 1, 0.5 ** (1 + ar % 3).float(), torch.zeros((), device=cuda))
+        got = P.stale_mix(u, c, buf, fresh, store, wt)
+        want = ref.stale_mix_ref(u, c, buf, fresh, store, wt)
+        for a, b in zip(got, want):
+            assert torch.equal(a.isnan(), b.isnan()), (m, w)
+            assert torch.equal(a[~a.isnan()], b[~b.isnan()]), (m, w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["gpdmm", "agpdmm", "scaffold", "fedavg"])
+@pytest.mark.parametrize("mode", ["screened", "async"])
+def test_cuda_fault_rounds_match_cpu_and_count_launches(cuda, algo, mode):
+    """Three faulted arena rounds on the card against the CPU: screening
+    adds one ``screen_uplink`` per round, async rounds (whose ``screen``
+    is on by "auto") one ``stale_mix`` more."""
+    eta = 0.5 / _problems("cpu")[0].L
+    kw = (dict(faults=FaultConfig(dropout=0.2, corrupt=0.3, seed=7), screen=True)
+          if mode == "screened" else dict(faults=FaultConfig(delay=0.3, seed=9), max_staleness=2))
+    counts = _card_vs_cpu(cuda, FederatedConfig(algorithm=algo, inner_steps=5, eta=eta,
+                                                use_arena=True, **kw), lambda p: p.oracle())
+    per_round = dict(ARENA_LAUNCHES[algo], screen_uplink=1)
+    if mode == "async":
+        per_round["stale_mix"] = 1
+    assert counts == {k.name: 0 for k in P.KERNELS} | {k: 3 * v for k, v in per_round.items()}

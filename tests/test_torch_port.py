@@ -1,6 +1,6 @@
 """The port as a package: it imports neither JAX nor the reference, it
-rejects the reference's branches it does not run yet (faults, screening,
-async rounds, other topologies, early exit, graph PDMM), its configuration
+rejects the reference's branches it does not run yet (other topologies,
+early exit, graph PDMM) and runs the fault branches, its configuration
 copy matches the reference's, its per-leaf pytree path runs, and its
 quickstart converges on the CPU."""
 import ast
@@ -72,13 +72,30 @@ def test_config_copy_matches_reference_fields_and_defaults():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(algorithm="pdmm_graph"), dict(faults=FaultConfig(dropout=0.1), participation=0.5),
-    dict(faults=FaultConfig(dropout=0.1)), dict(screen=True), dict(async_rounds=True),
-    dict(topology="ring"), dict(tol=1e-6),
+    dict(algorithm="pdmm_graph"), dict(topology="ring"), dict(tol=1e-6),
 ])
 def test_unported_branches_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make(FederatedConfig(**{"use_arena": True, **kw}))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(faults=FaultConfig(dropout=0.1), participation=0.5),
+    dict(faults=FaultConfig(dropout=0.1)), dict(screen=True),
+    dict(async_rounds=True, faults=FaultConfig(delay=0.3)),
+])
+def test_fault_branches_build_and_run_a_round(kw):
+    """Faults, screening and async rounds (once refused) build and run one
+    round on the CPU; their parity with the reference is in
+    tests/test_torch_faults.py and tests/test_torch_staleness.py."""
+    prob = quadratic.generate(torch.Generator().manual_seed(0), m=4, n=32, d=16, device="cpu")
+    opt = make(FederatedConfig(**{"use_arena": True, "inner_steps": 2, "eta": 0.5 / prob.L,
+                                  **kw}))
+    state, metrics = opt.round(opt.init(torch.zeros(prob.d), prob.m), prob.oracle(),
+                               prob.batch())
+    assert int(state["round"]) == 1
+    assert bool(torch.isfinite(state["x_s"]).all())
+    assert "faults_demoted" in metrics
 
 
 def test_scaffold_partial_participation_raises():

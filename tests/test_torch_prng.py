@@ -1,8 +1,9 @@
-"""The port's participation draw (``repro_torch.core.prng``) against
-``jax.random``: threefry2x32 keys, ``fold_in``, ``split``, 32-bit random
-bits and ``permutation``, and the masks and cohorts built on them
-(``tree_util.participation_mask``, ``cohort_indices``).  All integer
-results, so every comparison is exact."""
+"""The port's participation and fault draws (``repro_torch.core.prng``)
+against ``jax.random``: threefry2x32 keys, ``fold_in``, ``split``, 32-bit
+random bits, ``permutation``, ``uniform``, ``bernoulli`` and ``randint``,
+and the masks and cohorts built on them (``tree_util.participation_mask``,
+``cohort_indices``).  All integer or bit-exact results, so every
+comparison is exact."""
 import numpy as np
 import jax
 import pytest
@@ -83,3 +84,36 @@ def test_draw_stays_on_the_device_of_the_round_counter():
     k = prng.fold_in(prng.key(17), meta)
     assert all(w.device.type == "meta" for w in k)
     assert prng.permutation(k, 10).device.type == "meta"
+
+
+RATES = [0.0, 1e-3, 0.05, 0.1, 0.25, 0.3, 0.5, 0.999, 1.0]
+RANGES = [(0, 4), (1, 5), (1, 2), (3, 3), (0, 7), (-5, 100_000), (-2 ** 31, 2 ** 31 - 1)]
+
+
+@pytest.mark.parametrize("n", [1, 8, 50, 500])
+@pytest.mark.parametrize("seed", SEEDS + [7, 1234])
+def test_uniform_bernoulli_randint_match_jax(seed, n):
+    """Bitwise, for the round keys the fault plan folds (rate 0 and 1
+    included: below 0 nothing, below 1 every f32 uniform in [0, 1))."""
+    for r in ROUNDS:
+        jk, pk = _keys(seed, r)
+        u = prng.uniform(pk, n)
+        assert u.dtype == torch.float32
+        np.testing.assert_array_equal(u.numpy(), np.asarray(jax.random.uniform(jk, (n,))))
+        for p in RATES:
+            np.testing.assert_array_equal(prng.bernoulli(pk, p, n).numpy(),
+                                          np.asarray(jax.random.bernoulli(jk, p, (n,))),
+                                          err_msg=f"p={p}")
+        for lo, hi in RANGES:
+            got = prng.randint(pk, n, lo, hi)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(jax.random.randint(jk, (n,), lo, hi, jax.numpy.int32)),
+                err_msg=f"[{lo}, {hi})")
+
+
+def test_fault_draws_stay_on_the_device_of_the_round_counter():
+    meta = torch.tensor(3, dtype=torch.int32, device="meta")
+    k = prng.fold_in(prng.key(7), meta)
+    for t in (prng.uniform(k, 10), prng.bernoulli(k, 0.1, 10), prng.randint(k, 10, 1, 5)):
+        assert t.device.type == "meta"
