@@ -67,7 +67,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      (m = 8, one 2^20 leaf, K = 4), screened and async; (f) the fault plan
      drawn on the card equals the CPU's over 30 rounds of each config; the
      launches per round are as derived from the code;
- 10. print one JSON line of per-kernel numbers, then the result line
+ 10. graph-PDMM over general topologies and auto-tuned stepsizes with the
+     residual early exit: (a) ``residual_norm`` at (500, 512), (8, 2^20)
+     and (5, 130), f32 and bf16, a NaN row included, to rtol
+     1e-6 sqrt(W / 128) and the same from run to run; ``neighbor_reduce``
+     and ``edge_flip`` (masked and unmasked) bitwise their plain versions on
+     ring, star, complete, torus and er at m = 8, W = 2^20 (lm_flat),
+     m = 500, W = 512 (Fig. 2) and m = 8, W = 128 (the ring example), f32
+     and bf16; each timed with its bound, its plain version and
+     (``neighbor_reduce``) ``torch.sparse.mm``, ``edge_flip`` unmasked and
+     under a colour phase's mask; (b)
+     ``gpdmm_graph`` on star, ring and complete at lm_flat (the reference
+     benchmark's bench_topology rows), launches per colour phase as the code
+     gives them; (c) the star graph against the centralised arena GPDMM on
+     phase 4's problem, 30 rounds, x_s and the carry within atol = rtol =
+     1e-4; (d) ``examples/ring_pdmm.py``'s setting, every node within 1e-2
+     of x*; (e) ``eta="auto"`` resolved on phase 4's problem, L_i within
+     rtol 1e-5 of the CPU's, then the reference's autotune bench at lm_flat
+     (a_i log-spaced 0.1-3.16, tol 1e-5, at most 600 rounds, rho = 1/(K
+     eta_hand)) through ``make_scan_rounds`` and ``EarlyExit``: auto
+     reaches tol in fewer rounds than the hand-tuned eta, and the early-exit
+     state equals the fixed-budget run's at that round;
+ 11. print one JSON line of per-kernel numbers, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Phase 3 also holds the cohort kernels (``row_gather``, ``row_scatter``)
@@ -80,7 +101,8 @@ one PyTorch call that computes the same function where there is one
 (``index_select``, ``index_copy``).
 
 Launch counts are set to 0 just before each run of the main path (phases
-3-9) and read just after it; the launches of phase 3's comparisons do not
+3-10) and read just after it; the launches of the kernel comparisons (phases 3
+ and 10 (a)) do not
 count.  Each phase draws its data from a generator of its own.  The script
 imports no JAX and nothing of the JAX package.
 """
@@ -1200,6 +1222,419 @@ def lm_flat_phase(rec, torch, ops, make, make_oracle, FederatedConfig, FaultConf
                       f"lm_flat {label}: {k} not finite")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: graph-PDMM over general topologies, auto-tuned stepsizes, early exit
+# ---------------------------------------------------------------------------
+
+# kernel 13 at the Fig. 2 arena, lm_flat and a ragged width; kernels 14-15 on
+# every family at lm_flat (m = 8, W = 2^20), at the Fig. 2 size (m = 500,
+# W = 512) and at the ring example's arena (m = 8, W = 128)
+RESIDUAL_SHAPES = ((500, 512), (8, 1 << 20), (5, 130))
+GRAPH_SIZES = ((8, 1 << 20), (500, 512), (8, 128))
+GRAPH_FAMILIES = ("ring", "star", "complete", "torus", "er")
+GRAPH_BENCH = ("star", "ring", "complete")  # benchmarks/round_bench.py:539
+RING = dict(m=8, n=400, d=64, K=5, rounds=300)  # examples/ring_pdmm.py
+# benchmarks/round_bench.py:766-865 (bench_autotune at lm_flat)
+AUTOTUNE = dict(m=8, width=1 << 20, K=4, tol=1e-5, max_rounds=600, chunk=10)
+L_RTOL = 1e-5  # L_i on the card against the CPU's: 96 matvecs summed in other orders
+
+
+def check_residual_kernel(rec, torch, ops, ref, gen, out):
+    """Kernel 13 against its plain version at RESIDUAL_SHAPES, f32 and bf16,
+    a NaN row included: the same NaN rows, sums to rtol 1e-6 sqrt(W / 128)
+    (its own fixed order), the same from run to run; then timed at every f32
+    shape, the JSON row at lm_flat, the shape phase 10's early exit gives
+    it."""
+    dev, worst = gen.device, 0.0
+    for (m, w) in RESIDUAL_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(m, w, generator=gen, device=dev)
+            xp = x + 0.01 * torch.randn(m, w, generator=gen, device=dev)
+            x[1 % m, w // 2] = float("nan")
+            x, xp = x.to(dt), xp.to(dt)
+            got, want = ops.residual_norm(x, xp), ref.residual_norm_ref(x, xp)
+            rtol = 1e-6 * math.sqrt(w / 128)
+            for a, b in zip(got, want):
+                nan = b.isnan()
+                check(torch.equal(a.isnan(), nan), f"residual_norm {dt} ({m}, {w}): NaN rows")
+                rel = float(((a - b).abs() / b.abs().clamp(min=1e-30))[~nan].max())
+                worst = max(worst, rel / rtol)
+                check(rel <= rtol, f"residual_norm {dt} ({m}, {w}): rel err {rel} > {rtol}")
+            again = ops.residual_norm(x, xp)
+            check(all(same_bits(torch, a, b) for a, b in zip(again, got)),
+                  f"residual_norm {dt} ({m}, {w}): differs from run to run")
+    out["residual_norm_worst_rel_err_over_rtol"] = worst
+    log(f"residual_norm: NaN rows exact, sums within {worst:.3f} of rtol 1e-6 sqrt(W / 128), "
+        f"the same from run to run, at {list(RESIDUAL_SHAPES)}, f32 and bf16")
+    times = []
+    for (m, w) in RESIDUAL_SHAPES:
+        x = torch.randn(m, w, generator=gen, device=dev)
+        xp = x + 0.01 * torch.randn(m, w, generator=gen, device=dev)
+        fn, plain = lambda: ops.residual_norm(x, xp), lambda: ref.residual_norm_ref(x, xp)
+        nbytes, flops = 2 * 4 * m * w + 2 * 4 * m, 5 * m * w
+        iters = 200 if m * w < 1 << 22 else 50
+        if (m, w) == (AUTOTUNE["m"], AUTOTUNE["width"]):
+            err = max(max_err(a, b) for a, b in zip(fn(), plain()))
+            rec.kernel("residual_norm", err, fn, plain, iters, nbytes, flops)
+            k_ms, p_ms = rec.rows["residual_norm"]["ms"], rec.rows["residual_norm"]["plain_ms"]
+        else:
+            k_ms, p_ms = cuda_time_ms(fn, iters), cuda_time_ms(plain, iters)
+        b, _ = bound_ms(nbytes, flops)
+        times.append({"shape": [m, w], "ms": k_ms, "plain_ms": p_ms, "bound_ms": b})
+        log(f"residual_norm ({m}, {w}): {k_ms:.4f} ms (bound {b:.4f} ms, {b / k_ms:.2f} of it), "
+            f"plain {p_ms:.4f} ms")
+    out["residual_norm_times"] = times
+    log("residual_norm library: none (no one PyTorch call gives both row sums)")
+
+
+def signed_incidence(torch, t, dev):
+    """The (n, 2E) sparse matrix of ``neighbor_reduce``: +-1 at (src[t], t),
+    for the library's one call (``torch.sparse.mm``)."""
+    S = t.n_slots
+    idx = torch.stack([torch.as_tensor(t.src, dtype=torch.int64),
+                       torch.arange(S, dtype=torch.int64)])
+    vals = torch.as_tensor(t.sgn, dtype=torch.float32)
+    return torch.sparse_coo_tensor(idx, vals, (t.n, S)).to(dev).coalesce().to_sparse_csr()
+
+
+def check_graph_kernels(rec, torch, ops, ref, gen, out):
+    """Kernels 14-15 against their plain versions on every family at both
+    GRAPH_SIZES, f32 and bf16, ``edge_flip`` masked and unmasked: bitwise
+    (the same f32 operations, the sums in slot order).  Timed in f32,
+    ``edge_flip`` unmasked and masked as the first colour phase masks it; the
+    JSON rows at ring(8) on lm_flat, the main path's shape (phase 10 (b)),
+    ``edge_flip`` masked as the main path calls it.  A masked flip's bound
+    counts the x rows its firing slots read (the distinct ``nbr[mask != 0]``)
+    and 2 operations per element of a firing slot."""
+    from repro_torch.core import topology
+    from repro_torch.kernels import neighbor_reduce as nr
+
+    dev, c = gen.device, 0.85
+    times = []
+    for (m, w) in GRAPH_SIZES:
+        for fam in GRAPH_FAMILIES:
+            t = topology.make(fam, m)
+            S, n, first = t.n_slots, t.n, t.first_flags()
+            indptr, sgn = (a.long() for a in nr.reduce_tables(t.src, first, t.sgn, n, dev))
+            rev, nbr, sgn_f, _ = nr.flip_tables(t.rev, t.nbr, t.sgn, dev)
+            rev, nbr, sgn_f = rev.long(), nbr.long(), sgn_f.long()
+            mask = (torch.rand(S, generator=gen, device=dev) < 0.5).to(torch.int32)
+            for dt in (torch.float32, torch.bfloat16):
+                z = torch.randn(S, w, generator=gen, device=dev).to(dt)
+                x = torch.randn(n, w, generator=gen, device=dev).to(dt)
+                got = ops.neighbor_reduce(z, seg=t.src, first=first, sgn=t.sgn, n=n)
+                check(same_bits(torch, got, ref.neighbor_reduce_ref(z, indptr, sgn, n)),
+                      f"neighbor_reduce {fam}({m}) W={w} {dt}: differs from the plain version")
+                for mk in (None, mask):
+                    got = ops.edge_flip(z, x, c, rev=t.rev, nbr=t.nbr, sgn=t.sgn, mask=mk)
+                    want = ref.edge_flip_ref(z, x, c, rev, nbr, sgn_f, mk)
+                    check(same_bits(torch, got, want),
+                          f"edge_flip {fam}({m}) W={w} {dt} masked={mk is not None}: differs")
+                del z, x, got
+            z = torch.randn(S, w, generator=gen, device=dev)
+            x = torch.randn(n, w, generator=gen, device=dev)
+            iters = 200 if S * w < 1 << 22 else 20
+            inc = signed_incidence(torch, t, dev)
+            nr_fn = lambda: ops.neighbor_reduce(z, seg=t.src, first=first, sgn=t.sgn, n=n)
+            nr_plain = lambda: ref.neighbor_reduce_ref(z, indptr, sgn, n)
+            nr_lib = lambda: torch.sparse.mm(inc, z)
+            nr_bytes, nr_flops = 4 * (S + n) * w + 4 * (n + 1 + S), S * w
+            ef_fn = lambda: ops.edge_flip(z, x, c, rev=t.rev, nbr=t.nbr, sgn=t.sgn)
+            ef_plain = lambda: ref.edge_flip_ref(z, x, c, rev, nbr, sgn_f, None)
+            ef_bytes, ef_flops = 4 * (2 * S + n) * w + 3 * 4 * S, 2 * S * w
+            fired = torch.zeros(n, dtype=torch.bool, device=dev)
+            fired[torch.as_tensor(t.colors[0], dtype=torch.int64, device=dev)] = True
+            phase_mask = fired[nbr].to(torch.int32)  # as the first colour phase masks it
+            efm_fn = lambda: ops.edge_flip(z, x, c, rev=t.rev, nbr=t.nbr, sgn=t.sgn,
+                                           mask=phase_mask)
+            efm_plain = lambda: ref.edge_flip_ref(z, x, c, rev, nbr, sgn_f, phase_mask)
+            x_rows = int(torch.unique(nbr[phase_mask != 0]).numel())
+            efm_bytes = 4 * (2 * S + x_rows) * w + 4 * 4 * S
+            efm_flops = 2 * int(phase_mask.sum()) * w
+            row = {"topology": fam, "m": m, "n": n, "slots": S, "W": w,
+                   "masked_firing_slots": int(phase_mask.sum()), "masked_x_rows": x_rows}
+            if (fam, m, w) == ("ring", LM_FLAT["m"], LM_FLAT["width"]):  # the main path's
+                lib_err = max_err(nr_lib(), nr_fn())
+                rec.kernel("neighbor_reduce", max_err(nr_fn(), nr_plain()), nr_fn, nr_plain,
+                           iters, nr_bytes, nr_flops, library_fn=nr_lib)
+                rec.kernel("edge_flip", max_err(efm_fn(), efm_plain()), efm_fn, efm_plain,
+                           iters, efm_bytes, efm_flops)
+                r_nr, r_ef = rec.rows["neighbor_reduce"], rec.rows["edge_flip"]
+                row["neighbor_reduce"] = {k: r_nr[k] for k in ("ms", "plain_ms", "library_ms")}
+                row["edge_flip_masked"] = {k: r_ef[k] for k in ("ms", "plain_ms")}
+                log(f"neighbor_reduce library (torch.sparse.mm, CSR): max abs diff {lib_err:.3e}")
+            else:
+                row["neighbor_reduce"] = {"ms": cuda_time_ms(nr_fn, iters),
+                                          "plain_ms": cuda_time_ms(nr_plain, iters),
+                                          "library_ms": cuda_time_ms(nr_lib, iters)}
+                row["edge_flip_masked"] = {"ms": cuda_time_ms(efm_fn, iters),
+                                           "plain_ms": cuda_time_ms(efm_plain, iters)}
+            row["edge_flip"] = {"ms": cuda_time_ms(ef_fn, iters),
+                                "plain_ms": cuda_time_ms(ef_plain, iters)}
+            row["neighbor_reduce"]["bound_ms"] = bound_ms(nr_bytes, nr_flops)[0]
+            row["edge_flip"]["bound_ms"] = bound_ms(ef_bytes, ef_flops)[0]
+            row["edge_flip_masked"]["bound_ms"] = bound_ms(efm_bytes, efm_flops)[0]
+            times.append(row)
+            r_nr, r_ef, r_efm = row["neighbor_reduce"], row["edge_flip"], row["edge_flip_masked"]
+            log(f"graph kernels {fam}({m}) n={n} slots={S} W={w}: neighbor_reduce "
+                f"{r_nr['ms']:.4f} ms (bound {r_nr['bound_ms']:.4f}, plain "
+                f"{r_nr['plain_ms']:.4f}, sparse.mm {r_nr['library_ms']:.4f}); edge_flip "
+                f"{r_ef['ms']:.4f} ms (bound {r_ef['bound_ms']:.4f}, plain "
+                f"{r_ef['plain_ms']:.4f}); masked ({row['masked_firing_slots']} firing slots, "
+                f"{x_rows} x rows) {r_efm['ms']:.4f} ms (bound {r_efm['bound_ms']:.4f}, plain "
+                f"{r_efm['plain_ms']:.4f})")
+            del z, x, inc
+    out["graph_kernel_times"] = times
+    log("graph kernels: neighbor_reduce and edge_flip bitwise their plain versions on "
+        f"{list(GRAPH_FAMILIES)} at {list(GRAPH_SIZES)}, f32 and bf16, masked and unmasked; "
+        "edge_flip library: none (no one PyTorch call gathers, scales and subtracts)")
+    torch.cuda.synchronize()
+
+
+def states_equal(torch, a, b) -> bool:
+    """Two round states bit for bit (NaN-free states; trees of tensors)."""
+    if sorted(a) != sorted(b):
+        return False
+    for k in a:
+        la = [a[k][j] for j in sorted(a[k])] if isinstance(a[k], dict) else [a[k]]
+        lb = [b[k][j] for j in sorted(b[k])] if isinstance(b[k], dict) else [b[k]]
+        if not all(torch.equal(x, y) for x, y in zip(la, lb)):
+            return False
+    return True
+
+
+def graph_launches(t, K, *, affine):
+    """Launches per graph round: per colour phase one neighbor_reduce and
+    one edge_flip, and where data nodes fire one inner_loop_affine (affine
+    oracle) or K fused_update_arena."""
+    phases = len(t.colors)
+    data = sum(int((c < t.n_data).any()) for c in t.colors)
+    inner = dict(inner_loop_affine=data) if affine else dict(fused_update_arena=K * data)
+    return dict(neighbor_reduce=phases, edge_flip=phases, **inner)
+
+
+def graph_phase(rec, prob, torch, ops, make, FederatedConfig, quadratic, gen, dev, out,
+                prof=None):
+    """(b) gpdmm_graph at lm_flat on star, ring and complete (the reference
+    benchmark's bench_topology rows); (c) the star graph against the
+    centralised arena GPDMM on phase 4's problem; (d) examples/ring_pdmm.py's
+    setting."""
+    from repro_torch.core import make_oracle, pdmm_graph
+
+    # (b)
+    c = LM_FLAT
+    m, K, R = c["m"], c["K"], c["rounds"]
+    params = {"w": torch.randn(c["width"], generator=gen, device=dev)}
+    grad = make_oracle(lambda p, b: {k: 0.3 * v for k, v in p.items()},
+                       grad_arena=lambda spec: (lambda xa, b: 0.3 * xa))
+    batch = {"dummy": torch.zeros(m, 1, device=dev)}
+    for name in GRAPH_BENCH:
+        cfg = FederatedConfig(algorithm="gpdmm_graph", topology=name, inner_steps=K,
+                              eta=c["eta"])
+        opt = make(cfg)
+        t = pdmm_graph.topo_for(cfg, m)
+        state = opt.init(params, m)
+        x0 = float(torch.linalg.vector_norm(state["x"]))
+        state, _, _, _ = run_rounds(torch, ops, opt, state, grad, lambda r: batch, 2, False)
+        state, metrics, counts, secs = run_rounds(torch, ops, opt, state, grad,
+                                                  lambda r: batch, R, False)
+        rec.add(counts)
+        per = graph_launches(t, K, affine=False)
+        out[f"graph_lm_flat_{name}_ms_per_round"] = 1e3 * secs / R
+        log(f"graph lm_flat {name} (n={t.n}, {t.n_edges} edges, {len(t.colors)} colours): {R} "
+            f"rounds in {secs:.3f} s ({1e3 * secs / R:.3f} ms/round); launches {counts}; "
+            f"consensus {float(metrics['consensus_err']):.3e}")
+        check(counts == expected(ops, R, **per), f"graph lm_flat {name}: launches {counts}")
+        for k in ("x", "z"):
+            check(bool(torch.isfinite(state[k]).all()), f"graph lm_flat {name}: {k} not finite")
+        x1 = float(torch.linalg.vector_norm(state["x"]))
+        check(x1 < x0, f"graph lm_flat {name}: ||x|| did not fall ({x0} -> {x1})")
+        if prof is not None:
+            prof(f"graph_lm_flat_{name}", lambda: run_rounds(
+                torch, ops, opt, state, grad, lambda r: batch, 3, False), 1e3 * secs / R, 3)
+
+    # (c)
+    R, K = LSQ["rounds"], LSQ["K"]
+    eta = 0.5 / prob.L
+    g = make(FederatedConfig(algorithm="gpdmm_graph", inner_steps=K, eta=eta))
+    cen = make(FederatedConfig(algorithm="gpdmm", inner_steps=K, eta=eta, use_arena=True))
+    x0 = torch.zeros(prob.d, device=dev)
+    sg, sc = g.init(x0, prob.m), cen.init(x0, prob.m)
+    worst = {"x_s": 0.0, "carry": 0.0}
+    counts_g, counts_c, secs_g, secs_c = {}, {}, 0.0, 0.0
+    for r in range(R):
+        sg, _, cg, tg = run_rounds(torch, ops, g, sg, prob.oracle(), lambda _: prob.batch(), 1,
+                                   False)
+        sc, _, cc, tc = run_rounds(torch, ops, cen, sc, prob.oracle(), lambda _: prob.batch(),
+                                   1, False)
+        secs_g, secs_c = secs_g + tg, secs_c + tc
+        for k in cg:
+            counts_g[k] = counts_g.get(k, 0) + cg[k]
+            counts_c[k] = counts_c.get(k, 0) + cc[k]
+        for key, a, b in (("x_s", sg["x_s"], sc["x_s"]),
+                          ("carry", sg["x"][:prob.m], sc["x_c"])):
+            # allclose at atol = rtol = 1e-4: |a - b| <= 1e-4 (1 + |b|)
+            worst[key] = max(worst[key], float(((a - b).abs() / (1.0 + b.abs())).max()))
+    rec.add(counts_g)
+    rec.add(counts_c)
+    t = pdmm_graph.topo_for(FederatedConfig(algorithm="gpdmm_graph"), prob.m)
+    out["graph_star_vs_central"] = {"worst": worst, "graph_ms_per_round": 1e3 * secs_g / R,
+                                    "central_ms_per_round": 1e3 * secs_c / R}
+    log(f"graph star vs centralised GPDMM (m = n = d = {prob.m}, K = {K}, {R} rounds): worst "
+        f"|diff| / (1 + |central|) x_s {worst['x_s']:.3e}, carry {worst['carry']:.3e} (limit "
+        f"1e-4); graph {1e3 * secs_g / R:.3f} ms/round, centralised {1e3 * secs_c / R:.3f}; "
+        f"launches {counts_g} / {counts_c}; final ||x - x*|| "
+        f"{float(prob.dist(sg['x_s'])):.4e} / {float(prob.dist(sc['x_s'])):.4e}")
+    check(max(worst.values()) <= 1e-4, f"graph star != centralised GPDMM: {worst}")
+    check(counts_g == expected(ops, R, **graph_launches(t, K, affine=True)),
+          f"graph star: launches {counts_g}")
+
+    # (d)
+    rc = RING
+    rprob = quadratic.generate(seeded(torch, 0), m=rc["m"], n=rc["n"], d=rc["d"], device=dev)
+    cfg = FederatedConfig(algorithm="gpdmm", topology="ring", inner_steps=rc["K"],
+                          eta=0.5 / rprob.L)
+    opt = make(cfg)
+    check(opt.name == "gpdmm_graph", f"gpdmm on a ring routed to {opt.name}")
+    state = opt.init(torch.zeros(rprob.d, device=dev), rprob.m)
+    state, metrics, counts, secs = run_rounds(torch, ops, opt, state, rprob.oracle(),
+                                              lambda r: rprob.batch(), rc["rounds"], False)
+    rec.add(counts)
+    t = pdmm_graph.topo_for(cfg, rprob.m)
+    worst_node = float(torch.max(torch.linalg.vector_norm(
+        state["x"][:, :rprob.d] - rprob.x_star[None], dim=1)))
+    out["ring_example"] = {"worst_node_dist": worst_node,
+                           "ms_per_round": 1e3 * secs / rc["rounds"],
+                           "consensus_err": float(metrics["consensus_err"])}
+    log(f"ring example (m = {rc['m']}, n = {rc['n']}, d = {rc['d']}, K = {rc['K']}, "
+        f"{rc['rounds']} rounds): worst per-node ||x_i - x*|| {worst_node:.3e} (limit 1e-2), "
+        f"consensus {float(metrics['consensus_err']):.3e}, {1e3 * secs / rc['rounds']:.3f} "
+        f"ms/round; launches {counts}")
+    check(worst_node < 1e-2, f"ring example: worst node distance {worst_node}")
+    check(counts == expected(ops, rc["rounds"], **graph_launches(t, rc["K"], affine=True)),
+          f"ring example: launches {counts}")
+
+
+def autotune_phase(rec, prob, torch, ops, make, FederatedConfig, quadratic, gen, dev, out):
+    """(e) ``eta="auto"`` on phase 4's problem (L_i against the CPU's), then
+    the reference's autotune bench at lm_flat: rounds to the relative
+    residual tol under the auto-derived and the hand-tuned eta, the early
+    exit through ``make_scan_rounds`` and ``EarlyExit``, and the early-exit
+    state equal to the fixed-budget run's at that round."""
+    from repro_torch.core import autotune, make_oracle, make_scan_rounds
+
+    m, d, K = prob.m, prob.d, LSQ["K"]
+    base = FederatedConfig(algorithm="gpdmm", inner_steps=K, eta="auto", use_arena=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg = autotune.resolve(base, prob.oracle(), torch.zeros(d, device=dev), m, prob.batch())
+    resolve_s = time.perf_counter() - t0
+    L_card = autotune.SAFETY / torch.tensor(cfg.eta, dtype=torch.float64)
+    cpu = prob.__class__(**{f: getattr(prob, f).cpu() for f in (
+        "AtA", "Atb", "btb", "evals", "evecs", "x_star", "f_star")}, L=prob.L, mu=prob.mu)
+    t0 = time.perf_counter()
+    L_cpu = torch.from_numpy(autotune.estimate_L(cpu.oracle(), torch.zeros(d), m, cpu.batch()))
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    rel = float(((L_card - L_cpu).abs() / L_cpu).max())
+    eig = float(((L_card - prob.evals[:, -1].double().cpu()).abs()
+                 / prob.evals[:, -1].double().cpu()).max())
+    state = (opt := make(cfg)).init(torch.zeros(d, device=dev), m)
+    state, _, counts, secs = run_rounds(torch, ops, opt, state, prob.oracle(),
+                                        lambda r: prob.batch(), LSQ["rounds"], False)
+    rec.add(counts)
+    dist = float(prob.dist(state["x_s"]))
+    out["autotune_fig2"] = {"resolve_s": resolve_s, "cpu_estimate_s": cpu_s, "L_rel_vs_cpu": rel,
+                            "L_rel_vs_eigvalsh": eig, "dist_after": dist,
+                            "ms_per_round": 1e3 * secs / LSQ["rounds"]}
+    log(f"autotune Fig. 2 (m = {m}, W = 512): resolve {resolve_s:.3f} s on the card "
+        f"(CPU {cpu_s:.3f} s); L_i vs CPU max rel {rel:.3e} (rtol {L_RTOL}), vs eigvalsh "
+        f"{eig:.3e}; eta_i in [{min(cfg.eta):.4e}, {max(cfg.eta):.4e}]; {LSQ['rounds']} auto "
+        f"rounds {1e3 * secs / LSQ['rounds']:.3f} ms/round, ||x - x*|| {dist:.4e}; "
+        f"launches {counts}")
+    check(rel <= L_RTOL, f"autotune: L_i on the card vs the CPU {rel} > {L_RTOL}")
+    check(counts == expected(ops, LSQ["rounds"], inner_loop_affine=1, round_tail=1,
+                             dual_from_uplink=1), f"autotune Fig. 2: launches {counts}")
+    check(math.isfinite(dist) and dist < float(prob.dist(torch.zeros(d, device=dev))),
+          f"autotune Fig. 2: distance {dist}")
+
+    a_cfg = AUTOTUNE
+    m, K, tol = a_cfg["m"], a_cfg["K"], a_cfg["tol"]
+    params = {"w": torch.randn(a_cfg["width"], generator=gen, device=dev)}
+    a = torch.logspace(-1.0, 0.5, m, dtype=torch.float32, device=dev)
+    batch = {"a": a, "t": 0.5 * torch.randn(m, a_cfg["width"], generator=gen, device=dev)}
+    het = make_oracle(lambda p, b: {"w": b["a"] * (p["w"] - b["t"])},
+                      grad_arena=lambda spec: (lambda xa, b: b["a"][:, None] * (xa - b["t"])))
+    eta_hand = autotune.SAFETY / float(a.max())
+    rho = 1.0 / (K * eta_hand)
+    kw = dict(algorithm="gpdmm", inner_steps=K, use_arena=True, tol=tol, rho=rho)
+    auto_cfg = autotune.resolve(FederatedConfig(eta="auto", **kw), het, params, m, batch)
+    hand_cfg = FederatedConfig(eta=eta_hand, **kw)
+    want_eta = autotune.SAFETY / a.double().cpu()
+    eta_rel = float(((torch.tensor(auto_cfg.eta, dtype=torch.float64) - want_eta).abs()
+                     / want_eta).max())
+    check(eta_rel <= L_RTOL, f"autotune bench: eta_i vs safety / a_i rel {eta_rel}")
+    CH = a_cfg["chunk"]
+    batches = {k: v[None].expand((CH,) + tuple(v.shape)) for k, v in batch.items()}
+
+    def scan_to_tol(cfg):
+        """Rounds until EarlyExit fires, driven by make_scan_rounds in
+        chunks of CH rounds: (stop round, seconds, launches)."""
+        fed = make(cfg)
+        run = make_scan_rounds(fed, het, tol=cfg.tol)
+        state = fed.init(params, m)
+        ee = autotune.EarlyExit(cfg.tol, cfg.patience)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for start in range(0, a_cfg["max_rounds"], CH):
+            state, met = run(state, batches)
+            j = ee.update(met["res_dx2"], met["res_x2"])
+            if j is not None:
+                torch.cuda.synchronize()
+                return start + j + 1, time.perf_counter() - t0, ops.launches(), start + CH
+        torch.cuda.synchronize()
+        return a_cfg["max_rounds"], time.perf_counter() - t0, ops.launches(), a_cfg["max_rounds"]
+
+    r_auto, s_auto, c_auto, ran_auto = scan_to_tol(auto_cfg)
+    r_hand, s_hand, c_hand, ran_hand = scan_to_tol(hand_cfg)
+    for counts, ran in ((c_auto, ran_auto), (c_hand, ran_hand)):
+        rec.add(counts)
+        check(counts == expected(ops, ran, fused_update_arena=K, round_tail=1,
+                                 dual_from_uplink=1, residual_norm=2),
+              f"autotune bench: launches {counts} over {ran} rounds")
+
+    # the early exit, round by round, is a prefix of the fixed-budget run
+    fed = make(auto_cfg)
+    s0 = fed.init(params, m)
+    ee, s, stop = autotune.EarlyExit(tol), s0, None
+    for r in range(1, a_cfg["max_rounds"] + 1):
+        s2, _ = fed.round(s, het, batch)
+        res = autotune.state_residual(s, s2)
+        s = s2
+        if ee.update(res["res_dx2"], res["res_x2"]) is not None:
+            stop = r
+            break
+    s_fixed = s0
+    for _ in range(r_auto):
+        s_fixed, _ = fed.round(s_fixed, het, batch)
+    same = stop == r_auto and states_equal(torch, s, s_fixed)
+    out["autotune_bench"] = {"tol": tol, "rounds_auto": r_auto, "rounds_fixed": r_hand,
+                             "rounds_speedup": r_hand / max(r_auto, 1),
+                             "ms_per_round_auto": 1e3 * s_auto / ran_auto,
+                             "ms_per_round_fixed": 1e3 * s_hand / ran_hand,
+                             "per_round_stop": stop, "prefix_equal": same}
+    log(f"autotune bench (lm_flat, a_i log-spaced 0.1-3.16, tol {tol}, rho {rho:.4f}): tol in "
+        f"{r_auto} rounds with auto eta vs {r_hand} hand-tuned (x{r_hand / max(r_auto, 1):.2f}); "
+        f"{1e3 * s_auto / ran_auto:.3f} / {1e3 * s_hand / ran_hand:.3f} ms/round (scan chunks "
+        f"of {CH}, residual on); per-round early exit at {stop}; early-exit state == "
+        f"fixed-budget state at that round: {same}")
+    check(r_auto < r_hand, f"autotune bench: auto {r_auto} rounds, hand-tuned {r_hand}")
+    check(r_auto < a_cfg["max_rounds"], "autotune bench: auto never reached tol")
+    check(same, f"autotune bench: early exit at {stop} vs the scan's {r_auto}, or the states "
+                f"differ")
+
+
 def profile_rounds(torch, label, run, round_ms, rounds, out):
     """torch.profiler over ``run`` (``rounds`` rounds): kernel time by name,
     device-busy time per round, and the device's idle share of the round
@@ -1312,6 +1747,13 @@ def main() -> int:
           seeded(torch, 0), dev, SOFTMAX_PARTIAL, prof)
     timed("9 faults", faults_phase, rec, prob, torch, ops, make, FederatedConfig, FaultConfig,
           quadratic, seeded(torch, 21), dev, out, prof)
+    timed("10 residual kernel", check_residual_kernel, rec, torch, ops, ref, seeded(torch, 23),
+          out)
+    timed("10 graph kernels", check_graph_kernels, rec, torch, ops, ref, seeded(torch, 29), out)
+    timed("10 graph rounds", graph_phase, rec, prob, torch, ops, make, FederatedConfig,
+          quadratic, seeded(torch, 31), dev, out, prof)
+    timed("10 autotune", autotune_phase, rec, prob, torch, ops, make, FederatedConfig,
+          quadratic, seeded(torch, 37), dev, out)
 
     kernels = {"kernels": list(rec.rows.values())}
     out |= kernels

@@ -3,9 +3,9 @@ and ``FaultConfig`` from ``src/repro/configs/base.py``, with the same fields,
 defaults and validation.  The port keeps a copy instead of importing the
 reference so that it runs where JAX is not installed.
 
-Knobs whose branches are not ported yet are still accepted here (the fields
-are the reference's contract); ``core.api.require_ported`` rejects them
-loudly when a round is built.
+Every field is the reference's contract.  ``popstore`` and
+``popstore_min_clients`` are read only by the reference's launchers, which
+the port does not have yet; rounds ignore them, as the reference's do.
 """
 from __future__ import annotations
 

@@ -40,8 +40,9 @@ def round_state(state: dict, device="cuda") -> dict:
     """A round state of any ported algorithm -> tensors.  Every entry but
     the round counter is an array or a flat dict of arrays: server trees
     (``x_s``, SCAFFOLD's ``c``), arena buffers (``lam_s``, ``x_c``,
-    ``c_i``, FedSplit's ``z_s``, the async engine's ``stale_buf``) or, on
-    the pytree path, stacked trees; each keeps its dtype, so the stale
+    ``c_i``, FedSplit's ``z_s``, the async engine's ``stale_buf``,
+    graph-PDMM's node and edge-dual arenas ``x`` and ``z``) or, on the
+    pytree path, stacked trees; each keeps its dtype, so the stale
     slots' ``stale_age`` and ``stale_lat`` stay int32.  The round counter
     becomes an int32 scalar tensor."""
     out = {k: params(v, device) for k, v in state.items() if k != "round"}

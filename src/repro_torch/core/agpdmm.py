@@ -20,7 +20,7 @@ from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import arena, faults, staleness
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
-    FedOpt, cohort_batch, require_ported, resolved_rho, run_cohort_inner, use_arena,
+    FedOpt, cohort_batch, resolved_rho, run_cohort_inner, use_arena,
     use_cohort,
 )
 from repro_torch.core.gpdmm import (
@@ -104,8 +104,6 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
 
 
 def make(cfg: FederatedConfig) -> FedOpt:
-    require_ported(cfg)
-
     def init(params, m):
         if not use_arena(cfg, params):
             st = {

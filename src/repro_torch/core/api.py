@@ -15,11 +15,11 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import FederatedConfig
-from repro_torch.core import faults
+from repro_torch.core import autotune, faults
+from repro_torch.core.autotune import mean_eta
 from repro_torch.core import tree_util as T
 from repro_torch.kernels import ops
 
@@ -36,12 +36,14 @@ class FedOpt(NamedTuple):
 # ---------------------------------------------------------------------------
 #   grad_fn.grad_arena(spec)          -> ga(x_arena, batch) -> g_arena
 #   grad_fn.affine_arena(spec, batch) -> (H, c), grad_i(x) = H_i x - c_i
+#   grad_fn.curvature_arena(spec)     -> curv(x_arena, batch) -> L (m,)
+#       per-client smoothness for ``eta="auto"`` (``core.autotune``)
 #
 # The exact (prox-based) PDMM / FedSplit variants instead take a stacked
 # ``prox_fn(v, rho) -> argmin_x f_i(x) + rho/2 ||x - v||^2`` oracle
-# (``core.pdmm`` / ``core.fedsplit``).
+# (``core.pdmm`` / ``core.fedsplit`` / ``core.pdmm_graph``).
 
-def make_oracle(grad_fn, *, grad_arena=None, affine_arena=None):
+def make_oracle(grad_fn, *, grad_arena=None, affine_arena=None, curvature_arena=None):
     """Annotate a per-client ``grad_fn`` with arena-native fast paths."""
 
     def oracle(x, batch):
@@ -51,6 +53,8 @@ def make_oracle(grad_fn, *, grad_arena=None, affine_arena=None):
         oracle.grad_arena = grad_arena
     if affine_arena is not None:
         oracle.affine_arena = affine_arena
+    if curvature_arena is not None:
+        oracle.curvature_arena = curvature_arena
     return oracle
 
 
@@ -92,17 +96,6 @@ def affine_case(grad_fn, spec, *, per_step=False, vr_snapshot=None):
     if affine is None or per_step or vr_snapshot is not None:
         return None
     return affine if ops.affine_inner_fits(spec.width) else None
-
-
-def mean_eta(cfg: FederatedConfig) -> float:
-    """The scalar eta server-side quantities derive from: the mean over
-    clients for a per-client tuple (``autotune.mean_eta`` of the reference)."""
-    if isinstance(cfg.eta, str):
-        raise ValueError("eta='auto' must be resolved host-side before the "
-                         "round is built")
-    if isinstance(cfg.eta, tuple):
-        return float(np.mean(np.asarray(cfg.eta, np.float64)))
-    return float(cfg.eta)
 
 
 def resolved_rho(cfg: FederatedConfig) -> float:
@@ -217,35 +210,37 @@ def run_cohort_inner(cfg: FederatedConfig, fn, rows: tuple, batch, *, per_step: 
     return fn(rows, batch)
 
 
-# ---------------------------------------------------------------------------
-# branches of the reference that this port does not run yet
-# ---------------------------------------------------------------------------
+def make_scan_rounds(fed: FedOpt, grad_fn, per_step_batches: bool = False, tol: float = 0.0):
+    """Round-batched runner: ``run(state, batches) -> (state, metrics)``
+    runs R full rounds, R the leading dim of every batch leaf, and returns
+    the metrics stacked ``(R, ...)``.  State for state the same as R
+    ``fed.round`` calls (the participation and fault draws fold in the
+    carried round counter).  ``tol > 0`` adds each round's fixed-point
+    residual (``res_dx2``/``res_x2``, ``autotune.state_residual``) to the
+    metrics for the host's ``autotune.EarlyExit``; every round of the chunk
+    runs either way."""
 
-def _unported(cfg: FederatedConfig):
-    """(what, ROADMAP item) for each configured branch the port lacks."""
-    out = []
-    if cfg.topology != "star":
-        out.append((f"topology={cfg.topology!r}", 6))
-    if cfg.tol > 0.0:
-        out.append(("tol > 0 (early exit)", 5))
-    return out
+    def run(state, batches):
+        R = T.leaves(batches)[0].shape[0]
+        rows = []
+        for r in range(R):
+            b = T.tmap(lambda a: a[r], batches)
+            new, metrics = fed.round(state, grad_fn, b, per_step_batches)
+            if tol > 0.0:
+                metrics = {**metrics, **autotune.state_residual(state, new)}
+            state = new
+            rows.append(metrics)
+        return state, {k: torch.stack([mt[k] for mt in rows]) for k in rows[0]}
 
-
-def require_ported(cfg: FederatedConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for the first
-    configured branch the port does not run yet -- never a silent
-    substitute."""
-    unported = _unported(cfg)
-    if unported:
-        what, item = unported[0]
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md, 'Modules to port', item {item})")
+    return run
 
 
 def make(cfg: FederatedConfig) -> FedOpt:
-    """The optimiser of ``cfg.algorithm``; each algorithm's own ``make``
-    rejects the branches the port does not run yet (``require_ported``)."""
-    from repro_torch.core import agpdmm, fedavg, fedsplit, gpdmm, scaffold
+    """The optimiser of ``cfg.algorithm``, routed as the reference routes
+    it: ``pdmm_graph``/``gpdmm_graph`` run graph-PDMM on any topology (the
+    star included), plain ``gpdmm`` on a non-star topology is graph-PDMM,
+    and the other algorithms have no decentralized analogue."""
+    from repro_torch.core import agpdmm, fedavg, fedsplit, gpdmm, pdmm_graph, scaffold
 
     algos = {
         "gpdmm": gpdmm.make,
@@ -253,18 +248,26 @@ def make(cfg: FederatedConfig) -> FedOpt:
         "scaffold": scaffold.make,
         "fedavg": fedavg.make,
         "fedsplit": fedsplit.make_inexact,
+        "pdmm_graph": pdmm_graph.make_exact,
+        "gpdmm_graph": pdmm_graph.make,
     }
-    later = {"pdmm_graph": 6, "gpdmm_graph": 6}
-    if cfg.algorithm in later:
-        raise NotImplementedError(
-            f"algorithm {cfg.algorithm!r} is not ported yet (ROADMAP.md, "
-            f"'Modules to port', item {later[cfg.algorithm]})")
     if cfg.algorithm not in algos:
         raise KeyError(f"unknown federated algorithm {cfg.algorithm!r}")
     if isinstance(cfg.eta, str):
         raise ValueError(
-            "eta='auto' must be resolved host-side before the round is built "
-            "(autotune is not ported yet: ROADMAP.md, 'Modules to port', item 5)")
+            "eta='auto' must be resolved host-side before the round is "
+            "built: call core.autotune.resolve(cfg, grad_fn, params, m, "
+            "batch) to derive the per-client stepsizes")
+    if cfg.topology != "star" and cfg.algorithm not in ("pdmm_graph", "gpdmm_graph"):
+        if cfg.algorithm == "gpdmm":
+            # GPDMM over a general network is graph-PDMM with the gradient
+            # inner loop
+            return pdmm_graph.make(cfg)
+        raise ValueError(
+            f"algorithm {cfg.algorithm!r} has no decentralized analogue over "
+            f"topology={cfg.topology!r}; use 'gpdmm' (rerouted to graph-PDMM), "
+            f"'gpdmm_graph', or 'pdmm_graph'"
+        )
     return algos[cfg.algorithm](cfg)
 
 
@@ -295,7 +298,7 @@ def step_for(step, leaf):
 
 __all__ = [
     "COHORT_ALGOS", "FedOpt", "affine_case", "arena_grad", "client_batches", "cohort_batch",
-    "eta_val", "make", "make_oracle", "map_cohort_tiles", "mean_eta", "n_steps",
-    "require_ported", "resolved_rho", "run_cohort_inner", "step_for", "step_size",
-    "use_arena", "use_cohort",
+    "eta_val", "make", "make_oracle", "make_scan_rounds", "map_cohort_tiles", "mean_eta",
+    "n_steps", "resolved_rho", "run_cohort_inner", "step_for", "step_size", "use_arena",
+    "use_cohort",
 ]

@@ -25,7 +25,7 @@ from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import arena, faults, staleness
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
-    FedOpt, cohort_batch, eta_val, require_ported, run_cohort_inner, use_arena, use_cohort,
+    FedOpt, cohort_batch, eta_val, run_cohort_inner, use_arena, use_cohort,
 )
 from repro_torch.core.gpdmm import (
     arena_drift, broadcast_rows, cached_uplink, cohort_cache, cohort_eta, needs_cache,
@@ -120,8 +120,6 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
 
 
 def make(cfg: FederatedConfig) -> FedOpt:
-    require_ported(cfg)
-
     def init(params, m):
         st = {"x_s": params, "round": round_counter(params)}
         on_arena = use_arena(cfg, params)

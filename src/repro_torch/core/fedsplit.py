@@ -29,7 +29,7 @@ from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import arena
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
-    FedOpt, arena_grad, client_batches, n_steps, require_ported, resolved_rho, use_arena,
+    FedOpt, arena_grad, client_batches, n_steps, resolved_rho, use_arena,
 )
 from repro_torch.core.gpdmm import arena_drift, broadcast_rows, round_counter
 from repro_torch.kernels import ops
@@ -133,8 +133,6 @@ def _round_inexact(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches
 
 
 def make_inexact(cfg: FederatedConfig) -> FedOpt:
-    require_ported(cfg)
-
     def init(params, m):
         if use_arena(cfg, params):
             spec = arena.ArenaSpec.from_tree(params)

@@ -57,7 +57,7 @@ from repro_torch.core import arena, faults, prng, staleness
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
     FedOpt, affine_case, arena_grad, client_batches, cohort_batch, eta_val, n_steps,
-    require_ported, resolved_rho, run_cohort_inner, step_for, step_size, use_arena,
+    resolved_rho, run_cohort_inner, step_for, step_size, use_arena,
     use_cohort,
 )
 from repro_torch.kernels import ops
@@ -430,8 +430,6 @@ def round_counter(tree):
 
 
 def make(cfg: FederatedConfig) -> FedOpt:
-    require_ported(cfg)
-
     def init(params, m):
         if not use_arena(cfg, params):
             st = {

@@ -3,8 +3,9 @@
 ||x||^2), A_i ~ N(0, 1)^{n x d}, b_i = A_i y0 + v_i, v_i ~ N(0, noise^2 I).
 
 ``oracle()`` returns the gradient annotated with the arena fast paths:
-``grad_arena`` on the packed ``(m, width)`` buffer and ``affine_arena``,
-the (H, c) the fused K-step kernel consumes.  ``make_client_prox()`` is the
+``grad_arena`` on the packed ``(m, width)`` buffer, ``affine_arena``,
+the (H, c) the fused K-step kernel consumes, and ``curvature_arena``, the
+per-client L_i of ``eta="auto"``.  ``make_client_prox()`` is the
 exact prox of every client at once, from the kept eigendecompositions (exact
 PDMM and FedSplit).  Like the reference,
 ``affine_arena`` builds the padded ``H = AtA + reg I`` on every call, i.e.
@@ -77,7 +78,20 @@ class LeastSquares:
                 c = nnf.pad(c, (0, w - d))
             return H, c
 
-        return make_oracle(self.grad, grad_arena=grad_arena, affine_arena=affine_arena)
+        def curvature_arena(spec):
+            # L_i = lambda_max(AtA_i + reg I) by batched power iteration on
+            # the H blocks the fused inner loop consumes (exact here: the
+            # gradient is affine, so the Hessian is H)
+            def curv(xa, cb):
+                from repro_torch.core import autotune
+
+                H, _ = affine_arena(spec, cb)
+                return autotune.power_iter_arena(H)
+
+            return curv
+
+        return make_oracle(self.grad, grad_arena=grad_arena, affine_arena=affine_arena,
+                           curvature_arena=curvature_arena)
 
     def make_client_prox(self):
         """``prox(v, rho, idx=None)``: argmin_x f_i(x) + rho/2 ||x - v_i||^2

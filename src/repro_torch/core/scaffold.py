@@ -41,7 +41,7 @@ from repro_torch.core import arena, faults, staleness
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
     FedOpt, affine_case, arena_grad, client_batches, cohort_batch, eta_val, n_steps,
-    require_ported, run_cohort_inner, step_for, use_arena, use_cohort,
+    run_cohort_inner, step_for, use_arena, use_cohort,
 )
 from repro_torch.core.gpdmm import (
     arena_drift, broadcast_rows, cohort_eta, cohort_fault_report, fault_report, participation,
@@ -275,8 +275,6 @@ def make(cfg: FederatedConfig) -> FedOpt:
             "quantisation errors are coupled).  Use algorithm='gpdmm' (one "
             "uplink variable, EF21 supported) or drop uplink_bits."
         )
-    require_ported(cfg)
-
     def init(params, m):
         st = {"x_s": params, "c": T.tree_zeros_like(params), "round": round_counter(params)}
         if use_arena(cfg, params):

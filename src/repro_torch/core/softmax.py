@@ -6,8 +6,9 @@ vector: the row-major weight matrix W (F, C) followed by the bias b (C,).
 
     err = (softmax(x W + b) - onehot(y)) / B,   gW = x^T err,   gb = sum_b err
 
-evaluated directly on the packed ``(m, width)`` buffer.  The gradient is not
-affine, so rounds take one ``fused_update_arena`` kernel per inner step.
+evaluated directly on the packed ``(m, width)`` buffer, and the
+``curvature_arena`` bound of ``eta="auto"``.  The gradient is not affine, so
+rounds take one ``fused_update_arena`` kernel per inner step.
 """
 from __future__ import annotations
 
@@ -80,4 +81,22 @@ class SoftmaxRegression:
 
             return ga
 
-        return make_oracle(self.grad, grad_arena=grad_arena)
+        def curvature_arena(spec):
+            # The cross-entropy Hessian is (1/B) sum_b G_b kron (diag(p_b) -
+            # p_b p_b^T) over augmented features [x_b | 1]; lambda_max of the
+            # second factor is at most 1/2, so L_i <= lambda_max(Xa_i^T Xa_i)
+            # / (2B): a point-free upper bound (the safe side for a
+            # stepsize), by batched power iteration on the Gram blocks
+            def curv(xa, batch):
+                from repro_torch.core import autotune
+
+                x = batch["x"]  # (m, B, F)
+                B = x.shape[1]
+                ones = torch.ones(x.shape[:2] + (1,), dtype=x.dtype, device=x.device)
+                xaug = torch.cat([x, ones], dim=-1)
+                G = torch.einsum("mbf,mbg->mfg", xaug, xaug) / (2.0 * B)
+                return autotune.power_iter_arena(G)
+
+            return curv
+
+        return make_oracle(self.grad, grad_arena=grad_arena, curvature_arena=curvature_arena)

@@ -3,18 +3,42 @@ rule: a CPU tensor runs the plain version, a CUDA tensor the kernel, and
 any other device raises."""
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DType
 
+_jvp = threading.local()
+
+
+@contextlib.contextmanager
+def jvp_target(what: str):
+    """While ``what`` (an oracle) is differentiated with ``torch.func.jvp``,
+    a wrapper handed a tensor off the CPU raises, naming ``what``: a
+    ctypes kernel reads raw device pointers, so the jvp cannot see through
+    it, and its tangent would come out wrong without a word."""
+    stack = _jvp.__dict__.setdefault("stack", [])
+    stack.append(what)
+    try:
+        yield
+    finally:
+        stack.pop()
+
 
 def on_cpu(name: str, t: torch.Tensor) -> bool:
     """True for a CPU tensor (the plain version runs), False for a CUDA one
-    (the kernel runs); raises for any other device."""
+    (the kernel runs); raises for any other device, and inside
+    ``jvp_target`` for any tensor off the CPU."""
     if t.device.type == "cpu":
         return True
+    stack = getattr(_jvp, "stack", None)
+    if stack:
+        raise TypeError(
+            f"{stack[-1]} launches the CUDA kernel {name}, and a ctypes kernel cannot be a "
+            f"torch.func.jvp target: give the oracle a curvature_arena or affine_arena hook")
     if t.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {t.device} are not supported "
                          f"(CPU runs the plain version, CUDA the kernel)")

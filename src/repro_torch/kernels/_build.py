@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("inner_loop.cu", "round_tail.cu", "fused_update.cu", "gather.cu", "screen.cu",
-           "stale_mix.cu")
+           "stale_mix.cu", "residual.cu", "neighbor_reduce.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",

@@ -14,12 +14,16 @@ import torch
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import gather as _ga
 from repro_torch.kernels import inner_loop as _il
+from repro_torch.kernels import neighbor_reduce as _nr
+from repro_torch.kernels import residual as _rs
 from repro_torch.kernels import round_tail as _rt
 from repro_torch.kernels import screen as _sc
 from repro_torch.kernels import stale_mix as _sm
 from repro_torch.kernels.fused_update import fused_update
 from repro_torch.kernels.gather import row_gather
 from repro_torch.kernels.inner_loop import inner_loop_affine
+from repro_torch.kernels.neighbor_reduce import edge_flip, neighbor_reduce
+from repro_torch.kernels.residual import residual_norm
 from repro_torch.kernels.round_tail import (
     dual_from_uplink, ef21_apply, ef21_rowmax, fused_update_arena, round_tail, scaffold_cv,
 )
@@ -30,7 +34,8 @@ from repro_torch.kernels.stale_mix import stale_mix
 # order of the kernel table (ROADMAP.md)
 KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _rt.FUSED_UPDATE_ARENA,
            _rt.SCAFFOLD_CV, _fu.KERNEL, _rt.EF21_ROWMAX, _rt.EF21_APPLY, _ga.ROW_GATHER,
-           _ga.ROW_SCATTER, _sc.SCREEN_UPLINK, _sm.STALE_MIX)
+           _ga.ROW_SCATTER, _sc.SCREEN_UPLINK, _sm.STALE_MIX, _rs.RESIDUAL_NORM,
+           _nr.NEIGHBOR_REDUCE, _nr.EDGE_FLIP)
 
 
 def affine_inner_fits(width: int) -> bool:
@@ -88,8 +93,8 @@ def launches() -> dict[str, int]:
 
 
 __all__ = [
-    "KERNELS", "affine_inner_fits", "dual_from_uplink", "ef21_apply", "ef21_rowmax",
-    "ef21_update", "fused_update", "fused_update_arena", "inner_loop_affine", "launches",
-    "reset_launches", "round_tail", "row_gather", "row_scatter", "scaffold_cv", "screen_uplink",
-    "stale_mix",
+    "KERNELS", "affine_inner_fits", "dual_from_uplink", "edge_flip", "ef21_apply",
+    "ef21_rowmax", "ef21_update", "fused_update", "fused_update_arena", "inner_loop_affine",
+    "launches", "neighbor_reduce", "reset_launches", "residual_norm", "round_tail",
+    "row_gather", "row_scatter", "scaffold_cv", "screen_uplink", "stale_mix",
 ]

@@ -1,12 +1,12 @@
-"""Plain PyTorch versions of the twelve ported kernels.
+"""Plain PyTorch versions of the fifteen ported kernels.
 
 Each upcasts to f32 and casts back at exactly the points where the
 ``"xla"`` branches of ``src/repro/kernels/ops.py`` do (lines 276-278,
 291-313, 316-362, 380-386, 401-439, 458-465, 514-521, 546-615), so on the
 CPU they agree with the reference bitwise wherever both sides run the same
 f32 operations in the same order.  The wrappers in ``fused_update``,
-``inner_loop``, ``round_tail``, ``gather``, ``screen`` and ``stale_mix``
-run these for CPU tensors only; ``chip_smoke.py`` holds each CUDA kernel
+``inner_loop``, ``round_tail``, ``gather``, ``screen``, ``stale_mix``,
+``residual`` and ``neighbor_reduce`` run these for CPU tensors only; ``chip_smoke.py`` holds each CUDA kernel
 against them on the card.
 
 ``step`` (and SCAFFOLD's ``alpha``) is a Python float or a tensor of
@@ -158,3 +158,45 @@ def stale_mix_ref(uplink, cache, buf, fresh, store, w):
     mixf = bf + w[:, None].to(f32) * (buf.to(f32) - bf)
     mixed = torch.where((w > 0)[:, None], mixf.to(base.dtype), base)
     return mixed, torch.where(store[:, None], uplink, buf)
+
+
+def residual_norm_ref(x, x_prev):
+    """Per row of the (m, W) state: ||x - x_prev||^2 and ||x||^2, in f32.
+    Returns (dx2 (m,) f32, x2 (m,) f32)."""
+    xf = x.to(torch.float32)
+    d = xf - x_prev.to(torch.float32)
+    return torch.sum(d * d, dim=1), torch.sum(xf * xf, dim=1)
+
+
+def neighbor_reduce_ref(z, indptr, sgn, n: int):
+    """The per-node signed dual sums s_i = sum_j A_ij z_{i|j} over node i's
+    contiguous slots ``indptr[i]:indptr[i+1]`` (int64 tensors ``indptr``
+    (n+1,) and ``sgn`` (2E,) on z's device), added in slot order from the
+    node's first slot, in f32, and cast back once.  A node without a slot
+    gets zeros.  Slot k of every node is added in one masked step, so the
+    order of the additions is the kernel's, not that of an atomic
+    scatter."""
+    zf = z.to(torch.float32)
+    signed = torch.where((sgn >= 0)[:, None], zf, -zf)
+    lo, deg = indptr[:-1], indptr[1:] - indptr[:-1]
+    out = torch.zeros((n, z.shape[1]), dtype=torch.float32, device=z.device)
+    for k in range(int(deg.max())):
+        rows = signed[torch.clamp(lo + k, max=signed.shape[0] - 1)]
+        if k == 0:
+            out = torch.where((deg > 0)[:, None], rows, out)
+        else:
+            out = torch.where((deg > k)[:, None], out + rows, out)
+    return out.to(z.dtype)
+
+
+def edge_flip_ref(z, x, c: float, rev, nbr, sgn, mask=None):
+    """PDMM's directed dual exchange at the receiving slot t:
+    z'[t] = z[rev[t]] - 2c sgn[t] x[nbr[t]] in f32, and z[t] where
+    ``mask[t] == 0``; cast back once.  ``rev``, ``nbr``, ``sgn`` (2E,) int64
+    and ``mask`` (2E,) tensors on z's device."""
+    zf = z.to(torch.float32)
+    flip = (zf[rev] - ((2.0 * c) * sgn.to(torch.float32))[:, None]
+            * x.to(torch.float32)[nbr])
+    if mask is not None:
+        flip = torch.where((mask != 0)[:, None], flip, zf)
+    return flip.to(z.dtype)

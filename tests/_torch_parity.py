@@ -1,10 +1,13 @@
 """Round-by-round comparison of the port with the reference, shared by
-tests/test_torch_faults.py and tests/test_torch_staleness.py.
+tests/test_torch_faults.py, tests/test_torch_staleness.py,
+tests/test_torch_topology.py and tests/test_torch_autotune.py.
 
 Tolerances, as tests/test_torch_participation.py states them: rtol = atol =
 1e-5 on x-level values (the matvec and the client mean sum in another order
-on each side); duals get atol 1e-5 * rho, SCAFFOLD's control variates atol
-1e-5 / (K eta).  Integer entries (the round counter, the stale slots' age
+on each side); duals (graph-PDMM's edge duals ``z`` among them) get atol
+1e-5 * rho, SCAFFOLD's control variates atol 1e-5 / (K eta).
+graph-PDMM's ``consensus_err`` gets rtol 1e-3: a sum of squared
+differences of nearly equal node rows, which amplifies the rows' rounding.  Integer entries (the round counter, the stale slots' age
 and lateness) and the fault and stale counters are compared exactly.
 """
 import numpy as np
@@ -37,15 +40,29 @@ def tolerance(key, cfg):
     """The rtol/atol of state entry or metric ``key`` under ``cfg``."""
     eta = np.mean(cfg.eta) if isinstance(cfg.eta, tuple) else cfg.eta
     rho, alpha = resolved_rho(cfg), 1.0 / (cfg.inner_steps * eta)
-    if key in ("lam_s", "lam_sum_norm"):
+    if key in ("lam_s", "lam_sum_norm", "z"):
         return dict(rtol=1e-5, atol=1e-5 * rho)
+    if key == "consensus_err":
+        return dict(rtol=1e-3, atol=0.0)
     if key in ("c", "c_i", "c_sum_norm"):
         return dict(rtol=1e-5, atol=1e-5 * alpha)
     return dict(rtol=1e-5, atol=1e-5)
 
 
-def compare(rs, rm, ps, pm, cfg):
-    """Every state entry and every metric of one round."""
+def compare(rs, rm, ps, pm, cfg, *, scale=1.0, of_max=False):
+    """Every state entry and every metric of one round.  ``scale``
+    multiplies each tolerance; ``of_max`` takes each array's atol relative
+    to its largest magnitude (a state that has grown large rounds at its
+    own scale, so f32 cancellation errs relative to the largest value, not
+    to the element)."""
+
+    def close(got, want, k, msg):
+        tol = {n: v * scale for n, v in tolerance(k, cfg).items()}
+        want = np.asarray(want)
+        if of_max and want.size:
+            tol["atol"] = max(tol["atol"], tol["rtol"] * float(np.nanmax(np.abs(want))))
+        np.testing.assert_allclose(got, want, err_msg=msg, **tol)
+
     assert sorted(ps) == sorted(rs)
     for k in rs:
         want = rs[k]
@@ -58,17 +75,15 @@ def compare(rs, rm, ps, pm, cfg):
         if isinstance(want, dict):
             assert sorted(got) == sorted(want)
             for leaf in want:
-                np.testing.assert_allclose(got[leaf], np.asarray(want[leaf]),
-                                           err_msg=f"{k}[{leaf}]", **tolerance(k, cfg))
+                close(got[leaf], want[leaf], k, f"{k}[{leaf}]")
         else:
-            np.testing.assert_allclose(got, np.asarray(want), err_msg=k, **tolerance(k, cfg))
+            close(got, want, k, k)
     assert sorted(pm) == sorted(rm)
     for k in rm:
         if k in EXACT:
             assert float(pm[k]) == float(rm[k]), k
         else:
-            np.testing.assert_allclose(float(pm[k]), float(rm[k]), err_msg=k,
-                                       **tolerance(k, cfg))
+            close(float(pm[k]), float(rm[k]), k, k)
 
 
 def run_both(kw, ref_prob, prob, rounds, *, oracle=None):

@@ -10,7 +10,9 @@ operations (``fused_update``, ``scaffold_cv``, ``dual_from_uplink``,
 ``fused_update_arena``, ``lam_is``, the EF21 kernels, a NaN included) or
 copy (``row_gather``, ``row_scatter``) or select and mix (``stale_mix``);
 ``screen_uplink``'s finite flags exactly and its sums to rtol
-1e-6 * sqrt(W / 128) (a fixed order of its own, not torch.sum's); the
+1e-6 * sqrt(W / 128) (a fixed order of its own, not torch.sum's), and
+``residual_norm``'s sums likewise; ``neighbor_reduce`` and ``edge_flip``
+bitwise (the same f32 operations, the sums in slot order); the
 uplink of ``round_tail`` to one rounding (the plain version divides by a
 scalar as a multiply by its reciprocal on the card); the inner loop to
 rtol = atol = 1e-4 (the matvec sums in another order).
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import FaultConfig, FederatedConfig
-from repro_torch.core import make, quadratic
+from repro_torch.core import autotune, make, make_oracle, pdmm_graph, quadratic, topology
 from repro_torch.kernels import ops as P, ref
 
 
@@ -207,7 +209,7 @@ ARENA_LAUNCHES = {
     "fedavg": {"inner_loop_affine": 1},
 }
 STATE = {"gpdmm": ("x_s", "lam_s"), "agpdmm": ("x_s", "lam_s"), "scaffold": ("x_s", "c_i"),
-         "fedavg": ("x_s",), "fedsplit": ("x_s", "z_s")}
+         "fedavg": ("x_s",), "fedsplit": ("x_s", "z_s"), "gpdmm_graph": ("x_s", "x", "z")}
 CACHE = ("u_hat",)
 
 
@@ -365,3 +367,103 @@ def test_cuda_fault_rounds_match_cpu_and_count_launches(cuda, algo, mode):
     if mode == "async":
         per_round["stale_mix"] = 1
     assert counts == {k.name: 0 for k in P.KERNELS} | {k: 3 * v for k, v in per_round.items()}
+
+
+def _bitwise(a, b):
+    """Equal bits where not NaN, NaN at the same places."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a[~a.isnan()], b[~b.isnan()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_residual_norm_matches_plain(cuda, dtype):
+    """Kernel 13 at the Fig. 2 arena, lm_flat and a ragged width, a NaN row
+    included: sums to rtol 1e-6 * sqrt(W / 128), the same from run to
+    run."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for m, w in ((500, 512), (8, 1 << 20), (5, 130)):
+        x = torch.randn(m, w, generator=g, device=cuda)
+        xp = x + 0.01 * torch.randn(m, w, generator=g, device=cuda)
+        x[1, w // 2] = float("nan")
+        x, xp = x.to(dtype), xp.to(dtype)
+        got, want = P.residual_norm(x, xp), ref.residual_norm_ref(x, xp)
+        for a, b in zip(got, want):
+            assert torch.equal(a.isnan(), b.isnan()), (m, w)
+            torch.testing.assert_close(a, b, rtol=1e-6 * (w / 128) ** 0.5, atol=0,
+                                       equal_nan=True)
+        again = P.residual_norm(x, xp)
+        assert all(_bitwise(a, b) for a, b in zip(again, got))
+    torch.cuda.synchronize()
+
+
+GRAPHS = {"ring": lambda: topology.ring(8), "star": lambda: topology.star(8),
+          "complete": lambda: topology.complete(8), "torus": lambda: topology.torus2d(3, 4),
+          "er": lambda: topology.erdos_renyi(9, 0.3, seed=2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", sorted(GRAPHS))
+def test_cuda_neighbor_reduce_and_edge_flip_match_plain(cuda, family, dtype):
+    """Kernels 14-15 bitwise their plain versions, masked and unmasked,
+    at an arena width and a ragged one, a NaN entry included."""
+    t = GRAPHS[family]()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for w in (384, 130):
+        z = torch.randn(t.n_slots, w, generator=g, device=cuda)
+        x = torch.randn(t.n, w, generator=g, device=cuda)
+        z[0, 3] = float("nan")
+        z, x = z.to(dtype), x.to(dtype)
+        kw = dict(seg=t.src, first=t.first_flags(), sgn=t.sgn, n=t.n)
+        indptr, sgn = (torch.as_tensor(a, device=cuda) for a in (t.indptr, t.sgn))
+        assert _bitwise(P.neighbor_reduce(z, **kw), ref.neighbor_reduce_ref(z, indptr, sgn, t.n))
+        rev, nbr = (torch.as_tensor(a, dtype=torch.int64, device=cuda) for a in (t.rev, t.nbr))
+        for mask in (None, (torch.arange(t.n_slots, device=cuda) % 3 == 0).to(torch.int32)):
+            got = P.edge_flip(z, x, 0.85, rev=t.rev, nbr=t.nbr, sgn=t.sgn, mask=mask)
+            assert _bitwise(got, ref.edge_flip_ref(z, x, 0.85, rev, nbr, sgn, mask))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topo", ["ring", "star", "complete", "er:0.5"])
+def test_cuda_graph_rounds_match_cpu_and_count_launches(cuda, topo):
+    """Three graph rounds on the card against the CPU (rtol = atol =
+    1e-4): per colour phase one neighbor_reduce, one inner_loop_affine when
+    data nodes fire, one edge_flip."""
+    eta = 0.5 / _problems("cpu")[0].L
+    cfg = FederatedConfig(algorithm="gpdmm_graph", topology=topo, inner_steps=3, eta=eta)
+    counts = _card_vs_cpu(cuda, cfg, lambda p: p.oracle())
+    t = pdmm_graph.topo_for(cfg, 8)
+    phases = len(t.colors)
+    data_phases = sum(int((c < t.n_data).any()) for c in t.colors)
+    want = {k.name: 0 for k in P.KERNELS} | dict(
+        neighbor_reduce=3 * phases, edge_flip=3 * phases, inner_loop_affine=3 * data_phases)
+    assert counts == want
+
+
+@pytest.mark.cuda
+def test_cuda_residual_and_autotune_run_on_the_card(cuda):
+    """``state_residual`` launches one residual_norm per 2-D buffer, the
+    card's L_i agree with the CPU's, and an oracle that launches a kernel
+    is refused as a jvp target by name."""
+    prob, gprob = _problems(cuda)
+    cfg = FederatedConfig(algorithm="gpdmm", inner_steps=3, eta="auto", use_arena=True)
+    L_cpu = autotune.estimate_L(prob.oracle(), torch.zeros(64), 8, prob.batch())
+    L_gpu = autotune.estimate_L(gprob.oracle(), torch.zeros(64, device=cuda), 8, gprob.batch())
+    torch.testing.assert_close(torch.from_numpy(L_gpu), torch.from_numpy(L_cpu), rtol=1e-5,
+                               atol=0)
+    rc = autotune.resolve(cfg, gprob.oracle(), torch.zeros(64, device=cuda), 8, gprob.batch())
+    opt = make(rc)
+    s0 = opt.init(torch.zeros(64, device=cuda), 8)
+    s1, _ = opt.round(s0, gprob.oracle(), gprob.batch())
+    P.reset_launches()
+    autotune.state_residual(s0, s1)
+    assert P.launches()["residual_norm"] == 2  # lam_s and x_c; x_s is 1-D
+
+    def kernel_grad(xa, b):
+        return P.fused_update_arena(xa, xa, torch.zeros(xa.shape[1], device=cuda), None, 1.0,
+                                    0.0)
+
+    with pytest.raises(TypeError, match="kernel_grad.*jvp"):
+        autotune.estimate_L(make_oracle(lambda p, b: p, grad_arena=lambda spec: kernel_grad),
+                            torch.ones(128, device=cuda), 3, None, iters=2)

@@ -1,8 +1,10 @@
-"""The port as a package: it imports neither JAX nor the reference, it
-rejects the reference's branches it does not run yet (other topologies,
-early exit, graph PDMM) and runs the fault branches, its configuration
-copy matches the reference's, its per-leaf pytree path runs, and its
-quickstart converges on the CPU."""
+"""The port as a package: it imports neither JAX nor the reference (the
+modules of every slice, autotune and graph-PDMM included), it rejects the
+branches it does not run yet (the host-resident population store) and
+those the reference rejects (EF21 and variance reduction over a graph), it
+runs the fault, topology and early-exit branches, its configuration copy
+matches the reference's, its per-leaf pytree path runs, and its quickstart
+converges on the CPU."""
 import ast
 import dataclasses
 import pathlib
@@ -30,9 +32,14 @@ def _modules():
 
 
 def test_importing_every_module_pulls_in_no_jax_and_no_reference():
+    mods = _modules()
+    for name in ("repro_torch.core.autotune", "repro_torch.core.topology",
+                 "repro_torch.core.pdmm_graph", "repro_torch.kernels.residual",
+                 "repro_torch.kernels.neighbor_reduce"):
+        assert name in mods, name
     code = (
         "import importlib, sys\n"
-        f"for name in {_modules()!r}:\n"
+        f"for name in {mods!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -72,11 +79,27 @@ def test_config_copy_matches_reference_fields_and_defaults():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(algorithm="pdmm_graph"), dict(topology="ring"), dict(tol=1e-6),
+    dict(algorithm="gpdmm", topology="ring", uplink_bits=8),
+    dict(algorithm="pdmm_graph", uplink_bits=8),
+    dict(algorithm="gpdmm_graph", variance_reduction="svrg"),
 ])
 def test_unported_branches_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """EF21 and variance reduction over a graph are refused with the
+    reference's own messages (plain ``gpdmm`` on a ring routes to
+    graph-PDMM and meets the same refusal).  Graph algorithms, other
+    topologies and ``tol > 0`` (refused here before they were ported) now
+    build: ``test_ported_branches_build``."""
+    with pytest.raises(NotImplementedError, match="EF21|variance reduction"):
         make(FederatedConfig(**{"use_arena": True, **kw}))
+
+
+@pytest.mark.parametrize("kw, name", [
+    (dict(algorithm="pdmm_graph"), "pdmm_graph"), (dict(topology="ring"), "gpdmm_graph"),
+    (dict(algorithm="gpdmm_graph", topology="torus"), "gpdmm_graph"),
+    (dict(tol=1e-6), "gpdmm"),
+])
+def test_ported_branches_build(kw, name):
+    assert make(FederatedConfig(**{"use_arena": True, **kw})).name == name
 
 
 @pytest.mark.parametrize("kw", [
