@@ -88,7 +88,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      eta_hand)) through ``make_scan_rounds`` and ``EarlyExit``: auto
      reaches tol in fewer rounds than the hand-tuned eta, and the early-exit
      state equals the fixed-budget run's at that round;
- 11. print one JSON line of per-kernel numbers, then the result line
+ 11. the model slice: (a) ``flash_attention`` against its plain version
+     at olmo-1b's prefill shape (4, 1024, 16, 128) bf16, causal, with a
+     window of 256, grouped (H 32, Hkv 8), in f32 and with suffix queries,
+     timed beside ``scaled_dot_product_attention``; ``wkv6`` at rwkv6-1.6b's
+     (4, 1024, 32, 64) bf16 with a nonzero initial state, and at a ragged
+     length with near-zero decay; (b) ``repro_torch.launch.serve.run`` at
+     full width for olmo-1b and rwkv6-1.6b, batch 4, prompt 1024, 32 new
+     tokens: prefill and decode times, 16 ``flash_attention`` launches per
+     olmo prefill and 24 ``wkv6`` per rwkv prefill, none per decode token,
+     finite logits, the last decode step's logits against a prefill of the
+     extended prompt (and the same in f32 at full width with 4 layers), and
+     a profile of one prefill and 8 decode steps (busy time, idle share,
+     kernel time by name); (c) each model at full width
+     with 2 layers on the card against the CPU (prefill of a 256-token
+     prompt and one decode step);
+ 12. print one JSON line of per-kernel numbers, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Phase 3 also holds the cohort kernels (``row_gather``, ``row_scatter``)
@@ -101,9 +116,8 @@ one PyTorch call that computes the same function where there is one
 (``index_select``, ``index_copy``).
 
 Launch counts are set to 0 just before each run of the main path (phases
-3-10) and read just after it; the launches of the kernel comparisons (phases 3
- and 10 (a)) do not
-count.  Each phase draws its data from a generator of its own.  The script
+3-11) and read just after it; the launches of the kernel comparisons (phases
+3, 10 (a) and 11 (a)) and of phase 11's checks do not count.  Each phase draws its data from a generator of its own.  The script
 imports no JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -157,8 +171,9 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3, prefill: bool = True,
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S
+             ) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -180,14 +195,17 @@ class Record:
         for k, n in counts.items():
             self.rows[k]["launches"] += n
 
-    def kernel(self, name, err, fn, plain_fn, iters, nbytes, flops, library_fn=None):
+    def kernel(self, name, err, fn, plain_fn, iters, nbytes, flops, library_fn=None,
+               flop_per_s=F32_FLOP_PER_S):
         """Time ``fn`` (the kernel), ``plain_fn`` and, where one PyTorch call
         computes the same function, ``library_fn`` on the device, and the
-        kernel once more as the host enqueues it (``enqueue_ms``)."""
+        kernel once more as the host enqueues it (``enqueue_ms``).  The bound
+        takes ``flops`` at ``flop_per_s`` (f32 outside the tensor cores by
+        default)."""
         ms, plain_ms = cuda_time_ms(fn, iters), cuda_time_ms(plain_fn, iters)
         library_ms = None if library_fn is None else cuda_time_ms(library_fn, iters)
         enqueue_ms = cuda_time_ms(fn, iters, prefill=False)
-        b, by = bound_ms(nbytes, flops)
+        b, by = bound_ms(nbytes, flops, flop_per_s)
         self.rows[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                                bound_by=by, library_ms=library_ms, enqueue_ms=enqueue_ms)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
@@ -1635,6 +1653,269 @@ def autotune_phase(rec, prob, torch, ops, make, FederatedConfig, quadratic, gen,
                 f"differ")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the model slice -- serving olmo-1b and rwkv6-1.6b at full width
+# ---------------------------------------------------------------------------
+
+# the prefill shapes of the serve runs below: olmo-1b (B, S, H, hd) and
+# rwkv6-1.6b (B, S, H, K), batch 4, prompt 1024
+FLASH_SHAPE = (4, 1024, 16, 128)
+FLASH_GQA = (32, 8)  # (H, Hkv) of the grouped shape, hd 128
+FLASH_WINDOW = 256
+WKV_SHAPE = (4, 1024, 32, 64)
+SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
+SERVE_ARCHS = ("olmo-1b", "rwkv6-1.6b")
+# per prefill, one kernel per block of the model (16 dense, 24 rwkv), none per
+# decode token
+SERVE_LAUNCHES = {"olmo-1b": {"flash_attention": 16}, "rwkv6-1.6b": {"wkv6": 24}}
+# tolerances, relative to the largest magnitude of the reference value: a
+# kernel against its plain version rounds its f32 result once to bf16 (2^-8)
+# after sums taken in another order; a bf16 model's logits pass 16-24 layers
+# of bf16 activations whose products the two paths round at other points
+# (decode's one-row products against prefill's (B S)-row ones, the card's
+# against the CPU's; measured 1.3e-2 and 3.8e-2 for decode against prefill,
+# 8.5e-3 and 1.4e-2 for the card against the CPU).  The same comparison in
+# f32, at full width with 4 layers, holds to 1e-4: there the two paths differ
+# only in the order of their sums
+KERNEL_BF16_REL = 2.0 ** -7
+KERNEL_F32_REL = 1e-4
+LOGITS_REL = 6e-2
+LOGITS_F32_REL = 1e-4
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+
+
+def rel_err(torch, got, want) -> float:
+    want = want.float()
+    return max_err(got, want) / max(float(want.abs().max()), 1e-30)
+
+
+def flash_flops(B, H, Sq, Sk, hd, window=None) -> float:
+    """Multiply-adds of q k^T and p v over the valid (query, key) pairs."""
+    pairs = 0
+    for i in range(Sq):
+        lo = 0 if window is None else max(0, i - window + 1)
+        pairs += i + 1 - lo
+    return 4.0 * B * H * hd * pairs
+
+
+def check_model_kernels(rec, torch, ops, ref, gen, out):
+    """Kernels 16-17 against their plain versions at the serve runs' shapes
+    (and a grouped, a windowed, an f32 and a suffix-query flash), timed with
+    their bounds; flash beside ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    dev = gen.device
+    bf16 = torch.bfloat16
+
+    def flash_case(B, S, H, Hkv, hd, dt, window=None, Sq=None):
+        Sq = S if Sq is None else Sq
+        q = torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dt)
+        k = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dt)
+        off = S - Sq
+        got = ops.flash_attention(q, k, v, causal=True, window=window, q_offset=off)
+        want = ref.flash_attention_ref(q, k, v, torch.arange(off, S, device=dev),
+                                       torch.arange(S, device=dev), causal=True, window=window)
+        e = rel_err(torch, got, want)
+        tol = KERNEL_BF16_REL if dt == bf16 else KERNEL_F32_REL
+        what = f"flash_attention {(B, Sq, S, H, Hkv, hd)} {dt} window {window}"
+        check(e <= tol, f"{what}: rel error {e} > {tol}")
+        log(f"{what}: rel error {e:.3e}")
+        return q, k, v, max_err(got, want)
+
+    B, S, H, hd = FLASH_SHAPE
+    flash_case(B, S, H, H, hd, bf16, window=FLASH_WINDOW)
+    flash_case(B, S, FLASH_GQA[0], FLASH_GQA[1], hd, bf16)
+    flash_case(B, S, H, H, hd, torch.float32)
+    flash_case(2, 384, 8, 2, 64, torch.float32, Sq=128)  # suffix queries, offset 256
+    q, k, v, err = flash_case(B, S, H, H, hd, bf16)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pos = torch.arange(S, device=dev)
+    rec.kernel("flash_attention", err,
+               lambda: ops.flash_attention(q, k, v, causal=True, q_offset=0),
+               lambda: ref.flash_attention_ref(q, k, v, pos, pos, causal=True), 10,
+               2 * 4 * B * S * H * hd, flash_flops(B, H, S, S, hd),
+               library_fn=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+               flop_per_s=BF16_FLOP_PER_S)
+
+    B, S, H, K = WKV_SHAPE
+    r, kk, vv = (torch.randn(B, S, H, K, generator=gen, device=dev).to(bf16) for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * torch.randn(B, S, H, K, generator=gen, device=dev) - 1.0))
+    u = 0.1 * torch.randn(H, K, generator=gen, device=dev)
+    s0 = 0.1 * torch.randn(B, H, K, K, generator=gen, device=dev)
+    y, s = ops.wkv6(r, kk, vv, w, u, s0)
+    y_w, s_w = ref.wkv6_ref(r, kk, vv, w, u, s0)
+    e_y, e_s = rel_err(torch, y, y_w), rel_err(torch, s, s_w)
+    check(e_y <= KERNEL_BF16_REL, f"wkv6 y: rel error {e_y} > {KERNEL_BF16_REL}")
+    check(e_s <= KERNEL_F32_REL, f"wkv6 state: rel error {e_s} > {KERNEL_F32_REL}")
+    log(f"wkv6 {WKV_SHAPE} bf16, s0 != 0: y rel error {e_y:.3e}, state rel error {e_s:.3e}")
+    # a ragged last chunk and near-zero decay, f32
+    r2, k2, v2 = (torch.randn(2, 100, 4, 64, generator=gen, device=dev) for _ in range(3))
+    w2 = torch.full((2, 100, 4, 64), 1e-30, device=dev)
+    w2[:, ::3] = 0.9
+    u2 = 0.1 * torch.randn(4, 64, generator=gen, device=dev)
+    s02 = torch.randn(2, 4, 64, 64, generator=gen, device=dev)
+    got2, want2 = ops.wkv6(r2, k2, v2, w2, u2, s02), ref.wkv6_ref(r2, k2, v2, w2, u2, s02)
+    e2 = max(rel_err(torch, a, b) for a, b in zip(got2, want2))
+    check(e2 <= KERNEL_F32_REL and bool(torch.isfinite(got2[0]).all()),
+          f"wkv6 ragged, extreme decay: rel error {e2}")
+    log(f"wkv6 (2, 100, 4, 64) f32, ragged chunk, decay 1e-30: rel error {e2:.3e}")
+    chunks = -(-S // 64)
+    flops = B * H * chunks * (2 * 64 * K * K * 2 + 2 * (64 * 63 // 2) * K * 2)
+    nbytes = 2 * (3 * B * S * H * K) + 4 * B * S * H * K + 2 * B * S * H * K + 4 * H * K \
+        + 2 * 4 * B * H * K * K
+    rec.kernel("wkv6", max(max_err(y, y_w), max_err(s, s_w)),
+               lambda: ops.wkv6(r, kk, vv, w, u, s0),
+               lambda: ref.wkv6_ref(r, kk, vv, w, u, s0), 10, nbytes, flops)
+    out["model_kernel_errors"] = {"wkv6_y_rel": e_y, "wkv6_s_rel": e_s}
+    torch.cuda.synchronize()
+
+
+def serve_phase(rec, torch, ops, dev, out):
+    """``serve.run`` at full width, each model twice (the first run warms
+    the card's libraries and its allocator), the launches of the second
+    read; then the last decode step's logits against a prefill of the
+    extended prompt, in bf16 and, at 4 layers, in f32."""
+    from repro_torch.launch import serve
+
+    res = out["serve"] = {}
+    for arch in SERVE_ARCHS:
+        serve.run(arch, reduced=False, device="cuda", quiet=True, **SERVE)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got = serve.run(arch, reduced=False, device="cuda", **SERVE)
+        torch.cuda.synchronize()
+        counts = ops.launches()
+        rec.add(counts)
+        want = {n: 0 for n in counts} | SERVE_LAUNCHES[arch]
+        check(counts == want, f"serve {arch}: launches {counts}, expected {want}")
+        check(bool(torch.isfinite(got.logits).all()), f"serve {arch}: logits not finite")
+        check(tuple(got.tokens.shape) == (SERVE["batch"], SERVE["new_tokens"]),
+              f"serve {arch}: tokens {tuple(got.tokens.shape)}")
+        with torch.no_grad():
+            ext = torch.cat([got.prompts, got.tokens], dim=1)
+            full, _ = got.model.prefill(got.params, {"tokens": ext}, ext.shape[1])
+        e = rel_err(torch, got.logits, full)
+        log(f"serve {arch}: prefill {got.prefill_ms:.2f} ms, decode {got.decode_ms_per_token:.3f} "
+            f"ms/token; launches {dict((n, c) for n, c in counts.items() if c)}; last decode "
+            f"logits vs prefill of the {ext.shape[1]}-token prompt: rel error {e:.3e}")
+        check(e <= LOGITS_REL, f"serve {arch}: decode vs prefill rel error {e} > {LOGITS_REL}")
+        res[arch] = {"prefill_ms": got.prefill_ms, "decode_ms_per_token": got.decode_ms_per_token,
+                     "launches": {n: c for n, c in counts.items() if c},
+                     "decode_vs_prefill_rel": e}
+        res[arch] |= profile_serve(torch, got, arch)
+        del got, full
+        torch.cuda.empty_cache()
+        res[arch]["decode_vs_prefill_f32_rel"] = decode_against_prefill_f32(torch, arch)
+
+
+def decode_against_prefill_f32(torch, arch) -> float:
+    """Full width, 4 layers, f32: 4 greedy decode steps after a 256-token
+    prompt against a prefill of the extended prompt."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+
+    model = build(dataclasses.replace(get_arch(arch), n_layers=4, dtype="float32"))
+    with torch.no_grad():
+        params = model.init(seeded(torch, 53))
+        prompts = torch.randint(0, model.cfg.vocab_size, (2, 256), generator=seeded(torch, 59),
+                                device="cuda")
+        tokens, logits, _, _ = serve.generate(model, params, prompts, 4, 260)
+        ext = torch.cat([prompts, tokens], dim=1)
+        full, _ = model.prefill(params, {"tokens": ext}, ext.shape[1])
+    e = rel_err(torch, logits, full)
+    log(f"serve {arch} f32, full width, 4 layers: last decode logits vs prefill of the "
+        f"260-token prompt: rel error {e:.3e}")
+    check(e <= LOGITS_F32_REL, f"serve {arch} f32: decode vs prefill rel error {e}")
+    del params
+    torch.cuda.empty_cache()
+    return e
+
+
+def profile_serve(torch, got, arch) -> dict:
+    """torch.profiler over one prefill and over 8 decode steps of the served
+    model: device-busy time, the idle share of the host-clocked time and
+    the kernel time by name ("where the time goes")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model, params, prompts = got.model, got.params, got.prompts
+    cap = prompts.shape[1] + 8
+    result = {}
+
+    def prefill():
+        return model.prefill(params, {"tokens": prompts}, cap)
+
+    with torch.no_grad():
+        _, cache = prefill()
+        nxt = got.tokens[:, :1]
+
+        def decode():
+            nonlocal cache
+            for _ in range(8):
+                _, cache = model.decode(params, cache, nxt)
+
+        for label, fn, n in (("prefill", prefill, 1), ("decode", decode, 8)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / n
+            if label == "decode":  # fill the cache back to the prompt's end
+                _, cache = prefill()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                fn()
+                torch.cuda.synchronize()
+            events = p.key_averages()
+            busy = 1e-3 * sum(e.self_device_time_total for e in events
+                              if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+            busy /= n
+            idle = max(0.0, 1.0 - busy / wall_ms)
+            table = events.table(sort_by="self_device_time_total", row_limit=10)
+            log(f"profile serve {arch} {label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+                f"per {'prefill' if n == 1 else 'token'}; idle share {idle:.3f}")
+            log(table)
+            result[f"{label}_profile"] = {"busy_ms": busy, "wall_ms": wall_ms,
+                                          "idle_share": idle, "table": table}
+            if label == "prefill":
+                _, cache = prefill()
+    return result
+
+
+def serve_against_cpu(torch, out):
+    """The same parameters at full width, 2 layers, on the card and on the
+    CPU (plain versions): prefill of one 256-token prompt and one decode
+    step, last-token logits within ``LOGITS_REL``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import tree_util as T
+    from repro_torch.models import build
+
+    res = out["serve_card_vs_cpu"] = {}
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=2)
+        model = build(cfg)
+        with torch.no_grad():
+            p_gpu = model.init(seeded(torch, 43))
+            p_cpu = T.tmap(lambda t: t.cpu(), p_gpu)
+            gen = seeded(torch, 47)
+            tok = torch.randint(0, cfg.vocab_size, (1, 257), generator=gen, device="cuda")
+            errs = []
+            for p, t in ((p_gpu, tok), (p_cpu, tok.cpu())):
+                lg, cache = model.prefill(p, {"tokens": t[:, :256]}, 258)
+                lg2, _ = model.decode(p, cache, t[:, 256:])
+                errs.append((lg, lg2))
+        e = max(rel_err(torch, a.cpu(), b) for a, b in zip(errs[0], errs[1]))
+        log(f"{arch} at full width, 2 layers, batch 1, prompt 256: card vs CPU prefill and "
+            f"one decode step, rel error {e:.3e}")
+        check(e <= LOGITS_REL, f"{arch} card vs CPU: rel error {e} > {LOGITS_REL}")
+        res[arch] = e
+
+
 def profile_rounds(torch, label, run, round_ms, rounds, out):
     """torch.profiler over ``run`` (``rounds`` rounds): kernel time by name,
     device-busy time per round, and the device's idle share of the round
@@ -1754,6 +2035,9 @@ def main() -> int:
           quadratic, seeded(torch, 31), dev, out, prof)
     timed("10 autotune", autotune_phase, rec, prob, torch, ops, make, FederatedConfig,
           quadratic, seeded(torch, 37), dev, out)
+    timed("11 model kernels", check_model_kernels, rec, torch, ops, ref, seeded(torch, 41), out)
+    timed("11 serve", serve_phase, rec, torch, ops, dev, out)
+    timed("11 card vs cpu", serve_against_cpu, torch, out)
 
     kernels = {"kernels": list(rec.rows.values())}
     out |= kernels

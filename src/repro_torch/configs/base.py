@@ -1,5 +1,6 @@
-"""Federated-run configuration: the port's own copy of ``FederatedConfig``
-and ``FaultConfig`` from ``src/repro/configs/base.py``, with the same fields,
+"""Run configuration: the port's own copy of ``FederatedConfig``,
+``FaultConfig``, ``ArchConfig``, ``ShapeConfig``, ``SHAPES`` and
+``validate`` from ``src/repro/configs/base.py``, with the same fields,
 defaults and validation.  The port keeps a copy instead of importing the
 reference so that it runs where JAX is not installed.
 
@@ -9,7 +10,7 @@ the port does not have yet; rounds ignore them, as the reference's do.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 
@@ -182,3 +183,242 @@ class FederatedConfig:
                     f"cohort_tile={self.cohort_tile} does not divide the "
                     f"cohort size {mc} (= ceil(participation="
                     f"{self.participation} * num_clients={self.num_clients}))")
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned, public pool)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Architecture configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None  # None -> d_model // n_heads
+
+    # Repeating block pattern.  Entries: "dense" (attn+mlp), "moe" (attn+moe),
+    # "rwkv" (rwkv6 time-mix + channel-mix), "rec" (RG-LRU block + mlp),
+    # "local" (local/sliding-window attn + mlp).
+    block_pattern: Tuple[str, ...] = ("dense",)
+
+    # --- attention ---
+    attn_kind: str = "gqa"  # gqa | mla | none
+    rope_theta: float = 10_000.0
+    window: Optional[int] = None  # sliding-window size for "local" blocks /
+    #                               sw-variant of dense archs (long_500k)
+
+    # --- MLA (deepseek v2) ---
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+    # --- MoE ---
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: Optional[int] = None  # per-expert hidden; None -> d_ff
+    first_dense_layers: int = 0  # leading dense layers (deepseek v2)
+    moe_fused_dispatch: bool = False  # one dispatch for all top-k slots + a
+    #   single bf16 expert-combine psum instead of k f32 ones (SSPerf H1)
+
+    # --- norm / misc ---
+    norm_kind: str = "rmsnorm"  # rmsnorm | layernorm | nonparam_ln
+    tie_embeddings: bool = False
+    act: str = "silu"  # silu (swiglu) | gelu (geglu)
+
+    # --- recurrent ---
+    rec_d_state: int = 0  # RG-LRU recurrent width (0 -> d_model)
+    conv_width: int = 4  # temporal conv width in RG-LRU block
+    wkv_head_dim: int = 64  # rwkv6 head size
+
+    # --- modality frontends (STUBS: precomputed embeddings by input_specs) ---
+    frontend: Optional[str] = None  # vision | audio | None
+    n_prefix_tokens: int = 0  # image patches / audio frames per sample
+    frontend_dim: int = 0  # ViT / codec feature dim
+    n_codebooks: int = 1  # musicgen parallel codebooks
+
+    # --- serving ---
+    shard_cache_seq: bool = False  # SSPerf H2: shard the KV-cache seq dim over
+    #   "model" when the head dim cannot (GQA kv < model axis, or MLA)
+    subquadratic: bool = False  # eligible for long_500k as-is
+    sw_variant_window: Optional[int] = None  # if set, long_500k runs with this
+    #                                          sliding window (dense archs)
+
+    # --- distribution ---
+    fed: FederatedConfig = field(default_factory=FederatedConfig)
+    remat: bool = True
+    scan_layers: bool = True
+    microbatch: Optional[int] = None  # split the per-client batch into this
+    #   many grad-accumulation chunks inside each inner step (activation
+    #   memory / microbatch, same FLOPs; see EXPERIMENTS.md SSPerf)
+    dtype: str = "bfloat16"
+    source: str = ""  # citation
+
+    # ------------------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    @property
+    def pattern_len(self) -> int:
+        return len(self.block_pattern)
+
+    @property
+    def n_units(self) -> int:
+        return self.n_layers // self.pattern_len
+
+    @property
+    def tail_blocks(self) -> Tuple[str, ...]:
+        """Blocks for layers beyond the last full pattern unit."""
+        rem = self.n_layers % self.pattern_len
+        return self.block_pattern[:rem]
+
+    @property
+    def supports_decode(self) -> bool:
+        return True  # all assigned archs are decoder-style
+
+    def supports_shape(self, shape: ShapeConfig) -> bool:
+        if shape.name == "long_500k":
+            return self.subquadratic or self.sw_variant_window is not None
+        return True
+
+    # ------------------------------------------------------------------
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family variant for CPU smoke tests."""
+        pat = self.block_pattern
+        # keep one full pattern unit (or 2 layers for singleton patterns)
+        n_layers = max(2, len(pat))
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4)
+        n_kv = max(1, min(self.n_kv_heads, n_heads))
+        # keep the GQA ratio flavour when possible
+        if self.n_kv_heads < self.n_heads:
+            n_kv = max(1, n_heads // max(1, self.n_heads // self.n_kv_heads))
+        head_dim = d_model // n_heads
+        return replace(
+            self,
+            n_layers=n_layers,
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=head_dim,
+            d_ff=min(self.d_ff, 512),
+            moe_d_ff=None if self.moe_d_ff is None else min(self.moe_d_ff, 128),
+            vocab_size=min(self.vocab_size, 512),
+            n_experts=min(self.n_experts, 4),
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            n_shared_experts=min(self.n_shared_experts, 1),
+            first_dense_layers=min(self.first_dense_layers, 1),
+            kv_lora_rank=min(self.kv_lora_rank, 64),
+            q_lora_rank=min(self.q_lora_rank, 64),
+            rope_head_dim=min(self.rope_head_dim, 32) if self.kv_lora_rank else self.rope_head_dim,
+            nope_head_dim=min(self.nope_head_dim, 32),
+            v_head_dim=min(self.v_head_dim, 32),
+            rec_d_state=min(self.rec_d_state, 256) if self.rec_d_state else 0,
+            wkv_head_dim=min(self.wkv_head_dim, 32),
+            window=min(self.window, 64) if self.window else None,
+            sw_variant_window=min(self.sw_variant_window, 64) if self.sw_variant_window else None,
+            n_prefix_tokens=min(self.n_prefix_tokens, 16) if self.n_prefix_tokens else 0,
+            frontend_dim=min(self.frontend_dim, 64) if self.frontend_dim else 0,
+            dtype="float32",
+            remat=False,
+            scan_layers=True,
+        )
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for MODEL_FLOPS and memory napkin math)."""
+        d, v = self.d_model, self.vocab_size
+        hd = self.resolved_head_dim
+        total = v * d  # embed
+        if not self.tie_embeddings:
+            total += v * d
+        if self.n_codebooks > 1:
+            total += (self.n_codebooks - 1) * 2 * v * d
+        if self.frontend == "vision":
+            total += self.frontend_dim * d + d * d  # 2-layer projector
+        per_block: dict[str, int] = {}
+        attn_p = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        if self.attn_kind == "mla":
+            qd = self.q_lora_rank or d
+            attn_p = 0
+            if self.q_lora_rank:
+                attn_p += d * self.q_lora_rank
+            attn_p += qd * self.n_heads * (self.nope_head_dim + self.rope_head_dim)
+            attn_p += d * (self.kv_lora_rank + self.rope_head_dim)
+            attn_p += self.kv_lora_rank * self.n_heads * (self.nope_head_dim + self.v_head_dim)
+            attn_p += self.n_heads * self.v_head_dim * d
+        mlp_p = 3 * d * self.d_ff
+        per_block["dense"] = attn_p + mlp_p
+        per_block["local"] = attn_p + mlp_p
+        moe_ff = self.moe_d_ff or self.d_ff
+        per_block["moe"] = (
+            attn_p
+            + self.n_experts * 3 * d * moe_ff
+            + self.n_shared_experts * 3 * d * moe_ff
+            + d * self.n_experts  # router
+        )
+        # rwkv6 block: r,k,v,g,w,o projections + channel mix
+        per_block["rwkv"] = 6 * d * d + 3 * d * self.d_ff
+        # rg-lru block: in/out proj x2 branches + conv + recurrent gates + mlp
+        d_rnn = self.rec_d_state or d
+        per_block["rec"] = 2 * d * d_rnn + d_rnn * d + self.conv_width * d_rnn + 2 * d_rnn * d_rnn // 8 + mlp_p
+        for i in range(self.n_layers):
+            blk = self.block_pattern[i % self.pattern_len]
+            if blk in ("dense", "moe") and i < self.first_dense_layers:
+                total += per_block["dense"]
+            else:
+                total += per_block[blk]
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        full = self.param_count()
+        moe_ff = self.moe_d_ff or self.d_ff
+        n_moe_layers = sum(
+            1
+            for i in range(self.n_layers)
+            if self.block_pattern[i % self.pattern_len] == "moe" and i >= self.first_dense_layers
+        )
+        inactive = n_moe_layers * (self.n_experts - self.top_k) * 3 * self.d_model * moe_ff
+        return full - inactive
+
+
+def validate(cfg: ArchConfig) -> None:
+    assert cfg.n_heads % cfg.n_kv_heads == 0, (cfg.name, "GQA ratio")
+    if cfg.family == "moe":
+        assert cfg.n_experts > 0 and cfg.top_k > 0, cfg.name
+    if cfg.attn_kind == "mla":
+        assert cfg.kv_lora_rank > 0, cfg.name
+    for b in cfg.block_pattern:
+        assert b in ("dense", "moe", "rwkv", "rec", "local"), b

@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import tree_util as T
 from repro_torch.core.quadratic import LeastSquares
 from repro_torch.device import resolve
 
@@ -23,10 +24,17 @@ def tensor(a, device="cuda") -> torch.Tensor:
 
 
 def params(tree, device="cuda"):
-    """A parameter vector, or a flat dict of arrays, -> the port's tree."""
-    if isinstance(tree, dict):
-        return {k: tensor(v, device) for k, v in tree.items()}
-    return tensor(tree, device)
+    """An array, or any nesting of dicts, lists and tuples of arrays, ->
+    the port's tree of the same structure (``None`` and empty containers
+    kept)."""
+    return T.tmap(lambda a: tensor(a, device), tree)
+
+
+def model_params(tree, device="cuda"):
+    """The reference's model parameters (``Model.init``'s nested tree:
+    ``{"embed": ..., "stack": {"units": ..., "tail": [...]}, "final_norm":
+    {}}``) or a model cache, -> the port's; bf16 leaves bit for bit."""
+    return params(tree, device)
 
 
 def least_squares(ref, device="cuda") -> LeastSquares:
@@ -38,7 +46,7 @@ def least_squares(ref, device="cuda") -> LeastSquares:
 
 def round_state(state: dict, device="cuda") -> dict:
     """A round state of any ported algorithm -> tensors.  Every entry but
-    the round counter is an array or a flat dict of arrays: server trees
+    the round counter is an array or a tree of arrays: server trees
     (``x_s``, SCAFFOLD's ``c``), arena buffers (``lam_s``, ``x_c``,
     ``c_i``, FedSplit's ``z_s``, the async engine's ``stale_buf``,
     graph-PDMM's node and edge-dual arenas ``x`` and ``z``) or, on the
@@ -52,8 +60,9 @@ def round_state(state: dict, device="cuda") -> dict:
 
 
 def to_numpy(tree):
-    """A tensor or a flat dict of tensors -> numpy (bf16 as its f32 value)."""
-    if isinstance(tree, dict):
-        return {k: to_numpy(v) for k, v in tree.items()}
-    t = tree.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    """A tensor or a tree of tensors -> numpy (bf16 as its f32 value)."""
+    def one(x):
+        t = x.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return T.tmap(one, tree)

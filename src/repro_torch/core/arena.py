@@ -12,12 +12,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as nnf
 
-from repro_torch.core.tree_util import leaves as tree_leaves
+from repro_torch.core.tree_util import leaves as tree_leaves, paths as tree_paths, tmap, unflatten
 from repro_torch.device import resolve as resolve_device
 from repro_torch.kernels.fused_update import LANES, ceil_to
 
@@ -40,29 +40,34 @@ class LeafSlice:
 
 @dataclasses.dataclass(frozen=True)
 class ArenaSpec:
-    """Pack/unpack metadata for one parameter tree (a tensor or a flat dict
-    of tensors); ``keys`` is None for a single tensor."""
+    """Pack/unpack metadata for one parameter tree (a tensor or any nesting
+    of dicts, lists and tuples of tensors, flattened in ``jax.tree``
+    order).  ``treedef`` is the tree with a 0 in place of each leaf."""
 
-    keys: Optional[Tuple[str, ...]]
+    treedef: Any
     leaves: Tuple[LeafSlice, ...]
     width: int
     dtype: torch.dtype
 
     @classmethod
     def from_tree(cls, tree, *, stacked: bool = False) -> "ArenaSpec":
-        keys = tuple(sorted(tree)) if isinstance(tree, dict) else None
         entries, off = [], 0
-        for i, leaf in enumerate(tree_leaves(tree)):
+        for path, leaf in zip(tree_paths(tree), tree_leaves(tree)):
             shape = tuple(leaf.shape[1:] if stacked else leaf.shape)
             size = math.prod(shape)
             padded = ceil_to(size, LANES)
-            path = "" if keys is None else f"['{keys[i]}']"
             entries.append(LeafSlice(path, shape, leaf.dtype, off, size, padded))
             off += padded
         dtype = entries[0].dtype
         for e in entries[1:]:
             dtype = torch.promote_types(dtype, e.dtype)
-        return cls(keys=keys, leaves=tuple(entries), width=off, dtype=dtype)
+        return cls(treedef=tmap(lambda _: 0, tree), leaves=tuple(entries), width=off,
+                   dtype=dtype)
+
+    @property
+    def keys(self) -> Optional[Tuple[str, ...]]:
+        """The top-level dict keys, sorted; None for a single tensor."""
+        return tuple(sorted(self.treedef)) if isinstance(self.treedef, dict) else None
 
     @property
     def n_rows(self) -> int:
@@ -93,7 +98,7 @@ class ArenaSpec:
     def _unpack_row(self, arr, lead: Tuple[int, ...]):
         out = [arr[..., e.offset:e.offset + e.size].reshape(lead + e.shape).to(e.dtype)
                for e in self.leaves]
-        return out[0] if self.keys is None else dict(zip(self.keys, out))
+        return unflatten(self.treedef, out)
 
     def unpack(self, row):
         """``(width,)`` arena row -> server tree (original dtypes)."""

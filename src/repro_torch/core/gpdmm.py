@@ -126,7 +126,7 @@ def inner_steps_arena(spec, grad_fn, x0, x_s_row, lam, batch, *, K, eta, rho, pe
             g = g - snaps[k] + gbar
         x = ops.fused_update_arena(x, g, x_s_row, lam, step_c, rho)
         xsum = xsum + x
-    return x, xsum * (1.0 / K)
+    return x, xsum * T.weak(1.0 / K, xsum)
 
 
 def participation_key(cfg: FederatedConfig, round_idx):
@@ -388,14 +388,14 @@ def tree_tail(cfg: FederatedConfig, state, x_ref, x_s, rho: float, m: int):
     uplink, ``cached_uplink`` (screened against the server tree), the
     client mean and the dual refresh.  Returns (lam_is, {x_s, lam_s[,
     u_hat][, stale slots]}, mask, fault metrics)."""
-    lam_is = T.tmap(lambda s, xr, l: rho * (s[None] - xr) - l, x_s, x_ref, state["lam_s"])
-    uplink = T.tmap(lambda xr, l: xr - l / rho, x_ref, lam_is)
+    lam_is = T.tmap(lambda s, xr, l: T.weak(rho, s) * (s[None] - xr) - l, x_s, x_ref, state["lam_s"])
+    uplink = T.tmap(lambda xr, l: xr - l / T.weak(rho, l), x_ref, lam_is)
     uplink, mask, new_state, fm = cached_uplink(cfg, state, uplink, m, x_s)
     if "u_hat" in state:
         new_state["u_hat"] = uplink
     x_s_new = T.tree_client_mean(uplink)  # the round's single all-reduce
     new_state["x_s"] = x_s_new
-    new_state["lam_s"] = T.tmap(lambda u, s: rho * (u - s[None]), uplink, x_s_new)
+    new_state["lam_s"] = T.tmap(lambda u, s: T.weak(rho, u) * (u - s[None]), uplink, x_s_new)
     return lam_is, new_state, mask, fm
 
 

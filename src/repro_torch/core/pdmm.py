@@ -26,12 +26,12 @@ def _round(cfg: FederatedConfig, state, prox_fn, batch=None, per_step_batches=Fa
     rho = resolved_rho(cfg)
     x_s, lam_s = state["x_s"], state["lam_s"]
 
-    v = T.tmap(lambda s, l: s[None] - l / rho, x_s, lam_s)
+    v = T.tmap(lambda s, l: s[None] - l / T.weak(rho, l), x_s, lam_s)
     x_i = prox_fn(v, rho)  # prox_fn maps the stacked client dim itself
-    lam_is = T.tmap(lambda s, x, l: rho * (s[None] - x) - l, x_s, x_i, lam_s)
-    uplink = T.tmap(lambda x, l: x - l / rho, x_i, lam_is)
+    lam_is = T.tmap(lambda s, x, l: T.weak(rho, s) * (s[None] - x) - l, x_s, x_i, lam_s)
+    uplink = T.tmap(lambda x, l: x - l / T.weak(rho, l), x_i, lam_is)
     x_s_new = T.tree_client_mean(uplink)
-    lam_s_new = T.tmap(lambda x, s, l: rho * (x - s[None]) - l, x_i, x_s_new, lam_is)
+    lam_s_new = T.tmap(lambda x, s, l: T.weak(rho, x) * (x - s[None]) - l, x_i, x_s_new, lam_is)
 
     new_state = {"x_s": x_s_new, "lam_s": lam_s_new, "round": state["round"] + 1}
     return new_state, {"lam_sum_norm": T.tree_norm(T.tree_client_sum(lam_s_new))}

@@ -249,7 +249,7 @@ def inner_steps_graph(spec, grad_fn, x0, s, batch, *, K, nc: NodeConsts, per_ste
         b = T.tmap(lambda a: a[k], batch) if per_step else batch
         x = one_step(x, b)
         xsum = xsum + x
-    return x, xsum * (1.0 / K)
+    return x, xsum * T.weak(1.0 / K, xsum)
 
 
 # ---------------------------------------------------------------------------

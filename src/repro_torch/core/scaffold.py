@@ -158,9 +158,9 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     # server: two all-reduces over the cohort's deltas (silent rows are zero)
     f32 = torch.float32
     inv_m = 1.0 / m
-    x_s_new = x_s_row + cfg.eta_g * inv_m * torch.sum(
+    x_s_new = x_s_row + T.weak(cfg.eta_g * inv_m, x_s_row) * torch.sum(
         (x_t - x_s_row[None]).to(f32), dim=0).to(x_s_row.dtype)
-    c_new = c_row + inv_m * torch.sum((c_i_new_c - c_i_c).to(f32), dim=0).to(c_row.dtype)
+    c_new = c_row + T.weak(inv_m, c_row) * torch.sum((c_i_new_c - c_i_c).to(f32), dim=0).to(c_row.dtype)
     c_i_new = ops.row_scatter(c_i, idx, c_i_new_c)  # silent clients keep c_i
     new_state, metrics = _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row,
                                       keep_c)
@@ -205,7 +205,7 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
         c_i_new = torch.where(mask[:, None], c_i_new, c_i)
         x_up = torch.where(mask[:, None], x_t, x_s_row[None])
     # server: two all-reduces (x-delta and c-delta)
-    x_s_new = x_s_row + cfg.eta_g * (torch.mean(x_up, dim=0) - x_s_row)
+    x_s_new = x_s_row + T.weak(cfg.eta_g, x_s_row) * (torch.mean(x_up, dim=0) - x_s_row)
     c_new = c_row + torch.mean(c_i_new - c_i, dim=0)
     new_state, metrics = _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, mask)
     return new_state | stale_up, metrics | fault_report(cfg, fplan, pmask, keep, sm)
@@ -227,7 +227,7 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
     alpha = 1.0 / (K * eta)
     fplan = faults.plan(cfg, state["round"], m)
     x_t = faults.inject_tree(cfg.faults, fplan, x_K)
-    c_i_new = T.tmap(lambda ci, cc, s, xk: ci - cc[None] + (s[None] - xk) * step_for(alpha, xk),
+    c_i_new = T.tmap(lambda ci, cc, s, xk: ci - cc[None] + (s[None] - xk) * T.weak(step_for(alpha, xk), xk),
                      c_i, c, x_s, x_t)
     x_up = x_t
     pmask = participation(cfg, state, m)

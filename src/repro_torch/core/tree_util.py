@@ -2,11 +2,18 @@
 ported paths use, with the participation draw and the EF21 uplink
 quantiser of the per-leaf path.
 
-A parameter tree here is a single tensor or a flat ``dict`` of tensors;
-dict leaves are visited in sorted key order, as ``jax.tree`` flattens a
-dict, so arena rows match the reference's element for element.  Per-client
-state is stacked: every leaf gains a leading client dim m, and
-``tree_client_mean`` is the server aggregation of the star network.
+A parameter tree is a tensor or any nesting of dicts, lists and tuples of
+tensors, flattened as ``jax.tree`` flattens it: dict keys sorted at every
+level, lists and tuples in order; ``None`` and empty containers hold no
+leaf but keep their place in the structure.  So arena rows match the
+reference's element for element.  Per-client state is stacked: every leaf
+gains a leading client dim m, and ``tree_client_mean`` is the server
+aggregation of the star network.
+
+JAX casts a Python scalar to the dtype of the tensor it meets (a weak
+type); PyTorch keeps it at the op's f32 precision.  In bf16 the two round
+differently, so the plain tensor code passes every Python scalar that meets
+a leaf through ``weak`` first.
 """
 from __future__ import annotations
 
@@ -16,19 +23,69 @@ import torch
 
 from repro_torch.core import prng
 
+_NARROW = (torch.bfloat16, torch.float16)
+
+
+def weak(s, like: torch.Tensor):
+    """The Python scalar ``s`` as JAX's weak-type rule gives it against the
+    tensor ``like``: rounded to ``like``'s dtype when that is narrower than
+    f32, so that ``x * weak(s, x)`` rounds as ``x * s`` does in JAX.  Still
+    a Python float (no device op); a tensor ``s`` passes through."""
+    if isinstance(s, (int, float)) and not isinstance(s, bool) and like.dtype in _NARROW:
+        return torch.tensor(float(s), dtype=like.dtype).item()
+    return s
+
+
+def _flatten(tree, out: list) -> None:
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _flatten(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            _flatten(t, out)
+    elif tree is not None:
+        out.append(tree)
+
 
 def leaves(tree) -> list:
     """The tree's tensors in flattening order."""
+    out: list = []
+    _flatten(tree, out)
+    return out
+
+
+def paths(tree, prefix: str = "") -> list:
+    """Each leaf's key path, as ``jax.tree_util.keystr`` writes it
+    (``"['a'][0]"``), in flattening order."""
     if isinstance(tree, dict):
-        return [tree[k] for k in sorted(tree)]
-    return [tree]
+        return [p for k in sorted(tree) for p in paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree) for p in paths(t, f"{prefix}[{i}]")]
+    return [] if tree is None else [prefix]
 
 
 def tmap(fn, *trees):
-    """Apply ``fn`` leafwise over trees of one structure."""
-    if isinstance(trees[0], dict):
-        return {k: fn(*(t[k] for t in trees)) for k in sorted(trees[0])}
+    """Apply ``fn`` leafwise over trees of one structure (that of the first
+    tree; the others may hold ``None`` where it holds a leaf)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tmap(fn, *(t[k] for t in trees)) for k in sorted(t0)}
+    if isinstance(t0, (list, tuple)):
+        out = [tmap(fn, *(t[i] for t in trees)) for i in range(len(t0))]
+        return out if isinstance(t0, list) else tuple(out)
+    if t0 is None:
+        return None
     return fn(*trees)
+
+
+def unflatten(like, flat):
+    """A tree of ``like``'s structure whose leaves are ``flat``, in
+    flattening order."""
+    it = iter(flat)
+    out = tmap(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
 
 
 def tree_add(a, b):
@@ -40,12 +97,12 @@ def tree_sub(a, b):
 
 
 def tree_scale(a, s):
-    return tmap(lambda x: x * s, a)
+    return tmap(lambda x: x * weak(s, x), a)
 
 
 def tree_axpy(alpha, x, y):
     """alpha * x + y"""
-    return tmap(lambda a, b: alpha * a + b, x, y)
+    return tmap(lambda a, b: weak(alpha, a) * a + b, x, y)
 
 
 def tree_zeros_like(a):

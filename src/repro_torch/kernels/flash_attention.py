@@ -1,0 +1,78 @@
+"""Kernel 16: causal GQA attention with an online softmax, optionally over a
+sliding window, one CUDA kernel (``csrc/flash_attention.cu``); the port of
+``src/repro/kernels/flash_attention.py``:
+
+  * ``flash_attention``  q (B, Sq, H, hd), k (B, Sk, Hkv, hd), v (B, Sk,
+                         Hkv, vd) -> (B, Sq, H, vd) in q's dtype, f32
+                         accumulators, query i at position q_offset + i
+
+Every dense or local block of ``models.attention.gqa_apply`` calls it once
+on prefill.  CUDA operands: q, k and v all f32 or all bf16, contiguous, hd =
+vd <= 128, H a multiple of Hkv, any Sq and Sk.  The positions are
+contiguous: keys at 0..Sk-1, queries from ``q_offset``, a Python int the
+caller passes so that no launch waits on a host read.  The plain version
+(``ref.flash_attention_ref``) takes any position vectors.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _args, ref
+from repro_torch.kernels._build import F, I, P, Kernel
+
+MAX_HEAD_DIM = 128
+
+FLASH_ATTENTION = Kernel(
+    "flash_attention", "flash_attention.cu", "launch_flash_attention",
+    # q k v o B Sq Sk H Hkv hd vd q_offset causal window dtype scale dev stream
+    [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, I, P],
+    replaces="src/repro/kernels/flash_attention.py:70",
+)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0):
+    """Attention of the Sq queries at positions q_offset .. q_offset + Sq - 1
+    over the Sk keys at positions 0 .. Sk - 1 (see the module doc)."""
+    kern = FLASH_ATTENTION
+    if _args.on_cpu(kern.name, q):
+        dev = q.device
+        q_pos = torch.arange(q_offset, q_offset + q.shape[1], device=dev)
+        k_pos = torch.arange(k.shape[1], device=dev)
+        return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal, window=window)
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"{kern.name}: q, k, v must be 4-D (B, S, heads, dim)")
+    B, Sq, H, hd = q.shape
+    Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
+    dt, dev = q.dtype, q.device
+    if dt not in _args.DTYPE_CODES:
+        raise TypeError(f"{kern.name}: dtype {dt} is not supported (f32 or bf16)")
+    if hd > MAX_HEAD_DIM or vd > MAX_HEAD_DIM or vd != hd:
+        raise ValueError(f"{kern.name}: head dims hd={hd}, vd={vd}; the kernel takes "
+                         f"hd = vd <= {MAX_HEAD_DIM}")
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"{kern.name}: {H} query heads are not a multiple of {Hkv} kv heads")
+    if window is not None and window < 1:
+        raise ValueError(f"{kern.name}: window must be >= 1, got {window}")
+    _args.check(kern.name, "q", q, (B, Sq, H, hd), (dt,), dev)
+    _args.check(kern.name, "k", k, (B, Sk, Hkv, hd), (dt,), dev)
+    _args.check(kern.name, "v", v, (B, Sk, Hkv, vd), (dt,), dev)
+    out = torch.empty((B, Sq, H, vd), dtype=dt, device=dev)
+    kern.launch(_args.ptr(q), _args.ptr(k), _args.ptr(v), _args.ptr(out), B, Sq, Sk, H, Hkv,
+                hd, vd, int(q_offset), int(causal), 0 if window is None else int(window),
+                _args.DTYPE_CODES[dt], 1.0 / math.sqrt(hd), *_args.stream_args(dev))
+    return out
+
+
+def contiguous_offset(q_pos, k_pos, sq: int, sk: int) -> int:
+    """The query offset of explicit position vectors that the kernel can
+    take (k_pos = arange(Sk), q_pos = q_pos[0] + arange(Sq)), read on the
+    host; raises for any other positions."""
+    q_pos, k_pos = q_pos.cpu(), k_pos.cpu()
+    off = int(q_pos[0]) if sq else 0
+    if not (torch.equal(k_pos, torch.arange(sk, dtype=k_pos.dtype))
+            and torch.equal(q_pos, torch.arange(off, off + sq, dtype=q_pos.dtype))):
+        raise ValueError("flash_attention: the CUDA kernel takes contiguous positions "
+                         "(k_pos = arange(Sk), q_pos = offset + arange(Sq))")
+    return off

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the fifteen ported kernels.
+"""Plain PyTorch versions of the seventeen ported kernels.
 
 Each upcasts to f32 and casts back at exactly the points where the
 ``"xla"`` branches of ``src/repro/kernels/ops.py`` do (lines 276-278,
@@ -6,14 +6,18 @@ Each upcasts to f32 and casts back at exactly the points where the
 CPU they agree with the reference bitwise wherever both sides run the same
 f32 operations in the same order.  The wrappers in ``fused_update``,
 ``inner_loop``, ``round_tail``, ``gather``, ``screen``, ``stale_mix``,
-``residual`` and ``neighbor_reduce`` run these for CPU tensors only; ``chip_smoke.py`` holds each CUDA kernel
-against them on the card.
+``residual``, ``neighbor_reduce``, ``flash_attention`` and ``wkv6`` run these for CPU tensors
+only; ``chip_smoke.py`` holds each CUDA kernel against them on the card.
+The two model kernels' plain versions follow ``_flash_xla`` (one key chunk)
+and ``_wkv6_chunked_xla`` (``ops.py:56-123, 187-234``).
 
 ``step`` (and SCAFFOLD's ``alpha``) is a Python float or a tensor of
 per-client values: ``(m,)``, or ``(m, 1, ...)`` as the per-leaf rounds
 shape it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -200,3 +204,82 @@ def edge_flip_ref(z, x, c: float, rev, nbr, sgn, mask=None):
     if mask is not None:
         flip = torch.where((mask != 0)[:, None], flip, zf)
     return flip.to(z.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the model kernels: attention and the RWKV-6 recurrence
+# ---------------------------------------------------------------------------
+
+NEG = -1e30  # the masked score of the reference's online softmax
+
+
+def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal: bool = True, window=None):
+    """Causal (optionally sliding-window) GQA attention, the online softmax
+    of ``_flash_xla`` over one key chunk, in f32: scores q k^T / sqrt(hd),
+    masked to -1e30 where k_pos > q_pos (causal), k_pos <= q_pos - window or
+    k_pos < 0; p = exp(s - max s); out = (p v) / max(sum p, 1e-30), in q's
+    dtype.  A row with no valid key averages v over its keys, as the
+    reference's kernel and ``"xla"`` branch do.
+
+    q (B, Sq, H, hd); k (B, Sk, Hkv, hd); v (B, Sk, Hkv, vd); q_pos (Sq,)
+    and k_pos (Sk,) integer positions.  Query head h reads kv head
+    h // (H / Hkv)."""
+    B, Sq, H, hd = q.shape
+    Hkv, vd = k.shape[2], v.shape[-1]
+    f32 = torch.float32
+    qf = q.to(f32).reshape(B, Sq, Hkv, H // Hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(f32)) * (1.0 / math.sqrt(hd))
+    kp, qp = k_pos[None, :], q_pos[:, None]
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
+    if window is not None:
+        valid = valid & (kp > qp - window)
+    s = torch.where(valid, s, NEG)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bhgqk,bkhv->bhgqv", p, v.to(f32)) / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, vd).to(q.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, s0, *, chunk: int = 64):
+    """The RWKV-6 recurrence S_t = diag(w_t) S_{t-1} + k_t v_t^T, y_t =
+    r_t^T (S_{t-1} + diag(u) k_t v_t^T), in the chunked form of
+    ``_wkv6_chunked_xla`` (f32): per chunk of ``chunk`` steps (the last one
+    may be shorter), with la = cumsum log max(w, 1e-38),
+
+        y_t = (r_t exp(la_{t-1})) S_0
+            + sum_{tau<t} [r_t . k_tau . exp(min(la_{t-1} - la_tau, 0))] v_tau
+            + (r_t . u . k_t) v_t
+        S  <- exp(la_C) S_0 + (k exp(la_C - la))^T v
+
+    r, k, w (B, S, H, K); v (B, S, H, V); u (H, K); s0 (B, H, K, V).
+    Returns y (B, S, H, V) in r's dtype and the final state (B, H, K, V)
+    in f32.  Any S: the reference asserts S % min(chunk, S) == 0, and where
+    it does the chunks are its own."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    rf, kf, vf = (a.to(f32) for a in (r, k, v))
+    lw = torch.log(torch.clamp(w.to(f32), min=1e-38))
+    uf = u.to(f32)
+    s = s0.to(f32)
+    ys = []
+    for c0 in range(0, S, chunk):
+        rc, kc, vc, lwc = (a[:, c0:c0 + chunk] for a in (rf, kf, vf, lw))
+        C = rc.shape[1]
+        strict = torch.tril(torch.ones(C, C, dtype=torch.bool, device=r.device), diagonal=-1)
+        la = torch.cumsum(lwc, dim=1)
+        la_prev = la - lwc
+        y_inter = torch.einsum("bchk,bhkv->bchv", rc * torch.exp(la_prev), s)
+        diff = la_prev[:, :, None] - la[:, None, :]  # (B, t, tau, H, K)
+        dec = torch.exp(torch.clamp(diff, max=0.0))
+        att = torch.einsum("bthk,bchk,btchk->bhtc", rc, kc, dec)
+        att = torch.where(strict, att, 0.0)
+        bonus = torch.einsum("bthk,bthk->bth", rc * uf[None, None], kc)
+        ys.append(y_inter + torch.einsum("bhtc,bchv->bthv", att, vc) + bonus[..., None] * vc)
+        la_end = la[:, -1:]
+        s = (torch.exp(la_end[:, 0])[..., None] * s
+             + torch.einsum("bchk,bchv->bhkv", kc * torch.exp(la_end - la), vc))
+    return torch.cat(ys, dim=1).to(r.dtype), s

@@ -1,0 +1,140 @@
+"""Shared layers: norms, rotary embeddings, the gated MLP, embedding and
+head, and the init helpers; the port of ``src/repro/models/layers.py``.
+
+Parameters are plain nested dicts of tensors, laid out as the reference's
+(``convert.model_params`` carries its trees across), and drawn at random
+from a ``torch.Generator`` on the device: the same distributions, not the
+reference's numbers.  The f32 upcasts and the casts back sit where the
+reference has them.  ``torch.var`` defaults to the unbiased variance and
+``jnp.var`` is the population one, so the norms pass ``correction=0``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    """N(0, scale^2) drawn in f32 on the generator's device, cast to
+    ``dtype``."""
+    w = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None):
+    """N(0, scale^2) with scale 1/sqrt(fan_in) by default."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(shape[0])
+    return normal(gen, shape, scale, dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def norm_init(kind: str, dim: int, device) -> dict:
+    """Norm params are always f32; OLMo's non-parametric LayerNorm has none."""
+    if kind == "rmsnorm":
+        return {"scale": torch.ones(dim, dtype=torch.float32, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones(dim, dtype=torch.float32, device=device),
+                "bias": torch.zeros(dim, dtype=torch.float32, device=device)}
+    if kind == "nonparam_ln":
+        return {}
+    raise ValueError(kind)
+
+
+def norm_apply(kind: str, params, x, eps: float = 1e-6):
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        y = y * params["scale"]
+    elif kind in ("layernorm", "nonparam_ln"):
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        if kind == "layernorm":
+            y = y * params["scale"] + params["bias"]
+    else:
+        raise ValueError(kind)
+    return y.to(dt)
+
+
+def groupnorm_heads(x, n_heads: int, eps: float = 64e-5):
+    """Per-head LayerNorm of the RWKV wkv output; x (..., H * hd)."""
+    dt, shp = x.dtype, x.shape
+    xf = x.to(torch.float32).reshape(*shp[:-1], n_heads, shp[-1] // n_heads)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.reshape(shp).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_angles(positions, head_dim: int, theta: float):
+    """positions (...,) -> (cos, sin) of shape (..., head_dim // 2), f32."""
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device),
+                            exps)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope_apply(x, cos, sin):
+    """x (..., S, H, hd) with cos/sin (..., S, hd // 2) broadcast over heads."""
+    half = x.shape[-1] // 2
+    c, s = cos[..., None, :], sin[..., None, :]
+    xf1, xf2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, d_model: int, d_ff: int, dtype) -> dict:
+    return {"wi": dense_init(gen, (d_model, d_ff), dtype),
+            "wg": dense_init(gen, (d_model, d_ff), dtype),
+            "wo": dense_init(gen, (d_ff, d_model), dtype)}
+
+
+def activation(x, act: str):
+    """silu, or the tanh-approximated gelu that ``jax.nn.gelu`` computes."""
+    return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(params, x, act: str = "silu"):
+    h = x @ params["wi"]
+    g = activation(x @ params["wg"], act)
+    return (h * g) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# embeddings / heads
+# ---------------------------------------------------------------------------
+
+def embed_init(gen, vocab: int, d_model: int, dtype) -> dict:
+    return {"w": dense_init(gen, (vocab, d_model), dtype, scale=1.0)}
+
+
+def embed_apply(params, tokens):
+    return params["w"][tokens]
+
+
+def head_apply(embed_or_head_w, x):
+    """x (..., D) @ W^T -> f32 logits (..., V), the product in x's dtype."""
+    return (x @ embed_or_head_w.T.to(x.dtype)).to(torch.float32)

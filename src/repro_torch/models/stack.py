@@ -1,0 +1,216 @@
+"""Pattern-based decoder stack, the port of ``src/repro/models/stack.py``.
+
+A config declares a repeating ``block_pattern``.  Layers are grouped as the
+reference groups them:
+
+    [lead]  first_dense_layers explicit dense blocks
+    [units] n_units repetitions of the pattern, parameters stacked along a
+            leading unit dim (the reference scans them with ``lax.scan``;
+            here a Python loop walks them)
+    [tail]  the remainder (< pattern length) explicit blocks
+
+Block kinds here: dense | local | rwkv.  ``moe`` (and MLA attention) and
+``rec`` raise ``NotImplementedError``: they are ``ROADMAP.md`` item 8.
+``block_apply`` returns ``(x, new_cache, aux)``; the unit caches are
+stacked along the unit dim, as the reference's scan stacks them.  Decode
+updates the stacked caches in place (``models.attention``) and writes each
+unit's recurrent state back into its slice.  ``model.build``,
+``model_init`` and ``forward`` refuse an unported config before it gets
+here (``check_ported``).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tree_util as T
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as W
+
+PORTED_BLOCKS = ("dense", "local", "rwkv")
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise for a block kind or attention this slice has not ported."""
+    kinds = set(cfg.block_pattern)
+    missing = sorted(kinds - set(PORTED_BLOCKS))
+    if missing or (cfg.attn_kind == "mla" and kinds & {"dense", "local", "moe"}):
+        what = missing or ["mla attention"]
+        raise NotImplementedError(
+            f"{cfg.name}: block kind(s) {', '.join(what)} are not ported yet "
+            f"(ROADMAP.md item 8: MoE, MLA, RG-LRU)")
+
+
+# ---------------------------------------------------------------------------
+# single block
+# ---------------------------------------------------------------------------
+
+def block_init(gen, cfg: ArchConfig, kind: str, dtype) -> dict:
+    dev = gen.device
+    p: dict[str, Any] = {"ln1": L.norm_init(cfg.norm_kind, cfg.d_model, dev),
+                         "ln2": L.norm_init(cfg.norm_kind, cfg.d_model, dev)}
+    if kind in ("dense", "local"):
+        p["attn"] = A.gqa_init(gen, cfg, dtype)
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    elif kind == "rwkv":
+        p["core"] = W.rwkv_init(gen, cfg, dtype)
+    else:
+        check_ported(cfg)
+        raise ValueError(kind)
+    return p
+
+
+def block_apply(cfg: ArchConfig, kind: str, params, x, *, mode: str, cache=None, pos=None,
+                cache_cap: int = 0, window_override: Optional[int] = None):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    nk = cfg.norm_kind
+    if kind in ("dense", "local"):
+        window = cfg.window if kind == "local" else window_override
+        h = L.norm_apply(nk, params["ln1"], x)
+        a_out, new_cache = A.gqa_apply(cfg, params["attn"], h, mode=mode, cache=cache, pos=pos,
+                                       window=window, cache_cap=cache_cap)
+        x = x + a_out
+        h = L.norm_apply(nk, params["ln2"], x)
+        x = x + L.mlp_apply(params["mlp"], h, cfg.act)
+        return x, new_cache, aux
+    if kind == "rwkv":
+        cp = params["core"]
+        st_tm = None if cache is None else {"tm_last": cache["tm_last"], "s": cache["s"]}
+        h = L.norm_apply(nk, params["ln1"], x)
+        y, tm_state = W.rwkv_time_mix(cfg, cp, h, mode=mode, state=st_tm)
+        x = x + y
+        st_cm = None if cache is None else {"cm_last": cache["cm_last"]}
+        h = L.norm_apply(nk, params["ln2"], x)
+        y, cm_state = W.rwkv_channel_mix(cfg, cp, h, mode=mode, state=st_cm)
+        x = x + y
+        new_cache = None if mode == "train" else {**tm_state, **cm_state}
+        return x, new_cache, aux
+    check_ported(cfg)
+    raise ValueError(kind)
+
+
+def block_cache_shape(cfg: ArchConfig, kind: str, batch: int, cap: int, dtype,
+                      window_override=None):
+    if kind == "dense":
+        return A.gqa_cache_shape(cfg, batch, cap, window_override, dtype)
+    if kind == "local":
+        return A.gqa_cache_shape(cfg, batch, cap, cfg.window, dtype)
+    if kind == "rwkv":
+        return W.rwkv_state_shape(cfg, batch, dtype)
+    check_ported(cfg)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# layer grouping
+# ---------------------------------------------------------------------------
+
+def layer_plan(cfg: ArchConfig):
+    """(n_lead, n_units, tail_kinds)."""
+    lead = cfg.first_dense_layers
+    rest = cfg.n_layers - lead
+    return lead, rest // cfg.pattern_len, cfg.block_pattern[: rest % cfg.pattern_len]
+
+
+def _stack(trees):
+    return T.tmap(lambda *xs: torch.stack(xs), *trees)
+
+
+def stack_init(gen, cfg: ArchConfig, dtype) -> dict:
+    lead, n_units, tail = layer_plan(cfg)
+    p: dict[str, Any] = {}
+    if lead:
+        p["lead"] = [block_init(gen, cfg, cfg.block_pattern[0], dtype) for _ in range(lead)]
+    if n_units:
+        p["units"] = _stack([{f"b{bi}": block_init(gen, cfg, kind, dtype)
+                              for bi, kind in enumerate(cfg.block_pattern)}
+                             for _ in range(n_units)])
+    if tail:
+        p["tail"] = [block_init(gen, cfg, kind, dtype) for kind in tail]
+    return p
+
+
+def _write_back(dst, src) -> None:
+    """Copy each leaf of ``src`` into the slice ``dst`` of a stacked cache,
+    unless it already is that slice (an in-place KV write)."""
+    for d, s in zip(T.leaves(dst), T.leaves(src)):
+        if s.data_ptr() != d.data_ptr():
+            d.copy_(s)
+
+
+def stack_apply(cfg: ArchConfig, params, x, *, mode: str, cache=None, pos=None,
+                cache_cap: int = 0, window_override: Optional[int] = None):
+    """Returns (x, new_cache, aux_sum).  Cache layout: {"lead": list,
+    "units": stacked tree, "tail": list}, entries omitted when empty."""
+    lead, n_units, tail = layer_plan(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache: dict[str, Any] = {}
+    ba = functools.partial(block_apply, cfg, mode=mode, pos=pos, cache_cap=cache_cap,
+                           window_override=window_override)
+
+    if lead:
+        caches = []
+        for i in range(lead):
+            c = None if cache is None else cache["lead"][i]
+            x, nc, aux = ba(cfg.block_pattern[0], params["lead"][i], x, cache=c)
+            caches.append(nc)
+            aux_total = aux_total + aux
+        if mode != "train":
+            new_cache["lead"] = caches
+
+    if n_units:
+        unit_caches = []
+        aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for ui in range(n_units):
+            up = T.tmap(lambda t: t[ui], params["units"])
+            uc = None if cache is None else T.tmap(lambda t: t[ui], cache["units"])
+            aux_u = torch.zeros((), dtype=torch.float32, device=x.device)
+            ncs = {}
+            for bi, kind in enumerate(cfg.block_pattern):
+                c = None if uc is None else uc[f"b{bi}"]
+                x, ncs[f"b{bi}"], aux = ba(kind, up[f"b{bi}"], x, cache=c)
+                aux_u = aux_u + aux
+            if uc is not None:
+                _write_back(uc, ncs)
+            else:
+                unit_caches.append(ncs)
+            aux_sum = aux_sum + aux_u
+        if mode == "prefill":
+            new_cache["units"] = _stack(unit_caches)
+        elif mode == "decode":
+            new_cache["units"] = cache["units"]
+        aux_total = aux_total + aux_sum
+
+    if tail:
+        caches = []
+        for bi, kind in enumerate(tail):
+            c = None if cache is None else cache["tail"][bi]
+            x, nc, aux = ba(kind, params["tail"][bi], x, cache=c)
+            caches.append(nc)
+            aux_total = aux_total + aux
+        if mode != "train":
+            new_cache["tail"] = caches
+
+    return x, (new_cache if mode != "train" else None), aux_total
+
+
+def stack_cache_shapes(cfg: ArchConfig, batch: int, cap: int, dtype, window_override=None):
+    """Meta tensors in ``stack_apply``'s cache layout."""
+    lead, n_units, tail = layer_plan(cfg)
+    out: dict[str, Any] = {}
+
+    def bc(kind):
+        return block_cache_shape(cfg, kind, batch, cap, dtype, window_override)
+
+    if lead:
+        out["lead"] = [bc(cfg.block_pattern[0]) for _ in range(lead)]
+    if n_units:
+        unit = {f"b{bi}": bc(kind) for bi, kind in enumerate(cfg.block_pattern)}
+        out["units"] = T.tmap(lambda t: t.new_empty((n_units,) + tuple(t.shape)), unit)
+    if tail:
+        out["tail"] = [bc(kind) for kind in tail]
+    return out

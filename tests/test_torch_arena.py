@@ -97,3 +97,28 @@ def test_convert_carries_bf16_bits():
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(_bits(t), _bits(a))
     assert jax.numpy.result_type(a) == jnp.bfloat16
+
+
+def test_nested_tree_slice_table_and_rows_match_reference():
+    """A nested tree (a dict inside a dict, a list of leaves, an empty dict,
+    a None): the same slice table, key paths and stacked arena rows as the
+    reference's, and unpack rebuilds the structure."""
+    rng = np.random.default_rng(3)
+    m = 3
+    tree = {"enc": {"w": rng.standard_normal((m, 3, 5)), "b": rng.standard_normal((m, 4))},
+            "lst": [rng.standard_normal((m, 130)), None], "empty": {},
+            "top": rng.standard_normal((m, 7))}
+    tree = jax.tree.map(lambda a: a.astype(np.float32), tree)
+    jt, tt = jax.tree.map(jnp.asarray, tree), convert.params(tree, "cpu")
+    rs = RA.ArenaSpec.from_tree(jt, stacked=True)
+    ps = PA.ArenaSpec.from_tree(tt, stacked=True)
+    assert ps.width == rs.width and ps.leaf_rows() == rs.leaf_rows()
+    for a, b in zip(rs.leaves, ps.leaves):
+        assert (a.path, a.shape, a.offset, a.size, a.padded) == (
+            b.path, b.shape, b.offset, b.size, b.padded)
+    buf = ps.pack_stacked(tt)
+    np.testing.assert_array_equal(_bits(buf), _bits(rs.pack_stacked(jt)))
+    back = convert.to_numpy(ps.unpack_stacked(buf))
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for w, g in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(g, w)

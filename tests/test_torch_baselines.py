@@ -31,6 +31,8 @@ from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import fedsplit, make, pdmm, quadratic, resolved_rho, scaffold
 from repro_torch.core.softmax import SoftmaxRegression
 
+from _torch_parity import run_trees
+
 R = 4
 PATHS = {"arena": True, "pytree": "auto"}
 
@@ -382,3 +384,29 @@ def test_reference_state_carries_across(lsq, name):
     for _ in range(2):
         rs, _ = ro.round(rs, grad, ref.batch())
     _lsq_run(lsq, kw, rounds=2, ref_state=rs)
+
+
+# ---------------------------------------------------------------------------
+# bf16, mixed-dtype and nested parameter trees, SVRG included
+# (tests/_torch_parity.py's ``run_trees`` and its tolerances)
+# ---------------------------------------------------------------------------
+
+TREE_CASES = [("bf16", "flat"), ("mixed", "flat"), ("f32", "nested"), ("bf16", "nested")]
+
+
+@pytest.mark.parametrize("dtype,kind", TREE_CASES, ids=[f"{d}-{k}" for d, k in TREE_CASES])
+@pytest.mark.parametrize("path", PATHS)
+@pytest.mark.parametrize("algo", ["scaffold", "fedavg", "fedsplit"])
+def test_baseline_tree_dtype_rounds_match_reference(algo, path, dtype, kind):
+    """SCAFFOLD, FedAvg and Inexact FedSplit on bf16, mixed-dtype and
+    nested trees, on the arena and on the pytree path."""
+    run_trees(dict(algorithm=algo, eta=0.1, use_arena=path == "arena"), kind, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "mixed"])
+@pytest.mark.parametrize("path", PATHS)
+@pytest.mark.parametrize("algo", ["gpdmm", "agpdmm"])
+def test_svrg_tree_dtype_rounds_match_reference(algo, path, dtype):
+    """SVRG (per-step batches) in bf16 and on a mixed-dtype tree."""
+    run_trees(dict(algorithm=algo, eta=0.1, variance_reduction="svrg",
+                   use_arena=path == "arena"), "flat", dtype, per_step=True)

@@ -15,7 +15,9 @@ copy (``row_gather``, ``row_scatter``) or select and mix (``stale_mix``);
 bitwise (the same f32 operations, the sums in slot order); the
 uplink of ``round_tail`` to one rounding (the plain version divides by a
 scalar as a multiply by its reciprocal on the card); the inner loop to
-rtol = atol = 1e-4 (the matvec sums in another order).
+rtol = atol = 1e-4 (the matvec sums in another order); ``flash_attention``
+and ``wkv6`` relative to the largest magnitude, 1e-4 in f32 (sums and exps
+in another order) and 2^-7 in bf16 (one rounding of the f32 result).
 """
 import pytest
 import torch
@@ -467,3 +469,47 @@ def test_cuda_residual_and_autotune_run_on_the_card(cuda):
     with pytest.raises(TypeError, match="kernel_grad.*jvp"):
         autotune.estimate_L(make_oracle(lambda p, b: p, grad_arena=lambda spec: kernel_grad),
                             torch.ones(128, device=cuda), 3, None, iters=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_model_kernels_match_plain(cuda, dtype):
+    """Kernels 16-17 at small shapes: causal, windowed, grouped and suffix
+    attention; the recurrence with a ragged last chunk."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+    for (B, Sq, Sk, H, Hkv, hd, window) in ((2, 128, 128, 4, 4, 64, None),
+                                            (1, 200, 200, 8, 2, 128, 48),
+                                            (2, 64, 192, 4, 1, 32, None)):
+        q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dtype)
+        k, v = (torch.randn(B, Sk, Hkv, hd, generator=g, device=cuda).to(dtype)
+                for _ in range(2))
+        off = Sk - Sq
+        got = P.flash_attention(q, k, v, window=window, q_offset=off)
+        want = ref.flash_attention_ref(q, k, v, torch.arange(off, Sk, device=cuda),
+                                       torch.arange(Sk, device=cuda), window=window)
+        assert rel(got, want) <= tol
+    r, k, v = (torch.randn(2, 100, 3, 64, generator=g, device=cuda).to(dtype) for _ in range(3))
+    w = torch.rand(2, 100, 3, 64, generator=g, device=cuda)
+    u = torch.randn(3, 64, generator=g, device=cuda)
+    s0 = torch.randn(2, 3, 64, 64, generator=g, device=cuda)
+    for a, b in zip(P.wkv6(r, k, v, w, u, s0), ref.wkv6_ref(r, k, v, w, u, s0)):
+        assert rel(a, b) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_serve_launches_the_model_kernels(cuda):
+    """The reduced models served on the card: one kernel per block on
+    prefill, none per decode token."""
+    from repro_torch.launch import serve
+
+    for arch, kernel in (("olmo-1b", "flash_attention"), ("rwkv6-1.6b", "wkv6")):
+        P.reset_launches()
+        out = serve.run(arch, batch=2, prompt_len=64, new_tokens=3, quiet=True)
+        assert torch.isfinite(out.logits).all()
+        counts = P.launches()
+        assert counts[kernel] == 2 and sum(counts.values()) == 2

@@ -1,4 +1,4 @@
-"""The port's ten kernels against the reference's (``repro.kernels.ops``).
+"""The port's kernels against the reference's (``repro.kernels.ops``).
 
 On the CPU each port wrapper runs its plain PyTorch version, so these tests
 hold the plain versions -- the arithmetic every CUDA kernel is checked
@@ -297,7 +297,7 @@ def test_ops_surface_and_width_rule():
         "inner_loop_affine", "round_tail", "dual_from_uplink", "fused_update_arena",
         "scaffold_cv", "fused_update", "ef21_rowmax", "ef21_apply", "row_gather",
         "row_scatter", "screen_uplink", "stale_mix", "residual_norm", "neighbor_reduce",
-        "edge_flip"]
+        "edge_flip", "flash_attention", "wkv6"]
     assert P.affine_inner_fits(512) and P.affine_inner_fits(7936)
     assert not P.affine_inner_fits(500)  # not a multiple of 128
     widest = inner_loop.SMEM_CAP_BYTES // (4 * inner_loop.SMEM_ROWS)
@@ -346,3 +346,148 @@ def test_build_targets_hopper_and_sources_are_hand_written():
             assert banned not in text, (src, banned)
     for src in _build.SOURCES:
         assert 'extern "C" int launch_' in (_build.CSRC / src).read_text()
+
+
+# ---------------------------------------------------------------------------
+# kernels 16-17: attention and the RWKV-6 recurrence, with the decode steps
+# ---------------------------------------------------------------------------
+#
+# Tolerances: those of tests/test_kernels.py for the same comparisons -- flash
+# in f32 atol = rtol = 2e-5 (the softmax sums in another order), in bf16 3e-2
+# (q k^T, p v and the output round to bf16 at other points); wkv6 atol 2e-4,
+# rtol 1e-3 against the sequential oracle (chunked against sequential
+# accumulation), 1e-4 between the chunked forms (the chunk products contract
+# in another order); the decode steps 1e-5.
+
+from repro.kernels import ref as RR  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro.kernels.wkv6 import wkv6_pallas  # noqa: E402
+from repro_torch.kernels import ref as PR  # noqa: E402
+
+FLASH_CASES = [  # B, Sq, Sk, H, Hkv, hd, window: tests/test_kernels.py's sweep, GQA 4, offsets
+    (1, 128, 128, 2, 2, 16, None), (2, 256, 256, 4, 2, 32, None), (2, 256, 256, 4, 1, 32, 64),
+    (1, 128, 128, 8, 2, 16, 50), (2, 128, 128, 8, 2, 32, 16), (1, 64, 192, 4, 1, 16, None),
+    (2, 64, 256, 4, 4, 32, 16),
+]
+
+
+def _flash_inputs(case, dtype, seed=0):
+    B, Sq, Sk, H, Hkv, hd, _ = case
+    q, k, v = _draw(seed, (B, Sq, H, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd))
+    return [_pair(a, dtype) for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[f"c{i}" for i in range(len(FLASH_CASES))])
+def test_flash_attention_plain_matches_reference(case, dtype):
+    """The plain version (what the CUDA kernel is held to) against
+    ``attention_ref``, the ``"xla"`` branch and the Pallas kernel in
+    interpret mode; suffix queries (Sq < Sk) through ``q_offset``."""
+    B, Sq, Sk, H, Hkv, hd, window = case
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(case, dtype)
+    off = Sk - Sq
+    qp, kp = jnp.arange(off, Sk), jnp.arange(Sk)
+    got = _np(P.flash_attention(tq, tk, tv, causal=True, window=window, q_offset=off))
+    explicit = _np(P.flash_attention(tq, tk, tv, torch.arange(off, Sk), torch.arange(Sk),
+                                     causal=True, window=window))
+    np.testing.assert_array_equal(explicit, got)
+    tol = 2e-5 if dtype == "f32" else 3e-2
+    wants = [RR.attention_ref(jq, jk, jv, qp, kp, causal=True, window=window),
+             # the xla branch's causal skip assumes queries from position 0
+             R.flash_attention(jq, jk, jv, qp, kp, causal=True, window=window, q_chunk=64,
+                               k_chunk=64, causal_skip=off == 0, impl="xla"),
+             flash_attention_pallas(jq, jk, jv, qp, kp, causal=True, window=window,
+                                    q_block=64, k_block=64, interpret=True)]
+    for want in wants:
+        np.testing.assert_allclose(got, _np(want), atol=tol, rtol=tol)
+
+
+def _wkv_inputs(B, S, H, K, V, seed=0, dtype="f32"):
+    r, k, wr, v, u, s0 = _draw(seed, (B, S, H, K), (B, S, H, K), (B, S, H, K), (B, S, H, V),
+                               (H, K), (B, H, K, V))
+    w = np.exp(-np.exp(0.5 * wr)).astype(np.float32)
+    rkv = [_pair(0.5 * a, dtype) for a in (r, k, v)]
+    rest = [_pair(a, "f32") for a in (w, 0.1 * u, 0.1 * s0)]
+    return rkv + rest
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,K,V,chunk", [
+    (1, 32, 1, 8, 8, 8), (2, 64, 3, 16, 16, 16), (2, 128, 2, 32, 32, 32), (1, 96, 2, 32, 16, 32),
+    (2, 128, 2, 64, 64, 64),
+])
+def test_wkv6_plain_matches_reference(B, S, H, K, V, chunk, dtype):
+    """The kernel wrapper's plain version (chunks of 64) against the
+    sequential oracle, the ``"xla"`` branch and the Pallas kernel in
+    interpret mode (at the reference's chunk), and the plain version at
+    that chunk against the ``"xla"`` branch."""
+    (jr, tr), (jk, tk), (jv, tv), (jw, tw), (ju, tu), (js, ts) = _wkv_inputs(B, S, H, K, V,
+                                                                             dtype=dtype)
+    y, s = P.wkv6(tr, tk, tv, tw, tu, ts)
+    assert y.dtype == tr.dtype and s.dtype == torch.float32
+    rtol, atol = (1e-3, 2e-4) if dtype == "f32" else (3e-2, 3e-2)
+    for want_y, want_s in (RR.wkv6_ref(jr, jk, jv, jw, ju, js),
+                           R.wkv6(jr, jk, jv, jw, ju, js, chunk=chunk, impl="xla"),
+                           wkv6_pallas(jr, jk, jv, jw, ju, js, chunk=chunk, interpret=True)):
+        np.testing.assert_allclose(_np(y), _np(want_y), atol=atol, rtol=rtol)
+        np.testing.assert_allclose(s.numpy(), _np(want_s), atol=2e-4, rtol=1e-3)
+    y_c, s_c = PR.wkv6_ref(tr, tk, tv, tw, tu, ts, chunk=chunk)
+    want_y, want_s = R.wkv6(jr, jk, jv, jw, ju, js, chunk=chunk, impl="xla")
+    np.testing.assert_allclose(_np(y_c), _np(want_y), atol=1e-4 if dtype == "f32" else 3e-2,
+                               rtol=1e-4 if dtype == "f32" else 3e-2)
+    np.testing.assert_allclose(s_c.numpy(), _np(want_s), atol=1e-4, rtol=1e-4)
+
+
+def test_wkv6_extreme_decay_chunks_and_ragged_length():
+    """Near-zero decay stays finite (the clamped pairwise decay), the result
+    does not depend on the chunk, and a length that is no multiple of the
+    chunk (the reference's ``wkv6`` refuses it) agrees with the sequential
+    oracle."""
+    B, S, H, K, V = 1, 64, 1, 16, 16
+    (jr, tr), (jk, tk), (jv, tv), _, (ju, tu), _ = _wkv_inputs(B, S, H, K, V, seed=2)
+    tw, jw = torch.full((B, S, H, K), 1e-30), jnp.full((B, S, H, K), 1e-30)
+    ts, js = torch.zeros(B, H, K, V), jnp.zeros((B, H, K, V))
+    y, _ = P.wkv6(tr, tk, tv, tw, tu, ts)
+    assert torch.isfinite(y).all()
+    y_ref, _ = RR.wkv6_ref(jr, jk, jv, jw, ju, js)
+    np.testing.assert_allclose(y.numpy(), _np(y_ref), rtol=2e-4, atol=1e-3)
+    (jr, tr), (jk, tk), (jv, tv), (jw, tw), (ju, tu), (js, ts) = _wkv_inputs(1, 32, 1, 8, 8, 5)
+    base = PR.wkv6_ref(tr, tk, tv, tw, tu, ts, chunk=32)
+    for chunk in (4, 8, 16, 5):
+        for a, b in zip(PR.wkv6_ref(tr, tk, tv, tw, tu, ts, chunk=chunk), base):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-4, rtol=1e-3)
+    (jr, tr), (jk, tk), (jv, tv), (jw, tw), (ju, tu), (js, ts) = _wkv_inputs(2, 100, 2, 8, 8, 7)
+    for a, b in zip(P.wkv6(tr, tk, tv, tw, tu, ts), RR.wkv6_ref(jr, jk, jv, jw, ju, js)):
+        np.testing.assert_allclose(_np(a), _np(b), atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("window", [None, 16])
+def test_attend_cache_and_wkv6_step_match_reference(window):
+    """The two decode steps, plain tensor code on both sides: attention of
+    one token against a cache with empty slots (k_pos = -1), and one step
+    of the recurrence."""
+    B, S, H, Hkv, hd = 2, 40, 4, 2, 16
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs((B, 1, S, H, Hkv, hd, None), "f32", seed=3)
+    kpos = np.arange(S, dtype=np.int32)
+    kpos[30:] = -1
+    q_pos = 29
+    got = P.attend_cache(tq, tk, tv, torch.tensor(q_pos, dtype=torch.int32),
+                         torch.from_numpy(kpos), window=window)
+    want = R.attend_cache(jq, jk, jv, q_pos, jnp.asarray(kpos), window=window)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-6, rtol=1e-5)
+    (jr, tr), (jk, tk), (jv, tv), (jw, tw), (ju, tu), (js, ts) = _wkv_inputs(2, 1, 3, 8, 8, 4)
+    gy, gs = P.wkv6_step(tr[:, 0], tk[:, 0], tv[:, 0], tw[:, 0], tu, ts)
+    wy, ws = R.wkv6_step(jr[:, 0], jk[:, 0], jv[:, 0], jw[:, 0], ju, js)
+    np.testing.assert_allclose(gy.numpy(), _np(wy), atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(gs.numpy(), _np(ws), atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("fn", ["flash_attention", "wkv6"])
+def test_model_kernels_refuse_other_devices(fn):
+    """Kernels 16-17 run their plain version for a CPU tensor only."""
+    x = torch.zeros(1, 8, 2, 16, device="meta")
+    calls = {"flash_attention": lambda: P.flash_attention(x, x, x),
+             "wkv6": lambda: P.wkv6(x, x, x, x, torch.zeros(2, 16, device="meta"),
+                                    torch.zeros(1, 2, 16, 16, device="meta"))}
+    with pytest.raises(ValueError, match="not supported"):
+        calls[fn]()

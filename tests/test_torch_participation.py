@@ -43,6 +43,8 @@ from repro_torch.core import api, fedsplit, gpdmm, make, pdmm, resolved_rho
 from repro_torch.core import tree_util as T
 from repro_torch.core.softmax import SoftmaxRegression
 
+from _torch_parity import run_trees
+
 M = 8
 R = 4
 PATHS = {
@@ -374,3 +376,35 @@ def test_state_keys_and_the_round_counter_key(algo):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         assert got.dtype == torch.bool
     assert T.cohort_count(6, 0.5) == 3
+
+
+# ---------------------------------------------------------------------------
+# bf16 and nested parameter trees under the cohort engine
+# (tests/_torch_parity.py's ``run_trees`` and its tolerances)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["flat", "nested"])
+@pytest.mark.parametrize("algo", ["gpdmm", "agpdmm", "scaffold", "fedavg"])
+def test_bf16_cohort_rounds_match_reference(algo, kind):
+    """The cohort round (half the clients, gathered and scattered back) on
+    bf16 flat and nested trees."""
+    run_trees(dict(algorithm=algo, eta=0.1, use_arena=True, cohort=True, participation=0.5),
+              kind, "bf16")
+
+
+def test_nested_batch_reaches_the_client_count_and_the_cohort():
+    """A nested batch tree: ``cohort_batch`` gathers every leaf of it and
+    FedAvg's client count reads its first leaf, as the reference's do."""
+    from repro_torch.core import fedavg
+
+    m = 6
+    rng = np.random.default_rng(1)
+    batch = {"x": {"u": rng.standard_normal((m, 3)).astype(np.float32)},
+             "ys": [rng.standard_normal((m, 2)).astype(np.float32)]}
+    ridx, _ = ref_T.cohort_indices(jax.random.key(2), m, 0.5)
+    idx = torch.from_numpy(np.array(ridx)).long()
+    want = ref_api.cohort_batch(jax.tree.map(jnp.asarray, batch), ridx, m, False)
+    got = api.cohort_batch(convert.params(batch, "cpu"), idx, m, False)
+    for w, g in zip(jax.tree.leaves(want), T.leaves(got)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert fedavg._num_clients({}, convert.params(batch, "cpu"), False) == m

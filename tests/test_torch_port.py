@@ -1,5 +1,6 @@
 """The port as a package: it imports neither JAX nor the reference (the
-modules of every slice, autotune and graph-PDMM included), it rejects the
+modules of every slice, autotune, graph-PDMM, the models and the serving
+launcher included), it rejects the
 branches it does not run yet (the host-resident population store) and
 those the reference rejects (EF21 and variance reduction over a graph), it
 runs the fault, topology and early-exit branches, its configuration copy
@@ -35,7 +36,13 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
     mods = _modules()
     for name in ("repro_torch.core.autotune", "repro_torch.core.topology",
                  "repro_torch.core.pdmm_graph", "repro_torch.kernels.residual",
-                 "repro_torch.kernels.neighbor_reduce"):
+                 "repro_torch.kernels.neighbor_reduce", "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.wkv6", "repro_torch.models", "repro_torch.models.layers",
+                 "repro_torch.models.attention", "repro_torch.models.rwkv6",
+                 "repro_torch.models.stack", "repro_torch.models.model",
+                 "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.configs",
+                 "repro_torch.configs.olmo_1b", "repro_torch.configs.rwkv6_1p6b",
+                 "repro_torch.configs.yi_34b"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
@@ -68,7 +75,9 @@ def test_no_jax_or_reference_import_in_source(path):
 
 def test_config_copy_matches_reference_fields_and_defaults():
     for ref_cls, port_cls in [(ref_base.FederatedConfig, port_base.FederatedConfig),
-                              (ref_base.FaultConfig, port_base.FaultConfig)]:
+                              (ref_base.FaultConfig, port_base.FaultConfig),
+                              (ref_base.ArchConfig, port_base.ArchConfig),
+                              (ref_base.ShapeConfig, port_base.ShapeConfig)]:
         ref_f = [(f.name, f.default) for f in dataclasses.fields(ref_cls)]
         port_f = [(f.name, f.default) for f in dataclasses.fields(port_cls)]
         assert port_f == ref_f

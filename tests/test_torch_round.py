@@ -22,7 +22,10 @@ from repro.core.softmax import SoftmaxRegression as RefSoftmax
 from repro_torch import convert
 from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import make, resolved_rho
+from repro_torch.core import tree_util as T
 from repro_torch.core.softmax import SoftmaxRegression
+
+from _torch_parity import run_trees
 
 R = 5
 
@@ -161,3 +164,63 @@ def test_trace_round_matches_reference(lsq64):
                                    rtol=1e-5, atol=1e-5, err_msg=k)
     np.testing.assert_allclose(pm["trace"]["lam_is"].numpy(),
                                np.asarray(rm["trace"]["lam_is"]), rtol=1e-5, atol=1e-5 * rho)
+
+
+# ---------------------------------------------------------------------------
+# bf16, mixed-dtype and nested parameter trees (tests/_torch_parity.py's
+# ``run_trees``: 4 rounds, bf16 leaves bitwise up to rare flips of the
+# reference's fused scan, f32 leaves at rtol = atol = 1e-5)
+# ---------------------------------------------------------------------------
+
+TREE_CASES = [("bf16", "flat"), ("mixed", "flat"), ("f32", "nested"), ("bf16", "nested"),
+              ("mixed", "nested")]
+
+
+@pytest.mark.parametrize("dtype,kind", TREE_CASES, ids=[f"{d}-{k}" for d, k in TREE_CASES])
+@pytest.mark.parametrize("path", ["arena", "pytree"])
+@pytest.mark.parametrize("algo", ["gpdmm", "agpdmm"])
+def test_tree_dtype_rounds_match_reference(algo, path, dtype, kind):
+    """Whole GPDMM/AGPDMM rounds on bf16, mixed-dtype and nested trees
+    (a dict inside a dict, a list of leaves, an empty dict), on the arena
+    (``use_arena=True``; a mixed-dtype tree takes the pytree path there on
+    both sides) and on the pytree path: the server tree leaf by leaf and
+    the arena rows element for element."""
+    run_trees(dict(algorithm=algo, eta=0.1, use_arena=True if path == "arena" else False),
+              kind, dtype)
+
+
+def test_weak_scalar_rounds_as_jax():
+    """A Python scalar meets a bf16 tensor as JAX's weak type: cast to
+    bf16 first.  x * (1/3), x / 3.3 and 0.7 * x + y on 1,001 bf16 values
+    agree bitwise with jnp, and x * (1/3) without the cast differs."""
+    x32 = np.linspace(-7.0, 7.0, 1001, dtype=np.float32)
+    xj = jnp.asarray(x32).astype(jnp.bfloat16)
+    xt = convert.tensor(xj, "cpu")
+    bits = lambda t: t.view(torch.int16).numpy()  # noqa: E731
+    jbits = lambda a: np.asarray(a).view(np.int16)  # noqa: E731
+    np.testing.assert_array_equal(bits(xt * T.weak(1 / 3, xt)), jbits(xj * (1 / 3)))
+    np.testing.assert_array_equal(bits(xt / T.weak(3.3, xt)), jbits(xj / 3.3))
+    np.testing.assert_array_equal(bits(T.tree_axpy(0.7, xt, xt)), jbits(0.7 * xj + xj))
+    np.testing.assert_array_equal(bits(T.tree_scale(xt, 1 / 3)), jbits(xj * (1 / 3)))
+    assert np.sum(bits(xt * (1 / 3)) != jbits(xj * (1 / 3))) > 0
+    assert T.weak(0.1, torch.zeros(1)) == 0.1  # f32 keeps the Python scalar
+
+
+def test_tree_flattening_matches_jax():
+    """Leaves, key paths and ``tmap``'s structure in ``jax.tree`` order:
+    dict keys sorted at every level, lists and tuples in order, None and
+    empty containers kept without a leaf."""
+    rng = np.random.default_rng(0)
+    tree = {"z": {"y": rng.standard_normal(2), "b": [rng.standard_normal(3), None,
+                                                      (rng.standard_normal(1),)]},
+            "a": {}, "m": rng.standard_normal(4)}
+    pt = convert.params(tree, "cpu")
+    want = jax.tree_util.tree_leaves_with_path(tree)
+    assert T.paths(pt) == [jax.tree_util.keystr(p) for p, _ in want]
+    for got, (_, w) in zip(T.leaves(pt), want):
+        np.testing.assert_array_equal(got.numpy(), w)
+    doubled = T.tmap(lambda x: 2 * x, pt)
+    assert doubled["a"] == {} and doubled["z"]["b"][1] is None
+    assert isinstance(doubled["z"]["b"][2], tuple)
+    assert jax.tree.structure(convert.to_numpy(doubled)) == jax.tree.structure(tree)
+    assert T.leaves(T.unflatten(pt, T.leaves(doubled)))[0].equal(T.leaves(doubled)[0])
