@@ -91,19 +91,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
  11. the model slice: (a) ``flash_attention`` against its plain version
      at olmo-1b's prefill shape (4, 1024, 16, 128) bf16, causal, with a
      window of 256, grouped (H 32, Hkv 8), in f32 and with suffix queries,
-     timed beside ``scaled_dot_product_attention``; ``wkv6`` at rwkv6-1.6b's
-     (4, 1024, 32, 64) bf16 with a nonzero initial state, and at a ragged
-     length with near-zero decay; (b) ``repro_torch.launch.serve.run`` at
+     and at the edges of its tensor-core tiles (``FLASH_EDGES``), each on
+     the route its dtype and head dim select, timed beside
+     ``scaled_dot_product_attention``; ``wkv6`` at rwkv6-1.6b's
+     (4, 1024, 32, 64) bf16 with a nonzero initial state, at a ragged
+     length with near-zero decay, and at lengths 1, 63, 65 and 100 with a
+     zero and a nonzero initial state; (b) ``repro_torch.launch.serve.run`` at
      full width for olmo-1b and rwkv6-1.6b, batch 4, prompt 1024, 32 new
      tokens: prefill and decode times, 16 ``flash_attention`` launches per
      olmo prefill and 24 ``wkv6`` per rwkv prefill, none per decode token,
      finite logits, the last decode step's logits against a prefill of the
      extended prompt (and the same in f32 at full width with 4 layers), and
      a profile of one prefill and 8 decode steps (busy time, idle share,
-     kernel time by name); (c) each model at full width
+     kernel time by name), and olmo-1b's flash on the tensor-core route;
+     (c) each model at full width
      with 2 layers on the card against the CPU (prefill of a 256-token
      prompt and one decode step);
- 12. print one JSON line of per-kernel numbers, then the result line
+ 12. print one JSON line of per-kernel numbers (with each source's
+     ``-Xptxas -v`` registers, static shared memory and spills per entry
+     function when the run built it), then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Phase 3 also holds the cohort kernels (``row_gather``, ``row_scatter``)
@@ -125,6 +131,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -181,13 +188,72 @@ def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def _demangle(name: str) -> str:
+    """A short readable form of an Itanium-mangled kernel name: the last
+    identifier of its nested name and its template arguments, e.g.
+    ``flash_tc_kernel<2>`` or ``wkv6_kernel<__nv_bfloat16>``."""
+    def ident(i):
+        m = re.match(r"(\d+)", name[i:])
+        n = int(m.group(1))
+        j = i + len(m.group(1))
+        return name[j:j + n], j + n
+
+    if not name.startswith("_Z"):
+        return name
+    i = 2 + (name[2] == "N")
+    last = name
+    while i < len(name) and name[i].isdigit():
+        last, i = ident(i)
+    if i >= len(name) or name[i] != "I":
+        return last
+    args, i = [], i + 1
+    while i < len(name) and name[i] != "E":
+        if name[i] == "L":  # a literal: L<type><value>E
+            j = name.index("E", i)
+            args.append(re.sub(r"^L[a-z]", "", name[i:j]))
+            i = j + 1
+        elif name[i].isdigit():
+            a, i = ident(i)
+            args.append(a)
+        else:
+            args.append({"f": "float", "d": "double", "i": "int"}.get(name[i], name[i]))
+            i += 1
+    return f"{last}<{', '.join(args)}>"
+
+
+def ptxas_report(text: str) -> list:
+    """Per entry function of an ``nvcc -Xptxas -v`` log: registers, static
+    shared memory and spill-store bytes (``fn``, ``regs``, ``smem``,
+    ``spill``; the dynamic shared memory is set at launch)."""
+    rows, fn = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = {"fn": _demangle(m.group(1))}
+            rows.append(fn)
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            fn["spill"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            fn["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            fn["smem"] = int(sm.group(1)) if sm else 0
+    return rows
+
+
 class Record:
     """Per-kernel numbers for the JSON line."""
 
-    def __init__(self, ops):
+    def __init__(self, ops, build_logs):
         self.rows = {k.name: {"name": k.name, "route": "cuda",
                               "source": f"src/repro_torch/kernels/csrc/{k.source}",
-                              "replaces": k.replaces, "launches": 0}
+                              "replaces": k.replaces, "launches": 0,
+                              "ptxas": (ptxas_report(build_logs[k.source])
+                                        if k.source in build_logs else None)}
                      for k in ops.KERNELS}
 
     def add(self, counts):
@@ -1663,6 +1729,20 @@ FLASH_SHAPE = (4, 1024, 16, 128)
 FLASH_GQA = (32, 8)  # (H, Hkv) of the grouped shape, hd 128
 FLASH_WINDOW = 256
 WKV_SHAPE = (4, 1024, 32, 64)
+# the edges of flash's tiles of 128 queries and 128 keys, (B, Sk, H, Hkv, hd,
+# dtype, window, Sq): Sq and Sk off the tiles with a query offset of 800 (not
+# tile-aligned), hd 64 and 128 and 80 (two boxes, the second partial) in
+# bf16, GQA 4:1, a window below one tile, and a bf16 hd the tensor-core
+# route does not take (72: the CUDA-core route)
+FLASH_EDGES = (
+    (2, 1000, 8, 8, 128, "bf16", None, 200),
+    (2, 1000, 8, 8, 64, "bf16", None, 200),
+    (2, 333, 8, 2, 128, "bf16", 40, None),
+    (2, 200, 8, 2, 64, "bf16", None, None),
+    (1, 130, 4, 1, 80, "bf16", 100, 77),
+    (1, 100, 2, 2, 72, "bf16", None, None),
+)
+WKV_EDGES = (1, 63, 65, 100)  # lengths around the 64-step chunk
 SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
 SERVE_ARCHS = ("olmo-1b", "rwkv6-1.6b")
 # per prefill, one kernel per block of the model (16 dense, 24 rwkv), none per
@@ -1700,9 +1780,13 @@ def flash_flops(B, H, Sq, Sk, hd, window=None) -> float:
 
 def check_model_kernels(rec, torch, ops, ref, gen, out):
     """Kernels 16-17 against their plain versions at the serve runs' shapes
-    (and a grouped, a windowed, an f32 and a suffix-query flash), timed with
-    their bounds; flash beside ``scaled_dot_product_attention``."""
+    (and a grouped, a windowed, an f32 and a suffix-query flash, and the
+    edges of the tensor-core route's tiles, each on its expected route;
+    ``wkv6`` at lengths around its chunk), timed with their bounds; flash
+    beside ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as _fa
 
     dev = gen.device
     bf16 = torch.bfloat16
@@ -1728,7 +1812,16 @@ def check_model_kernels(rec, torch, ops, ref, gen, out):
     flash_case(B, S, FLASH_GQA[0], FLASH_GQA[1], hd, bf16)
     flash_case(B, S, H, H, hd, torch.float32)
     flash_case(2, 384, 8, 2, 64, torch.float32, Sq=128)  # suffix queries, offset 256
+    for case in FLASH_EDGES:  # the edges of the tensor-core route's tiles
+        b_, sk, h_, hkv, d_, dname, window, sq = case
+        dt = {"bf16": bf16, "f32": torch.float32}[dname]
+        flash_case(b_, sk, h_, hkv, d_, dt, window=window, Sq=sq)
+        want_route = "wgmma" if dt == bf16 and d_ % 16 == 0 else "cuda_cores"
+        check(_fa.last_route == want_route,
+              f"flash_attention {case}: route {_fa.last_route}, expected {want_route}")
     q, k, v, err = flash_case(B, S, H, H, hd, bf16)
+    check(_fa.last_route == "wgmma", f"flash_attention {FLASH_SHAPE} bf16: route "
+                                     f"{_fa.last_route}, expected wgmma")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pos = torch.arange(S, device=dev)
     rec.kernel("flash_attention", err,
@@ -1760,6 +1853,21 @@ def check_model_kernels(rec, torch, ops, ref, gen, out):
     check(e2 <= KERNEL_F32_REL and bool(torch.isfinite(got2[0]).all()),
           f"wkv6 ragged, extreme decay: rel error {e2}")
     log(f"wkv6 (2, 100, 4, 64) f32, ragged chunk, decay 1e-30: rel error {e2:.3e}")
+    for S_edge in WKV_EDGES:  # lengths around the 64-step chunk, zero and nonzero s0
+        for s0_zero in (True, False):
+            r3, k3, v3 = (torch.randn(2, S_edge, 4, 64, generator=gen, device=dev)
+                          for _ in range(3))
+            w3 = torch.exp(-torch.exp(0.5 * torch.randn(2, S_edge, 4, 64, generator=gen,
+                                                        device=dev) - 1.0))
+            s03 = (torch.zeros(2, 4, 64, 64, device=dev) if s0_zero
+                   else torch.randn(2, 4, 64, 64, generator=gen, device=dev))
+            got3 = ops.wkv6(r3, k3, v3, w3, u2, s03)
+            want3 = ref.wkv6_ref(r3, k3, v3, w3, u2, s03)
+            e3 = max(rel_err(torch, a, b) for a, b in zip(got3, want3))
+            check(e3 <= KERNEL_F32_REL and bool(torch.isfinite(got3[0]).all()),
+                  f"wkv6 S={S_edge} s0 {'= 0' if s0_zero else '!= 0'}: rel error {e3}")
+            log(f"wkv6 (2, {S_edge}, 4, 64) f32, s0 {'= 0' if s0_zero else '!= 0'}: "
+                f"rel error {e3:.3e}")
     chunks = -(-S // 64)
     flops = B * H * chunks * (2 * 64 * K * K * 2 + 2 * (64 * 63 // 2) * K * 2)
     nbytes = 2 * (3 * B * S * H * K) + 4 * B * S * H * K + 2 * B * S * H * K + 4 * H * K \
@@ -1776,6 +1884,7 @@ def serve_phase(rec, torch, ops, dev, out):
     the card's libraries and its allocator), the launches of the second
     read; then the last decode step's logits against a prefill of the
     extended prompt, in bf16 and, at 4 layers, in f32."""
+    from repro_torch.kernels import flash_attention as _fa
     from repro_torch.launch import serve
 
     res = out["serve"] = {}
@@ -1783,12 +1892,16 @@ def serve_phase(rec, torch, ops, dev, out):
         serve.run(arch, reduced=False, device="cuda", quiet=True, **SERVE)
         torch.cuda.synchronize()
         ops.reset_launches()
+        _fa.last_route = None
         got = serve.run(arch, reduced=False, device="cuda", **SERVE)
         torch.cuda.synchronize()
         counts = ops.launches()
         rec.add(counts)
         want = {n: 0 for n in counts} | SERVE_LAUNCHES[arch]
         check(counts == want, f"serve {arch}: launches {counts}, expected {want}")
+        if counts["flash_attention"]:  # olmo-1b's bf16 prefill: the tensor-core route
+            check(_fa.last_route == "wgmma",
+                  f"serve {arch}: flash_attention took the {_fa.last_route} route, not wgmma")
         check(bool(torch.isfinite(got.logits).all()), f"serve {arch}: logits not finite")
         check(tuple(got.tokens.shape) == (SERVE["batch"], SERVE["new_tokens"]),
               f"serve {arch}: tokens {tuple(got.tokens.shape)}")
@@ -1978,7 +2091,7 @@ def main() -> int:
                 log(f"  {src}: {line.strip()}")
     out["build_s"] = build_s
 
-    rec = Record(ops)
+    rec = Record(ops, _build.build_logs())
     t0 = time.perf_counter()
     prob = quadratic.generate(seeded(torch, 0), m=LSQ["m"], n=LSQ["n"], d=LSQ["d"],
                               device="cuda")

@@ -67,6 +67,18 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{_digest(source)}.so"
 
 
+def log_path(source: str) -> Path:
+    """The compiler's output for ``source``'s library, kept beside it."""
+    return library_path(source).with_suffix(".log")
+
+
+def build_logs() -> dict[str, str]:
+    """``{source: compiler output}`` for every source whose library was
+    built here: the ``-Xptxas -v`` registers, shared memory and spills, also
+    when the library was built by an earlier process."""
+    return {s: log_path(s).read_text() for s in SOURCES if log_path(s).exists()}
+
+
 def nvcc_command(nvcc: str, source: str, out: Path) -> list[str]:
     return [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(CSRC / source)]
 
@@ -100,6 +112,7 @@ def _build_missing() -> dict[str, str]:
             failed.append(s)
             tmp.unlink(missing_ok=True)
         else:
+            log_path(s).write_text(out)
             os.replace(tmp, library_path(s))
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"

@@ -11,32 +11,509 @@
 //                            o = acc / max(l, 1e-30).
 //
 // Query head h reads kv head h / (H / Hkv); grouped keys are never
-// materialised.  Inputs are all f32 or all bf16, hd = vd <= 128, any Sq and
-// Sk (a ragged last tile is masked).
+// materialised.  Any Sq and Sk: a ragged last tile is masked.  Key tiles
+// that are wholly masked for a group of rows are skipped (the Pallas kernel
+// visits them, but their weight is wiped by the first valid tile, so the
+// result agrees up to rounding; a row with no valid key at all keeps 0).
 //
-// What bounds it on an H100: operations.  About 2 Sq Sk hd multiply-adds per
-// head for the scores and as many for p v, half of that under the causal
-// mask, against 2 Sq hd + 2 Sk hd values moved.  At the prefill shape
-// (4, 1024, 16, 128) that is 17 GFLOP of valid (query, key) pairs against
-// 67 MB.  This first
-// version runs the products on the CUDA cores in f32, not on the tensor
-// cores (wgmma, TMA and a tiled bf16 pipeline are later work), so it sits
-// far above the bf16 tensor-core bound.
+// What bounds it on an H100: operations.  About 2 Sq Sk hd multiply-adds
+// per head for the scores and as many for p v, half of that under the
+// causal mask, against 2 Sq hd + 2 Sk hd values moved.  At olmo-1b's
+// prefill shape (4, 1024, 16, 128) bf16 that is 17.2 GFLOP of valid
+// (query, key) pairs against 67 MB: 17 us at the bf16 tensor-core rate,
+// 20 us at the memory rate.  Only the tensor cores come near it, so the
+// products have to run there, fed from shared memory without the threads
+// spending instructions on the loads.
 //
-// Design.  One block per (query tile of 64 rows, b * H + h), 256 threads.
-// The block holds its q tile in shared memory as f32 and walks the key tiles
-// (64 keys) from the window's first tile up to the causal limit; tiles that
-// are wholly masked for every row of the block are skipped (the Pallas
-// kernel visits them, but their weight is wiped by the first valid tile, so
-// the result agrees up to rounding).  Thread t owns row t / 4 of the tile
-// and, of that row, keys j = 4 i + t % 4 of the score tile and output columns
-// 4 i + t % 4: the four threads of a row are neighbouring lanes of one warp
-// and combine their row maximum and sum by shuffles.  q and k rows are padded
-// to hd + 1 floats in shared memory and the p tile to 65, so that the warp's
-// eight rows and four key groups fall on distinct banks.
+// Two routes, chosen by the wrapper from the dtype and the head dim:
+//
+// * Tensor cores (bf16, hd = vd a multiple of 16 up to 128).  One block per
+//   (b * H + h, tile of 128 query rows), the heaviest causal tiles launched
+//   first; two consumer warpgroups of 64 rows and one producer warp.  The
+//   producer brings q once and the key and value tiles (128 keys) into a
+//   ring of two stages in shared memory with TMA (a 3-D tensor map over
+//   (heads * hd, positions, batch): one head's row is a 64-column box of
+//   128 bytes, consecutive positions H*hd*2 bytes apart), each stage behind
+//   a pair of mbarriers (full: the bytes arrived; empty: all eight consumer
+//   warps are done with it), so the next tiles load while the current one
+//   is multiplied.  The boxes land in the 128-byte swizzle that wgmma reads
+//   without bank conflicts.  Each consumer warpgroup computes S = q k^T
+//   with wgmma m64n128k16 (q and k both K-major in shared memory), runs the
+//   online softmax on its f32 accumulators in registers (exp2 with the
+//   scale folded into log2 e), rounds p to bf16 straight into the A
+//   fragments of the next product (l is summed from the unrounded p, as
+//   FlashAttention-2/3 do), and accumulates o += p v with wgmma
+//   m64nNk16, A from registers, v MN-major (N = 64 for hd <= 64, else
+//   128).  Columns of a 64-wide box past hd (the next head's, or zero past
+//   the tensor) feed only output columns that are never stored.  Rows and
+//   keys past Sq and Sk are zero-filled by TMA and masked.
+//
+//   128 keys a tile rather than 64 halves the barrier round trips, row
+//   maxima and rescales per product and gives the score product the wider
+//   m64n128k16, which reads q and k from shared memory at 96 of the SM's
+//   128 bytes a clock where m64n64k16 needs all 128; on the card it was the
+//   faster of the two.  Taking q's fragments from registers, or issuing the
+//   next tile's scores before this tile's softmax (FlashAttention-3's
+//   overlap), were slower in trials on the card: ptxas then inserts
+//   warpgroup waits around the register operands.
+//
+// * CUDA cores (f32, or bf16 with an hd the tensor-core route does not
+//   take).  One block per (query tile of 64 rows, b * H + h), 256 threads,
+//   f32 products out of shared memory: thread t owns row t / 4 of the tile
+//   and, of that row, keys j = 4 i + t % 4 of the score tile and output
+//   columns 4 i + t % 4.  The f32 route keeps f32 products (not TF32), so
+//   it holds the 1e-4 f32 comparisons.
 #include "common.cuh"
 
+#include <cuda.h>  // CUtensorMap and the encoder's types; libcuda is reached at run time
+#include <stdint.h>
+
 namespace {
+
+constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ---------------------------------------------------------------------------
+// tensor-core route
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kBQ = 128;              // query rows per block (two warpgroups)
+constexpr int kBK = 128;              // keys per tile (the N of the score product)
+constexpr int kStages = 2;            // depth of the key/value ring
+constexpr int kConsumers = 256;       // two warpgroups
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kRowBytes = 128;        // one 64-column bf16 box row (the swizzle span)
+
+__host__ __device__ constexpr int q_bytes(int hdb) { return hdb * kBQ * kRowBytes; }
+__host__ __device__ constexpr int kv_bytes(int hdb) { return hdb * kBK * kRowBytes; }
+size_t smem_bytes(int hdb) {
+  return 1024 /* alignment slack */ + q_bytes(hdb) + 2 * kStages * kv_bytes(hdb) +
+         (2 * kStages + 1) * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Spin until the phase of parity ``parity`` of ``bar`` has completed.  A
+// phase that never completes (a fault in the pipeline) traps after about
+// ten seconds, so the launch fails with an error instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1LL << 34)) __trap();
+  } while (!done);
+}
+
+// One TMA box of a 3-D tensor map into shared memory, completing on ``bar``.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers across
+// the asynchronous product (CUTLASS's warpgroup_fence_operand).
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// A shared-memory matrix descriptor for wgmma, 128-byte swizzle: the start
+// address, the leading and the stride byte offsets, all in 16-byte units.
+// K-major operands (q, k): 8-row groups 1024 bytes apart, the leading offset
+// unused; MN-major (v): 8-row groups along K 1024 bytes apart, 64-column
+// blocks along N ``lbo`` bytes apart.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((saddr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;  // 128-byte swizzle
+  return d;
+}
+
+// D (64 x 128, f32) (+)= A (64 x 16, bf16, shared) B (16 x 128, bf16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate)
+      : "memory");
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16, registers) B (16 x 64, bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16, registers) B (16 x 128, bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+template <int HDB>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t b) {
+  if constexpr (HDB == 1) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo (the lower column)
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// HDB: 64-column blocks of a head row (1 for hd <= 64, 2 for hd <= 128).
+//
+// Accumulator layout of wgmma m64nN (f32), thread t of a warpgroup, warp
+// w = t / 32, lane l: register 4 i + e holds row 16 w + l / 4 + 8 (e / 2)
+// and column 8 i + 2 (l % 4) + e % 2.  The A fragment of m64k16 from
+// registers holds the same rows and, for k-step j, the columns of n8
+// blocks 2 j and 2 j + 1: so p's registers 8 j .. 8 j + 7, packed in pairs,
+// are the A operand of the j-th step of p v.
+template <int HDB>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int Sq,
+                int Sk, int H, int Hkv, int hd, int q_offset, int causal, int window,
+                float scale_log2) {
+  constexpr int NV = 64 * HDB;        // output columns of p v
+  constexpr int SREG = kBK / 2;       // f32 score registers a thread holds
+  constexpr int OREG = NV / 2;        // f32 output registers a thread holds
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);  // 1024-aligned: the swizzle atom
+  uint8_t* qs = smem;
+  uint8_t* ks = qs + q_bytes(HDB);
+  uint8_t* vs = ks + kStages * kv_bytes(HDB);
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + kStages * kv_bytes(HDB));
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest causal tiles first
+
+  // the key range the block's rows can see
+  const int qpos_lo = q_offset + q0;
+  const int qpos_hi = q_offset + min(q0 + kBQ, Sq) - 1;
+  const int k_end = causal ? min(Sk, qpos_hi + 1) : Sk;
+  int k_begin = window > 0 ? max(0, qpos_lo - window + 1) : 0;
+  k_begin = (k_begin / kBK) * kBK;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // producer: q once, then the key and value tiles through the ring
+    if (lane == 0) {
+      mbar_expect_tx(qbar, q_bytes(HDB));
+      for (int c = 0; c < HDB; ++c)
+        tma_load_3d(qs + c * kBQ * kRowBytes, &tq, qbar, h * hd + 64 * c, q0, b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * kv_bytes(HDB));
+        const int kt = k_begin + j * kBK;
+        for (int c = 0; c < HDB; ++c) {
+          tma_load_3d(ks + s * kv_bytes(HDB) + c * kBK * kRowBytes, &tk, &full[s],
+                      hk * hd + 64 * c, kt, b);
+          tma_load_3d(vs + s * kv_bytes(HDB) + c * kBK * kRowBytes, &tv, &full[s],
+                      hk * hd + 64 * c, kt, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows 64 wg .. 64 wg + 63 of the tile
+  const int wg = warp >> 2;
+  const int row_a = 16 * (warp & 3) + (lane >> 2);  // and row_a + 8
+  const int quad = lane & 3;
+  const int last_pos = q_offset + Sq - 1;
+  const int wq_lo = q_offset + q0 + 64 * wg;
+  const int wq_hi = min(wq_lo + 63, last_pos);
+  const int pos_a = wq_lo + row_a, pos_b = pos_a + 8;
+
+  float m_a = kNeg, m_b = kNeg, l_a = 0.0f, l_b = 0.0f;
+  float oacc[OREG];
+#pragma unroll
+  for (int i = 0; i < OREG; ++i) oacc[i] = 0.0f;
+  const uint32_t q_addr = smem_u32(qs) + wg * 64 * kRowBytes;
+  const int ksteps = hd / 16;
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % kStages;
+    const int kt = k_begin + j * kBK;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    bool active = wq_lo <= last_pos;
+    if (causal) active = active && kt <= wq_hi;
+    if (window > 0) active = active && kt + kBK - 1 > wq_lo - window;
+    if (active) {
+      const uint32_t k_addr = smem_u32(ks + s * kv_bytes(HDB));
+      const uint32_t v_addr = smem_u32(vs + s * kv_bytes(HDB));
+      float sacc[SREG];
+#pragma unroll
+      for (int i = 0; i < SREG; ++i) sacc[i] = 0.0f;
+      fence_regs<SREG>(sacc);
+      wg_fence();
+      for (int kk = 0; kk < ksteps; ++kk) {
+        const uint32_t off = (kk & 3) * 32;  // 16 columns of the 128-byte row
+        const uint64_t da = gmma_desc(q_addr + (kk >> 2) * kBQ * kRowBytes + off, 16, 1024);
+        const uint64_t db = gmma_desc(k_addr + (kk >> 2) * kBK * kRowBytes + off, 16, 1024);
+        wgmma_ss_n128(sacc, da, db, kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs<SREG>(sacc);
+
+      // scores in log2 units, masked where a key is not visible
+      const bool need_mask = kt + kBK > Sk || (causal && kt + kBK - 1 > wq_lo) ||
+                             (window > 0 && kt <= wq_hi - window);
+      float mx_a = kNeg, mx_b = kNeg;
+#pragma unroll
+      for (int e = 0; e < SREG; ++e) {
+        float x = sacc[e] * scale_log2;
+        if (need_mask) {
+          const int col = kt + 8 * (e >> 2) + 2 * quad + (e & 1);
+          const int pos = (e & 2) ? pos_b : pos_a;
+          bool valid = col < Sk;
+          if (causal) valid = valid && col <= pos;
+          if (window > 0) valid = valid && col > pos - window;
+          x = valid ? x : kNeg;
+        }
+        sacc[e] = x;
+        if (e & 2) mx_b = fmaxf(mx_b, x);
+        else mx_a = fmaxf(mx_a, x);
+      }
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float ps_a = 0.0f, ps_b = 0.0f;
+      uint32_t pf[kBK / 16][4];
+#pragma unroll
+      for (int e = 0; e < SREG; e += 2) {
+        const float mn = (e & 2) ? mn_b : mn_a;
+        const float p0 = exp2f(sacc[e] - mn), p1 = exp2f(sacc[e + 1] - mn);
+        if (e & 2) ps_b += p0 + p1;
+        else ps_a += p0 + p1;
+        pf[e >> 3][(e & 7) >> 1] = pack_bf16(p0, p1);
+      }
+      l_a = l_a * al_a + ps_a;  // per-thread partial sums; the row's four lanes add at the end
+      l_b = l_b * al_b + ps_b;
+#pragma unroll
+      for (int i = 0; i < OREG; ++i) oacc[i] *= (i & 2) ? al_b : al_a;
+
+      fence_regs<OREG>(oacc);
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) fence_regs<4>(pf[kk]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_pv<HDB>(oacc, pf[kk], gmma_desc(v_addr + kk * 16 * kRowBytes, kBK * kRowBytes, 1024));
+      wg_commit();
+      wg_wait_all();
+      fence_regs<OREG>(oacc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  const float inv_a = 1.0f / fmaxf(l_a, 1e-30f), inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  const int qa = q0 + 64 * wg + row_a;
+  const long long row_stride = (long long)H * hd;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = qa + 8 * half;
+    if (qi >= Sq) continue;
+    const float inv = half ? inv_b : inv_a;
+    __nv_bfloat16* orow = o + ((long long)b * Sq + qi) * row_stride + (long long)h * hd;
+#pragma unroll
+    for (int i = 0; i < NV / 8; ++i) {
+      const int c = 8 * i + 2 * quad;
+      if (c < hd) {
+        const __nv_bfloat162 v2 = __floats2bfloat162_rn(oacc[4 * i + 2 * half] * inv,
+                                                        oacc[4 * i + 2 * half + 1] * inv);
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) = v2;
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's tensor-map encoder, reached through the runtime (no libcuda
+// at link time).
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A (B, S, width) bf16 tensor as a 3-D map, boxes of 64 columns x ``rows``
+// positions x 1 batch, 128-byte swizzle, zero fill outside the tensor.
+int make_map(CUtensorMap* map, const void* base, int B, int S, int width, int rows) {
+  EncodeTiledFn enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)(S > 0 ? S : 1), (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)width * 2 * (S > 0 ? S : 1)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                   strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int HDB>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
+           int Hkv, int hd, int q_offset, int causal, int window, float scale,
+           cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int rc = make_map(&mq, q, B, Sq, H * hd, kBQ);
+  if (rc == 0) rc = make_map(&mk, k, B, Sk, Hkv * hd, kBK);
+  if (rc == 0) rc = make_map(&mv, v, B, Sk, Hkv * hd, kBK);
+  if (rc != 0) return rc;
+  const size_t smem = smem_bytes(HDB);
+  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<HDB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)(B * H), (unsigned)((Sq + kBQ - 1) / kBQ));
+  flash_tc_kernel<HDB><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)o, Sq, Sk, H, Hkv, hd, q_offset, causal, window,
+      scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// CUDA-core route
+// ---------------------------------------------------------------------------
+namespace cc {
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;         // query rows per block
@@ -44,18 +521,21 @@ constexpr int kBK = 64;         // keys per tile
 constexpr int kMaxD = 128;      // largest head dim
 constexpr int kCols = kMaxD / 4;  // output columns a thread owns
 constexpr int kKeys = kBK / 4;    // score columns a thread owns
-constexpr float kNeg = -1e30f;
 
 size_t smem_bytes(int hd, int vd) {
   return sizeof(float) * ((size_t)kBQ * (hd + 1) + (size_t)kBK * (hd + 1) + (size_t)kBK * vd +
                           (size_t)kBQ * (kBK + 1));
 }
 
+// q and k rows are padded to hd + 1 floats in shared memory and the p tile
+// to 65, so that the warp's eight rows and four key groups fall on distinct
+// banks; the four threads of a row are neighbouring lanes of one warp and
+// combine their row maximum and sum by shuffles.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int Sq, int Sk, int H, int Hkv, int hd, int vd, int q_offset,
-             int causal, int window, float scale) {
+flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                T* __restrict__ o, int Sq, int Sk, int H, int Hkv, int hd, int vd, int q_offset,
+                int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int ldq = hd + 1, ldp = kBK + 1;
   float* qs = smem;                        // (kBQ, hd + 1)
@@ -172,38 +652,50 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 }
 
 template <typename T>
-int flash_typed(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                int H, int Hkv, int hd, int vd, int q_offset, int causal, int window,
-                float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
+           int Hkv, int hd, int vd, int q_offset, int causal, int window, float scale,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes(hd, vd);
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_cc_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)(B * H));
-  flash_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_cc_kernel<T><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, Hkv, hd, vd, q_offset, causal,
       window, scale);
   return (int)cudaGetLastError();
 }
 
+}  // namespace cc
+
 }  // namespace
 
-// window <= 0: no window.  Returns a CUDA error code (0 on success).
+// window <= 0: no window.  tensor_cores != 0 takes the wgmma route (bf16,
+// hd = vd a multiple of 16 up to 128, 16-byte aligned rows); 0 the CUDA-core
+// route (f32 or bf16, hd = vd <= 128).  Returns a CUDA error code (0 on
+// success).
 extern "C" int launch_flash_attention(const void* q, const void* k, const void* v, void* o,
                                       int B, int Sq, int Sk, int H, int Hkv, int hd, int vd,
                                       int q_offset, int causal, int window, int dtype,
-                                      float scale, int device, void* stream) {
+                                      int tensor_cores, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (hd < 1 || hd > kMaxD || vd < 1 || vd > kMaxD || Hkv < 1 || H % Hkv != 0)
+  if (hd < 1 || hd > cc::kMaxD || vd < 1 || vd > cc::kMaxD || Hkv < 1 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (tensor_cores) {
+    if (dtype != kBF16 || hd % 16 != 0 || vd != hd) return (int)cudaErrorInvalidValue;
+    if (hd <= 64)
+      return tc::launch<1>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, q_offset, causal, window, scale, st);
+    return tc::launch<2>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, q_offset, causal, window, scale, st);
+  }
   if (dtype == kF32)
-    return flash_typed<float>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, vd, q_offset, causal, window,
-                              scale, (cudaStream_t)stream);
+    return cc::launch<float>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, vd, q_offset, causal, window,
+                             scale, st);
   if (dtype == kBF16)
-    return flash_typed<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, vd, q_offset, causal,
-                                      window, scale, (cudaStream_t)stream);
+    return cc::launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, vd, q_offset, causal,
+                                     window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 """Kernel 16: causal GQA attention with an online softmax, optionally over a
-sliding window, one CUDA kernel (``csrc/flash_attention.cu``); the port of
-``src/repro/kernels/flash_attention.py``:
+sliding window, one CUDA kernel per call (``csrc/flash_attention.cu``); the
+port of ``src/repro/kernels/flash_attention.py``:
 
   * ``flash_attention``  q (B, Sq, H, hd), k (B, Sk, Hkv, hd), v (B, Sk,
                          Hkv, vd) -> (B, Sq, H, vd) in q's dtype, f32
@@ -12,6 +12,18 @@ vd <= 128, H a multiple of Hkv, any Sq and Sk.  The positions are
 contiguous: keys at 0..Sk-1, queries from ``q_offset``, a Python int the
 caller passes so that no launch waits on a host read.  The plain version
 (``ref.flash_attention_ref``) takes any position vectors.
+
+Two routes on the card, chosen by ``route`` from the dtype and the head
+dim (not a fallback: each route is the kernel for its operands):
+
+  * ``"wgmma"``       bf16 with hd a multiple of 16: both products on the
+                      tensor cores (wgmma, tiles brought in by TMA), p
+                      rounded to bf16 before p v, l and the accumulators in
+                      f32 -- olmo-1b's prefill takes it;
+  * ``"cuda_cores"``  f32 (f32 products, not TF32, so the f32 path holds
+                      1e-4), or bf16 with another hd.
+
+``last_route`` records the route of the last call on the card.
 """
 from __future__ import annotations
 
@@ -23,18 +35,30 @@ from repro_torch.kernels import _args, ref
 from repro_torch.kernels._build import F, I, P, Kernel
 
 MAX_HEAD_DIM = 128
+TC_HEAD_DIM_STEP = 16  # the tensor-core route's hd: a multiple of wgmma's bf16 depth
 
 FLASH_ATTENTION = Kernel(
     "flash_attention", "flash_attention.cu", "launch_flash_attention",
-    # q k v o B Sq Sk H Hkv hd vd q_offset causal window dtype scale dev stream
-    [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, I, P],
+    # q k v o B Sq Sk H Hkv hd vd q_offset causal window dtype tensor_cores scale dev stream
+    [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, F, I, P],
     replaces="src/repro/kernels/flash_attention.py:70",
 )
+
+last_route: str | None = None
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel's route for these operands: ``"wgmma"`` for bf16 with hd a
+    multiple of 16, else ``"cuda_cores"`` (see the module doc)."""
+    if dtype == torch.bfloat16 and hd % TC_HEAD_DIM_STEP == 0:
+        return "wgmma"
+    return "cuda_cores"
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0):
     """Attention of the Sq queries at positions q_offset .. q_offset + Sq - 1
     over the Sk keys at positions 0 .. Sk - 1 (see the module doc)."""
+    global last_route
     kern = FLASH_ATTENTION
     if _args.on_cpu(kern.name, q):
         dev = q.device
@@ -59,9 +83,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, q_offset: int 
     _args.check(kern.name, "k", k, (B, Sk, Hkv, hd), (dt,), dev)
     _args.check(kern.name, "v", v, (B, Sk, Hkv, vd), (dt,), dev)
     out = torch.empty((B, Sq, H, vd), dtype=dt, device=dev)
+    path = route(dt, hd)
     kern.launch(_args.ptr(q), _args.ptr(k), _args.ptr(v), _args.ptr(out), B, Sq, Sk, H, Hkv,
                 hd, vd, int(q_offset), int(causal), 0 if window is None else int(window),
-                _args.DTYPE_CODES[dt], 1.0 / math.sqrt(hd), *_args.stream_args(dev))
+                _args.DTYPE_CODES[dt], int(path == "wgmma"), 1.0 / math.sqrt(hd),
+                *_args.stream_args(dev))
+    last_route = path
     return out
 
 

@@ -1,5 +1,6 @@
 """Kernel 17: the RWKV-6 recurrence with a data-dependent decay, in chunks of
-64 steps, one CUDA kernel (``csrc/wkv6.cu``); the port of
+64 steps, one CUDA kernel (``csrc/wkv6.cu``: every chunk at once, the
+state passed from chunk to chunk in order); the port of
 ``src/repro/kernels/wkv6.py``:
 
   * ``wkv6``  r, k, w (B, S, H, K); v (B, S, H, V); u (H, K); s0 (B, H, K,
@@ -9,7 +10,12 @@ Every RWKV block of ``models.rwkv6.rwkv_time_mix`` calls it once on
 prefill; decode takes one step in plain tensor code (``ops.wkv6_step``).
 CUDA operands: r, k and v all f32 or all bf16, w, u and s0 f32, all
 contiguous; K, V <= 64; any S (the last chunk may be shorter; the
-reference asserts S % min(64, S) == 0 and so takes a subset of these).
+reference asserts S % min(64, S) == 0 and so takes a subset of these); w a
+decay in (0, 1], as the model's exp(-exp(.)) is (the kernel factors the
+pairwise decays of a chunk through its 16-step sub-chunks, which is the
+clamped sum only where la falls along the chunk).  The wrapper allocates
+the kernel's scratch: the states passed between chunks (B H ceil(S / 64) K
+V floats) and a zeroed int32 buffer of their flags and the chunk ticket.
 """
 from __future__ import annotations
 
@@ -23,8 +29,8 @@ MAX_DIM = 64
 
 WKV6 = Kernel(
     "wkv6", "wkv6.cu", "launch_wkv6",
-    # r k v w u s0 y s_out B S H K V dtype dev stream
-    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # r k v w u s0 y s_out states sync B S H K V dtype dev stream
+    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     replaces="src/repro/kernels/wkv6.py:73",
 )
 
@@ -50,7 +56,10 @@ def wkv6(r, k, v, w, u, s0):
         _args.check(kern.name, arg, t, shape, dts, dev)
     y = torch.empty((B, S, H, V), dtype=dt, device=dev)
     s_out = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
+    nc = -(-S // CHUNK)
+    states = torch.empty(B * H * nc * K * V, dtype=torch.float32, device=dev)
+    sync = torch.zeros(1 + B * H * nc, dtype=torch.int32, device=dev)
     kern.launch(_args.ptr(r), _args.ptr(k), _args.ptr(v), _args.ptr(w), _args.ptr(u),
-                _args.ptr(s0), _args.ptr(y), _args.ptr(s_out), B, S, H, K, V,
-                _args.DTYPE_CODES[dt], *_args.stream_args(dev))
+                _args.ptr(s0), _args.ptr(y), _args.ptr(s_out), _args.ptr(states),
+                _args.ptr(sync), B, S, H, K, V, _args.DTYPE_CODES[dt], *_args.stream_args(dev))
     return y, s_out

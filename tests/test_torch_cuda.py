@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import FaultConfig, FederatedConfig
 from repro_torch.core import autotune, make, make_oracle, pdmm_graph, quadratic, topology
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as P, ref
 
 
@@ -475,7 +476,9 @@ def test_cuda_residual_and_autotune_run_on_the_card(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_model_kernels_match_plain(cuda, dtype):
     """Kernels 16-17 at small shapes: causal, windowed, grouped and suffix
-    attention; the recurrence with a ragged last chunk."""
+    attention, the edges of the tensor-core tiles, each on its route; the
+    recurrence at lengths around its chunk with a zero and a nonzero
+    initial state."""
     g = torch.Generator(device="cuda").manual_seed(0)
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
 
@@ -484,7 +487,15 @@ def test_cuda_model_kernels_match_plain(cuda, dtype):
 
     for (B, Sq, Sk, H, Hkv, hd, window) in ((2, 128, 128, 4, 4, 64, None),
                                             (1, 200, 200, 8, 2, 128, 48),
-                                            (2, 64, 192, 4, 1, 32, None)):
+                                            (2, 64, 192, 4, 1, 32, None),
+                                            # the edges of the tensor-core tiles, as
+                                            # chip_smoke.py's FLASH_EDGES
+                                            (2, 200, 1000, 8, 8, 128, None),
+                                            (2, 200, 1000, 8, 8, 64, None),
+                                            (2, 333, 333, 8, 2, 128, 40),
+                                            (2, 200, 200, 8, 2, 64, None),
+                                            (1, 77, 130, 4, 1, 80, 100),
+                                            (1, 100, 100, 2, 2, 72, None)):
         q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dtype)
         k, v = (torch.randn(B, Sk, Hkv, hd, generator=g, device=cuda).to(dtype)
                 for _ in range(2))
@@ -493,12 +504,37 @@ def test_cuda_model_kernels_match_plain(cuda, dtype):
         want = ref.flash_attention_ref(q, k, v, torch.arange(off, Sk, device=cuda),
                                        torch.arange(Sk, device=cuda), window=window)
         assert rel(got, want) <= tol
-    r, k, v = (torch.randn(2, 100, 3, 64, generator=g, device=cuda).to(dtype) for _ in range(3))
-    w = torch.rand(2, 100, 3, 64, generator=g, device=cuda)
-    u = torch.randn(3, 64, generator=g, device=cuda)
-    s0 = torch.randn(2, 3, 64, 64, generator=g, device=cuda)
-    for a, b in zip(P.wkv6(r, k, v, w, u, s0), ref.wkv6_ref(r, k, v, w, u, s0)):
-        assert rel(a, b) <= tol
+        tc = dtype == torch.bfloat16 and hd % 16 == 0
+        assert FA.last_route == ("wgmma" if tc else "cuda_cores")
+    for S in (1, 63, 65, 100):
+        for s0_zero in (True, False):
+            r, k, v = (torch.randn(2, S, 3, 64, generator=g, device=cuda).to(dtype)
+                       for _ in range(3))
+            w = torch.rand(2, S, 3, 64, generator=g, device=cuda)
+            u = torch.randn(3, 64, generator=g, device=cuda)
+            s0 = (torch.zeros(2, 3, 64, 64, device=cuda) if s0_zero
+                  else torch.randn(2, 3, 64, 64, generator=g, device=cuda))
+            for a, b in zip(P.wkv6(r, k, v, w, u, s0), ref.wkv6_ref(r, k, v, w, u, s0)):
+                assert rel(a, b) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,route", [(torch.bfloat16, 128, "wgmma"),
+                                            (torch.bfloat16, 48, "wgmma"),
+                                            (torch.bfloat16, 72, "cuda_cores"),
+                                            (torch.float32, 128, "cuda_cores")])
+def test_cuda_flash_route_by_dtype(cuda, dtype, hd, route):
+    """bf16 with hd a multiple of 16 runs on the tensor cores, f32 and other
+    bf16 head dims on the CUDA cores; one launch counted on either route."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(1, 96, 2, hd, generator=g, device=cuda).to(dtype) for _ in range(3))
+    P.reset_launches()
+    got = P.flash_attention(q, k, v)
+    assert FA.last_route == route and P.launches()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, torch.arange(96, device=cuda),
+                                   torch.arange(96, device=cuda))
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(want.float().abs().max())
 
 
 @pytest.mark.cuda

@@ -1,0 +1,280 @@
+"""The arithmetic of the two redesigned model kernels, modelled in plain
+PyTorch on the CPU and held against the plain versions (``kernels/ref.py``),
+so that a wrong decomposition shows before any kernel runs on a card:
+
+* kernel 16, ``flash_attention``'s tensor-core route
+  (``csrc/flash_attention.cu``, ``tc``): blocks of 128 query rows, each
+  warpgroup's 64 rows walking 128-key tiles from the block's first visible
+  tile to its causal limit and skipping tiles wholly masked for its rows,
+  scores in log2 units, p rounded to bf16 before p v while l sums the
+  unrounded p, f32 accumulators -- within 2^-7 of the largest output, the
+  tolerance of the kernel against its plain version on the card;
+* kernel 17, ``wkv6`` (``csrc/wkv6.cu``): each chunk's own contribution
+  to the state at its 16-step pivots, the state passed from chunk to chunk,
+  and the outputs by sub-chunks that take direct pairwise exps only on the
+  16 x 17 blocks at the diagonal -- in f32 within 1e-5 of the largest
+  value, y and the final state.
+
+Also: the route the flash wrapper picks, that every launcher's C signature
+has as many parameters as its ctypes binding declares, and that
+``chip_smoke.py`` reads the compiler's register report.
+"""
+import importlib.util
+import math
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels._build import CSRC
+
+LOG2E = 1.4426950408889634
+NEG = -1e30
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# kernel 16: the tensor-core flash
+# ---------------------------------------------------------------------------
+
+def flash_tc_model(q, k, v, *, causal=True, window=None, q_offset=0, bq=128, bk=128):
+    """The tensor-core route's numerics: (B, Sq, H, hd) bf16 in, bf16 out."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    win = 0 if window is None else window
+    scale_log2 = float(np.float32(1.0 / math.sqrt(hd)) * np.float32(LOG2E))
+    qf = q.float().reshape(B, Sq, Hkv, g, hd).permute(0, 2, 3, 1, 4)  # (B, Hkv, g, Sq, hd)
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))          # (B, Hkv, Sk, hd)
+    nk = -(-Sk // bk) * bk
+    kf = torch.nn.functional.pad(kf, (0, 0, 0, nk - Sk))  # TMA's zero fill past Sk
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, nk - Sk))
+    out = torch.zeros(B, Hkv, g, Sq, hd, dtype=F32)
+    last = q_offset + Sq - 1
+    for q0 in range(0, Sq, bq):
+        lo, hi = q_offset + q0, q_offset + min(q0 + bq, Sq) - 1
+        k_end = min(Sk, hi + 1) if causal else Sk
+        k_begin = (max(0, lo - win + 1) if win > 0 else 0) // bk * bk
+        for w0 in (q0, q0 + 64):  # the block's two warpgroups
+            if w0 >= Sq:
+                continue
+            rows = slice(w0, min(w0 + 64, Sq))
+            wq_lo, wq_hi = q_offset + w0, min(q_offset + w0 + 63, last)
+            pos = torch.arange(wq_lo, wq_lo + rows.stop - rows.start)[:, None]
+            m = torch.full((B, Hkv, g, pos.shape[0], 1), NEG)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(B, Hkv, g, pos.shape[0], hd)
+            for kt in range(k_begin, k_end, bk):
+                if causal and kt > wq_hi or win > 0 and kt + bk - 1 <= wq_lo - win:
+                    continue  # wholly masked for these rows
+                x = torch.einsum("bhgqd,bhkd->bhgqk", qf[:, :, :, rows], kf[:, :, None, kt:kt + bk]
+                                 .squeeze(2)) * scale_log2
+                col = torch.arange(kt, kt + bk)[None, :]
+                valid = col < Sk
+                if causal:
+                    valid = valid & (col <= pos)
+                if win > 0:
+                    valid = valid & (col > pos - win)
+                x = torch.where(valid, x, NEG)
+                mn = torch.maximum(m, x.amax(-1, keepdim=True))
+                al = torch.exp2(m - mn)
+                p = torch.exp2(x - mn)
+                l = l * al + p.sum(-1, keepdim=True)
+                acc = acc * al + torch.einsum("bhgqk,bhkd->bhgqd", p.bfloat16().float(),
+                                              vf[:, :, kt:kt + bk])
+                m = mn
+            out[:, :, :, rows] = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).bfloat16()
+
+
+# (B, Sq, Sk, H, Hkv, hd, window): causal, window of 256 and below one tile,
+# GQA 4:1 and 2:1, suffix queries at an offset that is not tile-aligned,
+# ragged Sq and Sk, hd 16 to 128 (one and two 64-column boxes)
+FLASH_CASES = [
+    (1, 256, 256, 2, 2, 128, None),
+    (1, 256, 256, 2, 2, 64, 40),
+    (1, 200, 200, 4, 1, 128, None),
+    (1, 128, 384, 4, 2, 64, None),
+    (2, 72, 200, 2, 2, 80, None),
+    (1, 200, 1000, 2, 2, 128, 256),
+    (1, 130, 130, 2, 1, 48, 100),
+    (2, 64, 64, 2, 2, 16, None),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_tensor_core_model_matches_plain(case):
+    B, Sq, Sk, H, Hkv, hd, window = case
+    rng = np.random.default_rng(sum(case[:6]))
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).bfloat16()
+               for s in ((B, Sq, H, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)))
+    off = Sk - Sq
+    got = flash_tc_model(q, k, v, window=window, q_offset=off)
+    want = ref.flash_attention_ref(q, k, v, torch.arange(off, Sk), torch.arange(Sk),
+                                   causal=True, window=window)
+    assert got.dtype == want.dtype == torch.bfloat16
+    rel = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    assert rel <= 2.0 ** -7, rel
+
+
+def test_flash_model_rounds_p_where_the_kernel_does():
+    """p rounded to bf16 before p v moves the output (the model is not the
+    plain version under another name), by less than the tolerance."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 128, 2, 64), dtype=np.float32))
+               .bfloat16() for _ in range(3))
+    got = flash_tc_model(q, k, v).float()
+    plain = ref.flash_attention_ref(q, k, v, torch.arange(128), torch.arange(128)).float()
+    assert 0 < float((got - plain).abs().max()) <= 2.0 ** -7 * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 16, "wgmma"),
+    (torch.bfloat16, 72, "cuda_cores"), (torch.bfloat16, 100, "cuda_cores"),
+    (torch.float32, 128, "cuda_cores"), (torch.float32, 64, "cuda_cores"),
+])
+def test_flash_route_by_dtype_and_head_dim(dtype, hd, want):
+    assert FA.route(dtype, hd) == want
+
+
+# ---------------------------------------------------------------------------
+# kernel 17: wkv6 as a chunk-parallel scan
+# ---------------------------------------------------------------------------
+
+def wkv6_scan_model(r, k, v, w, u, s0, chunk=64, sub=16):
+    """The kernel's arithmetic in f32: (y, final state)."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    rf, kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad)) for t in (r, k, v))
+    lw = torch.nn.functional.pad(torch.log(torch.clamp(w.float(), min=1e-38)),
+                                 (0, 0, 0, 0, 0, pad))  # lw = 0 past S: la stays put
+    shape = (B, nc, chunk, H)
+    rf, kf, lw = (t.reshape(*shape, K) for t in (rf, kf, lw))
+    vf = vf.reshape(*shape, V)
+    la = torch.cumsum(lw, dim=2)
+    lap = la - lw
+    nsub = chunk // sub
+    # pivots: lb_0 = 0, lb_i = la after step 16 i - 2, lb_nsub = la at the chunk's end
+    lb = ([torch.zeros_like(la[:, :, 0])] + [la[:, :, i * sub - 2] for i in range(1, nsub)]
+          + [la[:, :, -1]])
+    # the chunk's own state at each pivot, groups of steps 16 i - 1 .. 16 i + 14
+    W = [torch.zeros(B, nc, H, K, V)]
+    for i in range(nsub):
+        grp = slice(i * sub - 1 if i else 0, chunk if i == nsub - 1 else (i + 1) * sub - 1)
+        k_hat = kf[:, :, grp] * torch.exp(lb[i + 1][:, :, None] - la[:, :, grp])
+        W.append(torch.exp(lb[i + 1] - lb[i])[..., None] * W[i]
+                 + torch.einsum("bcthk,bcthv->bchkv", k_hat, vf[:, :, grp]))
+    # the state entering each chunk, passed in chunk order
+    st, s_in = s0.float(), []
+    for c in range(nc):
+        s_in.append(st)
+        st = torch.exp(lb[nsub][:, c])[..., None] * st + W[nsub][:, c]
+    s_in = torch.stack(s_in, dim=1)  # (B, nc, H, K, V)
+    # outputs by sub-chunks of rows 16 i .. 16 i + 15: the state at pivot i,
+    # and the steps from 16 i - 1 on directly
+    ys = []
+    uf = u.float()
+    for i in range(nsub):
+        rows = slice(i * sub, (i + 1) * sub)
+        si = torch.exp(lb[i])[..., None] * s_in + W[i]
+        r_i, v_i = rf[:, :, rows], vf[:, :, rows]
+        # clamped at 0 as the reference's pairwise exp is
+        r_hat = r_i * torch.exp(torch.clamp(lap[:, :, rows] - lb[i][:, :, None], max=0.0))
+        y = torch.einsum("bcthk,bchkv->bcthv", r_hat, si)
+        t0 = i * sub - 1 if i else 0
+        taus = slice(t0, (i + 1) * sub)
+        diff = lap[:, :, rows, None] - la[:, :, None, taus]  # (b, c, t, tau, h, k)
+        att = torch.einsum("bcthk,bcshk,bctshk->bchts", r_i, kf[:, :, taus],
+                           torch.exp(torch.clamp(diff, max=0.0)))
+        before = (torch.arange(t0, (i + 1) * sub)[None, :]
+                  < torch.arange(i * sub, (i + 1) * sub)[:, None])
+        att = torch.where(before, att, 0.0)
+        bonus = torch.einsum("bcthk,bcthk->bcth", r_i * uf, kf[:, :, rows])
+        ys.append(y + torch.einsum("bchts,bcshv->bcthv", att, vf[:, :, taus])
+                  + bonus[..., None] * v_i)
+    y = torch.cat(ys, dim=2).reshape(B, nc * chunk, H, V)[:, :S]
+    return y.to(r.dtype), st
+
+
+def _wkv6_inputs(B, S, H, K, V, seed, decay="model", s0_zero=False):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32))  # noqa: E731
+    r, k = f(B, S, H, K), f(B, S, H, K)
+    v = f(B, S, H, V)
+    if decay == "model":
+        w = torch.exp(-torch.exp(0.5 * f(B, S, H, K) - 1.0))
+    else:  # decay 1e-30 mixed with 0.9
+        w = torch.full((B, S, H, K), 1e-30)
+        w[:, ::3] = 0.9
+    u = 0.1 * f(H, K)
+    s0 = torch.zeros(B, H, K, V) if s0_zero else f(B, H, K, V)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 100, 200])
+@pytest.mark.parametrize("s0_zero", [False, True])
+def test_wkv6_scan_model_matches_plain(S, s0_zero):
+    args = _wkv6_inputs(2, S, 2, 64, 64, seed=S, s0_zero=s0_zero)
+    for got, want in zip(wkv6_scan_model(*args), ref.wkv6_ref(*args)):
+        rel = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+        assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize("S,K,V", [(100, 64, 64), (130, 32, 48), (64, 64, 16)])
+def test_wkv6_scan_model_extreme_decay_is_finite_and_matches(S, K, V):
+    """Decay 1e-30 (la falls by 69 a step) mixed with 0.9: every factor of
+    the sub-chunk split stays <= 1, so the result is finite and the same."""
+    args = _wkv6_inputs(2, S, 3, K, V, seed=11, decay="extreme")
+    y, s = wkv6_scan_model(*args)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    for got, want in zip((y, s), ref.wkv6_ref(*args)):
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel <= 1e-5, rel
+
+
+# ---------------------------------------------------------------------------
+# the launchers' C signatures against their ctypes bindings
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kern", ops.KERNELS, ids=lambda k: k.name)
+def test_launcher_signature_matches_binding(kern):
+    text = (CSRC / kern.source).read_text()
+    m = re.search(r'extern "C" int ' + kern.symbol + r"\(([^)]*)\)", text)
+    assert m, (kern.source, kern.symbol)
+    params = [p for p in m.group(1).split(",") if p.strip()]
+    assert len(params) == len(kern.argtypes), (kern.name, len(params), len(kern.argtypes))
+
+
+FLASH_FN = ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_daae7df82tc15flash_tc_kernel"
+            "ILi2EEEv14CUtensorMap_stS2_S2_P13__nv_bfloat16iiiiiiiif")
+WKV6_FN = ("_ZN39_GLOBAL__N__f32662c3_7_wkv6_cu_daae7df811wkv6_kernelI13__nv_bfloat16EEvPKT_"
+           "S4_S4_PKfS6_S6_PS2_PfS9_Piiiiiiii")
+PTXAS_LOG = f"""\
+ptxas info    : Compiling entry function '{FLASH_FN}' for 'sm_90a'
+ptxas info    : Function properties for {FLASH_FN}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 138 registers, used 1 barriers
+ptxas info    : Compiling entry function '{WKV6_FN}' for 'sm_90a'
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, 1024 bytes smem, used 1 barriers
+ptxas info    : Compiling entry function 'launch_plain' for 'sm_90a'
+ptxas info    : Used 12 registers
+"""
+
+
+def test_chip_smoke_reads_the_register_report():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.ptxas_report(PTXAS_LOG) == [
+        {"fn": "flash_tc_kernel<2>", "spill": 0, "regs": 138, "smem": 0},
+        {"fn": "wkv6_kernel<__nv_bfloat16>", "spill": 4, "regs": 128, "smem": 1024},
+        {"fn": "launch_plain", "regs": 12, "smem": 0},
+    ]
