@@ -11,7 +11,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      shapes the main path gives it (f32 and bf16, with and without the
      optional operands), time both on the device with CUDA events (and the
      kernel as the host enqueues it), and check the port on a small
-     least-squares problem against its own CPU run;
+     least-squares problem against its own CPU run, in f32 and with bf16
+     parameters; ``inner_loop_affine`` on the resident route at (500, 512)
+     (lam, an off row at rho = 0, a per-client step, bf16 rows; the
+     streaming route launched there gives the same bits; both routes
+     timed there, the clusters that fit at once logged), at m = 37 on each
+     other resident width (W = 128, 256, 384, 640: every cluster size the
+     route takes) against the plain version and the streaming route, and
+     on the streaming route at (64, 1024), the width it alone takes;
   4. least squares at the paper's Fig. 2 size (m = n = d = 500, K = 5,
      ``use_arena=True`` with ``oracle()``): 30 rounds each of GPDMM,
      AGPDMM, SCAFFOLD and FedAvg; ||x - x*|| must fall, the dual-sum
@@ -296,6 +303,132 @@ def check(cond: bool, what: str) -> None:
 # phase 3: each kernel against its plain version, at the main path's shapes
 # ---------------------------------------------------------------------------
 
+def check_inner_loop(rec, torch, ops, ref, gen, x0, H, c, xs, lam, eta, rho, K, d):
+    """Kernel 1 at the main path's (500, 512), K = 5, on the resident route
+    its width selects: against the plain version (the matvec sums in another
+    order than the plain einsum: rtol = atol = 1e-4 of the largest output),
+    with lam, with an ``off`` row and no lam at rho = 0, with a per-client
+    step, and with bf16 rows (one bf16 ulp, 2^-7, of the largest output);
+    the streaming route launched at the same width gives the same bits; its
+    time beside the resident route's; each other resident width at m = 37
+    (f32 and bf16, with lam and a per-client step), against the plain
+    version and bitwise against the streaming route; then the streaming
+    route at W = 1024, m = 64, the width it alone takes.
+    ``gen`` draws the off row as before the resident route came; the draws
+    it added come from a generator of their own."""
+    from repro_torch.kernels import inner_loop as _il
+
+    dev = gen.device
+    own = seeded(torch, 19)
+    m, w = x0.shape
+    step = 1.0 / (1.0 / eta + rho)
+
+    def close(got, want, what, f32=True):
+        scale = max(1.0, float(want[0].float().abs().max()))
+        e = max(max_err(a, b) for a, b in zip(got, want))
+        tol = (1e-4 if f32 else 2.0 ** -7 + 1e-4) * scale
+        check(all(a.dtype == b.dtype for a, b in zip(got, want)), f"{what}: dtype")
+        check(e <= tol, f"inner_loop_affine {what}: error {e} > {tol}")
+        log(f"inner_loop_affine {what}: max_abs_err {e:.3e} (tolerance {tol:.3e})")
+        return e
+
+    _il.last_route = None
+    got = ops.inner_loop_affine(x0, H, c, xs, lam, step, rho, K)
+    check(_il.last_route == "resident", f"inner_loop_affine ({m}, {w}): route {_il.last_route}")
+    err = close(got, ref.inner_loop_affine_ref(x0, H, c, xs, lam, step, rho, K), "resident")
+    streamed = _il.launch(x0, H, c, xs, lam, step, rho, K, path="stream")
+    check(all(torch.equal(a, b) for a, b in zip(got, streamed)),
+          "inner_loop_affine: the resident and streaming routes differ")
+
+    # the variants SCAFFOLD (off row) and FedAvg (no off) run on the arena:
+    # lam=None, rho = 0, the step eta; the per-client step of eta="auto"
+    off = 0.1 * torch.randn(m, w, generator=gen, device=dev)
+    off[:, d:] = 0
+    steps = step * (0.5 + torch.rand(m, generator=own, device=dev))
+    for o in (off, None):
+        close(ops.inner_loop_affine(x0, H, c, xs, None, eta, 0.0, K, off=o),
+              ref.inner_loop_affine_ref(x0, H, c, xs, None, eta, 0.0, K, off=o),
+              f"off={o is not None} lam=None rho=0")
+    close(ops.inner_loop_affine(x0, H, c, xs, lam, steps, rho, K),
+          ref.inner_loop_affine_ref(x0, H, c, xs, lam, steps, rho, K), "per-client step")
+    bf = [t.to(torch.bfloat16) for t in (x0, xs, lam, off)]
+    close(ops.inner_loop_affine(bf[0], H, c, bf[1], bf[2], step, rho, K, off=bf[3]),
+          ref.inner_loop_affine_ref(bf[0], H, c, bf[1], bf[2], step, rho, K, off=bf[3]),
+          "bf16 rows", f32=False)
+    check(_il.last_route == "resident", "inner_loop_affine bf16: not on the resident route")
+    for what, args in (("f64 rows", (x0.double(), H, c, xs.double())),
+                       ("a bf16 H", (bf[0], H.to(torch.bfloat16), c, bf[1]))):
+        try:
+            ops.inner_loop_affine(*args, None, step, rho, K)
+        except TypeError as exc:
+            check("dtype" in str(exc), f"inner_loop_affine {what}: {exc}")
+        else:
+            raise AssertionError(f"inner_loop_affine took {what}")
+
+    nbytes = 4 * (m * w * w + 3 * m * w + w + 2 * m * w)
+    flops = m * K * (2 * w * w + 8 * w)
+    cluster = _il.cluster_size(w)
+    rec.kernel("inner_loop_affine", err,
+               lambda: ops.inner_loop_affine(x0, H, c, xs, lam, step, rho, K),
+               lambda: ref.inner_loop_affine_ref(x0, H, c, xs, lam, step, rho, K), 20,
+               nbytes, flops)
+    stream_ms = cuda_time_ms(
+        lambda: _il.launch(x0, H, c, xs, lam, step, rho, K, path="stream"), 20)
+    occupancy = _il.max_active_clusters(w)
+    rec.rows["inner_loop_affine"].update(
+        inner_route="resident", cluster=cluster, smem_bytes=_il.resident_smem_bytes(w),
+        max_active_clusters=occupancy, stream_ms=stream_ms)
+    log(f"inner_loop_affine resident at ({m}, {w}), K {K}: clusters of {cluster}, "
+        f"{_il.resident_smem_bytes(w)} B of shared memory a block; max active clusters "
+        f"{occupancy}; the streaming route at this width {stream_ms:.4f} ms")
+
+    # every other width the resident route takes, at a client count that is
+    # a multiple of no cluster size
+    for wr in (128, 256, 384, 640):
+        check(_il.route(wr) == "resident", f"inner_loop_affine: W = {wr} not resident")
+        A = torch.randn(37, wr, wr, generator=own, device=dev) / wr ** 0.5
+        Hr = A @ A.transpose(1, 2) / 4.0
+        xr, cr, lr = (torch.randn(37, wr, generator=own, device=dev) for _ in range(3))
+        sr = torch.randn(wr, generator=own, device=dev)
+        str_ = 0.05 + 0.1 * torch.rand(37, generator=own, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            xd, sd, ld = (t.to(dt) for t in (xr, sr, lr))
+            _il.last_route = None
+            got_r = ops.inner_loop_affine(xd, Hr, cr, sd, ld, str_, 0.9, K)
+            check(_il.last_route == "resident", f"inner_loop_affine W = {wr}: route "
+                                                f"{_il.last_route}")
+            close(got_r, ref.inner_loop_affine_ref(xd, Hr, cr, sd, ld, str_, 0.9, K),
+                  f"resident (37, {wr}) C = {_il.cluster_size(wr)} {str(dt)[6:]}",
+                  f32=dt == torch.float32)
+            streamed = _il.launch(xd, Hr, cr, sd, ld, str_, 0.9, K, path="stream")
+            check(all(torch.equal(a, b) for a, b in zip(got_r, streamed)),
+                  f"inner_loop_affine W = {wr}: the resident and streaming routes differ")
+
+    # the streaming route at the width it alone takes, H (268 MB) above L2
+    ms_, ws = 64, 1024
+    A = torch.randn(ms_, ws, ws, generator=own, device=dev) / ws ** 0.5
+    H2 = A @ A.transpose(1, 2) / 4.0
+    del A
+    x2, c2, l2 = (torch.randn(ms_, ws, generator=own, device=dev) for _ in range(3))
+    s2 = torch.randn(ws, generator=own, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        xd, sd, ld = (t.to(dt) for t in (x2, s2, l2))
+        e2 = close(ops.inner_loop_affine(xd, H2, c2, sd, ld, 0.1, 0.9, K),
+                   ref.inner_loop_affine_ref(xd, H2, c2, sd, ld, 0.1, 0.9, K),
+                   f"stream ({ms_}, {ws}) {str(dt)[6:]}", f32=dt == torch.float32)
+        check(_il.last_route == "stream", f"inner_loop_affine ({ms_}, {ws}): route "
+                                          f"{_il.last_route}, expected stream")
+    t2 = cuda_time_ms(lambda: ops.inner_loop_affine(x2, H2, c2, s2, l2, 0.1, 0.9, K), 10)
+    p2 = cuda_time_ms(lambda: ref.inner_loop_affine_ref(x2, H2, c2, s2, l2, 0.1, 0.9, K), 10)
+    b2, _ = bound_ms(4 * (ms_ * ws * ws + 5 * ms_ * ws + ws), ms_ * K * (2 * ws * ws + 8 * ws))
+    rec.rows["inner_loop_affine"]["stream_1024"] = dict(m=ms_, w=ws, ms=t2, plain_ms=p2,
+                                                         bound_ms=b2)
+    log(f"inner_loop_affine stream at ({ms_}, {ws}), K {K}: {t2:.4f} ms, plain {p2:.4f} ms, "
+        f"bound {b2:.4f} ms (bytes)")
+    del H2
+    torch.cuda.synchronize()
+
+
 def check_kernels(rec, prob, eta, rho, torch, ops, ref, gen):
     dev = gen.device
     m, d, K = LSQ["m"], LSQ["d"], LSQ["K"]
@@ -311,31 +444,7 @@ def check_kernels(rec, prob, eta, rho, torch, ops, ref, gen):
     xs = spec.pack(prob.x_star)
     step = 1.0 / (1.0 / eta + rho)
 
-    # inner loop: the matvec sums in another order than the plain einsum
-    got = ops.inner_loop_affine(x0, H, c, xs, lam, step, rho, K)
-    want = ref.inner_loop_affine_ref(x0, H, c, xs, lam, step, rho, K)
-    scale = max(1.0, float(want[0].abs().max()))
-    err = max(max_err(a, b) for a, b in zip(got, want))
-    check(err <= 1e-4 * scale, f"inner_loop_affine: error {err} > 1e-4 * {scale}")
-    nbytes = 4 * (m * w * w + 3 * m * w + w + 2 * m * w)
-    flops = m * K * (2 * w * w + 8 * w)
-    rec.kernel("inner_loop_affine", err,
-               lambda: ops.inner_loop_affine(x0, H, c, xs, lam, step, rho, K),
-               lambda: ref.inner_loop_affine_ref(x0, H, c, xs, lam, step, rho, K), 20,
-               nbytes, flops)
-
-    # the variants SCAFFOLD (off row) and FedAvg (no off) run on the arena:
-    # lam=None, rho = 0, the step eta
-    off = 0.1 * torch.randn(m, w, generator=gen, device=dev)
-    off[:, d:] = 0
-    for o in (off, None):
-        got = ops.inner_loop_affine(x0, H, c, xs, None, eta, 0.0, K, off=o)
-        want = ref.inner_loop_affine_ref(x0, H, c, xs, None, eta, 0.0, K, off=o)
-        scale = max(1.0, float(want[0].abs().max()))
-        e = max(max_err(a, b) for a, b in zip(got, want))
-        check(e <= 1e-4 * scale, f"inner_loop_affine (off={o is not None}, lam=None, rho=0): "
-                                 f"error {e} > 1e-4 * {scale}")
-        log(f"inner_loop_affine off={o is not None} lam=None rho=0: max_abs_err {e:.3e}")
+    check_inner_loop(rec, torch, ops, ref, gen, x0, H, c, xs, lam, eta, rho, K, d)
 
     # round tail (f32 timed, bf16 checked); lam_is is bitwise, the uplink
     # differs by the plain version's multiply-by-reciprocal division
@@ -622,6 +731,20 @@ def check_small_against_cpu(torch, make, FederatedConfig, quadratic):
     torch.testing.assert_close(s_gpu["x_s"].cpu(), s_cpu["x_s"], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(s_gpu["x_c"].cpu(), s_cpu["x_c"], rtol=1e-4, atol=1e-4)
     log("small least squares: card == CPU (rtol = atol = 1e-4) after 5 GPDMM rounds")
+    # bf16 parameters: bf16 rows and f32 (H, c) into the inner loop; each
+    # round from the CPU's state, within 4 bf16 ulps of each state's largest
+    # value (the f32 loops differ by rounding, which can move a bf16 rounding)
+    s_cpu = opt.init(torch.zeros(64, dtype=torch.bfloat16), 8)
+    for _ in range(3):
+        s_gpu = {k: v.cuda() for k, v in s_cpu.items()}
+        s_cpu, _ = opt.round(s_cpu, prob.oracle(), prob.batch())
+        s_gpu, _ = opt.round(s_gpu, gprob.oracle(), gprob.batch())
+        for k in ("x_s", "lam_s", "x_c"):
+            check(s_gpu[k].dtype == s_cpu[k].dtype == torch.bfloat16, f"bf16 round: {k} dtype")
+            scale = max(1e-3, float(s_cpu[k].float().abs().max()))
+            torch.testing.assert_close(s_gpu[k].cpu().float(), s_cpu[k].float(), rtol=0,
+                                       atol=4 * 2.0 ** -8 * scale)
+    log("small least squares, bf16 parameters: card == CPU (4 bf16 ulps) in 3 GPDMM rounds")
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
+#include <stdint.h>
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -27,6 +28,62 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p, size_t i) {
 __device__ __forceinline__ void store_f32(float* p, size_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
+}
+
+// A row operand whose dtype is given at run time (DType code), as f32.
+__device__ __forceinline__ float load_any(const void* p, int dtype, size_t i) {
+  return dtype == kBF16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+                        : static_cast<const float*>(p)[i];
+}
+
+// mbarriers in shared memory, for TMA and bulk copies.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Spin until the phase of parity ``parity`` of ``bar`` has completed, with
+// acquire at cluster scope when ``cluster`` (the phase's bytes came from
+// other blocks of the cluster).  A phase that never completes (a fault in
+// the pipeline) traps after about ten seconds, so the launch fails with an
+// error instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity, bool cluster = false) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    if (cluster)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    if (!done && clock64() - start > (1LL << 34)) __trap();
+  } while (!done);
 }
 
 // x - step * (g + rho * (x - xs) + lam), in the reference's order

@@ -46,7 +46,7 @@ KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _rt.FUSED_UPDATE_AR
 
 
 def affine_inner_fits(width: int) -> bool:
-    """Width gate of ``inner_loop_affine`` (its shared-memory rule)."""
+    """Width gate of ``inner_loop_affine``: a width either of its routes takes."""
     return _il.fits(width)
 
 

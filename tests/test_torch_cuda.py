@@ -15,7 +15,9 @@ copy (``row_gather``, ``row_scatter``) or select and mix (``stale_mix``);
 bitwise (the same f32 operations, the sums in slot order); the
 uplink of ``round_tail`` to one rounding (the plain version divides by a
 scalar as a multiply by its reciprocal on the card); the inner loop to
-rtol = atol = 1e-4 (the matvec sums in another order); ``flash_attention``
+rtol = atol = 1e-4 (the matvec sums in another order; bf16 rows one
+bf16 ulp, 2^-7, once rounded), its two routes bitwise one another (the
+same f32 operations in the same order); ``flash_attention``
 and ``wkv6`` relative to the largest magnitude, 1e-4 in f32 (sums and exps
 in another order) and 2^-7 in bf16 (one rounding of the f32 result).
 """
@@ -25,6 +27,7 @@ import torch
 from repro_torch.configs.base import FaultConfig, FederatedConfig
 from repro_torch.core import autotune, make, make_oracle, pdmm_graph, quadratic, topology
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import inner_loop as IL
 from repro_torch.kernels import ops as P, ref
 
 
@@ -126,6 +129,75 @@ def test_cuda_inner_loop_matches_plain(cuda):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+def _affine_inputs(cuda, g, m, w, dtype):
+    A = torch.randn(m, w, w, generator=g, device=cuda) / w ** 0.5
+    H = A @ A.transpose(1, 2) / 4.0
+    x0, c, lam, off = (torch.randn(m, w, generator=g, device=cuda) for _ in range(4))
+    xs = torch.randn(w, generator=g, device=cuda)
+    step = 0.05 + 0.1 * torch.rand(m, generator=g, device=cuda)
+    return H, c, x0.to(dtype), xs.to(dtype), lam.to(dtype), off.to(dtype), step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w,want_route", [(512, "resident"), (1024, "stream"), (128, "resident"),
+                                           (256, "resident"), (384, "resident"),
+                                           (640, "resident")])
+def test_cuda_inner_loop_routes_match_plain(cuda, w, want_route, dtype):
+    """Each route at m = 37 (a multiple of no cluster size) against the
+    plain version: lam with rho, then an ``off`` row, no lam and rho = 0,
+    each with a scalar and a per-client step; f32 within 1e-4, bf16 rows
+    within one bf16 ulp (2^-7) or 1e-4.  At each resident width (every
+    cluster the route takes: 1 block at 128, 2 at 256, 8 at 384 and 512, a
+    non-portable 16 at 640, whose warps own padded rows) the streaming
+    route, launched directly, gives the resident route's bits."""
+    g = torch.Generator(device="cuda").manual_seed(w)
+    m, K = 37, 5
+    H, c, x0, xs, lam, off, step = _affine_inputs(cuda, g, m, w, dtype)
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for lm, o, rho in ((lam, None, 0.9), (None, off, 0.0), (None, None, 0.0)):
+        for st in (0.1, step):
+            IL.last_route = None
+            got = P.inner_loop_affine(x0, H, c, xs, lm, st, rho, K, off=o)
+            assert IL.last_route == want_route
+            want = ref.inner_loop_affine_ref(x0, H, c, xs, lm, st, rho, K, off=o)
+            for a, b in zip(got, want):
+                assert a.dtype == dtype
+                torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-4)
+            if want_route == "resident":
+                streamed = IL.launch(x0, H, c, xs, lm, st, rho, K, off=o, path="stream")
+                for a, b in zip(got, streamed):
+                    assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["gpdmm", "scaffold"])
+def test_cuda_bf16_affine_rounds_match_cpu(cuda, algo):
+    """A bf16 parameter tree on the arena with the affine oracle: bf16 rows
+    and f32 (H, c) reach the kernel on the card, one launch a round, and
+    each of three rounds, from the CPU's state carried to the card, agrees
+    with the CPU's within 4 bf16 ulps of each state's largest value (the
+    f32 loops differ by rounding, which can move a bf16 rounding)."""
+    prob, gprob = _problems(cuda)
+    cfg = FederatedConfig(algorithm=algo, inner_steps=5, eta=0.5 / prob.L, use_arena=True)
+    opt = make(cfg)
+    bf16 = torch.bfloat16
+    s_cpu = opt.init(torch.zeros(64, dtype=bf16), 8)
+    P.reset_launches()
+    for _ in range(3):
+        s_gpu = {k: v.to(cuda) if torch.is_tensor(v) else v for k, v in s_cpu.items()}
+        s_cpu, _ = opt.round(s_cpu, prob.oracle(), prob.batch())
+        s_gpu, _ = opt.round(s_gpu, gprob.oracle(), gprob.batch())
+        for k in STATE[algo]:
+            got, want = s_gpu[k], s_cpu[k]
+            assert got.dtype == want.dtype == bf16
+            scale = float(want.float().abs().max())
+            torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0,
+                                       atol=4 * 2.0 ** -8 * max(scale, 1e-3))
+    assert P.launches()["inner_loop_affine"] == 3 and IL.last_route == "resident"
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(4, 256, device=cuda)
@@ -135,8 +207,11 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         P.round_tail(x.t().contiguous().t(), x, xs, 1.0)
     with pytest.raises(TypeError, match="dtype"):
-        P.inner_loop_affine(x.bfloat16(), torch.zeros(4, 256, 256, device=cuda), x, xs,
+        P.inner_loop_affine(x.double(), torch.zeros(4, 256, 256, device=cuda), x, xs,
                             None, 0.1, 1.0, 2)
+    with pytest.raises(TypeError, match="dtype"):
+        P.inner_loop_affine(x.bfloat16(), torch.zeros(4, 256, 256, device=cuda).bfloat16(),
+                            x, xs, None, 0.1, 1.0, 2)
     with pytest.raises(ValueError, match="width"):
         z = torch.zeros(2, 200, device=cuda)
         P.inner_loop_affine(z, torch.zeros(2, 200, 200, device=cuda), z,

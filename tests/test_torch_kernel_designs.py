@@ -1,6 +1,16 @@
-"""The arithmetic of the two redesigned model kernels, modelled in plain
-PyTorch on the CPU and held against the plain versions (``kernels/ref.py``),
-so that a wrong decomposition shows before any kernel runs on a card:
+"""The arithmetic of the redesigned kernels, modelled in plain PyTorch on
+the CPU and held against the plain versions (``kernels/ref.py``), so that a
+wrong decomposition shows before any kernel runs on a card:
+
+* kernel 1, ``inner_loop_affine``'s resident route
+  (``csrc/inner_loop.cu``): C blocks per client, each owning W / C rows of
+  H and the x sum of those rows, with its own two copies of x that every
+  block writes its new rows into; each row's dot product on one warp
+  (float4 partial sums per lane, then a shuffle tree) -- within the
+  kernel's 1e-4 of the plain version, and the same bits whatever C, so the
+  streaming route (one block holding every row) gives the same g; and the
+  resident route's shuffle tree, which halves the rows a lane holds at each
+  of its first levels, leaves on each lane the butterfly's sum bit for bit;
 
 * kernel 16, ``flash_attention``'s tensor-core route
   (``csrc/flash_attention.cu``, ``tc``): blocks of 128 query rows, each
@@ -16,7 +26,8 @@ so that a wrong decomposition shows before any kernel runs on a card:
   value, y and the final state.
 
 Also: the route the flash wrapper picks, that every launcher's C signature
-has as many parameters as its ctypes binding declares, and that
+(and the inner loop's occupancy query) has as many parameters as its
+ctypes binding declares, and that
 ``chip_smoke.py`` reads the compiler's register report.
 """
 import importlib.util
@@ -29,12 +40,140 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import inner_loop as IL
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels._build import CSRC
 
 LOG2E = 1.4426950408889634
 NEG = -1e30
 F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: the inner loop's resident route
+# ---------------------------------------------------------------------------
+
+def warp_dot(Hs, x):
+    """sum_e Hs[:, j, e] x[:, e] in the kernel's order: lane l sums columns
+    128 q + 4 l + (0..3) over q with FMAs (exact product, one rounding, in
+    f64), then the lanes' partials add by the xor-shuffle tree.  Hs (m, R,
+    W), x (m, W), f32 -> (m, R)."""
+    m, R, W = Hs.shape
+    h = Hs.double().reshape(m, R, W // 128, 32, 4)
+    xx = x.double().reshape(m, 1, W // 128, 32, 4)
+    acc = torch.zeros(m, R, 32, dtype=torch.float64)
+    for q in range(W // 128):
+        for e in range(4):
+            acc = (h[:, :, q, :, e] * xx[:, :, q, :, e] + acc).float().double()
+    acc = acc.float()
+    lane = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lane ^ o]
+    return acc[..., 0]
+
+
+def inner_loop_resident_model(x0, H, c, xs, lam, step, rho, K, C, off=None):
+    """The resident route with clusters of C blocks: (x_K, x_bar) in x0's
+    dtype."""
+    m, W = x0.shape
+    rows = W // C
+    cc = c.float() + (off.float() if off is not None else 0.0)
+    st = step[:, None] if torch.is_tensor(step) else step
+    xbuf = [[x0.float().clone(), torch.full((m, W), float("nan"))] for _ in range(C)]
+    xsum = [torch.zeros(m, rows) for _ in range(C)]
+    for k in range(K):
+        cur, nxt = k & 1, (k + 1) & 1
+        new = []
+        for b in range(C):
+            sl = slice(b * rows, (b + 1) * rows)
+            x = xbuf[b][cur]
+            g = warp_dot(H[:, sl], x) - cc[:, sl]
+            v = ref.eq20(x[:, sl], g, xs.float()[sl], None if lam is None else lam.float()[:, sl],
+                         st, rho)
+            xsum[b] = xsum[b] + v
+            new.append(v)
+        for b in range(C):  # every block's slice into every block's next copy
+            for p in range(C):
+                xbuf[b][nxt][:, p * rows:(p + 1) * rows] = new[p]
+    x_K = torch.cat([xbuf[b][K & 1][:, b * rows:(b + 1) * rows] for b in range(C)], dim=1)
+    x_bar = torch.cat(xsum, dim=1) * (1.0 / K)
+    return x_K.to(x0.dtype), x_bar.to(x0.dtype)
+
+
+def transposed_tree(acc):
+    """The resident route's shuffle tree over a warp's rows: ``acc`` (R2,
+    32) partial sums (R2 a power of two), each of the first log2(R2) levels
+    halving the rows a lane holds (lanes whose bit 4 - s is set keep the
+    upper half, and add the partner's partial of each kept row), then the
+    plain xor tree on the one row left.  Returns (32,): lane l's sum, of row
+    l >> (5 - log2 R2)."""
+    R2 = acc.shape[0]
+    L = R2.bit_length() - 1
+    lane = torch.arange(32)
+    held = [acc[t].clone() for t in range(R2)]  # held[u][l]: lane l's u-th kept row
+    for s in range(L):
+        half = R2 >> (s + 1)
+        upper = ((lane >> (4 - s)) & 1).bool()
+        partner = lane ^ (16 >> s)
+        new = []
+        for u in range(half):
+            keep = torch.where(upper, held[u + half], held[u])
+            give = torch.where(upper, held[u], held[u + half])
+            new.append(keep + give[partner])
+        held = new
+    out = held[0]
+    o = 16 >> L
+    while o:
+        out = out + out[lane ^ o]
+        o >>= 1
+    return out
+
+
+@pytest.mark.parametrize("rpw", [1, 2, 3, 4, 8])
+def test_inner_loop_transposed_tree_gives_the_butterfly_sums(rpw):
+    """Lane l's sum after the transposed tree is, bit for bit, what the
+    plain xor butterfly over all 32 lanes gives for its row (the streaming
+    route's tree): every level adds the same two partials."""
+    g = torch.Generator().manual_seed(rpw)
+    R2 = 1 << (rpw - 1).bit_length()
+    acc = torch.randn(R2, 32, generator=g) * torch.logspace(-3, 3, 32)
+    acc[rpw:] = 0.0
+    lane = torch.arange(32)
+    full = acc.clone()
+    o = 16
+    while o:
+        full = full + full[:, lane ^ o]
+        o >>= 1
+    got = transposed_tree(acc)
+    row = lane >> (5 - (R2.bit_length() - 1))
+    assert torch.equal(got, full[row, lane])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [256, 384])
+def test_inner_loop_resident_model_matches_plain(w, dtype):
+    """Per-client step, lam and off, f32 or bf16 rows: every cluster size
+    gives the same bits, and those agree with the plain version within the
+    kernel's 1e-4 (one bf16 ulp, 2^-7, once rounded)."""
+    g = torch.Generator().manual_seed(w)
+    m, K, rho = 3, 4, 0.9
+    A = torch.randn(m, w, w, generator=g) / w ** 0.5
+    H = A @ A.transpose(1, 2) / 4.0
+    x0, c, lam, off = (torch.randn(m, w, generator=g) for _ in range(4))
+    xs = torch.randn(w, generator=g)
+    x0, xs, lam, off = (t.to(dtype) for t in (x0, xs, lam, off))
+    step = 0.05 + 0.1 * torch.rand(m, generator=g)
+    want = ref.inner_loop_affine_ref(x0, H, c, xs, lam, step, rho, K, off=off)
+    got = {C: inner_loop_resident_model(x0, H, c, xs, lam, step, rho, K, C, off=off)
+           for C in (1, 4, IL.cluster_size(w))}
+    assert IL.cluster_size(w) == (8 if w == 384 else 2)
+    for out in got.values():
+        for a, b in zip(out, got[1]):
+            assert torch.equal(a, b)
+        for a, b in zip(out, want):
+            assert a.dtype == dtype
+            rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+            torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +388,29 @@ def test_launcher_signature_matches_binding(kern):
     assert m, (kern.source, kern.symbol)
     params = [p for p in m.group(1).split(",") if p.strip()]
     assert len(params) == len(kern.argtypes), (kern.name, len(params), len(kern.argtypes))
+
+
+def test_resident_clusters_query_matches_binding():
+    text = (CSRC / IL.KERNEL.source).read_text()
+    m = re.search(r'extern "C" int ' + IL.CLUSTERS_SYMBOL + r"\(([^)]*)\)", text)
+    assert m
+    params = [p for p in m.group(1).split(",") if p.strip()]
+    assert len(params) == len(IL.CLUSTERS_ARGTYPES)
+
+
+RESIDENT_TABLE = re.compile(r"case (\d+): return launch_resident<T, (\d+), (\d+)>\(a, (\d+),")
+
+
+def test_resident_table_is_the_route_rule():
+    """The launcher's table of resident instantiations, (W, NQ, RPW, C),
+    is the wrapper's rule: one row for each width ``route`` sends to the
+    resident route, with ``cluster_size`` blocks and ``rows_per_warp``."""
+    table = [tuple(map(int, t)) for t in
+             RESIDENT_TABLE.findall((CSRC / IL.KERNEL.source).read_text())]
+    widths = [w for w in range(128, 9601, 128) if IL.route(w) == "resident"]
+    assert [t[0] for t in table] == widths == [128, 256, 384, 512, 640]
+    for w, nq, rpw, c in table:
+        assert (nq, c, rpw) == (w // 128, IL.cluster_size(w), IL.rows_per_warp(w, c))
 
 
 FLASH_FN = ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_daae7df82tc15flash_tc_kernel"

@@ -174,11 +174,18 @@ def test_scaffold_cv_matches_reference(impl, m, w, per_client_alpha, dtype):
     _same(out_r, out_p, impl, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("per_client_step", [False, True])
 @pytest.mark.parametrize("has_off", [False, True])
 @pytest.mark.parametrize("has_lam", [True, False])
 @pytest.mark.parametrize("m,w", M_W)
-def test_inner_loop_affine_matches_reference(impl, m, w, has_lam, has_off, per_client_step):
+def test_inner_loop_affine_matches_reference(impl, m, w, has_lam, has_off, per_client_step,
+                                             dtype):
+    """f32 H and c with f32 or bf16 client rows (x0, x_s, lam, off), as a
+    bf16 parameter tree on the arena gives them: both sides upcast on load,
+    run the K steps in f32 and round x_K and x_bar once to x0's dtype.  With
+    bf16 rows a result may also cross a bf16 rounding boundary where the f32
+    loops differ: one bf16 ulp, 2^-7 of the value (measured: equal)."""
     K, rho = 4, 0.9
     x0, c, lam, off, xs = _draw(11 * m + w, (m, w), (m, w), (m, w), (m, w), (w,))
     A = _draw(m * w + 1, (m, w, w))[0] / np.sqrt(w)
@@ -186,14 +193,90 @@ def test_inner_loop_affine_matches_reference(impl, m, w, has_lam, has_off, per_c
     step_np = np.linspace(0.05, 0.2, m).astype(np.float32)
     step_r = step_np if per_client_step else 0.1
     step_p = torch.from_numpy(step_np) if per_client_step else 0.1
+    (x0j, x0t), (xsj, xst), (lamj, lamt), (offj, offt) = (
+        _pair(a, dtype) for a in (x0, xs, lam, off))
     t = lambda a: torch.from_numpy(a.copy())
     j = jnp.asarray
-    out_r = R.inner_loop_affine(j(x0), j(H), j(c), j(xs), j(lam) if has_lam else None,
-                                step_r, rho, K, off=j(off) if has_off else None, impl=impl)
-    out_p = P.inner_loop_affine(t(x0), t(H), t(c), t(xs), t(lam) if has_lam else None,
-                                step_p, rho, K, off=t(off) if has_off else None)
+    out_r = R.inner_loop_affine(x0j, j(H), j(c), xsj, lamj if has_lam else None, step_r, rho,
+                                K, off=offj if has_off else None, impl=impl)
+    out_p = P.inner_loop_affine(x0t, t(H), t(c), xst, lamt if has_lam else None, step_p, rho,
+                                K, off=offt if has_off else None)
     for a, b in zip(out_r, out_p):
-        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-4, atol=1e-4)
+        assert b.dtype == x0t.dtype and a.dtype == x0j.dtype
+        np.testing.assert_allclose(_np(b), _np(a), rtol=1e-4 if dtype == "f32" else 2.0 ** -7,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("algo", ["gpdmm", "agpdmm", "scaffold", "fedavg"])
+def test_bf16_lsq_arena_round_matches_reference(algo):
+    """A bf16 parameter tree through ``prob.oracle()`` with ``use_arena=True``:
+    the affine inner loop takes bf16 rows and f32 (H, c) on both sides.
+    Four rounds, each from the reference's state carried across, compared
+    by ``_torch_parity.compare_trees`` (bf16 leaves within 4 bf16 ulps of
+    their largest value, at most 2% of them off bitwise)."""
+    import jax
+    from repro.configs.base import FederatedConfig as RefConfig
+    from repro.core import make as ref_make, quadratic as ref_quadratic
+    from repro_torch import convert
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import make
+    from _torch_parity import compare_trees
+
+    ref = ref_quadratic.generate(jax.random.key(0), m=8, n=64, d=64)
+    prob = convert.least_squares(ref, "cpu")
+    kw = dict(algorithm=algo, inner_steps=5, eta=0.5 / ref.L, use_arena=True)
+    ro, po = ref_make(RefConfig(**kw)), make(FederatedConfig(**kw))
+    rs = ro.init(jnp.zeros(ref.d, BF16), ref.m)
+    ps = po.init(torch.zeros(ref.d, dtype=torch.bfloat16), ref.m)
+    for r in range(4):
+        if r:
+            ps = convert.round_state(rs, "cpu")
+        rs, rm = ro.round(rs, ref.oracle(), ref.batch())
+        ps, pm = po.round(ps, prob.oracle(), prob.batch())
+        assert float(pm["used_arena"]) == float(rm["used_arena"]) == 1.0
+        compare_trees(rs, rm, ps, pm, FederatedConfig(**kw))
+
+
+# the resident route's arithmetic: (W, route, blocks per client, rows of H a
+# warp holds, floats of H a thread holds, shared memory a block)
+RESIDENT_CASES = [(128, "resident", 1, 8, 32, 68_640),
+                  (512, "resident", 8, 4, 64, 138_016),
+                  (640, "resident", 16, 3, 60, 110_592),
+                  (1024, "stream", None, None, None, None)]
+
+
+@pytest.mark.parametrize("w,want_route,cluster,rpw,frag,smem", RESIDENT_CASES,
+                         ids=[str(c[0]) for c in RESIDENT_CASES])
+def test_inner_loop_route_and_resident_arithmetic(w, want_route, cluster, rpw, frag, smem):
+    """The route is a function of the width alone: resident where a cluster
+    of at most 16 blocks of 16 warps keeps each thread's share of H within
+    64 floats of registers (its warp's rows, W / 32 columns of each) and the
+    next client's staged slab within shared memory; streaming where none
+    does.  ``affine_inner_fits`` keeps its meaning: a width either route
+    takes, the streaming route's rows rule."""
+    assert inner_loop.route(w) == want_route
+    assert inner_loop.cluster_size(w) == cluster
+    assert P.affine_inner_fits(w) == (w % 128 == 0 and 24 * w <= 232_448)
+    if cluster is None:
+        assert all(inner_loop.fragment_floats(w, c) > inner_loop.FRAGMENT_FLOATS
+                   for c in inner_loop.CLUSTER_SIZES)
+        return
+    rows = w // cluster
+    assert rows % 8 == 0 and inner_loop.rows_per_warp(w, cluster) == rpw == -(-rows // 16)
+    assert inner_loop.fragment_floats(w, cluster) == frag == rpw * (w // 128) * 4 <= 64
+    assert cluster == 1 or inner_loop.fragment_floats(w, cluster // 2) > 64
+    assert inner_loop.resident_smem_bytes(w) == smem == 32 + 4 * (rows * w + 3 * w + 3 * rows)
+    assert smem <= inner_loop.SMEM_CAP_BYTES
+
+
+def test_inner_loop_route_refuses_what_no_route_takes():
+    """Widths off the 128-lane arena or past the streaming route's rows
+    raise before any launch, naming the width."""
+    for w in (200, 500, 9728):
+        assert not P.affine_inner_fits(w)
+        with pytest.raises(ValueError, match="width"):
+            inner_loop.route(w)
+    assert [w for w in range(128, 9601, 128) if inner_loop.route(w) == "resident"][-1] == 640
 
 
 # EF21 widths and per-leaf row counts: one leaf, two leaves, the softmax
