@@ -1,0 +1,333 @@
+#!/usr/bin/env python3
+"""Times the port against another tree of it (e.g. its parent commit) on one
+NVIDIA card, both in one process.
+
+    git archive <sha> | tar -x -C chip_archive/parent   # chip_archive/ is gitignored
+    python3 chip_ab.py chip_archive/parent [--pairs 10] [--out results.json]
+
+The host's clock level differs up to 2x from one process to the next, so
+round times of two trees taken in two processes cannot be compared.  Here
+both trees' ``src/repro_torch`` are imported into one process (each keeps
+its own modules and its own kernel libraries, built from its own sources)
+and timed alternately, other then this, this then other, ``--pairs``
+times; every number is a median over the pairs.  Measured, for each tree:
+
+  * the step kernel as the host enqueues it (the stream not pre-filled):
+    one ``fused_update`` on Fig. 2's leaf (500 x 500, the server leaf
+    broadcast, lam) and one ``fused_update_arena`` on the softmax arena
+    (10 x 7,936), the calls the one-leaf and arena rounds make;
+  * the step at lm_flat and lm_tree on the device (the stream pre-filled):
+    the step kernel then the plain add per leaf (``chip_smoke.step_pair``),
+    and, where the tree has it, one launch with the sum in its pass;
+  * ms per round, launches per round, the tensor ops the host dispatches a
+    round (allocations aside) and the device-busy ms a round
+    (``torch.profiler``) for the softmax arena (Table I), Fig. 2's pytree
+    round (m = 500, K = 5), lm_tree's four algorithms and the ring(8)
+    graph at lm_flat; for GPDMM, whether a plain op wrote x_bar.
+
+And for this tree alone, the step kernel's two parameter tables (8
+segments, and the most the parameter limit holds): the launch with the
+large table is built from a copy of ``csrc/fused_update.cu`` that always
+takes it, and both are timed on the device and as the host enqueues them
+at Fig. 2's leaf, the softmax arena and lm_tree.
+
+Imports no JAX and nothing of the JAX package; exits non-zero without CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib
+import json
+import pkgutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+import chip_smoke as S
+
+HERE = Path(__file__).resolve().parent
+
+
+def load_tree(root: Path) -> dict:
+    """Every module of ``root/src/repro_torch``, imported and then taken out
+    of ``sys.modules`` (``use`` puts them back)."""
+    src = str((root / "src").resolve())
+    sys.path.insert(0, src)
+    try:
+        pkg = importlib.import_module("repro_torch")
+        for info in pkgutil.walk_packages(pkg.__path__, "repro_torch."):
+            importlib.import_module(info.name)
+    finally:
+        sys.path.remove(src)
+    return {k: sys.modules.pop(k) for k in list(sys.modules)
+            if k == "repro_torch" or k.startswith("repro_torch.")}
+
+
+def use(tree: dict) -> SimpleNamespace:
+    """Make ``tree``'s modules the ones imports resolve to (the port imports
+    some lazily) and return its entry points."""
+    for k in [k for k in sys.modules if k == "repro_torch" or k.startswith("repro_torch.")]:
+        del sys.modules[k]
+    sys.modules.update(tree)
+    core = tree["repro_torch.core"]
+    return SimpleNamespace(
+        ops=tree["repro_torch.kernels.ops"], make=core.make, make_oracle=core.make_oracle,
+        quadratic=core.quadratic, FederatedConfig=tree["repro_torch.configs.base"].FederatedConfig,
+        SoftmaxRegression=tree["repro_torch.core.softmax"].SoftmaxRegression,
+        gpdmm=tree["repro_torch.core.gpdmm"], pdmm_graph=tree["repro_torch.core.pdmm_graph"],
+        build=tree["repro_torch.kernels._build"], fu=tree["repro_torch.kernels.fused_update"])
+
+
+def round_ops(torch, run) -> int:
+    """The tensor ops ``run`` (one round) dispatches from the host,
+    allocations (``empty*``) aside."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += not func.__name__.startswith("empty")
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        run()
+    return c.n
+
+
+def alternate(trees, pairs: int, measure) -> dict:
+    """``measure(label, tree)`` for each tree in the order other, this, this,
+    other, ... (``pairs`` times each); the median of each tree's values."""
+    got = {label: [] for label in trees}
+    labels = list(trees)
+    for p in range(pairs):
+        for label in (labels if p % 2 == 0 else labels[::-1]):
+            got[label].append(measure(label, use(trees[label])))
+    return {label: {"median": statistics.median(v), "all": v} for label, v in got.items()}
+
+
+def host_step(torch, trees, pairs, out):
+    """One step call as the host enqueues it, ms a call over 200 calls."""
+    gen = S.seeded(torch, 53)
+    dev = gen.device
+    x, g, lam = (torch.randn(500, 500, generator=gen, device=dev) for _ in range(3))
+    xa, ga, la = (torch.randn(10, 7936, generator=gen, device=dev) for _ in range(3))
+    calls = {"fig2_leaf": lambda t: t.ops.fused_update(x, g, x[0], lam, 0.05, 2.5),
+             "softmax_arena": lambda t: t.ops.fused_update_arena(xa, ga, xa[0], la, 0.05, 4.0)}
+    for name, call in calls.items():
+        res = alternate(trees, pairs, lambda label, t: S.cuda_time_ms(
+            lambda: call(t), 200, prefill=False))
+        out[f"host_{name}_ms"] = res
+        S.log(f"host-paced step, {name}: " + ", ".join(
+            f"{k} {v['median']:.5f} ms" for k, v in res.items()))
+
+
+def device_step(torch, trees, pairs, out):
+    """The step at lm_flat and lm_tree on the device: the pair (step kernel,
+    then the plain add per leaf) in each tree, one launch with the sum in
+    this tree."""
+    case = S.step_cases(torch, S.seeded(torch, 53))
+    for name, c in case.items():
+        arena = name == "lm_flat"
+        res = alternate(trees, pairs, lambda label, t: S.cuda_time_ms(
+            lambda: S.step_pair(t.ops, c, 0.05, 2.5, arena), 20))
+        fused = alternate({"this": trees["this"]}, pairs, lambda label, t: S.cuda_time_ms(
+            lambda: S.step_fused(t.ops, c, 0.05, 2.5, arena), 20))["this"]
+        out[f"step_{name}"] = {"pair_ms": res, "fused_ms": fused,
+                               "bound_ms": S.bound_ms(S.step_bytes(c), 0)[0]}
+        S.log(f"step at {name}: pair " + ", ".join(
+            f"{k} {v['median']:.5f} ms" for k, v in res.items())
+            + f"; fused (this) {fused['median']:.5f} ms")
+
+
+def large_table_fn(t):
+    """The step launcher of a copy of ``csrc/fused_update.cu`` that takes
+    the large table for every launch, built beside the tree's libraries."""
+    b = t.build
+    text = (b.CSRC / t.fu.SOURCE).read_text()
+    assert text.count("if (nseg <= kSmallSegs)") == 1
+    var = b.BUILD_DIR / "eq20_large_table"
+    var.mkdir(parents=True, exist_ok=True)
+    (var / "fused_update.cu").write_text(text.replace("if (nseg <= kSmallSegs)", "if (false)"))
+    so = var / "fused_update.so"
+    subprocess.run([b.nvcc_path(), *b.NVCC_FLAGS, "-I", str(b.CSRC), "-o", str(so),
+                    str(var / "fused_update.cu")], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).launch_eq20_segments
+    fn.argtypes = t.fu.ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tables(torch, trees, pairs, out):
+    """The step kernel with the 8-segment table against the large one."""
+    t = use(trees["this"])
+    gen = S.seeded(torch, 54)
+    dev = gen.device
+    x, g, lam, acc = (torch.randn(500, 500, generator=gen, device=dev) for _ in range(4))
+    xa, ga, la, aa = (torch.randn(10, 7936, generator=gen, device=dev) for _ in range(4))
+    tree = S.step_cases(torch, gen)["lm_tree"]
+    calls = {"fig2_leaf": lambda: t.ops.fused_update_leaves([x], [g], [x[0]], [lam], 0.05, 2.5,
+                                                            accs=[acc]),
+             "softmax_arena": lambda: t.ops.fused_update_arena(xa, ga, xa[0], la, 0.05, 4.0,
+                                                               acc=aa),
+             "lm_tree": lambda: S.step_fused(t.ops, tree, 0.05, 2.5, False)}
+    for call in calls.values():
+        call()  # binds the kernels' launchers
+    kerns = (t.fu.KERNEL, t.fu.ARENA_KERNEL)
+    small, large = kerns[0]._fn, large_table_fn(t)
+
+    def pick(fn):
+        for k in kerns:
+            k._fn = fn
+
+    try:
+        for name, call in calls.items():
+            for prefill in (True, False):
+                got = {"small": [], "large": []}
+                for p in range(pairs):
+                    for label in (("small", "large") if p % 2 == 0 else ("large", "small")):
+                        pick(small if label == "small" else large)
+                        got[label].append(S.cuda_time_ms(call, 20 if prefill else 200,
+                                                         prefill=prefill))
+                key = f"table_{name}_{'device' if prefill else 'host_paced'}_ms"
+                out[key] = {k: statistics.median(v) for k, v in got.items()}
+                S.log(f"tables, {key}: {out[key]}")
+    finally:
+        pick(small)
+
+
+def rounds(torch, trees, pairs, out):
+    """Round times, launches, host ops and device-busy time a round."""
+    sm_cfg, lsq, lt, lf = S.SOFTMAX, S.LSQ, S.LM_TREE, S.LM_FLAT
+    cells = []  # (label, algorithm config, set-up per tree, rounds a chunk, per_step, inner)
+
+    def softmax(t):
+        F, C, n, B, K = (sm_cfg[k] for k in ("F", "C", "n", "B", "K"))
+        sm = t.SoftmaxRegression(F, C)
+        xs, ys = S.mixture_data(torch, S.seeded(torch, 0), F, C, n, "cuda")
+
+        def batch(r):
+            starts = [((r * K + k) * B) % (n - B + 1) for k in range(K)]
+            return {"x": torch.stack([xs[:, s:s + B] for s in starts]),
+                    "y": torch.stack([ys[:, s:s + B] for s in starts])}
+        return sm.init_params("cuda"), sm_cfg["m"], sm.oracle(), batch, {}
+
+    def fig2(t):
+        prob = t.quadratic.generate(S.seeded(torch, 0), m=lsq["m"], n=lsq["n"], d=lsq["d"],
+                                    device="cuda")
+        return (torch.zeros(prob.d, device="cuda"), lsq["m"], prob.grad, lambda r: prob.batch(),
+                {"eta": 0.5 / prob.L})
+
+    def lm_tree(t):
+        gen = S.seeded(torch, 55)
+        params = {k: torch.randn(s, generator=gen, device="cuda")
+                  for k, s in lt["shapes"].items()}
+        tb = {"d": torch.zeros(lt["m"], 1, device="cuda")}
+        return (params, lt["m"], lambda p, b: {k: 0.3 * v for k, v in p.items()}, lambda r: tb,
+                {})
+
+    def ring(t):
+        gen = S.seeded(torch, 56)
+        grad = t.make_oracle(lambda p, b: {k: 0.3 * v for k, v in p.items()},
+                             grad_arena=lambda spec: (lambda xa, b: 0.3 * xa))
+        fb = {"dummy": torch.zeros(lf["m"], 1, device="cuda")}
+        return ({"w": torch.randn(lf["width"], generator=gen, device="cuda")}, lf["m"], grad,
+                lambda r: fb, {})
+
+    for algo in ("gpdmm", "agpdmm"):
+        cells.append((f"softmax_{algo}", dict(algorithm=algo, inner_steps=sm_cfg["K"], eta=0.05),
+                      softmax, sm_cfg["rounds"], True, "arena"))
+    for algo in ("gpdmm", "agpdmm"):
+        cells.append((f"fig2_m500_K5_{algo}", dict(algorithm=algo, inner_steps=lsq["K"]),
+                      fig2, 20, False, "tree"))
+    for algo in ("gpdmm", "agpdmm", "scaffold", "fedavg"):
+        cells.append((f"lm_tree_{algo}", dict(algorithm=algo, inner_steps=lt["K"], eta=lt["eta"],
+                                              use_arena=False), lm_tree, lt["rounds"], False,
+                      "tree"))
+    cells.append(("graph_lm_flat_ring", dict(algorithm="gpdmm_graph", topology="ring",
+                                             inner_steps=lf["K"], eta=lf["eta"]), ring,
+                  lf["rounds"], False, "graph"))
+
+    for label, kw, setup, R, per_step, inner in cells:
+        runs = {}
+        for tl, tree in trees.items():
+            t = use(tree)
+            params, m, grad, batch_of, extra = setup(t)
+            opt = t.make(t.FederatedConfig(**kw, **extra))
+            state = opt.init(params, m)
+            state, _, _, _ = S.run_rounds(torch, t.ops, opt, state, grad, batch_of, 2, per_step)
+            runs[tl] = dict(opt=opt, state=state, grad=grad, batch_of=batch_of)
+
+        def chunk(tl, t):
+            r = runs[tl]
+            r["state"], _, counts, secs = S.run_rounds(torch, t.ops, r["opt"], r["state"],
+                                                       r["grad"], r["batch_of"], R, per_step)
+            r["launches"] = {k: v / R for k, v in counts.items() if v}
+            return 1e3 * secs / R
+
+        res = alternate(trees, pairs, chunk)
+        for tl in trees:
+            t = use(trees[tl])
+            opt, state, grad, batch_of = (runs[tl][k] for k in ("opt", "state", "grad",
+                                                                "batch_of"))
+            one = lambda: opt.round(state, grad, batch_of(0), per_step)  # noqa: E731
+            busy, activities, _ = S.device_profile(
+                torch, lambda: S.run_rounds(torch, t.ops, opt, state, grad, batch_of, 3,
+                                            per_step), 3)
+            row = res[tl]
+            row.update(launches_per_round=runs[tl]["launches"],
+                       host_ops_per_round=round_ops(torch, one),
+                       device_busy_ms_per_round=busy, device_activities_per_round=activities)
+            if kw["algorithm"] in ("gpdmm", "gpdmm_graph"):
+                module, name = ((t.pdmm_graph, "inner_steps_graph") if inner == "graph" else
+                                (t.gpdmm, "inner_steps" if inner == "tree" else
+                                 "inner_steps_arena"))
+                row["x_bar_plain"] = S.x_bar_plain(torch, module, name, one)
+        out[label] = res
+        S.log(f"rounds {label}: " + "; ".join(
+            f"{tl} {r['median']:.4f} ms/round, host ops {r['host_ops_per_round']}, busy "
+            f"{r['device_busy_ms_per_round']:.4f} ms, x_bar_plain {r.get('x_bar_plain')}"
+            for tl, r in res.items()))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", help="the root of another checkout of the repo (its src/ is used)")
+    ap.add_argument("--pairs", type=int, default=10, help="alternations of the two trees")
+    ap.add_argument("--out", help="also write the results as JSON to this file")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    S.log(card)
+    trees = {"other": load_tree(Path(args.other)), "this": load_tree(HERE)}
+    for label, tree in trees.items():
+        t0 = time.perf_counter()
+        use(tree).build.build_all()
+        S.log(f"{label}: {tree['repro_torch'].__file__}, built in "
+              f"{time.perf_counter() - t0:.1f} s")
+    out = {"card": card, "pairs": args.pairs}
+    host_step(torch, trees, args.pairs, out)
+    device_step(torch, trees, args.pairs, out)
+    tables(torch, trees, args.pairs, out)
+    rounds(torch, trees, args.pairs, out)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(out, indent=1))
+    S.log(json.dumps({"ab": {k: v for k, v in out.items() if k not in ("card",)}})[:2000])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,6 +19,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      other resident width (W = 128, 256, 384, 640: every cluster size the
      route takes) against the plain version and the streaming route, and
      on the streaming route at (64, 1024), the width it alone takes;
+     kernels 4 and 6, one kernel stepping a table of segments, bitwise its
+     plain version in f32 and bf16 at the reference benchmark's lm_flat
+     (the (8, 2^20) arena) and lm_tree (six leaves at m = 8, one launch),
+     on one leaf, in every mode of x_bar's running sum (first, add, last,
+     only), timed there with lam and the sum beside the pair it replaces
+     (the step kernel without the sum, then a plain add, per leaf) and
+     host-paced on 1 and 6 small leaves;
   4. least squares at the paper's Fig. 2 size (m = n = d = 500, K = 5,
      ``use_arena=True`` with ``oracle()``): 30 rounds each of GPDMM,
      AGPDMM, SCAFFOLD and FedAvg; ||x - x*|| must fall, the dual-sum
@@ -31,7 +38,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      m = 10, B = 300, K = 5, one class per client): 10 rounds each of
      GPDMM, AGPDMM, SCAFFOLD, FedAvg, Inexact FedSplit (x_s init) and GPDMM
      with SVRG; the loss must fall, ``fused_update_arena`` (``fused_update``
-     for FedSplit) launch K times per round;
+     for FedSplit) launch K times per round, and no plain op writes
+     GPDMM's x_bar (``check_x_bar``: the inner loop's x_bar is none of the
+     outputs of the tensor ops it dispatched, so the step kernel's running
+     sum wrote it);
   6. Fig. 2 as ``benchmarks/fig2_lsq.py`` runs it: the default config (the
      per-leaf pytree path at W = 512) with the plain grad, eta = 0.5 / L,
      200 rounds of FedAvg, GPDMM, AGPDMM and SCAFFOLD at m = n = d = 500,
@@ -40,7 +50,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      of GPDMM at round 50, FedAvg's final distance above 10x AGPDMM's),
      the K = 1 trajectories of AGPDMM, SCAFFOLD and FedAvg agree (paper
      (27)/(31)), and ``fused_update`` launch K times per round, no arena
-     kernel at all;
+     kernel at all, GPDMM no plain op for x_bar; then the reference
+     benchmark's lm_tree (``round_bench.py:62-72``: m = 8, six f32 leaves,
+     K = 4, the 0.3 x tree gradient) on the pytree path, 10 rounds each of
+     GPDMM, AGPDMM, SCAFFOLD and FedAvg: one ``fused_update`` launch a step
+     for all six leaves, no plain op for x_bar, the card equal to the CPU
+     after a GPDMM round (rtol = atol = 1e-5);
   7. Fig. 1 as ``benchmarks/fig1_fedsplit.py`` runs it: Inexact FedSplit
      at m = 25 (rho = L / 10, eta = 1 / L), init z and x_s, K in {1, 3},
      300 rounds; the x_s init's gap must be below 1e-3 of the z init's, as
@@ -86,7 +101,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      under a colour phase's mask; (b)
      ``gpdmm_graph`` on star, ring and complete at lm_flat (the reference
      benchmark's bench_topology rows), launches per colour phase as the code
-     gives them; (c) the star graph against the centralised arena GPDMM on
+     gives them, no plain op for x_bar; (c) the star graph against the centralised arena GPDMM on
      phase 4's problem, 30 rounds, x_s and the carry within atol = rtol =
      1e-4; (d) ``examples/ring_pdmm.py``'s setting, every node within 1e-2
      of x*; (e) ``eta="auto"`` resolved on phase 4's problem, L_i within
@@ -489,10 +504,14 @@ def check_kernels(rec, prob, eta, rho, torch, ops, ref, gen):
                 e = max_err(ops.fused_update_arena(xa.to(dt), ga.to(dt), xsa.to(dt), lmd, st, 4.0),
                             ref.fused_update_arena_ref(xa.to(dt), ga.to(dt), xsa.to(dt), lmd, st, 4.0))
                 check(e == 0.0, f"fused_update_arena {dt}: error {e}")
+    # timed as GPDMM's softmax round calls it: lam, x_bar's sum ("add")
+    acc_a, acc_p = torch.randn_like(xa), torch.randn_like(xa)
     rec.kernel("fused_update_arena", 0.0,
-               lambda: ops.fused_update_arena(xa, ga, xsa, la, 0.05, 4.0),
-               lambda: ref.fused_update_arena_ref(xa, ga, xsa, la, 0.05, 4.0), 200,
-               4 * (4 * ms_ * ws + ws), 7 * ms_ * ws)
+               lambda: ops.fused_update_arena(xa, ga, xsa, la, 0.05, 4.0, acc=acc_a),
+               lambda: ref.fused_update_arena_ref(xa, ga, xsa, la, 0.05, 4.0, acc=acc_p), 200,
+               4 * (6 * ms_ * ws + ws), 8 * ms_ * ws)
+    rec.rows["fused_update_arena"]["pair_ms"] = cuda_time_ms(
+        lambda: step_pair(ops, ([xa], [ga], [xsa], [la], [acc_p]), 0.05, 4.0, True), 200)
 
     # SCAFFOLD's control-variate refresh at the least-squares and softmax
     # arenas, scalar and per-client alpha
@@ -527,13 +546,146 @@ def check_kernels(rec, prob, eta, rho, torch, ops, ref, gen):
                                 None if lm is None else lm.to(dt), st, 4.0)
                         e = max_err(ops.fused_update(*args), ref.fused_update_ref(*args))
                         check(e == 0.0, f"fused_update {dt} {shape}: error {e}")
-    # timed as GPDMM's pytree round calls it: lam, the server leaf broadcast
-    xf, gf, lf = (torch.randn(m, d, generator=gen, device=dev) for _ in range(3))
+    # timed as GPDMM's pytree round calls it: lam, the server leaf
+    # broadcast, x_bar's sum ("add")
+    xf, gf, lf, af, ap = (torch.randn(m, d, generator=gen, device=dev) for _ in range(5))
     sf = torch.randn(d, generator=gen, device=dev)
     rec.kernel("fused_update", 0.0,
-               lambda: ops.fused_update(xf, gf, sf, lf, step, rho),
-               lambda: ref.fused_update_ref(xf, gf, sf, lf, step, rho), 200,
-               4 * (4 * m * d + d), 6 * m * d)
+               lambda: ops.fused_update_leaves([xf], [gf], [sf], [lf], step, rho, accs=[af]),
+               lambda: ref.fused_update_leaves_ref([xf], [gf], [sf], [lf], step, rho,
+                                                   accs=[ap]), 200,
+               4 * (6 * m * d + d), 8 * m * d)
+    # the pair each replaces on the main path: the step, then x_bar's plain add
+    rec.rows["fused_update"]["pair_ms"] = cuda_time_ms(
+        lambda: step_pair(ops, ([xf], [gf], [sf], [lf], [ap]), step, rho, False), 200)
+    log(f"kernels 4 and 6 against the pair they replace (the step, then a plain add): "
+        f"{rec.rows['fused_update_arena']['pair_ms']:.4f} and "
+        f"{rec.rows['fused_update']['pair_ms']:.4f} ms")
+    torch.cuda.synchronize()
+
+
+# kernels 4 and 6 at the reference benchmark's LM shapes
+# (benchmarks/round_bench.py:60-72): lm_flat, one (2^20,) leaf, is the
+# arena; lm_tree's six leaves step in one launch on the pytree path
+LM_TREE = dict(m=8, K=4, eta=0.1, rounds=10,
+               shapes={"embed": (512, 384), "blk0_w1": (768, 512), "blk0_w2": (512, 768),
+                       "blk1_w1": (768, 512), "blk1_w2": (512, 768), "bias": (768,)})
+ACC_MODES = ("first", "add", "last", "only")
+
+
+def step_cases(torch, gen, dtype=None):
+    """The step's operands at lm_flat (the (8, 2^20) arena, x_s a row) and
+    lm_tree (six leaves at m = 8, server leaves without the client dim):
+    per case (x, g, server, lam, acc) lists, f32 unless ``dtype``."""
+    dt = dtype or torch.float32
+    rnd = lambda s: torch.randn(s, generator=gen, device=gen.device).to(dt)  # noqa: E731
+    m = LM_TREE["m"]
+    cases = {}
+    tree = tuple(LM_TREE["shapes"].values())
+    for name, shapes in (("lm_flat", ((1 << 20,),)), ("lm_tree", tree)):
+        x, g, lam, acc = ([rnd((m,) + s) for s in shapes] for _ in range(4))
+        cases[name] = (x, g, [rnd(s) for s in shapes], lam, acc)
+    return cases
+
+
+def step_bytes(case) -> int:
+    """Each input read once and each output written once: x, g, lam and
+    acc read, x' and acc written, the server leaves read once."""
+    x, _, srv, _, _ = case
+    return sum(6 * t.numel() * t.element_size() for t in x) + sum(
+        t.numel() * t.element_size() for t in srv)
+
+
+def step_pair(ops, case, step, rho, arena):
+    """One client step as the parent's rounds ran it, for every leaf (the
+    ``arena``'s one buffer, or each leaf): the step kernel (no running
+    sum), then the plain pass xsum + x'."""
+    x, g, srv, lam, acc = case
+    for xx, gg, ss, ll, aa in zip(x, g, srv, lam, acc):
+        if arena:
+            out = ops.fused_update_arena(xx, gg, ss, ll, step, rho)
+        else:
+            out = ops.fused_update(xx, gg, ss, ll, step, rho)
+        aa + out
+
+
+def step_fused(ops, case, step, rho, arena):
+    """The same step as one launch with the running sum in its pass."""
+    x, g, srv, lam, acc = case
+    if arena:
+        ops.fused_update_arena(x[0], g[0], srv[0], lam[0], step, rho, acc=acc[0])
+    else:
+        ops.fused_update_leaves(x, g, srv, lam, step, rho, accs=acc)
+
+
+def check_step_kernel(rec, torch, ops, ref, gen, out):
+    """Kernels 4 and 6, one kernel over a table of segments: bitwise its
+    plain version in f32 and bf16 on the arena (lm_flat), one leaf and
+    lm_tree's six leaves in one launch, in every acc mode, scalar and
+    per-client steps; then timed at lm_flat and lm_tree (lam, acc "add")
+    beside the pair it replaces (the step without the sum, then the plain
+    add), and host-paced on 1 and 6 small leaves."""
+    from repro_torch.kernels import fused_update as FU
+
+    m, rho, step = LM_TREE["m"], 2.5, 0.05
+    steps = torch.rand(m, generator=gen, device=gen.device)
+    for dt in (torch.float32, torch.bfloat16):
+        for name, (x, g, srv, lam, acc0) in step_cases(torch, gen, dt).items():
+            for mode in ACC_MODES:
+                for st in (step, steps):
+                    a_got, a_want = [a.clone() for a in acc0], [a.clone() for a in acc0]
+                    ops.reset_launches()
+                    if name == "lm_flat":
+                        got = [ops.fused_update_arena(x[0], g[0], srv[0], lam[0], st, rho,
+                                                      acc=a_got[0], acc_mode=mode,
+                                                      acc_scale=0.25)]
+                        want = [ref.fused_update_arena_ref(x[0], g[0], srv[0], lam[0], st,
+                                                           rho, acc=a_want[0], acc_mode=mode,
+                                                           acc_scale=0.25)]
+                    else:
+                        got = ops.fused_update_leaves(x, g, srv, lam, st, rho, accs=a_got,
+                                                      acc_mode=mode, acc_scale=0.25)
+                        want = ref.fused_update_leaves_ref(x, g, srv, lam, st, rho,
+                                                           accs=a_want, acc_mode=mode,
+                                                           acc_scale=0.25)
+                    check(sum(ops.launches().values()) == 1,
+                          f"step kernel {name}: {ops.launches()} launches for one step")
+                    for a, b in zip(got + a_got, want + a_want):
+                        check(same_bits(torch, a, b), f"step kernel {name} {dt} {mode}: differs")
+            # one leaf, the server leaf broadcast and full
+            for s_ in (srv[0], acc0[0]):
+                got = ops.fused_update(x[0], g[0], s_, lam[0], steps, rho)
+                check(same_bits(torch, got, ref.fused_update_ref(x[0], g[0], s_, lam[0], steps,
+                                                                 rho)),
+                      f"one leaf {name} {dt}: differs")
+    log(f"step kernel: bitwise its plain version (f32, bf16; lm_flat arena, lm_tree's six "
+        f"leaves in one launch, one leaf; modes {ACC_MODES}; scalar and per-client steps); "
+        f"at most {FU.max_segments()} segments a launch")
+    rows = {}
+    for name, case in step_cases(torch, gen).items():
+        kern = "fused_update_arena" if name == "lm_flat" else "fused_update"
+        arena = name == "lm_flat"
+        ms = cuda_time_ms(lambda: step_fused(ops, case, step, rho, arena), 20)
+        pair_ms = cuda_time_ms(lambda: step_pair(ops, case, step, rho, arena), 20)
+        b, by = bound_ms(step_bytes(case), 8 * sum(t.numel() for t in case[0]))
+        rows[name] = dict(kernel=kern, ms=ms, pair_ms=pair_ms, bound_ms=b, bound_by=by,
+                          bytes=step_bytes(case), launches_fused=1, launches_pair=len(case[0]))
+        log(f"step kernel at {name} (f32, lam, acc): {ms:.4f} ms, bound {b:.4f} ms ({by}; "
+            f"{step_bytes(case) / 1e6:.1f} MB), {b / ms:.2f} of the bound; the pair it replaces "
+            f"(step kernel + plain add, {len(case[0])} leaves) {pair_ms:.4f} ms")
+        rec.rows[kern].setdefault("at", {})[name] = rows[name]
+    # host-paced: the host's cost of a call of 1 and 6 small leaves
+    small = [torch.randn(m, 16, generator=gen, device=gen.device) for _ in range(6)]
+    for n in (1, 6):
+        lv = small[:n]
+        rows[f"host_{n}_leaves_ms"] = cuda_time_ms(
+            lambda: ops.fused_update_leaves(lv, lv, lv, lv, step, rho, accs=lv), 200,
+            prefill=False)
+    log(f"step kernel host-paced: 1 leaf {rows['host_1_leaves_ms']:.4f} ms, 6 leaves "
+        f"{rows['host_6_leaves_ms']:.4f} ms a call")
+    rec.rows["fused_update"]["host_paced_ms"] = {
+        "1_leaf": rows["host_1_leaves_ms"], "6_leaves": rows["host_6_leaves_ms"]}
+    out["step_kernel"] = rows
     torch.cuda.synchronize()
 
 
@@ -768,6 +920,57 @@ def expected(ops, rounds, **per_round):
     """The launch counts of ``rounds`` rounds: ``per_round`` launches of the
     named kernels per round, none of any other."""
     return {k.name: rounds * per_round.get(k.name, 0) for k in ops.KERNELS}
+
+
+def x_bar_plain(torch, module, name, run) -> list:
+    """Run ``run`` (one GPDMM round) with the inner loop ``module.name``
+    wrapped: inside it every tensor op's outputs are kept alive (so no
+    address is reused) and, for each call, the x_bar leaves it returns
+    are looked up among them.  Returns per call (x_bar leaves, leaves a
+    plain op wrote): 0 of them when the step kernel's running sum wrote
+    x_bar, all of them when a plain pass (``xsum + x``, ``xsum * (1/K)``)
+    did.  Allocations (``empty*``) write nothing and are not kept."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core import tree_util as T
+
+    class Keep(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.outs = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.__name__.startswith("empty"):
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                self.outs.extend(t for t in outs if torch.is_tensor(t))
+            return out
+
+    inner, found = getattr(module, name), []
+
+    def wrapped(*a, **kw):
+        with Keep() as keep:
+            x_K, x_bar = inner(*a, **kw)
+        written = {t.untyped_storage().data_ptr() for t in keep.outs}
+        bar = T.leaves(x_bar)
+        found.append((len(bar), sum(t.untyped_storage().data_ptr() in written for t in bar)))
+        return x_K, x_bar
+
+    setattr(module, name, wrapped)
+    try:
+        run()
+    finally:
+        setattr(module, name, inner)
+    return found
+
+
+def check_x_bar(torch, module, name, run, what) -> None:
+    """The x_bar of every inner loop of one round is the step kernel's
+    running sum: no plain op wrote it (``x_bar_plain``)."""
+    found = x_bar_plain(torch, module, name, run)
+    log(f"{what}: x_bar leaves written by a plain op, per inner loop (leaves, plain) {found}")
+    check(bool(found) and all(n > 0 and p == 0 for n, p in found),
+          f"{what}: a plain pass wrote x_bar {found}")
 
 
 def lsq_phase(rec, prob, torch, ops, make, FederatedConfig, dev, prof=None):
@@ -1036,6 +1239,12 @@ def softmax_phase(rec, torch, ops, make, FederatedConfig, SoftmaxRegression, gen
             f"loss {loss0:.4f} -> {loss1:.4f}, train accuracy {acc:.3f}; launches {counts}")
         check(counts == expected(ops, R, **per_round), f"softmax {label}: launches {counts}")
         check(math.isfinite(loss1) and loss1 < loss0, f"softmax {label}: loss {loss0} -> {loss1}")
+        if runs is SOFTMAX_RUNS and label in ("gpdmm", "gpdmm_svrg"):
+            from repro_torch.core import gpdmm
+
+            check_x_bar(torch, gpdmm, "inner_steps_arena",
+                        lambda: opt.round(state, prob.oracle(), batch_of(R), True),
+                        f"softmax {label}")
         for k in ("lam_s", "c_i", "z_s", "u_hat", "x_c"):
             if k in state:
                 check(bool(torch.isfinite(state[k]).all()), f"softmax {label}: {k} not finite")
@@ -1086,6 +1295,12 @@ def fig2_phase(rec, problems, torch, ops, make, FederatedConfig, dev, prof=None)
                 check(counts == expected(ops, R, fused_update=K),
                       f"fig2 m={m} K={K} {method}: launches {counts}")
                 check(float(metrics["used_arena"]) == 0.0, "fig2: left the pytree path")
+                if method == "gpdmm" and K > 1:
+                    from repro_torch.core import gpdmm
+
+                    check_x_bar(torch, gpdmm, "inner_steps",
+                                lambda: opt.round(state, prob.grad, prob.batch()),
+                                f"fig2 m={m} K={K} gpdmm")
                 check(bool(torch.isfinite(x).all()), f"fig2 m={m} K={K} {method}: not finite")
                 if prof is not None and K == 5 and method == "agpdmm":
                     prof(f"fig2_m{m}_agpdmm_K5",
@@ -1107,6 +1322,57 @@ def fig2_phase(rec, problems, torch, ops, make, FederatedConfig, dev, prof=None)
             log(f"fig2 m={m} K=1: max |x_s({method}) - x_s(agpdmm)| over {R} rounds {err:.3e}")
             torch.testing.assert_close(traj[method], traj["agpdmm"], rtol=1e-4, atol=1e-4)
     log(f"fig2 phase: {time.perf_counter() - t_phase:.2f} s")
+
+
+def lm_tree_phase(rec, torch, ops, make, FederatedConfig, gen, dev, out, prof=None):
+    """The reference benchmark's lm_tree (``benchmarks/round_bench.py:62-72``:
+    m = 8, six f32 leaves, 1.77 M values a client, K = 4, eta = 0.1, the
+    0.3 x tree gradient) on the pytree path: 10 rounds each of GPDMM,
+    AGPDMM, SCAFFOLD and FedAvg after 2 warm-up rounds, one
+    ``fused_update`` launch a step for all six leaves and no other kernel,
+    no plain op for GPDMM's x_bar, finite states; one GPDMM round on the
+    card equals the CPU's (rtol = atol = 1e-5: the client mean sums in
+    another order)."""
+    c = LM_TREE
+    m, K, R = c["m"], c["K"], c["rounds"]
+    params = {k: torch.randn(s, generator=gen, device=dev) for k, s in c["shapes"].items()}
+    grad = lambda p, b: {k: 0.3 * v for k, v in p.items()}  # noqa: E731
+    batch = {"d": torch.zeros(m, 1, device=dev)}
+    for algo in ("gpdmm", "agpdmm", "scaffold", "fedavg"):
+        kw = dict(algorithm=algo, inner_steps=K, eta=c["eta"], use_arena=False)
+        opt = make(FederatedConfig(**kw))
+        state = opt.init(params, m)
+        state, _, _, _ = run_rounds(torch, ops, opt, state, grad, lambda r: batch, 2, False)
+        state, metrics, counts, secs = run_rounds(torch, ops, opt, state, grad,
+                                                  lambda r: batch, R, False)
+        rec.add(counts)
+        out[f"lm_tree_{algo}_ms_per_round"] = 1e3 * secs / R
+        log(f"lm_tree {algo}: {R} rounds in {secs:.3f} s ({1e3 * secs / R:.3f} ms/round); "
+            f"launches {counts}")
+        check(counts == expected(ops, R, fused_update=K), f"lm_tree {algo}: launches {counts}")
+        check(float(metrics["used_arena"]) == 0.0, f"lm_tree {algo}: left the pytree path")
+        for k, v in state.items():
+            if k != "round":
+                check(all(bool(torch.isfinite(x).all()) for x in v.values()),
+                      f"lm_tree {algo}: {k} not finite")
+        if algo == "gpdmm":
+            from repro_torch.core import gpdmm
+
+            check_x_bar(torch, gpdmm, "inner_steps", lambda: opt.round(state, grad, batch),
+                        "lm_tree gpdmm")
+            s_cpu = {k: ({n: x.cpu() for n, x in v.items()} if isinstance(v, dict) else v.cpu())
+                     for k, v in state.items()}
+            s_gpu, _ = opt.round(state, grad, batch)
+            s_cpu, _ = opt.round(s_cpu, grad, {"d": torch.zeros(m, 1)})
+            for k in ("x_s", "lam_s", "x_c"):
+                for n in params:
+                    torch.testing.assert_close(s_gpu[k][n].cpu(), s_cpu[k][n], rtol=1e-5,
+                                               atol=1e-5)
+            log("lm_tree gpdmm: card == CPU after one round (rtol = atol = 1e-5)")
+        if prof is not None and algo in ("gpdmm", "agpdmm"):
+            prof(f"lm_tree_{algo}", lambda: run_rounds(torch, ops, opt, state, grad,
+                                                       lambda r: batch, 3, False),
+                 1e3 * secs / R, 3)
 
 
 def gap_f64(torch, prob, x) -> float:
@@ -1652,6 +1918,8 @@ def graph_phase(rec, prob, torch, ops, make, FederatedConfig, quadratic, gen, de
             f"rounds in {secs:.3f} s ({1e3 * secs / R:.3f} ms/round); launches {counts}; "
             f"consensus {float(metrics['consensus_err']):.3e}")
         check(counts == expected(ops, R, **per), f"graph lm_flat {name}: launches {counts}")
+        check_x_bar(torch, pdmm_graph, "inner_steps_graph",
+                    lambda: opt.round(state, grad, batch), f"graph lm_flat {name}")
         for k in ("x", "z"):
             check(bool(torch.isfinite(state[k]).all()), f"graph lm_flat {name}: {k} not finite")
         x1 = float(torch.linalg.vector_norm(state["x"]))
@@ -2152,10 +2420,10 @@ def serve_against_cpu(torch, out):
         res[arch] = e
 
 
-def profile_rounds(torch, label, run, round_ms, rounds, out):
-    """torch.profiler over ``run`` (``rounds`` rounds): kernel time by name,
-    device-busy time per round, and the device's idle share of the round
-    time ``round_ms`` measured without the profiler."""
+def device_profile(torch, run, rounds):
+    """torch.profiler over ``run`` (``rounds`` rounds): device-busy ms and
+    device activities (kernels, copies, fills) per round, and the profile's
+    key averages."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2163,9 +2431,16 @@ def profile_rounds(torch, label, run, round_ms, rounds, out):
         run()
         torch.cuda.synchronize()
     events = p.key_averages()
-    busy_ms = 1e-3 * sum(e.self_device_time_total for e in events
-                         if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    busy_ms /= rounds
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return (1e-3 * sum(e.self_device_time_total for e in dev) / rounds,
+            sum(e.count for e in dev) / rounds, events)
+
+
+def profile_rounds(torch, label, run, round_ms, rounds, out):
+    """torch.profiler over ``run`` (``rounds`` rounds): kernel time by name,
+    device-busy time per round, and the device's idle share of the round
+    time ``round_ms`` measured without the profiler."""
+    busy_ms, _, events = device_profile(torch, run, rounds)
     idle = max(0.0, 1.0 - busy_ms / round_ms)
     log(f"profile {label}: device busy {busy_ms:.4f} ms/round of {round_ms:.4f} ms/round; "
         f"idle share {idle:.3f}")
@@ -2236,6 +2511,7 @@ def main() -> int:
     eta = 0.5 / prob.L
     timed("3 kernels", check_kernels, rec, prob, eta, 1.0 / (LSQ["K"] * eta), torch, ops, ref,
           seeded(torch, 3))
+    timed("3 step kernel", check_step_kernel, rec, torch, ops, ref, seeded(torch, 47), out)
     timed("3 cohort kernels", check_cohort_kernels, rec, torch, ops, ref, seeded(torch, 13))
     timed("3 fault kernels", check_fault_kernels, rec, torch, ops, ref, seeded(torch, 17), out)
     timed("3 card vs cpu", check_small_against_cpu, torch, make, FederatedConfig, quadratic)
@@ -2257,6 +2533,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s; L {prob25.L:.4e} mu {prob25.mu:.4e}")
     timed("6 fig2", fig2_phase, rec, {LSQ["m"]: prob, FIG1["m"]: prob25}, torch, ops, make,
           FederatedConfig, dev, prof)
+    timed("6 lm_tree", lm_tree_phase, rec, torch, ops, make, FederatedConfig, seeded(torch, 43),
+          dev, out, prof)
     timed("7 fig1", fig1_phase, rec, prob25, torch, ops, make, FederatedConfig, dev)
     timed("8 participation", participation_phase, rec, prob, torch, ops, make, FederatedConfig,
           dev, out, prof)

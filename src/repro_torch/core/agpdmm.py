@@ -8,7 +8,8 @@ the fresh server iterate x_s^r (no primal carry is stored), and the dual
 update uses the last iterate x_i^{r,K} (eq. 24).  The inner loops and the
 round tails are GPDMM's, faults, screening and async rounds included.
 With K = 1 and rho = 1/eta the round is gradient descent with stepsize eta
-(paper eq. (27)).  The cohort round moves no
+(paper eq. (27)).  The inner loops keep no x_bar, which AGPDMM never
+reads.  The cohort round moves no
 primal carry: it gathers ``lam_s`` (and, with EF21, ``u_hat``) rows and
 scatters ``u_hat`` through GPDMM's ``cohort_tail``.
 """
@@ -50,7 +51,7 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
             spec, grad_fn, x0, x_s_row, lam_t, b, K=cfg.inner_steps,
             eta=cfg.eta if eta_c is None else rows[1], rho=rho,
             per_step=per_step_batches,
-            vr_snapshot=x0 if cfg.variance_reduction == "svrg" else None)
+            vr_snapshot=x0 if cfg.variance_reduction == "svrg" else None, with_bar=False)
 
     rows = (lam_c,) + (() if eta_c is None else (eta_c,))
     x_K, _ = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
@@ -74,7 +75,7 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
     x_K, _ = inner_steps_arena(
         spec, grad_fn, x0, x_s_row, lam, batch, K=cfg.inner_steps, eta=cfg.eta,
         rho=rho, per_step=per_step_batches,
-        vr_snapshot=x0 if cfg.variance_reduction == "svrg" else None)
+        vr_snapshot=x0 if cfg.variance_reduction == "svrg" else None, with_bar=False)
 
     _, uplink = ops.round_tail(x_K, lam, x_s_row, rho, with_lam_is=False)
     new_state, x_s_new, lam_s_new, mask, fm = arena_tail(cfg, spec, state, uplink, m, x_s_row)
@@ -97,7 +98,7 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
     x_K, _ = inner_steps(
         grad_fn, x_s_b, x_s, lam_s, batch, K=cfg.inner_steps, eta=cfg.eta, rho=rho,
         per_step=per_step_batches,
-        vr_snapshot=x_s_b if cfg.variance_reduction == "svrg" else None)
+        vr_snapshot=x_s_b if cfg.variance_reduction == "svrg" else None, with_bar=False)
     _, new_state, mask, fm = tree_tail(cfg, state, x_K, x_s, rho, m)
     new_state["round"] = state["round"] + 1
     return new_state, tree_metrics(new_state["lam_s"], x_K, x_s, mask) | fm

@@ -176,9 +176,11 @@ def cohort_batch(batch, idx, m: int, per_step: bool):
 
 
 def _cat(outs):
-    """Concatenate the tiles' outputs (a tensor or a tuple of tensors)."""
+    """Concatenate the tiles' outputs (a tensor or a tuple of tensors, an
+    entry None where the inner loop keeps no x_bar)."""
     if isinstance(outs[0], tuple):
-        return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+        return tuple(None if parts[0] is None else torch.cat(parts, dim=0)
+                     for parts in zip(*outs))
     return torch.cat(outs, dim=0)
 
 

@@ -13,7 +13,8 @@ Inexact iterates: K gradient steps on h_i(x) = f_i(x) + ||x - z||^2 /
 (2 gamma), from z_{s|i}^r (``fedsplit_init="z"``, the paper's stall) or
 from x_s^r (``"xs"``, which converges).  Each step is one ``fused_update``
 kernel (lam-free, xs = z, rho = 1/gamma): on the arena over the
-``(m, width)`` buffers, on the pytree path once per leaf.
+``(m, width)`` buffers, on the pytree path once for all leaves of a
+dtype (``fused_update_leaves``).
 
 PDMM == FedSplit on the star graph (paper SIII-B): with rho = 1/gamma and
 z_{s|i} = x_s - gamma lam_{s|i} the exact iterates coincide with
@@ -117,10 +118,12 @@ def _round_inexact(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches
     vgrad = torch.func.vmap(grad_fn)
 
     x = _x0(cfg, z_s, lambda: T.tree_broadcast(x_s, m))
+    zl = T.leaves(z_s)
     for k in range(n_steps(batch, cfg.inner_steps, per_step_batches)):
         g = T.tree_dense(vgrad(x, client_batches(batch, k, per_step_batches)))
-        x = T.tmap(lambda xx, gg, zz: ops.fused_update(xx, gg, zz, None, cfg.eta, 1.0 / gamma),
-                   x, g, z_s)
+        # one launch per step for all leaves of a dtype
+        x = T.unflatten(x, ops.fused_update_leaves(T.leaves(x), T.leaves(g), zl,
+                                                   [None] * len(zl), cfg.eta, 1.0 / gamma))
     x_K = x
 
     x_s_new, z_s_new = _reflect(x_K, z_s)

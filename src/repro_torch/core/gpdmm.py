@@ -15,11 +15,13 @@ Per round r (client i, K inner steps, rho = 1/(K eta) by default):
 
 with xref_i = mean_k x_i^{r,k} (``use_avg=True``) or x_i^{r,K}.  An arena
 round is the inner loop (one ``inner_loop_affine`` kernel for an affine
-oracle, else one ``fused_update_arena`` kernel per step), one ``round_tail``
-kernel, the client mean (``torch.mean``) and one ``dual_from_uplink``
-kernel.  A pytree round (``use_arena="auto"`` below ``arena_min_width``, or
-``layout="fsdp"``) runs one ``fused_update`` kernel per leaf and step, and
-its tail as plain tensor ops, as the reference does.
+oracle, else one ``fused_update_arena`` kernel per step, which also keeps
+x_bar's running sum), one ``round_tail`` kernel, the client mean
+(``torch.mean``) and one ``dual_from_uplink`` kernel.  A pytree round
+(``use_arena="auto"`` below ``arena_min_width``, or ``layout="fsdp"``) runs
+one ``fused_update`` kernel per step for all the leaves of a dtype (x_bar's
+running sum in the same pass), and its tail as plain tensor ops, as the
+reference does.
 
 ``variance_reduction="svrg"`` (per-step batches) corrects the step-k
 gradient with the round's server iterate as snapshot z:
@@ -57,7 +59,7 @@ from repro_torch.core import arena, faults, prng, staleness
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
     FedOpt, affine_case, arena_grad, client_batches, cohort_batch, eta_val, n_steps,
-    resolved_rho, run_cohort_inner, step_for, step_size, use_arena,
+    resolved_rho, run_cohort_inner, step_size, use_arena,
     use_cohort,
 )
 from repro_torch.kernels import ops
@@ -75,41 +77,51 @@ def _svrg(vgrad, vr_snapshot, batch, steps, per_step):
     return snaps, T.tmap(lambda *gs: torch.mean(torch.stack(gs), dim=0), *snaps)
 
 
+def bar_buffer(like, steps: int):
+    """x_bar's buffer for ``steps`` client steps: the step kernel writes it
+    from its first step on (``ops.acc_mode_at``); zeros when no step runs,
+    as the plain sum of no iterate."""
+    return torch.empty_like(like) if steps else torch.zeros_like(like)
+
+
 def inner_steps(grad_fn, x0, x_s, lam_s, batch, *, K, eta, rho, per_step,
-                vr_snapshot=None):
+                vr_snapshot=None, with_bar=True):
     """The K client steps on the per-leaf pytree path (shared by GPDMM and
-    AGPDMM); returns (x_K, x_bar).
+    AGPDMM); returns (x_K, x_bar), x_bar None unless ``with_bar``.
 
     x0, lam_s and ``vr_snapshot`` are stacked ``(m, ...)`` trees; ``x_s`` is
-    the server tree, broadcast inside the ``fused_update`` kernel (one
-    launch per leaf and step).  The gradient is the per-client ``grad_fn``
-    mapped over the client dim (``torch.func.vmap``)."""
+    the server tree, broadcast inside the kernel.  Each step is one
+    ``fused_update_leaves`` launch for all leaves of a dtype, which keeps
+    x_bar's running sum in the same pass.  The gradient is the per-client
+    ``grad_fn`` mapped over the client dim (``torch.func.vmap``)."""
     step_c = step_size(eta, rho, T.leaves(x0)[0].device)
     vgrad = torch.func.vmap(grad_fn)
     steps = n_steps(batch, K, per_step)
     snaps, gbar = _svrg(vgrad, vr_snapshot, batch, steps, per_step)
-    x, xsum = x0, T.tree_zeros_like(x0)
+    x, xl, x_sl, laml = x0, T.leaves(x0), T.leaves(x_s), T.leaves(lam_s)
+    accs = [bar_buffer(a, steps) for a in xl] if with_bar else None
     for k in range(steps):
         g = vgrad(x, client_batches(batch, k, per_step))
         if gbar is not None:
             g = T.tmap(lambda a, c, d: a - c + d, g, snaps[k], gbar)
-        g = T.tree_dense(g)
-        x = T.tmap(lambda xx, gg, ss, ll: ops.fused_update(
-            xx, gg, ss, ll, step_for(step_c, xx), rho), x, g, x_s, lam_s)
-        xsum = T.tree_add(xsum, x)
-    return x, T.tree_scale(xsum, 1.0 / K)
+        xl = ops.fused_update_leaves(xl, T.leaves(T.tree_dense(g)), x_sl, laml, step_c, rho,
+                                     accs=accs, acc_mode=ops.acc_mode_at(k, steps),
+                                     acc_scale=1.0 / K)
+        x = T.unflatten(x0, xl)
+    return x, (T.unflatten(x0, accs) if with_bar else None)
 
 
 def inner_steps_arena(spec, grad_fn, x0, x_s_row, lam, batch, *, K, eta, rho, per_step,
-                      vr_snapshot=None):
-    """The K client steps on the ``(m, width)`` arena; returns (x_K, x_bar).
+                      vr_snapshot=None, with_bar=True):
+    """The K client steps on the ``(m, width)`` arena; returns (x_K, x_bar),
+    x_bar None unless ``with_bar`` (the affine kernel returns it anyway).
 
     An oracle with ``affine_arena`` (and one batch for all steps, no SVRG)
     runs the whole loop as one kernel; otherwise each step evaluates the
     arena gradient (``grad_arena``, or the plain grad through the tree
-    boundary) and applies one ``fused_update_arena`` kernel.  Per-step
-    batches run one step per leading batch entry, as the reference's scan
-    does."""
+    boundary) and applies one ``fused_update_arena`` kernel, which keeps
+    x_bar's running sum in the same pass.  Per-step batches run one step
+    per leading batch entry, as the reference's scan does."""
     step_c = step_size(eta, rho, x0.device)
     affine = affine_case(grad_fn, spec, per_step=per_step, vr_snapshot=vr_snapshot)
     if affine is not None:
@@ -119,14 +131,14 @@ def inner_steps_arena(spec, grad_fn, x0, x_s_row, lam, batch, *, K, eta, rho, pe
     grad_a, _native = arena_grad(grad_fn, spec)
     steps = n_steps(batch, K, per_step)
     snaps, gbar = _svrg(grad_a, vr_snapshot, batch, steps, per_step)
-    x, xsum = x0, torch.zeros_like(x0)
+    x, acc = x0, (bar_buffer(x0, steps) if with_bar else None)
     for k in range(steps):
         g = grad_a(x, client_batches(batch, k, per_step))
         if gbar is not None:
             g = g - snaps[k] + gbar
-        x = ops.fused_update_arena(x, g, x_s_row, lam, step_c, rho)
-        xsum = xsum + x
-    return x, xsum * T.weak(1.0 / K, xsum)
+        x = ops.fused_update_arena(x, g, x_s_row, lam, step_c, rho, acc=acc,
+                                   acc_mode=ops.acc_mode_at(k, steps), acc_scale=1.0 / K)
+    return x, acc
 
 
 def participation_key(cfg: FederatedConfig, round_idx):
@@ -303,7 +315,7 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
         return inner_steps_arena(
             spec, grad_fn, x0, x_s_row, lam_t, b, K=cfg.inner_steps,
             eta=cfg.eta if eta_c is None else rows[2], rho=rho,
-            per_step=per_step_batches, vr_snapshot=snap)
+            per_step=per_step_batches, vr_snapshot=snap, with_bar=cfg.use_avg)
 
     rows = (x0_c, lam_c) + (() if eta_c is None else (eta_c,))
     x_K, x_bar = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
@@ -335,7 +347,8 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, 
         snapshot = broadcast_rows(x_s_row, x_c.shape[0])
     x_K, x_bar = inner_steps_arena(
         spec, grad_fn, x_c, x_s_row, lam, batch, K=cfg.inner_steps, eta=cfg.eta,
-        rho=rho, per_step=per_step_batches, vr_snapshot=snapshot)
+        rho=rho, per_step=per_step_batches, vr_snapshot=snapshot,
+        with_bar=cfg.use_avg or return_trace)
     x_ref = x_bar if cfg.use_avg else x_K
 
     # the uplink, and lam_is only when a trace wants it
@@ -371,7 +384,8 @@ def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False,
     x_K, x_bar = inner_steps(
         grad_fn, x_c, x_s, lam_s, batch, K=cfg.inner_steps, eta=cfg.eta, rho=rho,
         per_step=per_step_batches,
-        vr_snapshot=T.tree_broadcast(x_s, m) if cfg.variance_reduction == "svrg" else None)
+        vr_snapshot=T.tree_broadcast(x_s, m) if cfg.variance_reduction == "svrg" else None,
+        with_bar=cfg.use_avg or return_trace)
     x_ref = x_bar if cfg.use_avg else x_K
     lam_is, new_state, mask, fm = tree_tail(cfg, state, x_ref, x_s, rho, m)
     new_state |= {"x_c": x_K if mask is None else T.tree_select(mask, x_K, x_c),

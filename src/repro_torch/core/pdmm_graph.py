@@ -55,7 +55,7 @@ from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import arena, faults, topology
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import FedOpt, affine_case, arena_grad, resolved_rho
-from repro_torch.core.gpdmm import participation_key, round_counter
+from repro_torch.core.gpdmm import bar_buffer, participation_key, round_counter
 from repro_torch.kernels import ops
 
 
@@ -197,18 +197,22 @@ def tables(cfg: FederatedConfig, topo: topology.Topology, device) -> Tables:
 # the K-step gradient inner loop for one firing set of data nodes
 # ---------------------------------------------------------------------------
 
-def inner_steps_graph(spec, grad_fn, x0, s, batch, *, K, nc: NodeConsts, per_step):
+def inner_steps_graph(spec, grad_fn, x0, s, batch, *, K, nc: NodeConsts, per_step,
+                      with_bar=True):
     """K inexact-PDMM steps at stepsize 1/(1/eta + c d_i) for the stacked
     firing data nodes: x <- x - step_i (grad f_i(x) + c d_i x + s_i), the
-    steps and c d_i from ``nc``.  Returns (x_K, x_bar).
+    steps and c d_i from ``nc``.  Returns (x_K, x_bar), x_bar None unless
+    ``with_bar`` (the affine kernel returns it anyway).
 
       1. affine oracle within the kernel's width rule: the whole loop is one
          ``inner_loop_affine`` kernel, the per-node step and the c d_i I
          shift folded into (H, c) and the dual sum into the dual operand,
          run at unit step and zero rho;
       2. constant degree and step (star, ring, torus, complete): K
-         ``fused_update_arena`` kernels with rho = c d and a zero server row;
-      3. otherwise (er, per-node eta): plain per-node step/degree columns."""
+         ``fused_update_arena`` kernels with rho = c d and a zero server row,
+         x_bar's running sum in the same pass;
+      3. otherwise (er, per-node eta): plain per-node step/degree columns
+         and a plain running sum."""
     f32, dev = torch.float32, x0.device
 
     affine = affine_case(grad_fn, spec, per_step=per_step)
@@ -226,30 +230,29 @@ def inner_steps_graph(spec, grad_fn, x0, s, batch, *, K, nc: NodeConsts, per_ste
         return ops.inner_loop_affine(x0, Hs, cs, zero_row, lam, 1.0, 0.0, int(K))
 
     grad_a, _native = arena_grad(grad_fn, spec)
+    steps = T.leaves(batch)[0].shape[0] if per_step else K
     const = bool((nc.cd == nc.cd[0]).all() and (nc.step == nc.step[0]).all())
     if const:
         rho_eff, stp = float(nc.cd[0]), float(nc.step[0])
         zero_row = torch.zeros((spec.width,), dtype=x0.dtype, device=dev)
+        x, acc = x0, (bar_buffer(x0, steps) if with_bar else None)
+        for k in range(steps):
+            b = T.tmap(lambda a: a[k], batch) if per_step else batch
+            x = ops.fused_update_arena(x, grad_a(x, b), zero_row, s, stp, rho_eff, acc=acc,
+                                       acc_mode=ops.acc_mode_at(k, steps), acc_scale=1.0 / K)
+        return x, acc
 
-        def one_step(x, b):
-            return ops.fused_update_arena(x, grad_a(x, b), zero_row, s, stp, rho_eff)
-    else:
-        stp = nc.step_t[:, None]
-        cd = nc.cd_t[:, None]
-        sf = s.to(f32)
-
-        def one_step(x, b):
-            g = grad_a(x, b).to(f32)
-            xf = x.to(f32)
-            return (xf - stp * (g + cd * xf + sf)).to(x0.dtype)
-
-    steps = T.leaves(batch)[0].shape[0] if per_step else K
-    x, xsum = x0, torch.zeros_like(x0)
+    stp = nc.step_t[:, None]
+    cd = nc.cd_t[:, None]
+    sf = s.to(f32)
+    x, xsum = x0, torch.zeros_like(x0) if with_bar else None
     for k in range(steps):
         b = T.tmap(lambda a: a[k], batch) if per_step else batch
-        x = one_step(x, b)
-        xsum = xsum + x
-    return x, xsum * T.weak(1.0 / K, xsum)
+        xf = x.to(f32)
+        x = (xf - stp * (grad_a(x, b).to(f32) + cd * xf + sf)).to(x0.dtype)
+        if with_bar:
+            xsum = xsum + x
+    return x, (xsum * T.weak(1.0 / K, xsum) if with_bar else None)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +298,8 @@ def _phase(cfg, topo, tab, ph, spec, x, z, fn, batch, per_step, pmask, fplan, c,
             take = (lambda a: a[:, dm_t]) if per_step else (lambda a: a[dm_t])
             b_dm = None if batch is None else T.tmap(take, batch)
             x_K, x_bar = inner_steps_graph(
-                spec, fn, x0, s_dm, b_dm, K=cfg.inner_steps, nc=ph.data, per_step=per_step)
+                spec, fn, x0, s_dm, b_dm, K=cfg.inner_steps, nc=ph.data, per_step=per_step,
+                with_bar=cfg.use_avg)
             x_cand = x_K  # the primal carry
             x_ref = x_bar if cfg.use_avg else x_K  # what the dual flip sees
         # the wire corrupts the transmitted x_ref; the local carry stays

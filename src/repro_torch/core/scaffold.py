@@ -84,16 +84,18 @@ def inner_steps_plain_arena(spec, grad_fn, x0, x_s_row, batch, *, K, eta, per_st
 
 def inner_steps_plain(grad_fn, x0, batch, *, K, eta, per_step, lam=None):
     """The per-leaf counterpart: K steps x <- x - eta (grad f_i(x) + lam),
-    lam = c - c_i (SCAFFOLD) or none (FedAvg), each one ``fused_update``
-    kernel per leaf with rho = 0 (xs unused).  x0 and lam are stacked
-    trees; ``eta`` a float or an (m,) tensor.  Returns x_K."""
+    lam = c - c_i (SCAFFOLD) or none (FedAvg), each one
+    ``fused_update_leaves`` launch per step with rho = 0 and x as its own
+    server leaf (read once).  x0 and lam are stacked trees; ``eta`` a float
+    or an (m,) tensor.  Returns x_K."""
     vgrad = torch.func.vmap(grad_fn)
-    lam = T.tmap(lambda _: None, x0) if lam is None else lam
+    xl = T.leaves(x0)
+    laml = [None] * len(xl) if lam is None else T.leaves(lam)
     x = x0
     for k in range(n_steps(batch, K, per_step)):
         g = T.tree_dense(vgrad(x, client_batches(batch, k, per_step)))
-        x = T.tmap(lambda xx, gg, ll: ops.fused_update(
-            xx, gg, xx, ll, step_for(eta, xx), 0.0), x, g, lam)
+        xl = ops.fused_update_leaves(xl, T.leaves(g), xl, laml, eta, 0.0)
+        x = T.unflatten(x0, xl)
     return x
 
 

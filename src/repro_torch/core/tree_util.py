@@ -22,6 +22,7 @@ import math
 import torch
 
 from repro_torch.core import prng
+from repro_torch.kernels.ref import scalar_as
 
 _NARROW = (torch.bfloat16, torch.float16)
 
@@ -32,7 +33,7 @@ def weak(s, like: torch.Tensor):
     f32, so that ``x * weak(s, x)`` rounds as ``x * s`` does in JAX.  Still
     a Python float (no device op); a tensor ``s`` passes through."""
     if isinstance(s, (int, float)) and not isinstance(s, bool) and like.dtype in _NARROW:
-        return torch.tensor(float(s), dtype=like.dtype).item()
+        return scalar_as(s, like.dtype)
     return s
 
 

@@ -6,8 +6,6 @@
 //                             u      = x_ref - lam_is / rho
 //                             (lam_is written only when asked)
 //   dual_from_uplink_pallas   lam'   = rho (u - x_s')
-//   fused_update_arena_pallas x'     = x - step_i (g + rho (x - x_s) + lam)
-//                             (lam optional, step per client or scalar)
 //   scaffold_cv_pallas        c_i'   = (c_i - c) + alpha_i (x_s - x_K)
 //                             (SCAFFOLD's eq. (30); c and x_s are (W,)
 //                             rows, alpha per client or scalar)
@@ -68,22 +66,6 @@ dual_from_uplink_kernel(const T* __restrict__ u, const T* __restrict__ xs, float
   for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
        t += (size_t)gridDim.x * blockDim.x) {
     store_f32(out, t, __fmul_rn(rho, __fsub_rn(load_f32(u, t), load_f32(xs, t % W))));
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_update_arena_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                          const T* __restrict__ xs, const T* __restrict__ lam,
-                          const float* __restrict__ step_arr, float step, float rho,
-                          size_t n, int W, T* __restrict__ out) {
-  const bool has_lam = lam != nullptr;
-  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
-       t += (size_t)gridDim.x * blockDim.x) {
-    const float st = step_arr != nullptr ? step_arr[t / W] : step;
-    const float l = has_lam ? load_f32(lam, t) : 0.0f;
-    store_f32(out, t, eq20(load_f32(x, t), load_f32(g, t), load_f32(xs, t % W), l,
-                           has_lam, st, rho));
   }
 }
 
@@ -198,30 +180,6 @@ extern "C" int launch_dual_from_uplink(const void* u, const void* xs, float rho,
   } else if (dtype == kBF16) {
     dual_from_uplink_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)u, (const __nv_bfloat16*)xs, rho, n, W, (__nv_bfloat16*)out);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int launch_fused_update_arena(const void* x, const void* g, const void* xs,
-                                         const void* lam, const void* step_arr, float step,
-                                         float rho, long long m, int W, int dtype, void* out,
-                                         int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)m * W;
-  if (n == 0) return (int)cudaGetLastError();
-  const unsigned blocks = elementwise_blocks(n, kThreads);
-  if (dtype == kF32) {
-    fused_update_arena_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)g, (const float*)xs, (const float*)lam,
-        (const float*)step_arr, step, rho, n, W, (float*)out);
-  } else if (dtype == kBF16) {
-    fused_update_arena_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, (const __nv_bfloat16*)xs,
-        (const __nv_bfloat16*)lam, (const float*)step_arr, step, rho, n, W,
-        (__nv_bfloat16*)out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -5,8 +5,10 @@ Dispatch goes by the device of the tensors: a CPU tensor runs the plain
 PyTorch version (``ref``), a CUDA tensor launches the hand-written kernel or
 raises.  There is no switch that routes a CUDA tensor to the plain version.
 ``ef21_update`` and ``row_scatter`` are plain tensor code around their
-kernels, as in the reference; ``attend_cache`` and ``wkv6_step`` (one
-decode token) are plain tensor code in the reference and here.
+kernels, as in the reference; ``fused_update_leaves`` (the step of a
+whole tree in one launch, with x_bar's running sum) is the port's own;
+``attend_cache`` and ``wkv6_step`` (one decode token) are plain tensor code
+in the reference and here.
 """
 from __future__ import annotations
 
@@ -25,13 +27,15 @@ from repro_torch.kernels import round_tail as _rt
 from repro_torch.kernels import screen as _sc
 from repro_torch.kernels import stale_mix as _sm
 from repro_torch.kernels import wkv6 as _wk
-from repro_torch.kernels.fused_update import fused_update
+from repro_torch.kernels.fused_update import (
+    acc_mode_at, fused_update, fused_update_arena, fused_update_leaves,
+)
 from repro_torch.kernels.gather import row_gather
 from repro_torch.kernels.inner_loop import inner_loop_affine
 from repro_torch.kernels.neighbor_reduce import edge_flip, neighbor_reduce
 from repro_torch.kernels.residual import residual_norm
 from repro_torch.kernels.round_tail import (
-    dual_from_uplink, ef21_apply, ef21_rowmax, fused_update_arena, round_tail, scaffold_cv,
+    dual_from_uplink, ef21_apply, ef21_rowmax, round_tail, scaffold_cv,
 )
 from repro_torch.kernels.screen import screen_uplink
 from repro_torch.kernels.stale_mix import stale_mix
@@ -39,7 +43,7 @@ from repro_torch.kernels.wkv6 import wkv6
 
 # every kernel of the port, for launch accounting (chip_smoke.py), in the
 # order of the kernel table (ROADMAP.md)
-KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _rt.FUSED_UPDATE_ARENA,
+KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _fu.ARENA_KERNEL,
            _rt.SCAFFOLD_CV, _fu.KERNEL, _rt.EF21_ROWMAX, _rt.EF21_APPLY, _ga.ROW_GATHER,
            _ga.ROW_SCATTER, _sc.SCREEN_UPLINK, _sm.STALE_MIX, _rs.RESIDUAL_NORM,
            _nr.NEIGHBOR_REDUCE, _nr.EDGE_FLIP, _fa.FLASH_ATTENTION, _wk.WKV6)
@@ -153,9 +157,10 @@ def launches() -> dict[str, int]:
 
 
 __all__ = [
-    "KERNELS", "affine_inner_fits", "attend_cache", "dual_from_uplink", "edge_flip",
-    "ef21_apply", "ef21_rowmax", "ef21_update", "flash_attention", "fused_update",
-    "fused_update_arena", "inner_loop_affine", "launches", "neighbor_reduce",
-    "reset_launches", "residual_norm", "round_tail", "row_gather", "row_scatter",
-    "scaffold_cv", "screen_uplink", "stale_mix", "wkv6", "wkv6_step",
+    "KERNELS", "acc_mode_at", "affine_inner_fits", "attend_cache", "dual_from_uplink",
+    "edge_flip", "ef21_apply", "ef21_rowmax", "ef21_update", "flash_attention",
+    "fused_update", "fused_update_arena", "fused_update_leaves", "inner_loop_affine",
+    "launches", "neighbor_reduce", "reset_launches", "residual_norm", "round_tail",
+    "row_gather", "row_scatter", "scaffold_cv", "screen_uplink", "stale_mix", "wkv6",
+    "wkv6_step",
 ]

@@ -17,6 +17,7 @@ shape it.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -61,12 +62,53 @@ def scaffold_cv_ref(c_i, x_K, c_s, x_s, alpha):
     return out.to(c_i.dtype)
 
 
-def fused_update_arena_ref(x, g, x_s, lam, step, rho):
-    """Eq. (20) step over the arena: x, g, lam (m, W); x_s (W,)."""
+def fused_update_arena_ref(x, g, x_s, lam, step, rho, *, acc=None, acc_mode="add",
+                           acc_scale=1.0):
+    """Eq. (20) step over the arena: x, g, lam (m, W); x_s (W,); the
+    running sum ``acc`` updated in place (``accumulate_ref``)."""
     f32 = torch.float32
     out = eq20(x.to(f32), g.to(f32), x_s.to(f32)[None],
-               None if lam is None else lam.to(f32), _per_client(step), rho)
-    return out.to(x.dtype)
+               None if lam is None else lam.to(f32), _per_client(step), rho).to(x.dtype)
+    if acc is not None:
+        accumulate_ref(acc, out, acc_mode, acc_scale)
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def scalar_as(s: float, dtype) -> float:
+    """A Python scalar as JAX's weak type meets a tensor of ``dtype``:
+    rounded to it where it is narrower than f32 (``core.tree_util.weak``
+    for the plain tensor code, the step kernel's 1/K on the host)."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return torch.tensor(float(s), dtype=dtype).item()
+    return float(s)
+
+
+def accumulate_ref(acc, x, mode: str, scale: float) -> None:
+    """The running sum x_bar's plain passes, in place: ``first`` acc = 0 +
+    x, ``add`` acc = acc + x, ``last`` acc = (acc + x) * s, ``only`` acc =
+    (0 + x) * s, with s = ``scale`` (1/K) as JAX's weak type meets acc's
+    dtype -- the bits of ``xsum = zeros_like(x)``, ``xsum = xsum + x`` per
+    step and ``xsum * (1/K)``."""
+    if mode not in ("first", "add", "last", "only"):
+        raise ValueError(f"acc_mode {mode!r}")
+    s = (torch.zeros_like(x) if mode in ("first", "only") else acc) + x
+    if mode in ("last", "only"):
+        s = s * scalar_as(scale, s.dtype)
+    acc.copy_(s)
+
+
+def fused_update_leaves_ref(xs, gs, x_ss, lams, step, rho, *, accs=None, acc_mode="add",
+                            acc_scale=1.0):
+    """``fused_update_ref`` over lists of leaves, then the running sums of
+    ``accs`` (if given) updated in place, leaf by leaf: the per-leaf step
+    and the ``tree_add``/``tree_scale`` passes it replaces."""
+    outs = [fused_update_ref(x, g, s, lam, step, rho)
+            for x, g, s, lam in zip(xs, gs, x_ss, lams, strict=True)]
+    if accs is not None:
+        for acc, out in zip(accs, outs, strict=True):
+            accumulate_ref(acc, out, acc_mode, acc_scale)
+    return outs
 
 
 def inner_loop_affine_ref(x0, H, c, x_s, lam, step, rho, K: int, *, off=None):

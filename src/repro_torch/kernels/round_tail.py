@@ -1,11 +1,12 @@
 """The round-tail kernels over the flat client arena, each one CUDA pass
-(``csrc/round_tail.cu``); the port of six kernels of
-``src/repro/kernels/round_tail.py``:
+(``csrc/round_tail.cu``); the port of five kernels of
+``src/repro/kernels/round_tail.py`` (its sixth, the eq. (20) step over the
+arena, is ``fused_update.fused_update_arena``, one kernel with the
+per-leaf step):
 
   * ``round_tail``         lam_is = rho (x_s - x_ref) - lam_s and the uplink
                            u = x_ref - lam_is / rho; lam_is only when asked
   * ``dual_from_uplink``   lam' = rho (u - x_s')
-  * ``fused_update_arena`` the eq. (20) step with a per-client or scalar step
   * ``scaffold_cv``        SCAFFOLD's c_i' = c_i - c + alpha (x_s - x_K)
   * ``ef21_rowmax``        max |u - u_hat| per (client, 128-lane row), f32
   * ``ef21_apply``         u_hat + clip(round((u - u_hat) / s), +-lo) s with
@@ -36,12 +37,6 @@ DUAL_FROM_UPLINK = Kernel(
     # u xs rho m W dtype out dev stream
     [P, P, F, LL, I, I, P, I, P],
     replaces="src/repro/kernels/round_tail.py:202",
-)
-FUSED_UPDATE_ARENA = Kernel(
-    "fused_update_arena", "round_tail.cu", "launch_fused_update_arena",
-    # x g xs lam step_arr step rho m W dtype out dev stream
-    [P, P, P, P, P, F, F, LL, I, I, P, I, P],
-    replaces="src/repro/kernels/round_tail.py:328",
 )
 SCAFFOLD_CV = Kernel(
     "scaffold_cv", "round_tail.cu", "launch_scaffold_cv",
@@ -111,22 +106,6 @@ def dual_from_uplink(uplink, x_s, rho):
     out = torch.empty_like(uplink)
     k.launch(_args.ptr(uplink), _args.ptr(x_s), float(rho), m, w, code,
              _args.ptr(out), *_args.stream_args(uplink.device))
-    return out
-
-
-def fused_update_arena(x, g, x_s, lam, step, rho):
-    """x - step (g + rho (x - x_s) + lam) over the arena; ``lam`` may be
-    None, ``step`` a Python float or an (m,) f32 tensor."""
-    k = FUSED_UPDATE_ARENA
-    if _args.on_cpu(k.name, x):
-        return ref.fused_update_arena_ref(x, g, x_s, lam, step, rho)
-    client = {"x": x, "g": g} if lam is None else {"x": x, "g": g, "lam": lam}
-    m, w, code = _client_and_server(k.name, client, x_s)
-    step_arr, step_f = _args.step_operand(k.name, step, m, x.device)
-    out = torch.empty_like(x)
-    k.launch(_args.ptr(x), _args.ptr(g), _args.ptr(x_s), _args.ptr(lam),
-             _args.ptr(step_arr), step_f, float(rho), m, w, code, _args.ptr(out),
-             *_args.stream_args(x.device))
     return out
 
 

@@ -121,6 +121,7 @@ def run_both(kw, ref_prob, prob, rounds, *, oracle=None):
 # sides compute it with the same f32 ops.  The trees:
 #   flat    {"a": (7,), "b": (3, 5)}
 #   nested  a dict inside a dict, a list of leaves and an empty dict
+#   lm_tree the reference benchmark's six leaves (1.77 M values a client)
 # In "f32" and "bf16" every leaf has that dtype; in "mixed" the first leaf of
 # each group is bf16 and the second f32 (mixed-dtype trees take the pytree
 # path on both sides).
@@ -151,6 +152,10 @@ TREES = {
     "nested": lambda d1, d2: {"enc": {"w": ((3, 5), d1), "b": ((4,), d2)},
                               "lst": [((6,), d1), ((2, 3), d2)], "empty": {},
                               "top": ((7,), d1)},
+    # the reference benchmark's lm_tree (benchmarks/round_bench.py:62-72)
+    "lm_tree": lambda d1, d2: {"embed": ((512, 384), d1), "blk0_w1": ((768, 512), d1),
+                               "blk0_w2": ((512, 768), d1), "blk1_w1": ((768, 512), d1),
+                               "blk1_w2": ((512, 768), d1), "bias": ((768,), d1)},
 }
 DTYPES = {"f32": ("f32", "f32"), "bf16": ("bf16", "bf16"), "mixed": ("bf16", "f32")}
 

@@ -6,7 +6,8 @@ them:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: bitwise where the kernel and the plain version run the same f32
-operations (``fused_update``, ``scaffold_cv``, ``dual_from_uplink``,
+operations (``fused_update``, ``fused_update_leaves`` and x_bar's running
+sum in every mode, ``scaffold_cv``, ``dual_from_uplink``,
 ``fused_update_arena``, ``lam_is``, the EF21 kernels, a NaN included) or
 copy (``row_gather``, ``row_scatter``) or select and mix (``stale_mix``);
 ``screen_uplink``'s finite flags exactly and its sums to rtol
@@ -80,6 +81,103 @@ def test_cuda_fused_update_matches_plain(cuda, dtype):
                         P.fused_update(x, gr, s_, lm, st, 1.7),
                         ref.fused_update_ref(x, gr, s_, lm, st, 1.7), rtol=0, atol=0)
     torch.cuda.synchronize()
+
+
+LM_TREE = [(512, 384), (768, 512), (512, 768), (768, 512), (512, 768), (768,)]
+
+
+def _bits(a, b) -> bool:
+    """Bit for bit (so -0.0 differs from 0.0)."""
+    ity = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(ity), b.view(ity))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_eq20_segments_match_plain(cuda, dtype):
+    """Kernels 4 and 6 as one kernel: a tree of leaves in one launch
+    (lm_tree's six at m = 8, ragged leaves, a 0-d leaf a client, a server
+    leaf broadcast or full, lam or none, x as its own server leaf), the
+    arena with its server row, every acc mode, scalar and per-client steps,
+    bitwise the plain versions; a list longer than the small table and one
+    of two dtypes."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rnd = lambda s, dt=dtype: torch.randn(s, generator=g, device=cuda).to(dt)  # noqa: E731
+    for m, shapes in ((8, LM_TREE), (5, [(), (7,), (13,), (3, 50), (130,)])):
+        xs = [rnd((m,) + s) for s in shapes]
+        srv = [rnd(s) if i % 2 == 0 else rnd((m,) + s) for i, s in enumerate(shapes)]
+        step_arr = torch.rand(m, generator=g, device=cuda)
+        for st in (0.13, step_arr):
+            for with_lam in (True, False):
+                lams = [rnd(x.shape) if with_lam else None for x in xs]
+                for mode in ("first", "add", "last", "only"):
+                    gs = [rnd(x.shape) for x in xs]
+                    acc0 = [rnd(x.shape) for x in xs]
+                    got_acc, want_acc = [a.clone() for a in acc0], [a.clone() for a in acc0]
+                    P.reset_launches()
+                    got = P.fused_update_leaves(xs, gs, srv, lams, st, 1.7, accs=got_acc,
+                                                acc_mode=mode, acc_scale=1.0 / 3)
+                    assert P.launches()["fused_update"] == 1
+                    want = ref.fused_update_leaves_ref(xs, gs, srv, lams, st, 1.7,
+                                                       accs=want_acc, acc_mode=mode,
+                                                       acc_scale=1.0 / 3)
+                    assert all(_bits(a, b) for a, b in zip(got, want)), (m, mode)
+                    assert all(_bits(a, b) for a, b in zip(got_acc, want_acc)), (m, mode)
+        # rho = 0 with x as its own server leaf (SCAFFOLD, FedAvg)
+        gs = [rnd(x.shape) for x in xs]
+        got = P.fused_update_leaves(xs, gs, xs, [None] * len(xs), step_arr, 0.0)
+        want = ref.fused_update_leaves_ref(xs, gs, xs, [None] * len(xs), step_arr, 0.0)
+        assert all(_bits(a, b) for a, b in zip(got, want))
+    # the arena, every mode
+    x, gr, lam, acc = (rnd((10, 7936)) for _ in range(4))
+    xs_row = rnd(7936)
+    for mode in ("first", "add", "last", "only"):
+        a, b = acc.clone(), acc.clone()
+        got = P.fused_update_arena(x, gr, xs_row, lam, 0.05, 4.0, acc=a, acc_mode=mode,
+                                   acc_scale=0.2)
+        want = ref.fused_update_arena_ref(x, gr, xs_row, lam, 0.05, 4.0, acc=b, acc_mode=mode,
+                                          acc_scale=0.2)
+        assert _bits(got, want) and _bits(a, b), mode
+    # 20 leaves: the large table; mixed dtypes: one launch each
+    leaves = [rnd((4, 3 + i)) for i in range(20)]
+    P.reset_launches()
+    got = P.fused_update_leaves(leaves, leaves, leaves, leaves, 0.1, 2.0)
+    assert P.launches()["fused_update"] == 1
+    want = ref.fused_update_leaves_ref(leaves, leaves, leaves, leaves, 0.1, 2.0)
+    assert all(_bits(a, b) for a, b in zip(got, want))
+    mixed = [rnd((4, 9), torch.bfloat16), rnd((4, 5), torch.float32), rnd((4, 2), torch.bfloat16)]
+    P.reset_launches()
+    got = P.fused_update_leaves(mixed, mixed, mixed, [None] * 3, 0.1, 2.0)
+    assert P.launches()["fused_update"] == 2
+    want = ref.fused_update_leaves_ref(mixed, mixed, mixed, [None] * 3, 0.1, 2.0)
+    assert all(_bits(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["gpdmm", "agpdmm", "scaffold", "fedavg", "fedsplit"])
+def test_cuda_lm_tree_pytree_rounds_match_cpu(cuda, algo):
+    """The reference benchmark's lm_tree (six f32 leaves, m = 8, K = 4,
+    the 0.3 x tree gradient) on the pytree path: two rounds on the card
+    equal the CPU's to rtol = atol = 1e-5 (the client mean sums in another
+    order), with one ``fused_update`` launch per step, not one per leaf."""
+    cfg = FederatedConfig(algorithm=algo, inner_steps=4, eta=0.1, use_arena=False)
+    gen = torch.Generator().manual_seed(5)
+    params = {f"p{i}": torch.randn(s, generator=gen) for i, s in enumerate(LM_TREE)}
+    grad = lambda p, b: {k: 0.3 * v for k, v in p.items()}  # noqa: E731
+    opt = make(cfg)
+    s_cpu = opt.init(params, 8)
+    s_gpu = opt.init({k: v.to(cuda) for k, v in params.items()}, 8)
+    b_cpu, b_gpu = {"d": torch.zeros(8, 1)}, {"d": torch.zeros(8, 1, device=cuda)}
+    P.reset_launches()
+    for _ in range(2):
+        s_cpu, _ = opt.round(s_cpu, grad, b_cpu)
+        s_gpu, _ = opt.round(s_gpu, grad, b_gpu)
+    assert P.launches() == {k.name: 0 for k in P.KERNELS} | {"fused_update": 2 * 4}
+    for k in STATE[algo]:
+        for name in params:
+            torch.testing.assert_close(s_gpu[k][name].cpu(), s_cpu[k][name], rtol=1e-5,
+                                       atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -224,6 +322,13 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                                                  device=cuda))
     with pytest.raises(TypeError, match="dtype"):
         P.row_gather(x, torch.zeros(1, device=cuda))
+    with pytest.raises(ValueError, match="acc_mode"):
+        P.fused_update_arena(x, x, xs, None, 0.1, 1.0, acc=x.clone(), acc_mode="sum")
+    with pytest.raises(TypeError, match="acc has dtype"):
+        P.fused_update_leaves([x], [x], [xs], [None], 0.1, 1.0, accs=[x.bfloat16()])
+    with pytest.raises(ValueError, match="client count"):
+        P.fused_update_leaves([x, torch.zeros(3, 8, device=cuda)], [x, x], [xs, xs],
+                              [None, None], 0.1, 1.0)
 
 
 @pytest.mark.cuda

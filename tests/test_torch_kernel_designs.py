@@ -25,10 +25,19 @@ wrong decomposition shows before any kernel runs on a card:
   16 x 17 blocks at the diagonal -- in f32 within 1e-5 of the largest
   value, y and the final state.
 
+* kernels 4 and 6, the eq. (20) step over a table of segments
+  (``csrc/fused_update.cu``): the host's constants against the kernel's,
+  the blocks of each segment, the chunks at the parameter limit and the
+  grouping by dtype, and the kernel's walk over the table (a block's
+  segment by binary search, its groups strided) stepping every 16-byte
+  group once; the one-segment host route's row; and the per-client step
+  index, which no lane of a ragged tail reads past the last client.
+
 Also: the route the flash wrapper picks, that every launcher's C signature
 (and the inner loop's occupancy query) has as many parameters as its
 ctypes binding declares, and that
-``chip_smoke.py`` reads the compiler's register report.
+``chip_smoke.py`` reads the compiler's register report and tells whether a
+plain op wrote x_bar.
 """
 import importlib.util
 import math
@@ -40,11 +49,13 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import fused_update as FU
 from repro_torch.kernels import inner_loop as IL
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels._build import CSRC
 
 LOG2E = 1.4426950408889634
+LM_TREE = [(512, 384), (768, 512), (512, 768), (768, 512), (512, 768), (768,)]
 NEG = -1e30
 F32 = torch.float32
 
@@ -378,6 +389,193 @@ def test_wkv6_scan_model_extreme_decay_is_finite_and_matches(S, K, V):
 
 
 # ---------------------------------------------------------------------------
+# kernels 4 and 6: the eq. (20) step over a table of segments
+# ---------------------------------------------------------------------------
+
+EQ20 = (CSRC / FU.SOURCE).read_text()
+
+
+def _const(name):
+    m = re.search(r"constexpr (?:int|size_t) " + name + r" = ([^;]+);", EQ20)
+    assert m, name
+    return m.group(1)
+
+
+def test_segment_table_constants_match_the_kernel():
+    """The host's threads a block, descriptor words a segment, small table
+    and acc flags are the kernel's; the largest table fits the parameter
+    limit of its toolkit (32,764 bytes from CUDA 12.1, else 4 KB): a
+    32-byte header and 80 bytes a segment."""
+    assert int(_const("kThreads")) == FU.THREADS == 256
+    assert int(_const("kDescWords")) == FU.DESC_WORDS == 10
+    assert int(_const("kSmallSegs")) == 8
+    assert "kAccFirst = 1, kAccLast = 2" in EQ20
+    assert FU.ACC_MODES == {"add": 0, "first": 1, "last": 2, "only": 1 | 2}
+    assert _const("kMaxSegs") == "(int)((kParamLimit - 32) / 80)"
+    assert "constexpr size_t kParamLimit = 32764;" in EQ20
+    assert "constexpr size_t kParamLimit = 4096;" in EQ20
+    assert [(lim - 32) // 80 for lim in (32764, 4096)] == [409, 50]
+
+
+def test_segment_blocks_cover_each_segment_up_to_the_cap():
+    """One thread a 16-byte group: ceil(groups / 256) blocks a segment up to
+    the grid's cap (132 SMs x 64 blocks), then each share scaled down, at
+    least one block each."""
+    cap = 132 * FU.BLOCKS_PER_SM
+    small = [5 * 7, 5 * 150, 5 * 130, 5]
+    assert FU.segment_blocks(small, 4) == [1, 1, 1, 1]
+    assert FU.segment_blocks([4 * 256 * 3, 4 * 256 * 3 + 1], 4) == [3, 4]
+    assert FU.segment_blocks([8 * 256 * 3], 8) == [3]
+    assert FU.segment_blocks([8 << 20], 4) == [8192]  # lm_flat's arena, under the cap
+    lm_tree = [8 * math.prod(s) for s in LM_TREE]
+    want = [-(-n // (4 * 256)) for n in lm_tree]
+    got = FU.segment_blocks(lm_tree, 4)
+    assert sum(want) > cap >= sum(got)
+    assert all(g >= 1 for g in got) and got[-1] == want[-1] * cap // sum(want)  # the bias
+    assert got[0] / got[1] == pytest.approx(want[0] / want[1], rel=0.01)
+    assert FU.segment_blocks([32 << 20], 4) == [cap]
+
+
+def test_plan_chunks_at_the_parameter_limit():
+    """As few launches as the table allows, segments in order."""
+    sizes = list(range(1, 121))
+    for cap, lens in ((409, [120]), (50, [50, 50, 20]), (8, [8] * 15)):
+        chunks = FU.plan(sizes, 4, cap)
+        assert [len(c) for c in chunks] == lens
+        assert [i for c in chunks for i, _ in c] == list(range(120))
+    assert FU.plan([10, 20], 8, 409) == [[(0, 1), (1, 1)]]
+
+
+def test_leaves_table_rows_group_by_dtype(monkeypatch):
+    """The card path's table: one launch list per dtype in order of first
+    appearance, each leaf's row its addresses (0 for no lam or acc), its
+    element count, the server period (the leaf without its client dim, or
+    all of it) and its elements per client; an empty leaf gets an output
+    and no row.  Run on CPU tensors with the launch recorded."""
+    calls = []
+    monkeypatch.setattr(FU, "_launch", lambda k, rows, dt, *a: calls.append((k.name, dt, rows)))
+    monkeypatch.setattr(FU._args, "stream_args", lambda dev: (None, None))
+    f32, bf16 = torch.float32, torch.bfloat16
+    xs = [torch.zeros(4, 3, dtype=bf16), torch.zeros(4, 5), torch.zeros(4, 0),
+          torch.zeros(4, 2, 2, dtype=bf16), torch.zeros(4)]
+    srv = [x[0].clone() for x in xs[:4]] + [xs[4].clone()]
+    lams = [None, xs[1].clone(), None, xs[3].clone(), None]
+    accs = [torch.zeros_like(x) for x in xs]
+    outs = FU._leaves(xs, xs, srv, lams, 0.1, 2.0, accs, "last", 0.25)
+    assert [tuple(o.shape) for o in outs] == [tuple(x.shape) for x in xs]
+    assert [(name, dt, len(rows)) for name, dt, rows in calls] == [
+        ("fused_update", bf16, 2), ("fused_update", f32, 2)]
+    p = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    want = {bf16: (0, 3), f32: (1, 4)}
+    for _, dt, rows in calls:
+        for row, i in zip(rows, want[dt]):
+            x, n = xs[i], xs[i].numel()
+            assert row == (p(x), p(x), p(srv[i]), p(lams[i]), p(outs[i]), p(accs[i]), n,
+                           srv[i].numel(), n // 4)
+
+
+
+@pytest.mark.parametrize("arena", [False, True])
+def test_one_segment_route_launches_the_tables_row(monkeypatch, arena):
+    """The one-leaf and arena wrappers' lean host route enqueues the same
+    one-row table as ``_leaves`` would build for that leaf: the addresses,
+    n, the server period, the elements per client and ``segment_blocks``'s
+    blocks; step, rho, the acc flags and the scale as the launcher takes
+    them.  Run on CPU tensors with the launch recorded."""
+    import ctypes
+
+    class Rec:
+        name = "rec"
+
+        def __init__(self):
+            self.calls = []
+
+        def launch(self, desc, nseg, step_arr, step, rho, scale, flags, code, dev, stream):
+            words = (ctypes.c_longlong * (FU.DESC_WORDS * nseg)).from_address(desc.value)
+            self.calls.append((list(words), nseg, step, rho, scale, flags, code))
+
+    monkeypatch.setattr(FU._args, "stream_args", lambda dev: (ctypes.c_int(0), None))
+    monkeypatch.setattr(FU, "_sms", lambda index: 132)
+    x, g, lam, acc = (torch.randn(6, 1000) for _ in range(4))
+    srv = torch.randn(1000)
+    k = Rec()
+    out = FU._segment(k, x, g, srv, None if arena else lam, 0.25, 3.0, acc, "last", 0.5)
+    p = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    (words, nseg, step, rho, scale, flags, code), = k.calls
+    assert nseg == 1 and (step, rho, scale, flags) == (0.25, 3.0, 0.5, FU.ACC_MODES["last"])
+    assert code == FU._DTYPES[torch.float32][0]
+    assert words == [p(x), p(g), p(srv), 0 if arena else p(lam), p(out), p(acc), 6000, 1000,
+                     1000, FU.segment_blocks([6000], 4)[0]]
+
+
+def walk(numels, vec, blocks):
+    """Which block and thread each (segment, group) falls to, as the kernel
+    walks the table: a block's segment by binary search over the segments'
+    first blocks, then the segment's groups strided by its blocks."""
+    first = np.cumsum([0] + blocks[:-1])
+    hits = [np.zeros(-(-n // vec), dtype=np.int64) for n in numels]
+    for b in range(sum(blocks)):
+        lo, hi = 0, len(blocks) - 1
+        while lo < hi:
+            mid = (lo + hi + 1) >> 1
+            lo, hi = (mid, hi) if first[mid] <= b else (lo, mid - 1)
+        q0 = (b - first[lo]) * FU.THREADS + np.arange(FU.THREADS)
+        for q in range(0, len(hits[lo]), blocks[lo] * FU.THREADS):
+            idx = q0 + q
+            np.add.at(hits[lo], idx[idx < len(hits[lo])], 1)
+    return hits
+
+
+@pytest.mark.parametrize("numels,vec,sms", [
+    ([5 * 7, 5 * 150, 5 * 130, 5], 4, 132),  # a ragged tree: one block each
+    ([8 * 13, 8 * 130, 8 * 7], 8, 132),  # bf16, tails of 0-7 values
+    ([2 * math.prod(s) for s in LM_TREE], 4, 1),  # lm_tree at m = 2, capped on 1 SM
+    ([40_000, 3, 123_457], 4, 3),
+])
+def test_table_walk_steps_every_group_once(numels, vec, sms):
+    """The kernel's walk over ``plan``'s blocks touches every 16-byte group
+    of every segment exactly once, the scaled-down shares striding."""
+    (chunk,) = FU.plan(numels, vec, 409, sms)
+    hits = walk(numels, vec, [b for _, b in chunk])
+    assert all(bool((h == 1).all()) for h in hits)
+
+
+def group_steps(n, per_client, vec):
+    """The per-client step index of each lane, as the kernel steps it
+    within a 16-byte group: the group's client and remainder once, then
+    one lane at a time, lanes past the segment's end reading nothing.
+    Returns (the client each element reads, every client index read)."""
+    got, read = np.full(n, -1), []
+    for t0 in range(0, n, vec):
+        c, r = divmod(t0, per_client)
+        for j in range(vec):
+            if t0 + j < n:
+                read.append(c)
+                got[t0 + j] = c
+                r += 1
+                if r == per_client:
+                    r, c = 0, c + 1
+    return got, read
+
+
+@pytest.mark.parametrize("m,per_client,vec", [
+    (5, 7, 4),  # a (5, 7) f32 leaf: the last group has one live lane
+    (5, 1, 8),  # an (m,) bf16 leaf: one value a client, tails of 5
+    (8, 3 * 50, 4), (3, 130, 8), (2, 768, 4),
+])
+def test_step_index_reads_only_the_segments_clients(m, per_client, vec):
+    """Each element takes its own client's step, and no lane of a ragged
+    tail reads a step past client m - 1 (the kernel guards the read with
+    ``t0 + j < n``)."""
+    n = m * per_client
+    got, read = group_steps(n, per_client, vec)
+    assert (got == np.arange(n) // per_client).all()
+    assert max(read) == m - 1
+    assert re.search(r"if \(step_arr != nullptr && t0 \+ j < n\) \{\s*st\[j\] = step_arr\[c\];",
+                     EQ20)
+
+
+# ---------------------------------------------------------------------------
 # the launchers' C signatures against their ctypes bindings
 # ---------------------------------------------------------------------------
 
@@ -430,11 +628,37 @@ ptxas info    : Used 12 registers
 """
 
 
-def test_chip_smoke_reads_the_register_report():
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("use_avg", [True, False])
+def test_chip_smoke_finds_who_wrote_x_bar(use_avg):
+    """``chip_smoke.x_bar_plain`` on a GPDMM pytree round of three leaves
+    on the CPU: the plain versions write x_bar with tensor ops, so every
+    leaf counts as plain (on the card the kernel writes it and none does);
+    with ``use_avg=False`` the inner loop keeps no x_bar at all."""
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import gpdmm, make
+
+    smoke = _chip_smoke()
+    opt = make(FederatedConfig(algorithm="gpdmm", inner_steps=3, eta=0.1, use_arena=False,
+                               use_avg=use_avg))
+    params = {k: torch.linspace(-1, 1, n) for k, n in (("a", 5), ("b", 7), ("c", 3))}
+    state = opt.init(params, 4)
+    grad = lambda p, b: {k: 0.3 * v for k, v in p.items()}  # noqa: E731
+    found = smoke.x_bar_plain(torch, gpdmm, "inner_steps",
+                              lambda: opt.round(state, grad, {"d": torch.zeros(4, 1)}))
+    assert found == ([(3, 3)] if use_avg else [(0, 0)])
+    assert gpdmm.inner_steps.__name__ == "inner_steps"  # unwrapped again
+
+
+def test_chip_smoke_reads_the_register_report():
+    smoke = _chip_smoke()
     assert smoke.ptxas_report(PTXAS_LOG) == [
         {"fn": "flash_tc_kernel<2>", "spill": 0, "regs": 138, "smem": 0},
         {"fn": "wkv6_kernel<__nv_bfloat16>", "spill": 4, "regs": 128, "smem": 1024},

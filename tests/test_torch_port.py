@@ -59,7 +59,7 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
-                         + ["chip_smoke.py"])
+                         + ["chip_smoke.py", "chip_ab.py"])
 def test_no_jax_or_reference_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
