@@ -22,14 +22,23 @@ times; every number is a median over the pairs.  Measured, for each tree:
   * ms per round, launches per round, the tensor ops the host dispatches a
     round (allocations aside) and the device-busy ms a round
     (``torch.profiler``) for the softmax arena (Table I), Fig. 2's pytree
-    round (m = 500, K = 5), lm_tree's four algorithms and the ring(8)
-    graph at lm_flat; for GPDMM, whether a plain op wrote x_bar.
+    round (m = 500, K = 5), Fig. 2's GPDMM cohort round at participation
+    0.1 (the arena, 50 of 500 clients), lm_tree's four algorithms and the
+    ring(8) graph at lm_flat; for GPDMM, whether a plain op wrote x_bar.
 
 And for this tree alone, the step kernel's two parameter tables (8
 segments, and the most the parameter limit holds): the launch with the
 large table is built from a copy of ``csrc/fused_update.cu`` that always
 takes it, and both are timed on the device and as the host enqueues them
 at Fig. 2's leaf, the softmax arena and lm_tree.
+
+Then a GPDMM cohort round's row movement at Fig. 2's p = 0.1 as the host
+enqueues it (``cohort_rows``); last, the GPDMM cohort round at the
+reference's population sweep (m = 10^5 and 10^6 clients, W = 1,024, a
+cohort of 64; ``population``): functional in both trees and donated in
+this one (``fed.round_``), each alone on the card (round ms, host ops,
+launches, device-busy ms and the peak allocation), then the three
+alternated.  ``--only`` picks sections.
 
 Imports no JAX and nothing of the JAX package; exits non-zero without CUDA.
 """
@@ -80,23 +89,6 @@ def use(tree: dict) -> SimpleNamespace:
         SoftmaxRegression=tree["repro_torch.core.softmax"].SoftmaxRegression,
         gpdmm=tree["repro_torch.core.gpdmm"], pdmm_graph=tree["repro_torch.core.pdmm_graph"],
         build=tree["repro_torch.kernels._build"], fu=tree["repro_torch.kernels.fused_update"])
-
-
-def round_ops(torch, run) -> int:
-    """The tensor ops ``run`` (one round) dispatches from the host,
-    allocations (``empty*``) aside."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += not func.__name__.startswith("empty")
-            return func(*args, **(kwargs or {}))
-
-    with Count() as c:
-        run()
-    return c.n
 
 
 def alternate(trees, pairs: int, measure) -> dict:
@@ -216,10 +208,11 @@ def rounds(torch, trees, pairs, out):
                     "y": torch.stack([ys[:, s:s + B] for s in starts])}
         return sm.init_params("cuda"), sm_cfg["m"], sm.oracle(), batch, {}
 
-    def fig2(t):
+    def fig2(t, arena=False):
         prob = t.quadratic.generate(S.seeded(torch, 0), m=lsq["m"], n=lsq["n"], d=lsq["d"],
                                     device="cuda")
-        return (torch.zeros(prob.d, device="cuda"), lsq["m"], prob.grad, lambda r: prob.batch(),
+        return (torch.zeros(prob.d, device="cuda"), lsq["m"],
+                prob.oracle() if arena else prob.grad, lambda r: prob.batch(),
                 {"eta": 0.5 / prob.L})
 
     def lm_tree(t):
@@ -244,6 +237,9 @@ def rounds(torch, trees, pairs, out):
     for algo in ("gpdmm", "agpdmm"):
         cells.append((f"fig2_m500_K5_{algo}", dict(algorithm=algo, inner_steps=lsq["K"]),
                       fig2, 20, False, "tree"))
+    cells.append(("fig2_p10_cohort_gpdmm", dict(algorithm="gpdmm", inner_steps=lsq["K"],
+                                                use_arena=True, participation=0.1),
+                  lambda t: fig2(t, arena=True), 20, False, "arena"))
     for algo in ("gpdmm", "agpdmm", "scaffold", "fedavg"):
         cells.append((f"lm_tree_{algo}", dict(algorithm=algo, inner_steps=lt["K"], eta=lt["eta"],
                                               use_arena=False), lm_tree, lt["rounds"], False,
@@ -280,7 +276,7 @@ def rounds(torch, trees, pairs, out):
                                             per_step), 3)
             row = res[tl]
             row.update(launches_per_round=runs[tl]["launches"],
-                       host_ops_per_round=round_ops(torch, one),
+                       host_ops_per_round=S.round_ops(torch, one),
                        device_busy_ms_per_round=busy, device_activities_per_round=activities)
             if kw["algorithm"] in ("gpdmm", "gpdmm_graph"):
                 module, name = ((t.pdmm_graph, "inner_steps_graph") if inner == "graph" else
@@ -294,11 +290,104 @@ def rounds(torch, trees, pairs, out):
             for tl, r in res.items()))
 
 
+def cohort_rows(torch, trees, pairs, out):
+    """A GPDMM cohort round's row movement at Fig. 2's p = 0.1 (50 of 500
+    rows of W = 512, f32, int64 ids) as the host enqueues it, ms a round
+    over 200: lam and x_c gathered, u_hat and x_c scattered back -- two
+    gathers and two scatters (a new buffer each) where the tree has only
+    the one-buffer calls, else one gather and one scatter, functional
+    (copies) and in place."""
+    gen = S.seeded(torch, 57)
+    m, w, mc = 500, 512, 50
+    lam, x_c, u_hat = (torch.randn(m, w, generator=gen, device="cuda") for _ in range(3))
+    up, xk = (torch.randn(mc, w, generator=gen, device="cuda") for _ in range(2))
+    idx = torch.sort(torch.randperm(m, generator=gen, device="cuda")[:mc]).values
+
+    def calls(t):
+        o = t.ops
+        if not hasattr(o, "row_gather_buffers"):
+            return {"functional": lambda: (o.row_gather(lam, idx), o.row_gather(x_c, idx),
+                                           o.row_scatter(u_hat, idx, up),
+                                           o.row_scatter(x_c, idx, xk))}
+        return {"functional": lambda: (o.row_gather_buffers((lam, x_c), idx),
+                                       o.row_scatter_buffers((u_hat, x_c), idx, (up, xk))),
+                "donated": lambda: (o.row_gather_buffers((lam, x_c), idx),
+                                    o.row_scatter_buffers_((u_hat, x_c), idx, (up, xk)))}
+
+    for mode in ("functional", "donated"):
+        have = {k: v for k, v in trees.items() if mode in calls(use(v))}
+        res = alternate(have, pairs, lambda label, t: S.cuda_time_ms(calls(t)[mode], 200,
+                                                                     prefill=False))
+        out[f"cohort_rows_{mode}_host_paced_ms"] = res
+        S.log(f"cohort rows {mode}, host-paced: " + ", ".join(
+            f"{k} {v['median']:.5f} ms" for k, v in res.items()))
+
+
+def population(torch, trees, pairs, out):
+    """The GPDMM cohort round at the reference's population sweep
+    (``chip_smoke.POPULATION``: m = 10^5 and 10^6, W = 1,024, cohort 64),
+    functional in each tree and donated in this one (``fed.round_``).
+    First each cell alone on the card (``chip_smoke.population_run``: round
+    ms, host ops, launches, device busy, peak allocation); then the round
+    times of the three cells alternated, ``pairs`` times, every state held
+    at once (a chunk of ``POPULATION["rounds"]`` rounds each turn)."""
+    R = S.POPULATION["rounds"]
+    for m in S.POPULATION["ms"]:
+        cells = [("other", "functional"), ("this", "functional"), ("this", "donated")]
+        alone = {}
+        for tl, mode in cells:
+            t = use(trees[tl])
+            opt, params, grad, batch = S.population_setup(torch, t.make, t.make_oracle,
+                                                          t.FederatedConfig, m, "cuda")
+            alone[f"{tl}_{mode}"], _ = S.population_run(torch, t.ops, opt, params, grad, batch,
+                                                        m, mode == "donated", R)
+            S.log(f"population m={m} {tl} {mode} alone: "
+                  f"{ {k: v for k, v in alone[f'{tl}_{mode}'].items() if k != 'profile'} }")
+            S.log(alone[f"{tl}_{mode}"]["profile"])
+        runs = {}
+        for tl, mode in cells:
+            t = use(trees[tl])
+            opt, params, grad, batch = S.population_setup(torch, t.make, t.make_oracle,
+                                                          t.FederatedConfig, m, "cuda")
+            step = opt.round_ if mode == "donated" else opt.round
+            runs[(tl, mode)] = dict(step=step, state=step(opt.init(params, m), grad, batch)[0],
+                                    grad=grad, batch=batch, ms=[])
+        for p in range(pairs):
+            for key in (cells if p % 2 == 0 else cells[::-1]):
+                use(trees[key[0]])
+                r = runs[key]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(R):
+                    r["state"], _ = r["step"](r["state"], r["grad"], r["batch"])
+                torch.cuda.synchronize()
+                r["ms"].append(1e3 * (time.perf_counter() - t0) / R)
+        res = {}
+        for (tl, mode), r in runs.items():
+            res[f"{tl}_{mode}"] = alone[f"{tl}_{mode}"] | {
+                "alternated_round_ms": {"median": statistics.median(r["ms"]), "all": r["ms"]}}
+        del runs
+        torch.cuda.empty_cache()
+        out[f"population_m{m}"] = res
+        S.log(f"population m={m}: " + "; ".join(
+            f"{k} {v['alternated_round_ms']['median']:.4f} ms/round (alone {v['round_ms']:.4f}), "
+            f"busy {v['device_busy_ms']:.4f} ms, host ops {v['host_ops']}, peak "
+            f"{v['peak_gb']:.3f} GB ({v['round_peak_gb']:.3f} the round's)"
+            for k, v in res.items()))
+
+
+SECTIONS = {"host_step": host_step, "device_step": device_step, "tables": tables,
+            "rounds": rounds, "cohort_rows": cohort_rows, "population": population}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="the root of another checkout of the repo (its src/ is used)")
     ap.add_argument("--pairs", type=int, default=10, help="alternations of the two trees")
     ap.add_argument("--out", help="also write the results as JSON to this file")
+    ap.add_argument("--only", nargs="+", choices=sorted(SECTIONS),
+                    help="run these measurements only (default: all, in the order listed "
+                         "in the module docstring)")
     args = ap.parse_args()
 
     import torch
@@ -318,10 +407,9 @@ def main() -> int:
         S.log(f"{label}: {tree['repro_torch'].__file__}, built in "
               f"{time.perf_counter() - t0:.1f} s")
     out = {"card": card, "pairs": args.pairs}
-    host_step(torch, trees, args.pairs, out)
-    device_step(torch, trees, args.pairs, out)
-    tables(torch, trees, args.pairs, out)
-    rounds(torch, trees, args.pairs, out)
+    for name, section in SECTIONS.items():
+        if args.only is None or name in args.only:
+            section(torch, trees, args.pairs, out)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))

@@ -69,9 +69,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      run's at each round (rtol 1e-5); GPDMM at participation 0.1, plain
      and with 8-bit EF21, on the default config (the per-leaf pytree path,
      the plain grad); ||x - x*|| falls, the invariants hold, the launches
-     per round are as derived from the code; then softmax at the Table I
-     size with participation 0.5 and 8-bit EF21 (GPDMM, FedAvg), whose loss
-     must fall;
+     per round are as derived from the code (a cohort round launches one
+     gather and one scatter); then softmax at the Table I size with
+     participation 0.5 and 8-bit EF21 (GPDMM, FedAvg), whose loss must
+     fall; then the GPDMM cohort round at the reference's population sweep
+     (``POPULATION``: m = 10^5 and 10^6 clients, W = 1,024, a cohort of
+     64, K = 4, the 0.3 x arena gradient), functional (``fed.round``) and
+     donated (``fed.round_``), each alone on the card: ms a round, host
+     ops, launches, device-busy ms and the peak allocation; three donated
+     rounds bitwise three functional ones, whose input stays as it was;
   9. faults, uplink screening and async rounds, with the reference
      benchmark's configs (``benchmarks/round_bench.py:647-652, 733-737``):
      (a) phase 4's problem, 30 rounds of GPDMM, AGPDMM, SCAFFOLD and FedAvg
@@ -134,14 +140,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      function when the run built it), then the result line
      ``{"ok": true, "device": {...}}`` last.
 
-Phase 3 also holds the cohort kernels (``row_gather``, ``row_scatter``)
-and the EF21 kernels (``ef21_rowmax``, ``ef21_apply``) bitwise against
+Phase 3 also holds the cohort kernels (``row_gather``, ``row_scatter``,
+over a table of buffers) bitwise against their plain versions at
+``ROW_CHECKS`` (f32, bf16 and mixed tables, int32 and int64 ids; the
+in-place scatter leaves every row outside the cohort as it was, the
+functional one its input) and times them at ``ROW_SHAPES`` beside
+``index_select`` and the in-place ``index_copy_``, and holds
+the EF21 kernels (``ef21_rowmax``, ``ef21_apply``) bitwise against
 their plain versions (f32 and bf16, a NaN included), ``stale_mix``
 bitwise and ``screen_uplink`` (finite flags exactly, sums to rtol
 1e-6 * sqrt(W / 128)) at (500, 512), (50, 512), (8, 2^20) and (5, 130),
 f32 and bf16, broadcast and per-row, with NaN and Inf rows, and times the
-one PyTorch call that computes the same function where there is one
-(``index_select``, ``index_copy``).
+one PyTorch call that computes the same function where there is one.
 
 Launch counts are set to 0 just before each run of the main path (phases
 3-11) and read just after it; the launches of the kernel comparisons (phases
@@ -701,32 +711,140 @@ def same_bits(torch, got, want) -> bool:
     return torch.equal(got[~nan].view(ity), want[~nan].view(ity))
 
 
-def check_cohort_kernels(rec, torch, ops, ref, gen):
+# kernels 9-10 timed at three shapes: (m, W, mc, buffers), f32
+#   the Fig. 2 cohort round at p = 0.1 (50 of 500, lam and x_c, or u_hat
+#   and x_c), the reference's bench_cohort at lm_flat p = 0.5
+#   (round_bench.py:312-331: 4 of 8 rows of 2^20), and its population sweep's
+#   largest point (round_bench.py:361-374: m = 10^6, W = 1,024, cohort 64;
+#   lam, x_c and u_hat, GPDMM's gather with EF21 or faults)
+ROW_SHAPES = {"fig2_p10": (500, 512, 50, 2), "lm_flat_p50": (8, 1 << 20, 4, 2),
+              "pop_1e6": (10 ** 6, 1024, 64, 3)}
+# bitwise at these (m, W, mc): the arenas of phases 4-9 and a population
+# whose offsets pass 2^31 bytes
+ROW_CHECKS = ((500, 512, 50), (500, 512, 250), (10, 7936, 5), (65536, 512, 656))
+
+
+def row_tables(torch, gen, m, w, mc, dev):
+    """A (population buffers, cohort rows) pair of f32 tables, a bf16 one
+    and a mixed one (f32 of width w, bf16 of w / 2 rounded to 8, f32 of 8), with
+    distinct ascending ids."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    specs = {"f32": [(f32, w), (f32, w)], "bf16": [(bf16, w), (bf16, w)],
+             "mixed": [(f32, w), (bf16, max(8, w // 16 * 8)), (f32, 8)]}
+    idx = torch.sort(torch.randperm(m, generator=gen, device=dev)[:mc]).values
+    out = {}
+    for name, spec in specs.items():
+        pops = tuple(torch.randn(m, wd, generator=gen, device=dev).to(dt) for dt, wd in spec)
+        rows = tuple(torch.randn(mc, wd, generator=gen, device=dev).to(dt) for dt, wd in spec)
+        out[name] = (pops, rows)
+    return idx, out
+
+
+def check_row_kernels(torch, ops, ref, gen):
+    """Kernels 9-10 bitwise against their plain versions (index_select,
+    index_copy_) at ``ROW_CHECKS``: f32, bf16 and mixed tables, int64 and
+    int32 ids, one buffer and a table; the in-place scatter writes the
+    cohort's rows and leaves every other row's bits as they were; the
+    functional scatter leaves its input as it was."""
+    dev = gen.device
+    for m, w, mc in ROW_CHECKS:
+        idx, tables = row_tables(torch, gen, m, w, mc, dev)
+        silent = torch.ones(m, dtype=torch.bool, device=dev)
+        silent[idx] = False
+        for name, (pops, rows) in tables.items():
+            for ids in (idx, idx.to(torch.int32)):
+                what = f"({m}, {w}) mc={mc} {name} {ids.dtype}"
+                check(same_bits(torch, ops.row_gather(pops[0], ids),
+                                ref.row_gather_ref(pops[0], ids)), f"row_gather {what}")
+                for got, a in zip(ops.row_gather_buffers(pops, ids), pops, strict=True):
+                    check(same_bits(torch, got, ref.row_gather_ref(a, ids)),
+                          f"row_gather table {what}")
+                before = tuple(a.clone() for a in pops)
+                got = ops.row_scatter(pops[0], ids, rows[0])
+                check(torch.equal(pops[0], before[0]), "row_scatter wrote its input")
+                check(same_bits(torch, got, before[0].index_copy(0, idx, rows[0])),
+                      f"row_scatter {what}: differs from the plain version")
+                done = ops.row_scatter_buffers_(pops, ids, rows)
+                for d, a, b, r in zip(done, pops, before, rows, strict=True):
+                    check(d is a, "row_scatter_buffers_ returned another tensor")
+                    check(same_bits(torch, a[silent], b[silent]),
+                          f"row_scatter_ {what}: a row outside the cohort changed")
+                    check(same_bits(torch, a, b.index_copy(0, idx, r)),
+                          f"row_scatter_ {what}: differs from the plain version")
+        del tables
+    log("row_gather / row_scatter: bitwise at (500, 512) mc 50 and 250, (10, 7936) mc 5, "
+        "(65536, 512) mc 656; f32, bf16 and mixed tables; int64 and int32 ids; the in-place "
+        "scatter left every other row as it was, the functional one its input")
+
+
+def time_row_kernels(rec, torch, ops, ref, gen, out):
+    """Kernels 9-10 timed at ``ROW_SHAPES`` (f32 tables, int64 ids as
+    ``cohort_indices`` gives them) beside their plain versions and the
+    library calls (``index_select``, in-place ``index_copy_``, one per
+    buffer), and the functional scatter (a copy of each buffer, then the
+    kernel) beside its bound.  The first shape is the kernels' row in the
+    JSON line; every shape goes under ``row_shapes``."""
+    dev = gen.device
+    res = out["row_shapes"] = {}
+    for label, (m, w, mc, nb) in ROW_SHAPES.items():
+        pops = tuple(torch.randn(m, w, generator=gen, device=dev) for _ in range(nb))
+        rows = tuple(torch.randn(mc, w, generator=gen, device=dev) for _ in range(nb))
+        idx = torch.sort(torch.randperm(m, generator=gen, device=dev)[:mc]).values
+        for got, a in zip(ops.row_gather_buffers(pops, idx), pops, strict=True):
+            check(same_bits(torch, got, ref.row_gather_ref(a, idx)), f"row_gather {label}")
+        want = tuple(a.index_copy(0, idx, r) for a, r in zip(pops, rows))
+        ops.row_scatter_buffers_(pops, idx, rows)
+        check(all(same_bits(torch, a, b) for a, b in zip(pops, want)), f"row_scatter {label}")
+        del want
+        iters = 200 if m * w < 1 << 22 else 50
+        moved = 2 * mc * w * 4 * nb + 8 * mc
+        row = {"m": m, "W": w, "mc": mc, "buffers": nb}
+        calls = {
+            "row_gather": (lambda: ops.row_gather_buffers(pops, idx),
+                           lambda: [ref.row_gather_ref(a, idx) for a in pops],
+                           lambda: [torch.index_select(a, 0, idx) for a in pops]),
+            "row_scatter": (lambda: ops.row_scatter_buffers_(pops, idx, rows),
+                            lambda: [ref.row_scatter_ref_(a, idx, r) for a, r in zip(pops, rows)],
+                            lambda: [a.index_copy_(0, idx, r) for a, r in zip(pops, rows)]),
+        }
+        for name, (fn, plain, lib) in calls.items():
+            if label == "fig2_p10":
+                rec.kernel(name, 0.0, fn, plain, iters, moved, 0, library_fn=lib)
+                row[name] = {k: rec.rows[name][k]
+                             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            else:
+                row[name] = {"ms": cuda_time_ms(fn, iters),
+                             "plain_ms": cuda_time_ms(plain, iters),
+                             "library_ms": cuda_time_ms(lib, iters),
+                             "bound_ms": bound_ms(moved, 0)[0]}
+        # the functional route: a copy of every population buffer (read and
+        # write), then the in-place kernel
+        b, _ = bound_ms(2 * m * w * 4 * nb + moved, 0)
+        row["row_scatter_functional"] = {
+            "ms": cuda_time_ms(lambda: ops.row_scatter_buffers(pops, idx, rows),
+                               iters if m * w < 1 << 26 else 10), "bound_ms": b}
+        res[label] = row
+        log(f"rows {label} (m {m}, W {w}, mc {mc}, {nb} buffers): " + "; ".join(
+            f"{k} {v['ms']:.5f} ms (bound {v['bound_ms']:.5f}"
+            + (f", plain {v['plain_ms']:.5f}, library {v['library_ms']:.5f})" if "plain_ms" in v
+               else ")") for k, v in row.items() if isinstance(v, dict)))
+        del pops, rows
+    for name in ("row_gather", "row_scatter"):
+        rec.rows[name]["shapes"] = {
+            label: {"m": r["m"], "W": r["W"], "mc": r["mc"], "buffers": r["buffers"]} | r[name]
+            | ({"functional": r["row_scatter_functional"]} if name == "row_scatter" else {})
+            for label, r in res.items()}
+    torch.cuda.synchronize()
+
+
+def check_cohort_kernels(rec, torch, ops, ref, gen, out):
     """Kernels 7-10 against their plain versions at phase 8's shapes, bitwise
     (f32 and bf16, a NaN in one client's leaf for EF21), then timed: the
-    gather and scatter as phase 8's cohort round calls them (50 of 500 rows
-    of W = 512), the EF21 pair at the full (500, 512) arena of run (c)."""
-    from repro_torch.kernels import gather
-
+    gather and scatter at ``ROW_SHAPES``, the EF21 pair at the full
+    (500, 512) arena of run (c)."""
     dev = gen.device
-    sz = {torch.float32: 4, torch.bfloat16: 2}
-    for m, w, mc in ((500, 512, 50), (500, 512, 250), (10, 7936, 5), (65536, 512, 656)):
-        arr32 = torch.randn(m, w, generator=gen, device=dev)
-        rows32 = torch.randn(mc, w, generator=gen, device=dev)
-        idx = torch.sort(torch.randperm(m, generator=gen, device=dev)[:mc]).values
-        for dt in (torch.float32, torch.bfloat16):
-            arr, rows = arr32.to(dt), rows32.to(dt)
-            for ids in (idx, idx.to(torch.int32)):
-                check(torch.equal(ops.row_gather(arr, ids), ref.row_gather_ref(arr, ids)),
-                      f"row_gather {dt} ({m}, {w}) mc={mc} {ids.dtype}: differs")
-            before = arr.clone()
-            got = ops.row_scatter(arr, idx, rows)
-            check(torch.equal(arr, before), "row_scatter wrote its input")
-            check(torch.equal(got, arr.index_copy(0, idx, rows)),
-                  f"row_scatter {dt} ({m}, {w}) mc={mc}: differs from the plain version")
-        del arr32, rows32, arr, rows, before, got
-    log("row_gather / row_scatter: bitwise at (500, 512) mc 50 and 250, (10, 7936) mc 5, "
-        "(65536, 512) mc 656; f32 and bf16; int64 and int32 ids")
+    check_row_kernels(torch, ops, ref, gen)
+    time_row_kernels(rec, torch, ops, ref, gen, out)
 
     for (m, w), leaf_rows in (((500, 512), (4,)), ((500, 512), (3, 1)), ((10, 7936), (62,))):
         uh32 = torch.randn(m, w, generator=gen, device=dev)
@@ -749,18 +867,7 @@ def check_cohort_kernels(rec, torch, ops, ref, gen):
     log("ef21_rowmax / ef21_apply: bitwise at (500, 512) leaves (4,) and (3, 1), "
         "(10, 7936) (62,); bits 8 and 4; f32 and bf16; a NaN in one client's leaf")
 
-    m, w, mc = 500, 512, 50
-    arr, rows = (torch.randn(n, w, generator=gen, device=dev) for n in (m, mc))
-    idx = torch.sort(torch.randperm(m, generator=gen, device=dev)[:mc]).values
-    rec.kernel("row_gather", 0.0, lambda: ops.row_gather(arr, idx),
-               lambda: ref.row_gather_ref(arr, idx), 200, 2 * mc * w * 4 + 8 * mc, 0,
-               library_fn=lambda: torch.index_select(arr, 0, idx))
-    pos = torch.zeros(m, dtype=torch.int32, device=dev).index_copy_(
-        0, idx, torch.arange(mc, dtype=torch.int32, device=dev))
-    mask = torch.zeros(m, dtype=torch.int32, device=dev).index_fill_(0, idx, 1)
-    rec.kernel("row_scatter", 0.0, lambda: gather.row_scatter(arr, pos, mask, rows),
-               lambda: ref.row_scatter_ref(arr, pos, mask, rows), 200,
-               2 * m * w * 4 + 8 * m, 0, library_fn=lambda: arr.index_copy(0, idx, rows))
+    m, w = 500, 512
     uh = torch.randn(m, w, generator=gen, device=dev)
     u = uh + 0.1 * torch.randn(m, w, generator=gen, device=dev)
     rm = ops.ef21_rowmax(u, uh)
@@ -1053,13 +1160,14 @@ SOFTMAX_RUNS = {
 # ---------------------------------------------------------------------------
 
 # launches per round, read off the rounds' code: the cohort rounds gather
-# the cohort's state rows and scatter them back, EF21 adds its two kernels
-# and, on the cohort, the gather of the cached u_hat rows; the masked round
-# selects with torch.where
+# the cohort's rows of every buffer they read in one launch and scatter the
+# rows of every buffer they write in one, EF21 adds its two kernels and, on
+# the cohort, the cached u_hat rows to the gather (FedAvg's only gather);
+# the masked round selects with torch.where
 PARTICIPATION_RUNS = {
     "a_gpdmm": (dict(algorithm="gpdmm", participation=0.1),
-                dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=2,
-                     row_scatter=2)),
+                dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
+                     row_scatter=1)),
     "a_agpdmm": (dict(algorithm="agpdmm", participation=0.1),
                  dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
                       row_scatter=1)),
@@ -1068,10 +1176,10 @@ PARTICIPATION_RUNS = {
     "a_fedavg": (dict(algorithm="fedavg", participation=0.1),
                  dict(inner_loop_affine=1, row_scatter=1)),
     "b_gpdmm": (dict(algorithm="gpdmm", participation=0.1, uplink_bits=8),
-                dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=3,
-                     row_scatter=2, ef21_rowmax=1, ef21_apply=1)),
+                dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
+                     row_scatter=1, ef21_rowmax=1, ef21_apply=1)),
     "b_agpdmm": (dict(algorithm="agpdmm", participation=0.1, uplink_bits=8),
-                 dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=2,
+                 dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
                       row_scatter=1, ef21_rowmax=1, ef21_apply=1)),
     "b_fedavg": (dict(algorithm="fedavg", participation=0.1, uplink_bits=8),
                  dict(inner_loop_affine=1, row_gather=1, row_scatter=1, ef21_rowmax=1,
@@ -1095,7 +1203,7 @@ PARTICIPATION_PYTREE_RUNS = {
 SOFTMAX_PARTIAL = {
     "gpdmm_p50_ef21": (dict(algorithm="gpdmm", participation=0.5, uplink_bits=8),
                        dict(fused_update_arena=SOFTMAX["K"], round_tail=1, dual_from_uplink=1,
-                            row_gather=3, row_scatter=2, ef21_rowmax=1, ef21_apply=1)),
+                            row_gather=1, row_scatter=1, ef21_rowmax=1, ef21_apply=1)),
     "fedavg_p50_ef21": (dict(algorithm="fedavg", participation=0.5, uplink_bits=8),
                         dict(fused_update_arena=SOFTMAX["K"], row_gather=1, row_scatter=1,
                              ef21_rowmax=1, ef21_apply=1)),
@@ -1199,6 +1307,135 @@ def participation_phase(rec, prob, torch, ops, make, FederatedConfig, dev, out, 
         f"(max relative error {worst:.3e}, bound 1e-5)")
     del trails
     log(f"participation phase (least squares): {time.perf_counter() - t_phase:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 8 population: the cohort round at the reference's population sweep
+# ---------------------------------------------------------------------------
+
+# round_bench.py:361-374 (POP_SWEEP_M, POP_WIDTH, POP_COHORT): the GPDMM
+# cohort round at m = 10^5 and 10^6 clients of width 1,024 with a cohort of
+# 64 (participation 64 / m), K = 4, eta 0.1 and the 0.3 x arena gradient of
+# round_bench.py:115, the population in device memory (lam, x_c, u_hat:
+# 12.3 GB at 10^6)
+POPULATION = dict(ms=(10 ** 5, 10 ** 6), width=1024, cohort=64, K=4, eta=0.1, rounds=10)
+POPULATION_LAUNCHES = dict(fused_update_arena=POPULATION["K"], round_tail=1,
+                           dual_from_uplink=1, row_gather=1, row_scatter=1)
+
+
+def round_ops(torch, run) -> int:
+    """The tensor ops ``run`` (one round) dispatches from the host,
+    allocations (``empty*``) aside."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += not func.__name__.startswith("empty")
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        run()
+    return c.n
+
+
+def population_setup(torch, make, make_oracle, FederatedConfig, m, dev, seed=59):
+    """(opt, params, grad, batch) of the population cohort round at m."""
+    P_ = POPULATION
+    opt = make(FederatedConfig(algorithm="gpdmm", inner_steps=P_["K"], eta=P_["eta"],
+                               use_arena=True, participation=P_["cohort"] / m))
+    gen = seeded(torch, seed)
+    params = {"w": torch.randn(P_["width"], generator=gen, device=dev)}
+    grad = make_oracle(lambda p, b: {k: 0.3 * v for k, v in p.items()},
+                       grad_arena=lambda spec: (lambda xa, b: 0.3 * xa))
+    return opt, params, grad, {"d": torch.zeros(m, 1, device=dev)}
+
+
+def population_run(torch, ops, opt, params, grad, batch, m, donate, rounds):
+    """One population cell, with no other state alive: a fresh state, one
+    warm-up round, then ``rounds`` rounds (``opt.round_`` when ``donate``):
+    host-clock ms a round, launches, host ops and device-busy ms a round
+    (``torch.profiler``, 3 more rounds) and the peak allocation of the
+    timed rounds (``torch.cuda.max_memory_allocated``, the state
+    included; ``peak_gb`` in all, ``round_peak_gb`` above what was allocated
+    before the state was made).  Returns (numbers, launch counts)."""
+    step = opt.round_ if donate else opt.round
+    base = torch.cuda.memory_allocated()
+    state, _ = step(opt.init(params, m), grad, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        state, metrics = step(state, grad, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / rounds
+    counts = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+          f"population m={m}: a metric is not finite")
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], grad, batch)
+
+    n_ops = round_ops(torch, one)
+    busy, _, events = device_profile(torch, lambda: [one() for _ in range(3)], 3)
+    del state, box
+    torch.cuda.empty_cache()
+    got = {"round_ms": ms, "host_ops": n_ops, "device_busy_ms": busy, "peak_gb": peak / 1e9,
+           "round_peak_gb": (peak - base) / 1e9,
+           "launches": {k: v / rounds for k, v in counts.items() if v},
+           "profile": events.table(sort_by="self_device_time_total", row_limit=10)}
+    return got, counts
+
+
+def population_phase(rec, torch, ops, make, make_oracle, FederatedConfig, dev, out):
+    """The GPDMM cohort round at ``POPULATION``: functional and donated,
+    each alone on the card (round ms, host ops, launches, device busy, peak
+    allocation); one gather and one scatter a round; three donated rounds
+    bitwise three functional ones, and the functional rounds leave their
+    input as it was."""
+    from repro_torch.core import tree_util as T
+
+    res = out["population"] = {}
+    R = POPULATION["rounds"]
+    for m in POPULATION["ms"]:
+        opt, params, grad, batch = population_setup(torch, make, make_oracle, FederatedConfig,
+                                                    m, dev)
+        s0 = opt.init(params, m)
+        snap = {k: T.tmap(torch.clone, v) for k, v in s0.items()}
+        sf = s0
+        for _ in range(3):
+            sf, _ = opt.round(sf, grad, batch)
+        for k in s0:
+            for a, b in zip(T.leaves(s0[k]), T.leaves(snap[k])):
+                check(torch.equal(a, b), f"population m={m}: a functional round wrote {k}")
+        del s0
+        sd = snap
+        for _ in range(3):
+            sd, _ = opt.round_(sd, grad, batch)
+        for k in sf:
+            for a, b in zip(T.leaves(sf[k]), T.leaves(sd[k])):
+                check(same_bits(torch, a, b) if a.is_floating_point() else torch.equal(a, b),
+                      f"population m={m}: donated != functional in {k}")
+        del sf, sd, snap
+        torch.cuda.empty_cache()
+        for mode in ("functional", "donated"):
+            got, counts = population_run(torch, ops, opt, params, grad, batch, m,
+                                         mode == "donated", R)
+            rec.add(counts)
+            check(counts == expected(ops, R, **POPULATION_LAUNCHES),
+                  f"population m={m} {mode}: launches {counts}")
+            res[f"m{m}_{mode}"] = got
+            log(f"population m={m} W={POPULATION['width']} cohort {POPULATION['cohort']} "
+                f"{mode}: {got['round_ms']:.4f} ms/round, busy {got['device_busy_ms']:.4f} ms, "
+                f"{got['host_ops']} host ops, peak {got['peak_gb']:.3f} GB "
+                f"({got['round_peak_gb']:.3f} GB the round's), "
+                f"launches {got['launches']}")
+            log(got["profile"])
+    log("population: donated rounds bitwise the functional ones at m = 10^5 and 10^6")
 
 
 def mixture_data(torch, gen, F, C, n, dev):
@@ -1441,8 +1678,9 @@ ARENA_TAIL = dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1)
 # launches per round, read off the rounds' code: every screened arena round
 # screens once (screen="auto" screens a delay-only schedule too), every
 # async arena round mixes once, the cohort gathers the cached u_hat rows
-# for its keep select besides its lam and carry rows; the pytree path
-# screens and mixes as plain tensor code
+# for its keep select with its lam and carry rows (one launch) and scatters
+# u_hat and the carry (one launch); the pytree path screens and mixes as
+# plain tensor code
 FAULT_RUNS = {
     "a_gpdmm": (dict(algorithm="gpdmm", **SCREENED), ARENA_TAIL | dict(screen_uplink=1)),
     "a_agpdmm": (dict(algorithm="agpdmm", **SCREENED), ARENA_TAIL | dict(screen_uplink=1)),
@@ -1450,9 +1688,9 @@ FAULT_RUNS = {
                    dict(inner_loop_affine=1, scaffold_cv=1, screen_uplink=1)),
     "a_fedavg": (dict(algorithm="fedavg", **SCREENED), dict(inner_loop_affine=1, screen_uplink=1)),
     "b_gpdmm": (dict(algorithm="gpdmm", participation=0.1, **SCREENED),
-                ARENA_TAIL | dict(screen_uplink=1, row_gather=3, row_scatter=2)),
+                ARENA_TAIL | dict(screen_uplink=1, row_gather=1, row_scatter=1)),
     "b_gpdmm_finite": (dict(algorithm="gpdmm", participation=0.1, **FINITE_ONLY),
-                       ARENA_TAIL | dict(screen_uplink=1, row_gather=3, row_scatter=2)),
+                       ARENA_TAIL | dict(screen_uplink=1, row_gather=1, row_scatter=1)),
     "b_gpdmm_finite_masked": (dict(algorithm="gpdmm", participation=0.1, cohort=False,
                                    **FINITE_ONLY), ARENA_TAIL | dict(screen_uplink=1)),
     "c_gpdmm_sync": (dict(algorithm="gpdmm", faults=DELAYED["faults"], async_rounds=False),
@@ -2465,7 +2703,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs.base import FaultConfig, FederatedConfig
-    from repro_torch.core import make, quadratic
+    from repro_torch.core import make, make_oracle, quadratic
     from repro_torch.core.softmax import SoftmaxRegression
     from repro_torch.kernels import _build, ops, ref
 
@@ -2512,7 +2750,7 @@ def main() -> int:
     timed("3 kernels", check_kernels, rec, prob, eta, 1.0 / (LSQ["K"] * eta), torch, ops, ref,
           seeded(torch, 3))
     timed("3 step kernel", check_step_kernel, rec, torch, ops, ref, seeded(torch, 47), out)
-    timed("3 cohort kernels", check_cohort_kernels, rec, torch, ops, ref, seeded(torch, 13))
+    timed("3 cohort kernels", check_cohort_kernels, rec, torch, ops, ref, seeded(torch, 13), out)
     timed("3 fault kernels", check_fault_kernels, rec, torch, ops, ref, seeded(torch, 17), out)
     timed("3 card vs cpu", check_small_against_cpu, torch, make, FederatedConfig, quadratic)
 
@@ -2540,6 +2778,8 @@ def main() -> int:
           dev, out, prof)
     timed("8 softmax", softmax_phase, rec, torch, ops, make, FederatedConfig, SoftmaxRegression,
           seeded(torch, 0), dev, SOFTMAX_PARTIAL, prof)
+    timed("8 population", population_phase, rec, torch, ops, make, make_oracle,
+          FederatedConfig, dev, out)
     timed("9 faults", faults_phase, rec, prob, torch, ops, make, FederatedConfig, FaultConfig,
           quadratic, seeded(torch, 21), dev, out, prof)
     timed("10 residual kernel", check_residual_kernel, rec, torch, ops, ref, seeded(torch, 23),

@@ -10,8 +10,9 @@ round tails are GPDMM's, faults, screening and async rounds included.
 With K = 1 and rho = 1/eta the round is gradient descent with stepsize eta
 (paper eq. (27)).  The inner loops keep no x_bar, which AGPDMM never
 reads.  The cohort round moves no
-primal carry: it gathers ``lam_s`` (and, with EF21, ``u_hat``) rows and
-scatters ``u_hat`` through GPDMM's ``cohort_tail``.
+primal carry: it gathers ``lam_s`` (and, with EF21 or faults, ``u_hat``)
+rows in one launch and scatters ``u_hat``'s, in place when donated
+(``FedOpt.round_``), before GPDMM's ``cohort_server``.
 """
 from __future__ import annotations
 
@@ -21,26 +22,33 @@ from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import arena, faults, staleness
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
-    FedOpt, cohort_batch, resolved_rho, run_cohort_inner, use_arena,
+    FedOpt, cohort_batch, owned, resolved_rho, run_cohort_inner, scatter_cohort, use_arena,
     use_cohort,
 )
 from repro_torch.core.gpdmm import (
-    arena_metrics, arena_tail, broadcast_rows, cohort_eta, cohort_tail, inner_steps,
-    inner_steps_arena, needs_cache, round_cohort, round_counter, tree_metrics, tree_tail,
+    arena_metrics, arena_tail, broadcast_rows, cohort_cache, cohort_eta, cohort_reads_cache,
+    cohort_server, inner_steps, inner_steps_arena, needs_cache, round_cohort, round_counter,
+    tree_metrics, tree_tail,
 )
 from repro_torch.kernels import ops
 
 
-def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
+def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches,
+                        donate=False):
     """AGPDMM over the round's sampled cohort (see gpdmm): the client init
-    is the fresh server row, so only the cohort's lam rows are gathered."""
+    is the fresh server row, so only the cohort's lam rows (and its cached
+    uplink rows when the uplink reads them) are gathered, and only u_hat's
+    are scattered back."""
     rho = resolved_rho(cfg)
     spec = arena.ArenaSpec.from_tree(state["x_s"])
-    lam = state["lam_s"]
+    if donate:
+        state = owned(state, ("u_hat",))
+    lam, u_hat = state["lam_s"], state["u_hat"]
     m = lam.shape[0]
     x_s_row = spec.pack(state["x_s"])
     idx = round_cohort(cfg, state, m)
-    lam_c = ops.row_gather(lam, idx)
+    lam_c, *u_hat_c = ops.row_gather_buffers(
+        (lam,) + ((u_hat,) if cohort_reads_cache(cfg) else ()), idx)
     batch_c = cohort_batch(batch, idx, m, per_step_batches)
     eta_c = cohort_eta(cfg, idx)
 
@@ -57,18 +65,20 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     x_K, _ = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
 
     _, uplink = ops.round_tail(x_K, lam_c, x_s_row, rho, with_lam_is=False)
-    new_state, keep_c, fm = cohort_tail(cfg, spec, state, uplink, idx, x_s_row)
-    new_state["round"] = state["round"] + 1
+    uplink, keep_c, fm = cohort_cache(cfg, spec, state, uplink, idx, x_s_row,
+                                      u_hat_c[0] if u_hat_c else None)
+    u_hat_new, = scatter_cohort((u_hat,), idx, (uplink,), donate=donate)
+    new_state = cohort_server(cfg, spec, u_hat_new) | {"round": state["round"] + 1}
     return new_state, arena_metrics(new_state["lam_s"], x_K, x_s_row, keep_c) | fm
 
 
-def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
+def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, donate):
     rho = resolved_rho(cfg)
     spec = arena.ArenaSpec.from_tree(state["x_s"])
     lam = state["lam_s"]
     m = lam.shape[0]
     if use_cohort(cfg, m):
-        return _round_arena_cohort(cfg, state, grad_fn, batch, per_step_batches)
+        return _round_arena_cohort(cfg, state, grad_fn, batch, per_step_batches, donate)
     x_s_row = spec.pack(state["x_s"])
     x0 = broadcast_rows(x_s_row, m)
 
@@ -87,9 +97,10 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
     return new_state, arena_metrics(lam_s_new, x_K, x_s_row, mask) | fm
 
 
-def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
+def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False, *,
+           donate=False):
     if use_arena(cfg, state["x_s"]):
-        return _round_arena(cfg, state, grad_fn, batch, per_step_batches)
+        return _round_arena(cfg, state, grad_fn, batch, per_step_batches, donate)
     rho = resolved_rho(cfg)
     x_s, lam_s = T.tree_dense(state["x_s"]), state["lam_s"]
     m = T.leaves(lam_s)[0].shape[0]
@@ -135,4 +146,5 @@ def make(cfg: FederatedConfig) -> FedOpt:
         init=init,
         round=partial(_round, cfg),
         server_params=lambda s: s["x_s"],
+        round_=partial(_round, cfg, donate=True),
     )

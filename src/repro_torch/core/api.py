@@ -13,7 +13,7 @@ The state lives on the device of ``params``.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -29,6 +29,10 @@ class FedOpt(NamedTuple):
     init: Callable  # (params, m) -> state
     round: Callable  # (state, grad_fn, batch, per_step_batches=False) -> (state, metrics)
     server_params: Callable  # (state) -> params
+    # the donated round, ``round``'s signature: the caller gives up ``state``,
+    # whose population buffers the round may write in place (None: the
+    # algorithm has no such round and ``round`` serves)
+    round_: Optional[Callable] = None
 
 
 # ---------------------------------------------------------------------------
@@ -126,12 +130,20 @@ def n_steps(batch, K: int, per_step: bool) -> int:
 # the cohort-sampled round engine (partial participation on the arena)
 # ---------------------------------------------------------------------------
 # With participation < 1 the arena rounds of the four algorithms below gather
-# the round's active rows out of the population arena (``ops.row_gather``),
-# run the same kernels on the (m_active, width) cohort buffer and scatter
-# the updated rows back (``ops.row_scatter``).  The server mean is taken
-# over the scattered population buffer, so it equals the masked path's
-# mean of selected rows.  The per-algorithm cohort rounds live beside their
-# masked siblings.
+# the round's active rows out of every population buffer they read in one
+# launch (``ops.row_gather_buffers``), run the same kernels on the
+# (m_active, width) cohort buffers and scatter the updated rows of every
+# buffer they write back in one launch (``scatter_cohort``).  The server
+# mean is taken over the scattered population buffer, so it equals the
+# masked path's mean of selected rows.  The per-algorithm cohort rounds
+# live beside their masked siblings.
+#
+# Ownership, the counterpart of the reference's ``donate_argnums``:
+# ``fed.round`` never writes the caller's tensors (its scatter writes a copy
+# of each population buffer); ``fed.round_`` is donated -- the caller gives
+# up the state, and the cohort round writes its x_c, u_hat or c_i rows in
+# place, moving only the cohort's rows.  ``make_scan_rounds`` donates the
+# states it made itself.
 
 COHORT_ALGOS = ("gpdmm", "agpdmm", "scaffold", "fedavg")
 
@@ -153,6 +165,32 @@ def use_cohort(cfg: FederatedConfig, m: int) -> bool:
     if cfg.cohort == "auto":
         return T.cohort_count(m, cfg.participation) < m
     return True
+
+
+def owned(state, keys):
+    """``state`` with each of ``keys`` (present) fit to be written in place
+    by a donated round: contiguous, and sharing its storage with no other
+    entry of the state.  A buffer that is not is copied once, so the round
+    never writes through an alias (a state built by hand may hold one
+    tensor as both ``x_c`` and ``u_hat``, or a view of another entry)."""
+    out = dict(state)
+    for k in keys:
+        t = out.get(k)
+        if t is None:
+            continue
+        others = {leaf.untyped_storage().data_ptr() for j, v in out.items() if j != k
+                  for leaf in T.leaves(v) if torch.is_tensor(leaf)}
+        if not t.is_contiguous() or t.untyped_storage().data_ptr() in others:
+            out[k] = t.clone(memory_format=torch.contiguous_format)
+    return out
+
+
+def scatter_cohort(dsts, idx, rows, *, donate: bool) -> tuple:
+    """Put the cohort's updated rows back into the population buffers
+    ``dsts``, one launch: in place in a donated round (``owned`` buffers),
+    else into copies."""
+    scatter = ops.row_scatter_buffers_ if donate else ops.row_scatter_buffers
+    return scatter(dsts, idx, rows)
 
 
 def cohort_batch(batch, idx, m: int, per_step: bool):
@@ -217,17 +255,21 @@ def make_scan_rounds(fed: FedOpt, grad_fn, per_step_batches: bool = False, tol: 
     runs R full rounds, R the leading dim of every batch leaf, and returns
     the metrics stacked ``(R, ...)``.  State for state the same as R
     ``fed.round`` calls (the participation and fault draws fold in the
-    carried round counter).  ``tol > 0`` adds each round's fixed-point
-    residual (``res_dx2``/``res_x2``, ``autotune.state_residual``) to the
-    metrics for the host's ``autotune.EarlyExit``; every round of the chunk
-    runs either way."""
+    carried round counter).  The caller's state is not written: the first
+    round is functional, and the later ones are donated (``fed.round_``),
+    since their input is a state the runner made itself.  ``tol > 0`` adds
+    each round's fixed-point residual (``res_dx2``/``res_x2``,
+    ``autotune.state_residual``) to the metrics for the host's
+    ``autotune.EarlyExit``; it reads the state before the round, so every
+    round is then functional.  Every round of the chunk runs either way."""
+    donated = fed.round_ if fed.round_ is not None and tol == 0.0 else fed.round
 
     def run(state, batches):
         R = T.leaves(batches)[0].shape[0]
         rows = []
         for r in range(R):
             b = T.tmap(lambda a: a[r], batches)
-            new, metrics = fed.round(state, grad_fn, b, per_step_batches)
+            new, metrics = (donated if r else fed.round)(state, grad_fn, b, per_step_batches)
             if tol > 0.0:
                 metrics = {**metrics, **autotune.state_residual(state, new)}
             state = new
@@ -301,6 +343,6 @@ def step_for(step, leaf):
 __all__ = [
     "COHORT_ALGOS", "FedOpt", "affine_case", "arena_grad", "client_batches", "cohort_batch",
     "eta_val", "make", "make_oracle", "make_scan_rounds", "map_cohort_tiles", "mean_eta",
-    "n_steps", "resolved_rho", "run_cohort_inner", "step_for", "step_size", "use_arena",
-    "use_cohort",
+    "n_steps", "owned", "resolved_rho", "run_cohort_inner", "scatter_cohort", "step_for",
+    "step_size", "use_arena", "use_cohort",
 ]

@@ -25,13 +25,15 @@ from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import arena, faults, staleness
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
-    FedOpt, cohort_batch, eta_val, run_cohort_inner, use_arena, use_cohort,
+    FedOpt, cohort_batch, eta_val, owned, run_cohort_inner, scatter_cohort, use_arena,
+    use_cohort,
 )
 from repro_torch.core.gpdmm import (
-    arena_drift, broadcast_rows, cached_uplink, cohort_cache, cohort_eta, needs_cache,
-    round_cohort, round_counter,
+    arena_drift, broadcast_rows, cached_uplink, cohort_cache, cohort_eta, cohort_reads_cache,
+    needs_cache, round_cohort, round_counter,
 )
 from repro_torch.core.scaffold import inner_steps_plain, inner_steps_plain_arena
+from repro_torch.kernels import ops
 
 
 def _num_clients(state, batch, per_step_batches) -> int:
@@ -51,12 +53,16 @@ def _arena_metrics(x_K, x_s_row, mask=None):
     }
 
 
-def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
+def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches,
+                        donate=False):
     """FedAvg over the round's sampled cohort: no optimiser rows move; the
     cohort runs the K plain steps from the server row and its uplink is
-    scattered into the ``u_hat`` cache, whose mean is the new server
-    iterate (the masked round's mean of selected rows)."""
+    scattered into the ``u_hat`` cache (in place when ``donate``), whose
+    mean is the new server iterate (the masked round's mean of selected
+    rows).  The cached rows are gathered only when the uplink reads them."""
     spec = arena.ArenaSpec.from_tree(state["x_s"])
+    if donate:
+        state = owned(state, ("u_hat",))
     u_hat = state["u_hat"]
     m = u_hat.shape[0]
     x_s_row = spec.pack(state["x_s"])
@@ -73,18 +79,20 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     rows = () if eta_c is None else (eta_c,)
     x_K = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
 
-    u_hat_new, keep_c, fm = cohort_cache(cfg, spec, state, x_K, idx, x_s_row)
+    u_hat_c = ops.row_gather(u_hat, idx) if cohort_reads_cache(cfg) else None
+    uplink, keep_c, fm = cohort_cache(cfg, spec, state, x_K, idx, x_s_row, u_hat_c)
+    u_hat_new, = scatter_cohort((u_hat,), idx, (uplink,), donate=donate)
     x_s_new = torch.mean(u_hat_new, dim=0)  # the round's single all-reduce
     new_state = {"u_hat": u_hat_new, "x_s": spec.unpack(x_s_new),
                  "round": state["round"] + 1}
     return new_state, _arena_metrics(x_K, x_s_row, keep_c) | fm
 
 
-def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
+def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, donate):
     spec = arena.ArenaSpec.from_tree(state["x_s"])
     m = _num_clients(state, batch, per_step_batches)
     if use_cohort(cfg, m):
-        return _round_arena_cohort(cfg, state, grad_fn, batch, per_step_batches)
+        return _round_arena_cohort(cfg, state, grad_fn, batch, per_step_batches, donate)
     x_s_row = spec.pack(state["x_s"])
     x0 = broadcast_rows(x_s_row, m)
 
@@ -99,9 +107,10 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
     return new_state, _arena_metrics(x_K, x_s_row, mask) | fm
 
 
-def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
+def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False, *,
+           donate=False):
     if use_arena(cfg, state["x_s"]):
-        return _round_arena(cfg, state, grad_fn, batch, per_step_batches)
+        return _round_arena(cfg, state, grad_fn, batch, per_step_batches, donate)
     x_s = state["x_s"]
     m = _num_clients(state, batch, per_step_batches)
     eta = eta_val(cfg.eta, T.leaves(x_s)[0].device)
@@ -141,4 +150,5 @@ def make(cfg: FederatedConfig) -> FedOpt:
         init=init,
         round=partial(_round, cfg),
         server_params=lambda s: s["x_s"],
+        round_=partial(_round, cfg, donate=True),
     )

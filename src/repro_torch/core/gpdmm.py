@@ -34,9 +34,10 @@ clients transmit nothing: the server keeps its cached view ``u_hat`` of
 their uplink, and they keep their primal carry.  ``uplink_bits`` quantises
 the uplink's difference to ``u_hat`` (EF21; two kernels on the arena).  On
 the arena, ``cohort="auto"`` runs the round over the sampled cohort only:
-``row_gather`` the active rows, the same kernels on them, ``row_scatter``
-back (``_round_arena_cohort``); ``cohort=False`` keeps the masked
-full-population round.
+one ``row_gather`` of the active rows of every buffer the round reads, the
+same kernels on them, one ``row_scatter`` of the rows it writes back, in
+place in a donated round (``_round_arena_cohort``, ``FedOpt.round_``);
+``cohort=False`` keeps the masked full-population round.
 
 Faults (``cfg.faults``, ``core.faults``), uplink screening and async rounds
 (``core.staleness``) run in the reference's order after EF21: the wire
@@ -58,9 +59,8 @@ from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import arena, faults, prng, staleness
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
-    FedOpt, affine_case, arena_grad, client_batches, cohort_batch, eta_val, n_steps,
-    resolved_rho, run_cohort_inner, step_size, use_arena,
-    use_cohort,
+    FedOpt, affine_case, arena_grad, client_batches, cohort_batch, eta_val, n_steps, owned,
+    resolved_rho, run_cohort_inner, scatter_cohort, step_size, use_arena, use_cohort,
 )
 from repro_torch.kernels import ops
 
@@ -223,28 +223,34 @@ def arena_tail(cfg: FederatedConfig, spec, state, uplink, m: int, x_s_row):
     return new_state, x_s_new, lam_s_new, mask, fm
 
 
-def cohort_cache(cfg: FederatedConfig, spec, state, uplink, idx, x_s_row):
-    """The cohort's uplink into the population cache (shared with AGPDMM
-    and FedAvg): EF21 against the cohort's cached ``u_hat`` rows, the wire's
-    corruption of the population's fault plan restricted to the cohort, the
-    screen on the (mc, W) cohort uplink (its median over the cohort, as the
-    reference takes it), the keep select against the cached rows, then the
-    scatter.  Returns (new u_hat, keep_c, fault metrics): the new u_hat's
-    mean is the masked round's mean of selected rows; ``keep_c`` is the
-    cohort's surviving mask (None: every cohort uplink entered)."""
-    u_hat = state["u_hat"]
-    m = u_hat.shape[0]
+def cohort_reads_cache(cfg: FederatedConfig) -> bool:
+    """Does the cohort's uplink read its cached ``u_hat`` rows: against
+    EF21's integrator, or as the stand-in of a faulted or demoted client?"""
+    return cfg.uplink_bits is not None or faults.needs_cache(cfg)
+
+
+def cohort_cache(cfg: FederatedConfig, spec, state, uplink, idx, x_s_row, u_hat_c):
+    """The cohort's uplink rows as the population cache will hold them
+    (shared with AGPDMM and FedAvg): EF21 against the cohort's cached
+    ``u_hat`` rows ``u_hat_c`` (gathered with the round's other rows when
+    ``cohort_reads_cache``, else None), the wire's corruption of the
+    population's fault plan restricted to the cohort, the screen on the
+    (mc, W) cohort uplink (its median over the cohort, as the reference
+    takes it), and the keep select against the cached rows.  Returns
+    (uplink rows, keep_c, fault metrics): the rows scattered into ``u_hat``
+    make its mean the masked round's mean of selected rows; ``keep_c`` is
+    the cohort's surviving mask (None: every cohort uplink entered)."""
+    m = state["u_hat"].shape[0]
     if cfg.uplink_bits is not None:
-        uplink = ops.ef21_update(uplink, ops.row_gather(u_hat, idx), cfg.uplink_bits,
-                                 spec.leaf_rows())
+        uplink = ops.ef21_update(uplink, u_hat_c, cfg.uplink_bits, spec.leaf_rows())
     fplan = faults.plan(cfg, state["round"], m)
     plan_c = faults.take(fplan, idx)
     uplink = faults.inject(cfg.faults, plan_c, uplink)
     keep = faults.screen_keep(cfg, uplink, x_s_row) if faults.screening_on(cfg) else None
     keep_c = faults.combine_mask(None, plan_c, keep)
     if keep_c is not None:
-        uplink = torch.where(keep_c[:, None], uplink, ops.row_gather(u_hat, idx))
-    return ops.row_scatter(u_hat, idx, uplink), keep_c, cohort_fault_report(fplan, plan_c, keep)
+        uplink = torch.where(keep_c[:, None], uplink, u_hat_c)
+    return uplink, keep_c, cohort_fault_report(fplan, plan_c, keep)
 
 
 def cohort_fault_report(fplan, plan_c, keep) -> dict:
@@ -256,15 +262,13 @@ def cohort_fault_report(fplan, plan_c, keep) -> dict:
     return faults.fault_metrics(fplan, None if plan_c is None else ~plan_c.silent, keep)
 
 
-def cohort_tail(cfg: FederatedConfig, spec, state, uplink, idx, x_s_row):
-    """The cohort sibling of ``arena_tail``, shared with AGPDMM:
-    ``cohort_cache``, the mean over the scattered buffer and the full dual
-    refresh.  Returns ({u_hat, x_s, lam_s}, keep_c, fault metrics)."""
-    u_hat_new, keep_c, fm = cohort_cache(cfg, spec, state, uplink, idx, x_s_row)
+def cohort_server(cfg: FederatedConfig, spec, u_hat_new):
+    """The cohort round's server step over the scattered cache, shared with
+    AGPDMM: the client mean and the full dual refresh.  Returns {u_hat,
+    x_s, lam_s}."""
     x_s_new = torch.mean(u_hat_new, dim=0)
     lam_s_new = ops.dual_from_uplink(u_hat_new, x_s_new, resolved_rho(cfg))
-    return ({"u_hat": u_hat_new, "x_s": spec.unpack(x_s_new), "lam_s": lam_s_new},
-            keep_c, fm)
+    return {"u_hat": u_hat_new, "x_s": spec.unpack(x_s_new), "lam_s": lam_s_new}
 
 
 def cohort_eta(cfg: FederatedConfig, idx):
@@ -292,19 +296,24 @@ def arena_metrics(lam_s_new, x_K, x_s_row, mask=None):
     }
 
 
-def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
-    """GPDMM over the round's sampled cohort: gather its lam and carry rows,
+def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches,
+                        donate=False):
+    """GPDMM over the round's sampled cohort: gather its lam and carry rows
+    (and its cached uplink rows when the uplink reads them) in one launch,
     run the inner loop and the uplink on the (mc, width) cohort buffer
-    (tiled by ``cohort_tile``), then ``cohort_tail`` and the carry scatter.
-    Row for row the masked round's arithmetic."""
+    (tiled by ``cohort_tile``), scatter the cached uplink and the carry
+    rows back in one launch (in place when ``donate``), then the server
+    step.  Row for row the masked round's arithmetic."""
     rho = resolved_rho(cfg)
     spec = arena.ArenaSpec.from_tree(state["x_s"])
-    lam, x_c = state["lam_s"], state["x_c"]
+    if donate:
+        state = owned(state, ("x_c", "u_hat"))
+    lam, x_c, u_hat = state["lam_s"], state["x_c"], state["u_hat"]
     m = lam.shape[0]
     x_s_row = spec.pack(state["x_s"])
     idx = round_cohort(cfg, state, m)
-    lam_c = ops.row_gather(lam, idx)
-    x0_c = ops.row_gather(x_c, idx)
+    lam_c, x0_c, *u_hat_c = ops.row_gather_buffers(
+        (lam, x_c) + ((u_hat,) if cohort_reads_cache(cfg) else ()), idx)
     batch_c = cohort_batch(batch, idx, m, per_step_batches)
     eta_c = cohort_eta(cfg, idx)
 
@@ -322,24 +331,27 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     x_ref = x_bar if cfg.use_avg else x_K
 
     _, uplink = ops.round_tail(x_ref, lam_c, x_s_row, rho, with_lam_is=False)
-    new_state, keep_c, fm = cohort_tail(cfg, spec, state, uplink, idx, x_s_row)
+    uplink, keep_c, fm = cohort_cache(cfg, spec, state, uplink, idx, x_s_row,
+                                      u_hat_c[0] if u_hat_c else None)
     # demoted cohort rows are silent: they keep their round-start carry
     x_K_kept = x_K if keep_c is None else torch.where(keep_c[:, None], x_K, x0_c)
-    new_state |= {
-        "x_c": ops.row_scatter(x_c, idx, x_K_kept),  # silent clients keep their carry
+    u_hat_new, x_c_new = scatter_cohort((u_hat, x_c), idx, (uplink, x_K_kept), donate=donate)
+    new_state = cohort_server(cfg, spec, u_hat_new) | {
+        "x_c": x_c_new,  # silent clients keep their carry
         "round": state["round"] + 1,
     }
     return new_state, arena_metrics(new_state["lam_s"], x_K, x_s_row, keep_c) | fm
 
 
-def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, return_trace):
+def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, return_trace,
+                 donate):
     rho = resolved_rho(cfg)
     spec = arena.ArenaSpec.from_tree(state["x_s"])
     lam, x_c = state["lam_s"], state["x_c"]
     m = lam.shape[0]
     if use_cohort(cfg, m) and not return_trace:
         # a trace stacks the whole population, so traced rounds stay masked
-        return _round_arena_cohort(cfg, state, grad_fn, batch, per_step_batches)
+        return _round_arena_cohort(cfg, state, grad_fn, batch, per_step_batches, donate)
     x_s_row = spec.pack(state["x_s"])
 
     snapshot = None
@@ -373,9 +385,11 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, 
 
 
 def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False,
-           return_trace=False):
+           return_trace=False, *, donate=False):
+    """One round; ``donate`` (``FedOpt.round_``) lets the cohort round write
+    the state's population buffers in place (``api.owned``)."""
     if use_arena(cfg, state["x_s"]):
-        return _round_arena(cfg, state, grad_fn, batch, per_step_batches, return_trace)
+        return _round_arena(cfg, state, grad_fn, batch, per_step_batches, return_trace, donate)
     rho = resolved_rho(cfg)
     x_s = T.tree_dense(state["x_s"])
     lam_s, x_c = state["lam_s"], state["x_c"]
@@ -476,4 +490,5 @@ def make(cfg: FederatedConfig) -> FedOpt:
         init=init,
         round=partial(_round, cfg),
         server_params=lambda s: s["x_s"],
+        round_=partial(_round, cfg, donate=True),
     )

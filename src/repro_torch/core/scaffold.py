@@ -21,7 +21,8 @@ tail is plain tensor ops, as in the reference.
 
 With participation < 1 silent clients transmit nothing: zero delta on both
 server means, ``c_i`` kept.  The cohort round gathers the cohort's ``c_i``
-rows and decomposes both means over the cohort's deltas (sum / m).  EF21
+rows, decomposes both means over the cohort's deltas (sum / m) and
+scatters the rows back, in place when donated (``FedOpt.round_``).  EF21
 uplink quantisation is not offered for SCAFFOLD (``make`` says why).
 
 Faults, as in the reference: the wire corrupts the transmitted x_K, and
@@ -40,8 +41,8 @@ from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import arena, faults, staleness
 from repro_torch.core import tree_util as T
 from repro_torch.core.api import (
-    FedOpt, affine_case, arena_grad, client_batches, cohort_batch, eta_val, n_steps,
-    run_cohort_inner, step_for, use_arena, use_cohort,
+    FedOpt, affine_case, arena_grad, client_batches, cohort_batch, eta_val, n_steps, owned,
+    run_cohort_inner, scatter_cohort, step_for, use_arena, use_cohort,
 )
 from repro_torch.core.gpdmm import (
     arena_drift, broadcast_rows, cohort_eta, cohort_fault_report, fault_report, participation,
@@ -118,14 +119,18 @@ def _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, mask):
     return new_state, metrics
 
 
-def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
+def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches,
+                        donate=False):
     """SCAFFOLD over the round's sampled cohort: gather the cohort's c_i
     rows, run the offset inner loop and ``scaffold_cv`` on them, scatter
-    them back.  Silent clients send nothing, so both server means are sums
-    of the cohort's deltas over m (equal to the masked round's at f32: that
-    one adds the server row into the mean and subtracts it back out)."""
+    them back (in place when ``donate``).  Silent clients send nothing, so
+    both server means are sums of the cohort's deltas over m (equal to the
+    masked round's at f32: that one adds the server row into the mean and
+    subtracts it back out)."""
     K = cfg.inner_steps
     spec = arena.ArenaSpec.from_tree(state["x_s"])
+    if donate:
+        state = owned(state, ("c_i",))
     c_i = state["c_i"]
     m = c_i.shape[0]
     x_s_row = spec.pack(state["x_s"])
@@ -163,19 +168,19 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     x_s_new = x_s_row + T.weak(cfg.eta_g * inv_m, x_s_row) * torch.sum(
         (x_t - x_s_row[None]).to(f32), dim=0).to(x_s_row.dtype)
     c_new = c_row + T.weak(inv_m, c_row) * torch.sum((c_i_new_c - c_i_c).to(f32), dim=0).to(c_row.dtype)
-    c_i_new = ops.row_scatter(c_i, idx, c_i_new_c)  # silent clients keep c_i
+    c_i_new, = scatter_cohort((c_i,), idx, (c_i_new_c,), donate=donate)  # silent: c_i kept
     new_state, metrics = _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row,
                                       keep_c)
     return new_state, metrics | cohort_fault_report(fplan, plan_c, keep)
 
 
-def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
+def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, donate):
     K = cfg.inner_steps
     spec = arena.ArenaSpec.from_tree(state["x_s"])
     c_i = state["c_i"]
     m = c_i.shape[0]
     if use_cohort(cfg, m):
-        return _round_arena_cohort(cfg, state, grad_fn, batch, per_step_batches)
+        return _round_arena_cohort(cfg, state, grad_fn, batch, per_step_batches, donate)
     x_s_row = spec.pack(state["x_s"])
     c_row = spec.pack(state["c"])
     x0 = broadcast_rows(x_s_row, m)
@@ -213,9 +218,10 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches):
     return new_state | stale_up, metrics | fault_report(cfg, fplan, pmask, keep, sm)
 
 
-def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False):
+def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False, *,
+           donate=False):
     if use_arena(cfg, state["x_s"]):
-        return _round_arena(cfg, state, grad_fn, batch, per_step_batches)
+        return _round_arena(cfg, state, grad_fn, batch, per_step_batches, donate)
     K = cfg.inner_steps
     x_s, c, c_i = state["x_s"], state["c"], state["c_i"]
     m = T.leaves(c_i)[0].shape[0]
@@ -297,4 +303,5 @@ def make(cfg: FederatedConfig) -> FedOpt:
         init=init,
         round=partial(_round, cfg),
         server_params=lambda s: s["x_s"],
+        round_=partial(_round, cfg, donate=True),
     )

@@ -4,11 +4,13 @@
 Dispatch goes by the device of the tensors: a CPU tensor runs the plain
 PyTorch version (``ref``), a CUDA tensor launches the hand-written kernel or
 raises.  There is no switch that routes a CUDA tensor to the plain version.
-``ef21_update`` and ``row_scatter`` are plain tensor code around their
-kernels, as in the reference; ``fused_update_leaves`` (the step of a
-whole tree in one launch, with x_bar's running sum) is the port's own;
-``attend_cache`` and ``wkv6_step`` (one decode token) are plain tensor code
-in the reference and here.
+``ef21_update`` is plain tensor code around its kernels, as in the
+reference; ``fused_update_leaves`` (the step of a whole tree in one launch,
+with x_bar's running sum) and the cohort row movement over a table of
+buffers (``row_gather_buffers``, ``row_scatter_buffers_`` in place,
+``row_scatter_``; ``row_scatter`` and ``row_scatter_buffers`` copy first)
+are the port's own; ``attend_cache`` and ``wkv6_step`` (one decode token)
+are plain tensor code in the reference and here.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from repro_torch.kernels import wkv6 as _wk
 from repro_torch.kernels.fused_update import (
     acc_mode_at, fused_update, fused_update_arena, fused_update_leaves,
 )
-from repro_torch.kernels.gather import row_gather
+from repro_torch.kernels.gather import row_gather as row_gather_buffers
+from repro_torch.kernels.gather import row_scatter_ as row_scatter_buffers_
 from repro_torch.kernels.inner_loop import inner_loop_affine
 from repro_torch.kernels.neighbor_reduce import edge_flip, neighbor_reduce
 from repro_torch.kernels.residual import residual_norm
@@ -82,16 +85,29 @@ def ef21_update(u, u_hat, bits: int, leaf_rows):
     return ef21_apply(u, u_hat, scales, bits)
 
 
+def row_gather(arr, idx):
+    """The (mc, W) cohort buffer arr[idx]: ``arr`` (m, W), ``idx`` (mc,)
+    row ids in range (int32 or int64)."""
+    return _ga.row_gather((arr,), idx)[0]
+
+
+def row_scatter_(dst, idx, rows):
+    """dst[idx[t]] = rows[t] in place (idx distinct); returns ``dst``."""
+    return _ga.row_scatter_((dst,), idx, (rows,))[0]
+
+
+def row_scatter_buffers(dsts, idx, rows) -> tuple:
+    """The functional ``row_scatter_buffers_``: each buffer copied, then
+    the copies scattered in one launch; ``dsts`` are not written."""
+    return _ga.row_scatter_(tuple(d.clone(memory_format=torch.contiguous_format) for d in dsts),
+                            idx, rows)
+
+
 def row_scatter(dst, idx, rows):
     """``dst`` with row idx[t] replaced by rows[t] (idx distinct), as a new
-    tensor: the inverse position table pos[idx[t]] = t and the active mask
-    are built on the device, then one kernel writes every population row."""
-    m, mc, dev = dst.shape[0], idx.shape[0], dst.device
-    idx = idx.to(torch.int64)
-    pos = torch.zeros(m, dtype=torch.int32, device=dev).index_copy_(
-        0, idx, torch.arange(mc, dtype=torch.int32, device=dev))
-    mask = torch.zeros(m, dtype=torch.int32, device=dev).index_fill_(0, idx, 1)
-    return _ga.row_scatter(dst, pos, mask, rows)
+    tensor (the reference's contract): a copy of ``dst``, then the in-place
+    scatter of the cohort's rows."""
+    return row_scatter_buffers((dst,), idx, (rows,))[0]
 
 
 def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
@@ -161,6 +177,7 @@ __all__ = [
     "edge_flip", "ef21_apply", "ef21_rowmax", "ef21_update", "flash_attention",
     "fused_update", "fused_update_arena", "fused_update_leaves", "inner_loop_affine",
     "launches", "neighbor_reduce", "reset_launches", "residual_norm", "round_tail",
-    "row_gather", "row_scatter", "scaffold_cv", "screen_uplink", "stale_mix", "wkv6",
+    "row_gather", "row_gather_buffers", "row_scatter", "row_scatter_", "row_scatter_buffers",
+    "row_scatter_buffers_", "scaffold_cv", "screen_uplink", "stale_mix", "wkv6",
     "wkv6_step",
 ]

@@ -173,10 +173,11 @@ def row_gather_ref(arr, idx):
     return torch.index_select(arr, 0, idx)
 
 
-def row_scatter_ref(dst, pos, mask, rows):
-    """The cohort scatter as a gather over the population: out[i] =
-    rows[pos[i]] where mask[i] != 0, else dst[i]."""
-    return torch.where((mask != 0)[:, None], torch.index_select(rows, 0, pos), dst)
+def row_scatter_ref_(dst, idx, rows):
+    """The cohort scatter in place: dst[idx[t]] = rows[t]; ``index_copy_``
+    (which takes int64 ids) checks that every id is in range.  Returns
+    ``dst``."""
+    return dst.index_copy_(0, idx.long(), rows)
 
 
 def screen_uplink_ref(u, ref):

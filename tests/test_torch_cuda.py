@@ -26,7 +26,10 @@ import pytest
 import torch
 
 from repro_torch.configs.base import FaultConfig, FederatedConfig
-from repro_torch.core import autotune, make, make_oracle, pdmm_graph, quadratic, topology
+from repro_torch.core import (
+    autotune, make, make_oracle, make_scan_rounds, pdmm_graph, quadratic, topology,
+)
+from repro_torch.core import tree_util as T
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import inner_loop as IL
 from repro_torch.kernels import ops as P, ref
@@ -359,20 +362,53 @@ def test_cuda_ef21_kernels_match_plain(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_row_gather_and_scatter_match_plain(cuda, dtype):
     """Kernels 9 and 10 at the least-squares arena (cohorts of 50 and 250
-    of 500), the softmax arena (5 of 10) and a population of 65,536 (656,
-    1%: offsets past 2^31 bytes in bf16 and f32 alike), int32 and int64
-    ids; the scatter leaves its input as it was."""
+    of 500), the softmax arena (5 of 10), lm_flat (4 of 8 rows of 2^20:
+    256 blocks a row) and a population of 65,536 (656, 1%: offsets past
+    2^31 bytes in bf16 and f32 alike), int32 and int64 ids, one buffer and
+    a table of three; the in-place scatter writes the cohort's rows and
+    leaves every other row's bits as they were, the functional one leaves
+    its input as it was."""
     g = torch.Generator(device="cuda").manual_seed(6)
-    for m, w, mc in [(500, 512, 50), (500, 512, 250), (10, 7936, 5), (65536, 512, 656)]:
-        arr = torch.randn(m, w, generator=g, device=cuda).to(dtype)
+    for m, w, mc in [(500, 512, 50), (500, 512, 250), (10, 7936, 5), (8, 1 << 20, 4),
+                     (65536, 512, 656)]:
+        arrs = tuple(torch.randn(m, w, generator=g, device=cuda).to(dtype) for _ in range(3))
         idx = torch.sort(torch.randperm(m, generator=g, device=cuda)[:mc]).values
-        rows = torch.randn(mc, w, generator=g, device=cuda).to(dtype)
+        rows = tuple(torch.randn(mc, w, generator=g, device=cuda).to(dtype) for _ in range(3))
         for ids in (idx, idx.to(torch.int32)):
-            assert torch.equal(P.row_gather(arr, ids), ref.row_gather_ref(arr, ids))
-        before = arr.clone()
-        got = P.row_scatter(arr, idx, rows)
-        assert torch.equal(arr, before)
-        assert torch.equal(got, arr.index_copy(0, idx, rows))
+            assert torch.equal(P.row_gather(arrs[0], ids), ref.row_gather_ref(arrs[0], ids))
+            for got, a in zip(P.row_gather_buffers(arrs, ids), arrs, strict=True):
+                assert torch.equal(got, ref.row_gather_ref(a, ids))
+        before = tuple(a.clone() for a in arrs)
+        got = P.row_scatter(arrs[0], idx, rows[0])
+        assert torch.equal(arrs[0], before[0])
+        assert torch.equal(got, arrs[0].index_copy(0, idx, rows[0]))
+        for ids in (idx, idx.to(torch.int32)):
+            done = P.row_scatter_buffers_(arrs, ids, rows)
+            for d, a, b, r in zip(done, arrs, before, rows, strict=True):
+                assert d is a and torch.equal(a, b.index_copy(0, idx, r))
+        del arrs, rows, before, got, done
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_row_buffers_mixed_table_match_plain(cuda):
+    """A table of f32 and bf16 buffers of four widths (a round's lam,
+    x_c, u_hat and c_i could differ so), one launch each way, bitwise."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    m, mc = 300, 37
+    shapes = [(torch.float32, 512), (torch.bfloat16, 7936), (torch.float32, 8),
+              (torch.bfloat16, 1 << 14)]
+    arrs = tuple(torch.randn(m, w, generator=g, device=cuda).to(dt) for dt, w in shapes)
+    rows = tuple(torch.randn(mc, w, generator=g, device=cuda).to(dt) for dt, w in shapes)
+    idx = torch.sort(torch.randperm(m, generator=g, device=cuda)[:mc]).values
+    P.reset_launches()
+    for got, a in zip(P.row_gather_buffers(arrs, idx), arrs, strict=True):
+        assert torch.equal(got, ref.row_gather_ref(a, idx))
+    before = tuple(a.clone() for a in arrs)
+    P.row_scatter_buffers_(arrs, idx.to(torch.int32), rows)
+    for a, b, r in zip(arrs, before, rows, strict=True):
+        assert torch.equal(a, b.index_copy(0, idx, r))
+    assert P.launches()["row_gather"] == 1 and P.launches()["row_scatter"] == 1
     torch.cuda.synchronize()
 
 
@@ -437,11 +473,13 @@ def test_cuda_pytree_rounds_match_cpu_and_count_launches(cuda, algo):
 
 
 # launches per round of the partial-participation rounds on the arena (the
-# affine oracle): the cohort rounds gather and scatter, the masked rounds
-# select; EF21 adds its two kernels (and, on the cohort, the u_hat gather)
+# affine oracle): the cohort rounds gather every buffer they read in one
+# launch and scatter every buffer they write in one, the masked rounds
+# select; EF21 adds its two kernels (and, on the cohort, the u_hat rows to
+# the gather: FedAvg's first)
 COHORT_LAUNCHES = {
-    "gpdmm": dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=2,
-                  row_scatter=2),
+    "gpdmm": dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
+                  row_scatter=1),
     "agpdmm": dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
                    row_scatter=1),
     "scaffold": dict(inner_loop_affine=1, scaffold_cv=1, row_gather=1, row_scatter=1),
@@ -475,9 +513,40 @@ def test_cuda_partial_participation_rounds_match_cpu(cuda, algo, bits, cohort):
     if bits:
         per_round |= EF21_LAUNCHES
         if cohort:
-            per_round["row_gather"] = per_round.get("row_gather", 0) + 1
+            per_round["row_gather"] = 1
     assert counts == {k.name: 0 for k in P.KERNELS} | {k: rounds * v
                                                         for k, v in per_round.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["gpdmm", "agpdmm", "scaffold", "fedavg"])
+def test_cuda_donated_cohort_rounds_equal_functional(cuda, algo):
+    """Four cohort rounds on the card through ``make_scan_rounds`` (the
+    last three donated: the scatter in place) equal four ``fed.round``
+    calls bitwise, with EF21 (not SCAFFOLD) and screened faults; the
+    caller's state is left as it was, and every round launches one gather
+    and one scatter."""
+    _, gprob = _problems(cuda)
+    eta = 0.5 / gprob.L
+    extra = {} if algo == "scaffold" else dict(uplink_bits=8)
+    opt = make(FederatedConfig(algorithm=algo, inner_steps=5, eta=eta, use_arena=True,
+                               participation=0.5, screen=True,
+                               faults=FaultConfig(dropout=0.2, corrupt=0.2, seed=3), **extra))
+    state = opt.init(torch.zeros(64, device=cuda), 8)
+    grad, batch = gprob.oracle(), gprob.batch()
+    want = state
+    for _ in range(4):
+        want, _ = opt.round(want, grad, batch)
+    caller = {k: T.tmap(torch.clone, v) for k, v in state.items()}
+    P.reset_launches()
+    got, _ = make_scan_rounds(opt, grad)(state, T.tmap(lambda x: torch.stack([x] * 4), batch))
+    assert P.launches()["row_gather"] == 4 and P.launches()["row_scatter"] == 4
+    for a, b in ((state, caller), (got, want)):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            for x, y in zip(T.leaves(a[k]), T.leaves(b[k]), strict=True):
+                assert torch.equal(x, y), k
+    torch.cuda.synchronize()
 
 
 def _screen_and_mix_inputs(cuda, g, m, w, dtype, per_row):
