@@ -22,9 +22,11 @@ times; every number is a median over the pairs.  Measured, for each tree:
   * ms per round, launches per round, the tensor ops the host dispatches a
     round (allocations aside) and the device-busy ms a round
     (``torch.profiler``) for the softmax arena (Table I), Fig. 2's pytree
-    round (m = 500, K = 5), Fig. 2's GPDMM cohort round at participation
-    0.1 (the arena, 50 of 500 clients), lm_tree's four algorithms and the
-    ring(8) graph at lm_flat; for GPDMM, whether a plain op wrote x_bar.
+    round (m = 500, K = 5), Fig. 2's full arena round (``use_arena=True``,
+    the affine kernel), Fig. 2's GPDMM cohort round at participation 0.1
+    (the arena, 50 of 500 clients), lm_tree's four algorithms, GPDMM's
+    full arena round at lm_flat and the ring(8) graph there; for GPDMM,
+    whether a plain op wrote x_bar.
 
 And for this tree alone, the step kernel's two parameter tables (8
 segments, and the most the parameter limit holds): the launch with the
@@ -35,10 +37,9 @@ at Fig. 2's leaf, the softmax arena and lm_tree.
 Then a GPDMM cohort round's row movement at Fig. 2's p = 0.1 as the host
 enqueues it (``cohort_rows``); last, the GPDMM cohort round at the
 reference's population sweep (m = 10^5 and 10^6 clients, W = 1,024, a
-cohort of 64; ``population``): functional in both trees and donated in
-this one (``fed.round_``), each alone on the card (round ms, host ops,
-launches, device-busy ms and the peak allocation), then the three
-alternated.  ``--only`` picks sections.
+cohort of 64; ``population``): functional and donated (``fed.round_``)
+in both trees, each alone on the card (round ms, host ops, launches,
+device-busy ms and the peak allocation), then the four alternated.  ``--only`` picks sections.
 
 Imports no JAX and nothing of the JAX package; exits non-zero without CUDA.
 """
@@ -237,6 +238,10 @@ def rounds(torch, trees, pairs, out):
     for algo in ("gpdmm", "agpdmm"):
         cells.append((f"fig2_m500_K5_{algo}", dict(algorithm=algo, inner_steps=lsq["K"]),
                       fig2, 20, False, "tree"))
+    for algo in ("gpdmm", "agpdmm"):  # the full arena round: its tail's two passes
+        cells.append((f"fig2_arena_{algo}", dict(algorithm=algo, inner_steps=lsq["K"],
+                                                 use_arena=True),
+                      lambda t: fig2(t, arena=True), 20, False, "arena"))
     cells.append(("fig2_p10_cohort_gpdmm", dict(algorithm="gpdmm", inner_steps=lsq["K"],
                                                 use_arena=True, participation=0.1),
                   lambda t: fig2(t, arena=True), 20, False, "arena"))
@@ -244,6 +249,8 @@ def rounds(torch, trees, pairs, out):
         cells.append((f"lm_tree_{algo}", dict(algorithm=algo, inner_steps=lt["K"], eta=lt["eta"],
                                               use_arena=False), lm_tree, lt["rounds"], False,
                       "tree"))
+    cells.append(("lm_flat_gpdmm", dict(algorithm="gpdmm", inner_steps=lf["K"], eta=lf["eta"],
+                                        use_arena=True), ring, lf["rounds"], False, "arena"))
     cells.append(("graph_lm_flat_ring", dict(algorithm="gpdmm_graph", topology="ring",
                                              inner_steps=lf["K"], eta=lf["eta"]), ring,
                   lf["rounds"], False, "graph"))
@@ -326,14 +333,15 @@ def cohort_rows(torch, trees, pairs, out):
 def population(torch, trees, pairs, out):
     """The GPDMM cohort round at the reference's population sweep
     (``chip_smoke.POPULATION``: m = 10^5 and 10^6, W = 1,024, cohort 64),
-    functional in each tree and donated in this one (``fed.round_``).
+    functional and donated (``fed.round_``) in each tree.
     First each cell alone on the card (``chip_smoke.population_run``: round
     ms, host ops, launches, device busy, peak allocation); then the round
     times of the three cells alternated, ``pairs`` times, every state held
     at once (a chunk of ``POPULATION["rounds"]`` rounds each turn)."""
     R = S.POPULATION["rounds"]
     for m in S.POPULATION["ms"]:
-        cells = [("other", "functional"), ("this", "functional"), ("this", "donated")]
+        cells = [("other", "functional"), ("this", "functional"), ("other", "donated"),
+                 ("this", "donated")]
         alone = {}
         for tl, mode in cells:
             t = use(trees[tl])

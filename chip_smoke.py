@@ -25,15 +25,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      on one leaf, in every mode of x_bar's running sum (first, add, last,
      only), timed there with lam and the sum beside the pair it replaces
      (the step kernel without the sum, then a plain add, per leaf) and
-     host-paced on 1 and 6 small leaves;
+     host-paced on 1 and 6 small leaves; the server step ("3 server
+     step", ``SERVER_SHAPES``: (500, 512) f32 and bf16, lm_flat and
+     (10^6, 1,024) f32): ``client_mean`` against ``torch.mean`` (f32 within
+     2 (d + 2) 2^-24 of each column's mean |u|, d the kernel's summation
+     depth, and half that of the float64 mean; bf16 one bf16 step), the
+     dual pass's lam bitwise the plain dual given the kernel's x_s', its
+     column sum against ``torch.sum`` likewise relative to sum |lam|,
+     ``round_tail_mean``'s mean bitwise ``client_mean`` of its uplink, two
+     runs bitwise equal, each timed with its bound and its plain
+     composition;
   4. least squares at the paper's Fig. 2 size (m = n = d = 500, K = 5,
      ``use_arena=True`` with ``oracle()``): 30 rounds each of GPDMM,
      AGPDMM, SCAFFOLD and FedAvg; ||x - x*|| must fall, the dual-sum
-     invariant (25) and SCAFFOLD's sum_i (c_i - c) = 0 hold to the rounding
-     of the f32 client mean, and every value stay finite;
-     ``inner_loop_affine`` launches once per round, ``round_tail`` and
-     ``dual_from_uplink`` once per GPDMM/AGPDMM round, ``scaffold_cv``
-     once per SCAFFOLD round;
+     invariant (25) and SCAFFOLD's sum_i (c_i - c) = 0 hold to their
+     rounding scales (``invariants``: the f32 client mean's, and (25) also
+     sqrt(m) eps ||lam||_F for lam's column sum), and every value stay
+     finite; ``inner_loop_affine`` launches once per round,
+     ``round_tail_mean`` and ``dual_from_uplink`` (the server step's two
+     passes; every round with a cache runs ``round_tail``, ``client_mean``
+     and ``dual_from_uplink``) once per GPDMM/AGPDMM round,
+     ``scaffold_cv`` once per SCAFFOLD round;
   5. softmax regression at the paper's Table I size (F = 784, C = 10,
      m = 10, B = 300, K = 5, one class per client): 10 rounds each of
      GPDMM, AGPDMM, SCAFFOLD, FedAvg, Inexact FedSplit (x_s init) and GPDMM
@@ -497,10 +509,7 @@ def check_kernels(rec, prob, eta, rho, torch, ops, ref, gen):
         e = max_err(ops.dual_from_uplink(x0.to(dt), xs.to(dt), rho),
                     ref.dual_from_uplink_ref(x0.to(dt), xs.to(dt), rho))
         check(e == 0.0, f"dual_from_uplink {dt}: error {e}")
-    rec.kernel("dual_from_uplink", 0.0,
-               lambda: ops.dual_from_uplink(x0, xs, rho),
-               lambda: ref.dual_from_uplink_ref(x0, xs, rho), 200,
-               4 * (2 * m * w + w), 2 * m * w)
+    # kernel 3's row is timed with the server step (check_server_step)
 
     # fused update at the softmax arena: m = 10, W = 7936
     ms_, ws = SOFTMAX["m"], 7936
@@ -571,6 +580,191 @@ def check_kernels(rec, prob, eta, rho, torch, ops, ref, gen):
     log(f"kernels 4 and 6 against the pair they replace (the step, then a plain add): "
         f"{rec.rows['fused_update_arena']['pair_ms']:.4f} and "
         f"{rec.rows['fused_update']['pair_ms']:.4f} ms")
+    torch.cuda.synchronize()
+
+
+# the server step (kernels 2-3 redesigned) at (label, m, W, dtype): the
+# Fig. 2 arena, the reference benchmark's lm_flat (round_bench.py:61) and its
+# population sweep's largest point (round_bench.py:361-374); the JSON line's
+# rows: the population for the mean and the dual (the cohort round's server
+# step), Fig. 2 f32 for the round tail with the mean (the full round's)
+SERVER_SHAPES = (("fig2_bf16", 500, 512, "bfloat16"), ("lm_flat", 8, 1 << 20, "float32"),
+                 ("pop_1e6", 10 ** 6, 1024, "float32"), ("fig2", 500, 512, "float32"))
+UNIT_ROUNDOFF = 2.0 ** -24
+
+
+def column_sums_f64(torch, a, chunk=1 << 16):
+    """(sum_i a[i, j], sum_i |a[i, j]|) in float64, a row chunk at a time."""
+    s = torch.zeros(a.shape[1], dtype=torch.float64, device=a.device)
+    s_abs = torch.zeros_like(s)
+    for r0 in range(0, a.shape[0], chunk):
+        c = a[r0:r0 + chunk].double()
+        s += c.sum(0)
+        s_abs += c.abs().sum(0)
+    return s, s_abs
+
+
+def bf16_ulp(torch, x):
+    """One bf16 step at each |x| (2^(e - 8) for |x| = f 2^e, f in [0.5, 1))."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def check_server_step(rec, torch, ops, ref, gen, out):
+    """The server step's two passes and the round tail with the mean in its
+    pass, at ``SERVER_SHAPES``: x_s' against ``torch.mean`` (f32 within
+    2 (d + 2) u of each column's mean |u|, d the kernel's summation depth
+    ``round_tail.depth_on`` and u = 2^-24, and within (d + 2) u of the float64
+    mean; bf16 within one bf16 step), lam' bitwise the plain dual given the
+    kernel's x_s' and given a random row, lam's column sum against
+    ``torch.sum`` (within 2 (d + 2) u of each column's sum |lam|, (d + 2) u
+    of the float64 sum; given the random row the sums are O(m), so a lost
+    row block shows), both passes on integer data, where every order sums
+    exactly (the mean the exact mean rounded once, the column sum exact: one
+    lost row or column shows), the round tail's mean bitwise
+    ``client_mean`` of its uplink, and two runs bitwise equal; each timed
+    beside its plain composition and its bound."""
+    from repro_torch.kernels import round_tail as RT
+
+    dev = gen.device
+    rho = 2.5
+    f32 = torch.float32
+    res = out["server_step"] = {}
+
+    def colsum_err(cs, lam, d):
+        """cs's largest error from torch.sum, having checked it against
+        torch.sum and the float64 sum within their depth tolerances."""
+        c64, ca64 = column_sums_f64(torch, lam)
+        ctol = (d + 2) * UNIT_ROUNDOFF * ca64
+        err_t = (cs.double() - torch.sum(lam.to(f32), dim=0).double()).abs()
+        err_64 = (cs.double() - c64).abs()
+        ok = bool((err_t <= 2 * ctol).all()) and bool((err_64 <= ctol).all())
+        return ok, float(err_t.max()), float(err_64.max()), float(c64.abs().max())
+
+    for label, m, w, dname in SERVER_SHAPES:
+        dt = getattr(torch, dname)
+        es = torch.empty((), dtype=dt).element_size()
+        u = (torch.randn(m, w, generator=gen, device=dev) + 0.5).to(dt)
+        d = RT.depth_on(u)
+        x_k = ops.client_mean(u)
+        x_t = torch.mean(u, dim=0)
+        s64, a64 = column_sums_f64(torch, u)
+        mean_abs = a64 / m
+        err_t = (x_k.double() - x_t.double()).abs()
+        err_64 = (x_k.double() - s64 / m).abs()
+        tol = (d + 2) * UNIT_ROUNDOFF * mean_abs
+        if dt == f32:
+            check(bool((err_t <= 2 * tol).all()) and bool((err_64 <= tol).all()),
+                  f"client_mean {label}: {float(err_t.max())} from torch.mean, "
+                  f"{float(err_64.max())} from float64 (depth {d})")
+        else:
+            step = torch.maximum(bf16_ulp(torch, x_k), bf16_ulp(torch, x_t)).double()
+            check(bool((err_t <= torch.maximum(step, tol)).all()),
+                  f"client_mean {label}: {float(err_t.max())} from torch.mean (bf16)")
+        del s64, a64
+        lam_k, cs_k = ops.server_dual(u, x_k, rho)
+        lam_p = ref.dual_from_uplink_ref(u, x_k, rho)
+        lam_err = max_err(lam_k, lam_p)
+        check(same_bits(torch, lam_k, lam_p),
+              f"dual_from_uplink {label}: lam differs from the plain dual by {lam_err}")
+        del lam_p
+        ok, cerr_t, cerr_64, _ = colsum_err(cs_k, lam_k, d)
+        check(ok, f"server_dual {label}: column sum {cerr_t} from torch.sum, {cerr_64} from "
+                  f"float64 (depth {d})")
+        again = ops.server_step(u, rho)
+        check(all(same_bits(torch, a, b) for a, b in zip(again, (x_k, lam_k, cs_k))),
+              f"server_step {label}: two runs differ")
+        del again, lam_k
+        # the dual given a random row, not the mean: lam's columns do not
+        # cancel, their sums are O(m)
+        x_r = torch.randn(w, generator=gen, device=dev).to(dt)
+        lam_r, cs_r = ops.server_dual(u, x_r, rho)
+        check(same_bits(torch, lam_r, ref.dual_from_uplink_ref(u, x_r, rho)),
+              f"dual_from_uplink {label}: lam differs from the plain dual (a random row)")
+        ok, rerr_t, rerr_64, rmax = colsum_err(cs_r, lam_r, d)
+        check(ok, f"server_dual {label}: column sum {rerr_t} from torch.sum, {rerr_64} from "
+                  f"float64, given a random row (largest sum {rmax}, depth {d})")
+        del lam_r, cs_r, x_r
+        # integer data: u in [0, 4], x_s a random integer row, rho 2, so
+        # every partial sum is an integer below 2^24 and exact in f32 (and
+        # lam's entries exact in bf16): the mean must be the exact mean
+        # rounded once to f32, then to the dtype, the column sum exact
+        u_i = torch.randint(0, 5, (m, w), generator=gen, device=dev).to(dt)
+        x_i = torch.randint(0, 5, (w,), generator=gen, device=dev).to(dt)
+        sum_i = torch.sum(u_i, dim=0, dtype=f32).double()
+        check(same_bits(torch, ops.client_mean(u_i), (sum_i / m).to(f32).to(dt)),
+              f"client_mean {label}: not the exact mean of integer data")
+        lam_i, cs_i = ops.server_dual(u_i, x_i, 2.0)
+        check(same_bits(torch, lam_i, ref.dual_from_uplink_ref(u_i, x_i, 2.0)),
+              f"dual_from_uplink {label}: lam differs from the plain dual (integer data)")
+        exact = (2.0 * (sum_i - m * x_i.double())).to(f32)
+        check(same_bits(torch, cs_i, exact)
+              and same_bits(torch, cs_i, torch.sum(lam_i.to(f32), dim=0)),
+              f"server_dual {label}: column sum of integer data off by "
+              f"{max_err(cs_i, exact)}")
+        del u_i, x_i, sum_i, lam_i, cs_i, exact
+        # the round tail with the mean in its pass
+        xr, lm = (torch.randn(m, w, generator=gen, device=dev).to(dt) for _ in range(2))
+        xs = torch.randn(w, generator=gen, device=dev).to(dt)
+        li, up, xm = ops.round_tail_mean(xr, lm, xs, rho, with_lam_is=True)
+        li_p, up_p = ref.round_tail_ref(xr, lm, xs, rho)
+        ulp = 2.0 ** (-23 if dt == f32 else -7)
+        up_err = max_err(up, up_p)
+        check(same_bits(torch, li, li_p), f"round_tail_mean {label}: lam_is differs")
+        check(up_err <= 2 * ulp * max(1.0, float(up_p.float().abs().max())),
+              f"round_tail_mean {label}: uplink error {up_err}")
+        check(same_bits(torch, xm, ops.client_mean(up)),
+              f"round_tail_mean {label}: its mean differs from client_mean's")
+        tail_mean_err = max_err(xm, torch.mean(up, dim=0))
+        del li, li_p, up_p
+        res[label] = row = {"m": m, "W": w, "dtype": dname, "depth": d,
+                            "mean_err_vs_torch": float(err_t.max()),
+                            "colsum_err_vs_torch": cerr_t,
+                            "colsum_err_vs_torch_random_row": rerr_t,
+                            "colsum_max_random_row": rmax,
+                            "round_tail_mean_uplink_err": up_err,
+                            "round_tail_mean_mean_err_vs_torch": tail_mean_err}
+        errs = {"client_mean": float(err_t.max()),
+                "dual_from_uplink": max(lam_err, cerr_t, rerr_t),
+                "round_tail_mean": max(up_err, tail_mean_err)}
+        iters = 200 if m * w < 1 << 22 else 20
+        n = m * w
+        calls = {
+            "client_mean": (lambda: ops.client_mean(u), lambda: ref.client_mean_ref(u),
+                            lambda: torch.mean(u, dim=0), es * (n + w), n),
+            "dual_from_uplink": (lambda: ops.server_dual(u, x_k, rho),
+                                 lambda: ref.server_dual_ref(u, x_k, rho), None,
+                                 es * (2 * n + w) + 4 * w, 3 * n),
+            "round_tail_mean": (lambda: ops.round_tail_mean(xr, lm, xs, rho, with_lam_is=False),
+                                lambda: ref.round_tail_mean_ref(xr, lm, xs, rho,
+                                                                with_lam_is=False), None,
+                                es * (3 * n + 2 * w), 6 * n),
+        }
+        for name, (fn, plain, lib, nbytes, flops) in calls.items():
+            rec.kernel(name, errs[name], fn, plain, iters, nbytes, flops, library_fn=lib)
+            row[name] = {k: rec.rows[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                        "library_ms", "bound_ms", "bound_by",
+                                                        "enqueue_ms")}
+        # the two passes against their plain composition (torch.mean, the
+        # plain dual, torch.sum)
+        row["server_step"] = {"ms": cuda_time_ms(lambda: ops.server_step(u, rho), iters),
+                              "plain_ms": cuda_time_ms(lambda: ref.server_step_ref(u, rho),
+                                                       iters),
+                              "bound_ms": bound_ms(es * (3 * n + w) + 4 * w, 4 * n)[0]}
+        log(f"server step {label} (m {m}, W {w}, {dname}, depth {d}): mean err vs torch.mean "
+            f"{row['mean_err_vs_torch']:.3e}, column sum err vs torch.sum "
+            f"{row['colsum_err_vs_torch']:.3e} (given a random row {rerr_t:.3e} of sums up to "
+            f"{rmax:.3e}); round tail's uplink err {up_err:.3e}, its mean's vs torch.mean "
+            f"{tail_mean_err:.3e}; " + "; ".join(
+                f"{k} {v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, bound {v['bound_ms']:.5f})"
+                for k, v in row.items() if isinstance(v, dict)))
+        del u, x_k, cs_k, xr, lm, xs, up, xm
+        torch.cuda.empty_cache()
+    for name in ("client_mean", "dual_from_uplink", "round_tail_mean"):
+        rec.rows[name]["shapes"] = {label: {k: r[k] for k in ("m", "W", "dtype")} | r[name]
+                                    for label, r in res.items()}
+    for name, label in (("client_mean", "pop_1e6"), ("dual_from_uplink", "pop_1e6")):
+        rec.rows[name].update(res[label][name])  # the population's row
     torch.cuda.synchronize()
 
 
@@ -1088,8 +1282,8 @@ def lsq_phase(rec, prob, torch, ops, make, FederatedConfig, dev, prof=None):
     d0 = float(prob.dist(x0))
     dists = {}
     per_round = {
-        "gpdmm": dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1),
-        "agpdmm": dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1),
+        "gpdmm": dict(inner_loop_affine=1, round_tail_mean=1, dual_from_uplink=1),
+        "agpdmm": dict(inner_loop_affine=1, round_tail_mean=1, dual_from_uplink=1),
         "scaffold": dict(inner_loop_affine=1, scaffold_cv=1),
         "fedavg": dict(inner_loop_affine=1),
     }
@@ -1102,32 +1296,26 @@ def lsq_phase(rec, prob, torch, ops, make, FederatedConfig, dev, prof=None):
         def on_round(r, s, met):
             if r in (0, R // 2 - 1, R - 1):
                 trail.append(float(prob.dist(s["x_s"])))
-                if "lam_sum_norm" in met:
-                    # invariant (25): sum_i lam_i = rho m (mean u - x_s') is
-                    # zero up to the f32 rounding of the client mean, ~ rho m
-                    # eps ||x_s||
-                    scale = rho * m * F32_EPS * max(
-                        1.0, float(torch.linalg.vector_norm(s["x_s"])))
-                    inv.append(float(met["lam_sum_norm"]) / scale)
-                elif "c_sum_norm" in met:
-                    # SCAFFOLD: sum_i (c_i - c) = 0 up to the rounding of the
-                    # f32 c-delta means, ~ m eps times a row of c_i
-                    scale = m * F32_EPS * max(
-                        1.0, float(torch.linalg.vector_norm(s["c_i"])) / math.sqrt(m))
-                    inv.append(float(met["c_sum_norm"]) / scale)
+                v = invariants(torch, met, s, rho, m)
+                if v is not None:
+                    inv.append(v)
 
         state, metrics, counts, secs = run_rounds(
             torch, ops, opt, state, prob.oracle(), lambda r: prob.batch(), R, False, on_round)
         rec.add(counts)
         log(f"lsq {algo}: {R} rounds in {secs:.3f} s ({1e3 * secs / R:.3f} ms/round); "
             f"||x - x*|| {d0:.4e} -> {trail}; launches {counts}; "
-            f"invariant / rounding scale {[round(v, 3) for v in inv]}")
+            f"invariant / (full, client-mean) rounding scale {readings(inv)}")
         check(counts == expected(ops, R, **per_round[algo]), f"lsq {algo}: launches {counts}")
         check(trail[-1] < trail[0] < d0, f"lsq {algo}: distance did not fall: {trail}")
         if algo in ("gpdmm", "agpdmm"):
-            check(max(inv) < 16.0, f"lsq {algo}: dual-sum invariant (25) broken: {inv}")
+            # full rounds: the client mean's scale alone, as before the
+            # card's server step took the column sum in its own order
+            check(max(v for _, v in inv) < 16.0,
+                  f"lsq {algo}: dual-sum invariant (25) broken: {inv}")
         if algo == "scaffold":
-            check(max(inv) < 64.0, f"lsq scaffold: sum_i (c_i - c) = 0 broken: {inv}")
+            check(max(v for v, _ in inv) < 64.0,
+                  f"lsq scaffold: sum_i (c_i - c) = 0 broken: {inv}")
         for k in ("x_s", "lam_s", "x_c", "c", "c_i"):
             if k in state:
                 check(bool(torch.isfinite(state[k]).all()), f"lsq {algo}: {k} not finite")
@@ -1143,15 +1331,16 @@ def lsq_phase(rec, prob, torch, ops, make, FederatedConfig, dev, prof=None):
 # phase 5: every algorithm at full participation, launches per round
 SOFTMAX_RUNS = {
     "gpdmm": (dict(algorithm="gpdmm"),
-              dict(fused_update_arena=SOFTMAX["K"], round_tail=1, dual_from_uplink=1)),
+              dict(fused_update_arena=SOFTMAX["K"], round_tail_mean=1, dual_from_uplink=1)),
     "agpdmm": (dict(algorithm="agpdmm"),
-               dict(fused_update_arena=SOFTMAX["K"], round_tail=1, dual_from_uplink=1)),
+               dict(fused_update_arena=SOFTMAX["K"], round_tail_mean=1, dual_from_uplink=1)),
     "scaffold": (dict(algorithm="scaffold"), dict(fused_update_arena=SOFTMAX["K"], scaffold_cv=1)),
     "fedavg": (dict(algorithm="fedavg"), dict(fused_update_arena=SOFTMAX["K"])),
     "fedsplit_xs": (dict(algorithm="fedsplit", fedsplit_init="xs"),
                     dict(fused_update=SOFTMAX["K"])),
     "gpdmm_svrg": (dict(algorithm="gpdmm", variance_reduction="svrg"),
-                   dict(fused_update_arena=SOFTMAX["K"], round_tail=1, dual_from_uplink=1)),
+                   dict(fused_update_arena=SOFTMAX["K"], round_tail_mean=1,
+                        dual_from_uplink=1)),
 }
 
 
@@ -1166,29 +1355,29 @@ SOFTMAX_RUNS = {
 # the masked round selects with torch.where
 PARTICIPATION_RUNS = {
     "a_gpdmm": (dict(algorithm="gpdmm", participation=0.1),
-                dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
-                     row_scatter=1)),
+                dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1,
+                     row_gather=1, row_scatter=1)),
     "a_agpdmm": (dict(algorithm="agpdmm", participation=0.1),
-                 dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
-                      row_scatter=1)),
+                 dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1,
+                      row_gather=1, row_scatter=1)),
     "a_scaffold": (dict(algorithm="scaffold", participation=0.1),
                    dict(inner_loop_affine=1, scaffold_cv=1, row_gather=1, row_scatter=1)),
     "a_fedavg": (dict(algorithm="fedavg", participation=0.1),
                  dict(inner_loop_affine=1, row_scatter=1)),
     "b_gpdmm": (dict(algorithm="gpdmm", participation=0.1, uplink_bits=8),
-                dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
-                     row_scatter=1, ef21_rowmax=1, ef21_apply=1)),
+                dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1,
+                     row_gather=1, row_scatter=1, ef21_rowmax=1, ef21_apply=1)),
     "b_agpdmm": (dict(algorithm="agpdmm", participation=0.1, uplink_bits=8),
-                 dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
-                      row_scatter=1, ef21_rowmax=1, ef21_apply=1)),
+                 dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1,
+                      row_gather=1, row_scatter=1, ef21_rowmax=1, ef21_apply=1)),
     "b_fedavg": (dict(algorithm="fedavg", participation=0.1, uplink_bits=8),
                  dict(inner_loop_affine=1, row_gather=1, row_scatter=1, ef21_rowmax=1,
                       ef21_apply=1)),
     "c_gpdmm": (dict(algorithm="gpdmm", uplink_bits=8),
-                dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, ef21_rowmax=1,
-                     ef21_apply=1)),
+                dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1,
+                     ef21_rowmax=1, ef21_apply=1)),
     "d_gpdmm": (dict(algorithm="gpdmm", participation=0.1, cohort=False),
-                dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1)),
+                dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1)),
 }
 # the same at the Fig. 2 size on the default config (the per-leaf pytree
 # path at W = 512, the plain grad): the tail is plain torch ops, so only the
@@ -1202,8 +1391,9 @@ PARTICIPATION_PYTREE_RUNS = {
 # softmax at the Table I size, participation 0.5 (5 of 10) with 8-bit EF21
 SOFTMAX_PARTIAL = {
     "gpdmm_p50_ef21": (dict(algorithm="gpdmm", participation=0.5, uplink_bits=8),
-                       dict(fused_update_arena=SOFTMAX["K"], round_tail=1, dual_from_uplink=1,
-                            row_gather=1, row_scatter=1, ef21_rowmax=1, ef21_apply=1)),
+                       dict(fused_update_arena=SOFTMAX["K"], round_tail=1, client_mean=1,
+                            dual_from_uplink=1, row_gather=1, row_scatter=1, ef21_rowmax=1,
+                            ef21_apply=1)),
     "fedavg_p50_ef21": (dict(algorithm="fedavg", participation=0.5, uplink_bits=8),
                         dict(fused_update_arena=SOFTMAX["K"], row_gather=1, row_scatter=1,
                              ef21_rowmax=1, ef21_apply=1)),
@@ -1211,17 +1401,34 @@ SOFTMAX_PARTIAL = {
 
 
 def invariants(torch, met, state, rho, m):
-    """The invariant of a round over its rounding scale: (25) for
-    GPDMM/AGPDMM, sum_i (c_i - c) = 0 for SCAFFOLD (phase 4's scales); None
-    for FedAvg."""
+    """A round's invariant over its rounding scales, or None for FedAvg:
+    (reading over the full scale, reading over the client mean's alone).
+
+    (25) for GPDMM/AGPDMM: sum_i lam_i = rho m (mean u - x_s') is zero up to
+    the f32 rounding of the client mean, ~ rho m eps ||x_s|| (the client
+    mean's scale), and the roundings of lam's entries and of its column sum,
+    eps |lam_ij| a term (the card's server step adds the column in its own
+    order), ~ sqrt(m) eps ||lam||_F over the columns (the full scale adds
+    it).  SCAFFOLD's sum_i (c_i - c) = 0 up to the rounding of the f32
+    c-delta means, ~ m eps times a row of c_i (both readings)."""
     if "lam_sum_norm" in met:
-        scale = rho * m * F32_EPS * max(1.0, float(torch.linalg.vector_norm(state["x_s"])))
-        return float(met["lam_sum_norm"]) / scale
+        from repro_torch.core import tree_util as T
+
+        lam_f = math.sqrt(sum(float(torch.sum(torch.square(x.float())))
+                              for x in T.leaves(state["lam_s"])))
+        mean_scale = F32_EPS * rho * m * max(1.0, float(torch.linalg.vector_norm(state["x_s"])))
+        lsn = float(met["lam_sum_norm"])
+        return lsn / (mean_scale + F32_EPS * math.sqrt(m) * lam_f), lsn / mean_scale
     if "c_sum_norm" in met:
         scale = m * F32_EPS * max(1.0, float(torch.linalg.vector_norm(state["c_i"]))
                                   / math.sqrt(m))
-        return float(met["c_sum_norm"]) / scale
+        return (float(met["c_sum_norm"]) / scale,) * 2
     return None
+
+
+def readings(inv) -> list:
+    """``invariants``' pairs for the log, rounded."""
+    return [tuple(round(v, 3) for v in pair) for pair in inv]
 
 
 def participation_phase(rec, prob, torch, ops, make, FederatedConfig, dev, out, prof=None):
@@ -1276,13 +1483,15 @@ def participation_phase(rec, prob, torch, ops, make, FederatedConfig, dev, out, 
         out[f"participation_{label}_ms_per_round"] = 1e3 * secs / R
         log(f"participation {label}: {R} rounds in {secs:.3f} s ({1e3 * secs / R:.3f} "
             f"ms/round); ||x - x*|| {d0:.4e} -> {trail}; launches {counts}; "
-            f"invariant / rounding scale {[round(v, 3) for v in inv]}")
+            f"invariant / (full, client-mean) rounding scale {readings(inv)}")
         check(counts == expected(ops, R, **per_round), f"participation {label}: launches {counts}")
         check(trail[-1] < trail[0] < d0, f"participation {label}: distance did not fall: {trail}")
         if kw["algorithm"] in ("gpdmm", "agpdmm"):
-            check(max(inv) < 16.0, f"participation {label}: invariant (25) broken: {inv}")
+            check(max(v for v, _ in inv) < 16.0,
+                  f"participation {label}: invariant (25) broken: {inv}")
         if kw["algorithm"] == "scaffold":
-            check(max(inv) < 64.0, f"participation {label}: sum_i (c_i - c) = 0 broken: {inv}")
+            check(max(v for v, _ in inv) < 64.0,
+                  f"participation {label}: sum_i (c_i - c) = 0 broken: {inv}")
         for k, v in state.items():
             if k != "round":
                 check(bool(torch.isfinite(v).all()), f"participation {label}: {k} not finite")
@@ -1319,7 +1528,7 @@ def participation_phase(rec, prob, torch, ops, make, FederatedConfig, dev, out, 
 # round_bench.py:115, the population in device memory (lam, x_c, u_hat:
 # 12.3 GB at 10^6)
 POPULATION = dict(ms=(10 ** 5, 10 ** 6), width=1024, cohort=64, K=4, eta=0.1, rounds=10)
-POPULATION_LAUNCHES = dict(fused_update_arena=POPULATION["K"], round_tail=1,
+POPULATION_LAUNCHES = dict(fused_update_arena=POPULATION["K"], round_tail=1, client_mean=1,
                            dual_from_uplink=1, row_gather=1, row_scatter=1)
 
 
@@ -1674,7 +1883,7 @@ DELAYED = dict(faults=dict(delay=0.3, seed=9), async_rounds=True)
 # an honest copy pass; the NaN and Inf rows are demoted)
 FINITE_ONLY = dict(faults=dict(dropout=0.1, corrupt=0.05, seed=7, blowup=1.0), screen=True,
                    screen_mult=0.0)
-ARENA_TAIL = dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1)
+ARENA_TAIL = dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1)
 # launches per round, read off the rounds' code: every screened arena round
 # screens once (screen="auto" screens a delay-only schedule too), every
 # async arena round mixes once, the cohort gathers the cached u_hat rows
@@ -1785,17 +1994,18 @@ def faults_phase(rec, prob, torch, ops, make, FederatedConfig, FaultConfig, quad
                if k.startswith(("faults_", "stale_"))}
         out[f"faults_{label}_ms_per_round"] = 1e3 * secs / R
         log(f"faults {label}: {R} rounds in {secs:.3f} s ({1e3 * secs / R:.3f} ms/round); "
-            f"||x - x*|| {d0:.4e} -> {trail}; launches {counts}; invariant / rounding scale "
-            f"{[round(v, 3) for v in inv]}; totals {tot}")
+            f"||x - x*|| {d0:.4e} -> {trail}; launches {counts}; invariant / (full, "
+            f"client-mean) rounding scale {readings(inv)}; totals {tot}")
         check(float(metrics["used_arena"]) == (0.0 if pytree else 1.0),
               f"faults {label}: took the wrong path")
         check(counts == expected(ops, R, **per_round), f"faults {label}: launches {counts}")
         check(all(bool(f) for f in finite), f"faults {label}: x_s not finite in some round")
         check(trail[-1] < trail[0] < d0, f"faults {label}: distance did not fall: {trail}")
         if kw["algorithm"] in ("gpdmm", "agpdmm"):
-            check(max(inv) < 16.0, f"faults {label}: invariant (25) broken: {inv}")
+            check(max(v for v, _ in inv) < 16.0, f"faults {label}: invariant (25) broken: {inv}")
         if kw["algorithm"] == "scaffold":
-            check(max(inv) < 64.0, f"faults {label}: sum_i (c_i - c) = 0 broken: {inv}")
+            check(max(v for v, _ in inv) < 64.0,
+                  f"faults {label}: sum_i (c_i - c) = 0 broken: {inv}")
         for k, v in state.items():
             if k != "round":
                 check(bool(torch.isfinite(v.float()).all()), f"faults {label}: {k} not finite")
@@ -1912,7 +2122,8 @@ def lm_flat_phase(rec, torch, ops, make, make_oracle, FederatedConfig, FaultConf
     grad = make_oracle(lambda p, b: {k: 0.3 * v for k, v in p.items()},
                        grad_arena=lambda spec: (lambda xa, b: 0.3 * xa))
     batch = {"dummy": torch.zeros(m, 1, device=dev)}
-    tail = dict(fused_update_arena=K, round_tail=1, dual_from_uplink=1, screen_uplink=1)
+    tail = dict(fused_update_arena=K, round_tail=1, client_mean=1, dual_from_uplink=1,
+                screen_uplink=1)
     for label, kw, per_round in (
             ("screened", SCREENED, tail),
             ("async_ms2", DELAYED | dict(max_staleness=2), tail | dict(stale_mix=1))):
@@ -2266,7 +2477,7 @@ def autotune_phase(rec, prob, torch, ops, make, FederatedConfig, quadratic, gen,
         f"rounds {1e3 * secs / LSQ['rounds']:.3f} ms/round, ||x - x*|| {dist:.4e}; "
         f"launches {counts}")
     check(rel <= L_RTOL, f"autotune: L_i on the card vs the CPU {rel} > {L_RTOL}")
-    check(counts == expected(ops, LSQ["rounds"], inner_loop_affine=1, round_tail=1,
+    check(counts == expected(ops, LSQ["rounds"], inner_loop_affine=1, round_tail_mean=1,
                              dual_from_uplink=1), f"autotune Fig. 2: launches {counts}")
     check(math.isfinite(dist) and dist < float(prob.dist(torch.zeros(d, device=dev))),
           f"autotune Fig. 2: distance {dist}")
@@ -2313,7 +2524,7 @@ def autotune_phase(rec, prob, torch, ops, make, FederatedConfig, quadratic, gen,
     r_hand, s_hand, c_hand, ran_hand = scan_to_tol(hand_cfg)
     for counts, ran in ((c_auto, ran_auto), (c_hand, ran_hand)):
         rec.add(counts)
-        check(counts == expected(ops, ran, fused_update_arena=K, round_tail=1,
+        check(counts == expected(ops, ran, fused_update_arena=K, round_tail_mean=1,
                                  dual_from_uplink=1, residual_norm=2),
               f"autotune bench: launches {counts} over {ran} rounds")
 
@@ -2749,6 +2960,7 @@ def main() -> int:
     eta = 0.5 / prob.L
     timed("3 kernels", check_kernels, rec, prob, eta, 1.0 / (LSQ["K"] * eta), torch, ops, ref,
           seeded(torch, 3))
+    timed("3 server step", check_server_step, rec, torch, ops, ref, seeded(torch, 61), out)
     timed("3 step kernel", check_step_kernel, rec, torch, ops, ref, seeded(torch, 47), out)
     timed("3 cohort kernels", check_cohort_kernels, rec, torch, ops, ref, seeded(torch, 13), out)
     timed("3 fault kernels", check_fault_kernels, rec, torch, ops, ref, seeded(torch, 17), out)

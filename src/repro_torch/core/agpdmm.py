@@ -6,7 +6,8 @@ engine and EF21 uplink.
 It differs from GPDMM in two places: every client starts the round from
 the fresh server iterate x_s^r (no primal carry is stored), and the dual
 update uses the last iterate x_i^{r,K} (eq. 24).  The inner loops and the
-round tails are GPDMM's, faults, screening and async rounds included.
+round tails are GPDMM's (``arena_tail``, two passes over the arena),
+faults, screening and async rounds included.
 With K = 1 and rho = 1/eta the round is gradient descent with stepsize eta
 (paper eq. (27)).  The inner loops keep no x_bar, which AGPDMM never
 reads.  The cohort round moves no
@@ -68,8 +69,9 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     uplink, keep_c, fm = cohort_cache(cfg, spec, state, uplink, idx, x_s_row,
                                       u_hat_c[0] if u_hat_c else None)
     u_hat_new, = scatter_cohort((u_hat,), idx, (uplink,), donate=donate)
-    new_state = cohort_server(cfg, spec, u_hat_new) | {"round": state["round"] + 1}
-    return new_state, arena_metrics(new_state["lam_s"], x_K, x_s_row, keep_c) | fm
+    server, lam_sum = cohort_server(cfg, spec, u_hat_new)
+    new_state = server | {"round": state["round"] + 1}
+    return new_state, arena_metrics(lam_sum, x_K, x_s_row, keep_c) | fm
 
 
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, donate):
@@ -87,14 +89,14 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, 
         rho=rho, per_step=per_step_batches,
         vr_snapshot=x0 if cfg.variance_reduction == "svrg" else None, with_bar=False)
 
-    _, uplink = ops.round_tail(x_K, lam, x_s_row, rho, with_lam_is=False)
-    new_state, x_s_new, lam_s_new, mask, fm = arena_tail(cfg, spec, state, uplink, m, x_s_row)
+    _, new_state, x_s_new, lam_s_new, lam_sum, mask, fm = arena_tail(
+        cfg, spec, state, x_K, lam, m, x_s_row)
     new_state |= {
         "x_s": spec.unpack(x_s_new),
         "lam_s": lam_s_new,
         "round": state["round"] + 1,
     }
-    return new_state, arena_metrics(lam_s_new, x_K, x_s_row, mask) | fm
+    return new_state, arena_metrics(lam_sum, x_K, x_s_row, mask) | fm
 
 
 def _round(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches=False, *,

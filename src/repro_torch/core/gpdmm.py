@@ -16,8 +16,12 @@ Per round r (client i, K inner steps, rho = 1/(K eta) by default):
 with xref_i = mean_k x_i^{r,k} (``use_avg=True``) or x_i^{r,K}.  An arena
 round is the inner loop (one ``inner_loop_affine`` kernel for an affine
 oracle, else one ``fused_update_arena`` kernel per step, which also keeps
-x_bar's running sum), one ``round_tail`` kernel, the client mean
-(``torch.mean``) and one ``dual_from_uplink`` kernel.  A pytree round
+x_bar's running sum), then two passes over the arena for its tail: a
+round that needs no cache (``needs_cache``) runs ``round_tail_mean`` (the
+uplink with the client mean in its pass) and ``server_dual`` (the dual
+refresh with lam's column sum, which ``lam_sum_norm`` reads); every other
+round runs ``round_tail``, the cache's rows (``cached_uplink``) and
+``server_step`` (the client mean, then ``server_dual``).  A pytree round
 (``use_arena="auto"`` below ``arena_min_width``, or ``layout="fsdp"``) runs
 one ``fused_update`` kernel per step for all the leaves of a dtype (x_bar's
 running sum in the same pass), and its tail as plain tensor ops, as the
@@ -210,17 +214,27 @@ def cached_uplink(cfg: FederatedConfig, state, uplink, m: int, ref, spec=None):
     return uplink, mask, stale_up, fault_report(cfg, fplan, pmask, keep, sm)
 
 
-def arena_tail(cfg: FederatedConfig, spec, state, uplink, m: int, x_s_row):
-    """The arena round tail shared with AGPDMM: ``cached_uplink`` (screened
+def arena_tail(cfg: FederatedConfig, spec, state, x_ref, lam, m: int, x_s_row, *,
+               with_lam_is: bool = False):
+    """The arena round tail shared with AGPDMM, from the inner loop's
+    ``x_ref``: the dual flip and the uplink, ``cached_uplink`` (screened
     against the server row ``x_s_row``), the client mean (the round's
-    single all-reduce) and the fused dual refresh.  Returns (state_updates,
-    x_s_new_row, lam_s_new, mask, fault metrics)."""
+    single all-reduce) and the dual refresh with lam's column sum.  Without
+    a cache the uplink goes to the mean untouched, so the round tail takes
+    the mean in its pass.  Returns (lam_is or None, state_updates,
+    x_s_new_row, lam_s_new, lam's f32 column sum, mask, fault metrics)."""
+    rho = resolved_rho(cfg)
+    if not needs_cache(cfg):
+        lam_is, uplink, x_s_new = ops.round_tail_mean(x_ref, lam, x_s_row, rho,
+                                                      with_lam_is=with_lam_is)
+        lam_s_new, lam_sum = ops.server_dual(uplink, x_s_new, rho)
+        return lam_is, {}, x_s_new, lam_s_new, lam_sum, None, {}
+    lam_is, uplink = ops.round_tail(x_ref, lam, x_s_row, rho, with_lam_is=with_lam_is)
     uplink, mask, new_state, fm = cached_uplink(cfg, state, uplink, m, x_s_row, spec)
     if "u_hat" in state:
         new_state["u_hat"] = uplink
-    x_s_new = torch.mean(uplink, dim=0)
-    lam_s_new = ops.dual_from_uplink(uplink, x_s_new, resolved_rho(cfg))
-    return new_state, x_s_new, lam_s_new, mask, fm
+    x_s_new, lam_s_new, lam_sum = ops.server_step(uplink, rho)
+    return lam_is, new_state, x_s_new, lam_s_new, lam_sum, mask, fm
 
 
 def cohort_reads_cache(cfg: FederatedConfig) -> bool:
@@ -264,11 +278,10 @@ def cohort_fault_report(fplan, plan_c, keep) -> dict:
 
 def cohort_server(cfg: FederatedConfig, spec, u_hat_new):
     """The cohort round's server step over the scattered cache, shared with
-    AGPDMM: the client mean and the full dual refresh.  Returns {u_hat,
-    x_s, lam_s}."""
-    x_s_new = torch.mean(u_hat_new, dim=0)
-    lam_s_new = ops.dual_from_uplink(u_hat_new, x_s_new, resolved_rho(cfg))
-    return {"u_hat": u_hat_new, "x_s": spec.unpack(x_s_new), "lam_s": lam_s_new}
+    AGPDMM: the client mean and the full dual refresh with lam's column
+    sum.  Returns ({u_hat, x_s, lam_s}, the column sum)."""
+    x_s_new, lam_s_new, lam_sum = ops.server_step(u_hat_new, resolved_rho(cfg))
+    return {"u_hat": u_hat_new, "x_s": spec.unpack(x_s_new), "lam_s": lam_s_new}, lam_sum
 
 
 def cohort_eta(cfg: FederatedConfig, idx):
@@ -286,11 +299,12 @@ def arena_drift(x_K, x_s_row, mask=None):
         torch.sum(torch.square((x_K - x_s_row[None]).to(torch.float32)), dim=1), mask)
 
 
-def arena_metrics(lam_s_new, x_K, x_s_row, mask=None):
-    """KKT invariant (25) and drift straight off the arena buffers."""
+def arena_metrics(lam_sum, x_K, x_s_row, mask=None):
+    """KKT invariant (25), the norm of lam's f32 column sum ``lam_sum`` (the
+    server step's), and drift straight off the arena buffers."""
     f32 = torch.float32
     return {
-        "lam_sum_norm": torch.linalg.vector_norm(torch.sum(lam_s_new.to(f32), dim=0)),
+        "lam_sum_norm": torch.linalg.vector_norm(lam_sum),
         "client_drift": arena_drift(x_K, x_s_row, mask),
         "used_arena": torch.ones((), dtype=f32, device=x_K.device),
     }
@@ -336,11 +350,12 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     # demoted cohort rows are silent: they keep their round-start carry
     x_K_kept = x_K if keep_c is None else torch.where(keep_c[:, None], x_K, x0_c)
     u_hat_new, x_c_new = scatter_cohort((u_hat, x_c), idx, (uplink, x_K_kept), donate=donate)
-    new_state = cohort_server(cfg, spec, u_hat_new) | {
+    server, lam_sum = cohort_server(cfg, spec, u_hat_new)
+    new_state = server | {
         "x_c": x_c_new,  # silent clients keep their carry
         "round": state["round"] + 1,
     }
-    return new_state, arena_metrics(new_state["lam_s"], x_K, x_s_row, keep_c) | fm
+    return new_state, arena_metrics(lam_sum, x_K, x_s_row, keep_c) | fm
 
 
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, return_trace,
@@ -364,8 +379,8 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, 
     x_ref = x_bar if cfg.use_avg else x_K
 
     # the uplink, and lam_is only when a trace wants it
-    lam_is, uplink = ops.round_tail(x_ref, lam, x_s_row, rho, with_lam_is=return_trace)
-    new_state, x_s_new, lam_s_new, mask, fm = arena_tail(cfg, spec, state, uplink, m, x_s_row)
+    lam_is, new_state, x_s_new, lam_s_new, lam_sum, mask, fm = arena_tail(
+        cfg, spec, state, x_ref, lam, m, x_s_row, with_lam_is=return_trace)
     new_state |= {
         "x_s": spec.unpack(x_s_new),
         "lam_s": lam_s_new,
@@ -373,7 +388,7 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, 
         "x_c": x_K if mask is None else torch.where(mask[:, None], x_K, x_c),
         "round": state["round"] + 1,
     }
-    metrics = arena_metrics(lam_s_new, x_K, x_s_row, mask) | fm
+    metrics = arena_metrics(lam_sum, x_K, x_s_row, mask) | fm
     if return_trace:
         metrics["trace"] = {
             "x_ref": spec.unpack_stacked(x_ref),

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the seventeen ported kernels.
+"""Plain PyTorch versions of the seventeen ported kernels and the server
+step's passes.
 
 Each upcasts to f32 and casts back at exactly the points where the
 ``"xla"`` branches of ``src/repro/kernels/ops.py`` do (lines 276-278,
@@ -142,6 +143,31 @@ def dual_from_uplink_ref(uplink, x_s, rho):
     """lam_s' = rho (u - x_s')."""
     f32 = torch.float32
     return (rho * (uplink.to(f32) - x_s.to(f32)[None])).to(uplink.dtype)
+
+
+def round_tail_mean_ref(x_ref, lam_s, x_s, rho, *, with_lam_is: bool = True):
+    """``round_tail_ref``, then the client mean of the uplink:
+    (lam_is, uplink, x_s')."""
+    lam_is, uplink = round_tail_ref(x_ref, lam_s, x_s, rho, with_lam_is=with_lam_is)
+    return lam_is, uplink, client_mean_ref(uplink)
+
+
+def client_mean_ref(uplink):
+    """x_s' = mean_i u_i, in the uplink's dtype."""
+    return torch.mean(uplink, dim=0)
+
+
+def server_dual_ref(uplink, x_s, rho):
+    """(lam_s' = rho (u - x_s'), the f32 column sum of lam_s' as stored)."""
+    lam = dual_from_uplink_ref(uplink, x_s, rho)
+    return lam, torch.sum(lam.to(torch.float32), dim=0)
+
+
+def server_step_ref(uplink, rho):
+    """The server step: the client mean, the dual refresh and lam's column
+    sum, (x_s', lam_s', colsum)."""
+    x_s = client_mean_ref(uplink)
+    return (x_s,) + server_dual_ref(uplink, x_s, rho)
 
 
 def ef21_rowmax_ref(u, u_hat):

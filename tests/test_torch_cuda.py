@@ -7,12 +7,16 @@ them:
 
 Tolerances: bitwise where the kernel and the plain version run the same f32
 operations (``fused_update``, ``fused_update_leaves`` and x_bar's running
-sum in every mode, ``scaffold_cv``, ``dual_from_uplink``,
+sum in every mode, ``scaffold_cv``, ``dual_from_uplink`` (and the server
+step's dual given its own x_s'),
 ``fused_update_arena``, ``lam_is``, the EF21 kernels, a NaN included) or
 copy (``row_gather``, ``row_scatter``) or select and mix (``stale_mix``);
 ``screen_uplink``'s finite flags exactly and its sums to rtol
 1e-6 * sqrt(W / 128) (a fixed order of its own, not torch.sum's), and
-``residual_norm``'s sums likewise; ``neighbor_reduce`` and ``edge_flip``
+``residual_norm``'s sums likewise; the server step's mean and column sum
+within (d + 2) 2^-24 of the summed magnitudes from float64, twice that from
+``torch.mean`` and ``torch.sum`` (d the kernel's summation depth), bf16
+means one bf16 step; ``neighbor_reduce`` and ``edge_flip``
 bitwise (the same f32 operations, the sums in slot order); the
 uplink of ``round_tail`` to one rounding (the plain version divides by a
 scalar as a multiply by its reciprocal on the card); the inner loop to
@@ -64,6 +68,98 @@ def test_cuda_elementwise_kernels_match_plain(cuda, dtype):
                                    ref.fused_update_arena_ref(x, gr, xs, lam, st, 1.7),
                                    rtol=0, atol=0)
     torch.cuda.synchronize()
+
+
+# the server step (kernels 2-3): rows not a multiple of the slices (S > 1
+# with a short last slice), the Fig. 2 arena, lm_flat's 2^20 columns (S = 1),
+# a width that is not a multiple of the 16-byte vector, one client
+SERVER_SHAPES = [(130001, 128), (500, 512), (8, 2 ** 20), (7, 130), (1, 128)]
+
+
+def _column_sums_f64(a):
+    """(sum_i a[i, j], sum_i |a[i, j]|) in float64."""
+    d = a.double()
+    return d.sum(0), d.abs().sum(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,w", SERVER_SHAPES)
+def test_cuda_server_step_matches_plain(cuda, m, w, dtype):
+    """The server step's passes and the round tail with the mean: x_s'
+    within (d + 2) 2^-24 of each column's mean |u| from the float64 mean and
+    twice that from ``torch.mean`` (d = ``round_tail.depth``, the kernel's
+    summation depth, ``round_tail.depth_on``; bf16 one bf16 step from
+    ``torch.mean``); lam' bitwise
+    the plain dual given the kernel's x_s' and given a random row; lam's
+    column sum likewise relative to each column's sum |lam|, against the
+    float64 sum and ``torch.sum``; on integer data, where every order sums
+    exactly, the exact mean rounded once and the exact column sum; lam_is and the uplink as ``round_tail``'s, the mean
+    bitwise ``client_mean`` of that uplink; a second run bitwise the first;
+    one launch of each pass."""
+    from repro_torch.kernels import round_tail as RT
+
+    g = torch.Generator(device="cuda").manual_seed(m + w)
+    u = (torch.randn(m, w, generator=g, device=cuda) + 0.5).to(dtype)
+    tol_u = (RT.depth_on(u) + 2) * 2.0 ** -24
+    P.reset_launches()
+    x_s, lam, colsum = P.server_step(u, 2.5)
+    assert P.launches()["client_mean"] == 1 and P.launches()["dual_from_uplink"] == 1
+    s64, a64 = _column_sums_f64(u)
+    err_t = (x_s.double() - torch.mean(u, dim=0).double()).abs()
+    if dtype == torch.float32:
+        assert bool(((x_s.double() - s64 / m).abs() <= tol_u * a64 / m).all())
+        assert bool((err_t <= 2 * tol_u * a64 / m).all())
+    else:
+        _, e = torch.frexp(torch.maximum(x_s.float().abs(), torch.mean(u, dim=0).float().abs()))
+        assert bool((err_t <= torch.ldexp(torch.ones_like(err_t), e - 8)).all())
+    assert torch.equal(lam, ref.dual_from_uplink_ref(u, x_s, 2.5))
+    c64, ca64 = _column_sums_f64(lam)
+    assert bool(((colsum.double() - c64).abs() <= tol_u * ca64).all())
+    cs_t = torch.sum(lam.to(torch.float32), dim=0).double()
+    assert bool(((colsum.double() - cs_t).abs() <= 2 * tol_u * ca64).all())
+    # given a random row lam's columns do not cancel: their sums are O(m)
+    x_r = torch.randn(w, generator=g, device=cuda).to(dtype)
+    lam_r, cs_r = P.server_dual(u, x_r, 2.5)
+    assert torch.equal(lam_r, ref.dual_from_uplink_ref(u, x_r, 2.5))
+    assert torch.equal(P.dual_from_uplink(u, x_r, 2.5), lam_r)
+    c64, ca64 = _column_sums_f64(lam_r)
+    assert bool(((cs_r.double() - c64).abs() <= tol_u * ca64).all())
+    # integer data (u, x_s in [0, 4], rho 2) sums exactly in any order: the
+    # exact mean rounded once, the exact column sum
+    u_i = torch.randint(0, 5, (m, w), generator=g, device=cuda).to(dtype)
+    x_i = torch.randint(0, 5, (w,), generator=g, device=cuda).to(dtype)
+    sum_i = u_i.double().sum(0)
+    assert torch.equal(P.client_mean(u_i), (sum_i / m).float().to(dtype))
+    lam_i, cs_i = P.server_dual(u_i, x_i, 2.0)
+    assert torch.equal(lam_i, ref.dual_from_uplink_ref(u_i, x_i, 2.0))
+    assert torch.equal(cs_i, (2.0 * (sum_i - m * x_i.double())).float())
+    for a, b in zip(P.server_step(u, 2.5), (x_s, lam, colsum), strict=True):
+        assert torch.equal(a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+                           b.view(torch.int16 if b.element_size() == 2 else torch.int32))
+    xr, lm = (torch.randn(m, w, generator=g, device=cuda).to(dtype) for _ in range(2))
+    xs = torch.randn(w, generator=g, device=cuda).to(dtype)
+    li, up, mean = P.round_tail_mean(xr, lm, xs, 3.7, with_lam_is=True)
+    li2, up2 = P.round_tail(xr, lm, xs, 3.7)
+    assert torch.equal(li, li2) and torch.equal(up, up2)
+    assert torch.equal(li, ref.round_tail_ref(xr, lm, xs, 3.7)[0])
+    assert torch.equal(mean, P.client_mean(up))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_server_step_leaves_no_ticket_behind(cuda):
+    """Every tile's counter is back at 0 after a launch that reduced over
+    slices, so back-to-back launches of every shape agree with each other."""
+    from repro_torch.kernels import round_tail as RT
+
+    u = torch.randn(130001, 256, device=cuda)
+    first = P.client_mean(u)
+    for _ in range(3):
+        assert torch.equal(P.client_mean(u), first)
+        P.server_dual(u, first, 1.5)
+    torch.cuda.synchronize()
+    assert all(int(b.abs().sum()) == 0 for b in RT._ticket_bufs.values())
 
 
 @pytest.mark.cuda
@@ -420,16 +516,20 @@ def _problems(cuda):
     return prob, gprob
 
 
-# launches per round on the arena with the affine oracle
+# launches per round on the arena with the affine oracle: a full GPDMM or
+# AGPDMM round's tail is the round tail with the client mean in its pass and
+# the dual pass; a round with a cache (``CACHED_TAIL``) runs the round tail,
+# then the server step's two passes
 ARENA_LAUNCHES = {
-    "gpdmm": {"inner_loop_affine": 1, "round_tail": 1, "dual_from_uplink": 1},
-    "agpdmm": {"inner_loop_affine": 1, "round_tail": 1, "dual_from_uplink": 1},
+    "gpdmm": {"inner_loop_affine": 1, "round_tail_mean": 1, "dual_from_uplink": 1},
+    "agpdmm": {"inner_loop_affine": 1, "round_tail_mean": 1, "dual_from_uplink": 1},
     "scaffold": {"inner_loop_affine": 1, "scaffold_cv": 1},
     "fedavg": {"inner_loop_affine": 1},
 }
 STATE = {"gpdmm": ("x_s", "lam_s"), "agpdmm": ("x_s", "lam_s"), "scaffold": ("x_s", "c_i"),
          "fedavg": ("x_s",), "fedsplit": ("x_s", "z_s"), "gpdmm_graph": ("x_s", "x", "z")}
 CACHE = ("u_hat",)
+CACHED_TAIL = {"round_tail": 1, "client_mean": 1, "dual_from_uplink": 1}
 
 
 def _card_vs_cpu(cuda, cfg, grad_of, rounds=3):
@@ -478,10 +578,10 @@ def test_cuda_pytree_rounds_match_cpu_and_count_launches(cuda, algo):
 # select; EF21 adds its two kernels (and, on the cohort, the u_hat rows to
 # the gather: FedAvg's first)
 COHORT_LAUNCHES = {
-    "gpdmm": dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
-                  row_scatter=1),
-    "agpdmm": dict(inner_loop_affine=1, round_tail=1, dual_from_uplink=1, row_gather=1,
-                   row_scatter=1),
+    "gpdmm": dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1,
+                  row_gather=1, row_scatter=1),
+    "agpdmm": dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1,
+                   row_gather=1, row_scatter=1),
     "scaffold": dict(inner_loop_affine=1, scaffold_cv=1, row_gather=1, row_scatter=1),
     "fedavg": dict(inner_loop_affine=1, row_scatter=1),
 }
@@ -616,6 +716,9 @@ def test_cuda_fault_rounds_match_cpu_and_count_launches(cuda, algo, mode):
     counts = _card_vs_cpu(cuda, FederatedConfig(algorithm=algo, inner_steps=5, eta=eta,
                                                 use_arena=True, **kw), lambda p: p.oracle())
     per_round = dict(ARENA_LAUNCHES[algo], screen_uplink=1)
+    if "round_tail_mean" in per_round:  # faults need the cache
+        del per_round["round_tail_mean"]
+        per_round |= CACHED_TAIL
     if mode == "async":
         per_round["stale_mix"] = 1
     assert counts == {k.name: 0 for k in P.KERNELS} | {k: 3 * v for k, v in per_round.items()}

@@ -380,7 +380,7 @@ def test_ops_surface_and_width_rule():
         "inner_loop_affine", "round_tail", "dual_from_uplink", "fused_update_arena",
         "scaffold_cv", "fused_update", "ef21_rowmax", "ef21_apply", "row_gather",
         "row_scatter", "screen_uplink", "stale_mix", "residual_norm", "neighbor_reduce",
-        "edge_flip", "flash_attention", "wkv6"]
+        "edge_flip", "flash_attention", "wkv6", "round_tail_mean", "client_mean"]
     assert P.affine_inner_fits(512) and P.affine_inner_fits(7936)
     assert not P.affine_inner_fits(500)  # not a multiple of 128
     widest = inner_loop.SMEM_CAP_BYTES // (4 * inner_loop.SMEM_ROWS)
