@@ -24,9 +24,13 @@ times; every number is a median over the pairs.  Measured, for each tree:
     (``torch.profiler``) for the softmax arena (Table I), Fig. 2's pytree
     round (m = 500, K = 5), Fig. 2's full arena round (``use_arena=True``,
     the affine kernel), Fig. 2's GPDMM cohort round at participation 0.1
-    (the arena, 50 of 500 clients), lm_tree's four algorithms, GPDMM's
-    full arena round at lm_flat and the ring(8) graph there; for GPDMM,
-    whether a plain op wrote x_bar.
+    (the arena, 50 of 500 clients), the EF21 rounds (8 bits) of Fig. 2's
+    full arena round and cohort round and of softmax at p = 0.5,
+    lm_tree's four algorithms, GPDMM's full arena round at lm_flat and the
+    ring(8) graph there; for GPDMM, whether a plain op wrote x_bar
+    (``--cells`` picks cells by label);
+  * ``ops.ef21_update`` at ``chip_smoke.EF21_TIMED`` on the device and as
+    the host enqueues it (``ef21``).
 
 And for this tree alone, the step kernel's two parameter tables (8
 segments, and the most the parameter limit holds): the launch with the
@@ -50,6 +54,7 @@ import ctypes
 import importlib
 import json
 import pkgutil
+import re
 import statistics
 import subprocess
 import sys
@@ -193,8 +198,9 @@ def tables(torch, trees, pairs, out):
         pick(small)
 
 
-def rounds(torch, trees, pairs, out):
-    """Round times, launches, host ops and device-busy time a round."""
+def rounds(torch, trees, pairs, out, cell_filter=None):
+    """Round times, launches, host ops and device-busy time a round, for
+    the cells whose label ``cell_filter`` (a regex) finds, or all."""
     sm_cfg, lsq, lt, lf = S.SOFTMAX, S.LSQ, S.LM_TREE, S.LM_FLAT
     cells = []  # (label, algorithm config, set-up per tree, rounds a chunk, per_step, inner)
 
@@ -245,6 +251,17 @@ def rounds(torch, trees, pairs, out):
     cells.append(("fig2_p10_cohort_gpdmm", dict(algorithm="gpdmm", inner_steps=lsq["K"],
                                                 use_arena=True, participation=0.1),
                   lambda t: fig2(t, arena=True), 20, False, "arena"))
+    # the EF21 rounds of chip_smoke phase 8: (c) full participation and (b)
+    # the cohort at p = 0.1 on Fig. 2's arena, softmax at p = 0.5
+    cells.append(("c_gpdmm", dict(algorithm="gpdmm", inner_steps=lsq["K"], use_arena=True,
+                                  uplink_bits=8), lambda t: fig2(t, arena=True), 20, False,
+                  "arena"))
+    cells.append(("b_gpdmm", dict(algorithm="gpdmm", inner_steps=lsq["K"], use_arena=True,
+                                  participation=0.1, uplink_bits=8),
+                  lambda t: fig2(t, arena=True), 20, False, "arena"))
+    cells.append(("softmax_gpdmm_p50_ef21", dict(algorithm="gpdmm", inner_steps=sm_cfg["K"],
+                                                 eta=0.05, participation=0.5, uplink_bits=8),
+                  softmax, sm_cfg["rounds"], True, "arena"))
     for algo in ("gpdmm", "agpdmm", "scaffold", "fedavg"):
         cells.append((f"lm_tree_{algo}", dict(algorithm=algo, inner_steps=lt["K"], eta=lt["eta"],
                                               use_arena=False), lm_tree, lt["rounds"], False,
@@ -256,6 +273,8 @@ def rounds(torch, trees, pairs, out):
                   lf["rounds"], False, "graph"))
 
     for label, kw, setup, R, per_step, inner in cells:
+        if cell_filter and not re.search(cell_filter, label):
+            continue
         runs = {}
         for tl, tree in trees.items():
             t = use(tree)
@@ -295,6 +314,28 @@ def rounds(torch, trees, pairs, out):
             f"{tl} {r['median']:.4f} ms/round, host ops {r['host_ops_per_round']}, busy "
             f"{r['device_busy_ms_per_round']:.4f} ms, x_bar_plain {r.get('x_bar_plain')}"
             for tl, r in res.items()))
+
+
+def ef21(torch, trees, pairs, out):
+    """``ops.ef21_update`` in each tree at ``chip_smoke.EF21_TIMED`` (the
+    least-squares arena, the softmax arena, ``lm_flat``; f32, 8 bits), on
+    the device (the stream pre-filled) and as the host enqueues it."""
+    gen = S.seeded(torch, 58)
+    for label, (m, w, leaf_rows) in S.EF21_TIMED.items():
+        uh = torch.randn(m, w, generator=gen, device="cuda")
+        u = uh + 0.1 * torch.randn(m, w, generator=gen, device="cuda")
+        for prefill in (True, False):
+            # on the device 50 calls: the parent's ~9 launches a call stay
+            # within the stream's queue of pending launches
+            iters = (50 if prefill else 200) if m * w < 1 << 22 else 40
+            res = alternate(trees, pairs, lambda tl, t: S.cuda_time_ms(
+                lambda: t.ops.ef21_update(u, uh, 8, leaf_rows), iters, prefill=prefill))
+            key = f"ef21_{label}_{'device' if prefill else 'host_paced'}_ms"
+            out[key] = res
+            S.log(f"ef21_update {label} ({m}, {w}) {leaf_rows}, "
+                  f"{'device' if prefill else 'host-paced'}: " + ", ".join(
+                      f"{k} {v['median']:.5f} ms" for k, v in res.items()))
+        del u, uh
 
 
 def cohort_rows(torch, trees, pairs, out):
@@ -385,7 +426,8 @@ def population(torch, trees, pairs, out):
 
 
 SECTIONS = {"host_step": host_step, "device_step": device_step, "tables": tables,
-            "rounds": rounds, "cohort_rows": cohort_rows, "population": population}
+            "rounds": rounds, "ef21": ef21, "cohort_rows": cohort_rows,
+            "population": population}
 
 
 def main() -> int:
@@ -396,6 +438,7 @@ def main() -> int:
     ap.add_argument("--only", nargs="+", choices=sorted(SECTIONS),
                     help="run these measurements only (default: all, in the order listed "
                          "in the module docstring)")
+    ap.add_argument("--cells", help="a regex: run only the round cells whose label it finds")
     args = ap.parse_args()
 
     import torch
@@ -417,7 +460,10 @@ def main() -> int:
     out = {"card": card, "pairs": args.pairs}
     for name, section in SECTIONS.items():
         if args.only is None or name in args.only:
-            section(torch, trees, args.pairs, out)
+            if name == "rounds":
+                section(torch, trees, args.pairs, out, args.cells)
+            else:
+                section(torch, trees, args.pairs, out)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))

@@ -159,7 +159,12 @@ in-place scatter leaves every row outside the cohort as it was, the
 functional one its input) and times them at ``ROW_SHAPES`` beside
 ``index_select`` and the in-place ``index_copy_``, and holds
 the EF21 kernels (``ef21_rowmax``, ``ef21_apply``) bitwise against
-their plain versions (f32 and bf16, a NaN included), ``stale_mix``
+their plain versions (f32 and bf16, a NaN included) and the EF21 uplink
+in one pass (``ef21_update``) bitwise against their composition with
+the plain per-leaf scales at ``EF21_CHECKS`` on its own route and on the
+wide one (a NaN, an Inf, a -Inf, an all-zero leaf, bits 8 and 4), timed
+at ``EF21_TIMED`` with the tensor ops it dispatches besides
+``torch.empty`` (none), ``stale_mix``
 bitwise and ``screen_uplink`` (finite flags exactly, sums to rtol
 1e-6 * sqrt(W / 128)) at (500, 512), (50, 512), (8, 2^20) and (5, 130),
 f32 and bf16, broadcast and per-row, with NaN and Inf rows, and times the
@@ -525,7 +530,12 @@ def check_kernels(rec, prob, eta, rho, torch, ops, ref, gen):
                 check(e == 0.0, f"fused_update_arena {dt}: error {e}")
     # timed as GPDMM's softmax round calls it: lam, x_bar's sum ("add")
     acc_a, acc_p = torch.randn_like(xa), torch.randn_like(xa)
-    rec.kernel("fused_update_arena", 0.0,
+    a_k, a_p = acc_a.clone(), acc_a.clone()
+    e_arena = max(max_err(ops.fused_update_arena(xa, ga, xsa, la, 0.05, 4.0, acc=a_k),
+                          ref.fused_update_arena_ref(xa, ga, xsa, la, 0.05, 4.0, acc=a_p)),
+                  max_err(a_k, a_p))
+    check(e_arena == 0.0, f"fused_update_arena with the sum: error {e_arena}")
+    rec.kernel("fused_update_arena", e_arena,
                lambda: ops.fused_update_arena(xa, ga, xsa, la, 0.05, 4.0, acc=acc_a),
                lambda: ref.fused_update_arena_ref(xa, ga, xsa, la, 0.05, 4.0, acc=acc_p), 200,
                4 * (6 * ms_ * ws + ws), 8 * ms_ * ws)
@@ -546,7 +556,8 @@ def check_kernels(rec, prob, eta, rho, torch, ops, ref, gen):
     ci, xk = (torch.randn(m, w, generator=gen, device=dev) for _ in range(2))
     cs = torch.randn(w, generator=gen, device=dev)
     alpha = 1.0 / (K * eta)
-    rec.kernel("scaffold_cv", 0.0,
+    rec.kernel("scaffold_cv", max_err(ops.scaffold_cv(ci, xk, cs, xs, alpha),
+                                      ref.scaffold_cv_ref(ci, xk, cs, xs, alpha)),
                lambda: ops.scaffold_cv(ci, xk, cs, xs, alpha),
                lambda: ref.scaffold_cv_ref(ci, xk, cs, xs, alpha), 200,
                4 * (3 * m * w + 2 * w), 4 * m * w)
@@ -569,7 +580,14 @@ def check_kernels(rec, prob, eta, rho, torch, ops, ref, gen):
     # broadcast, x_bar's sum ("add")
     xf, gf, lf, af, ap = (torch.randn(m, d, generator=gen, device=dev) for _ in range(5))
     sf = torch.randn(d, generator=gen, device=dev)
-    rec.kernel("fused_update", 0.0,
+    a_k, a_p = af.clone(), af.clone()
+    e_leaf = max(max_err(ops.fused_update_leaves([xf], [gf], [sf], [lf], step, rho,
+                                                 accs=[a_k])[0],
+                         ref.fused_update_leaves_ref([xf], [gf], [sf], [lf], step, rho,
+                                                     accs=[a_p])[0]),
+                 max_err(a_k, a_p))
+    check(e_leaf == 0.0, f"fused_update with the sum: error {e_leaf}")
+    rec.kernel("fused_update", e_leaf,
                lambda: ops.fused_update_leaves([xf], [gf], [sf], [lf], step, rho, accs=[af]),
                lambda: ref.fused_update_leaves_ref([xf], [gf], [sf], [lf], step, rho,
                                                    accs=[ap]), 200,
@@ -1035,7 +1053,8 @@ def check_cohort_kernels(rec, torch, ops, ref, gen, out):
     """Kernels 7-10 against their plain versions at phase 8's shapes, bitwise
     (f32 and bf16, a NaN in one client's leaf for EF21), then timed: the
     gather and scatter at ``ROW_SHAPES``, the EF21 pair at the full
-    (500, 512) arena of run (c)."""
+    (500, 512) arena of run (c); the EF21 uplink in one pass
+    (``ef21_update``) held and timed at ``EF21_CHECKS`` and ``EF21_TIMED``."""
     dev = gen.device
     check_row_kernels(torch, ops, ref, gen)
     time_row_kernels(rec, torch, ops, ref, gen, out)
@@ -1054,25 +1073,133 @@ def check_cohort_kernels(rec, torch, ops, ref, gen, out):
                 check(same_bits(torch, ops.ef21_apply(u, uh, sc, bits),
                                 ref.ef21_apply_ref(u, uh, sc, bits)),
                       f"ef21_apply {dt} ({m}, {w}) {leaf_rows} bits={bits}: differs")
-                want = ref.ef21_apply_ref(u, uh, ops._ef21_row_scales(
-                    ref.ef21_rowmax_ref(u, uh), leaf_rows, float(2 ** (bits - 1) - 1)), bits)
-                check(same_bits(torch, ops.ef21_update(u, uh, bits, leaf_rows), want),
-                      f"ef21_update {dt} ({m}, {w}) {leaf_rows} bits={bits}: differs")
     log("ef21_rowmax / ef21_apply: bitwise at (500, 512) leaves (4,) and (3, 1), "
         "(10, 7936) (62,); bits 8 and 4; f32 and bf16; a NaN in one client's leaf")
+    check_ef21_update(torch, ops, ref, gen)
 
     m, w = 500, 512
     uh = torch.randn(m, w, generator=gen, device=dev)
     u = uh + 0.1 * torch.randn(m, w, generator=gen, device=dev)
     rm = ops.ef21_rowmax(u, uh)
     sc = ops._ef21_row_scales(rm, (w // 128,), 127.0)
-    rec.kernel("ef21_rowmax", 0.0, lambda: ops.ef21_rowmax(u, uh),
+    rec.kernel("ef21_rowmax", max_err(rm, ref.ef21_rowmax_ref(u, uh)),
+               lambda: ops.ef21_rowmax(u, uh),
                lambda: ref.ef21_rowmax_ref(u, uh), 200, 2 * m * w * 4 + m * w // 128 * 4,
                3 * m * w)
-    rec.kernel("ef21_apply", 0.0, lambda: ops.ef21_apply(u, uh, sc, 8),
+    rec.kernel("ef21_apply", max_err(ops.ef21_apply(u, uh, sc, 8), ref.ef21_apply_ref(u, uh, sc, 8)),
+               lambda: ops.ef21_apply(u, uh, sc, 8),
                lambda: ref.ef21_apply_ref(u, uh, sc, 8), 200,
                3 * m * w * 4 + m * w // 128 * 4, 7 * m * w)
+    time_ef21_update(rec, torch, ops, ref, gen)
     torch.cuda.synchronize()
+
+
+# the EF21 uplink in one pass (ops.ef21_update): held bitwise to its plain
+# composition at phase 8's arenas and lm_flat, one leaf and two, on its own
+# route and forced onto the wide one; timed at one leaf each
+EF21_CHECKS = (((500, 512), ((4,), (3, 1))), ((10, 7936), ((62,),)),
+               ((8, 1 << 20), ((8192,), (4096, 4096))))
+EF21_TIMED = {"fig2": (500, 512, (4,)), "softmax": (10, 7936, (62,)),
+              "lm_flat": (8, 1 << 20, (8192,))}
+
+
+def check_ef21_update(torch, ops, ref, gen):
+    """``ef21_update`` bit for bit its plain composition at ``EF21_CHECKS``:
+    f32 and bf16, bits 8 and 4, a NaN in client 1's first leaf, an Inf and
+    a -Inf in the last client's last leaf (each leaf NaN, the others as
+    they were), client 0's last leaf with u = u_hat (scale 1e-12); a
+    resident layout also on the wide route, whose apply pass also runs
+    forwards; one launch a call on a resident route, two on the wide one."""
+    from repro_torch.kernels import round_tail as rt
+
+    dev = gen.device
+    for (m, w), layouts in EF21_CHECKS:
+        uh32 = torch.randn(m, w, generator=gen, device=dev)
+        u32 = uh32 + 0.1 * torch.randn(m, w, generator=gen, device=dev)
+        u32[1, 7] = float("nan")
+        u32[m - 1, w - 5], u32[m - 1, w - 2] = float("inf"), -float("inf")
+        for leaf_rows in layouts:
+            u32z = u32.clone()
+            last = 128 * leaf_rows[-1]
+            u32z[0, w - last:] = uh32[0, w - last:]
+            for dt in (torch.float32, torch.bfloat16):
+                u, uh = u32z.to(dt), uh32.to(dt)
+                own = rt.ef21_route(leaf_rows, dt)
+                for bits in (8, 4):
+                    want = ref.ef21_update_ref(u, uh, bits, leaf_rows)
+                    for route, reverse in {(own, True), ("wide", True), ("wide", False)}:
+                        n0 = ops.launches()["ef21_update"]
+                        got = rt.ef21_update(u, uh, bits, leaf_rows, route, reverse=reverse)
+                        n = ops.launches()["ef21_update"] - n0
+                        check(same_bits(torch, got, want) and n == (2 if route == "wide" else 1),
+                              f"ef21_update {dt} ({m}, {w}) {leaf_rows} bits={bits} {route} "
+                              f"reverse={reverse}: differs or {n} launches")
+                # the NaN's leaf of client 1 and the Infs' of the last client, whole
+                n_nan = int(got.isnan().sum())
+                check(n_nan == 128 * (leaf_rows[0] + leaf_rows[-1]),
+                      f"ef21_update {dt} ({m}, {w}) {leaf_rows}: {n_nan} NaN values")
+    log("ef21_update: bitwise its plain composition at (500, 512) (4,) and (3, 1), "
+        "(10, 7936) (62,), (8, 2^20) (8192,) and (4096, 4096); f32 and bf16; bits 8 and 4; "
+        "a NaN, an Inf and a -Inf, an all-zero leaf; the resident routes and the wide route "
+        "(apply pass backwards and forwards)")
+
+
+def time_ef21_update(rec, torch, ops, ref, gen):
+    """``ef21_update`` at ``EF21_TIMED`` (f32, 8 bits, no NaN): its error,
+    device and host-paced times, the plain composition's time and the
+    tensor ops it dispatches besides ``torch.empty`` (none); beside it the two
+    per-row kernels with the plain scales between them, and on the wide
+    route its max pass alone and its apply pass walking forwards.  The
+    bound counts u and u_hat read once and u_hat' written once; the wide
+    route's own traffic reads them twice (``two_pass_bound_ms``)."""
+    from repro_torch.kernels import round_tail as rt
+
+    dev = gen.device
+    rows = {}
+    for label, (m, w, leaf_rows) in EF21_TIMED.items():
+        uh = torch.randn(m, w, generator=gen, device=dev)
+        u = uh + 0.1 * torch.randn(m, w, generator=gen, device=dev)
+        fn = lambda: ops.ef21_update(u, uh, 8, leaf_rows)  # noqa: E731
+        plain = lambda: ref.ef21_update_ref(u, uh, 8, leaf_rows)  # noqa: E731
+        err = max_err(fn(), plain())
+        check(err == 0.0, f"ef21_update {label}: error {err}")
+        host_ops = round_ops(torch, fn)
+        check(host_ops == 0, f"ef21_update {label}: {host_ops} tensor ops besides torch.empty")
+        plan = rt.ef21_plan(leaf_rows, w, u.dtype)
+        # 50 calls: the plain composition's ~13 launches a call stay within
+        # the stream's queue of pending launches, so the device sets the pace
+        iters = 50 if m * w < 1 << 22 else 40
+        nbytes, flops = 3 * m * w * 4, 10 * m * w
+        b, by = bound_ms(nbytes, flops)
+        if label == "fig2":
+            rec.kernel("ef21_update", err, fn, plain, iters, nbytes, flops)
+        row = {"m": m, "W": w, "leaf_rows": list(leaf_rows), "route": plan.route,
+               "threads": plan.threads, "chunks": plan.chunks, "max_abs_err": err,
+               "ms": cuda_time_ms(fn, iters), "plain_ms": cuda_time_ms(plain, iters),
+               "enqueue_ms": cuda_time_ms(fn, iters, prefill=False), "bound_ms": b,
+               "bound_by": by, "host_ops": host_ops,
+               "pair_ms": cuda_time_ms(lambda: ops.ef21_apply(u, uh, ops._ef21_row_scales(
+                   ops.ef21_rowmax(u, uh), leaf_rows, 127.0), 8), iters)}
+        if plan.route == "wide":
+            _, c0, s0 = rt._ef21_launch_plan(tuple(leaf_rows), w, u.dtype, None)
+            nleaf = len(plan.chunk0) - 1
+            table = torch.empty((m, nleaf), dtype=torch.float32, device=dev)
+            row.update(
+                two_pass_bound_ms=bound_ms(5 * m * w * 4, flops)[0],
+                max_pass_ms=cuda_time_ms(lambda: rt._ef21_launch(
+                    rt.EF21_UPDATE, u, uh, None, table, 127.0, 0, rt.EF21_MAX, plan.threads,
+                    plan.chunks, (c0, s0), plan.span0[-1], nleaf), iters),
+                forward_ms=cuda_time_ms(lambda: rt.ef21_update(u, uh, 8, leaf_rows,
+                                                               reverse=False), iters))
+        rows[label] = row
+        log(f"ef21_update {label} ({m}, {w}) {leaf_rows} {plan.route}: {row['ms']:.5f} ms "
+            f"(bound {b:.5f}, plain {row['plain_ms']:.5f}, per-row kernels with plain scales "
+            f"{row['pair_ms']:.5f}, host-paced {row['enqueue_ms']:.5f})"
+            + (f"; max pass {row['max_pass_ms']:.5f}, apply forwards "
+               f"{row['forward_ms']:.5f} ms, two-pass bound {row['two_pass_bound_ms']:.5f}"
+               if plan.route == "wide" else ""))
+        del u, uh
+    rec.rows["ef21_update"]["shapes"] = rows
 
 
 def fault_inputs(torch, gen, m, w, dtype, per_row):
@@ -1350,7 +1477,7 @@ SOFTMAX_RUNS = {
 
 # launches per round, read off the rounds' code: the cohort rounds gather
 # the cohort's rows of every buffer they read in one launch and scatter the
-# rows of every buffer they write in one, EF21 adds its two kernels and, on
+# rows of every buffer they write in one, EF21 adds its one kernel and, on
 # the cohort, the cached u_hat rows to the gather (FedAvg's only gather);
 # the masked round selects with torch.where
 PARTICIPATION_RUNS = {
@@ -1366,16 +1493,15 @@ PARTICIPATION_RUNS = {
                  dict(inner_loop_affine=1, row_scatter=1)),
     "b_gpdmm": (dict(algorithm="gpdmm", participation=0.1, uplink_bits=8),
                 dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1,
-                     row_gather=1, row_scatter=1, ef21_rowmax=1, ef21_apply=1)),
+                     row_gather=1, row_scatter=1, ef21_update=1)),
     "b_agpdmm": (dict(algorithm="agpdmm", participation=0.1, uplink_bits=8),
                  dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1,
-                      row_gather=1, row_scatter=1, ef21_rowmax=1, ef21_apply=1)),
+                      row_gather=1, row_scatter=1, ef21_update=1)),
     "b_fedavg": (dict(algorithm="fedavg", participation=0.1, uplink_bits=8),
-                 dict(inner_loop_affine=1, row_gather=1, row_scatter=1, ef21_rowmax=1,
-                      ef21_apply=1)),
+                 dict(inner_loop_affine=1, row_gather=1, row_scatter=1, ef21_update=1)),
     "c_gpdmm": (dict(algorithm="gpdmm", uplink_bits=8),
                 dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1,
-                     ef21_rowmax=1, ef21_apply=1)),
+                     ef21_update=1)),
     "d_gpdmm": (dict(algorithm="gpdmm", participation=0.1, cohort=False),
                 dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1)),
 }
@@ -1392,11 +1518,11 @@ PARTICIPATION_PYTREE_RUNS = {
 SOFTMAX_PARTIAL = {
     "gpdmm_p50_ef21": (dict(algorithm="gpdmm", participation=0.5, uplink_bits=8),
                        dict(fused_update_arena=SOFTMAX["K"], round_tail=1, client_mean=1,
-                            dual_from_uplink=1, row_gather=1, row_scatter=1, ef21_rowmax=1,
-                            ef21_apply=1)),
+                            dual_from_uplink=1, row_gather=1, row_scatter=1,
+                            ef21_update=1)),
     "fedavg_p50_ef21": (dict(algorithm="fedavg", participation=0.5, uplink_bits=8),
                         dict(fused_update_arena=SOFTMAX["K"], row_gather=1, row_scatter=1,
-                             ef21_rowmax=1, ef21_apply=1)),
+                             ef21_update=1)),
 }
 
 

@@ -36,11 +36,11 @@ from ``cfg.seed`` and the round counter (``participation_key``, the
 reference's ``jax.random`` draw reproduced by ``core.prng``).  Silent
 clients transmit nothing: the server keeps its cached view ``u_hat`` of
 their uplink, and they keep their primal carry.  ``uplink_bits`` quantises
-the uplink's difference to ``u_hat`` (EF21; two kernels on the arena).  On
-the arena, ``cohort="auto"`` runs the round over the sampled cohort only:
-one ``row_gather`` of the active rows of every buffer the round reads, the
-same kernels on them, one ``row_scatter`` of the rows it writes back, in
-place in a donated round (``_round_arena_cohort``, ``FedOpt.round_``);
+the uplink's difference to ``u_hat`` (EF21; one kernel on the arena,
+``ops.ef21_update``).  On the arena, ``cohort="auto"`` runs the round over
+the sampled cohort only: one ``row_gather`` of the active rows of every
+buffer the round reads, the same kernels on them, one ``row_scatter`` of
+the rows it writes back, in place in a donated round (``_round_arena_cohort``, ``FedOpt.round_``);
 ``cohort=False`` keeps the masked full-population round.
 
 Faults (``cfg.faults``, ``core.faults``), uplink screening and async rounds

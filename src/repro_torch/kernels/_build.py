@@ -28,7 +28,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("inner_loop.cu", "round_tail.cu", "fused_update.cu", "gather.cu", "screen.cu",
-           "stale_mix.cu", "residual.cu", "neighbor_reduce.cu", "flash_attention.cu", "wkv6.cu")
+           "stale_mix.cu", "residual.cu", "neighbor_reduce.cu", "flash_attention.cu", "wkv6.cu",
+           "ef21.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -134,6 +135,7 @@ def load(source: str) -> ctypes.CDLL:
 
 
 P, F, I, LL = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
+IP = ctypes.POINTER(ctypes.c_int)
 
 
 class Kernel:

@@ -13,10 +13,9 @@
 //   scaffold_cv_pallas        c_i'   = (c_i - c) + alpha_i (x_s - x_K)
 //                             (SCAFFOLD's eq. (30); c and x_s are (W,)
 //                             rows, alpha per client or scalar)
-//   ef21_rowmax_pallas        r[i, j] = max_l |u - u_hat| over the 128
-//                             lanes l of row j of client i, f32
-//   ef21_apply_pallas         u_hat' = u_hat + clip(rint((u - u_hat) / s),
-//                             -lo, lo) s, s = scales[i, j] per 128-lane row
+//
+// (its two EF21 kernels, ef21_rowmax_pallas and ef21_apply_pallas, are
+// csrc/ef21.cu's)
 //
 // What bounds them on an H100: bytes.  Each does a handful of flops per
 // element against 8-20 bytes of traffic, so the least time is the arena's
@@ -30,18 +29,6 @@
 // BlockSpec grids do not carry over.  The division lam_is / rho stays a
 // division, as in the reference; SCAFFOLD's alpha = 1/(K eta) arrives
 // precomputed and is multiplied, as the reference multiplies it.
-//
-// The two EF21 kernels (the fused delta-quantised uplink) are bounded by
-// bytes too: the reduction reads u and u_hat once and writes one f32 per
-// 128 values; the apply pass reads u, u_hat and the scales and writes
-// u_hat'.  ef21_rowmax gives each (client, 128-lane row) to one warp: 32
-// lanes x 4 values, one 16-byte (f32) or 8-byte (bf16) load per lane, a
-// shuffle reduction.  Its max propagates a NaN, as jnp.max and torch.amax
-// do (fmaxf would drop it).  ef21_apply is one elementwise pass with the
-// scale indexed by t / 128 (rows never straddle a client: W % 128 == 0);
-// the quotient is __fdiv_rn (not a multiply by a reciprocal), rounded by
-// rintf (half to even, as jnp.round and torch.round; roundf would round
-// half away from zero), and the clip lets a NaN through as jnp.clip does.
 #include "common.cuh"
 
 namespace {
@@ -362,54 +349,6 @@ scaffold_cv_kernel(const T* __restrict__ ci, const T* __restrict__ xk,
   }
 }
 
-// NaN-propagating max (fmaxf returns the other operand for a NaN)
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-// four consecutive values from 16-byte (f32) or 8-byte (bf16) aligned p + i
-__device__ __forceinline__ float4 load4(const float* p, size_t i) {
-  return *reinterpret_cast<const float4*>(p + i);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, size_t i) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p + i);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-constexpr int kLanes = 128;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ef21_rowmax_kernel(const T* __restrict__ u, const T* __restrict__ uh, size_t n_rows,
-                   float* __restrict__ out) {
-  const size_t row = (size_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  if (row >= n_rows) return;  // the whole warp leaves together
-  const int lane = threadIdx.x % 32;
-  const size_t i = row * kLanes + 4 * lane;
-  const float4 a = load4(u, i), b = load4(uh, i);
-  float v = max_nan(max_nan(fabsf(__fsub_rn(a.x, b.x)), fabsf(__fsub_rn(a.y, b.y))),
-                    max_nan(fabsf(__fsub_rn(a.z, b.z)), fabsf(__fsub_rn(a.w, b.w))));
-  for (int off = 16; off > 0; off >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if (lane == 0) out[row] = v;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ef21_apply_kernel(const T* __restrict__ u, const T* __restrict__ uh,
-                  const float* __restrict__ scales, float lo, size_t n,
-                  T* __restrict__ out) {
-  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
-       t += (size_t)gridDim.x * blockDim.x) {
-    const float s = scales[t / kLanes];
-    const float h = load_f32(uh, t);
-    float q = rintf(__fdiv_rn(__fsub_rn(load_f32(u, t), h), s));
-    q = q < -lo ? -lo : (q > lo ? lo : q);  // a NaN passes, as jnp.clip
-    store_f32(out, t, __fadd_rn(h, __fmul_rn(q, s)));
-  }
-}
-
 // the V of a width: 16 bytes of T when W is a multiple of it, else 1
 template <typename T>
 constexpr int vec_of() {
@@ -527,46 +466,6 @@ extern "C" int launch_scaffold_cv(const void* ci, const void* xk, const void* c,
     scaffold_cv_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)ci, (const __nv_bfloat16*)xk, (const __nv_bfloat16*)c,
         (const __nv_bfloat16*)xs, (const float*)alpha_arr, alpha, n, W, (__nv_bfloat16*)out);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int launch_ef21_rowmax(const void* u, const void* uh, long long m, int W, int dtype,
-                                  void* out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t n_rows = (size_t)m * (W / kLanes);
-  if (n_rows == 0) return (int)cudaGetLastError();
-  const unsigned blocks = (unsigned)((n_rows + kThreads / 32 - 1) / (kThreads / 32));
-  if (dtype == kF32) {
-    ef21_rowmax_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)u, (const float*)uh, n_rows, (float*)out);
-  } else if (dtype == kBF16) {
-    ef21_rowmax_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)u, (const __nv_bfloat16*)uh, n_rows, (float*)out);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int launch_ef21_apply(const void* u, const void* uh, const void* scales, float lo,
-                                 long long m, int W, int dtype, void* out, int device,
-                                 void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)m * W;
-  if (n == 0) return (int)cudaGetLastError();
-  const unsigned blocks = elementwise_blocks(n, kThreads);
-  if (dtype == kF32) {
-    ef21_apply_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)u, (const float*)uh, (const float*)scales, lo, n, (float*)out);
-  } else if (dtype == kBF16) {
-    ef21_apply_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)u, (const __nv_bfloat16*)uh, (const float*)scales, lo, n,
-        (__nv_bfloat16*)out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -4,8 +4,9 @@
 Dispatch goes by the device of the tensors: a CPU tensor runs the plain
 PyTorch version (``ref``), a CUDA tensor launches the hand-written kernel or
 raises.  There is no switch that routes a CUDA tensor to the plain version.
-``ef21_update`` is plain tensor code around its kernels, as in the
-reference; ``fused_update_leaves`` (the step of a whole tree in one launch,
+``ef21_update`` (kernels 7-8 with the per-leaf scales between them, one
+launch on the card where the reference runs two kernels around plain
+code), ``fused_update_leaves`` (the step of a whole tree in one launch,
 with x_bar's running sum) and the cohort row movement over a table of
 buffers (``row_gather_buffers``, ``row_scatter_buffers_`` in place,
 ``row_scatter_``; ``row_scatter`` and ``row_scatter_buffers`` copy first)
@@ -41,8 +42,8 @@ from repro_torch.kernels.inner_loop import inner_loop_affine
 from repro_torch.kernels.neighbor_reduce import edge_flip, neighbor_reduce
 from repro_torch.kernels.residual import residual_norm
 from repro_torch.kernels.round_tail import (
-    client_mean, dual_from_uplink, ef21_apply, ef21_rowmax, round_tail, round_tail_mean,
-    scaffold_cv, server_dual, server_step,
+    client_mean, dual_from_uplink, ef21_apply, ef21_rowmax, ef21_update, round_tail,
+    round_tail_mean, scaffold_cv, server_dual, server_step,
 )
 from repro_torch.kernels.screen import screen_uplink
 from repro_torch.kernels.stale_mix import stale_mix
@@ -50,13 +51,14 @@ from repro_torch.kernels.wkv6 import wkv6
 
 # every kernel of the port, for launch accounting (chip_smoke.py): the
 # seventeen in the order of the kernel table (ROADMAP.md), then the round
-# tail's variant with the client mean in its pass (kernel 2's) and the
-# server step's mean pass (kernel 3's)
+# tail's variant with the client mean in its pass (kernel 2's), the
+# server step's mean pass (kernel 3's) and the EF21 uplink (kernels 7-8 in
+# one pass)
 KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _fu.ARENA_KERNEL,
            _rt.SCAFFOLD_CV, _fu.KERNEL, _rt.EF21_ROWMAX, _rt.EF21_APPLY, _ga.ROW_GATHER,
            _ga.ROW_SCATTER, _sc.SCREEN_UPLINK, _sm.STALE_MIX, _rs.RESIDUAL_NORM,
            _nr.NEIGHBOR_REDUCE, _nr.EDGE_FLIP, _fa.FLASH_ATTENTION, _wk.WKV6,
-           _rt.ROUND_TAIL_MEAN, _rt.CLIENT_MEAN)
+           _rt.ROUND_TAIL_MEAN, _rt.CLIENT_MEAN, _rt.EF21_UPDATE)
 
 
 def affine_inner_fits(width: int) -> bool:
@@ -64,32 +66,8 @@ def affine_inner_fits(width: int) -> bool:
     return _il.fits(width)
 
 
-def _ef21_row_scales(rowmax, leaf_rows, lo: float):
-    """Per-(client, leaf) maxima over lo, expanded to per-128-lane-row
-    scales (m, rows) and clamped at 1e-12.  The arena pads each leaf to whole
-    rows, so this is a static segment reduction (``tree_util._qdq``'s
-    per-(client, leaf) scale).  The division is by a tensor: on the card a
-    division by a Python scalar is a multiply by its reciprocal."""
-    m = rowmax.shape[0]
-    lo_t = torch.full((), lo, dtype=rowmax.dtype, device=rowmax.device)
-    parts, r0 = [], 0
-    for rk in leaf_rows:
-        s = torch.amax(rowmax[:, r0:r0 + rk], dim=1, keepdim=True) / lo_t
-        parts.append(s.expand(m, rk))
-        r0 += rk
-    if r0 != rowmax.shape[1]:
-        raise ValueError(f"leaf_rows {tuple(leaf_rows)} cover {r0} rows, not {rowmax.shape[1]}")
-    return torch.clamp(torch.cat(parts, dim=1), min=1e-12)
-
-
-def ef21_update(u, u_hat, bits: int, leaf_rows):
-    """The fused EF21 quantise-delta over the arena: the integrated server
-    view u_hat' = u_hat + qdq(u - u_hat), with one scale per (client, leaf)
-    (``leaf_rows`` = ``ArenaSpec.leaf_rows()``).  Two kernels: the row
-    max-abs reduction, then the apply pass."""
-    lo = float(2 ** (bits - 1) - 1)
-    scales = _ef21_row_scales(ef21_rowmax(u, u_hat), leaf_rows, lo)
-    return ef21_apply(u, u_hat, scales, bits)
+# the plain per-leaf scales between kernels 7 and 8 (held against the card)
+_ef21_row_scales = ref.ef21_row_scales_ref
 
 
 def row_gather(arr, idx):

@@ -193,6 +193,32 @@ def ef21_apply_ref(u, u_hat, row_scales, bits: int):
     return out.reshape(m, w).to(u.dtype)
 
 
+def ef21_row_scales_ref(rowmax, leaf_rows, lo: float):
+    """Per-(client, leaf) maxima over lo, expanded to per-128-lane-row
+    scales (m, rows) and clamped at 1e-12.  The arena pads each leaf to whole
+    rows, so this is a static segment reduction (``tree_util._qdq``'s
+    per-(client, leaf) scale).  The division is by a tensor: on the card a
+    division by a Python scalar is a multiply by its reciprocal."""
+    m = rowmax.shape[0]
+    lo_t = torch.full((), lo, dtype=rowmax.dtype, device=rowmax.device)
+    parts, r0 = [], 0
+    for rk in leaf_rows:
+        s = torch.amax(rowmax[:, r0:r0 + rk], dim=1, keepdim=True) / lo_t
+        parts.append(s.expand(m, rk))
+        r0 += rk
+    if r0 != rowmax.shape[1]:
+        raise ValueError(f"leaf_rows {tuple(leaf_rows)} cover {r0} rows, not {rowmax.shape[1]}")
+    return torch.clamp(torch.cat(parts, dim=1), min=1e-12)
+
+
+def ef21_update_ref(u, u_hat, bits: int, leaf_rows):
+    """The EF21 uplink as the reference composes it: the row max, the
+    per-(client, leaf) scales, the apply pass."""
+    lo = float(2 ** (bits - 1) - 1)
+    return ef21_apply_ref(u, u_hat, ef21_row_scales_ref(ef21_rowmax_ref(u, u_hat), leaf_rows, lo),
+                          bits)
+
+
 def row_gather_ref(arr, idx):
     """The cohort gather out[t] = arr[idx[t]]; ``index_select`` checks that
     every id is in range."""

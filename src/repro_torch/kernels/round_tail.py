@@ -1,7 +1,8 @@
-"""The round-tail kernels over the flat client arena (``csrc/round_tail.cu``);
-the port of five kernels of ``src/repro/kernels/round_tail.py`` (its sixth,
-the eq. (20) step over the arena, is ``fused_update.fused_update_arena``,
-one kernel with the per-leaf step):
+"""The round-tail kernels over the flat client arena (``csrc/round_tail.cu``,
+EF21's in ``csrc/ef21.cu``); the port of five kernels of
+``src/repro/kernels/round_tail.py`` (its sixth, the eq. (20) step over the
+arena, is ``fused_update.fused_update_arena``, one kernel with the per-leaf
+step):
 
   * ``round_tail``         lam_is = rho (x_s - x_ref) - lam_s and the uplink
                            u = x_ref - lam_is / rho; lam_is only when asked
@@ -13,8 +14,12 @@ one kernel with the per-leaf step):
   * ``scaffold_cv``        SCAFFOLD's c_i' = c_i - c + alpha (x_s - x_K)
   * ``ef21_rowmax``        max |u - u_hat| per (client, 128-lane row), f32
   * ``ef21_apply``         u_hat + clip(round((u - u_hat) / s), +-lo) s with
-                           a per-row scale s (``ops.ef21_update`` runs the
-                           two around the per-leaf scale reduction)
+                           a per-row scale s
+  * ``ef21_update``        the two with the per-(client, leaf) scale
+                           between them, in one launch where a warp or a
+                           block holds a (client, leaf) in registers
+                           (``ef21_route``), else a max pass and an apply
+                           pass that forms each scale itself
 
 Client buffers are (m, W), the server rows (W,) are broadcast inside the
 kernel.  CUDA operands are f32 or bf16 (all of one dtype), with f32 math.
@@ -33,12 +38,15 @@ roundings of |x| summed).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+import itertools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _args, ref
-from repro_torch.kernels._build import LL, F, I, P, Kernel
+from repro_torch.kernels._build import IP, LL, F, I, P, Kernel
 from repro_torch.kernels.ref import LANES
 
 DTYPES = tuple(_args.DTYPE_CODES)
@@ -75,18 +83,18 @@ SCAFFOLD_CV = Kernel(
     replaces="src/repro/kernels/round_tail.py:152",
 )
 
-EF21_ROWMAX = Kernel(
-    "ef21_rowmax", "round_tail.cu", "launch_ef21_rowmax",
-    # u uh m W dtype out dev stream
-    [P, P, LL, I, I, P, I, P],
-    replaces="src/repro/kernels/round_tail.py:232",
-)
-EF21_APPLY = Kernel(
-    "ef21_apply", "round_tail.cu", "launch_ef21_apply",
-    # u uh scales lo m W dtype out dev stream
-    [P, P, P, F, LL, I, I, P, I, P],
-    replaces="src/repro/kernels/round_tail.py:263",
-)
+# kernels 7-8 and the EF21 uplink they make up, one launcher in csrc/ef21.cu
+# u uh out table lo given m W dtype mode threads chunks chunk0 span0 nleaf spans L reverse
+# dev stream
+EF21_ARGTYPES = [P, P, P, P, F, I, LL, I, I, I, I, I, IP, IP, I, I, I, I, I, P]
+EF21_ROWMAX = Kernel("ef21_rowmax", "ef21.cu", "launch_ef21", EF21_ARGTYPES,
+                     replaces="src/repro/kernels/round_tail.py:232")
+EF21_APPLY = Kernel("ef21_apply", "ef21.cu", "launch_ef21", EF21_ARGTYPES,
+                    replaces="src/repro/kernels/round_tail.py:263")
+# the two with the per-(client, leaf) scales between them: one launch on the
+# resident routes, two (its max pass, then its apply pass) on the wide one
+EF21_UPDATE = Kernel("ef21_update", "ef21.cu", "launch_ef21", EF21_ARGTYPES,
+                     replaces="src/repro/kernels/round_tail.py:232, :263")
 
 
 # the column walks' grid (csrc/round_tail.cu): 8 warps a block, a warp across
@@ -316,16 +324,104 @@ def _ef21_operands(name, u, u_hat):
     return m, w, code
 
 
+# csrc/ef21.cu's modes and spans: a group of 32 or 256 threads, each holding
+# up to RESIDENT_CHUNKS 16-byte chunks of u and of u_hat; the wide route's
+# spans are 256 threads x WIDE_CHUNKS chunks
+EF21_MAX, EF21_APPLY_MODE, EF21_FUSED = 0, 1, 2
+RESIDENT_CHUNKS = 8
+WIDE_CHUNKS = 4
+EF21_THREADS = {"warp": 32, "block": 256, "wide": 256}
+
+
+class Ef21Plan(NamedTuple):
+    """One EF21 update's launches: the route, a group's threads and chunks a
+    thread, and the leaf table -- leaf k's 16-byte chunks of a client row are
+    [chunk0[k], chunk0[k + 1]) and its spans [span0[k], span0[k + 1])."""
+
+    route: str
+    threads: int
+    chunks: int
+    chunk0: tuple
+    span0: tuple
+
+
+def chunks_per_row(dtype) -> int:
+    """16-byte chunks of a 128-lane row: 32 in f32, 16 in bf16."""
+    return LANES * dtype.itemsize // 16
+
+
+def ef21_route(leaf_rows, dtype) -> str:
+    """The route of ``ef21_update`` for leaves of ``leaf_rows`` 128-lane
+    rows in ``dtype``: "warp" (one launch, a warp a (client, leaf)) while
+    the longest leaf fits a warp's registers, "block" (one launch, a block
+    a (client, leaf)) while it fits a block's, else "wide" (two launches)."""
+    longest = max(leaf_rows, default=0) * chunks_per_row(dtype)
+    for route in ("warp", "block"):
+        if longest <= EF21_THREADS[route] * RESIDENT_CHUNKS:
+            return route
+    return "wide"
+
+
+def ef21_plan(leaf_rows, width: int, dtype, route=None) -> Ef21Plan:
+    """The launch plan of ``ef21_update`` over a (m, ``width``) arena of
+    ``dtype`` whose leaves have ``leaf_rows`` rows: on ``route`` (default
+    ``ef21_route``), a resident route giving each leaf one span of a group,
+    the wide route ceil(chunks / (256 x WIDE_CHUNKS)) spans.  Raises for
+    leaves that do not cover the width and for a resident route too small
+    for the longest leaf."""
+    leaf_rows = tuple(int(r) for r in leaf_rows)
+    if any(r < 0 for r in leaf_rows) or sum(leaf_rows) * LANES != width:
+        raise ValueError(f"ef21_update: leaf_rows {leaf_rows} cover {sum(leaf_rows)} rows, "
+                         f"not the {width // LANES} of width {width}")
+    route = route or ef21_route(leaf_rows, dtype)
+    if route not in EF21_THREADS:
+        raise ValueError(f"ef21_update: route {route!r} is none of {tuple(EF21_THREADS)}")
+    cpr, threads = chunks_per_row(dtype), EF21_THREADS[route]
+    lens = [r * cpr for r in leaf_rows]
+    longest = max(lens, default=0)
+    if route == "wide":
+        chunks = WIDE_CHUNKS
+        spans = [-(-n // (threads * chunks)) for n in lens]
+    else:
+        need = max(1, -(-longest // threads))
+        if need > RESIDENT_CHUNKS:
+            raise ValueError(f"ef21_update: a leaf of {longest // cpr} rows does not fit the "
+                             f"{route} route ({threads * RESIDENT_CHUNKS // cpr} rows at most)")
+        chunks = 1 << (need - 1).bit_length()
+        spans = [1] * len(lens)
+    return Ef21Plan(route, threads, chunks, tuple(itertools.accumulate(lens, initial=0)),
+                    tuple(itertools.accumulate(spans, initial=0)))
+
+
+@functools.lru_cache(maxsize=256)
+def _ef21_launch_plan(leaf_rows: tuple, width: int, dtype, route):
+    """``ef21_plan`` with its tables as C arrays, cached per layout: a round
+    builds nothing on the host."""
+    plan = ef21_plan(leaf_rows, width, dtype, route)
+    arr = ctypes.c_int * len(plan.chunk0)
+    return plan, arr(*plan.chunk0), arr(*plan.span0)
+
+
+def _ef21_launch(k: Kernel, u, u_hat, out, table, lo: float, given: int, mode: int, threads: int,
+                 chunks: int, tabs, spans: int, cols: int, reverse: int = 0) -> None:
+    m, w = u.shape
+    c0, s0 = tabs
+    k.launch(_args.ptr(u), _args.ptr(u_hat), _args.ptr(out), _args.ptr(table), lo, given, m, w,
+             _args.DTYPE_CODES[u.dtype], mode, threads, chunks, c0, s0,
+             0 if c0 is None else len(c0) - 1, spans, cols, reverse, *_args.stream_args(u.device))
+
+
 def ef21_rowmax(u, u_hat):
     """Per-(client, 128-lane row) max-abs of u - u_hat: (m, W / 128) f32.
     A NaN in a row gives NaN, as ``jnp.max``."""
     k = EF21_ROWMAX
     if _args.on_cpu(k.name, u):
         return ref.ef21_rowmax_ref(u, u_hat)
-    m, w, code = _ef21_operands(k.name, u, u_hat)
+    m, w, _ = _ef21_operands(k.name, u, u_hat)
     out = torch.empty((m, w // LANES), dtype=torch.float32, device=u.device)
-    k.launch(_args.ptr(u), _args.ptr(u_hat), m, w, code, _args.ptr(out),
-             *_args.stream_args(u.device))
+    if m and w:
+        _ef21_launch(k, u, u_hat, None, out, 0.0, 0, EF21_MAX, 32, 1, (None, None),
+                     w // LANES, w // LANES)
     return out
 
 
@@ -335,10 +431,39 @@ def ef21_apply(u, u_hat, row_scales, bits: int):
     k = EF21_APPLY
     if _args.on_cpu(k.name, u):
         return ref.ef21_apply_ref(u, u_hat, row_scales, bits)
-    m, w, code = _ef21_operands(k.name, u, u_hat)
+    m, w, _ = _ef21_operands(k.name, u, u_hat)
     _args.check(k.name, "row_scales", row_scales, (m, w // LANES), (torch.float32,), u.device)
-    out = torch.empty_like(u)
-    k.launch(_args.ptr(u), _args.ptr(u_hat), _args.ptr(row_scales),
-             float(2 ** (bits - 1) - 1), m, w, code, _args.ptr(out),
-             *_args.stream_args(u.device))
+    out = torch.empty((m, w), dtype=u.dtype, device=u.device)
+    if m and w:
+        _ef21_launch(k, u, u_hat, out, row_scales, float(2 ** (bits - 1) - 1), 1,
+                     EF21_APPLY_MODE, 32, 1, (None, None), w // LANES, w // LANES)
+    return out
+
+
+def ef21_update(u, u_hat, bits: int, leaf_rows, route=None, *, reverse: bool = True):
+    """The EF21 uplink over the arena: u_hat' = u_hat + qdq(u - u_hat) with
+    one scale per (client, leaf) (``leaf_rows`` = ``ArenaSpec.leaf_rows()``).
+    On the CPU the plain composition (row max, per-leaf scales, apply); on
+    the card one launch on the resident routes, the max pass then the apply
+    pass (walking the arena backwards unless ``reverse=False``) on the wide
+    one, with nothing but ``torch.empty`` around them.  ``route`` forces a
+    route of ``ef21_plan``."""
+    k = EF21_UPDATE
+    if _args.on_cpu(k.name, u):
+        return ref.ef21_update_ref(u, u_hat, bits, leaf_rows)
+    m, w, _ = _ef21_operands(k.name, u, u_hat)
+    plan, c0, s0 = _ef21_launch_plan(tuple(leaf_rows), w, u.dtype, route)
+    lo = float(2 ** (bits - 1) - 1)
+    out = torch.empty((m, w), dtype=u.dtype, device=u.device)
+    if not (m and w):
+        return out
+    nleaf, spans = len(plan.chunk0) - 1, plan.span0[-1]
+    if plan.route != "wide":
+        _ef21_launch(k, u, u_hat, out, None, lo, 0, EF21_FUSED, plan.threads, plan.chunks,
+                     (c0, s0), spans, nleaf)
+        return out
+    table = torch.empty((m, nleaf), dtype=torch.float32, device=u.device)
+    for mode, rev in ((EF21_MAX, 0), (EF21_APPLY_MODE, int(reverse))):
+        _ef21_launch(k, u, u_hat, out, table, lo, 0, mode, plan.threads, plan.chunks, (c0, s0),
+                     spans, nleaf, rev)
     return out

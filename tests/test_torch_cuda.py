@@ -9,7 +9,8 @@ Tolerances: bitwise where the kernel and the plain version run the same f32
 operations (``fused_update``, ``fused_update_leaves`` and x_bar's running
 sum in every mode, ``scaffold_cv``, ``dual_from_uplink`` (and the server
 step's dual given its own x_s'),
-``fused_update_arena``, ``lam_is``, the EF21 kernels, a NaN included) or
+``fused_update_arena``, ``lam_is``, the EF21 kernels and the EF21 uplink
+in one pass on each of its routes, a NaN and an Inf included) or
 copy (``row_gather``, ``row_scatter``) or select and mix (``stale_mix``);
 ``screen_uplink``'s finite flags exactly and its sums to rtol
 1e-6 * sqrt(W / 128) (a fixed order of its own, not torch.sum's), and
@@ -37,6 +38,7 @@ from repro_torch.core import tree_util as T
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import inner_loop as IL
 from repro_torch.kernels import ops as P, ref
+from repro_torch.kernels import round_tail as RT
 
 
 @pytest.fixture
@@ -454,6 +456,85 @@ def test_cuda_ef21_kernels_match_plain(cuda, dtype):
     torch.cuda.synchronize()
 
 
+# (m, W, leaf_rows) for the EF21 uplink in one pass: the least-squares arena
+# (one leaf, two), the softmax arena (the block route), a leaf of 200 rows
+# and lm_tree's six leaves at a fifth of their rows (the wide route), twelve
+# leaves (the large leaf table)
+EF21_SHAPES = [(500, 512, (4,)), (500, 512, (3, 1)), (10, 7936, (62,)), (6, 25600, (200,)),
+               (3, 128 * 2767, (2, 614, 614, 614, 614, 309)),
+               (40, 128 * 78, (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12))]
+
+
+def _ef21_update_inputs(g, m, w, leaf_rows, dtype):
+    """u = u_hat + a delta; a NaN in client 1's first leaf, an Inf and a
+    -Inf in the last client's last leaf, and client 0's last leaf equal to
+    u_hat (scale 1e-12)."""
+    u_hat = torch.randn(m, w, generator=g, device="cuda")
+    u = u_hat + 0.1 * torch.randn(m, w, generator=g, device="cuda")
+    u[1, 7] = float("nan")
+    u[m - 1, w - 5] = float("inf")
+    u[m - 1, w - 2] = -float("inf")
+    last = 128 * leaf_rows[-1]
+    u[0, w - last:] = u_hat[0, w - last:]
+    return u.to(dtype), u_hat.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ef21_update_matches_plain(cuda, dtype):
+    """``ef21_update`` bitwise its plain composition (the row max, the
+    per-leaf scales, the apply pass) on its route and forced onto the wide
+    route, bits 8, 4 and 2, with a NaN, an Inf and an all-zero leaf; one
+    launch on a resident route, two on the wide one (its apply pass in
+    either order)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for m, w, leaf_rows in EF21_SHAPES:
+        u, u_hat = _ef21_update_inputs(g, m, w, leaf_rows, dtype)
+        routes = [None] + (["wide"] if RT.ef21_route(leaf_rows, dtype) != "wide" else [])
+        for bits in (8, 4, 2):
+            want = ref.ef21_update_ref(u, u_hat, bits, leaf_rows)
+            for route in routes:
+                for reverse in (True, False):
+                    P.reset_launches()
+                    got = RT.ef21_update(u, u_hat, bits, leaf_rows, route, reverse=reverse)
+                    wide = (route or RT.ef21_route(leaf_rows, dtype)) == "wide"
+                    assert P.launches()["ef21_update"] == (2 if wide else 1)
+                    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True,
+                                               msg=f"{(m, w, leaf_rows, bits, route)}")
+                    nan = want.isnan()
+                    ity = torch.int32 if dtype == torch.float32 else torch.int16
+                    assert torch.equal(got.isnan(), nan)
+                    assert torch.equal(got[~nan].view(ity), want[~nan].view(ity))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_ef21_update_runs_no_torch_op(cuda):
+    """On the card ``ops.ef21_update`` dispatches no tensor op but the
+    ``torch.empty`` of its output (and, on the wide route, of its max
+    table): the scales are formed inside the kernel."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for m, w, leaf_rows in EF21_SHAPES[:4]:
+        u, u_hat = _ef21_update_inputs(g, m, w, leaf_rows, torch.float32)
+        P.ef21_update(u, u_hat, 8, leaf_rows)  # the plan, cached per layout
+        with Ops() as ops_seen:
+            P.ef21_update(u, u_hat, 8, leaf_rows)
+        wide = RT.ef21_route(leaf_rows, torch.float32) == "wide"
+        assert ops_seen.seen == ["aten.empty.memory_format"] * (2 if wide else 1), ops_seen.seen
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_row_gather_and_scatter_match_plain(cuda, dtype):
@@ -575,7 +656,7 @@ def test_cuda_pytree_rounds_match_cpu_and_count_launches(cuda, algo):
 # launches per round of the partial-participation rounds on the arena (the
 # affine oracle): the cohort rounds gather every buffer they read in one
 # launch and scatter every buffer they write in one, the masked rounds
-# select; EF21 adds its two kernels (and, on the cohort, the u_hat rows to
+# select; EF21 adds its one kernel (and, on the cohort, the u_hat rows to
 # the gather: FedAvg's first)
 COHORT_LAUNCHES = {
     "gpdmm": dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1,
@@ -585,7 +666,7 @@ COHORT_LAUNCHES = {
     "scaffold": dict(inner_loop_affine=1, scaffold_cv=1, row_gather=1, row_scatter=1),
     "fedavg": dict(inner_loop_affine=1, row_scatter=1),
 }
-EF21_LAUNCHES = dict(ef21_rowmax=1, ef21_apply=1)
+EF21_LAUNCHES = dict(ef21_update=1)
 
 
 VARIANTS = [("gpdmm", None), ("gpdmm", 8), ("agpdmm", None), ("agpdmm", 8),

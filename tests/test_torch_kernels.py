@@ -380,7 +380,8 @@ def test_ops_surface_and_width_rule():
         "inner_loop_affine", "round_tail", "dual_from_uplink", "fused_update_arena",
         "scaffold_cv", "fused_update", "ef21_rowmax", "ef21_apply", "row_gather",
         "row_scatter", "screen_uplink", "stale_mix", "residual_norm", "neighbor_reduce",
-        "edge_flip", "flash_attention", "wkv6", "round_tail_mean", "client_mean"]
+        "edge_flip", "flash_attention", "wkv6", "round_tail_mean", "client_mean",
+        "ef21_update"]
     assert P.affine_inner_fits(512) and P.affine_inner_fits(7936)
     assert not P.affine_inner_fits(500)  # not a multiple of 128
     widest = inner_loop.SMEM_CAP_BYTES // (4 * inner_loop.SMEM_ROWS)
@@ -393,7 +394,8 @@ def test_ops_surface_and_width_rule():
 
 @pytest.mark.parametrize("fn", ["round_tail", "dual_from_uplink", "fused_update_arena",
                                 "inner_loop_affine", "scaffold_cv", "fused_update",
-                                "ef21_rowmax", "ef21_apply", "row_gather", "row_scatter"])
+                                "ef21_rowmax", "ef21_apply", "ef21_update", "row_gather",
+                                "row_scatter"])
 def test_non_cpu_non_cuda_tensor_raises(fn):
     """Only a CPU tensor reaches a plain version; any other device that is
     not CUDA is refused, never computed some other way."""
@@ -409,6 +411,7 @@ def test_non_cpu_non_cuda_tensor_raises(fn):
         "fused_update": lambda: P.fused_update(x, x, x, None, 0.1, 1.0),
         "ef21_rowmax": lambda: P.ef21_rowmax(x, x),
         "ef21_apply": lambda: P.ef21_apply(x, x, torch.ones(2, 1, device="meta"), 8),
+        "ef21_update": lambda: P.ef21_update(x, x, 8, (1,)),
         "row_gather": lambda: P.row_gather(x, torch.zeros(1, dtype=torch.int64, device="meta")),
         "row_scatter": lambda: P.row_scatter(
             x, torch.zeros(1, dtype=torch.int64, device="meta"), x[:1]),
