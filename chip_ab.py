@@ -25,12 +25,23 @@ times; every number is a median over the pairs.  Measured, for each tree:
     round (m = 500, K = 5), Fig. 2's full arena round (``use_arena=True``,
     the affine kernel), Fig. 2's GPDMM cohort round at participation 0.1
     (the arena, 50 of 500 clients), the EF21 rounds (8 bits) of Fig. 2's
-    full arena round and cohort round and of softmax at p = 0.5,
+    full arena round and cohort round and of softmax at p = 0.5, the
+    screened rounds of chip_smoke phase 9 (Fig. 2's full arena and cohort
+    at p = 0.1), SCAFFOLD's Fig. 2 and softmax arena rounds (full, p = 0.5
+    masked, and Fig. 2's cohort at p = 0.5),
     lm_tree's four algorithms, GPDMM's full arena round at lm_flat and the
     ring(8) graph there; for GPDMM, whether a plain op wrote x_bar
     (``--cells`` picks cells by label);
   * ``ops.ef21_update`` at ``chip_smoke.EF21_TIMED`` on the device and as
-    the host enqueues it (``ef21``).
+    the host enqueues it (``ef21``);
+  * the screen from the uplink to the keep mask (``faults.screen_keep``) at
+    ``chip_smoke.KEEP_SHAPES`` (``screen``) and SCAFFOLD's full-arena tail
+    (``ops.scaffold_step``, or the parent's ``scaffold_cv`` and plain ops)
+    at the Fig. 2 arena, the softmax arena and lm_flat (``scaffold``), on
+    the device and as the host enqueues them, with host ops a call;
+  * the server step's column walks (``round_tail_mean``, ``round_tail``,
+    ``client_mean``, ``server_dual``), f32 and bf16, at ``WALK_SHAPES`` on
+    the device (``server_walks``).
 
 And for this tree alone, the step kernel's two parameter tables (8
 segments, and the most the parameter limit holds): the launch with the
@@ -92,6 +103,8 @@ def use(tree: dict) -> SimpleNamespace:
     return SimpleNamespace(
         ops=tree["repro_torch.kernels.ops"], make=core.make, make_oracle=core.make_oracle,
         quadratic=core.quadratic, FederatedConfig=tree["repro_torch.configs.base"].FederatedConfig,
+        FaultConfig=tree["repro_torch.configs.base"].FaultConfig,
+        faults=tree["repro_torch.core.faults"], ref=tree["repro_torch.kernels.ref"],
         SoftmaxRegression=tree["repro_torch.core.softmax"].SoftmaxRegression,
         gpdmm=tree["repro_torch.core.gpdmm"], pdmm_graph=tree["repro_torch.core.pdmm_graph"],
         build=tree["repro_torch.kernels._build"], fu=tree["repro_torch.kernels.fused_update"])
@@ -262,6 +275,29 @@ def rounds(torch, trees, pairs, out, cell_filter=None):
     cells.append(("softmax_gpdmm_p50_ef21", dict(algorithm="gpdmm", inner_steps=sm_cfg["K"],
                                                  eta=0.05, participation=0.5, uplink_bits=8),
                   softmax, sm_cfg["rounds"], True, "arena"))
+    # the screened rounds of chip_smoke phase 9 (the screen with its keep
+    # rule in one launch): Fig. 2's faulted full arena round and its cohort
+    # round at p = 0.1
+    cells.append(("fig2_arena_gpdmm_screened", dict(algorithm="gpdmm", inner_steps=lsq["K"],
+                                                    use_arena=True, **S.SCREENED),
+                  lambda t: fig2(t, arena=True), 20, False, "arena"))
+    cells.append(("fig2_p10_cohort_gpdmm_screened",
+                  dict(algorithm="gpdmm", inner_steps=lsq["K"], use_arena=True,
+                       participation=0.1, **S.SCREENED),
+                  lambda t: fig2(t, arena=True), 20, False, "arena"))
+    # SCAFFOLD's full-arena rounds (its server step): Fig. 2's arena and the
+    # softmax arena, full and at p = 0.5 on the masked round; the cohort
+    # round at p = 0.5 keeps scaffold_cv (out of the step's scope)
+    for label, extra_kw in (("", {}), ("_p50_masked", dict(participation=0.5, cohort=False)),
+                            ("_p50_cohort", dict(participation=0.5))):
+        cells.append((f"fig2_arena_scaffold{label}",
+                      dict(algorithm="scaffold", inner_steps=lsq["K"], use_arena=True,
+                           **extra_kw), lambda t: fig2(t, arena=True), 20, False, "arena"))
+    for label, extra_kw in (("", {}), ("_p50_masked", dict(participation=0.5, cohort=False))):
+        cells.append((f"softmax_scaffold{label}", dict(algorithm="scaffold",
+                                                       inner_steps=sm_cfg["K"], eta=0.05,
+                                                       **extra_kw),
+                      softmax, sm_cfg["rounds"], True, "arena"))
     for algo in ("gpdmm", "agpdmm", "scaffold", "fedavg"):
         cells.append((f"lm_tree_{algo}", dict(algorithm=algo, inner_steps=lt["K"], eta=lt["eta"],
                                               use_arena=False), lm_tree, lt["rounds"], False,
@@ -279,7 +315,9 @@ def rounds(torch, trees, pairs, out, cell_filter=None):
         for tl, tree in trees.items():
             t = use(tree)
             params, m, grad, batch_of, extra = setup(t)
-            opt = t.make(t.FederatedConfig(**kw, **extra))
+            fk = kw.get("faults")
+            opt = t.make(t.FederatedConfig(**(kw | ({} if fk is None else
+                                                    {"faults": t.FaultConfig(**fk)})), **extra))
             state = opt.init(params, m)
             state, _, _, _ = S.run_rounds(torch, t.ops, opt, state, grad, batch_of, 2, per_step)
             runs[tl] = dict(opt=opt, state=state, grad=grad, batch_of=batch_of)
@@ -425,9 +463,109 @@ def population(torch, trees, pairs, out):
             for k, v in res.items()))
 
 
+def screen(torch, trees, pairs, out):
+    """The screen from the uplink to the keep mask, ``faults.screen_keep``
+    with the default screen_mult (100) against the server row, in each tree
+    (here one ``screen_keep`` launch; the parent's ``screen_uplink`` kernel
+    and the plain rule) at ``chip_smoke.KEEP_SHAPES`` (f32), on the device
+    (the stream pre-filled) and as the host enqueues it; with each tree's
+    launches and tensor ops a call."""
+    gen = S.seeded(torch, 60)
+    for m, w in S.KEEP_SHAPES:
+        u = torch.randn(m, w, generator=gen, device="cuda")
+        r = torch.randn(w, generator=gen, device="cuda")
+        cfgs = {tl: use(tree).FederatedConfig(screen=True) for tl, tree in trees.items()}
+        for tl, tree in trees.items():
+            t = use(tree)
+            t.faults.screen_keep(cfgs[tl], u, r)
+            t.ops.reset_launches()
+            n_ops = S.round_ops(torch, lambda: t.faults.screen_keep(cfgs[tl], u, r))
+            out[f"screen_{m}x{w}_{tl}_per_call"] = {
+                "host_ops": n_ops, "launches": {k: v for k, v in t.ops.launches().items() if v}}
+        for prefill in (True, False):
+            res = alternate(trees, pairs, lambda tl, t: S.cuda_time_ms(
+                lambda: t.faults.screen_keep(cfgs[tl], u, r), S.CHAIN_ITERS, prefill=prefill,
+                spin_cycles=S.CHAIN_SPIN))
+            key = f"screen_{m}x{w}_{'device' if prefill else 'host_paced'}_ms"
+            out[key] = res
+            S.log(f"screen ({m}, {w}), {'device' if prefill else 'host-paced'}: " + ", ".join(
+                f"{k} {v['median']:.5f} ms ({out[f'screen_{m}x{w}_{k}_per_call']})"
+                for k, v in res.items()))
+        del u, r
+
+
+def scaffold(torch, trees, pairs, out):
+    """SCAFFOLD's full-arena tail in each tree (here ``ops.scaffold_step``,
+    two passes; the parent's ``scaffold_cv`` kernel and the plain selects,
+    means and column sum, ``chip_smoke.old_scaffold_tail``) at the Fig. 2
+    arena, the softmax arena and lm_flat (f32, alpha 2.5, eta_g 1), without
+    and with a mask, on the device and as the host enqueues it."""
+    gen = S.seeded(torch, 61)
+    for m, w in S.SCAFFOLD_SHAPES[:3]:
+        ci, xt = (torch.randn(m, w, generator=gen, device="cuda") for _ in range(2))
+        c, xs = (torch.randn(w, generator=gen, device="cuda") for _ in range(2))
+        for mask in (None, torch.rand(m, generator=gen, device="cuda") < 0.5):
+
+            def call(t):
+                if hasattr(t.ops, "scaffold_step"):
+                    return t.ops.scaffold_step(ci, xt, c, xs, 2.5, 1.0, mask)
+                return S.old_scaffold_tail(torch, t.ops, t.ref, ci, xt, c, xs, 2.5, 1.0, mask)
+
+            label = f"scaffold_{m}x{w}{'_masked' if mask is not None else ''}"
+            for tl, tree in trees.items():
+                t = use(tree)
+                call(t)
+                out[f"{label}_{tl}_host_ops"] = S.round_ops(torch, lambda: call(t))
+            for prefill in (True, False):
+                res = alternate(trees, pairs, lambda tl, t: S.cuda_time_ms(
+                    lambda: call(t), S.CHAIN_ITERS, prefill=prefill, spin_cycles=S.CHAIN_SPIN))
+                key = f"{label}_{'device' if prefill else 'host_paced'}_ms"
+                out[key] = res
+                S.log(f"{label}, {'device' if prefill else 'host-paced'}: " + ", ".join(
+                    f"{k} {v['median']:.5f} ms ({out[f'{label}_{k}_host_ops']} host ops)"
+                    for k, v in res.items()))
+        del ci, xt, c, xs
+
+
+# the server step's column walks (kernels 2-3), whose template SCAFFOLD's
+# passes share: the Fig. 2 arena, the softmax arena, lm_flat and a
+# population of 10^5 clients (S > 1 slices, the last block's sum)
+WALK_SHAPES = ((500, 512), (10, 7936), (8, 1 << 20), (10 ** 5, 1024))
+
+
+def server_walks(torch, trees, pairs, out):
+    """The GPDMM/AGPDMM server step's column walks in each tree on the
+    device (the stream pre-filled), f32 and bf16, at ``WALK_SHAPES``: the
+    round tail with lam_is and the client mean in its pass
+    (``round_tail_mean``, a full round's), without the mean
+    (``round_tail``, a round with a cache), ``client_mean`` and
+    ``server_dual``."""
+    gen = S.seeded(torch, 62)
+    for m, w in WALK_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x, lam, u = (torch.randn(m, w, generator=gen, device="cuda").to(dt)
+                         for _ in range(3))
+            xs = torch.randn(w, generator=gen, device="cuda").to(dt)
+            calls = {"round_tail_mean": lambda t: t.ops.round_tail_mean(x, lam, xs, 2.5),
+                     "round_tail": lambda t: t.ops.round_tail(x, lam, xs, 2.5),
+                     "client_mean": lambda t: t.ops.client_mean(u),
+                     "server_dual": lambda t: t.ops.server_dual(u, xs, 2.5)}
+            iters = 200 if m * w < 1 << 22 else 40
+            for name, call in calls.items():
+                res = alternate(trees, pairs, lambda tl, t: S.cuda_time_ms(
+                    lambda: call(t), iters))
+                key = f"walk_{name}_{m}x{w}_{str(dt).split('.')[-1]}_device_ms"
+                out[key] = res
+                S.log(f"{name} ({m}, {w}) {dt}, device: " + ", ".join(
+                    f"{k} {v['median'] * 1e3:.3f} us" for k, v in res.items()))
+            del x, lam, u, xs
+        torch.cuda.empty_cache()
+
+
 SECTIONS = {"host_step": host_step, "device_step": device_step, "tables": tables,
             "rounds": rounds, "ef21": ef21, "cohort_rows": cohort_rows,
-            "population": population}
+            "population": population, "screen": screen, "scaffold": scaffold,
+            "server_walks": server_walks}
 
 
 def main() -> int:

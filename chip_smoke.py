@@ -45,7 +45,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      ``round_tail_mean`` and ``dual_from_uplink`` (the server step's two
      passes; every round with a cache runs ``round_tail``, ``client_mean``
      and ``dual_from_uplink``) once per GPDMM/AGPDMM round,
-     ``scaffold_cv`` once per SCAFFOLD round;
+     ``scaffold_step`` (SCAFFOLD's server step, two passes) once per
+     SCAFFOLD round;
   5. softmax regression at the paper's Table I size (F = 784, C = 10,
      m = 10, B = 300, K = 5, one class per client): 10 rounds each of
      GPDMM, AGPDMM, SCAFFOLD, FedAvg, Inexact FedSplit (x_s init) and GPDMM
@@ -106,7 +107,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      15% of the descent scale of the clean run); (e) the ``lm_flat`` shape
      (m = 8, one 2^20 leaf, K = 4), screened and async; (f) the fault plan
      drawn on the card equals the CPU's over 30 rounds of each config; the
-     launches per round are as derived from the code;
+     launches per round are as derived from the code; in one round of the
+     screened arena, cohort and SCAFFOLD configs the screen dispatches no
+     tensor op from the uplink to the mask (``faults.screen_keep``, one
+     ``screen_keep`` launch) and SCAFFOLD's tail none (``scaffold_step``,
+     its two passes, no ``scaffold_cv``);
  10. graph-PDMM over general topologies and auto-tuned stepsizes with the
      residual early exit: (a) ``residual_norm`` at (500, 512), (8, 2^20)
      and (5, 130), f32 and bf16, a NaN row included, to rtol
@@ -168,7 +173,16 @@ at ``EF21_TIMED`` with the tensor ops it dispatches besides
 bitwise and ``screen_uplink`` (finite flags exactly, sums to rtol
 1e-6 * sqrt(W / 128)) at (500, 512), (50, 512), (8, 2^20) and (5, 130),
 f32 and bf16, broadcast and per-row, with NaN and Inf rows, and times the
-one PyTorch call that computes the same function where there is one.
+one PyTorch call that computes the same function where there is one;
+"3 screen keep" holds ``screen_keep`` (the screen with its keep rule in
+one launch) at ``KEEP_SHAPES`` bitwise to the plain rule on
+``screen_uplink``'s sq (mask, median, sq; NaN, Inf, ties, no finite row, a
+NaN reference; screen_mult 0, 3 and 100; 10^5 x 1,024 on the cooperative
+select route), and "3 scaffold step" holds ``scaffold_step`` at
+``SCAFFOLD_SHAPES`` (c_i' bitwise ``scaffold_cv``'s, x_s' and c' within
+the mean's depth roundings, bitwise on integer data, the column sum within
+its depth roundings); both timed beside their bounds, their plain
+versions and the card's old path (the old kernel, then plain ops).
 
 Launch counts are set to 0 just before each run of the main path (phases
 3-11) and read just after it; the launches of the kernel comparisons (phases
@@ -311,13 +325,16 @@ class Record:
             self.rows[k]["launches"] += n
 
     def kernel(self, name, err, fn, plain_fn, iters, nbytes, flops, library_fn=None,
-               flop_per_s=F32_FLOP_PER_S):
+               flop_per_s=F32_FLOP_PER_S, plain_iters=None, plain_spin=400_000):
         """Time ``fn`` (the kernel), ``plain_fn`` and, where one PyTorch call
         computes the same function, ``library_fn`` on the device, and the
         kernel once more as the host enqueues it (``enqueue_ms``).  The bound
         takes ``flops`` at ``flop_per_s`` (f32 outside the tensor cores by
-        default)."""
-        ms, plain_ms = cuda_time_ms(fn, iters), cuda_time_ms(plain_fn, iters)
+        default).  A plain version of many ops takes ``plain_iters`` calls
+        behind a spin of ``plain_spin`` cycles a call, so that the host has
+        enqueued them all before the device reaches them."""
+        ms = cuda_time_ms(fn, iters)
+        plain_ms = cuda_time_ms(plain_fn, plain_iters or iters, spin_cycles=plain_spin)
         library_ms = None if library_fn is None else cuda_time_ms(library_fn, iters)
         enqueue_ms = cuda_time_ms(fn, iters, prefill=False)
         b, by = bound_ms(nbytes, flops, flop_per_s)
@@ -1294,6 +1311,284 @@ def check_fault_kernels(rec, torch, ops, ref, gen, out):
     torch.cuda.synchronize()
 
 
+# screen_keep (kernel 11 with the keep rule in its launch) at the arena, the
+# softmax arena, lm_flat (128 chunks a row), a ragged width and a masked
+# screened round over 10^5 clients (past SELECT_ROWS: the cooperative
+# select); timed f32 with the server row as ref and screen_mult 100 (the
+# default); the JSON row at (500, 512)
+KEEP_SHAPES = ((500, 512), (10, 7936), (8, 1 << 20), (5, 130), (10 ** 5, 1024))
+KEEP_MULTS = (0.0, 100.0, 3.0)
+# plain chains of tens of ops: few calls behind a long spin
+CHAIN_ITERS, CHAIN_SPIN = 30, 8_000_000
+
+
+def keep_cases(torch, gen, m, w, dtype, per_row):
+    """``screen_keep``'s inputs at (m, W): ``fault_inputs``' rows (a NaN row,
+    an Inf entry, a -Inf row, a blown-up row), ties (three distinct rows
+    repeated), every row non-finite, and a NaN in the reference."""
+    u, other, _, _, _, _ = fault_inputs(torch, gen, m, w, dtype, per_row)
+    ties = (torch.arange(m, device=gen.device) % 3).float()[:, None].expand(m, w)
+    nan_ref = other.clone()
+    nan_ref.view(-1)[0] = float("nan")
+    return (("faulted", u, other), ("ties", ties.to(dtype).contiguous(), torch.zeros_like(other)),
+            ("all_non_finite", torch.full_like(u, float("nan")), other),
+            ("nan_ref", u, nan_ref))
+
+
+def check_screen_keep(rec, torch, ops, ref, gen, out):
+    """``screen_keep`` against its plain rule on the card's own sq at
+    ``KEEP_SHAPES``: f32 and bf16, a broadcast and a per-row reference, the
+    cases of ``keep_cases``, screen_mult 0, 100 and 3; sq bitwise
+    ``screen_uplink``'s, finite equal, the mask bitwise
+    ``ref.keep_from_ref`` on them and the median bitwise
+    ``ref.nanmedian_ref``; one launch (two on the select route), no tensor
+    op besides ``torch.empty``, two runs equal.  Then, on the inputs it is
+    timed on (f32, broadcast, screen_mult 100), the mask equal to the plain
+    version's and sq within ``screen_uplink``'s rtol of the plain sum's (the
+    row's ``max_abs_err``: the larger of the two errors); timed beside its bound (the uplink and the reference row read
+    once, the mask written once), its plain version, and the card's old
+    path (the ``screen_uplink`` kernel, then the plain rule), each also as
+    the host enqueues it."""
+    from repro_torch.kernels import screen as SC
+
+    n_cases = 0
+    for (m, w) in KEEP_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            for per_row in (False, True):
+                for label, u, r in keep_cases(torch, gen, m, w, dt, per_row):
+                    fin_u, sq_u = ops.screen_uplink(u, r)
+                    for mult in KEEP_MULTS:
+                        route = SC.keep_route(m, mult > 0)
+                        what = f"screen_keep {dt} ({m}, {w}) per_row={per_row} {label} {mult}"
+                        n0 = ops.launches()["screen_keep"]
+                        keep, fin, sq, med = SC.keep_parts(u, r, mult)
+                        n = ops.launches()["screen_keep"] - n0
+                        check(n == (2 if route == "select" else 1), f"{what}: {n} launches")
+                        check(torch.equal(fin, fin_u) and same_bits(torch, sq, sq_u),
+                              f"{what}: finite or sq differ from screen_uplink's")
+                        check(torch.equal(keep, ref.keep_from_ref(fin_u, sq_u, mult)),
+                              f"{what}: the mask differs from the plain rule's")
+                        if mult > 0:
+                            want = ref.nanmedian_ref(torch.where(fin_u, sq_u, math.nan))
+                            check(same_bits(torch, med, want),
+                                  f"{what}: median {float(med)} against {float(want)}")
+                        check(torch.equal(ops.screen_keep(u, r, mult), keep),
+                              f"{what}: differs from run to run")
+                        n_cases += 1
+                    del fin_u, sq_u
+                del u, r
+        torch.cuda.empty_cache()
+    log(f"screen_keep: {n_cases} cases bitwise the plain rule on screen_uplink's sq (mask, "
+        f"median, sq, finite) at {list(KEEP_SHAPES)}")
+
+    rows = {}
+    for (m, w) in KEEP_SHAPES:
+        u, r, _, _, _, _ = fault_inputs(torch, gen, m, w, torch.float32, False)
+        u = torch.where(torch.isfinite(u), u, 0.0)  # timed on finite rows
+        ops.screen_keep(u, r, 100.0)
+        host_ops = round_ops(torch, lambda: ops.screen_keep(u, r, 100.0))
+        check(host_ops == 0, f"screen_keep ({m}, {w}): {host_ops} tensor ops besides torch.empty")
+        fn = lambda: ops.screen_keep(u, r, 100.0)  # noqa: E731
+        plain = lambda: ref.screen_keep_ref(u, r, 100.0)  # noqa: E731
+        old = lambda: ref.keep_from_ref(*ops.screen_uplink(u, r), 100.0)  # noqa: E731
+        # the error on the timed inputs, against the plain version (sq in
+        # torch.sum's order): the masks equal, sq within screen_uplink's rtol
+        keep, plain_keep = fn(), plain()
+        check(torch.equal(keep, plain_keep),
+              f"screen_keep ({m}, {w}): the mask differs from the plain version's "
+              f"in {int((keep != plain_keep).sum())} rows")
+        fin_p, sq_p = ref.screen_uplink_ref(u, r)
+        _, fin_k, sq_k, _ = SC.keep_parts(u, r, 100.0)
+        rtol = 1e-6 * math.sqrt(w / 128)
+        sq_rel = float(((sq_k - sq_p).abs() / sq_p.abs().clamp(min=1e-30)).max())
+        check(torch.equal(fin_k, fin_p) and sq_rel <= rtol,
+              f"screen_keep ({m}, {w}): sq's relative error {sq_rel} > {rtol}, or finite differs")
+        mask_err, sq_err = max_err(keep, plain_keep), max_err(sq_k, sq_p)
+        iters = 200 if m * w < 1 << 22 else 30
+        nbytes, flops = 4 * (m * w + w) + m, 3 * m * w
+        b, by = bound_ms(nbytes, flops)
+        if (m, w) == (500, 512):
+            rec.kernel("screen_keep", max(mask_err, sq_err), fn, plain, iters, nbytes, flops,
+                       plain_iters=CHAIN_ITERS, plain_spin=CHAIN_SPIN)
+            rec.rows["screen_keep"].update(mask_max_abs_err=mask_err, sq_max_abs_err=sq_err,
+                                           sq_max_rel_err=sq_rel)
+        route = SC.keep_route(m, True)
+        row = {"m": m, "W": w, "route": route, "mask_max_abs_err": mask_err,
+               "sq_max_abs_err": sq_err, "sq_max_rel_err": sq_rel, "ms": cuda_time_ms(fn, iters),
+               "plain_ms": cuda_time_ms(plain, CHAIN_ITERS, spin_cycles=CHAIN_SPIN),
+               "old_path_ms": cuda_time_ms(old, CHAIN_ITERS, spin_cycles=CHAIN_SPIN),
+               "enqueue_ms": cuda_time_ms(fn, iters, prefill=False),
+               "old_path_enqueue_ms": cuda_time_ms(old, CHAIN_ITERS, prefill=False),
+               "old_path_host_ops": round_ops(torch, old), "bound_ms": b, "bound_by": by}
+        rows[f"{m}x{w}"] = row
+        log(f"screen_keep ({m}, {w}) {route}: masks equal, sq within {sq_rel:.3e} of the plain "
+            f"sum's (max abs {sq_err:.3e}); {row['ms']:.5f} ms (bound {b:.5f}, plain "
+            f"{row['plain_ms']:.5f}, old path: screen_uplink + the plain rule "
+            f"{row['old_path_ms']:.5f}); host-paced {row['enqueue_ms']:.5f} ms against "
+            f"{row['old_path_enqueue_ms']:.5f} ({row['old_path_host_ops']} host ops)")
+        del u, r
+    rec.rows["screen_keep"]["shapes"] = rows
+    out["screen_keep"] = rows
+    torch.cuda.synchronize()
+
+
+# SCAFFOLD's server step at the Fig. 2 arena, the softmax arena, lm_flat and
+# a ragged width; timed f32 without a mask (the full round); the JSON row at
+# (500, 512)
+SCAFFOLD_SHAPES = ((500, 512), (10, 7936), (8, 1 << 20), (7, 130))
+
+
+def after_mean_tol(torch, d, m, summed, mean_p, *steps, unit):
+    """|card - plain| bound of a value the plain code forms from a column
+    mean and a few rounded ops: the two means within 2 (d + 2) 2^-24 of the
+    summed magnitudes over m and a rounding each (``unit``), then 3
+    roundings of each later op's result (``steps``: (scale, magnitude))."""
+    tol = 2 * (d + 2) * UNIT_ROUNDOFF * summed / m + 2 * unit * mean_p.abs()
+    for scale, mag in steps:
+        tol = scale * tol + 3 * unit * mag.abs()
+    return tol
+
+
+def old_scaffold_tail(torch, ops, ref, c_i, x_t, c_row, x_s, alpha, eta_g, mask):
+    """The card's SCAFFOLD tail before the server step: the ``scaffold_cv``
+    kernel, then the plain selects, means and column sum."""
+    c_i_new = ops.scaffold_cv(c_i, x_t, c_row, x_s, alpha)
+    x_up = x_t
+    if mask is not None:
+        c_i_new = torch.where(mask[:, None], c_i_new, c_i)
+        x_up = torch.where(mask[:, None], x_t, x_s[None])
+    x_s_new = x_s + ref.scalar_as(eta_g, x_s.dtype) * (torch.mean(x_up, dim=0) - x_s)
+    c_new = c_row + torch.mean(c_i_new - c_i, dim=0)
+    return c_i_new, x_s_new, c_new, torch.sum((c_i_new - c_new[None]).to(torch.float32), dim=0)
+
+
+def check_scaffold_step(rec, torch, ops, ref, gen, out):
+    """``scaffold_step`` at ``SCAFFOLD_SHAPES`` (f32 and bf16, scalar and
+    per-client alpha, with and without a mask, eta_g 1 and 0.7): c_i'
+    bitwise ``scaffold_cv``'s (c_i's bits on masked-out rows), x_s' and c'
+    within ``after_mean_tol`` of the plain composition, the column sum of
+    c_i' - c' within (d + 2) 2^-24 of its summed magnitudes from float64 and
+    twice that from ``torch.sum`` (d = ``round_tail.depth_on``); on integer
+    data (m a power of two, alpha 2, eta_g 0.5) c_i', x_s' and c' bitwise
+    the plain ones; two launches a call, no ``scaffold_cv``, no tensor op
+    besides ``torch.empty``, two runs equal.  Timed f32 without a mask
+    beside its bound (c_i and x_t read, c_i' written, the rows once; the two
+    passes' own traffic reads c_i' again: ``two_pass_bound_ms``), its plain
+    version and the card's old tail (``scaffold_cv``, then plain ops)."""
+    from repro_torch.kernels import round_tail as RT
+
+    dev = gen.device
+    f64 = torch.float64
+    worst = {"x_s": 0.0, "c": 0.0, "colsum": 0.0}
+    for (m, w) in SCAFFOLD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            ci, xt = (torch.randn(m, w, generator=gen, device=dev).to(dt) for _ in range(2))
+            c, xs = (torch.randn(w, generator=gen, device=dev).to(dt) for _ in range(2))
+            d = RT.depth_on(ci)
+            unit = UNIT_ROUNDOFF if dt == torch.float32 else 2.0 ** -8
+            for alpha in (2.5, 1.0 + 40.0 * torch.rand(m, generator=gen, device=dev)):
+                for mask in (None, torch.rand(m, generator=gen, device=dev) < 0.6):
+                    for eta_g in (1.0, 0.7):
+                        what = (f"scaffold_step {dt} ({m}, {w}) alpha "
+                                f"{'per-client' if torch.is_tensor(alpha) else alpha} "
+                                f"mask={mask is not None} eta_g={eta_g}")
+                        n0 = ops.launches()
+                        got = ops.scaffold_step(ci, xt, c, xs, alpha, eta_g, mask)
+                        n1 = ops.launches()
+                        check(n1["scaffold_step"] - n0["scaffold_step"] == 2
+                              and n1["scaffold_cv"] == n0["scaffold_cv"], f"{what}: launches")
+                        want = ref.scaffold_step_ref(ci, xt, c, xs, alpha, eta_g, mask)
+                        cv = ops.scaffold_cv(ci, xt, c, xs, alpha)
+                        if mask is not None:
+                            cv = torch.where(mask[:, None], cv, ci)
+                        check(same_bits(torch, got[0], cv) and same_bits(torch, got[0], want[0]),
+                              f"{what}: c_i' differs from scaffold_cv's")
+                        x_up = xt if mask is None else torch.where(mask[:, None], xt, xs[None])
+                        m_x = torch.mean(x_up, dim=0)
+                        dx = (m_x - xs).to(f64)
+                        tol_x = after_mean_tol(torch, d, m, column_sums_f64(torch, x_up)[1],
+                                               m_x.to(f64), (1.0, dx), (eta_g, eta_g * dx),
+                                               (1.0, want[1].to(f64)), unit=unit)
+                        err_x = (got[1].to(f64) - want[1].to(f64)).abs()
+                        delta = want[0] - ci
+                        m_c = torch.mean(delta, dim=0)
+                        tol_c = after_mean_tol(torch, d, m, column_sums_f64(torch, delta)[1],
+                                               m_c.to(f64), (1.0, want[2].to(f64)), unit=unit)
+                        err_c = (got[2].to(f64) - want[2].to(f64)).abs()
+                        check(bool((err_x <= tol_x).all()) and bool((err_c <= tol_c).all()),
+                              f"{what}: x_s' {float((err_x / tol_x).max())}, c' "
+                              f"{float((err_c / tol_c).max())} of their tolerance")
+                        terms = (got[0] - got[2][None]).to(torch.float32)
+                        s64, a64 = column_sums_f64(torch, terms)
+                        ctol = (d + 2) * UNIT_ROUNDOFF * a64
+                        e64 = (got[3].to(f64) - s64).abs()
+                        et = (got[3].to(f64) - torch.sum(terms, dim=0).to(f64)).abs()
+                        check(bool((e64 <= ctol).all()) and bool((et <= 2 * ctol).all()),
+                              f"{what}: column sum {float(e64.max())} from float64, "
+                              f"{float(et.max())} from torch.sum (depth {d})")
+                        worst["x_s"] = max(worst["x_s"], float((err_x / tol_x).max()))
+                        worst["c"] = max(worst["c"], float((err_c / tol_c).max()))
+                        worst["colsum"] = max(worst["colsum"], float((e64 / ctol).max()))
+                        again = ops.scaffold_step(ci, xt, c, xs, alpha, eta_g, mask)
+                        check(all(same_bits(torch, a, b) for a, b in zip(again, got)),
+                              f"{what}: differs from run to run")
+            del ci, xt, c, xs
+        torch.cuda.empty_cache()
+    # integer data: every sum of pass 1 exact in any order, every mean exact
+    for (m, w) in ((512, 512), (8, 1 << 20), (4096, 128)):
+        for dt in (torch.float32, torch.bfloat16):
+            ci, xt = (torch.randint(-4, 5, (m, w), generator=gen, device=dev).to(dt)
+                      for _ in range(2))
+            c, xs = (torch.randint(-4, 5, (w,), generator=gen, device=dev).to(dt)
+                     for _ in range(2))
+            for mask in (None, torch.rand(m, generator=gen, device=dev) < 0.5):
+                got = ops.scaffold_step(ci, xt, c, xs, 2.0, 0.5, mask)
+                want = ref.scaffold_step_ref(ci, xt, c, xs, 2.0, 0.5, mask)
+                check(all(same_bits(torch, a, b) for a, b in zip(got[:3], want[:3])),
+                      f"scaffold_step {dt} ({m}, {w}) integer data: differs from the plain")
+    out["scaffold_step_worst_over_tol"] = worst
+    log(f"scaffold_step: c_i' bitwise scaffold_cv's; x_s', c' and the column sum within "
+        f"{worst} of their tolerances; integer data bitwise; at {list(SCAFFOLD_SHAPES)}")
+
+    rows = {}
+    for (m, w) in SCAFFOLD_SHAPES[:3]:
+        ci, xt = (torch.randn(m, w, generator=gen, device=dev) for _ in range(2))
+        c, xs = (torch.randn(w, generator=gen, device=dev) for _ in range(2))
+        fn = lambda: ops.scaffold_step(ci, xt, c, xs, 2.5, 1.0)  # noqa: E731
+        plain = lambda: ref.scaffold_step_ref(ci, xt, c, xs, 2.5, 1.0)  # noqa: E731
+        old = lambda: old_scaffold_tail(torch, ops, ref, ci, xt, c, xs, 2.5, 1.0,  # noqa: E731
+                                        None)
+        fn()
+        host_ops = round_ops(torch, fn)
+        check(host_ops == 0, f"scaffold_step ({m}, {w}): {host_ops} tensor ops")
+        err = max(max_err(a, b) for a, b in zip(fn()[1:3], plain()[1:3]))
+        iters = 200 if m * w < 1 << 22 else 30
+        nbytes, flops = 4 * (3 * m * w + 4 * w) + 4 * w, 9 * m * w
+        b, by = bound_ms(nbytes, flops)
+        if (m, w) == (500, 512):
+            rec.kernel("scaffold_step", err, fn, plain, iters, nbytes, flops,
+                       plain_iters=CHAIN_ITERS, plain_spin=CHAIN_SPIN)
+        row = {"m": m, "W": w, "max_abs_err_x_s_c": err, "ms": cuda_time_ms(fn, iters),
+               "plain_ms": cuda_time_ms(plain, CHAIN_ITERS, spin_cycles=CHAIN_SPIN),
+               "old_tail_ms": cuda_time_ms(old, CHAIN_ITERS, spin_cycles=CHAIN_SPIN),
+               "enqueue_ms": cuda_time_ms(fn, iters, prefill=False),
+               "old_tail_enqueue_ms": cuda_time_ms(old, CHAIN_ITERS, prefill=False),
+               "old_tail_host_ops": round_ops(torch, old), "bound_ms": b, "bound_by": by,
+               "pass1_bound_ms": bound_ms(4 * 3 * m * w, 0)[0],
+               "pass2_bound_ms": bound_ms(4 * m * w, 0)[0],
+               "two_pass_bound_ms": bound_ms(4 * (4 * m * w + 6 * w), 0)[0]}
+        rows[f"{m}x{w}"] = row
+        log(f"scaffold_step ({m}, {w}): {row['ms']:.5f} ms (bound {b:.5f}, passes' own "
+            f"{row['two_pass_bound_ms']:.5f}; plain {row['plain_ms']:.5f}, old tail: "
+            f"scaffold_cv + plain ops {row['old_tail_ms']:.5f}); host-paced "
+            f"{row['enqueue_ms']:.5f} ms against {row['old_tail_enqueue_ms']:.5f} "
+            f"({row['old_tail_host_ops']} host ops)")
+        del ci, xt, c, xs
+    rec.rows["scaffold_step"]["shapes"] = rows
+    out["scaffold_step"] = rows
+    torch.cuda.synchronize()
+
+
 def check_small_against_cpu(torch, make, FederatedConfig, quadratic):
     """The port on the card against the port on the CPU (plain versions),
     5 GPDMM rounds at quickstart size; rtol = atol = 1e-4: the matvec and
@@ -1411,7 +1706,7 @@ def lsq_phase(rec, prob, torch, ops, make, FederatedConfig, dev, prof=None):
     per_round = {
         "gpdmm": dict(inner_loop_affine=1, round_tail_mean=1, dual_from_uplink=1),
         "agpdmm": dict(inner_loop_affine=1, round_tail_mean=1, dual_from_uplink=1),
-        "scaffold": dict(inner_loop_affine=1, scaffold_cv=1),
+        "scaffold": dict(inner_loop_affine=1, scaffold_step=2),
         "fedavg": dict(inner_loop_affine=1),
     }
     for algo in per_round:
@@ -1461,7 +1756,8 @@ SOFTMAX_RUNS = {
               dict(fused_update_arena=SOFTMAX["K"], round_tail_mean=1, dual_from_uplink=1)),
     "agpdmm": (dict(algorithm="agpdmm"),
                dict(fused_update_arena=SOFTMAX["K"], round_tail_mean=1, dual_from_uplink=1)),
-    "scaffold": (dict(algorithm="scaffold"), dict(fused_update_arena=SOFTMAX["K"], scaffold_cv=1)),
+    "scaffold": (dict(algorithm="scaffold"),
+                 dict(fused_update_arena=SOFTMAX["K"], scaffold_step=2)),
     "fedavg": (dict(algorithm="fedavg"), dict(fused_update_arena=SOFTMAX["K"])),
     "fedsplit_xs": (dict(algorithm="fedsplit", fedsplit_init="xs"),
                     dict(fused_update=SOFTMAX["K"])),
@@ -1673,6 +1969,24 @@ def round_ops(torch, run) -> int:
     with Count() as c:
         run()
     return c.n
+
+
+def ops_inside(torch, module, name, run) -> list:
+    """Run ``run`` with ``module.name`` wrapped: the tensor ops (allocations
+    aside) that each call of it dispatched."""
+    inner, found = getattr(module, name), []
+
+    def wrapped(*a, **kw):
+        res = []
+        found.append(round_ops(torch, lambda: res.append(inner(*a, **kw))))
+        return res[0]
+
+    setattr(module, name, wrapped)
+    try:
+        run()
+    finally:
+        setattr(module, name, inner)
+    return found
 
 
 def population_setup(torch, make, make_oracle, FederatedConfig, m, dev, seed=59):
@@ -2011,37 +2325,39 @@ FINITE_ONLY = dict(faults=dict(dropout=0.1, corrupt=0.05, seed=7, blowup=1.0), s
                    screen_mult=0.0)
 ARENA_TAIL = dict(inner_loop_affine=1, round_tail=1, client_mean=1, dual_from_uplink=1)
 # launches per round, read off the rounds' code: every screened arena round
-# screens once (screen="auto" screens a delay-only schedule too), every
+# screens once, the keep rule in the launch (screen="auto" screens a
+# delay-only schedule too), a SCAFFOLD round that is not async ends in its
+# server step's two passes (the async one keeps scaffold_cv), every
 # async arena round mixes once, the cohort gathers the cached u_hat rows
 # for its keep select with its lam and carry rows (one launch) and scatters
 # u_hat and the carry (one launch); the pytree path screens and mixes as
 # plain tensor code
 FAULT_RUNS = {
-    "a_gpdmm": (dict(algorithm="gpdmm", **SCREENED), ARENA_TAIL | dict(screen_uplink=1)),
-    "a_agpdmm": (dict(algorithm="agpdmm", **SCREENED), ARENA_TAIL | dict(screen_uplink=1)),
+    "a_gpdmm": (dict(algorithm="gpdmm", **SCREENED), ARENA_TAIL | dict(screen_keep=1)),
+    "a_agpdmm": (dict(algorithm="agpdmm", **SCREENED), ARENA_TAIL | dict(screen_keep=1)),
     "a_scaffold": (dict(algorithm="scaffold", **SCREENED),
-                   dict(inner_loop_affine=1, scaffold_cv=1, screen_uplink=1)),
-    "a_fedavg": (dict(algorithm="fedavg", **SCREENED), dict(inner_loop_affine=1, screen_uplink=1)),
+                   dict(inner_loop_affine=1, scaffold_step=2, screen_keep=1)),
+    "a_fedavg": (dict(algorithm="fedavg", **SCREENED), dict(inner_loop_affine=1, screen_keep=1)),
     "b_gpdmm": (dict(algorithm="gpdmm", participation=0.1, **SCREENED),
-                ARENA_TAIL | dict(screen_uplink=1, row_gather=1, row_scatter=1)),
+                ARENA_TAIL | dict(screen_keep=1, row_gather=1, row_scatter=1)),
     "b_gpdmm_finite": (dict(algorithm="gpdmm", participation=0.1, **FINITE_ONLY),
-                       ARENA_TAIL | dict(screen_uplink=1, row_gather=1, row_scatter=1)),
+                       ARENA_TAIL | dict(screen_keep=1, row_gather=1, row_scatter=1)),
     "b_gpdmm_finite_masked": (dict(algorithm="gpdmm", participation=0.1, cohort=False,
-                                   **FINITE_ONLY), ARENA_TAIL | dict(screen_uplink=1)),
+                                   **FINITE_ONLY), ARENA_TAIL | dict(screen_keep=1)),
     "c_gpdmm_sync": (dict(algorithm="gpdmm", faults=DELAYED["faults"], async_rounds=False),
-                     ARENA_TAIL | dict(screen_uplink=1)),
+                     ARENA_TAIL | dict(screen_keep=1)),
     "c_gpdmm_ms0": (dict(algorithm="gpdmm", max_staleness=0, **DELAYED),
-                    ARENA_TAIL | dict(screen_uplink=1, stale_mix=1)),
+                    ARENA_TAIL | dict(screen_keep=1, stale_mix=1)),
     "c_gpdmm_ms2": (dict(algorithm="gpdmm", max_staleness=2, **DELAYED),
-                    ARENA_TAIL | dict(screen_uplink=1, stale_mix=1)),
+                    ARENA_TAIL | dict(screen_keep=1, stale_mix=1)),
     "c_gpdmm_ms4": (dict(algorithm="gpdmm", max_staleness=4, **DELAYED),
-                    ARENA_TAIL | dict(screen_uplink=1, stale_mix=1)),
+                    ARENA_TAIL | dict(screen_keep=1, stale_mix=1)),
     "c_agpdmm_ms2": (dict(algorithm="agpdmm", max_staleness=2, **DELAYED),
-                     ARENA_TAIL | dict(screen_uplink=1, stale_mix=1)),
+                     ARENA_TAIL | dict(screen_keep=1, stale_mix=1)),
     "c_fedavg_ms2": (dict(algorithm="fedavg", max_staleness=2, **DELAYED),
-                     dict(inner_loop_affine=1, screen_uplink=1, stale_mix=1)),
+                     dict(inner_loop_affine=1, screen_keep=1, stale_mix=1)),
     "c_scaffold_ms2": (dict(algorithm="scaffold", max_staleness=2, **DELAYED),
-                       dict(inner_loop_affine=1, scaffold_cv=1, screen_uplink=1, stale_mix=1)),
+                       dict(inner_loop_affine=1, scaffold_cv=1, screen_keep=1, stale_mix=1)),
 }
 FAULT_PYTREE_RUNS = {
     "c_pytree_sync": (dict(algorithm="gpdmm", faults=DELAYED["faults"], async_rounds=False),
@@ -2157,6 +2473,32 @@ def faults_phase(rec, prob, torch, ops, make, FederatedConfig, FaultConfig, quad
                                     lambda r: prob.batch(), 3, False),
                  1e3 * secs / R, 3)
 
+    # the screen from the uplink to the mask, and SCAFFOLD's tail, dispatch
+    # no tensor op: one screen_keep launch a round, scaffold_step's two passes
+    for label in ("a_gpdmm", "b_gpdmm", "a_scaffold", "b_gpdmm_finite_masked"):
+        kw, per_round = FAULT_RUNS[label]
+        opt = make(fault_cfg(FederatedConfig, FaultConfig, kw, inner_steps=K, eta=eta,
+                             use_arena=True))
+        state, _ = opt.round(opt.init(x0, m), prob.oracle(), prob.batch())
+
+        def one_round():
+            ops.reset_launches()
+            opt.round(state, prob.oracle(), prob.batch())
+
+        screen_ops = ops_inside(torch, faults, "screen_keep", one_round)
+        counts = ops.launches()
+        check(screen_ops == [0] and counts == expected(ops, 1, **per_round),
+              f"faults {label}: the screen dispatched {screen_ops} tensor ops, launches {counts}")
+        tail = ""
+        if kw["algorithm"] == "scaffold":
+            tail_ops = ops_inside(torch, ops, "scaffold_step", one_round)
+            check(tail_ops == [0] and ops.launches()["scaffold_cv"] == 0,
+                  f"faults {label}: SCAFFOLD's tail dispatched {tail_ops} tensor ops")
+            tail = f"; scaffold_step's tensor ops {tail_ops}"
+        log(f"faults {label}: tensor ops from the uplink to the mask {screen_ops}{tail}; "
+            f"launches a round {({k: v for k, v in counts.items() if v})}")
+        del opt, state
+
     # (b) cohort == masked with finite-only screening (rtol 1e-5, as phase 8)
     worst = 0.0
     for r, (sa, sd) in enumerate(zip(runs["b_gpdmm_finite"], runs["b_gpdmm_finite_masked"])):
@@ -2249,7 +2591,7 @@ def lm_flat_phase(rec, torch, ops, make, make_oracle, FederatedConfig, FaultConf
                        grad_arena=lambda spec: (lambda xa, b: 0.3 * xa))
     batch = {"dummy": torch.zeros(m, 1, device=dev)}
     tail = dict(fused_update_arena=K, round_tail=1, client_mean=1, dual_from_uplink=1,
-                screen_uplink=1)
+                screen_keep=1)
     for label, kw, per_round in (
             ("screened", SCREENED, tail),
             ("async_ms2", DELAYED | dict(max_staleness=2), tail | dict(stale_mix=1))):
@@ -3090,6 +3432,8 @@ def main() -> int:
     timed("3 step kernel", check_step_kernel, rec, torch, ops, ref, seeded(torch, 47), out)
     timed("3 cohort kernels", check_cohort_kernels, rec, torch, ops, ref, seeded(torch, 13), out)
     timed("3 fault kernels", check_fault_kernels, rec, torch, ops, ref, seeded(torch, 17), out)
+    timed("3 screen keep", check_screen_keep, rec, torch, ops, ref, seeded(torch, 67), out)
+    timed("3 scaffold step", check_scaffold_step, rec, torch, ops, ref, seeded(torch, 71), out)
     timed("3 card vs cpu", check_small_against_cpu, torch, make, FederatedConfig, quadratic)
 
     dev = torch.device("cuda")

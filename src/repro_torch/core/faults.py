@@ -13,9 +13,9 @@ partial participation:
   ``deadline`` is demoted to silence when the plan is drawn;
 * a **corrupt** client transmits, but the wire mangles the row (all NaN,
   all Inf, sign flip, or ``blowup`` times the row).  Screening
-  (``ops.screen_uplink``, kernel 11) finds such rows by their finite flag
-  and their squared deviation from the downlink row, and the server demotes
-  them to silent for the round.
+  (``ops.screen_keep``, kernel 11 with the outlier rule in its launch)
+  finds such rows by their finite flag and their squared deviation from the
+  downlink row, and the server demotes them to silent for the round.
 
 Every draw is a pure function of ``(FaultConfig.seed, round, client)``: the
 round counter is folded into the fault seed with the port's bit-exact
@@ -33,7 +33,7 @@ import torch
 from repro_torch.configs.base import FaultConfig, FederatedConfig
 from repro_torch.core import prng
 from repro_torch.core import tree_util as T
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 # corruption classes, indexed by FaultPlan.kind
 KINDS = ("nan", "inf", "sign", "blowup")
@@ -171,42 +171,25 @@ def needs_cache(cfg: FederatedConfig) -> bool:
     return screening_on(cfg) or (cfg.faults is not None and cfg.faults.any)
 
 
-def nanmedian(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.nanmedian`` of a 1-D f32 tensor: the median of the non-NaN
-    values, interpolated as jax's linear quantile does (for an even count
-    low * 0.5 + high * 0.5 in f32; ``torch.nanmedian`` takes the lower
-    middle value instead), NaN when every value is NaN.  No host sync."""
-    f32 = torch.float32
-    xs = torch.sort(x).values  # NaNs sort last
-    count = torch.sum(~torch.isnan(xs), dtype=f32)
-    q = 0.5 * (count - 1.0)
-    lo, hi = torch.floor(q), torch.ceil(q)
-    hw = q - lo
-    lw = 1.0 - hw
-    top = count - 1.0
-    lo_i = torch.clamp(torch.minimum(lo, top), min=0.0).to(torch.int64)
-    hi_i = torch.clamp(torch.minimum(hi, top), min=0.0).to(torch.int64)
-    return xs[lo_i] * lw + xs[hi_i] * hw
+# ``jnp.nanmedian`` of a 1-D f32 tensor: jax's interpolated median of the
+# non-NaN values, NaN when there is none
+nanmedian = ref.nanmedian_ref
 
 
 def _keep_from(cfg: FederatedConfig, finite, sq):
     """Keep = finite, and not a norm outlier: sq at most ``screen_mult``
-    times the median sq over the rows that screened finite.  With no
-    finite row the median is NaN and every row is already demoted."""
-    keep = finite
-    if cfg.screen_mult > 0.0:
-        med = nanmedian(torch.where(finite, sq, math.nan))
-        bound = float(np.float32(cfg.screen_mult)) * torch.clamp(med, min=float(np.float32(1e-12)))
-        keep = keep & (sq <= bound)
-    return keep
+    times the median sq over the rows that screened finite
+    (``kernels.ref.keep_from_ref``)."""
+    return ref.keep_from_ref(finite, sq, cfg.screen_mult)
 
 
-def screen_keep(cfg: FederatedConfig, uplink, ref):
+def screen_keep(cfg: FederatedConfig, uplink, ref_rows):
     """The (rows,) keep mask of a (rows, W) uplink screened against the
-    downlink ``ref`` ((W,), or (rows, W) per row): one ``screen_uplink``
-    kernel, then the rule of ``_keep_from``."""
-    finite, sq = ops.screen_uplink(uplink, ref)
-    return _keep_from(cfg, finite, sq)
+    downlink ``ref_rows`` ((W,), or (rows, W) per row): one ``screen_keep``
+    launch on the card (kernel 11's pass with the rule of ``_keep_from`` in
+    it, the median selected on the device), ``screen_uplink`` then the rule
+    on the CPU."""
+    return ops.screen_keep(uplink, ref_rows, cfg.screen_mult)
 
 
 def screen_keep_tree(cfg: FederatedConfig, uplink, ref_tree):

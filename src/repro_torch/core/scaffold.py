@@ -15,9 +15,11 @@ buffer.  For an affine oracle the correction folds into the affine
 constant (``c`` into the constant, ``c_i`` as the kernel's ``off`` row), so
 the whole inner loop is one ``inner_loop_affine`` kernel; otherwise each
 step is one ``fused_update_arena`` kernel with rho = 0 and lam = c - c_i.
-The round tail is one ``scaffold_cv`` kernel and the two server means.  On
-the pytree path each step is one ``fused_update`` kernel per leaf and the
-tail is plain tensor ops, as in the reference.
+A full-arena round ends in ``scaffold_step``: c_i', both server means and
+sum_i (c_i' - c') in two passes over the arena on the card; the cohort and
+the async round run one ``scaffold_cv`` kernel and plain means.  On the
+pytree path each step is one ``fused_update`` kernel per leaf and the tail
+is plain tensor ops, as in the reference.
 
 With participation < 1 silent clients transmit nothing: zero delta on both
 server means, ``c_i`` kept.  The cohort round gathers the cohort's ``c_i``
@@ -26,7 +28,7 @@ scatters the rows back, in place when donated (``FedOpt.round_``).  EF21
 uplink quantisation is not offered for SCAFFOLD (``make`` says why).
 
 Faults, as in the reference: the wire corrupts the transmitted x_K, and
-both ``scaffold_cv`` and the screen see the corrupted x_t; a demoted or
+both the control-variate refresh and the screen see the corrupted x_t; a demoted or
 silent client sends a zero delta and keeps c_i.  Under async rounds the
 stale-slot step mixes toward the broadcast server row (``stale_mix`` with a
 (W,) cache), and c_i refreshes only on the fresh mask.
@@ -100,9 +102,12 @@ def inner_steps_plain(grad_fn, x0, batch, *, K, eta, per_step, lam=None):
     return x
 
 
-def _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, mask):
-    """The new arena state and its metrics."""
+def _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, mask, c_colsum=None):
+    """The new arena state and its metrics; ``c_colsum`` is the f32 column
+    sum of c_i' - c' where the round has it (``ops.scaffold_step``)."""
     f32 = torch.float32
+    if c_colsum is None:
+        c_colsum = torch.sum((c_i_new - c_new[None]).to(f32), dim=0)
     new_state = {
         "x_s": spec.unpack(x_s_new),
         "c": spec.unpack(c_new),
@@ -111,8 +116,7 @@ def _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, mask):
     }
     metrics = {
         # invariant: sum_i (c_i - c) = 0 given zero init
-        "c_sum_norm": torch.linalg.vector_norm(
-            torch.sum((c_i_new - c_new[None]).to(f32), dim=0)),
+        "c_sum_norm": torch.linalg.vector_norm(c_colsum),
         "client_drift": arena_drift(x_K, x_s_row, mask),
         "used_arena": torch.ones((), dtype=f32, device=c_i_new.device),
     }
@@ -195,26 +199,26 @@ def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, 
     # the wire corrupts the transmitted x_K: both uplinked deltas see it
     fplan = faults.plan(cfg, state["round"], m)
     x_t = faults.inject(cfg.faults, fplan, x_K)
-    c_i_new = ops.scaffold_cv(c_i, x_t, c_row, x_s_row, alpha)
-    x_up = x_t
     pmask = participation(cfg, state, m)
     keep = faults.screen_keep(cfg, x_t, x_s_row) if faults.screening_on(cfg) else None
     mask = faults.combine_mask(pmask, fplan, keep)
-    stale_up, sm = {}, {}
+    stale_up, sm, c_colsum = {}, {}, None
     if faults.async_on(cfg):
         # a buffered x_t lands s rounds later and mixes toward the zero-delta
         # server row; c_i refreshes on fresh participation only
+        c_i_new = ops.scaffold_cv(c_i, x_t, c_row, x_s_row, alpha)
         x_up, mask, stale_up, sm = staleness.step_arena(cfg, fplan, x_t, x_s_row, mask, state)
         c_i_new = torch.where(mask[:, None], c_i_new, c_i)
-    elif mask is not None:
-        # silent clients transmit nothing: zero delta on both server means,
-        # control variate kept
-        c_i_new = torch.where(mask[:, None], c_i_new, c_i)
-        x_up = torch.where(mask[:, None], x_t, x_s_row[None])
-    # server: two all-reduces (x-delta and c-delta)
-    x_s_new = x_s_row + T.weak(cfg.eta_g, x_s_row) * (torch.mean(x_up, dim=0) - x_s_row)
-    c_new = c_row + torch.mean(c_i_new - c_i, dim=0)
-    new_state, metrics = _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, mask)
+        # server: two all-reduces (x-delta and c-delta)
+        x_s_new = x_s_row + T.weak(cfg.eta_g, x_s_row) * (torch.mean(x_up, dim=0) - x_s_row)
+        c_new = c_row + torch.mean(c_i_new - c_i, dim=0)
+    else:
+        # c_i', both server means (silent clients send a zero delta and keep
+        # c_i) and sum_i (c_i' - c'): two passes over the arena on the card
+        c_i_new, x_s_new, c_new, c_colsum = ops.scaffold_step(c_i, x_t, c_row, x_s_row, alpha,
+                                                              cfg.eta_g, mask)
+    new_state, metrics = _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, mask,
+                                      c_colsum)
     return new_state | stale_up, metrics | fault_report(cfg, fplan, pmask, keep, sm)
 
 

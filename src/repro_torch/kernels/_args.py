@@ -81,3 +81,23 @@ def step_operand(name: str, step, m: int, device):
         check(name, "step", step, (m,), (torch.float32,), device)
         return step, 0.0
     return None, float(step)
+
+
+_workspaces: dict = {}
+
+
+def workspace(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros on ``device``, one buffer per device and
+    stream, shared by every kernel that counts in it (the column walks'
+    tile tickets, the screen's ticket, grid barrier and histograms).  The
+    contract: the buffer is zero whenever no launch that uses it is
+    running, so a kernel that writes into it sets it back to zero before
+    its launch ends; launches on one stream run in order, so they can
+    share it."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, torch.cuda.current_stream(index).cuda_stream)
+    buf = _workspaces.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _workspaces[key] = buf
+    return buf

@@ -12,7 +12,12 @@
 //                             server step, two passes over the arena
 //   scaffold_cv_pallas        c_i'   = (c_i - c) + alpha_i (x_s - x_K)
 //                             (SCAFFOLD's eq. (30); c and x_s are (W,)
-//                             rows, alpha per client or scalar)
+//                             rows, alpha per client or scalar); in a full
+//                             arena round also SCAFFOLD's server step, two
+//                             column walks (launch_scaffold_step): c_i'
+//                             with the column sums of x_up and c_i' - c_i,
+//                             whose last block forms x_s' and c', then the
+//                             column sum of c_i' - c' (c_sum_norm's)
 //
 // (its two EF21 kernels, ef21_rowmax_pallas and ef21_apply_pallas, are
 // csrc/ef21.cu's)
@@ -22,13 +27,14 @@
 // reads and writes over the 3.35 TB/s of device memory; at the paper's sizes
 // (about 1 MiB per buffer) a launch costs more than that.  The round tail,
 // the client mean and the dual are the column walks described below.
-// SCAFFOLD's kernel keeps the plain design: one thread per element, a
-// grid-stride loop, loads in the arena's dtype, f32 math with the _rn
-// intrinsics (bitwise the reference's f32 operation order), one store per
-// output, the server row indexed as t % W.  The TPU's (rows, 128) tiles and
-// BlockSpec grids do not carry over.  The division lam_is / rho stays a
-// division, as in the reference; SCAFFOLD's alpha = 1/(K eta) arrives
-// precomputed and is multiplied, as the reference multiplies it.
+// scaffold_cv alone (the cohort and the async round's) keeps the plain
+// design: one thread per element, a grid-stride loop, loads in the arena's
+// dtype, f32 math with the _rn intrinsics (bitwise the reference's f32
+// operation order), one store per output, the server row indexed as t % W.
+// The TPU's (rows, 128) tiles and BlockSpec grids do not carry over.  The
+// division lam_is / rho stays a division, as in the reference; SCAFFOLD's
+// alpha = 1/(K eta) arrives precomputed and is multiplied, as the reference
+// multiplies it.
 #include "common.cuh"
 
 namespace {
@@ -110,6 +116,10 @@ struct Vec<float, 4> {
   static __device__ __forceinline__ void store(float* p, float (&v)[4]) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
+  // store 16 bytes as they were read
+  static __device__ __forceinline__ void store_raw(float* p, const Raw& r) {
+    *reinterpret_cast<float4*>(p) = r;
+  }
 };
 
 template <>
@@ -140,6 +150,9 @@ struct Vec<__nv_bfloat16, 8> {
     }
     *reinterpret_cast<uint4*>(p) = raw;
   }
+  static __device__ __forceinline__ void store_raw(__nv_bfloat16* p, const Raw& r) {
+    *reinterpret_cast<uint4*>(p) = r;
+  }
 };
 
 template <typename T>
@@ -155,6 +168,7 @@ struct Vec<T, 1> {
     *p = q;
     v[0] = load_f32(&q, 0);
   }
+  static __device__ __forceinline__ void store_raw(T* p, const Raw& r) { *p = r; }
 };
 
 struct WalkArgs {
@@ -334,6 +348,259 @@ column_walk_kernel(const WalkArgs a) {
   if (t == 0) a.tickets[blockIdx.x] = 0u;
 }
 
+// ---------------------------------------------------------------------------
+// SCAFFOLD's full-arena server step (kernel 5 redesigned): two column walks
+// with the shape, the plan and the fixed-order sums of the walks above (the
+// slices' partials, the tile's ticket, the slice-order sum), in a kernel of
+// their own.  Compiled as more ops of column_walk_kernel they cost the
+// server step's walks registers: the bf16 round tail with the mean spilled
+// and the f32 dual ran up to 1.3x slower (PERF.md, row 5).
+//
+//   pass 1   c_i' = (c_i - c) + alpha (x_s - x_t), scaffold_cv's operations,
+//            where the row transmits (``mask``), else c_i's bits; two f32
+//            sums a column, x_up (x_t where the row transmits, else x_s)
+//            and c_i' - c_i (each as the plain code rounds it in the
+//            dtype); the tile's last block writes x_s' = x_s + eta_g
+//            (mean x_up - x_s) and c' = c + mean (c_i' - c_i) with the
+//            plain code's dtype roundings
+//   pass 2   the f32 column sum of c_i' - c' (rounded to the dtype, then
+//            summed), whose norm is c_sum_norm
+//
+// Pass 1 reads c_i and x_t and writes c_i', pass 2 reads c_i': where the
+// plain tail made about eight passes (the select, the two means, c_i' -
+// c_i, c_i' - c', the column sum).
+// ---------------------------------------------------------------------------
+
+struct StepArgs {
+  const void* ci;       // c_i (pass 1), c_i' (pass 2)
+  const void* xt;       // x_t (pass 1)
+  const void* xs;       // the server row x_s (pass 1), c' (pass 2)
+  const void* c;        // the server variate row c (pass 1)
+  void* ci_out;         // c_i' (pass 1)
+  void* row;            // x_s' (pass 1, the dtype) or the column sum (pass 2, f32)
+  void* row2;           // c' (pass 1, the dtype)
+  float* partials;      // (sums, S, W) f32 when S > 1
+  unsigned* tickets;    // a counter a column tile, 0 between launches
+  const float* alpha;   // alpha per client, or null for ``alpha0``
+  const uint8_t* mask;  // the rows that transmit, or null for all
+  float alpha0;
+  float eta_g;          // in the dtype's weak rounding
+  long long m, rows;    // rows: a slice's
+  int W, G, S;          // width, column groups (W / V), slices
+  int rw;               // warps a column group
+};
+
+// f32 x rounded to T and back: the plain code's dtype rounding of an op
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  T q;
+  store_f32(&q, 0, x);
+  return load_f32(&q, 0);
+}
+
+// one row ``row`` of a lane's columns: ``val[r]`` gets the value sum r adds
+// (pass 1 x_up and c_i' - c_i, pass 2 c_i' - c'); s is the lane's x_s (pass
+// 1) or c' (pass 2), s2 its c
+template <typename T, int V, bool kPass1>
+__device__ __forceinline__ void step_row(const StepArgs& a, size_t off, long long row,
+                                         const typename Vec<T, V>::Raw& ra,
+                                         const typename Vec<T, V>::Raw& rb,
+                                         const float (&s)[V], const float (&s2)[V],
+                                         float (&val)[kPass1 ? 2 : 1][V]) {
+  using VT = Vec<T, V>;
+  float ci[V];
+  VT::unpack(ra, ci);
+  if constexpr (!kPass1) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) val[0][k] = round_to<T>(__fsub_rn(ci[k], s[k]));
+  } else {
+    float xt[V];
+    VT::unpack(rb, xt);
+    if (a.mask == nullptr || a.mask[row] != 0) {
+      const float al = a.alpha != nullptr ? a.alpha[row] : a.alpha0;
+      float o[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        o[k] = __fadd_rn(__fsub_rn(ci[k], s2[k]), __fmul_rn(al, __fsub_rn(s[k], xt[k])));
+      VT::store(static_cast<T*>(a.ci_out) + off, o);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        val[0][k] = xt[k];
+        val[1][k] = round_to<T>(__fsub_rn(o[k], ci[k]));
+      }
+    } else {
+      VT::store_raw(static_cast<T*>(a.ci_out) + off, ra);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        val[0][k] = s[k];
+        val[1][k] = round_to<T>(__fsub_rn(ci[k], ci[k]));
+      }
+    }
+  }
+}
+
+// reduced row r's entry for column ``col`` from its f32 sum: pass 1 x_s' =
+// x_s + eta_g (mean x_up - x_s) (r = 0) and c' = c + mean (c_i' - c_i)
+// (r = 1) in the plain code's order and dtype roundings; pass 2 the sum
+template <typename T, bool kPass1>
+__device__ __forceinline__ void step_finish(const StepArgs& a, int r, int col, float sum) {
+  if constexpr (!kPass1) {
+    static_cast<float*>(a.row)[col] = sum;
+  } else {
+    const float mean = round_to<T>(__fdiv_rn(sum, (float)a.m));
+    if (r == 0) {
+      const float x = load_f32(static_cast<const T*>(a.xs), col);
+      const float d = round_to<T>(__fsub_rn(mean, x));
+      store_f32(static_cast<T*>(a.row), col, __fadd_rn(x, round_to<T>(__fmul_rn(a.eta_g, d))));
+    } else {
+      const float c = load_f32(static_cast<const T*>(a.c), col);
+      store_f32(static_cast<T*>(a.row2), col, __fadd_rn(c, mean));
+    }
+  }
+}
+
+template <typename T, int V, bool kPass1>
+__global__ void __launch_bounds__(kThreads, 4)
+scaffold_step_kernel(const StepArgs a) {
+  using VT = Vec<T, V>;
+  constexpr int NR = kPass1 ? 2 : 1;  // sums a column
+  // rows' loads in flight a lane (the bf16 pass 1 keeps 32 f32 rows' worth
+  // of sums and server values and takes one, within 64 registers)
+  constexpr int kUnroll = kPass1 ? (V == 8 ? 1 : 2) : 4;
+  constexpr int kCols = 32 * V;  // columns a warp
+  __shared__ float red[NR][kWalkWarps][kCols];
+  __shared__ bool last;
+
+  // warp = cwi * rw + rwi: rw warps walk a column group's rows, cw groups
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int rw = a.rw, cw = kWalkWarps / a.rw;
+  const int rwi = warp % rw, cwi = warp / rw;
+  const long long g = ((long long)blockIdx.x * cw + cwi) * 32 + lane;
+  const size_t c0 = (size_t)g * V;
+  const long long r0 = (long long)blockIdx.y * a.rows;
+  const long long r1 = min(a.m, r0 + a.rows);
+
+  float s[V], s2[V], acc[NR][V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) acc[r][k] = 0.f;
+    s[k] = 0.f;
+    s2[k] = 0.f;
+  }
+  if (g < a.G) {
+    VT::unpack(VT::load(static_cast<const T*>(a.xs) + c0), s);
+    if (kPass1) VT::unpack(VT::load(static_cast<const T*>(a.c) + c0), s2);
+    const T* pa = static_cast<const T*>(a.ci);
+    const T* pb = static_cast<const T*>(a.xt);
+    // this warp's rows of the slice: r0 + rwi, r0 + rwi + rw, ... < r1
+    const long long first = r0 + rwi;
+    const int n = first < r1 ? (int)((r1 - first + rw - 1) / rw) : 0;
+    const size_t step = (size_t)rw * a.W;
+    size_t off = (size_t)first * a.W + c0;
+    int i = 0;
+    for (; i + kUnroll <= n; i += kUnroll, off += kUnroll * step) {
+      typename VT::Raw ra[kUnroll], rb[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        ra[j] = VT::load(pa + off + j * step);
+        rb[j] = kPass1 ? VT::load(pb + off + j * step) : ra[j];
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        float val[NR][V];
+        step_row<T, V, kPass1>(a, off + j * step, first + (long long)(i + j) * rw, ra[j], rb[j],
+                               s, s2, val);
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) acc[r][k] = __fadd_rn(acc[r][k], val[r][k]);
+        }
+      }
+    }
+    for (; i < n; ++i, off += step) {
+      const typename VT::Raw ra = VT::load(pa + off);
+      const typename VT::Raw rb = kPass1 ? VT::load(pb + off) : ra;
+      float val[NR][V];
+      step_row<T, V, kPass1>(a, off, first + (long long)i * rw, ra, rb, s, s2, val);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[r][k] = __fadd_rn(acc[r][k], val[r][k]);
+      }
+    }
+  }
+
+  // the slice's partial of each of the tile's cw * kCols columns: the sums
+  // of the rw warps that walked it, in warp order
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) red[r][warp][lane * V + k] = acc[r][k];
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  const int tile = cw * kCols;  // a power of two
+  const int col0 = blockIdx.x * tile;
+  for (int c = t; c < tile && col0 + c < a.W; c += kThreads) {
+    const int q0 = (c / kCols) * rw, cc = c % kCols;
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      float part = red[r][q0][cc];
+      for (int q = 1; q < rw; ++q) part = __fadd_rn(part, red[r][q0 + q][cc]);
+      if (a.S == 1) step_finish<T, kPass1>(a, r, col0 + c, part);
+      else a.partials[((size_t)r * a.S + blockIdx.y) * a.W + col0 + c] = part;
+    }
+  }
+  if (a.S == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(&a.tickets[blockIdx.x], 1u) == (unsigned)(a.S - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // the last slice's block: each sum's S partials a column in slice order,
+  // in P contiguous runs, as column_walk_kernel adds them
+  const int P = tile < kThreads ? kThreads / tile : 1;
+  const int run = t / (kThreads / P) % P;
+  const int s0 = run * a.S / P, s1 = (run + 1) * a.S / P;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    float* flat = &red[r][0][0];  // P * tile <= 8 kCols floats when P > 1
+    __syncthreads();              // every warp is done with red
+    for (int c = t % (kThreads / P); c < tile && col0 + c < a.W; c += kThreads / P) {
+      float sum = 0.f;
+      if (s1 > s0) {
+        const float* p = a.partials + (size_t)r * a.S * a.W + col0 + c;
+        sum = __ldcg(p + (size_t)s0 * a.W);
+        int sl = s0 + 1;
+        for (; sl + 8 <= s1; sl += 8) {
+          float v[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = __ldcg(p + (size_t)(sl + j) * a.W);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) sum = __fadd_rn(sum, v[j]);
+        }
+        for (; sl < s1; ++sl) sum = __fadd_rn(sum, __ldcg(p + (size_t)sl * a.W));
+      }
+      if (P == 1) step_finish<T, kPass1>(a, r, col0 + c, sum);
+      else flat[run * tile + c] = sum;
+    }
+    if (P > 1) {
+      __syncthreads();
+      if (t < tile && col0 + t < a.W) {
+        float total = flat[t];
+        for (int q = 1; q < P; ++q) {
+          if ((q + 1) * a.S / P > q * a.S / P) total = __fadd_rn(total, flat[q * tile + t]);
+        }
+        step_finish<T, kPass1>(a, r, col0 + t, total);
+      }
+    }
+  }
+  if (t == 0) a.tickets[blockIdx.x] = 0u;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 scaffold_cv_kernel(const T* __restrict__ ci, const T* __restrict__ xk,
@@ -408,6 +675,37 @@ WalkArgs walk_args(long long m, int W, long long rows, int S, int rw, void* row,
   return a;
 }
 
+template <typename T, int V, bool kPass1>
+cudaError_t step_launch(StepArgs a, cudaStream_t stream) {
+  a.G = a.W / V;
+  const int cw = kWalkWarps / a.rw;
+  const dim3 grid((unsigned)(((a.G + 31) / 32 + cw - 1) / cw), (unsigned)a.S);
+  scaffold_step_kernel<T, V, kPass1><<<grid, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kPass1>
+int scaffold_pass(const StepArgs& a, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (a.W <= 0 || a.S <= 0 || a.rows <= 0 || a.rows > 0x7fffffffLL ||
+      (a.rw != 1 && a.rw != 2 && a.rw != 4 && a.rw != 8) || a.row == nullptr ||
+      (kPass1 && (a.row2 == nullptr || a.ci_out == nullptr)) ||
+      (a.S > 1 && (a.partials == nullptr || a.tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == kF32) {
+    return (int)(a.W % vec_of<float>() == 0 ? step_launch<float, 4, kPass1>(a, st)
+                                           : step_launch<float, 1, kPass1>(a, st));
+  }
+  if (dtype == kBF16) {
+    return (int)(a.W % vec_of<__nv_bfloat16>() == 0
+                     ? step_launch<__nv_bfloat16, 8, kPass1>(a, st)
+                     : step_launch<__nv_bfloat16, 1, kPass1>(a, st));
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Kernel 2, eq. (23/24) and the uplink; with ``mean_out`` also the client
@@ -470,4 +768,48 @@ extern "C" int launch_scaffold_cv(const void* ci, const void* xk, const void* c,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Kernel 5 redesigned as SCAFFOLD's full-arena server step, two column walks:
+// pass 1 (``pass`` 1) c_i' = (c_i - c) + alpha (x_s - x_t) where ``mask``
+// (null: every row; alpha per client or the scalar ``alpha``), c_i's bits
+// elsewhere, with the f32 column sums of x_up (x_t where mask, else x_s)
+// and of c_i' - c_i, which give x_s' = x_s + eta_g (mean x_up - x_s) and
+// c' = c + mean (c_i' - c_i); pass 2 (``pass`` 2) the f32 column sum of
+// c_i' - c' (``colsum_out``) from pass 1's outputs.  ``partials`` holds
+// (2, S, W) f32 (pass 1) or (S, W) (pass 2) when S > 1.
+extern "C" int launch_scaffold_step(const void* ci, const void* xt, const void* c,
+                                    const void* xs, const void* alpha_arr, float alpha,
+                                    const void* mask, float eta_g, long long m, int W,
+                                    int dtype, int pass, void* ci_out, void* xs_out,
+                                    void* c_out, void* colsum_out, void* partials,
+                                    void* tickets, long long rows, int S, int rw, int device,
+                                    void* stream) {
+  StepArgs a{};
+  a.m = m;
+  a.W = W;
+  a.rows = rows;
+  a.S = S;
+  a.rw = rw;
+  a.partials = static_cast<float*>(partials);
+  a.tickets = static_cast<unsigned*>(tickets);
+  if (pass == 1) {
+    a.ci = ci;
+    a.xt = xt;
+    a.xs = xs;
+    a.c = c;
+    a.ci_out = ci_out;
+    a.row = xs_out;
+    a.row2 = c_out;
+    a.alpha = static_cast<const float*>(alpha_arr);
+    a.alpha0 = alpha;
+    a.mask = static_cast<const uint8_t*>(mask);
+    a.eta_g = eta_g;
+    return scaffold_pass<true>(a, dtype, device, stream);
+  }
+  if (pass != 2) return (int)cudaErrorInvalidValue;
+  a.ci = ci_out;
+  a.xs = c_out;
+  a.row = colsum_out;
+  return scaffold_pass<false>(a, dtype, device, stream);
 }

@@ -12,9 +12,11 @@ buffers (``row_gather_buffers``, ``row_scatter_buffers_`` in place,
 ``row_scatter_``; ``row_scatter`` and ``row_scatter_buffers`` copy first)
 and the arena round's server step (``server_step``: ``client_mean``, then
 ``server_dual``, the dual with lam's column sum in its pass;
-``round_tail_mean``, the round tail with the client mean in its pass) are
-the port's own; ``attend_cache`` and ``wkv6_step`` (one decode token) are
-plain tensor code in the reference and here.
+``round_tail_mean``, the round tail with the client mean in its pass),
+the screen's keep mask in one launch (``screen_keep``) and SCAFFOLD's
+full-arena server step (``scaffold_step``) are the port's own;
+``attend_cache`` and ``wkv6_step`` (one decode token) are plain tensor
+code in the reference and here.
 """
 from __future__ import annotations
 
@@ -43,22 +45,24 @@ from repro_torch.kernels.neighbor_reduce import edge_flip, neighbor_reduce
 from repro_torch.kernels.residual import residual_norm
 from repro_torch.kernels.round_tail import (
     client_mean, dual_from_uplink, ef21_apply, ef21_rowmax, ef21_update, round_tail,
-    round_tail_mean, scaffold_cv, server_dual, server_step,
+    round_tail_mean, scaffold_cv, scaffold_step, server_dual, server_step,
 )
-from repro_torch.kernels.screen import screen_uplink
+from repro_torch.kernels.screen import screen_keep, screen_uplink
 from repro_torch.kernels.stale_mix import stale_mix
 from repro_torch.kernels.wkv6 import wkv6
 
 # every kernel of the port, for launch accounting (chip_smoke.py): the
 # seventeen in the order of the kernel table (ROADMAP.md), then the round
 # tail's variant with the client mean in its pass (kernel 2's), the
-# server step's mean pass (kernel 3's) and the EF21 uplink (kernels 7-8 in
-# one pass)
+# server step's mean pass (kernel 3's), the EF21 uplink (kernels 7-8 in
+# one pass), the screen with its keep rule (kernel 11's) and SCAFFOLD's
+# server step (kernel 5's, two launches a call)
 KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _fu.ARENA_KERNEL,
            _rt.SCAFFOLD_CV, _fu.KERNEL, _rt.EF21_ROWMAX, _rt.EF21_APPLY, _ga.ROW_GATHER,
            _ga.ROW_SCATTER, _sc.SCREEN_UPLINK, _sm.STALE_MIX, _rs.RESIDUAL_NORM,
            _nr.NEIGHBOR_REDUCE, _nr.EDGE_FLIP, _fa.FLASH_ATTENTION, _wk.WKV6,
-           _rt.ROUND_TAIL_MEAN, _rt.CLIENT_MEAN, _rt.EF21_UPDATE)
+           _rt.ROUND_TAIL_MEAN, _rt.CLIENT_MEAN, _rt.EF21_UPDATE, _sc.SCREEN_KEEP,
+           _rt.SCAFFOLD_STEP)
 
 
 def affine_inner_fits(width: int) -> bool:
@@ -164,5 +168,6 @@ __all__ = [
     "inner_loop_affine", "launches", "neighbor_reduce", "reset_launches", "residual_norm",
     "round_tail", "round_tail_mean", "row_gather", "row_gather_buffers", "row_scatter",
     "row_scatter_", "row_scatter_buffers", "row_scatter_buffers_", "scaffold_cv",
-    "screen_uplink", "server_dual", "server_step", "stale_mix", "wkv6", "wkv6_step",
+    "scaffold_step", "screen_keep", "screen_uplink", "server_dual", "server_step", "stale_mix",
+    "wkv6", "wkv6_step",
 ]

@@ -21,6 +21,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 LANES = 128  # the arena's lane width (``fused_update.LANES``)
@@ -61,6 +62,23 @@ def scaffold_cv_ref(c_i, x_K, c_s, x_s, alpha):
     out = (c_i.to(f32) - c_s.to(f32)[None]
            + _per_client(alpha) * (x_s.to(f32)[None] - x_K.to(f32)))
     return out.to(c_i.dtype)
+
+
+def scaffold_step_ref(c_i, x_t, c_s, x_s, alpha, eta_g: float, mask=None):
+    """SCAFFOLD's full-arena round tail and server step, the plain code of
+    ``core/scaffold.py``: c_i' = ``scaffold_cv_ref`` (c_i kept where
+    ``mask`` is false), x_s' = x_s + eta_g (mean x_up - x_s) with x_up the
+    transmitted x_t (x_s where masked out), c' = c + mean (c_i' - c_i), and
+    the f32 column sum of c_i' - c'.  Returns (c_i', x_s', c', colsum)."""
+    c_i_new = scaffold_cv_ref(c_i, x_t, c_s, x_s, alpha)
+    x_up = x_t
+    if mask is not None:
+        c_i_new = torch.where(mask[:, None], c_i_new, c_i)
+        x_up = torch.where(mask[:, None], x_t, x_s[None])
+    x_s_new = x_s + scalar_as(eta_g, x_s.dtype) * (torch.mean(x_up, dim=0) - x_s)
+    c_new = c_s + torch.mean(c_i_new - c_i, dim=0)
+    colsum = torch.sum((c_i_new - c_new[None]).to(torch.float32), dim=0)
+    return c_i_new, x_s_new, c_new, colsum
 
 
 def fused_update_arena_ref(x, g, x_s, lam, step, rho, *, acc=None, acc_mode="add",
@@ -244,6 +262,45 @@ def screen_uplink_ref(u, ref):
     fin_e = torch.isfinite(uf)
     d = torch.where(fin_e, uf - rf, 0.0)
     return torch.all(fin_e, dim=1), torch.sum(d * d, dim=1)
+
+
+def nanmedian_ref(x):
+    """``jnp.nanmedian`` of a 1-D f32 tensor: the median of the non-NaN
+    values, interpolated as jax's linear quantile does (for an even count
+    low * 0.5 + high * 0.5 in f32; ``torch.nanmedian`` takes the lower
+    middle value instead), NaN when every value is NaN.  Indexing by the
+    0-dim rank tensors reads each rank on the host: on the card two
+    synchronisations a call."""
+    f32 = torch.float32
+    xs = torch.sort(x).values  # NaNs sort last
+    count = torch.sum(~torch.isnan(xs), dtype=f32)
+    q = 0.5 * (count - 1.0)
+    lo, hi = torch.floor(q), torch.ceil(q)
+    hw = q - lo
+    lw = 1.0 - hw
+    top = count - 1.0
+    lo_i = torch.clamp(torch.minimum(lo, top), min=0.0).to(torch.int64)
+    hi_i = torch.clamp(torch.minimum(hi, top), min=0.0).to(torch.int64)
+    return xs[lo_i] * lw + xs[hi_i] * hw
+
+
+def keep_from_ref(finite, sq, screen_mult: float):
+    """The screen's rule (``core.faults._keep_from``): keep = finite, and,
+    with ``screen_mult`` > 0, sq at most ``screen_mult`` times the median sq
+    over the rows that screened finite (in f32).  With no finite row the
+    median is NaN and every row is already demoted."""
+    keep = finite
+    if screen_mult > 0.0:
+        med = nanmedian_ref(torch.where(finite, sq, math.nan))
+        bound = float(np.float32(screen_mult)) * torch.clamp(med, min=float(np.float32(1e-12)))
+        keep = keep & (sq <= bound)
+    return keep
+
+
+def screen_keep_ref(u, ref, screen_mult: float):
+    """The round's keep mask of the (m, W) uplink: ``screen_uplink_ref``,
+    then ``keep_from_ref``."""
+    return keep_from_ref(*screen_uplink_ref(u, ref), screen_mult)
 
 
 def stale_mix_ref(uplink, cache, buf, fresh, store, w):

@@ -12,6 +12,10 @@ step):
                            its pass (f32, lam as stored); ``dual_from_uplink``
                            is its lam, ``server_step`` the two passes
   * ``scaffold_cv``        SCAFFOLD's c_i' = c_i - c + alpha (x_s - x_K)
+  * ``scaffold_step``      SCAFFOLD's full-arena server step in two column
+                           walks: c_i' (c_i kept on masked-out rows) with the
+                           sums of x_up and c_i' - c_i, whose last block
+                           forms x_s' and c', then c_i' - c''s column sum
   * ``ef21_rowmax``        max |u - u_hat| per (client, 128-lane row), f32
   * ``ef21_apply``         u_hat + clip(round((u - u_hat) / s), +-lo) s with
                            a per-row scale s
@@ -30,8 +34,8 @@ tiles of 32 16-byte groups a warp and its rows in S slices (``plan``: from
 column in an order that (m, W) and the SM count fix -- rows in order
 within a warp, the warps of a column group in order, the slices' partials
 in order by the block that
-finishes a tile last (an integer ticket in ``_tickets``, reset by that
-block) -- so its result is the same bits from run to run; it is not
+finishes a tile last (an integer ticket in ``_args.workspace``, reset by
+that block) -- so its result is the same bits from run to run; it is not
 ``torch.mean``'s or ``torch.sum``'s order, and ``depth`` bounds the
 difference (a sum of n terms in a fixed order of depth d is within d
 roundings of |x| summed).
@@ -80,6 +84,15 @@ SCAFFOLD_CV = Kernel(
     "scaffold_cv", "round_tail.cu", "launch_scaffold_cv",
     # ci xk c xs alpha_arr alpha m W dtype out dev stream
     [P, P, P, P, P, F, LL, I, I, P, I, P],
+    replaces="src/repro/kernels/round_tail.py:152",
+)
+# kernel 5 redesigned as SCAFFOLD's full-arena server step: two launches a
+# call (its passes), both counted here
+SCAFFOLD_STEP = Kernel(
+    "scaffold_step", "round_tail.cu", "launch_scaffold_step",
+    # ci xt c xs alpha_arr alpha mask eta_g m W dtype pass ci_out xs_out c_out colsum_out
+    # partials tickets rows S rw dev stream
+    [P, P, P, P, P, F, P, F, LL, I, I, I, P, P, P, P, P, P, LL, I, I, I, P],
     replaces="src/repro/kernels/round_tail.py:152",
 )
 
@@ -169,34 +182,18 @@ def depth_on(u) -> int:
     return depth(m, w, u.element_size(), _sms(_args.stream_args(u.device)[0].value))
 
 
-_ticket_bufs: dict = {}
-
-
-def _tickets(device: torch.device, n: int):
-    """A tile's counter each, zero between launches (the block that takes a
-    tile's last ticket sets it back), one buffer per device and stream:
-    launches on one stream run in order, so they can share it."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, torch.cuda.current_stream(index).cuda_stream)
-    buf = _ticket_bufs.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _ticket_bufs[key] = buf
-    return buf
-
-
-def _walk(k: Kernel, first, reduce: bool, *args) -> None:
+def _walk(k: Kernel, first, reduce: bool, *args, sums: int = 1) -> None:
     """Launch column walk ``k`` over ``first``'s (m, W) with the trailing
     (partials, tickets, rows, S, rw, device, stream) arguments it needs: the
-    (S, W) workspace and the tickets only when it reduces over S > 1."""
+    (sums, S, W) workspace and the tickets only when it reduces over S > 1."""
     m, w = first.shape
     dev = first.device
     dev_args = _args.stream_args(dev)
     s, rows, rw = plan(m, w, first.element_size(), _sms(dev_args[0].value), reduce)
     parts = tickets = None
     if reduce and s > 1:
-        parts = torch.empty((s, w), dtype=torch.float32, device=dev)
-        tickets = _tickets(dev, column_tiles(w, first.element_size(), rw))
+        parts = torch.empty((sums, s, w), dtype=torch.float32, device=dev)
+        tickets = _args.workspace(dev, column_tiles(w, first.element_size(), rw))
     k.launch(*args, _args.ptr(parts), _args.ptr(tickets), rows, s, rw, *dev_args)
 
 
@@ -313,6 +310,38 @@ def scaffold_cv(c_i, x_K, c_s, x_s, alpha):
              _args.ptr(alpha_arr), alpha_f, m, w, code, _args.ptr(out),
              *_args.stream_args(c_i.device))
     return out
+
+
+def scaffold_step(c_i, x_t, c_s, x_s, alpha, eta_g: float, mask=None):
+    """SCAFFOLD's full-arena round tail and server step: (c_i', x_s', c',
+    the f32 column sum of c_i' - c').  c_i' = (c_i - c) + alpha (x_s - x_t)
+    as ``scaffold_cv`` (c_i where ``mask``, an (m,) bool, is false);
+    x_s' = x_s + eta_g (mean_i x_up - x_s) with x_up = x_t where ``mask``,
+    else x_s; c' = c + mean_i (c_i' - c_i).  On the CPU the plain
+    composition (``ref.scaffold_step_ref``); on the card two column walks,
+    c_i' with the two column sums (the tile's last block forms x_s' and c'),
+    then the column sum of c_i' - c', with nothing but ``torch.empty``
+    around them."""
+    k = SCAFFOLD_STEP
+    if _args.on_cpu(k.name, c_i):
+        return ref.scaffold_step_ref(c_i, x_t, c_s, x_s, alpha, eta_g, mask)
+    m, w, code = _client_and_server(k.name, {"c_i": c_i, "x_t": x_t}, x_s, ("c_s", c_s))
+    dev = c_i.device
+    alpha_arr, alpha_f = _args.step_operand(k.name, alpha, m, dev)
+    if mask is not None:
+        _args.check(k.name, "mask", mask, (m,), (torch.bool,), dev)
+    c_new_i = torch.empty_like(c_i)
+    x_s_new = torch.empty_like(x_s)
+    c_new = torch.empty_like(c_s)
+    colsum = torch.empty(w, dtype=torch.float32, device=dev)
+    if w:
+        head = (_args.ptr(c_i), _args.ptr(x_t), _args.ptr(c_s), _args.ptr(x_s),
+                _args.ptr(alpha_arr), alpha_f, _args.ptr(mask),
+                ref.scalar_as(eta_g, c_i.dtype), m, w, code)
+        outs = (_args.ptr(c_new_i), _args.ptr(x_s_new), _args.ptr(c_new), _args.ptr(colsum))
+        _walk(k, c_i, True, *head, 1, *outs, sums=2)
+        _walk(k, c_i, True, *head, 2, *outs)
+    return c_new_i, x_s_new, c_new, colsum
 
 
 def _ef21_operands(name, u, u_hat):

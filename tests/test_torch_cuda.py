@@ -13,11 +13,16 @@ step's dual given its own x_s'),
 in one pass on each of its routes, a NaN and an Inf included) or
 copy (``row_gather``, ``row_scatter``) or select and mix (``stale_mix``);
 ``screen_uplink``'s finite flags exactly and its sums to rtol
-1e-6 * sqrt(W / 128) (a fixed order of its own, not torch.sum's), and
+1e-6 * sqrt(W / 128) (a fixed order of its own, not torch.sum's;
+``screen_keep``'s sq bitwise ``screen_uplink``'s, its mask and median
+bitwise the plain rule's on that sq), and
 ``residual_norm``'s sums likewise; the server step's mean and column sum
 within (d + 2) 2^-24 of the summed magnitudes from float64, twice that from
 ``torch.mean`` and ``torch.sum`` (d the kernel's summation depth), bf16
-means one bf16 step; ``neighbor_reduce`` and ``edge_flip``
+means one bf16 step; SCAFFOLD's server step: c_i' bitwise ``scaffold_cv``'s,
+x_s' and c' within the mean's depth roundings carried through the plain
+code's few ops (bitwise on integer data), the column sum of c_i' - c'
+within (d + 2) 2^-24 of its summed magnitudes; ``neighbor_reduce`` and ``edge_flip``
 bitwise (the same f32 operations, the sums in slot order); the
 uplink of ``round_tail`` to one rounding (the plain version divides by a
 scalar as a multiply by its reciprocal on the card); the inner loop to
@@ -153,7 +158,7 @@ def test_cuda_server_step_matches_plain(cuda, m, w, dtype):
 def test_cuda_server_step_leaves_no_ticket_behind(cuda):
     """Every tile's counter is back at 0 after a launch that reduced over
     slices, so back-to-back launches of every shape agree with each other."""
-    from repro_torch.kernels import round_tail as RT
+    from repro_torch.kernels import _args
 
     u = torch.randn(130001, 256, device=cuda)
     first = P.client_mean(u)
@@ -161,7 +166,7 @@ def test_cuda_server_step_leaves_no_ticket_behind(cuda):
         assert torch.equal(P.client_mean(u), first)
         P.server_dual(u, first, 1.5)
     torch.cuda.synchronize()
-    assert all(int(b.abs().sum()) == 0 for b in RT._ticket_bufs.values())
+    assert int(_args.workspace(u.device, 1).abs().sum()) == 0
 
 
 @pytest.mark.cuda
@@ -604,7 +609,7 @@ def _problems(cuda):
 ARENA_LAUNCHES = {
     "gpdmm": {"inner_loop_affine": 1, "round_tail_mean": 1, "dual_from_uplink": 1},
     "agpdmm": {"inner_loop_affine": 1, "round_tail_mean": 1, "dual_from_uplink": 1},
-    "scaffold": {"inner_loop_affine": 1, "scaffold_cv": 1},
+    "scaffold": {"inner_loop_affine": 1, "scaffold_step": 2},
     "fedavg": {"inner_loop_affine": 1},
 }
 STATE = {"gpdmm": ("x_s", "lam_s"), "agpdmm": ("x_s", "lam_s"), "scaffold": ("x_s", "c_i"),
@@ -691,6 +696,8 @@ def test_cuda_partial_participation_rounds_match_cpu(cuda, algo, bits, cohort):
     counts = _card_vs_cpu(cuda, cfg, lambda p: p.oracle(), rounds=rounds)
     per_round = dict(COHORT_LAUNCHES[algo]) if cohort else {
         k: v for k, v in COHORT_LAUNCHES[algo].items() if not k.startswith("row_")}
+    if algo == "scaffold" and not cohort:  # the masked round: SCAFFOLD's server step
+        per_round = dict(ARENA_LAUNCHES[algo])
     if bits:
         per_round |= EF21_LAUNCHES
         if cohort:
@@ -764,6 +771,219 @@ def test_cuda_screen_uplink_matches_plain(cuda, dtype, per_row):
     torch.cuda.synchronize()
 
 
+# screen_keep at the screened arena and cohort, the softmax arena, lm_flat
+# (128 chunks a row), a ragged width, one client, the last block's
+# shared-memory bound and past it (the cooperative select)
+KEEP_SHAPES = [(500, 512), (50, 512), (10, 7936), (8, 2 ** 20), (5, 130), (1, 128),
+               (8192, 128), (8193, 128), (100000, 128)]
+
+
+def _keep_cases(cuda, g, m, w, dtype, per_row):
+    """``screen_keep``'s inputs: the faulted rows of ``_screen_and_mix_inputs``
+    (a NaN entry, an Inf entry, a blown-up row), the same with one more
+    non-finite row (the other parity of the finite count), ties (three
+    distinct rows repeated), every row non-finite, and a NaN in the
+    reference (finite rows whose sq is NaN: every row broadcast, the first
+    half per row)."""
+    u, r, _ = _screen_and_mix_inputs(cuda, g, m, w, dtype, per_row)
+    parity = u.clone()
+    parity[3 % m] = float("nan")
+    ties = (torch.arange(m, device=cuda) % 3).float()[:, None].expand(m, w).to(dtype).contiguous()
+    nan_ref = r.clone()
+    if per_row:
+        nan_ref[: (m + 1) // 2, 0] = float("nan")
+    else:
+        nan_ref[0] = float("nan")
+    return [("faulted", u, r), ("parity", parity, r), ("ties", ties, torch.zeros_like(r)),
+            ("all_non_finite", torch.full_like(u, float("nan")), r), ("nan_ref", u, nan_ref)]
+
+
+def _int_bits(t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row", [False, True], ids=["bcast", "per_row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,w", KEEP_SHAPES)
+def test_cuda_screen_keep_matches_plain(cuda, m, w, dtype, per_row):
+    """Kernel 11 with the keep rule in its launch: sq bitwise
+    ``screen_uplink``'s on the card and finite equal; the mask bitwise
+    ``_keep_from``'s rule (``ref.keep_from_ref``) on that sq, and the median
+    bitwise ``faults.nanmedian``'s, at screen_mult 0, 100 and 3; one launch
+    (two past ``SELECT_ROWS`` with the rule), the same from run to run."""
+    from repro_torch.kernels import screen as SC
+
+    g = torch.Generator(device="cuda").manual_seed(m + w)
+    for label, u, r in _keep_cases(cuda, g, m, w, dtype, per_row):
+        fin_u, sq_u = P.screen_uplink(u, r)
+        for mult in (0.0, 100.0, 3.0):
+            P.reset_launches()
+            keep, fin, sq, med = SC.keep_parts(u, r, mult)
+            n = P.launches()["screen_keep"]
+            route = SC.keep_route(m, mult > 0)
+            what = (label, mult, route)
+            assert n == (2 if route == "select" else 1), what
+            assert torch.equal(fin, fin_u) and torch.equal(_int_bits(sq), _int_bits(sq_u)), what
+            assert torch.equal(keep, ref.keep_from_ref(fin_u, sq_u, mult)), what
+            if mult > 0:
+                want = ref.nanmedian_ref(torch.where(fin_u, sq_u, float("nan")))
+                assert _bitwise(med.reshape(1), want.reshape(1)), (what, med, want)
+            else:
+                assert med is None
+            assert torch.equal(P.screen_keep(u, r, mult), keep), what
+        if label == "all_non_finite" or (label == "nan_ref" and not per_row):
+            assert not bool(P.screen_keep(u, r, 100.0).any())
+    torch.cuda.synchronize()
+
+
+def _host_ops(fn) -> int:
+    """Tensor ops ``fn`` dispatches, allocations (``empty*``) aside."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += not func.__name__.startswith("empty")
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        fn()
+    return c.n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,mult", [(500, 512, 100.0), (500, 512, 0.0), (8, 2 ** 20, 100.0),
+                                      (100000, 128, 100.0), (100000, 128, 0.0)])
+def test_cuda_screen_keep_runs_no_torch_op(cuda, m, w, mult):
+    """From the uplink to the mask no tensor op runs besides ``torch.empty``
+    on either route (the last block, the cooperative select), with and
+    without the rule; the workspace is zero again after each call."""
+    from repro_torch.kernels import _args
+    from repro_torch.kernels import screen as SC
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    u, r, _ = _screen_and_mix_inputs(cuda, g, m, w, torch.float32, False)
+    P.screen_keep(u, r, mult)  # the workspace is allocated once per device and stream
+    assert _host_ops(lambda: P.screen_keep(u, r, mult)) == 0
+    ws = _args.workspace(u.device, SC.WS_INTS)
+    torch.cuda.synchronize()
+    assert not bool(ws[: SC.WS_INTS].any())
+
+
+SCAFFOLD_SHAPES = [(500, 512), (10, 7936), (8, 2 ** 20), (7, 130), (130001, 128), (1, 128)]
+UNIT = 2.0 ** -24
+
+
+def _after_mean_tol(d, m, summed, mean_p, *steps, unit):
+    """Bound on |a - b| for a value the plain code forms from a column mean
+    through a few rounded ops: the two means within 2 (d + 2) 2^-24 of the
+    summed magnitudes over m (two orders of depth at most d) and one
+    rounding each, then 3 roundings (``unit``) of each later op's result."""
+    tol = 2 * (d + 2) * UNIT * summed / m + 2 * unit * mean_p.abs()
+    for scale, mag in steps:
+        tol = scale * tol + 3 * unit * mag.abs()
+    return tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,w", SCAFFOLD_SHAPES)
+def test_cuda_scaffold_step_matches_plain(cuda, m, w, dtype):
+    """SCAFFOLD's full-arena server step on the card, two launches and no
+    ``scaffold_cv``: c_i' bitwise ``scaffold_cv``'s (c_i's bits on
+    masked-out rows); x_s' = x_s + eta_g (mean x_up - x_s) and c' = c +
+    mean (c_i' - c_i) within ``_after_mean_tol`` of the plain composition
+    (d = ``round_tail.depth_on``); the column sum of c_i' - c' within
+    (d + 2) 2^-24 of its summed magnitudes from float64 and twice that from
+    ``torch.sum``, given the kernel's c'; c_sum_norm against the plain one
+    within the norm of (3 (d + 2) 2^-24 and two dtype roundings of the
+    summed magnitudes + m |c'_card - c'_plain|, a column); scalar and
+    per-client alpha, with and without a mask, eta_g 1 and 0.7; a second
+    run bitwise the first."""
+    from repro_torch.kernels import round_tail as RT
+
+    g = torch.Generator(device="cuda").manual_seed(m * 7 + w)
+    ci, xt = (torch.randn(m, w, generator=g, device=cuda).to(dtype) for _ in range(2))
+    c, xs = (torch.randn(w, generator=g, device=cuda).to(dtype) for _ in range(2))
+    d = RT.depth_on(ci)
+    unit = UNIT if dtype == torch.float32 else 2.0 ** -8
+    f64 = torch.float64
+    for alpha in (2.5, 1.0 + 40.0 * torch.rand(m, generator=g, device=cuda)):
+        for mask in (None, torch.rand(m, generator=g, device=cuda) < 0.6):
+            for eta_g in (1.0, 0.7):
+                P.reset_launches()
+                got = P.scaffold_step(ci, xt, c, xs, alpha, eta_g, mask)
+                counts = P.launches()
+                assert counts["scaffold_step"] == 2 and counts["scaffold_cv"] == 0
+                want = ref.scaffold_step_ref(ci, xt, c, xs, alpha, eta_g, mask)
+                cv = P.scaffold_cv(ci, xt, c, xs, alpha)
+                if mask is not None:
+                    cv = torch.where(mask[:, None], cv, ci)
+                assert torch.equal(_int_bits(got[0]), _int_bits(cv))
+                assert torch.equal(_int_bits(got[0]), _int_bits(want[0]))
+                x_up = xt if mask is None else torch.where(mask[:, None], xt, xs[None])
+                m_x = torch.mean(x_up, dim=0)
+                dx = m_x - xs
+                tol_x = _after_mean_tol(d, m, x_up.to(f64).abs().sum(0), m_x.to(f64),
+                                        (1.0, dx.to(f64)), (eta_g, eta_g * dx.to(f64)),
+                                        (1.0, want[1].to(f64)), unit=unit)
+                err_x = (got[1].to(f64) - want[1].to(f64)).abs()
+                assert bool((err_x <= tol_x).all()), float((err_x - tol_x).max())
+                delta = want[0] - ci
+                m_c = torch.mean(delta, dim=0)
+                tol_c = _after_mean_tol(d, m, delta.to(f64).abs().sum(0), m_c.to(f64),
+                                        (1.0, want[2].to(f64)), unit=unit)
+                err_c = (got[2].to(f64) - want[2].to(f64)).abs()
+                assert bool((err_c <= tol_c).all()), float((err_c - tol_c).max())
+                terms = (got[0] - got[2][None]).to(torch.float32)
+                s64, a64 = _column_sums_f64(terms)
+                ctol = (d + 2) * UNIT * a64
+                assert bool(((got[3].to(f64) - s64).abs() <= ctol).all())
+                assert bool(((got[3].to(f64) - torch.sum(terms, 0).to(f64)).abs()
+                             <= 2 * ctol).all())
+                # c_sum_norm: the column sums' orders, each term's dtype
+                # rounding, and the two c' (m of them a column)
+                col_tol = 3 * ctol + 2 * unit * a64 + m * err_c
+                norm_k, norm_p = (torch.linalg.vector_norm(x.to(f64)) for x in (got[3], want[3]))
+                assert float((norm_k - norm_p).abs()) <= float(torch.linalg.vector_norm(col_tol))
+                again = P.scaffold_step(ci, xt, c, xs, alpha, eta_g, mask)
+                assert all(torch.equal(_int_bits(a), _int_bits(b)) for a, b in zip(again, got))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,w", [(512, 512), (8, 2 ** 20), (4096, 128)])
+def test_cuda_scaffold_step_exact_on_integer_data(cuda, m, w, dtype):
+    """On integer data with m a power of two, alpha 2 and eta_g 0.5 every
+    sum of the first pass is exact in any order and every mean exact (or
+    rounded once, the same way): x_s', c' and c_i' bitwise the plain
+    composition on the card, so a lost or doubled row or slice would show."""
+    g = torch.Generator(device="cuda").manual_seed(m + 3 * w)
+    ci, xt = (torch.randint(-4, 5, (m, w), generator=g, device=cuda).to(dtype) for _ in range(2))
+    c, xs = (torch.randint(-4, 5, (w,), generator=g, device=cuda).to(dtype) for _ in range(2))
+    for mask in (None, torch.rand(m, generator=g, device=cuda) < 0.5):
+        got = P.scaffold_step(ci, xt, c, xs, 2.0, 0.5, mask)
+        want = ref.scaffold_step_ref(ci, xt, c, xs, 2.0, 0.5, mask)
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(_int_bits(a), _int_bits(b))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_scaffold_step_runs_no_torch_op(cuda):
+    """SCAFFOLD's server step dispatches nothing but ``torch.empty``: no
+    ``torch.where``, no ``torch.mean``, no column sum."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    ci, xt = (torch.randn(500, 512, generator=g, device=cuda) for _ in range(2))
+    c, xs = (torch.randn(512, generator=g, device=cuda) for _ in range(2))
+    mask = torch.rand(500, generator=g, device=cuda) < 0.5
+    P.scaffold_step(ci, xt, c, xs, 2.5, 1.0, mask)
+    assert _host_ops(lambda: P.scaffold_step(ci, xt, c, xs, 2.5, 1.0, mask)) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("per_row", [False, True], ids=["bcast", "per_row"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -789,19 +1009,23 @@ def test_cuda_stale_mix_matches_plain(cuda, dtype, per_row):
 @pytest.mark.parametrize("mode", ["screened", "async"])
 def test_cuda_fault_rounds_match_cpu_and_count_launches(cuda, algo, mode):
     """Three faulted arena rounds on the card against the CPU: screening
-    adds one ``screen_uplink`` per round, async rounds (whose ``screen``
-    is on by "auto") one ``stale_mix`` more."""
+    adds one ``screen_keep`` per round, async rounds (whose ``screen``
+    is on by "auto") one ``stale_mix`` more, and SCAFFOLD's async round
+    refreshes c_i with ``scaffold_cv`` (its server step stays plain)."""
     eta = 0.5 / _problems("cpu")[0].L
     kw = (dict(faults=FaultConfig(dropout=0.2, corrupt=0.3, seed=7), screen=True)
           if mode == "screened" else dict(faults=FaultConfig(delay=0.3, seed=9), max_staleness=2))
     counts = _card_vs_cpu(cuda, FederatedConfig(algorithm=algo, inner_steps=5, eta=eta,
                                                 use_arena=True, **kw), lambda p: p.oracle())
-    per_round = dict(ARENA_LAUNCHES[algo], screen_uplink=1)
+    per_round = dict(ARENA_LAUNCHES[algo], screen_keep=1)
     if "round_tail_mean" in per_round:  # faults need the cache
         del per_round["round_tail_mean"]
         per_round |= CACHED_TAIL
     if mode == "async":
         per_round["stale_mix"] = 1
+        if algo == "scaffold":
+            del per_round["scaffold_step"]
+            per_round["scaffold_cv"] = 1
     assert counts == {k.name: 0 for k in P.KERNELS} | {k: 3 * v for k, v in per_round.items()}
 
 

@@ -423,11 +423,13 @@ def test_screened_run_tracks_fault_free_run():
 
 
 def test_screen_stays_on_the_arena_kernel_path(monkeypatch):
-    """An arena round screens through ``ops.screen_uplink`` (kernel 11's
-    wrapper) once; a pytree round screens as plain tensor code."""
+    """An arena round screens through ``ops.screen_keep`` (kernel 11's
+    wrapper, the keep rule in its launch) once; a pytree round screens as
+    plain tensor code."""
     calls = []
-    real = ops.screen_uplink
-    monkeypatch.setattr(ops, "screen_uplink", lambda u, r: calls.append(u.shape) or real(u, r))
+    real = ops.screen_keep
+    monkeypatch.setattr(ops, "screen_keep",
+                        lambda u, r, mult: calls.append(u.shape) or real(u, r, mult))
     cfg = dict(algorithm="gpdmm", inner_steps=2, eta=0.02,
                faults=FaultConfig(dropout=0.2, corrupt=0.2, seed=1))
     _run(FederatedConfig(use_arena=True, **cfg), 2)

@@ -381,7 +381,7 @@ def test_ops_surface_and_width_rule():
         "scaffold_cv", "fused_update", "ef21_rowmax", "ef21_apply", "row_gather",
         "row_scatter", "screen_uplink", "stale_mix", "residual_norm", "neighbor_reduce",
         "edge_flip", "flash_attention", "wkv6", "round_tail_mean", "client_mean",
-        "ef21_update"]
+        "ef21_update", "screen_keep", "scaffold_step"]
     assert P.affine_inner_fits(512) and P.affine_inner_fits(7936)
     assert not P.affine_inner_fits(500)  # not a multiple of 128
     widest = inner_loop.SMEM_CAP_BYTES // (4 * inner_loop.SMEM_ROWS)
@@ -395,7 +395,7 @@ def test_ops_surface_and_width_rule():
 @pytest.mark.parametrize("fn", ["round_tail", "dual_from_uplink", "fused_update_arena",
                                 "inner_loop_affine", "scaffold_cv", "fused_update",
                                 "ef21_rowmax", "ef21_apply", "ef21_update", "row_gather",
-                                "row_scatter"])
+                                "row_scatter", "screen_keep", "scaffold_step"])
 def test_non_cpu_non_cuda_tensor_raises(fn):
     """Only a CPU tensor reaches a plain version; any other device that is
     not CUDA is refused, never computed some other way."""
@@ -415,6 +415,8 @@ def test_non_cpu_non_cuda_tensor_raises(fn):
         "row_gather": lambda: P.row_gather(x, torch.zeros(1, dtype=torch.int64, device="meta")),
         "row_scatter": lambda: P.row_scatter(
             x, torch.zeros(1, dtype=torch.int64, device="meta"), x[:1]),
+        "screen_keep": lambda: P.screen_keep(x, xs, 100.0),
+        "scaffold_step": lambda: P.scaffold_step(x, x, xs, xs, 2.0, 1.0),
     }
     with pytest.raises(ValueError, match="not supported"):
         calls[fn]()
