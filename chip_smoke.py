@@ -72,7 +72,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   7. Fig. 1 as ``benchmarks/fig1_fedsplit.py`` runs it: Inexact FedSplit
      at m = 25 (rho = L / 10, eta = 1 / L), init z and x_s, K in {1, 3},
      300 rounds; the x_s init's gap must be below 1e-3 of the z init's, as
-     the benchmark computes it (f32) and in float64;
+     the benchmark computes it (f32) and in float64; then "7 theory":
+     (a) ``benchmarks/theory_rate.py`` on its own problem (the reference's
+     key 3 drawn through ``core.prng``, m = 10, n = 400, d = 64, K = 5, eta
+     = 0.5 / L, the default config's pytree path): 40 traced GPDMM rounds,
+     every Q^{r+1} / Q^r <= beta + 1e-3 (Theorem 1), and AGPDMM's
+     contraction of ||x_s - x*|| over 30 rounds at least GPDMM's and within
+     beta; (b) Q's ratios over 25 traced arena rounds at the Fig. 2 size,
+     logged only (mu is not positive there in f32, so beta is undefined);
+     (c) ``kkt_residuals`` after 300 arena rounds at tests/test_theory.py's
+     size, to its thresholds;
   8. partial participation and the EF21 uplink on phase 4's problem (30
      rounds): GPDMM, AGPDMM, SCAFFOLD and FedAvg at participation 0.1 (the
      cohort engine, 50 of 500 clients), GPDMM, AGPDMM and FedAvg with
@@ -91,6 +100,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      donated (``fed.round_``), each alone on the card: ms a round, host
      ops, launches, device-busy ms and the peak allocation; three donated
      rounds bitwise three functional ones, whose input stays as it was;
+     then "8 popstore", the host-resident population store
+     (``core.popstore.Runner``): (a) 10 rounds of GPDMM, AGPDMM, SCAFFOLD
+     and FedAvg, plain and with 8-bit EF21 (not SCAFFOLD), and GPDMM with
+     10% dropout, screened, at the Fig. 2 size and participation 0.1,
+     each round against the device cohort round from the same start (x_s,
+     every store buffer and GPDMM's lazy dual against lam_s within atol
+     1e-5 of max(1, max |a|); EF21 rounds each from the device round's
+     state), the launches of the body's code and no row kernel; (b) the
+     benchmark's lm_flat cell (m = 8, 2^20, participation 0.5): ms a round
+     against the device cohort round, ring hits and misses; (c) the
+     population sweep (``POPULATION``): ms a round, the draw's ms,
+     launches, device-busy ms, the body's host syncs, ring hits and misses,
+     the peak allocation above the set-up (below 1 GB at 10^6), the running
+     sum against a dense f64 column sum at f32 resolution, an m skipped
+     with a line when its host store does not fit twice into MemAvailable;
+     (d) a round at 10^5 with the global tracer on, whose trace loads back
+     with every ``popstore/*`` span and the ring counter, timed against the
+     same round with tracing off; and the lazy dual's cost at (64, 1,024);
   9. faults, uplink screening and async rounds, with the reference
      benchmark's configs (``benchmarks/round_bench.py:647-652, 733-737``):
      (a) phase 4's problem, 30 rounds of GPDMM, AGPDMM, SCAFFOLD and FedAvg
@@ -2087,6 +2114,556 @@ def population_phase(rec, torch, ops, make, make_oracle, FederatedConfig, dev, o
     log("population: donated rounds bitwise the functional ones at m = 10^5 and 10^6")
 
 
+# ---------------------------------------------------------------------------
+# phase "popstore": the host-resident population store on the card
+# ---------------------------------------------------------------------------
+
+# (a) the Fig. 2 problem at participation 0.1 (a cohort of 50), 10 rounds of
+# each variant against the device cohort round from the same start
+POPSTORE_ROUNDS = 10
+POPSTORE_VARIANTS = {
+    "gpdmm": dict(algorithm="gpdmm"),
+    "agpdmm": dict(algorithm="agpdmm"),
+    "scaffold": dict(algorithm="scaffold"),
+    "fedavg": dict(algorithm="fedavg"),
+    "gpdmm_ef21": dict(algorithm="gpdmm", uplink_bits=8),
+    "agpdmm_ef21": dict(algorithm="agpdmm", uplink_bits=8),
+    "fedavg_ef21": dict(algorithm="fedavg", uplink_bits=8),
+    "gpdmm_screened": dict(algorithm="gpdmm", faults=dict(dropout=0.1, seed=7), screen=True),
+}
+# launches a popstore round (the LSQ oracle): the lazy dual and the round
+# tail for GPDMM/AGPDMM, SCAFFOLD's control-variate refresh; no row kernels
+POPSTORE_LAUNCHES = {
+    "gpdmm": dict(inner_loop_affine=1, dual_from_uplink=1, round_tail=1),
+    "agpdmm": dict(inner_loop_affine=1, dual_from_uplink=1, round_tail=1),
+    "scaffold": dict(inner_loop_affine=1, scaffold_cv=1),
+    "fedavg": dict(inner_loop_affine=1),
+}
+POPSTORE_LM_FLAT = dict(m=8, width=1 << 20, K=4, eta=0.1, participation=0.5, rounds=10)
+POPSTORE_HOST_ATOL = 1e-5  # tests/test_popstore.py: atol after scaling by max(1, max |a|)
+
+
+def scaled_err(torch, got, want) -> float:
+    """max |got - want| / max(1, max |want|) (tests/test_popstore.py's
+    ``_close``), both read in f32 on the host."""
+    import numpy as np
+
+    g = got.detach().float().cpu().numpy() if torch.is_tensor(got) else np.asarray(got, np.float32)
+    w = want.detach().float().cpu().numpy() if torch.is_tensor(want) else np.asarray(want,
+                                                                                      np.float32)
+    g, w = np.asarray(g, np.float32), np.asarray(w, np.float32)
+    scale = max(1.0, float(np.abs(w).max()))
+    return float(np.abs(g - w).max()) / scale
+
+
+def popstore_conformance(rec, prob, torch, ops, make, FederatedConfig, FaultConfig, popstore,
+                         dev, out):
+    """(a) Each variant: ``Runner.round`` against the device cohort round
+    from the same start, x_s and every store buffer within
+    ``POPSTORE_HOST_ATOL`` (scaled), GPDMM's lazy dual against the device
+    round's lam_s; the popstore rounds' launches as the body's code gives
+    them.  EF21 variants start each popstore round from the device round's
+    state (its quantiser rounds to a grid: a rounding apart, an element can
+    land a step apart and a free-running pair would carry it)."""
+    import numpy as np
+
+    from repro_torch.core import resolved_rho
+
+    res = out["popstore_conformance"] = {}
+    R, K, m = POPSTORE_ROUNDS, LSQ["K"], LSQ["m"]
+    eta = 0.5 / prob.L
+    x0 = torch.zeros(prob.d, device=dev)
+    for label, kw in POPSTORE_VARIANTS.items():
+        kw = dict(kw)
+        if "faults" in kw:
+            kw["faults"] = FaultConfig(**kw["faults"])
+        cfg = FederatedConfig(**kw, inner_steps=K, eta=eta, use_arena=True, participation=0.1,
+                              cohort=True, popstore=True)
+        algo, ef21 = cfg.algorithm, cfg.uplink_bits is not None
+        rho = resolved_rho(cfg)
+        opt = make(cfg)
+        runner = popstore.Runner(cfg, prob.oracle())
+        ds, ps = opt.init(x0, m), runner.init(x0, m)
+        per_round = dict(POPSTORE_LAUNCHES[algo])
+        if ef21:
+            per_round["ef21_update"] = 1
+        if cfg.screen is True:
+            per_round["screen_keep"] = 1
+        total = {k.name: 0 for k in ops.KERNELS}
+        worst = {}
+        for r in range(R):
+            if ef21 and r:
+                ps = {"x_s": ds["x_s"], "round": r,
+                      "pop": {n: ds[n].cpu().numpy() for n in popstore.POP_BUFFERS[algo]},
+                      "pop_sum": popstore._col_sum64(ds["u_hat"].cpu().numpy()),
+                      "pop_sum_comp": np.zeros(ds["u_hat"].shape[1])}
+            ds, _ = opt.round(ds, prob.oracle(), prob.batch())
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            ps, met = runner.round(ps, prob.batch())
+            torch.cuda.synchronize()
+            for k, v in ops.launches().items():
+                total[k] += v
+            errs = {"x_s": scaled_err(torch, runner.server_params(ps), ds["x_s"])}
+            for n in popstore.POP_BUFFERS[algo]:
+                errs[n] = scaled_err(torch, ps["pop"][n], ds[n])
+            if algo == "scaffold":
+                errs["c"] = scaled_err(torch, ps["c"], ds["c"])
+            if algo == "gpdmm":
+                x_row = runner._spec.pack(runner.server_params(ps)).cpu().numpy()
+                errs["lazy_dual"] = scaled_err(torch, rho * (ps["pop"]["u_hat"] - x_row[None]),
+                                               ds["lam_s"])
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            check(all(v <= POPSTORE_HOST_ATOL for v in errs.values()),
+                  f"popstore {label} round {r}: against the device cohort round {errs}")
+            check(float(met["used_popstore"]) == 1.0, f"popstore {label}: used_popstore")
+        rec.add(total)
+        check(total == expected(ops, R, **per_round), f"popstore {label}: launches {total}")
+        res[label] = {"worst_scaled_err": worst, "ring": [runner.ring_hits, runner.ring_misses],
+                      "launches_per_round": {k: v / R for k, v in total.items() if v}}
+        log(f"popstore {label}: {R} rounds == device cohort round, worst scaled errors "
+            f"{ {k: f'{v:.2e}' for k, v in worst.items()} }; ring hits/misses "
+            f"{runner.ring_hits}/{runner.ring_misses}; launches/round "
+            f"{res[label]['launches_per_round']}")
+
+
+def host_round_ms(torch, step, rounds):
+    """Host-clock ms a round over ``rounds`` calls of ``step`` (each ends
+    in the round's own sync for the store; a device round is synchronized
+    after the loop)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        step()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / rounds
+
+
+def popstore_lm_flat(rec, torch, ops, make, make_oracle, FederatedConfig, popstore, gen, dev,
+                     out):
+    """(b) The reference benchmark's lm_flat cell (``round_bench.py:405-425``):
+    m = 8, one 2^20 leaf, GPDMM, K = 4, eta = 0.1, participation 0.5, the
+    native 0.3 x gradient; host-clock ms a round of the store against the
+    device cohort round at the same key, ring hits and misses, and both
+    runs' server rows within the store's tolerance."""
+    from repro_torch.core import tree_util as T
+
+    c = POPSTORE_LM_FLAT
+    m, K, R = c["m"], c["K"], c["rounds"]
+    cfg = FederatedConfig(algorithm="gpdmm", inner_steps=K, eta=c["eta"], use_arena=True,
+                          participation=c["participation"], cohort=True, popstore=True,
+                          popstore_min_clients=1)
+    params = {"w": torch.randn(c["width"], generator=gen, device=dev)}
+    grad = make_oracle(lambda p, b: {k: 0.3 * v for k, v in p.items()},
+                       grad_arena=lambda spec: (lambda xa, b: 0.3 * xa))
+    batch = {"dummy": torch.zeros(m, 1, device=dev)}
+    opt = make(cfg)
+    runner = popstore.Runner(cfg, grad)
+    box = {"pop": runner.init(params, m), "dev": opt.init(params, m)}
+
+    def pop_round():
+        box["pop"], _ = runner.round(box["pop"], batch)
+
+    def dev_round():
+        box["dev"], _ = opt.round_(box["dev"], grad, batch)
+
+    pop_round()
+    dev_round()
+    ops.reset_launches()
+    pop_ms = host_round_ms(torch, pop_round, R)
+    counts = ops.launches()
+    rec.add(counts)
+    check(counts == expected(ops, R, fused_update_arena=K, dual_from_uplink=1, round_tail=1),
+          f"popstore lm_flat: launches {counts}")
+    dev_ms = host_round_ms(torch, dev_round, R)
+    err = scaled_err(torch, box["pop"]["x_s"]["w"], box["dev"]["x_s"]["w"])
+    check(err <= POPSTORE_HOST_ATOL, f"popstore lm_flat: x_s against the device round {err}")
+    spans = traced_spans(torch, pop_round, 3)
+    got = {"popstore_ms": pop_ms, "device_cohort_ms": dev_ms, "x_s_scaled_err": err,
+           "span_ms": spans,
+           "ring": [runner.ring_hits, runner.ring_misses],
+           "device_bytes": popstore.device_bytes(cfg, c["width"], m)}
+    out["popstore_lm_flat"] = got
+    log(f"popstore lm_flat (m={m}, W=2^20, cohort {T.cohort_count(m, c['participation'])}): "
+        f"{pop_ms:.4f} ms/round against the device cohort round's {dev_ms:.4f}; ring "
+        f"hits/misses {runner.ring_hits}/{runner.ring_misses}; x_s scaled error {err:.2e}; "
+        f"median span ms {spans}")
+
+
+def traced_spans(torch, step, rounds) -> dict:
+    """Median ms of each ``popstore/*`` span over ``rounds`` calls of
+    ``step`` with the global tracer on (no file: the events are drained)."""
+    from repro_torch import telemetry
+
+    tr = telemetry.get_tracer()
+    tr.configure(enabled=True)
+    try:
+        for _ in range(rounds):
+            step()
+        torch.cuda.synchronize()
+    finally:
+        tr.configure(enabled=False)
+    spans = {}
+    for e in tr.drain():
+        if e.get("ph") == "X":
+            spans.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    return {k: sorted(v)[len(v) // 2] for k, v in spans.items()}
+
+
+def mem_available_bytes():
+    """``MemAvailable`` of /proc/meminfo (``round_bench.py:376-384``), or None."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        return None
+    return None
+
+
+def body_syncs(torch, runner, state, batch) -> list:
+    """The host syncs that one popstore body makes (the draw, the staging
+    and the copies back aside): the body alone under
+    ``torch.cuda.set_sync_debug_mode("warn")``; (file:line, message) of
+    each."""
+    import warnings
+
+    r = int(state["round"])
+    staged = runner._take_prefetch(r, state["pop"]) or runner._stage_host(r, state["pop"])
+    if staged.dev_rows is None:
+        runner._h2d(staged)
+    runner._next = staged
+    round_t = torch.full((), r, dtype=torch.int32, device=runner.device)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            runner._body({"x_s": state["x_s"]}, staged.dev_rows, staged.idx_dev, round_t, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [f"{Path(w.filename).name}:{w.lineno} {str(w.message)[:60]}" for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def popstore_population(rec, torch, ops, make, make_oracle, FederatedConfig, popstore, dev,
+                        out):
+    """(c) The population sweep of ``POPULATION`` through the store: ms a
+    round, the draw's ms, launches, device-busy ms, ring hits and misses,
+    the peak device allocation of the timed rounds above what was allocated
+    before the store was made (below 1 GB at 10^6), and the incremental sum
+    against a dense f64 column sum of the store after the run; beside it
+    phase "8 population"'s device-resident figures of this run.  An m whose
+    host store does not fit twice into ``MemAvailable`` is skipped with a
+    line that says so."""
+    import numpy as np
+
+    from repro_torch.core import tree_util as T
+    from repro_torch.core.gpdmm import participation_key
+
+    P_ = POPULATION
+    res = out["popstore_population"] = {}
+    R, K, W = P_["rounds"], P_["K"], P_["width"]
+    avail = mem_available_bytes()
+    for m in P_["ms"]:
+        host_bytes = 2 * m * W * 4
+        if avail is not None and 2 * host_bytes > avail:
+            log(f"popstore population m={m}: SKIPPED, the host store needs "
+                f"{host_bytes / 1e9:.2f} GB x2 and {avail / 1e9:.2f} GB are available")
+            res[f"m{m}"] = {"skipped": True, "host_bytes": host_bytes, "available": avail}
+            continue
+        cfg = FederatedConfig(algorithm="gpdmm", inner_steps=K, eta=P_["eta"], use_arena=True,
+                              participation=P_["cohort"] / m, cohort=True, popstore=True)
+        _, params, grad, batch = population_setup(torch, make, make_oracle, FederatedConfig,
+                                                  m, dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        runner = popstore.Runner(cfg, grad)
+        box = [runner.init(params, m)]
+        init_s = time.perf_counter() - t0
+
+        def one():
+            box[0], _ = runner.round(box[0], batch)
+
+        one()  # warm-up
+        syncs = body_syncs(torch, runner, box[0], batch)
+        # the prefetch overlaps the body only if the body never waits for
+        # the device
+        check(not syncs, f"popstore population m={m}: the body synchronizes {syncs}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        ms = host_round_ms(torch, one, R)
+        counts = ops.launches()
+        peak = torch.cuda.max_memory_allocated()
+        rec.add(counts)
+        check(counts == expected(ops, R, fused_update_arena=K, dual_from_uplink=1,
+                                 round_tail=1),
+              f"popstore population m={m}: launches {counts}")
+        busy, _, events = device_profile(torch, lambda: [one() for _ in range(3)], 3)
+        draws = []
+        for r in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            T.cohort_indices(participation_key(cfg, r), m, cfg.participation, dev)
+            torch.cuda.synchronize()
+            draws.append(1e3 * (time.perf_counter() - t1))
+        draw_ms = sorted(draws)[len(draws) // 2]
+        state = box[0]
+        t1 = time.perf_counter()
+        dense = popstore._col_sum64(state["pop"]["u_hat"])
+        dense_s = time.perf_counter() - t1
+        scale = max(1.0, float(np.abs(dense).max()))
+        sum_err = float(np.abs(state["pop_sum"] - dense).max()) / scale
+        check(sum_err <= F32_EPS / 2, f"popstore population m={m}: running sum {sum_err:.3e}")
+        x_row = state["x_s"]["w"].cpu().numpy().astype(np.float64)
+        mean32 = (dense / m).astype(np.float32).astype(np.float64)
+        ulps = float(np.max(np.abs(x_row - mean32) / np.spacing(np.abs(mean32).astype(np.float32))))
+        check(ulps <= 1.0, f"popstore population m={m}: x_s {ulps} f32 ulps from the dense mean")
+        round_peak = (peak - base) / 1e9
+        if m >= 10 ** 6:
+            check(round_peak < 1.0, f"popstore population m={m}: peak {round_peak:.3f} GB")
+        device_resident = out.get("population", {}).get(f"m{m}_donated", {})
+        got = {"round_ms": ms, "draw_ms": draw_ms, "device_busy_ms": busy,
+               "peak_gb": peak / 1e9, "round_peak_gb": round_peak,
+               "ring": [runner.ring_hits, runner.ring_misses], "init_s": init_s,
+               "host_bytes": host_bytes, "device_bytes": popstore.device_bytes(cfg, W, m),
+               "body_syncs": syncs, "sum_scaled_err": sum_err, "x_s_ulps": ulps,
+               "dense_sum_s": dense_s,
+               "launches": {k: v / R for k, v in counts.items() if v},
+               "device_resident": {k: device_resident.get(k) for k in
+                                   ("round_ms", "device_busy_ms", "peak_gb", "round_peak_gb")},
+               "profile": events.table(sort_by="self_device_time_total", row_limit=10)}
+        res[f"m{m}"] = got
+        spans = traced_spans(torch, one, 3)
+        got["span_ms"] = spans
+        log(f"popstore population m={m} W={W} cohort {P_['cohort']}: {ms:.4f} ms/round "
+            f"(draw {draw_ms:.4f} ms), busy {busy:.4f} ms, peak {peak / 1e9:.3f} GB "
+            f"({round_peak:.4f} GB above the set-up), ring hits/misses "
+            f"{runner.ring_hits}/{runner.ring_misses}, body host syncs {syncs}, host store "
+            f"{host_bytes / 1e9:.2f} GB (init {init_s:.2f} s), running sum scaled error "
+            f"{sum_err:.2e}, x_s {ulps:.0f} ulps from the dense mean; launches "
+            f"{got['launches']}; the device-resident donated round of phase 8: "
+            f"{got['device_resident']}; median span ms {spans}")
+        log(got["profile"])
+        del box, state, runner
+        torch.cuda.empty_cache()
+
+
+def popstore_telemetry(torch, make, make_oracle, FederatedConfig, popstore, dev, out):
+    """(d) One population round at m = 10^5 with the global tracer on,
+    writing a trace file that must load back with every ``popstore/*`` span
+    and the ring counter; the same round's host-clock ms with tracing off
+    and on, alternately (median of 5 each)."""
+    import tempfile
+
+    from repro_torch import telemetry
+
+    P_ = POPULATION
+    m = P_["ms"][0]
+    cfg = FederatedConfig(algorithm="gpdmm", inner_steps=P_["K"], eta=P_["eta"],
+                          use_arena=True, participation=P_["cohort"] / m, cohort=True,
+                          popstore=True)
+    _, params, grad, batch = population_setup(torch, make, make_oracle, FederatedConfig, m, dev)
+    runner = popstore.Runner(cfg, grad)
+    box = [runner.init(params, m)]
+
+    def one():
+        box[0], _ = runner.round(box[0], batch)
+
+    one()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "popstore_trace.json"
+        times = {"off": [], "on": []}
+        try:
+            for _ in range(5):
+                for mode in ("off", "on"):
+                    telemetry.configure(enabled=mode == "on", trace_out=path)
+                    times[mode].append(host_round_ms(torch, one, 1))
+        finally:
+            telemetry.close()
+            telemetry.configure(enabled=False)
+        events = telemetry.load_trace(path)
+    names = {e["name"] for e in events}
+    want = {"popstore/h2d_stage", "popstore/prefetch_draw", "popstore/device_round",
+            "popstore/prefetch_gather", "popstore/device_sync", "popstore/scatter_back",
+            "popstore/ring"}
+    check(want <= names, f"popstore telemetry: spans {sorted(names)}")
+    ring = [e for e in events if e["name"] == "popstore/ring"]
+    check(all(e["ph"] == "C" for e in ring) and len(ring) == 5,
+          f"popstore telemetry: ring counter {ring}")
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X":
+            spans.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    out["popstore_telemetry"] = {"round_ms_off": med["off"], "round_ms_on": med["on"],
+                                 "events": len(events),
+                                 "span_ms": {k: sorted(v)[len(v) // 2] for k, v in spans.items()}}
+    log(f"popstore telemetry m={m}: {len(events)} events, spans {sorted(names)}; round "
+        f"{med['off']:.4f} ms tracing off, {med['on']:.4f} ms on (medians of 5, alternated); "
+        f"median span ms {out['popstore_telemetry']['span_ms']}")
+
+
+def lazy_dual_cost(rec, torch, ops, ref, gen, out):
+    """The lazy dual on the card is ``server_dual`` with its column sum
+    dropped: at a cohort of 64 x 1,024 its time beside the plain elementwise
+    dual, and the bounds with and without the column sum."""
+    u = torch.randn(64, 1024, generator=gen, device=gen.device)
+    x = torch.randn(1024, generator=gen, device=gen.device)
+    rho = 0.5
+    ms = cuda_time_ms(lambda: ops.dual_from_uplink(u, x, rho), 200)
+    plain = cuda_time_ms(lambda: ref.dual_from_uplink_ref(u, x, rho), 200)
+    err = max_err(ops.dual_from_uplink(u, x, rho), ref.dual_from_uplink_ref(u, x, rho))
+    elem, _ = bound_ms((2 * 64 + 1) * 1024 * 4, 0)
+    with_sum, _ = bound_ms((2 * 64 + 2) * 1024 * 4, 0)
+    out["lazy_dual"] = {"ms": ms, "plain_ms": plain, "bound_ms": elem,
+                        "bound_with_sum_ms": with_sum, "max_abs_err": err}
+    check(err == 0.0, f"lazy dual: {err}")
+    log(f"lazy dual (64, 1024): dual_from_uplink {ms:.5f} ms (the column sum computed and "
+        f"dropped) against the plain elementwise dual {plain:.5f} ms; bound {elem:.6f} ms, "
+        f"with the sum's write {with_sum:.6f} ms")
+
+
+def popstore_phase(rec, prob, torch, ops, ref, make, make_oracle, FederatedConfig, FaultConfig,
+                   dev, out):
+    from repro_torch.core import popstore
+
+    popstore_conformance(rec, prob, torch, ops, make, FederatedConfig, FaultConfig, popstore,
+                         dev, out)
+    popstore_lm_flat(rec, torch, ops, make, make_oracle, FederatedConfig, popstore,
+                     seeded(torch, 83), dev, out)
+    popstore_population(rec, torch, ops, make, make_oracle, FederatedConfig, popstore, dev, out)
+    popstore_telemetry(torch, make, make_oracle, FederatedConfig, popstore, dev, out)
+    lazy_dual_cost(rec, torch, ops, ref, seeded(torch, 89), out)
+
+
+# ---------------------------------------------------------------------------
+# phase "theory": Theorem 1's linear rate and the KKT residuals on the card
+# ---------------------------------------------------------------------------
+
+# benchmarks/theory_rate.py: its problem (key 3), 40 traced rounds, the
+# AGPDMM/GPDMM contraction over 30
+THEORY = dict(key=3, m=10, n=400, d=64, K=5, rounds=40, contraction_rounds=30)
+THEORY_FIG2 = dict(K=5, rounds=25)  # the paper's Fig. 2 size on the arena
+THEORY_KKT = dict(key=3, m=6, n=80, d=16, K=5, rounds=300)  # tests/test_theory.py
+
+
+def q_trajectory(torch, ops, theory, opt, cfg, prob, grad, rounds, x0):
+    """Q^r over ``rounds`` traced GPDMM rounds from x0 (x_i^{0,K} = x0) and
+    the rounds' launches."""
+    from repro_torch.core import tree_util as T
+
+    s = opt.init(x0, prob.m)
+    lam_star = prob.lam_star()
+    x_c_prev = T.tree_broadcast(x0, prob.m)
+    qs = []
+    ops.reset_launches()
+    for _ in range(rounds):
+        s, met = opt.round(s, grad, prob.batch(), return_trace=True)
+        tr = met["trace"]
+        qs.append(float(theory.q_functional(
+            cfg, x_c_prev=x_c_prev, x_bar=tr["x_bar"], lam_is=tr["lam_is"],
+            x_star=prob.x_star, lam_star=lam_star, L=prob.L, mu=prob.mu)))
+        x_c_prev = tr["x_K"]
+    return qs, ops.launches()
+
+
+def theory_phase(rec, prob, torch, ops, make, FederatedConfig, quadratic, dev, out):
+    """(a) ``benchmarks/theory_rate.py`` on its own problem (the reference's
+    key 3 through ``core.prng``): 40 traced GPDMM rounds on the default
+    config (the pytree path, the plain grad), every Q ratio <= beta + 1e-3,
+    then 30 rounds each of AGPDMM and GPDMM: AGPDMM's contraction of
+    ||x_s - x*|| at least GPDMM's and within beta; (b) the Fig. 2 problem
+    on the arena (``use_avg``, ``oracle()``), 25 traced rounds: the
+    problem's mu is not positive in f32 (n = d), so Theorem 1's beta is
+    undefined there and Q's ratios are logged, not held to a bound; (c)
+    ``kkt_residuals`` after 300 arena rounds at tests/test_theory.py's
+    size, to its thresholds."""
+    from repro_torch.core import prng, resolved_rho, theory
+
+    res = out["theory"] = {}
+    c = THEORY
+    p = quadratic.generate_from_key(prng.key(c["key"]), m=c["m"], n=c["n"], d=c["d"],
+                                    device="cuda")
+    K, eta = c["K"], 0.5 / p.L
+    cfg = FederatedConfig(algorithm="gpdmm", inner_steps=K, eta=eta)
+    beta = theory.gpdmm_beta(p.L, p.mu, eta, resolved_rho(cfg))
+    x0 = torch.zeros(p.d, device=dev)
+    qs, counts = q_trajectory(torch, ops, theory, make(cfg), cfg, p, p.grad, c["rounds"], x0)
+    rec.add(counts)
+    check(counts == expected(ops, c["rounds"], fused_update=K), f"theory (a): launches {counts}")
+    ratios = [b / max(a, 1e-30) for a, b in zip(qs, qs[1:])]
+    log(f"theory (a) m={c['m']} n={c['n']} d={c['d']} K={K}: beta {beta:.6f}, Q ratios max "
+        f"{max(ratios):.6f} median {sorted(ratios)[len(ratios) // 2]:.6f}, Q^40 / Q^1 "
+        f"{qs[-1] / qs[0]:.3e}; ratios {[round(x, 4) for x in ratios]}")
+    check(all(x <= beta + 1e-3 for x in ratios),
+          f"theory (a): a Q ratio above beta {beta}: {max(ratios)}")
+    rates = {}
+    for algo in ("gpdmm", "agpdmm"):
+        opt = make(FederatedConfig(algorithm=algo, inner_steps=K, eta=eta))
+        s = opt.init(x0, p.m)
+        dists = []
+        ops.reset_launches()
+        for _ in range(c["contraction_rounds"]):
+            s, _ = opt.round(s, p.grad, p.batch())
+            dists.append(float(p.dist(opt.server_params(s))))
+        n = ops.launches()
+        rec.add(n)
+        check(n == expected(ops, c["contraction_rounds"], fused_update=K),
+              f"theory (a) {algo}: launches {n}")
+        seg = [x for x in dists if x > 1e-5]
+        rates[algo] = (seg[-1] / seg[0]) ** (1.0 / max(1, len(seg) - 1))
+    log(f"theory (a) contraction of ||x_s - x*|| a round: {rates}, beta {beta:.6f}")
+    check(rates["agpdmm"] <= rates["gpdmm"] + 1e-6, f"theory (a): AGPDMM slower {rates}")
+    check(rates["agpdmm"] <= beta, f"theory (a): AGPDMM outside beta {rates}")
+    res["a"] = {"beta": beta, "max_ratio": max(ratios), "ratios": ratios,
+                "q_last_over_first": qs[-1] / qs[0], "contraction": rates}
+
+    c2 = THEORY_FIG2
+    cfg = FederatedConfig(algorithm="gpdmm", inner_steps=c2["K"], eta=0.5 / prob.L,
+                          use_avg=True, use_arena=True)
+    qs, counts = q_trajectory(torch, ops, theory, make(cfg), cfg, prob, prob.oracle(),
+                              c2["rounds"], torch.zeros(prob.d, device=dev))
+    rec.add(counts)
+    check(counts == expected(ops, c2["rounds"], inner_loop_affine=1, round_tail_mean=1,
+                             dual_from_uplink=1), f"theory (b): launches {counts}")
+    check(all(math.isfinite(q) for q in qs), "theory (b): Q not finite")
+    ratios = [b / max(a, 1e-30) for a, b in zip(qs, qs[1:])]
+    res["b"] = {"L": prob.L, "mu": prob.mu, "max_ratio": max(ratios), "ratios": ratios,
+                "q_last_over_first": qs[-1] / qs[0]}
+    log(f"theory (b) Fig. 2 arena m=n=d={prob.m}: mu {prob.mu:.4e} (beta undefined), Q "
+        f"ratios max {max(ratios):.6f}, Q^25 / Q^1 {qs[-1] / qs[0]:.3e}")
+
+    c3 = THEORY_KKT
+    pk = quadratic.generate_from_key(prng.key(c3["key"]), m=c3["m"], n=c3["n"], d=c3["d"],
+                                     device="cuda")
+    opt = make(FederatedConfig(algorithm="gpdmm", inner_steps=c3["K"], eta=0.5 / pk.L,
+                               use_arena=True))
+    s = opt.init(torch.zeros(pk.d, device=dev), pk.m)
+    ops.reset_launches()
+    for _ in range(c3["rounds"]):
+        s, _ = opt.round(s, pk.grad, pk.batch())
+    n = ops.launches()
+    rec.add(n)
+    check(n == expected(ops, c3["rounds"], fused_update_arena=c3["K"], round_tail_mean=1,
+                        dual_from_uplink=1), f"theory (c): launches {n}")
+    from repro_torch.core import arena
+
+    spec = arena.ArenaSpec.from_tree(s["x_s"])
+    kkt = {k: float(v) for k, v in theory.kkt_residuals(pk, s["x_s"],
+                                                        spec.unpack_stacked(s["lam_s"])).items()}
+    res["c"] = kkt
+    log(f"theory (c) kkt residuals after {c3['rounds']} arena rounds: {kkt}")
+    check(kkt["dual_sum"] < 1e-3 and kkt["primal_gap"] < 1e-2 and kkt["grad_match"] < 1e-1,
+          f"theory (c): {kkt}")
+
+
 def mixture_data(torch, gen, F, C, n, dev):
     """One class per client, n samples each: class means of norm ~ sqrt(F)
     * 0.12 plus unit noise, scaled by 1/10 (the Table I set-up)."""
@@ -3456,12 +4033,16 @@ def main() -> int:
     timed("6 lm_tree", lm_tree_phase, rec, torch, ops, make, FederatedConfig, seeded(torch, 43),
           dev, out, prof)
     timed("7 fig1", fig1_phase, rec, prob25, torch, ops, make, FederatedConfig, dev)
+    timed("7 theory", theory_phase, rec, prob, torch, ops, make, FederatedConfig, quadratic,
+          dev, out)
     timed("8 participation", participation_phase, rec, prob, torch, ops, make, FederatedConfig,
           dev, out, prof)
     timed("8 softmax", softmax_phase, rec, torch, ops, make, FederatedConfig, SoftmaxRegression,
           seeded(torch, 0), dev, SOFTMAX_PARTIAL, prof)
     timed("8 population", population_phase, rec, torch, ops, make, make_oracle,
           FederatedConfig, dev, out)
+    timed("8 popstore", popstore_phase, rec, prob, torch, ops, ref, make, make_oracle,
+          FederatedConfig, FaultConfig, dev, out)
     timed("9 faults", faults_phase, rec, prob, torch, ops, make, FederatedConfig, FaultConfig,
           quadratic, seeded(torch, 21), dev, out, prof)
     timed("10 residual kernel", check_residual_kernel, rec, torch, ops, ref, seeded(torch, 23),

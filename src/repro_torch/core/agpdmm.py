@@ -28,10 +28,32 @@ from repro_torch.core.api import (
 )
 from repro_torch.core.gpdmm import (
     arena_metrics, arena_tail, broadcast_rows, cohort_cache, cohort_eta, cohort_reads_cache,
-    cohort_server, inner_steps, inner_steps_arena, needs_cache, round_cohort, round_counter,
-    tree_metrics, tree_tail,
+    cohort_server, inner_steps, inner_steps_arena, needs_cache, popstore_metrics, popstore_tail,
+    round_cohort, round_counter, tree_metrics, tree_tail,
 )
 from repro_torch.kernels import ops
+
+
+def cohort_loop(cfg: FederatedConfig, spec, grad_fn, x_s_row, lam_c, batch_c, idx,
+                per_step: bool):
+    """The cohort's K client steps from the fresh server row with dual rows
+    ``lam_c`` (tiled by ``cohort_tile``), shared by the device cohort round
+    and the popstore body.  Returns x_K."""
+    rho = resolved_rho(cfg)
+    eta_c = cohort_eta(cfg, idx)
+
+    def inner(rows, b):
+        lam_t = rows[0]
+        x0 = broadcast_rows(x_s_row, lam_t.shape[0])
+        return inner_steps_arena(
+            spec, grad_fn, x0, x_s_row, lam_t, b, K=cfg.inner_steps,
+            eta=cfg.eta if eta_c is None else rows[1], rho=rho,
+            per_step=per_step,
+            vr_snapshot=x0 if cfg.variance_reduction == "svrg" else None, with_bar=False)
+
+    rows = (lam_c,) + (() if eta_c is None else (eta_c,))
+    x_K, _ = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step)
+    return x_K
 
 
 def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches,
@@ -51,19 +73,7 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     lam_c, *u_hat_c = ops.row_gather_buffers(
         (lam,) + ((u_hat,) if cohort_reads_cache(cfg) else ()), idx)
     batch_c = cohort_batch(batch, idx, m, per_step_batches)
-    eta_c = cohort_eta(cfg, idx)
-
-    def inner(rows, b):
-        lam_t = rows[0]
-        x0 = broadcast_rows(x_s_row, lam_t.shape[0])
-        return inner_steps_arena(
-            spec, grad_fn, x0, x_s_row, lam_t, b, K=cfg.inner_steps,
-            eta=cfg.eta if eta_c is None else rows[1], rho=rho,
-            per_step=per_step_batches,
-            vr_snapshot=x0 if cfg.variance_reduction == "svrg" else None, with_bar=False)
-
-    rows = (lam_c,) + (() if eta_c is None else (eta_c,))
-    x_K, _ = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
+    x_K = cohort_loop(cfg, spec, grad_fn, x_s_row, lam_c, batch_c, idx, per_step_batches)
 
     _, uplink = ops.round_tail(x_K, lam_c, x_s_row, rho, with_lam_is=False)
     uplink, keep_c, fm = cohort_cache(cfg, spec, state, uplink, idx, x_s_row,
@@ -72,6 +82,27 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     server, lam_sum = cohort_server(cfg, spec, u_hat_new)
     new_state = server | {"round": state["round"] + 1}
     return new_state, arena_metrics(lam_sum, x_K, x_s_row, keep_c) | fm
+
+
+def popstore_body(cfg: FederatedConfig, spec, m: int, grad_fn, per_step):
+    """The device half of a host-popstore AGPDMM round (see
+    ``gpdmm.popstore_body``): only the ``u_hat`` rows stage -- the client
+    init is the fresh server row (no primal carry) -- and the dual rows are
+    rebuilt lazily from them, lam_{s|i} = rho (u_hat_i - x_s)."""
+    rho = resolved_rho(cfg)
+
+    def body(server, staged, idx, round_idx, batch):
+        x_s_row = spec.pack(server["x_s"])
+        u_hat_c = staged["u_hat"]
+        lam_c = ops.dual_from_uplink(u_hat_c, x_s_row, rho)  # the lazy dual
+        batch_c = cohort_batch(batch, idx, m, per_step)
+        x_K = cohort_loop(cfg, spec, grad_fn, x_s_row, lam_c, batch_c, idx, per_step)
+        _, uplink = ops.round_tail(x_K, lam_c, x_s_row, rho, with_lam_is=False)
+        uplink, keep_c, fm = popstore_tail(cfg, spec, x_s_row, u_hat_c, uplink, idx,
+                                           round_idx, m)
+        return {"u_hat": uplink}, {}, popstore_metrics(x_K, x_s_row, keep_c) | fm
+
+    return body
 
 
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, donate):

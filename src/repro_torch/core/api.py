@@ -167,6 +167,27 @@ def use_cohort(cfg: FederatedConfig, m: int) -> bool:
     return True
 
 
+def use_popstore(cfg: FederatedConfig, m: int) -> bool:
+    """Static policy: does this run keep the population's resident client
+    state in the host store (``core.popstore``) instead of device arenas?
+
+    The store rides the cohort engine (same participation draw, same
+    gather/scatter row contract), so it engages only where ``use_cohort``
+    does -- callers additionally gate on ``use_arena`` exactly as they do
+    for the cohort engine itself.  ``popstore="auto"`` moves the state off
+    device once the population reaches ``popstore_min_clients`` (below
+    that the O(m) device buffers are cheap and per-round host<->device
+    staging is pure overhead); ``True`` forces the store whenever the
+    cohort engine runs, ``False`` never uses it.  The popstore round is a
+    host-side driver (``popstore.Runner``), which is why callers dispatch
+    on this policy instead of ``FedOpt.round`` doing so internally."""
+    if cfg.popstore is False or not use_cohort(cfg, m):
+        return False
+    if cfg.popstore == "auto":
+        return m >= cfg.popstore_min_clients
+    return True
+
+
 def owned(state, keys):
     """``state`` with each of ``keys`` (present) fit to be written in place
     by a donated round: contiguous, and sharing its storage with no other
@@ -344,5 +365,5 @@ __all__ = [
     "COHORT_ALGOS", "FedOpt", "affine_case", "arena_grad", "client_batches", "cohort_batch",
     "eta_val", "make", "make_oracle", "make_scan_rounds", "map_cohort_tiles", "mean_eta",
     "n_steps", "owned", "resolved_rho", "run_cohort_inner", "scatter_cohort", "step_for",
-    "step_size", "use_arena", "use_cohort",
+    "step_size", "use_arena", "use_cohort", "use_popstore",
 ]

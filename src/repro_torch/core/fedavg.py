@@ -30,7 +30,7 @@ from repro_torch.core.api import (
 )
 from repro_torch.core.gpdmm import (
     arena_drift, broadcast_rows, cached_uplink, cohort_cache, cohort_eta, cohort_reads_cache,
-    needs_cache, round_cohort, round_counter,
+    needs_cache, popstore_metrics, popstore_tail, round_cohort, round_counter,
 )
 from repro_torch.core.scaffold import inner_steps_plain, inner_steps_plain_arena
 from repro_torch.kernels import ops
@@ -53,6 +53,22 @@ def _arena_metrics(x_K, x_s_row, mask=None):
     }
 
 
+def cohort_loop(cfg: FederatedConfig, spec, grad_fn, x_s_row, batch_c, idx, per_step: bool):
+    """The cohort's K plain steps from the server row (tiled by
+    ``cohort_tile``), shared by the device cohort round and the popstore
+    body.  Returns x_K."""
+    eta_c = cohort_eta(cfg, idx)
+
+    def inner(rows, b):
+        mc = T.leaves(b)[0].shape[1 if per_step else 0]
+        return inner_steps_plain_arena(
+            spec, grad_fn, broadcast_rows(x_s_row, mc), x_s_row, b, K=cfg.inner_steps,
+            eta=cfg.eta if eta_c is None else rows[0], per_step=per_step)
+
+    rows = () if eta_c is None else (eta_c,)
+    return run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step)
+
+
 def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches,
                         donate=False):
     """FedAvg over the round's sampled cohort: no optimiser rows move; the
@@ -68,16 +84,7 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     x_s_row = spec.pack(state["x_s"])
     idx = round_cohort(cfg, state, m)
     batch_c = cohort_batch(batch, idx, m, per_step_batches)
-    eta_c = cohort_eta(cfg, idx)
-
-    def inner(rows, b):
-        mc = T.leaves(b)[0].shape[1 if per_step_batches else 0]
-        return inner_steps_plain_arena(
-            spec, grad_fn, broadcast_rows(x_s_row, mc), x_s_row, b, K=cfg.inner_steps,
-            eta=cfg.eta if eta_c is None else rows[0], per_step=per_step_batches)
-
-    rows = () if eta_c is None else (eta_c,)
-    x_K = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
+    x_K = cohort_loop(cfg, spec, grad_fn, x_s_row, batch_c, idx, per_step_batches)
 
     u_hat_c = ops.row_gather(u_hat, idx) if cohort_reads_cache(cfg) else None
     uplink, keep_c, fm = cohort_cache(cfg, spec, state, x_K, idx, x_s_row, u_hat_c)
@@ -86,6 +93,23 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     new_state = {"u_hat": u_hat_new, "x_s": spec.unpack(x_s_new),
                  "round": state["round"] + 1}
     return new_state, _arena_metrics(x_K, x_s_row, keep_c) | fm
+
+
+def popstore_body(cfg: FederatedConfig, spec, m: int, grad_fn, per_step):
+    """The device half of a host-popstore FedAvg round (see
+    ``gpdmm.popstore_body``): the cohort runs the K plain steps from the
+    server row; only the staged ``u_hat`` rows (the EF21 integrator and the
+    silent rows' stand-in) move, and the host store forms the mean."""
+
+    def body(server, staged, idx, round_idx, batch):
+        x_s_row = spec.pack(server["x_s"])
+        u_hat_c = staged["u_hat"]
+        batch_c = cohort_batch(batch, idx, m, per_step)
+        x_K = cohort_loop(cfg, spec, grad_fn, x_s_row, batch_c, idx, per_step)
+        uplink, keep_c, fm = popstore_tail(cfg, spec, x_s_row, u_hat_c, x_K, idx, round_idx, m)
+        return {"u_hat": uplink}, {}, popstore_metrics(x_K, x_s_row, keep_c) | fm
+
+    return body
 
 
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, donate):

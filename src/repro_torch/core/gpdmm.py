@@ -245,24 +245,36 @@ def cohort_reads_cache(cfg: FederatedConfig) -> bool:
 
 def cohort_cache(cfg: FederatedConfig, spec, state, uplink, idx, x_s_row, u_hat_c):
     """The cohort's uplink rows as the population cache will hold them
-    (shared with AGPDMM and FedAvg): EF21 against the cohort's cached
-    ``u_hat`` rows ``u_hat_c`` (gathered with the round's other rows when
-    ``cohort_reads_cache``, else None), the wire's corruption of the
-    population's fault plan restricted to the cohort, the screen on the
-    (mc, W) cohort uplink (its median over the cohort, as the reference
-    takes it), and the keep select against the cached rows.  Returns
-    (uplink rows, keep_c, fault metrics): the rows scattered into ``u_hat``
-    make its mean the masked round's mean of selected rows; ``keep_c`` is
-    the cohort's surviving mask (None: every cohort uplink entered)."""
-    m = state["u_hat"].shape[0]
+    (shared with AGPDMM and FedAvg): ``popstore_tail`` on the cohort's
+    cached ``u_hat`` rows ``u_hat_c`` (gathered with the round's other rows
+    when ``cohort_reads_cache``, else None) with the state's round and
+    population.  The rows scattered into ``u_hat`` make its mean the masked
+    round's mean of selected rows."""
+    return popstore_tail(cfg, spec, x_s_row, u_hat_c, uplink, idx, state["round"],
+                         state["u_hat"].shape[0])
+
+
+def popstore_tail(cfg: FederatedConfig, spec, x_s_row, u_hat_c, uplink, idx, round_idx,
+                  m: int):
+    """The cohort-resident round tail, shared by the device cohort round
+    (``cohort_cache``) and the host-popstore bodies of GPDMM, AGPDMM and
+    FedAvg: EF21 against the cohort's cached ``u_hat`` rows, the wire's
+    corruption of the population's fault plan (round ``round_idx``, m
+    clients) restricted to the cohort, the screen on the (mc, W) cohort
+    uplink (its median over the cohort, as the reference takes it), and
+    the keep select back to the cached rows.  No O(m) work: the caller
+    scatters the rows and forms the server mean.  Returns (uplink rows,
+    keep_c, fault metrics); ``keep_c`` is the cohort's surviving mask
+    (None: every cohort uplink entered)."""
     if cfg.uplink_bits is not None:
         uplink = ops.ef21_update(uplink, u_hat_c, cfg.uplink_bits, spec.leaf_rows())
-    fplan = faults.plan(cfg, state["round"], m)
+    fplan = faults.plan(cfg, round_idx, m)
     plan_c = faults.take(fplan, idx)
     uplink = faults.inject(cfg.faults, plan_c, uplink)
     keep = faults.screen_keep(cfg, uplink, x_s_row) if faults.screening_on(cfg) else None
     keep_c = faults.combine_mask(None, plan_c, keep)
     if keep_c is not None:
+        # demoted or faulted cohort rows are silent: the cache keeps their row
         uplink = torch.where(keep_c[:, None], uplink, u_hat_c)
     return uplink, keep_c, cohort_fault_report(fplan, plan_c, keep)
 
@@ -310,6 +322,27 @@ def arena_metrics(lam_sum, x_K, x_s_row, mask=None):
     }
 
 
+def cohort_loop(cfg: FederatedConfig, spec, grad_fn, x_s_row, x0_c, lam_c, batch_c, idx,
+                per_step: bool):
+    """The cohort's K client steps from its carry rows ``x0_c`` and dual
+    rows ``lam_c`` (tiled by ``cohort_tile``), shared by the device cohort
+    round and the popstore body.  Returns (x_K, x_bar)."""
+    rho = resolved_rho(cfg)
+    eta_c = cohort_eta(cfg, idx)
+
+    def inner(rows, b):
+        x0, lam_t = rows[0], rows[1]
+        snap = (broadcast_rows(x_s_row, x0.shape[0])
+                if cfg.variance_reduction == "svrg" else None)
+        return inner_steps_arena(
+            spec, grad_fn, x0, x_s_row, lam_t, b, K=cfg.inner_steps,
+            eta=cfg.eta if eta_c is None else rows[2], rho=rho,
+            per_step=per_step, vr_snapshot=snap, with_bar=cfg.use_avg)
+
+    rows = (x0_c, lam_c) + (() if eta_c is None else (eta_c,))
+    return run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step)
+
+
 def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches,
                         donate=False):
     """GPDMM over the round's sampled cohort: gather its lam and carry rows
@@ -329,19 +362,8 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     lam_c, x0_c, *u_hat_c = ops.row_gather_buffers(
         (lam, x_c) + ((u_hat,) if cohort_reads_cache(cfg) else ()), idx)
     batch_c = cohort_batch(batch, idx, m, per_step_batches)
-    eta_c = cohort_eta(cfg, idx)
-
-    def inner(rows, b):
-        x0, lam_t = rows[0], rows[1]
-        snap = (broadcast_rows(x_s_row, x0.shape[0])
-                if cfg.variance_reduction == "svrg" else None)
-        return inner_steps_arena(
-            spec, grad_fn, x0, x_s_row, lam_t, b, K=cfg.inner_steps,
-            eta=cfg.eta if eta_c is None else rows[2], rho=rho,
-            per_step=per_step_batches, vr_snapshot=snap, with_bar=cfg.use_avg)
-
-    rows = (x0_c, lam_c) + (() if eta_c is None else (eta_c,))
-    x_K, x_bar = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
+    x_K, x_bar = cohort_loop(cfg, spec, grad_fn, x_s_row, x0_c, lam_c, batch_c, idx,
+                             per_step_batches)
     x_ref = x_bar if cfg.use_avg else x_K
 
     _, uplink = ops.round_tail(x_ref, lam_c, x_s_row, rho, with_lam_is=False)
@@ -356,6 +378,46 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
         "round": state["round"] + 1,
     }
     return new_state, arena_metrics(lam_sum, x_K, x_s_row, keep_c) | fm
+
+
+def popstore_metrics(x_K, x_s_row, keep_c) -> dict:
+    """A popstore body's device metrics: drift over the surviving cohort
+    rows (the invariant (25) is the host's, off its running sum)."""
+    return {"client_drift": arena_drift(x_K, x_s_row, keep_c),
+            "used_arena": torch.ones((), dtype=torch.float32, device=x_K.device)}
+
+
+def popstore_body(cfg: FederatedConfig, spec, m: int, grad_fn, per_step):
+    """The device half of a host-popstore GPDMM round (``core.popstore``).
+
+    ``body(server, staged, idx, round_idx, batch)`` touches only O(cohort)
+    device memory: ``staged`` carries the sampled rows of the host store,
+    ``u_hat`` (the server's cached uplink view) and ``x_c`` (the primal
+    carry), and the dual rows are rebuilt lazily from the round invariant
+    lam_{s|i} = rho (u_hat_i - x_s) (``ops.dual_from_uplink`` on the staged
+    rows, elementwise, so row for row the dense refresh the device round
+    keeps).  ``idx`` is the cohort's ids on the device, ``round_idx`` the
+    round as a device int32 (the fault plan's key).  Returns ``(rows_out,
+    server_rows, metrics)``; ``rows_out = {u_hat, x_c}`` goes back into the
+    host store, which forms the server mean."""
+    rho = resolved_rho(cfg)
+
+    def body(server, staged, idx, round_idx, batch):
+        x_s_row = spec.pack(server["x_s"])
+        u_hat_c, x0_c = staged["u_hat"], staged["x_c"]
+        lam_c = ops.dual_from_uplink(u_hat_c, x_s_row, rho)  # the lazy dual
+        batch_c = cohort_batch(batch, idx, m, per_step)
+        x_K, x_bar = cohort_loop(cfg, spec, grad_fn, x_s_row, x0_c, lam_c, batch_c, idx,
+                                 per_step)
+        x_ref = x_bar if cfg.use_avg else x_K
+        _, uplink = ops.round_tail(x_ref, lam_c, x_s_row, rho, with_lam_is=False)
+        uplink, keep_c, fm = popstore_tail(cfg, spec, x_s_row, u_hat_c, uplink, idx,
+                                           round_idx, m)
+        x_K_kept = x_K if keep_c is None else torch.where(keep_c[:, None], x_K, x0_c)
+        return ({"u_hat": uplink, "x_c": x_K_kept}, {},
+                popstore_metrics(x_K, x_s_row, keep_c) | fm)
+
+    return body
 
 
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, return_trace,

@@ -9,7 +9,9 @@ per-client L_i of ``eta="auto"``.  ``make_client_prox()`` is the
 exact prox of every client at once, from the kept eigendecompositions (exact
 PDMM and FedSplit).  Like the reference,
 ``affine_arena`` builds the padded ``H = AtA + reg I`` on every call, i.e.
-once per round (about 1.5 GB of traffic at m = d = 500).
+once per round (about 1.5 GB of traffic at m = d = 500).  ``lam_star()``
+(the optimal duals), ``prox_fn()`` (one client's prox) and
+``with_ridge(reg)`` serve the theory instruments (``core.theory``).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import dataclasses
 import torch
 import torch.nn.functional as nnf
 
+from repro_torch.core import prng
 from repro_torch.core.api import make_oracle
 from repro_torch.device import resolve
 
@@ -93,6 +96,20 @@ class LeastSquares:
         return make_oracle(self.grad, grad_arena=grad_arena, affine_arena=affine_arena,
                            curvature_arena=curvature_arena)
 
+    def prox_fn(self, i_free=True):
+        """``prox_one(evals, evecs, Atb, v, rho)``: argmin_x 1/2 ||A x - b||^2
+        + reg/2 ||x||^2 + rho/2 ||x - v||^2 for one client, from its slice of
+        the kept eigendecompositions (map it over the client dim with
+        ``torch.func.vmap``; ``make_client_prox`` is the stacked form)."""
+        reg = self.reg
+
+        def prox_one(evals, evecs, Atb, v, rho):
+            # AtA + reg I shares AtA's eigenvectors: evals shift by reg
+            rhs = Atb + rho * v
+            return evecs @ ((evecs.T @ rhs) / (evals + reg + rho))
+
+        return prox_one
+
     def make_client_prox(self):
         """``prox(v, rho, idx=None)``: argmin_x f_i(x) + rho/2 ||x - v_i||^2
         for every client i at once, v ``(m, d)``.  ``rho`` is a scalar or an
@@ -127,6 +144,29 @@ class LeastSquares:
         """||x - x*|| (accurate through convergence, unlike the f32 gap)."""
         return torch.linalg.vector_norm(x - self.x_star)
 
+    def lam_star(self):
+        """Optimal duals: lam*_{i|s} = grad f_i(x*) (KKT (7)), (m, d)."""
+        return (torch.einsum("mde,e->md", self.AtA, self.x_star) - self.Atb
+                + self.reg * self.x_star[None])
+
+    # -- variants ----------------------------------------------------------
+    def with_ridge(self, reg: float) -> "LeastSquares":
+        """Same data, ridge-regularised objective: the optimum, its value and
+        the smoothness/strong-convexity constants of the new problem,
+        computed in float64 and cast back to the problem's dtype."""
+        f64 = torch.float64
+        dt = self.x_star.dtype
+        AtA, Atb = self.AtA.to(f64), self.Atb.to(f64)
+        H = AtA.sum(0) + self.m * reg * torch.eye(self.d, dtype=f64, device=AtA.device)
+        g = Atb.sum(0)
+        x_star = torch.linalg.solve(H, g)
+        f_star = 0.5 * x_star @ H @ x_star - g @ x_star + 0.5 * self.btb.to(f64).sum()
+        return dataclasses.replace(
+            self, reg=reg, x_star=x_star.to(dt), f_star=f_star.to(dt),
+            L=float(self.evals[:, -1].max()) + reg,
+            mu=float(self.evals[:, 0].min()) + reg,
+        )
+
 
 def generate(gen: torch.Generator, m: int, n: int, d: int, noise_std: float = 0.5,
              device="cuda") -> LeastSquares:
@@ -138,8 +178,24 @@ def generate(gen: torch.Generator, m: int, n: int, d: int, noise_std: float = 0.
     A = torch.randn((m, n, d), **draw).to(dev)
     y0 = torch.randn((d,), **draw).to(dev)
     v = noise_std * torch.randn((m, n), **draw).to(dev)
-    b = torch.einsum("mnd,d->mn", A, y0) + v
+    return _build(A, y0, v)
 
+
+def generate_from_key(key, m: int, n: int, d: int, noise_std: float = 0.5,
+                      device="cuda") -> LeastSquares:
+    """The reference's ``generate(key, ...)`` problem for a ``core.prng``
+    key: the same split and the same three normal draws (``prng.normal``,
+    within a few f32 roundings of jax's), built as ``generate`` builds."""
+    dev = resolve(device)
+    k1, k2, k3 = prng.split(key, dev, num=3)
+    A = prng.normal(k1, m * n * d, dev).reshape(m, n, d)
+    y0 = prng.normal(k2, d, dev)
+    v = noise_std * prng.normal(k3, m * n, dev).reshape(m, n)
+    return _build(A, y0, v)
+
+
+def _build(A, y0, v) -> LeastSquares:
+    b = torch.einsum("mnd,d->mn", A, y0) + v
     AtA = torch.einsum("mnd,mne->mde", A, A)
     Atb = torch.einsum("mnd,mn->md", A, b)
     btb = torch.einsum("mn,mn->m", b, b)

@@ -48,7 +48,7 @@ from repro_torch.core.api import (
 )
 from repro_torch.core.gpdmm import (
     arena_drift, broadcast_rows, cohort_eta, cohort_fault_report, fault_report, participation,
-    round_cohort, round_counter,
+    popstore_metrics, round_cohort, round_counter,
 )
 from repro_torch.kernels import ops
 
@@ -123,39 +123,29 @@ def _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row, mask, c_col
     return new_state, metrics
 
 
-def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches,
-                        donate=False):
-    """SCAFFOLD over the round's sampled cohort: gather the cohort's c_i
-    rows, run the offset inner loop and ``scaffold_cv`` on them, scatter
-    them back (in place when ``donate``).  Silent clients send nothing, so
-    both server means are sums of the cohort's deltas over m (equal to the
-    masked round's at f32: that one adds the server row into the mean and
-    subtracts it back out)."""
+def cohort_step(cfg: FederatedConfig, spec, grad_fn, x_s_row, c_row, c_i_c, idx, round_idx,
+                m: int, batch_c, per_step: bool):
+    """SCAFFOLD's round on the cohort's ``c_i`` rows ``c_i_c``, shared by the
+    device cohort round and the popstore body: the offset inner loop,
+    ``scaffold_cv`` on the wire's corrupted x_t, the screen and the keep
+    select, and both server means as sums of the cohort's deltas over m
+    (silent rows send zero).  Returns (c_i' rows, x_s', c', x_K, keep_c,
+    fault metrics)."""
     K = cfg.inner_steps
-    spec = arena.ArenaSpec.from_tree(state["x_s"])
-    if donate:
-        state = owned(state, ("c_i",))
-    c_i = state["c_i"]
-    m = c_i.shape[0]
-    x_s_row = spec.pack(state["x_s"])
-    c_row = spec.pack(state["c"])
-    idx = round_cohort(cfg, state, m)
-    c_i_c = ops.row_gather(c_i, idx)
-    batch_c = cohort_batch(batch, idx, m, per_step_batches)
     eta_c = cohort_eta(cfg, idx)
 
     def inner(rows, b):
         ci_t = rows[0]
         return inner_steps_plain_arena(
             spec, grad_fn, broadcast_rows(x_s_row, ci_t.shape[0]), x_s_row, b, K=K,
-            eta=cfg.eta if eta_c is None else rows[1], per_step=per_step_batches,
+            eta=cfg.eta if eta_c is None else rows[1], per_step=per_step,
             c_i=ci_t, c_row=c_row)
 
     rows = (c_i_c,) + (() if eta_c is None else (eta_c,))
-    x_K = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step_batches)
+    x_K = run_cohort_inner(cfg, inner, rows, batch_c, per_step=per_step)
 
     # the wire corrupts the transmitted x_K: both uplinked deltas see it
-    fplan = faults.plan(cfg, state["round"], m)
+    fplan = faults.plan(cfg, round_idx, m)
     plan_c = faults.take(fplan, idx)
     x_t = faults.inject(cfg.faults, plan_c, x_K)
     alpha = 1.0 / (K * (cfg.eta if eta_c is None else eta_c))
@@ -172,10 +162,56 @@ def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_ba
     x_s_new = x_s_row + T.weak(cfg.eta_g * inv_m, x_s_row) * torch.sum(
         (x_t - x_s_row[None]).to(f32), dim=0).to(x_s_row.dtype)
     c_new = c_row + T.weak(inv_m, c_row) * torch.sum((c_i_new_c - c_i_c).to(f32), dim=0).to(c_row.dtype)
+    return c_i_new_c, x_s_new, c_new, x_K, keep_c, cohort_fault_report(fplan, plan_c, keep)
+
+
+def _round_arena_cohort(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches,
+                        donate=False):
+    """SCAFFOLD over the round's sampled cohort: gather the cohort's c_i
+    rows, run ``cohort_step`` on them, scatter them back (in place when
+    ``donate``).  Silent clients send nothing, so both server means are
+    sums of the cohort's deltas over m (equal to the masked round's at f32:
+    that one adds the server row into the mean and subtracts it back
+    out)."""
+    spec = arena.ArenaSpec.from_tree(state["x_s"])
+    if donate:
+        state = owned(state, ("c_i",))
+    c_i = state["c_i"]
+    m = c_i.shape[0]
+    x_s_row = spec.pack(state["x_s"])
+    c_row = spec.pack(state["c"])
+    idx = round_cohort(cfg, state, m)
+    c_i_c = ops.row_gather(c_i, idx)
+    batch_c = cohort_batch(batch, idx, m, per_step_batches)
+    c_i_new_c, x_s_new, c_new, x_K, keep_c, fm = cohort_step(
+        cfg, spec, grad_fn, x_s_row, c_row, c_i_c, idx, state["round"], m, batch_c,
+        per_step_batches)
     c_i_new, = scatter_cohort((c_i,), idx, (c_i_new_c,), donate=donate)  # silent: c_i kept
     new_state, metrics = _arena_state(spec, x_s_new, c_new, c_i_new, state, x_K, x_s_row,
                                       keep_c)
-    return new_state, metrics | cohort_fault_report(fplan, plan_c, keep)
+    return new_state, metrics | fm
+
+
+def popstore_body(cfg: FederatedConfig, spec, m: int, grad_fn, per_step):
+    """The device half of a host-popstore SCAFFOLD round (see
+    ``gpdmm.popstore_body``): the cohort's ``c_i`` rows stage from the host
+    store.  SCAFFOLD's cohort server update is already O(cohort) (both
+    means are sums of cohort deltas), so the body forms the new server rows
+    itself, as the device cohort round does, and returns them in
+    ``server_rows``; only the ``c_sum_norm`` diagnostic needs the host's
+    running ``sum(c_i)``."""
+
+    def body(server, staged, idx, round_idx, batch):
+        x_s_row = spec.pack(server["x_s"])
+        c_row = spec.pack(server["c"])
+        batch_c = cohort_batch(batch, idx, m, per_step)
+        c_i_new_c, x_s_new, c_new, x_K, keep_c, fm = cohort_step(
+            cfg, spec, grad_fn, x_s_row, c_row, staged["c_i"], idx, round_idx, m, batch_c,
+            per_step)
+        return ({"c_i": c_i_new_c}, {"x_s": x_s_new, "c": c_new},
+                popstore_metrics(x_K, x_s_row, keep_c) | fm)
+
+    return body
 
 
 def _round_arena(cfg: FederatedConfig, state, grad_fn, batch, per_step_batches, donate):

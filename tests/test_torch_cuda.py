@@ -30,7 +30,9 @@ rtol = atol = 1e-4 (the matvec sums in another order; bf16 rows one
 bf16 ulp, 2^-7, once rounded), its two routes bitwise one another (the
 same f32 operations in the same order); ``flash_attention``
 and ``wkv6`` relative to the largest magnitude, 1e-4 in f32 (sums and exps
-in another order) and 2^-7 in bf16 (one rounding of the f32 result).
+in another order) and 2^-7 in bf16 (one rounding of the f32 result);
+popstore rounds against the device cohort round within atol 1e-5 of the
+largest magnitude (the store's mean is the f64 running sum read at f32).
 """
 import pytest
 import torch
@@ -735,6 +737,55 @@ def test_cuda_donated_cohort_rounds_equal_functional(cuda, algo):
             for x, y in zip(T.leaves(a[k]), T.leaves(b[k]), strict=True):
                 assert torch.equal(x, y), k
     torch.cuda.synchronize()
+
+
+# launches a popstore round (the affine oracle): the lazy dual and the round
+# tail for GPDMM/AGPDMM, SCAFFOLD's control-variate refresh, EF21's one
+# kernel; no row gather or scatter (the host store moves the rows)
+POPSTORE_LAUNCHES = {
+    "gpdmm": dict(inner_loop_affine=1, dual_from_uplink=1, round_tail=1),
+    "agpdmm": dict(inner_loop_affine=1, dual_from_uplink=1, round_tail=1),
+    "scaffold": dict(inner_loop_affine=1, scaffold_cv=1),
+    "fedavg": dict(inner_loop_affine=1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,bits", VARIANTS,
+                         ids=[f"{a}-{'ef21' if b else 'plain'}" for a, b in VARIANTS])
+def test_cuda_popstore_rounds_match_device_cohort_round(cuda, algo, bits):
+    """Three popstore rounds on the card (the host store, the body's
+    kernels) against the device cohort round on the card from the same
+    start: x_s and every store buffer within atol 1e-5 of max(1, max |a|)
+    (the store's mean is the f64 running sum read at f32; the device
+    round's an f32 mean), and the popstore round's launches."""
+    import numpy as np
+
+    from repro_torch.core import popstore
+
+    _, gprob = _problems(cuda)
+    cfg = FederatedConfig(algorithm=algo, inner_steps=5, eta=0.5 / gprob.L, use_arena=True,
+                          participation=0.5, cohort=True, popstore=True, uplink_bits=bits)
+    opt = make(cfg)
+    runner = popstore.Runner(cfg, gprob.oracle())
+    assert runner.device.type == "cuda"
+    x0 = torch.zeros(64, device=cuda)
+    ds, ps = opt.init(x0, 8), runner.init(x0, 8)
+    want = {k.name: 0 for k in P.KERNELS} | dict(POPSTORE_LAUNCHES[algo])
+    if bits:
+        want["ef21_update"] = 1
+    for r in range(3):
+        ds, _ = opt.round(ds, gprob.oracle(), gprob.batch())
+        P.reset_launches()
+        ps, met = runner.round(ps, gprob.batch())
+        assert P.launches() == want
+        for got, ref_ in [(runner.server_params(ps), ds["x_s"])] + [
+                (torch.from_numpy(ps["pop"][n]), ds[n]) for n in popstore.POP_BUFFERS[algo]]:
+            ref_ = ref_.cpu()
+            scale = max(1.0, float(ref_.abs().max()))
+            torch.testing.assert_close(got.cpu() / scale, ref_ / scale, rtol=0, atol=1e-5)
+        assert np.isfinite(float(met["client_drift"]))
+    assert (runner.ring_hits, runner.ring_misses) == (2, 1)
 
 
 def _screen_and_mix_inputs(cuda, g, m, w, dtype, per_row):

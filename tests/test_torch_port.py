@@ -1,8 +1,8 @@
 """The port as a package: it imports neither JAX nor the reference (the
-modules of every slice, autotune, graph-PDMM, the models and the serving
-launcher included), it rejects the
-branches it does not run yet (the host-resident population store) and
-those the reference rejects (EF21 and variance reduction over a graph), it
+modules of every slice, autotune, graph-PDMM, the models, the serving
+launcher, the host-resident population store, the theory instruments,
+telemetry and the data pipeline included), it rejects the branches the
+reference rejects (EF21 and variance reduction over a graph), it
 runs the fault, topology and early-exit branches, its configuration copy
 matches the reference's, its per-leaf pytree path runs, and its quickstart
 converges on the CPU."""
@@ -42,7 +42,11 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
                  "repro_torch.models.stack", "repro_torch.models.model",
                  "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.configs",
                  "repro_torch.configs.olmo_1b", "repro_torch.configs.rwkv6_1p6b",
-                 "repro_torch.configs.yi_34b"):
+                 "repro_torch.configs.yi_34b", "repro_torch.core.popstore",
+                 "repro_torch.core.theory", "repro_torch.telemetry",
+                 "repro_torch.telemetry.spans", "repro_torch.telemetry.metrics",
+                 "repro_torch.telemetry.torchprof", "repro_torch.data",
+                 "repro_torch.data.partition", "repro_torch.data.synthetic"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
