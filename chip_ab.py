@@ -211,6 +211,16 @@ def tables(torch, trees, pairs, out):
         pick(small)
 
 
+def mixture_data(torch, gen, F, C, n, dev):
+    """One class per client, n samples each (class means of norm ~ sqrt(F)
+    0.12 plus unit noise, scaled by 1/10): softmax data drawn the same for
+    both trees, whatever either tree's ``data`` module takes."""
+    means = 0.12 * torch.randn(C, F, generator=gen, device=dev)
+    x = (means[:, None, :] + torch.randn(C, n, F, generator=gen, device=dev)) / 10.0
+    y = torch.arange(C, device=dev, dtype=torch.int32)[:, None].expand(C, n).contiguous()
+    return x, y
+
+
 def rounds(torch, trees, pairs, out, cell_filter=None):
     """Round times, launches, host ops and device-busy time a round, for
     the cells whose label ``cell_filter`` (a regex) finds, or all."""
@@ -220,7 +230,7 @@ def rounds(torch, trees, pairs, out, cell_filter=None):
     def softmax(t):
         F, C, n, B, K = (sm_cfg[k] for k in ("F", "C", "n", "B", "K"))
         sm = t.SoftmaxRegression(F, C)
-        xs, ys = S.mixture_data(torch, S.seeded(torch, 0), F, C, n, "cuda")
+        xs, ys = mixture_data(torch, S.seeded(torch, 0), F, C, n, "cuda")
 
         def batch(r):
             starts = [((r * K + k) * B) % (n - B + 1) for k in range(K)]

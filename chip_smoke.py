@@ -231,7 +231,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 F32_EPS = 2.0 ** -23
 LSQ = dict(m=500, n=500, d=500, K=5, rounds=30)
-SOFTMAX = dict(F=784, C=10, m=10, B=300, K=5, rounds=10, n=1200)
+SOFTMAX = dict(F=784, C=10, m=10, B=300, K=5, rounds=10, n=600)
 # benchmarks/fig2_lsq.py:47-51 and fig1_fedsplit.py:18-30
 FIG2 = dict(rounds=200, methods=("fedavg", "gpdmm", "agpdmm", "scaffold"),
             settings=((500, 500, (1, 5, 20)), (25, 5000, (1, 3, 5, 10, 20))))
@@ -2664,23 +2664,27 @@ def theory_phase(rec, prob, torch, ops, make, FederatedConfig, quadratic, dev, o
           f"theory (c): {kkt}")
 
 
-def mixture_data(torch, gen, F, C, n, dev):
-    """One class per client, n samples each: class means of norm ~ sqrt(F)
-    * 0.12 plus unit noise, scaled by 1/10 (the Table I set-up)."""
-    means = 0.12 * torch.randn(C, F, generator=gen, device=dev)
-    x = (means[:, None, :] + torch.randn(C, n, F, generator=gen, device=dev)) / 10.0
-    y = torch.arange(C, device=dev, dtype=torch.int32)[:, None].expand(C, n).contiguous()
-    return x, y
+def table1_data(dev):
+    """Table I's data (``benchmarks/tab1_softmax.py:54-56``): the reference's
+    ``gaussian_mixture_images(key(0), 600, 120, sep=0.12)`` drawn by the
+    port, one class per client, features scaled by 1/10."""
+    from repro_torch.core import prng
+    from repro_torch.data import partition, synthetic
+
+    ds = synthetic.gaussian_mixture_images(prng.key(0), SOFTMAX["n"], 120, sep=0.12,
+                                           device=dev)
+    xs, ys = partition.by_class(ds.x_train, ds.y_train, SOFTMAX["C"])
+    return xs / 10.0, ys
 
 
-def softmax_phase(rec, torch, ops, make, FederatedConfig, SoftmaxRegression, gen, dev, runs,
+def softmax_phase(rec, torch, ops, make, FederatedConfig, SoftmaxRegression, dev, runs,
                   prof=None):
     """Softmax regression at the Table I size over ``runs`` (label ->
     (config keywords, launches per round)): ``SOFTMAX_RUNS`` in phase 5,
     ``SOFTMAX_PARTIAL`` in phase 8."""
     F, C, m, B, K, R, n = (SOFTMAX[k] for k in ("F", "C", "m", "B", "K", "rounds", "n"))
     prob = SoftmaxRegression(F, C)
-    xs, ys = mixture_data(torch, gen, F, C, n, dev)
+    xs, ys = table1_data(dev)
     pool = {"x": xs.reshape(-1, F), "y": ys.reshape(-1)}
 
     def batch_of(r):
@@ -3914,14 +3918,16 @@ def serve_against_cpu(torch, out):
         res[arch] = e
 
 
-def device_profile(torch, run, rounds):
+def device_profile(torch, run, rounds, host_ops: bool = True):
     """torch.profiler over ``run`` (``rounds`` rounds): device-busy ms and
     device activities (kernels, copies, fills) per round, and the profile's
-    key averages."""
+    key averages; ``host_ops=False`` records the device alone (a round of
+    many thousand host ops then profiles in a fraction of the time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    acts = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as p:
         run()
         torch.cuda.synchronize()
     events = p.key_averages()
@@ -3942,6 +3948,541 @@ def profile_rounds(torch, label, run, round_ms, rounds, out):
     log(table)
     out[f"profile_{label}"] = {"busy_ms_per_round": busy_ms, "round_ms": round_ms,
                                "idle_share": idle, "table": table}
+
+
+
+# ---------------------------------------------------------------------------
+# phase 12: federated LM training, with the backward kernels 16b-17b
+# ---------------------------------------------------------------------------
+
+# (B, S, H, Hkv, hd, dtype name, window): olmo-1b's training and prefill
+# shapes in bf16 and f32, the training round's folded batch (m = 2 clients
+# of 4 rows), and a small grouped, windowed case
+FLASH_BWD_CASES = ((4, 128, 16, 16, 128, "bf16", None), (4, 1024, 16, 16, 128, "bf16", None),
+                   (4, 128, 16, 16, 128, "f32", None), (4, 1024, 16, 16, 128, "f32", None),
+                   (8, 128, 16, 16, 128, "bf16", None),
+                   (2, 256, 8, 2, 64, "bf16", 64), (2, 200, 8, 2, 24, "bf16", None))
+# rwkv6-1.6b's shape (B, S, H, K) with bf16 r, k, v; the training round's
+# folded batch (m = 2 clients of 4 rows, one row of u a client) in bf16;
+# then f32 with one row of u per pair of batch rows
+WKV_BWD_CASES = ((4, 1024, 32, 64, "bf16", 1), (8, 128, 32, 64, "bf16", 2),
+                 (4, 100, 4, 64, "f32", 2))
+# vmap(grad) through ops.flash_attention and ops.wkv6 as a training round
+# takes it: m clients of (B, S, H, hd) or (B, S, H, K), bf16
+VMAP_GRAD = dict(m=2, flash=(4, 128, 16, 128), wkv=(4, 128, 32, 64))
+# the backward against autograd of the plain forward: bf16 rounds P and dS
+# (flash) or the operands (wkv6) before their products, two roundings of
+# 2^-8 each; f32 sums in other orders
+BWD_BF16_REL = 2.0 ** -6
+BWD_F32_REL = 1e-4
+# m = 2: at m = 4 the full-width GPDMM arena round held 63.6 GB when its
+# drift metric asked for 17.5 GB more, past an H100 80GB's 79 GB; at m = 2
+# the round peaks near 55 GB
+TRAIN = dict(arch="olmo-1b", m=2, per_client_batch=4, seq_len=128, k=2, eta=0.05, rounds=3,
+             more=2, seed=0)
+TRAIN_RWKV = dict(arch="rwkv6-1.6b", n_layers=2, m=2, per_client_batch=4, seq_len=128, k=2,
+                  eta=0.05, rounds=2)
+POPSTORE_CKPT = dict(m=10 ** 5, width=1024, cohort=64, K=2, eta=0.1, rounds=2)
+TRAIN_DIR = Path(__file__).resolve().parent / ".train_smoke"
+# the LM example's small preset cut from 60 rounds: its check is finite losses
+LM_EXAMPLE_ROUNDS = 6
+
+
+def train_launches(n_attn: int, k: int, rounds: int, logged: int) -> dict:
+    """A GPDMM arena round of the LM, read off the code: each of the K
+    client gradients runs every attention layer forward (16) and backward
+    (16b) once for all clients (the vmap rule folds them into the batch),
+    the K steps are K ``fused_update_arena`` launches, the server step
+    ``round_tail_mean`` + ``dual_from_uplink``; each logged row adds one
+    vmapped forward of the server model."""
+    return dict(flash_attention=n_attn * (k * rounds + logged),
+                flash_attention_bwd=n_attn * k * rounds, fused_update_arena=k * rounds,
+                round_tail_mean=rounds, dual_from_uplink=rounds)
+
+
+def check_backward_kernels(rec, torch, ops, ref, gen, out):
+    """Kernels 16b and 17b against autograd of their plain versions on the
+    card, at the training shapes; timed at olmo-1b's prefill shape (flash,
+    beside autograd of ``scaled_dot_product_attention``) and rwkv6-1.6b's
+    (wkv6) with their bounds."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as _fa
+    from repro_torch.kernels import wkv6 as _wk
+
+    dev = gen.device
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    res = out["backward_kernels"] = {}
+    for B, S, H, Hkv, hd, dn, window in FLASH_BWD_CASES:
+        dt = dts[dn]
+        q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dt) for _ in range(2))
+        do = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+        o, lse = _fa.flash_attention(q, k, v, window=window, lse=True)
+        pos = torch.arange(S, device=dev)
+        lse_w = ref.flash_attention_lse_ref(q, k, pos, pos, window=window)
+        got = _fa.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+        want = ref.flash_attention_bwd_ref(q, k, v, do, pos, pos, window=window)
+        errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
+        e_lse = max_err(lse, lse_w)
+        tol = BWD_BF16_REL if dt == torch.bfloat16 else BWD_F32_REL
+        what = f"flash_attention_bwd {(B, S, H, Hkv, hd)} {dn} window {window}"
+        check(max(errs) <= tol and e_lse <= KERNEL_F32_REL * max(1.0, float(lse_w.abs().max())),
+              f"{what}: dq/dk/dv rel errors {errs} (tol {tol}), lse abs error {e_lse}")
+        log(f"{what}: dq, dk, dv rel errors {['%.3e' % e for e in errs]}, lse {e_lse:.3e}")
+        res[f"flash {(B, S, H, Hkv, hd)} {dn} {window}"] = errs
+    B, S, H, hd = FLASH_SHAPE
+    q, k, v, do = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = _fa.flash_attention(q, k, v, lse=True)
+    pos = torch.arange(S, device=dev)
+    got = _fa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, pos, pos)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    # 2.5 times the forward's products (S, dP, dq, dk, dv against S, p v);
+    # q, k, v, o, do read and dq, dk, dv written once, bf16, and lse f32
+    rec.kernel("flash_attention_bwd", max(max_err(a, b) for a, b in zip(got, want)),
+               lambda: _fa.flash_attention_bwd(q, k, v, o, lse, do),
+               lambda: ref.flash_attention_bwd_ref(q, k, v, do, pos, pos), 10,
+               2 * 8 * B * S * H * hd + 4 * B * H * S, 2.5 * flash_flops(B, H, S, S, hd),
+               library_fn=lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+               flop_per_s=BF16_FLOP_PER_S)
+
+    for B, S, H, K, dn, n_u in WKV_BWD_CASES:
+        dt = dts[dn]
+        r, kk, vv, dy = (torch.randn(B, S, H, K, generator=gen, device=dev).to(dt)
+                         for _ in range(4))
+        w = torch.exp(-torch.exp(0.5 * torch.randn(B, S, H, K, generator=gen, device=dev) - 1.0))
+        u = 0.1 * torch.randn(*((n_u,) if n_u > 1 else ()), H, K, generator=gen, device=dev)
+        s0 = 0.1 * torch.randn(B, H, K, K, generator=gen, device=dev)
+        dsf = torch.randn(B, H, K, K, generator=gen, device=dev)
+        y, s_out, states = _wk.wkv6(r, kk, vv, w, u, s0, keep_states=True)
+        got = _wk.wkv6_bwd(r, kk, vv, w, u, s0, s_out, states, dy, dsf)
+        want = ref.wkv6_bwd_ref(r, kk, vv, w, u, s0, dy, dsf)
+        errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
+        tol = BWD_BF16_REL if dt == torch.bfloat16 else BWD_F32_REL
+        what = f"wkv6_bwd {(B, S, H, K)} {dn}, {n_u} row(s) of u"
+        check(max(errs) <= tol, f"{what}: dr dk dv dw du ds0 rel errors {errs} (tol {tol})")
+        log(f"{what}: dr dk dv dw du ds0 rel errors {['%.3e' % e for e in errs]}")
+        res[what] = errs
+        if (B, S, H, K) == WKV_SHAPE:
+            nc, C, V = -(-S // 64), 64, K
+            # per chunk: att, dr and dk take C^2 K / 2 multiply-adds each with
+            # an exp, datt and dv C^2 V / 2, and four products of C K V: S0 dy
+            # (dr), dS v (dk), dS^T ec (dv) and the carry's (r e^la)^T dy
+            flops = 2.0 * B * H * nc * (3 * C * C * K / 2 + 2 * C * C * V / 2 + 4 * C * K * V)
+            nbytes = (2 * 4 * B * S * H * K + 4 * B * S * H * K + 4 * H * K * n_u
+                      + 4 * 3 * B * H * K * K + 4 * B * H * nc * K * K      # read
+                      + 2 * 3 * B * S * H * K + 4 * B * S * H * K + 4 * H * K * n_u
+                      + 4 * B * H * K * K)                                  # written
+            rec.kernel("wkv6_bwd", max(max_err(a, b) for a, b in zip(got, want)),
+                       lambda: _wk.wkv6_bwd(r, kk, vv, w, u, s0, s_out, states, dy, dsf),
+                       lambda: ref.wkv6_bwd_ref(r, kk, vv, w, u, s0, dy, dsf), 10, nbytes,
+                       flops)
+    torch.cuda.synchronize()
+    check_backward_functions(torch, ops, ref, gen, out)
+
+
+def check_backward_functions(torch, ops, ref, gen, out):
+    """``vmap(grad)`` through ``ops.flash_attention`` and ``ops.wkv6`` on the
+    card, as a training round takes its client gradients (``VMAP_GRAD``:
+    olmo-1b's and rwkv6-1.6b's shapes, bf16, one row of u a client, s0
+    unbatched), against ``vmap(grad)`` of the plain forwards on the same card
+    tensors: each gradient within ``BWD_BF16_REL`` of its largest magnitude,
+    and one launch of each kernel for all the clients (the vmap rules fold
+    them into the batch)."""
+    dev = gen.device
+    bf, m = torch.bfloat16, VMAP_GRAD["m"]
+    res = out["backward_functions"] = {}
+
+    def held(what, got, want, counts, kernels):
+        errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
+        shapes = all(a.shape == b.shape and a.dtype == b.dtype for a, b in zip(got, want))
+        check(shapes and max(errs) <= BWD_BF16_REL,
+              f"vmap(grad) {what}: rel errors {errs} (tol {BWD_BF16_REL}), shapes {shapes}")
+        check(all(counts[k] == 1 for k in kernels),
+              f"vmap(grad) {what}: launches {counts}, expected one of each of {kernels}")
+        log(f"vmap(grad) {what}, m = {m}: rel errors {['%.3e' % e for e in errs]}; one launch "
+            f"each of {kernels}")
+        res[what] = errs
+
+    B, S, H, hd = VMAP_GRAD["flash"]
+    q, k, v = (torch.randn(m, B, S, H, hd, generator=gen, device=dev).to(bf) for _ in range(3))
+    c = torch.randn(B, S, H, hd, generator=gen, device=dev)
+    pos = torch.arange(S, device=dev)
+
+    def f(q, k, v):
+        return (ops.flash_attention(q, k, v, causal=True).float() * c).sum()
+
+    def f_plain(q, k, v):
+        return (ref.flash_attention_ref(q, k, v, pos, pos, causal=True).float() * c).sum()
+
+    ops.reset_launches()
+    got = torch.func.vmap(torch.func.grad(f, argnums=(0, 1, 2)))(q, k, v)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    want = torch.func.vmap(torch.func.grad(f_plain, argnums=(0, 1, 2)))(q, k, v)
+    held(f"flash_attention {(B, S, H, hd)}", got, want, counts,
+         ("flash_attention", "flash_attention_bwd"))
+    del q, k, v, got, want
+
+    B, S, H, K = VMAP_GRAD["wkv"]
+    r, kk, vv = (torch.randn(m, B, S, H, K, generator=gen, device=dev).to(bf) for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * torch.randn(m, B, S, H, K, generator=gen, device=dev) - 1.0))
+    u = 0.1 * torch.randn(m, H, K, generator=gen, device=dev)
+    s0 = torch.zeros(B, H, K, K, device=dev)
+    cy = torch.randn(B, S, H, K, generator=gen, device=dev)
+    cs = torch.randn(B, H, K, K, generator=gen, device=dev)
+
+    def loss(fn):
+        def f(r, k, v, w, u):
+            y, s = fn(r, k, v, w, u, s0)
+            return (y.float() * cy).sum() + (s * cs).sum()
+        return f
+
+    args = (0, 1, 2, 3, 4)
+    ops.reset_launches()
+    got = torch.func.vmap(torch.func.grad(loss(ops.wkv6), argnums=args))(r, kk, vv, w, u)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    want = torch.func.vmap(torch.func.grad(loss(ref.wkv6_ref), argnums=args))(r, kk, vv, w, u)
+    held(f"wkv6 {(B, S, H, K)}, u a client", got, want, counts, ("wkv6", "wkv6_bwd"))
+
+
+def _rows_equal(a, b) -> bool:
+    return sorted(a) == sorted(b) and all(
+        (a[k] == b[k]) or (a[k] != a[k] and b[k] != b[k]) for k in a)
+
+
+def train_phase(rec, torch, ops, out):
+    """olmo-1b at full width and depth through ``launch.train.run``: 3
+    rounds into a checkpoint, 2 more with ``resume``, against 5 rounds
+    uninterrupted (every logged value bitwise equal); finite loss and drift,
+    ``lam_sum_norm`` at its rounding scale, the launches as derived; then
+    ms a round, peak allocation and the idle share of the same round."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+
+    res = out["train"] = {}
+    cfg = get_arch(TRAIN["arch"])
+    n_attn = cfg.n_layers
+    m = TRAIN["m"]
+    kw = dict(reduced=False, algorithm="gpdmm", k=TRAIN["k"], eta=TRAIN["eta"],
+              per_client_batch=TRAIN["per_client_batch"], seq_len=TRAIN["seq_len"],
+              seed=TRAIN["seed"], log_every=1, device="cuda")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    free = shutil.disk_usage(TRAIN_DIR.parent).free
+    log(f"train: free disk {free / 1e9:.1f} GB, host MemAvailable "
+        f"{(mem_available_bytes() or 0) / 1e9:.1f} GB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    first = train.run(TRAIN["arch"], steps=TRAIN["rounds"], m=m, ckpt_dir=str(TRAIN_DIR),
+                      ckpt_keep=1, **kw)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rec.add(counts)
+    want = {n: 0 for n in counts} | train_launches(n_attn, TRAIN["k"], TRAIN["rounds"],
+                                                   TRAIN["rounds"])
+    log(f"train {TRAIN['arch']} full width, m={m}: {TRAIN['rounds']} rounds + checkpoint in "
+        f"{first_s:.1f} s; peak allocation {peak / 1e9:.2f} GB; launches "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    check(counts == want, f"train: launches {counts}, expected {want}")
+    for row in first:
+        log(f"train row {row}")
+        check(all(math.isfinite(v) for v in row.values()), f"train: row not finite {row}")
+    res |= {"m": m, "peak_allocated_gb": peak / 1e9, "first_run_s": first_s, "rows": first}
+
+    t0 = time.perf_counter()
+    resumed = train.run(TRAIN["arch"], steps=TRAIN["rounds"] + TRAIN["more"], m=m,
+                        ckpt_dir=str(TRAIN_DIR), ckpt_keep=1, resume=True, **kw)
+    resume_s = time.perf_counter() - t0
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    whole = train.run(TRAIN["arch"], steps=TRAIN["rounds"] + TRAIN["more"], m=m, **kw)
+    whole_s = time.perf_counter() - t0
+    log(f"train: resumed {TRAIN['more']} rounds in {resume_s:.1f} s; "
+        f"{TRAIN['rounds'] + TRAIN['more']} uninterrupted rounds in {whole_s:.1f} s")
+    check([r["round"] for r in resumed] == [r["round"] for r in whole[TRAIN["rounds"]:]],
+          f"train resume: rounds {[r['round'] for r in resumed]}")
+    for a, b in zip(first + resumed, whole):
+        check(_rows_equal(a, b), f"train resume: {a} != uninterrupted {b}")
+    log("train: save at 3 + resume == 5 uninterrupted rounds, every logged value bitwise")
+    res |= {"resume_s": resume_s, "whole_s": whole_s, "resumed_rows": resumed,
+            "whole_rows": whole}
+    t0 = time.perf_counter()
+    res |= train_round_profile(torch, m)
+    res["profile_s"] = time.perf_counter() - t0
+    log(f"train: the round's profile in {res['profile_s']:.1f} s")
+
+
+def check_wide_arena(torch, ops, ref, gen, out):
+    """Kernels 4, 2 and 3 (``fused_update_arena``, ``round_tail_mean``,
+    ``server_dual``) once each on seeded bf16 data at the (m, W) arena of
+    the olmo-1b training above, whose m W elements pass 2^31, against their
+    plain versions over every column, a slice of columns at a time: the
+    step, the running sum, the dual flip and the dual refresh (given the
+    kernel's uplink and mean) bitwise; the uplink within one bf16 step of
+    each entry and 2^-21 |lam_is / rho| (the plain version multiplies by
+    1/rho, the kernel divides); the client mean within
+    one bf16 step of ``torch.mean`` of the kernel's uplink; lam's
+    column sum within 2 (d + 2) u of each column's sum |lam| of
+    ``torch.sum`` (d the kernel's summation depth, u = 2^-24)."""
+    from repro_torch.kernels import round_tail as RT
+
+    m, W = TRAIN["m"], out["train"]["arena_width"]
+    check(m * W > 2 ** 31, f"wide arena: m W = {m * W} does not pass 2^31")
+    dev, bf, f32 = gen.device, torch.bfloat16, torch.float32
+    rho, step, cols = 2.5, 0.05, 1 << 26
+    slices = [slice(c, min(c + cols, W)) for c in range(0, W, cols)]
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=bf)
+
+    x, g, lam, acc0 = draw(m, W), draw(m, W), draw(m, W), draw(m, W)
+    xs = draw(W)
+    acc = acc0.clone()
+    ops.reset_launches()
+    got = ops.fused_update_arena(x, g, xs, lam, step, rho, acc=acc, acc_mode="last",
+                                 acc_scale=1.0 / TRAIN["k"])
+    for sl in slices:
+        a = acc0[:, sl].clone()
+        want = ref.fused_update_arena_ref(x[:, sl], g[:, sl], xs[sl], lam[:, sl], step, rho,
+                                          acc=a, acc_mode="last", acc_scale=1.0 / TRAIN["k"])
+        check(same_bits(torch, got[:, sl], want) and same_bits(torch, acc[:, sl], a),
+              f"wide arena: fused_update_arena differs in columns {sl.start}:{sl.stop}")
+    del x, g, acc0, acc, got
+
+    x_ref = draw(m, W)
+    lam_is, up, mean = ops.round_tail_mean(x_ref, lam, xs, rho, with_lam_is=True)
+    lam_n, colsum = ops.server_dual(up, mean, rho)
+    d = RT.depth_on(up)
+    counts = ops.launches()
+    check(counts["fused_update_arena"] == 1 and counts["round_tail_mean"] == 1
+          and counts["dual_from_uplink"] == 1, f"wide arena: launches {counts}")
+    for sl in slices:
+        li, u = ref.round_tail_ref(x_ref[:, sl], lam[:, sl], xs[sl], rho)
+        check(same_bits(torch, lam_is[:, sl], li),
+              f"wide arena: round_tail_mean's flip differs in {sl.start}:{sl.stop}")
+        # the kernel divides lam_is by rho where the plain version multiplies
+        # by 1/rho: up to 2^-22 |lam_is / rho| apart in f32, then one bf16
+        # rounding each (the uplink may cancel far below |lam_is / rho|)
+        q = (rho * (xs[sl].float() - x_ref[:, sl].float()) - lam[:, sl].float()).abs() / rho
+        steps = torch.maximum(bf16_ulp(torch, up[:, sl]), bf16_ulp(torch, u)) + 2.0 ** -21 * q
+        check(bool(((up[:, sl].float() - u.float()).abs() <= steps).all()),
+              f"wide arena: uplink off by more than a bf16 step in {sl.start}:{sl.stop}")
+        u = up[:, sl]
+        mt = torch.mean(u, dim=0)
+        steps = torch.maximum(bf16_ulp(torch, mean[sl]), bf16_ulp(torch, mt))
+        check(bool(((mean[sl].float() - mt.float()).abs() <= steps).all()),
+              f"wide arena: client mean off by more than a bf16 step in {sl.start}:{sl.stop}")
+        ln = ref.dual_from_uplink_ref(u, mean[sl], rho)
+        check(same_bits(torch, lam_n[:, sl], ln),
+              f"wide arena: server_dual's lam differs in {sl.start}:{sl.stop}")
+        lf = ln.to(f32)
+        tol = 2 * (d + 2) * UNIT_ROUNDOFF * lf.abs().sum(0)
+        check(bool(((colsum[sl] - lf.sum(0)).abs() <= tol).all()),
+              f"wide arena: lam's column sum off in {sl.start}:{sl.stop} (depth {d})")
+    log(f"wide arena ({m}, {W}) bf16, {m * W} elements (element 2^31 is row "
+        f"{2 ** 31 // W}, column {2 ** 31 % W}): fused_update_arena, round_tail_mean and "
+        f"server_dual against their plain versions over all {W} columns in "
+        f"{len(slices)} slices")
+    out["wide_arena"] = {"m": m, "width": W, "elements": m * W, "slices": len(slices)}
+    del x_ref, lam, xs, lam_is, up, mean, lam_n, colsum
+    torch.cuda.empty_cache()
+
+
+def train_round_profile(torch, m) -> dict:
+    """The launcher's round (the same model, optimiser and data calls)
+    timed on its own: ms a round with CUDA synchronisation, peak allocation
+    and the device's idle share under torch.profiler."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import arena, make, prng, resolved_rho
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build
+
+    cfg = get_arch(TRAIN["arch"])
+    model = build(cfg)
+    params = model.init(prng.key(TRAIN["seed"]), device="cuda")
+    fcfg = FederatedConfig(algorithm="gpdmm", inner_steps=TRAIN["k"], eta=TRAIN["eta"],
+                           num_clients=m)
+    fed = make(fcfg)
+    rnd = fed.round_ or fed.round
+    state = fed.init(params, m)
+    del params
+
+    def grad(p, b):
+        return torch.func.grad(lambda q: model.loss(q, b)[0])(p)
+
+    batches = list(lm_batches(prng.key(TRAIN["seed"] + 1), 5, m, TRAIN["per_client_batch"],
+                              TRAIN["seq_len"], cfg.vocab_size, device="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = rnd(state, grad, batches[0])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:3]:
+        state, met = rnd(state, grad, b)
+    torch.cuda.synchronize()
+    round_ms = 1e3 * (time.perf_counter() - t0) / 2
+    # lam_sum_norm is the norm of a sum that is zero in exact arithmetic;
+    # the bf16 arena holds it to eps (rho m ||x_s|| + sqrt(m) ||lam||_F),
+    # eps = 2^-8 (phase 3's invariants, with bf16's rounding)
+    spec = arena.ArenaSpec.from_tree(state["x_s"])
+    xs = float(spec.pack(state["x_s"]).float().norm())
+    lam_f = float(state["lam_s"].float().norm())
+    scale = 2.0 ** -8 * (resolved_rho(fcfg) * m * xs + math.sqrt(m) * lam_f)
+    lsn = float(met["lam_sum_norm"])
+    log(f"train round: lam_sum_norm {lsn:.4e} against its rounding scale {scale:.4e} "
+        f"(||x_s|| {xs:.4e}, ||lam||_F {lam_f:.4e})")
+    check(math.isfinite(lsn) and lsn <= scale, f"train: lam_sum_norm {lsn} > {scale}")
+    holder = {"s": state}
+    del state
+
+    def two():
+        for b in batches[3:5]:
+            holder["s"], _ = rnd(holder["s"], grad, b)
+
+    busy_ms, acts, events = device_profile(torch, two, 2, host_ops=False)
+    peak = torch.cuda.max_memory_allocated()
+    idle = max(0.0, 1.0 - busy_ms / round_ms)
+    log(f"train round {TRAIN['arch']} m={m}: {round_ms:.2f} ms/round, device busy "
+        f"{busy_ms:.2f} ms/round ({acts:.0f} device activities), idle share {idle:.3f}, "
+        f"peak allocation {peak / 1e9:.2f} GB")
+    table = events.table(sort_by="self_device_time_total", row_limit=15)
+    log(table)
+    width = holder["s"]["lam_s"].shape[1]
+    del holder
+    torch.cuda.empty_cache()
+    return {"arena_width": width, "round_ms": round_ms, "busy_ms_per_round": busy_ms,
+            "idle_share": idle,
+            "round_peak_allocated_gb": peak / 1e9, "lam_sum_norm": lsn,
+            "lam_sum_norm_scale": scale, "profile_table": table}
+
+
+def train_rwkv_phase(rec, torch, ops, out):
+    """rwkv6-1.6b at full width, depth cut to 2 layers: GPDMM rounds on the
+    card with kernels 17 and 17b; loss and drift finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import make, prng
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build
+
+    P_ = TRAIN_RWKV
+    cfg = dataclasses.replace(get_arch(P_["arch"]), n_layers=P_["n_layers"])
+    model = build(cfg)
+    params = model.init(prng.key(0), device="cuda")
+    fed = make(FederatedConfig(algorithm="gpdmm", inner_steps=P_["k"], eta=P_["eta"],
+                               num_clients=P_["m"]))
+    state = fed.init(params, P_["m"])
+
+    def grad(p, b):
+        return torch.func.grad(lambda q: model.loss(q, b)[0])(p)
+
+    ops.reset_launches()
+    rows = []
+    for b in lm_batches(prng.key(1), P_["rounds"], P_["m"], P_["per_client_batch"],
+                        P_["seq_len"], cfg.vocab_size, device="cuda"):
+        state, met = fed.round(state, grad, b)
+        with torch.no_grad():
+            loss = float(torch.func.vmap(lambda x: model.loss(fed.server_params(state),
+                                                              x)[0])(b).mean())
+        rows.append({"server_loss": loss, "client_drift": float(met["client_drift"])})
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    rec.add(counts)
+    log(f"train {P_['arch']} full width, {P_['n_layers']} layers, m={P_['m']}: rows {rows}; "
+        f"launches { {n: c for n, c in counts.items() if c} }")
+    n_grad = P_["n_layers"] * P_["k"] * P_["rounds"]
+    check(counts["wkv6_bwd"] == n_grad and counts["wkv6"] == n_grad + P_["n_layers"]
+          * P_["rounds"], f"train rwkv: launches {counts}")
+    check(all(math.isfinite(v) for r in rows for v in r.values()), f"train rwkv: {rows}")
+    out["train_rwkv"] = {"rows": rows, "launches": {n: c for n, c in counts.items() if c}}
+    del state, params
+    torch.cuda.empty_cache()
+
+
+def examples_phase(torch, out):
+    """The four library examples and the LM training example on the card,
+    each with its own checks (their asserts)."""
+    import importlib.util
+
+    res = out["examples"] = {}
+    root = Path(__file__).resolve().parent / "examples"
+    for name, argv in (("torch_quickstart", []), ("torch_fedsplit_vs_pdmm", []),
+                       ("torch_quantized_uplink", []), ("torch_ring_pdmm", []),
+                       ("torch_train_federated_lm", ["--steps", str(LM_EXAMPLE_ROUNDS)])):
+        spec = importlib.util.spec_from_file_location(name, root / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        got = mod.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        res[name] = {"s": time.perf_counter() - t0, "result": got}
+        log(f"example {name}: {res[name]['s']:.1f} s, {got}")
+    fs = res["torch_fedsplit_vs_pdmm"]["result"]
+    check(fs["exact_diff"] < 1e-3, f"fedsplit_vs_pdmm: exact PDMM != FedSplit {fs}")
+    lm = res["torch_train_federated_lm"]["result"]
+    check(all(math.isfinite(loss) for c in lm.values() for _, loss in c), f"train example {lm}")
+
+
+def popstore_ckpt_phase(torch, out):
+    """The population store at 10^5 x 1,024 saved (its (m, W) buffers
+    streamed in chunks) and resumed: the next round equals the
+    uninterrupted one bitwise."""
+    import shutil
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.checkpoint import msgpack_ckpt
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import popstore
+
+    P_ = POPSTORE_CKPT
+    m, w = P_["m"], P_["width"]
+    cfg = FederatedConfig(algorithm="gpdmm", inner_steps=P_["K"], eta=P_["eta"], use_arena=True,
+                          participation=P_["cohort"] / m, cohort=True, popstore=True,
+                          arena_min_width=w)
+
+    def grad(p, b):
+        return {k: 0.1 * v for k, v in p.items()}
+
+    batch = {"d": torch.zeros(m, 1, device="cuda")}
+    runner = popstore.Runner(cfg, grad, device="cuda")
+    s = runner.init({"w": torch.full((w,), 0.5, device="cuda")}, m)
+    for _ in range(P_["rounds"]):
+        s, _ = runner.round(s, batch)
+    d = TRAIN_DIR / "popstore"
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = ckpt.save(d, P_["rounds"], s)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ckpt.load(d, P_["rounds"])
+    load_s = time.perf_counter() - t0
+    big = s["pop"]["u_hat"].nbytes
+    check(big > msgpack_ckpt.CHUNK_BYTES, "popstore ckpt: the store did not stream")
+    back["x_s"] = {k: v.to("cuda") for k, v in back["x_s"].items()}
+    s, _ = runner.round(s, batch)
+    back, _ = popstore.Runner(cfg, grad, device="cuda").round(back, batch)
+    for name in popstore.POP_BUFFERS["gpdmm"]:
+        check(bool((s["pop"][name] == back["pop"][name]).all()),
+              f"popstore ckpt: {name} drifted across the resume")
+    check(torch.equal(s["x_s"]["w"], back["x_s"]["w"]), "popstore ckpt: x_s drifted")
+    size = Path(path).stat().st_size
+    log(f"popstore ckpt ({m}, {w}): saved {size / 1e6:.0f} MB in {save_s:.2f} s, loaded in "
+        f"{load_s:.2f} s; the next round bitwise the uninterrupted one")
+    out["popstore_ckpt"] = {"bytes": size, "save_s": save_s, "load_s": load_s}
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
 
 def main() -> int:
@@ -4020,7 +4561,7 @@ def main() -> int:
             profile_rounds(torch, label, run, round_ms, rounds, out)
     timed("4 lsq", lsq_phase, rec, prob, torch, ops, make, FederatedConfig, dev, prof)
     timed("5 softmax", softmax_phase, rec, torch, ops, make, FederatedConfig, SoftmaxRegression,
-          seeded(torch, 0), dev, SOFTMAX_RUNS, prof)
+          dev, SOFTMAX_RUNS, prof)
 
     t0 = time.perf_counter()
     prob25 = quadratic.generate(seeded(torch, 0), m=FIG1["m"], n=FIG1["n"], d=LSQ["d"],
@@ -4038,7 +4579,7 @@ def main() -> int:
     timed("8 participation", participation_phase, rec, prob, torch, ops, make, FederatedConfig,
           dev, out, prof)
     timed("8 softmax", softmax_phase, rec, torch, ops, make, FederatedConfig, SoftmaxRegression,
-          seeded(torch, 0), dev, SOFTMAX_PARTIAL, prof)
+          dev, SOFTMAX_PARTIAL, prof)
     timed("8 population", population_phase, rec, torch, ops, make, make_oracle,
           FederatedConfig, dev, out)
     timed("8 popstore", popstore_phase, rec, prob, torch, ops, ref, make, make_oracle,
@@ -4055,6 +4596,13 @@ def main() -> int:
     timed("11 model kernels", check_model_kernels, rec, torch, ops, ref, seeded(torch, 41), out)
     timed("11 serve", serve_phase, rec, torch, ops, dev, out)
     timed("11 card vs cpu", serve_against_cpu, torch, out)
+    timed("12 backward kernels", check_backward_kernels, rec, torch, ops, ref, seeded(torch, 73),
+          out)
+    timed("12 train", train_phase, rec, torch, ops, out)
+    timed("12 wide arena", check_wide_arena, torch, ops, ref, seeded(torch, 79), out)
+    timed("12 train rwkv", train_rwkv_phase, rec, torch, ops, out)
+    timed("12 examples", examples_phase, torch, out)
+    timed("12 popstore ckpt", popstore_ckpt_phase, torch, out)
 
     kernels = {"kernels": list(rec.rows.values())}
     out |= kernels

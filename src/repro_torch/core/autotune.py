@@ -123,9 +123,13 @@ def estimate_L(grad_fn, params, m: int, batch, *, spec=None, iters: int = POWER_
         def hvp(v):
             return torch.func.jvp(lambda xa: ga(xa, batch), (x0,), (v,))[1]
     else:
+        # the tangent comes out of ``spec.unpack`` with every dict's keys
+        # sorted; jvp wants the primal in that same structure
+        primal = T.tmap(lambda x: x, params)
+
         def one(bi, vi):
             tangent = spec.unpack(vi)
-            return spec.pack(torch.func.jvp(lambda p: grad_fn(p, bi), (params,),
+            return spec.pack(torch.func.jvp(lambda p: grad_fn(p, bi), (primal,),
                                             (tangent,))[1])
 
         def hvp(v):

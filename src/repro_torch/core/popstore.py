@@ -45,8 +45,11 @@ State layout (a plain dict):
 
 ``Runner.round`` writes the ``pop`` arrays in place (the scatter) and
 returns a new dict sharing them: callers must not hold the old state as a
-snapshot.  The store holds float32 rows (numpy has no bfloat16, so a bf16
-arena is refused).
+snapshot.  The store holds the arena's dtype.  numpy has no bfloat16, so a
+bf16 store is a CPU ``torch.bfloat16`` tensor (the reference keeps an
+``ml_dtypes`` array; either checkpoints as "bfloat16") that the runner
+reads and writes through a ``np.uint16`` view of its words (``_words``),
+widened to f32 by a 16-bit shift for the float64 sums (``_wide``, exact).
 """
 from __future__ import annotations
 
@@ -91,11 +94,29 @@ def supported(cfg: FederatedConfig) -> bool:
     return cfg.algorithm in POP_BUFFERS
 
 
+def _words(t) -> np.ndarray:
+    """A host view of a store buffer or pinned rows: the f32 numpy array
+    itself, or the ``np.uint16`` words of a bf16 tensor (shared memory)."""
+    if isinstance(t, np.ndarray):
+        return t
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _wide(a: np.ndarray) -> np.ndarray:
+    """Rows of the store as f32 (bf16 words shifted into the high half:
+    exact); f32 rows as they are."""
+    if a.dtype == np.uint16:
+        return (a.astype(np.uint32) << 16).view(np.float32)
+    return a
+
+
 def _col_sum64(buf: np.ndarray) -> np.ndarray:
     """Chunked float64 column sum: O(chunk x width) transient memory."""
     out = np.zeros(buf.shape[1], np.float64)
     for i in range(0, buf.shape[0], _SUM_CHUNK_ROWS):
-        out += buf[i:i + _SUM_CHUNK_ROWS].astype(np.float64).sum(axis=0)
+        out += _wide(buf[i:i + _SUM_CHUNK_ROWS]).astype(np.float64).sum(axis=0)
     return out
 
 
@@ -134,7 +155,7 @@ class _Staged:
 
     @property
     def host_rows(self) -> dict:
-        return {n: t.numpy() for n, t in self.slot.rows.items()}
+        return {n: _words(t) for n, t in self.slot.rows.items()}
 
 
 class Runner:
@@ -181,9 +202,7 @@ class Runner:
                 f"hold (participation={cfg.participation}, cohort="
                 f"{cfg.cohort!r}, algorithm={cfg.algorithm!r}, m={m})")
         spec = arena.ArenaSpec.from_tree(x_s)
-        dtype = T.leaves(x_s)[0].dtype
-        if dtype != torch.float32:
-            raise ValueError(f"popstore keeps float32 rows in its numpy store, got {dtype}")
+        dtype = spec.dtype
         self._spec, self._m = spec, m
         self._body = _BODY_FACTORY[self.algo](cfg, spec, m, self.grad_fn, self.per_step)
         mc = T.cohort_count(m, cfg.participation)
@@ -224,7 +243,7 @@ class Runner:
         idx_np = slot.ids.numpy().copy()
         slot.writable()
         for name in self.buffers:
-            slot.rows[name].numpy()[...] = store[name][idx_np]
+            _words(slot.rows[name])[...] = _words(store[name])[idx_np]
         return _Staged(round_idx, idx_np, idx_dev, slot,
                        tuple(id(store[n]) for n in self.buffers))
 
@@ -251,21 +270,23 @@ class Runner:
         params = T.tmap(lambda p: p.to(self.device), params)
         self._build(params, m)
         spec = self._spec
-        row = spec.pack(params).cpu().numpy()
+        row_t = spec.pack(params).cpu()
+        row = _words(row_t)
         pop = {}
         for name in self.buffers:
-            buf = np.empty((m, spec.width), row.dtype)
+            buf = (torch.empty((m, spec.width), dtype=row_t.dtype)
+                   if row_t.dtype == torch.bfloat16 else np.empty((m, spec.width), row.dtype))
             if name == "c_i":
-                buf[:] = 0  # SCAFFOLD control variates start at zero
+                _words(buf)[:] = 0  # SCAFFOLD control variates start at zero
             else:
-                buf[:] = row  # u_hat / x_c: round-0 broadcast of the server row
+                _words(buf)[:] = row  # u_hat / x_c: round-0 broadcast of the server row
             pop[name] = buf
         sum_name = self.mean_buffer or self.buffers[0]
         if sum_name == "c_i":
             pop_sum = np.zeros(spec.width, np.float64)
         else:
             # m identical rows: m * row is the correctly rounded f64 sum
-            pop_sum = row.astype(np.float64) * m
+            pop_sum = _wide(row).astype(np.float64) * m
         state = {
             "x_s": params,
             "round": 0,
@@ -285,16 +306,22 @@ class Runner:
         store = state["pop"]
         changed = False
         for name, buf in store.items():
-            b = buf.detach().cpu().numpy() if torch.is_tensor(buf) else np.asarray(buf)
-            if not isinstance(buf, np.ndarray) or not b.flags.writeable:
-                b = np.array(b)
-                changed = True
+            if torch.is_tensor(buf) and buf.dtype == torch.bfloat16:
+                b = buf.detach()
+                if b.device.type != "cpu" or not b.is_contiguous():
+                    b = b.cpu().contiguous()
+                    changed = True
+            else:
+                b = buf.detach().cpu().numpy() if torch.is_tensor(buf) else np.asarray(buf)
+                if not isinstance(buf, np.ndarray) or not b.flags.writeable:
+                    b = np.array(b)
+                    changed = True
             store[name] = b
         s = np.asarray(state["pop_sum"])
         comp = np.asarray(state["pop_sum_comp"])
         sum_name = self.mean_buffer or self.buffers[0]
         if s.dtype != np.float64 or comp.dtype != np.float64:
-            s = _col_sum64(store[sum_name])
+            s = _col_sum64(_words(store[sum_name]))
             comp = np.zeros_like(s)
             changed = True
         state["pop_sum"], state["pop_sum_comp"] = s, comp
@@ -358,15 +385,16 @@ class Runner:
         with tr.span("popstore/device_sync", {"round": r}):
             if done is not None:
                 done.synchronize()  # this round's rows only
-            new_rows = {n: self._out[n].numpy() for n in self.buffers}
+            new_rows = {n: _words(self._out[n]) for n in self.buffers}
         idx_np = staged.idx_np
+        words = {n: _words(store[n]) for n in self.buffers}
 
         with tr.span("popstore/scatter_back", {"round": r}):
             # incremental server sum BEFORE the scatter (needs the old rows)
             sum_name = self.mean_buffer or self.buffers[0]
             # (rows added in f64 in order, as the reference's astype-then-sum)
-            delta = (new_rows[sum_name].sum(axis=0, dtype=np.float64)
-                     - store[sum_name][idx_np].sum(axis=0, dtype=np.float64))
+            delta = (_wide(new_rows[sum_name]).sum(axis=0, dtype=np.float64)
+                     - _wide(words[sum_name][idx_np]).sum(axis=0, dtype=np.float64))
             # Kahan-compensated accumulation: the per-round delta is tiny next
             # to the population sum at large m, exactly where naive f64 += leaks
             y = delta - state["pop_sum_comp"]
@@ -375,13 +403,13 @@ class Runner:
             sum_new = t
 
             for name in self.buffers:
-                store[name][idx_np] = new_rows[name]
+                words[name][idx_np] = new_rows[name]
 
             # reconcile the prefetched slot with the rows just scattered
             common, pos_next, _ = np.intersect1d(nxt.idx_np, idx_np, return_indices=True)
             if common.size:
                 for name, buf in nxt.host_rows.items():
-                    buf[pos_next] = store[name][common]
+                    buf[pos_next] = words[name][common]
 
         new_state = {
             "round": r + 1,
@@ -393,7 +421,7 @@ class Runner:
         if self.algo == "scaffold":
             new_state["x_s"] = spec.unpack(server_rows["x_s"])
             new_state["c"] = spec.unpack(server_rows["c"])
-            c_row64 = self._out["c"].numpy().astype(np.float64)
+            c_row64 = _wide(_words(self._out["c"])).astype(np.float64)
             host_metrics["c_sum_norm"] = np.float32(np.linalg.norm(sum_new - m * c_row64))
         else:
             # the round's single "all-reduce": the incrementally maintained
@@ -435,4 +463,4 @@ def device_bytes(cfg: FederatedConfig, width: int, m: int) -> int:
     O(m x width) device-resident footprint it replaces."""
     mc = T.cohort_count(m, cfg.participation)
     n_buf = len(POP_BUFFERS[cfg.algorithm])
-    return 2 * n_buf * mc * width * 4
+    return 2 * n_buf * mc * width * 4  # f32 rows (a bf16 arena stages half)

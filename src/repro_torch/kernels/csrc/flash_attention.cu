@@ -223,9 +223,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int HDB>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int Sq,
-                int Sk, int H, int Hkv, int hd, int q_offset, int causal, int window,
-                float scale_log2) {
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, int hd, int q_offset,
+                int causal, int window, float scale_log2) {
   constexpr int NV = 64 * HDB;        // output columns of p v
   constexpr int SREG = kBK / 2;       // f32 score registers a thread holds
   constexpr int OREG = NV / 2;        // f32 output registers a thread holds
@@ -397,6 +397,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const int qi = qa + 8 * half;
     if (qi >= Sq) continue;
     const float inv = half ? inv_b : inv_a;
+    if (lse != nullptr && quad == 0)  // the row's logsumexp, in natural units
+      lse[(long long)bh * Sq + qi] = ((half ? m_b : m_a) + log2f(half ? l_b : l_a)) / kLog2e;
     __nv_bfloat16* orow = o + ((long long)b * Sq + qi) * row_stride + (long long)h * hd;
 #pragma unroll
     for (int i = 0; i < NV / 8; ++i) {
@@ -451,8 +453,8 @@ int make_map(CUtensorMap* map, const void* base, int B, int S, int width, int ro
 }
 
 template <int HDB>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
-           int Hkv, int hd, int q_offset, int causal, int window, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+           int Sk, int H, int Hkv, int hd, int q_offset, int causal, int window, float scale,
            cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   int rc = make_map(&mq, q, B, Sq, H * hd, kBQ);
@@ -465,7 +467,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)(B * H), (unsigned)((Sq + kBQ - 1) / kBQ));
   flash_tc_kernel<HDB><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)o, Sq, Sk, H, Hkv, hd, q_offset, causal, window,
+      mq, mk, mv, (__nv_bfloat16*)o, lse, Sq, Sk, H, Hkv, hd, q_offset, causal, window,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -496,8 +498,8 @@ size_t smem_bytes(int hd, int vd) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, int Sq, int Sk, int H, int Hkv, int hd, int vd, int q_offset,
-                int causal, int window, float scale) {
+                T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, int hd,
+                int vd, int q_offset, int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int ldq = hd + 1, ldp = kBK + 1;
   float* qs = smem;                        // (kBQ, hd + 1)
@@ -604,6 +606,7 @@ flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   if (my_q < Sq) {
     const float inv = 1.0f / fmaxf(l_run, 1e-30f);
+    if (lse != nullptr && lane4 == 0) lse[(long long)bh * Sq + my_q] = m_run + logf(l_run);
     T* orow = o + ((long long)b * Sq + my_q) * ((long long)H * vd) + (long long)h * vd;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) {
@@ -614,9 +617,9 @@ flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
-           int Hkv, int hd, int vd, int q_offset, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+           int Sk, int H, int Hkv, int hd, int vd, int q_offset, int causal, int window,
+           float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd, vd);
   cudaError_t err = cudaFuncSetAttribute(flash_cc_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -624,7 +627,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)(B * H));
   flash_cc_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, Hkv, hd, vd, q_offset, causal,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, H, Hkv, hd, vd, q_offset, causal,
       window, scale);
   return (int)cudaGetLastError();
 }
@@ -635,10 +638,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 
 // window <= 0: no window.  tensor_cores != 0 takes the wgmma route (bf16,
 // hd = vd a multiple of 16 up to 128, 16-byte aligned rows); 0 the CUDA-core
-// route (f32 or bf16, hd = vd <= 128).  Returns a CUDA error code (0 on
-// success).
+// route (f32 or bf16, hd = vd <= 128).  ``lse``, when not null, receives each
+// query row's logsumexp of the scaled, masked scores, (B, H, Sq) f32, for
+// the backward kernel (flash_attention_bwd.cu).  Returns a CUDA error code
+// (0 on success).
 extern "C" int launch_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                      int B, int Sq, int Sk, int H, int Hkv, int hd, int vd,
+                                      void* lse_out, int B, int Sq, int Sk, int H, int Hkv,
+                                      int hd, int vd,
                                       int q_offset, int causal, int window, int dtype,
                                       int tensor_cores, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -647,17 +653,18 @@ extern "C" int launch_flash_attention(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
+  float* lse = (float*)lse_out;
   if (tensor_cores) {
     if (dtype != kBF16 || hd % 16 != 0 || vd != hd) return (int)cudaErrorInvalidValue;
     if (hd <= 64)
-      return tc::launch<1>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, q_offset, causal, window, scale, st);
-    return tc::launch<2>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, q_offset, causal, window, scale, st);
+      return tc::launch<1>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, q_offset, causal, window, scale, st);
+    return tc::launch<2>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, q_offset, causal, window, scale, st);
   }
   if (dtype == kF32)
-    return cc::launch<float>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, vd, q_offset, causal, window,
+    return cc::launch<float>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, vd, q_offset, causal, window,
                              scale, st);
   if (dtype == kBF16)
-    return cc::launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, vd, q_offset, causal,
+    return cc::launch<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, vd, q_offset, causal,
                                      window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -139,7 +139,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
             const float* __restrict__ w, const float* __restrict__ u,
             const float* __restrict__ s_init, T* __restrict__ y, float* __restrict__ s_out,
-            float* states, int* sync, int S, int H, int K, int V, int nc, int BH, int vec) {
+            float* states, int* sync, int S, int H, int K, int V, int nc, int BH, int vec,
+            int u_div) {
   extern __shared__ float smem[];
   float* rs = smem;             // r, then r exp(min(la_prev - lb_I, 0))         (t, k)
   float* ks = rs + kTile;       // k, then k exp(lb_{G+1} - la), then S_3        (t, k)
@@ -213,7 +214,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
     }
   }
   for (int i = tid; i < kNSub * kSub * kAttLd; i += kThreads) att[i] = 0.0f;
-  if (tid < kD) us[tid] = tid < K ? u[(size_t)h * K + tid] : 0.0f;
+  if (tid < kD) us[tid] = tid < K ? u[((size_t)(b / u_div) * H + h) * K + tid] : 0.0f;
   __syncthreads();
 
   if (tid < kD) {  // column tid: la, la_prev, the pivots and their exps
@@ -458,7 +459,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
 template <typename T>
 int wkv6_typed(const void* r, const void* k, const void* v, const float* w, const float* u,
                const float* s0, void* y, float* s_out, float* states, int* sync, int B, int S,
-               int H, int K, int V, cudaStream_t stream) {
+               int H, int K, int V, int u_div, cudaStream_t stream) {
   const int nc = (S + kC - 1) / kC;
   const int BH = B * H;
   if (nc == 0)  // no steps: the state passes through
@@ -474,30 +475,33 @@ int wkv6_typed(const void* r, const void* k, const void* v, const float* w, cons
   if (err != cudaSuccess) return (int)err;
   wkv6_kernel<T><<<(unsigned)((size_t)BH * nc), kThreads, smem, stream>>>(
       (const T*)r, (const T*)k, (const T*)v, w, u, s0, (T*)y, s_out, states, sync, S, H, K, V,
-      nc, BH, vec);
+      nc, BH, vec, u_div);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// r, k, v of ``dtype``; w, u, s0 and s_out f32; ``states`` f32 scratch of
-// B H nc K V floats (nc = ceil(S / 64)); ``sync`` int32 of 1 + B H nc,
-// zeroed.  Returns a CUDA error code.
+// r, k, v of ``dtype``; w, u, s0 and s_out f32; u (B / u_div, H, K): batch
+// row b reads row b / u_div (u_div = B: one u shared by every row);
+// ``states`` f32 scratch of B H nc K V floats (nc = ceil(S / 64)), which the
+// backward (wkv6_bwd.cu) reads; ``sync`` int32 of 1 + B H nc, zeroed.
+// Returns a CUDA error code.
 extern "C" int launch_wkv6(const void* r, const void* k, const void* v, const void* w,
                            const void* u, const void* s0, void* y, void* s_out, void* states,
-                           void* sync, int B, int S, int H, int K, int V, int dtype, int device,
-                           void* stream) {
+                           void* sync, int B, int S, int H, int K, int V, int u_div, int dtype,
+                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (K < 1 || K > kD || V < 1 || V > kD || S < 0) return (int)cudaErrorInvalidValue;
+  if (K < 1 || K > kD || V < 1 || V > kD || S < 0 || u_div < 1 || B % u_div != 0)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return (int)cudaGetLastError();
   if (dtype == kF32)
     return wkv6_typed<float>(r, k, v, (const float*)w, (const float*)u, (const float*)s0, y,
-                             (float*)s_out, (float*)states, (int*)sync, B, S, H, K, V,
+                             (float*)s_out, (float*)states, (int*)sync, B, S, H, K, V, u_div,
                              (cudaStream_t)stream);
   if (dtype == kBF16)
     return wkv6_typed<__nv_bfloat16>(r, k, v, (const float*)w, (const float*)u,
                                      (const float*)s0, y, (float*)s_out, (float*)states,
-                                     (int*)sync, B, S, H, K, V, (cudaStream_t)stream);
+                                     (int*)sync, B, S, H, K, V, u_div, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

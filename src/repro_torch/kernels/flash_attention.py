@@ -24,6 +24,16 @@ dim (not a fallback: each route is the kernel for its operands):
                       1e-4), or bf16 with another hd.
 
 ``last_route`` records the route of the last call on the card.
+
+Kernel 16b, ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), is
+the backward: (dq, dk, dv) from q, k, v, the output o, the per-row
+logsumexp ``lse`` (B, H, Sq) f32 that ``flash_attention(..., lse=True)``
+also returns, and do.  It recomputes the scores block by block, takes the
+same routes (bf16 with hd a multiple of 16 on the tensor cores, through
+WMMA; everything else f32 on the CUDA cores) and sums dk and dv over each kv
+head's query heads in one block, in a fixed order.  ``kernels.ops`` makes
+the pair an ``autograd.Function``; the plain backward (``ref.
+flash_attention_bwd_ref``, autograd of the plain forward) runs on the CPU.
 """
 from __future__ import annotations
 
@@ -39,9 +49,17 @@ TC_HEAD_DIM_STEP = 16  # the tensor-core route's hd: a multiple of wgmma's bf16 
 
 FLASH_ATTENTION = Kernel(
     "flash_attention", "flash_attention.cu", "launch_flash_attention",
-    # q k v o B Sq Sk H Hkv hd vd q_offset causal window dtype tensor_cores scale dev stream
-    [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, F, I, P],
+    # q k v o lse B Sq Sk H Hkv hd vd q_offset causal window dtype tensor_cores scale dev stream
+    [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, F, I, P],
     replaces="src/repro/kernels/flash_attention.py:70",
+)
+
+FLASH_ATTENTION_BWD = Kernel(
+    "flash_attention_bwd", "flash_attention_bwd.cu", "launch_flash_attention_bwd",
+    # q k v o lse do dq dk dv Dscratch B Sq Sk H Hkv hd q_offset causal window dtype
+    # tensor_cores scale dev stream
+    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, I, P],
+    replaces="src/repro/kernels/flash_attention.py:70 (its backward: ops.py _flash_xla)",
 )
 
 last_route: str | None = None
@@ -55,41 +73,88 @@ def route(dtype: torch.dtype, hd: int) -> str:
     return "cuda_cores"
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0):
+def _positions(q, k, q_offset: int):
+    dev = q.device
+    return (torch.arange(q_offset, q_offset + q.shape[1], device=dev),
+            torch.arange(k.shape[1], device=dev))
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0,
+                    lse: bool = False):
     """Attention of the Sq queries at positions q_offset .. q_offset + Sq - 1
-    over the Sk keys at positions 0 .. Sk - 1 (see the module doc)."""
+    over the Sk keys at positions 0 .. Sk - 1 (see the module doc).  With
+    ``lse`` also each query row's logsumexp, (B, H, Sq) f32, for the
+    backward."""
     global last_route
     kern = FLASH_ATTENTION
     if _args.on_cpu(kern.name, q):
-        dev = q.device
-        q_pos = torch.arange(q_offset, q_offset + q.shape[1], device=dev)
-        k_pos = torch.arange(k.shape[1], device=dev)
-        return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal, window=window)
+        q_pos, k_pos = _positions(q, k, q_offset)
+        out = ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal, window=window)
+        if lse:
+            return out, ref.flash_attention_lse_ref(q, k, q_pos, k_pos, causal=causal,
+                                                    window=window)
+        return out
+    _check(kern.name, q, k, v, window)
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dt, dev = q.dtype, q.device
+    out = torch.empty((B, Sq, H, hd), dtype=dt, device=dev)
+    lse_t = torch.empty((B, H, Sq), dtype=torch.float32, device=dev) if lse else None
+    path = route(dt, hd)
+    kern.launch(_args.ptr(q), _args.ptr(k), _args.ptr(v), _args.ptr(out), _args.ptr(lse_t), B,
+                Sq, Sk, H, Hkv, hd, hd, int(q_offset), int(causal),
+                0 if window is None else int(window), _args.DTYPE_CODES[dt],
+                int(path == "wgmma"), 1.0 / math.sqrt(hd), *_args.stream_args(dev))
+    last_route = path
+    return (out, lse_t) if lse else out
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None,
+                        q_offset: int = 0):
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v) for the incoming
+    gradient ``do``, from its output ``o`` and row logsumexp ``lse`` (kernel
+    16b; see the module doc)."""
+    kern = FLASH_ATTENTION_BWD
+    if _args.on_cpu(kern.name, q):
+        q_pos, k_pos = _positions(q, k, q_offset)
+        return ref.flash_attention_bwd_ref(q, k, v, do, q_pos, k_pos, causal=causal,
+                                           window=window)
+    _check(kern.name, q, k, v, window)
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dt, dev = q.dtype, q.device
+    _args.check(kern.name, "o", o, (B, Sq, H, hd), (dt,), dev)
+    _args.check(kern.name, "do", do, (B, Sq, H, hd), (dt,), dev)
+    _args.check(kern.name, "lse", lse, (B, H, Sq), (torch.float32,), dev)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    kern.launch(_args.ptr(q), _args.ptr(k), _args.ptr(v), _args.ptr(o), _args.ptr(lse),
+                _args.ptr(do), _args.ptr(dq), _args.ptr(dk), _args.ptr(dv), _args.ptr(scratch),
+                B, Sq, Sk, H, Hkv, hd, int(q_offset), int(causal),
+                0 if window is None else int(window), _args.DTYPE_CODES[dt],
+                int(route(dt, hd) == "wgmma"), 1.0 / math.sqrt(hd), *_args.stream_args(dev))
+    return dq, dk, dv
+
+
+def _check(name, q, k, v, window) -> None:
+    """The operand rules of both kernels (see the module doc)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError(f"{kern.name}: q, k, v must be 4-D (B, S, heads, dim)")
+        raise ValueError(f"{name}: q, k, v must be 4-D (B, S, heads, dim)")
     B, Sq, H, hd = q.shape
     Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
     dt, dev = q.dtype, q.device
     if dt not in _args.DTYPE_CODES:
-        raise TypeError(f"{kern.name}: dtype {dt} is not supported (f32 or bf16)")
+        raise TypeError(f"{name}: dtype {dt} is not supported (f32 or bf16)")
     if hd > MAX_HEAD_DIM or vd > MAX_HEAD_DIM or vd != hd:
-        raise ValueError(f"{kern.name}: head dims hd={hd}, vd={vd}; the kernel takes "
+        raise ValueError(f"{name}: head dims hd={hd}, vd={vd}; the kernel takes "
                          f"hd = vd <= {MAX_HEAD_DIM}")
     if Hkv < 1 or H % Hkv:
-        raise ValueError(f"{kern.name}: {H} query heads are not a multiple of {Hkv} kv heads")
+        raise ValueError(f"{name}: {H} query heads are not a multiple of {Hkv} kv heads")
     if window is not None and window < 1:
-        raise ValueError(f"{kern.name}: window must be >= 1, got {window}")
-    _args.check(kern.name, "q", q, (B, Sq, H, hd), (dt,), dev)
-    _args.check(kern.name, "k", k, (B, Sk, Hkv, hd), (dt,), dev)
-    _args.check(kern.name, "v", v, (B, Sk, Hkv, vd), (dt,), dev)
-    out = torch.empty((B, Sq, H, vd), dtype=dt, device=dev)
-    path = route(dt, hd)
-    kern.launch(_args.ptr(q), _args.ptr(k), _args.ptr(v), _args.ptr(out), B, Sq, Sk, H, Hkv,
-                hd, vd, int(q_offset), int(causal), 0 if window is None else int(window),
-                _args.DTYPE_CODES[dt], int(path == "wgmma"), 1.0 / math.sqrt(hd),
-                *_args.stream_args(dev))
-    last_route = path
-    return out
+        raise ValueError(f"{name}: window must be >= 1, got {window}")
+    _args.check(name, "q", q, (B, Sq, H, hd), (dt,), dev)
+    _args.check(name, "k", k, (B, Sk, Hkv, hd), (dt,), dev)
+    _args.check(name, "v", v, (B, Sk, Hkv, vd), (dt,), dev)
 
 
 def contiguous_offset(q_pos, k_pos, sq: int, sk: int) -> int:

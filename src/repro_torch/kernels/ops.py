@@ -17,6 +17,19 @@ the screen's keep mask in one launch (``screen_keep``) and SCAFFOLD's
 full-arena server step (``scaffold_step``) are the port's own;
 ``attend_cache`` and ``wkv6_step`` (one decode token) are plain tensor
 code in the reference and here.
+
+Gradients through kernels 16-17.  A ctypes kernel is invisible to
+autograd, so on the card ``flash_attention`` and ``wkv6`` go through an
+``autograd.Function`` (``FlashAttention``, ``Wkv6``) whenever a gradient or
+a ``torch.func`` transform may reach them: its backward is a kernel too
+(16b ``flash_attention_bwd``, 17b ``wkv6_bwd``), itself a Function so that
+the backward can run under ``vmap``.  Each Function has an explicit vmap
+rule that folds the vmapped dim into the kernel's batch dim ((m, B, S, H,
+d) -> (m B, S, H, d); u (m, H, K) becomes one row of u a client), which is
+how the rounds' ``vmap(grad(loss))`` reaches the kernels.  A CPU tensor
+calls the plain version directly, with no Function on the path, so autograd
+and ``torch.func.jvp`` differentiate it as before; nothing sends a CUDA
+tensor to a plain backward.  The Functions have no forward-mode rule.
 """
 from __future__ import annotations
 
@@ -49,7 +62,6 @@ from repro_torch.kernels.round_tail import (
 )
 from repro_torch.kernels.screen import screen_keep, screen_uplink
 from repro_torch.kernels.stale_mix import stale_mix
-from repro_torch.kernels.wkv6 import wkv6
 
 # every kernel of the port, for launch accounting (chip_smoke.py): the
 # seventeen in the order of the kernel table (ROADMAP.md), then the round
@@ -62,7 +74,7 @@ KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _fu.ARENA_KERNEL,
            _ga.ROW_SCATTER, _sc.SCREEN_UPLINK, _sm.STALE_MIX, _rs.RESIDUAL_NORM,
            _nr.NEIGHBOR_REDUCE, _nr.EDGE_FLIP, _fa.FLASH_ATTENTION, _wk.WKV6,
            _rt.ROUND_TAIL_MEAN, _rt.CLIENT_MEAN, _rt.EF21_UPDATE, _sc.SCREEN_KEEP,
-           _rt.SCAFFOLD_STEP)
+           _rt.SCAFFOLD_STEP, _fa.FLASH_ATTENTION_BWD, _wk.WKV6_BWD)
 
 
 def affine_inner_fits(width: int) -> bool:
@@ -99,6 +111,183 @@ def row_scatter(dst, idx, rows):
     return row_scatter_buffers((dst,), idx, (rows,))[0]
 
 
+# ---------------------------------------------------------------------------
+# kernels 16-17 with a gradient
+# ---------------------------------------------------------------------------
+
+def _grad_follows(*ts) -> bool:
+    """True when autograd (eager, or ``torch.func.grad``) records these
+    tensors, so that a backward can follow: the Function then keeps what
+    its backward kernel reads (lse, the chunk states)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
+def _transformed(*ts) -> bool:
+    """True when a ``torch.func`` transform (vmap, grad) wraps one of these
+    tensors: the ctypes launchers take plain tensors only, so the call goes
+    through its Function, whose vmap rule unwraps them.  A private query
+    (``torch._C._functorch``; checked on torch 2.11 and 2.13), used for
+    this one test."""
+    from torch._C import _functorch
+
+    return any(t is not None and _functorch.is_functorch_wrapped_tensor(t) for t in ts)
+
+
+def _batched(info, in_dims, *ts):
+    """Each tensor with its vmapped dim moved to the front (expanded where
+    it is not vmapped), so that all share the leading dim of ``info``."""
+    m = info.batch_size
+    return tuple(None if t is None else t.movedim(d, 0) if d is not None
+                 else t.expand(m, *t.shape) for t, d in zip(ts, in_dims))
+
+
+def _fold(t):
+    """(m, B, ...) -> (m B, ...), contiguous (the kernel's batch dim)."""
+    return None if t is None else t.reshape(t.shape[0] * t.shape[1], *t.shape[2:]).contiguous()
+
+
+def _unfold(t, m: int):
+    return None if t is None else t.reshape(m, t.shape[0] // m, *t.shape[1:])
+
+
+class FlashAttention(torch.autograd.Function):
+    """Kernel 16 whose backward is kernel 16b.  ``apply(q, k, v, causal,
+    window, q_offset, keep) -> (o, lse)``: with ``keep`` the kernel also
+    writes each query row's logsumexp and the Function saves what 16b
+    reads; without it (a transform but no gradient, as the eval loss under
+    ``no_grad`` in ``vmap``) lse is None and nothing is saved."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, q_offset, keep):
+        if keep:
+            return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, lse=True)
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset), None
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, q_offset, keep = inputs
+        o, lse = output
+        ctx.keep = keep
+        if keep:
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.args = (causal, window, q_offset)
+            ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        if not ctx.keep:
+            raise RuntimeError("flash_attention: called without keep, so no backward")
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*FlashAttentionBackward.apply(q, k, v, o, lse, do, *ctx.args),
+                None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, q_offset, keep):
+        q, k, v = (_fold(t) for t in _batched(info, in_dims[:3], q, k, v))
+        o, lse = FlashAttention.apply(q, k, v, causal, window, q_offset, keep)
+        m = info.batch_size
+        return (_unfold(o, m), _unfold(lse, m)), (0, None if lse is None else 0)
+
+
+class FlashAttentionBackward(torch.autograd.Function):
+    """Kernel 16b as a Function, so that it runs under ``vmap``; it has no
+    backward of its own."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, causal, window, q_offset):
+        return _fa.flash_attention_bwd(q, k, v, o, lse, do.contiguous(), causal=causal,
+                                       window=window, q_offset=q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash_attention: no second derivative (kernel 16b has "
+                                  "no backward)")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, do, causal, window, q_offset):
+        folded = (_fold(t) for t in _batched(info, in_dims[:6], q, k, v, o, lse, do))
+        grads = FlashAttentionBackward.apply(*folded, causal, window, q_offset)
+        return tuple(_unfold(g, info.batch_size) for g in grads), (0, 0, 0)
+
+
+class Wkv6(torch.autograd.Function):
+    """Kernel 17 whose backward is kernel 17b.  ``apply(r, k, v, w, u, s0,
+    keep) -> (y, s_final, states)``; u (H, K) or one row per group of batch
+    rows (n, H, K).  With ``keep`` the Function keeps the states passed
+    between chunks and saves what 17b reads; without it states is None and
+    nothing is saved."""
+
+    @staticmethod
+    def forward(r, k, v, w, u, s0, keep):
+        if keep:
+            return _wk.wkv6(r, k, v, w, u, s0, keep_states=True)
+        return (*_wk.wkv6(r, k, v, w, u, s0), None)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        y, s_out, states = output
+        ctx.keep = inputs[-1]
+        if ctx.keep:
+            ctx.save_for_backward(*inputs[:-1], s_out, states)
+            if states is not None:
+                ctx.mark_non_differentiable(states)
+
+    @staticmethod
+    def backward(ctx, dy, ds_final, _dstates):
+        if not ctx.keep:
+            raise RuntimeError("wkv6: called without keep, so no backward")
+        r, k, v, w, u, s0, s_out, states = ctx.saved_tensors
+        return (*Wkv6Backward.apply(r, k, v, w, u, s0, s_out, states, dy, ds_final), None)
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, w, u, s0, keep):
+        m = info.batch_size
+        r, k, v, w, u, s0 = _batched(info, in_dims[:6], r, k, v, w, u, s0)
+        u = u.contiguous() if u.ndim == 3 else _fold(u)  # one row of u a client, or its n rows
+        y, s_out, states = Wkv6.apply(*(_fold(t) for t in (r, k, v, w)), u, _fold(s0), keep)
+        states = None if states is None else states.reshape(m, -1)
+        return (_unfold(y, m), _unfold(s_out, m), states), (0, 0, None if states is None else 0)
+
+
+class Wkv6Backward(torch.autograd.Function):
+    """Kernel 17b as a Function, so that it runs under ``vmap``; it has no
+    backward of its own."""
+
+    @staticmethod
+    def forward(r, k, v, w, u, s0, s_out, states, dy, ds_final):
+        return _wk.wkv6_bwd(r, k, v, w, u, s0, s_out, states, dy.contiguous(),
+                            None if ds_final is None else ds_final.contiguous())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("wkv6: no second derivative (kernel 17b has no backward)")
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, w, u, s0, s_out, states, dy, ds_final):
+        m = info.batch_size
+        ts = _batched(info, in_dims, r, k, v, w, u, s0, s_out, states, dy, ds_final)
+        r, k, v, w, u, s0, s_out, states, dy, ds_final = ts
+        shared_rows = u.ndim == 3  # a (H, K) u each client: one row of u a client
+        u = u.contiguous() if shared_rows else _fold(u)
+        states = None if states is None else states.reshape(-1)
+        dr, dk, dv, dw, du, ds0 = Wkv6Backward.apply(
+            *(_fold(t) for t in (r, k, v, w)), u, _fold(s0), _fold(s_out), states,
+            _fold(dy), _fold(ds_final))
+        du = du if shared_rows else _unfold(du, m)
+        return ((_unfold(dr, m), _unfold(dk, m), _unfold(dv, m), _unfold(dw, m), du,
+                 _unfold(ds0, m)), (0,) * 6)
+
+
 def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
                     window=None, q_offset=None):
     """Causal (optionally sliding-window) GQA attention, kernel 16.
@@ -112,11 +301,15 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
     ``q_chunk``, ``k_chunk`` and ``causal_skip`` size its ``"xla"`` branch
     and have no counterpart here."""
     if q_pos is None:
-        return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset or 0)
-    if _args.on_cpu(_fa.FLASH_ATTENTION.name, q):
+        off = q_offset or 0
+    elif _args.on_cpu(_fa.FLASH_ATTENTION.name, q):
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal, window=window)
-    off = _fa.contiguous_offset(q_pos, k_pos, q.shape[1], k.shape[1])
+    else:
+        off = _fa.contiguous_offset(q_pos, k_pos, q.shape[1], k.shape[1])
+    if q.device.type != "cpu":
+        keep = _grad_follows(q, k, v)
+        if keep or _transformed(q, k, v):
+            return FlashAttention.apply(q, k, v, causal, window, off, keep)[0]
     return _fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
 
 
@@ -138,6 +331,18 @@ def attend_cache(q, k_cache, v_cache, q_pos, k_pos, *, window=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhv->bhgv", p, v_cache.to(f32))
     return o.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+
+
+def wkv6(r, k, v, w, u, s0):
+    """The RWKV-6 recurrence, kernel 17 (see ``kernels.wkv6``): (y,
+    s_final).  On the card, inside ``Wkv6`` when a gradient or a transform
+    may reach it."""
+    if r.device.type != "cpu":
+        keep = _grad_follows(r, k, v, w, u, s0)
+        if keep or _transformed(r, k, v, w, u, s0):
+            y, s_out, _ = Wkv6.apply(r, k, v, w, u, s0, keep)
+            return y, s_out
+    return _wk.wkv6(r, k, v, w, u, s0)
 
 
 def wkv6_step(r1, k1, v1, w1, u, s):
@@ -162,12 +367,12 @@ def launches() -> dict[str, int]:
 
 
 __all__ = [
-    "KERNELS", "acc_mode_at", "affine_inner_fits", "attend_cache", "client_mean",
-    "dual_from_uplink", "edge_flip", "ef21_apply", "ef21_rowmax", "ef21_update",
-    "flash_attention", "fused_update", "fused_update_arena", "fused_update_leaves",
-    "inner_loop_affine", "launches", "neighbor_reduce", "reset_launches", "residual_norm",
-    "round_tail", "round_tail_mean", "row_gather", "row_gather_buffers", "row_scatter",
-    "row_scatter_", "row_scatter_buffers", "row_scatter_buffers_", "scaffold_cv",
-    "scaffold_step", "screen_keep", "screen_uplink", "server_dual", "server_step", "stale_mix",
-    "wkv6", "wkv6_step",
+    "FlashAttention", "FlashAttentionBackward", "KERNELS", "Wkv6", "Wkv6Backward",
+    "acc_mode_at", "affine_inner_fits", "attend_cache", "client_mean", "dual_from_uplink",
+    "edge_flip", "ef21_apply", "ef21_rowmax", "ef21_update", "flash_attention", "fused_update",
+    "fused_update_arena", "fused_update_leaves", "inner_loop_affine", "launches",
+    "neighbor_reduce", "reset_launches", "residual_norm", "round_tail", "round_tail_mean",
+    "row_gather", "row_gather_buffers", "row_scatter", "row_scatter_", "row_scatter_buffers",
+    "row_scatter_buffers_", "scaffold_cv", "scaffold_step", "screen_keep", "screen_uplink",
+    "server_dual", "server_step", "stale_mix", "wkv6", "wkv6_step",
 ]

@@ -395,6 +395,47 @@ def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal: bool = True, window=No
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, vd).to(q.dtype)
 
 
+def flash_attention_lse_ref(q, k, q_pos, k_pos, *, causal: bool = True, window=None):
+    """Each query row's logsumexp of the scaled, masked scores (f32, masked
+    to -1e30 as in ``flash_attention_ref``), (B, H, Sq): the forward's
+    second output for the backward."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    f32 = torch.float32
+    qf = q.to(f32).reshape(B, Sq, Hkv, H // Hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(f32)) * (1.0 / math.sqrt(hd))
+    kp, qp = k_pos[None, :], q_pos[:, None]
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
+    if window is not None:
+        valid = valid & (kp > qp - window)
+    return torch.logsumexp(torch.where(valid, s, NEG), dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_bwd_ref(q, k, v, do, q_pos, k_pos, *, causal: bool = True, window=None):
+    """(dq, dk, dv) of ``flash_attention_ref`` for the incoming gradient
+    ``do``: autograd of the plain forward (the backward kernel's plain
+    version)."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = flash_attention_ref(qq, kk, vv, q_pos, k_pos, causal=causal, window=window)
+        return torch.autograd.grad(o, (qq, kk, vv), do)
+
+
+def wkv6_bwd_ref(r, k, v, w, u, s0, dy, ds_final=None, *, chunk: int = 64):
+    """(dr, dk, dv, dw, du, ds0) of ``wkv6_ref`` for the incoming gradients
+    ``dy`` and ``ds_final`` (None: zero): autograd of the plain forward (the
+    backward kernel's plain version)."""
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_(True) for t in (r, k, v, w, u, s0))
+        y, s = wkv6_ref(*ins, chunk=chunk)
+        outs, grads = (y,), (dy,)
+        if ds_final is not None:
+            outs, grads = (y, s), (dy, ds_final)
+        return torch.autograd.grad(outs, ins, grads, allow_unused=True)
+
+
 def wkv6_ref(r, k, v, w, u, s0, *, chunk: int = 64):
     """The RWKV-6 recurrence S_t = diag(w_t) S_{t-1} + k_t v_t^T, y_t =
     r_t^T (S_{t-1} + diag(u) k_t v_t^T), in the chunked form of
@@ -406,7 +447,9 @@ def wkv6_ref(r, k, v, w, u, s0, *, chunk: int = 64):
             + (r_t . u . k_t) v_t
         S  <- exp(la_C) S_0 + (k exp(la_C - la))^T v
 
-    r, k, w (B, S, H, K); v (B, S, H, V); u (H, K); s0 (B, H, K, V).
+    r, k, w (B, S, H, K); v (B, S, H, V); u (H, K), or (n, H, K) with row i
+    for batch rows i B / n .. (i + 1) B / n - 1 (one u a client under the
+    rounds' vmap, folded into the batch); s0 (B, H, K, V).
     Returns y (B, S, H, V) in r's dtype and the final state (B, H, K, V)
     in f32.  Any S: the reference asserts S % min(chunk, S) == 0, and where
     it does the chunks are its own."""
@@ -416,6 +459,8 @@ def wkv6_ref(r, k, v, w, u, s0, *, chunk: int = 64):
     rf, kf, vf = (a.to(f32) for a in (r, k, v))
     lw = torch.log(torch.clamp(w.to(f32), min=1e-38))
     uf = u.to(f32)
+    uf = (uf[None, None] if uf.ndim == 2
+          else uf.repeat_interleave(B // uf.shape[0], dim=0)[:, None])
     s = s0.to(f32)
     ys = []
     for c0 in range(0, S, chunk):
@@ -429,7 +474,7 @@ def wkv6_ref(r, k, v, w, u, s0, *, chunk: int = 64):
         dec = torch.exp(torch.clamp(diff, max=0.0))
         att = torch.einsum("bthk,bchk,btchk->bhtc", rc, kc, dec)
         att = torch.where(strict, att, 0.0)
-        bonus = torch.einsum("bthk,bthk->bth", rc * uf[None, None], kc)
+        bonus = torch.einsum("bthk,bthk->bth", rc * uf, kc)
         ys.append(y_inter + torch.einsum("bhtc,bchv->bthv", att, vc) + bonus[..., None] * vc)
         la_end = la[:, -1:]
         s = (torch.exp(la_end[:, 0])[..., None] * s

@@ -3,8 +3,10 @@
 state passed from chunk to chunk in order); the port of
 ``src/repro/kernels/wkv6.py``:
 
-  * ``wkv6``  r, k, w (B, S, H, K); v (B, S, H, V); u (H, K); s0 (B, H, K,
-              V) -> y (B, S, H, V) in r's dtype, final state (B, H, K, V) f32
+  * ``wkv6``  r, k, w (B, S, H, K); v (B, S, H, V); u (H, K), or (n, H, K)
+              with row i of u for batch rows i B / n .. (i + 1) B / n - 1;
+              s0 (B, H, K, V) -> y (B, S, H, V) in r's dtype, final state
+              (B, H, K, V) f32
 
 Every RWKV block of ``models.rwkv6.rwkv_time_mix`` calls it once on
 prefill; decode takes one step in plain tensor code (``ops.wkv6_step``).
@@ -16,6 +18,15 @@ pairwise decays of a chunk through its 16-step sub-chunks, which is the
 clamped sum only where la falls along the chunk).  The wrapper allocates
 the kernel's scratch: the states passed between chunks (B H ceil(S / 64) K
 V floats) and a zeroed int32 buffer of their flags and the chunk ticket.
+
+Kernel 17b, ``wkv6_bwd`` (``csrc/wkv6_bwd.cu``), is the backward: (dr, dk,
+dv, dw, du, ds0) from the forward's operands, its final state and the states
+it passed between chunks (``wkv6(..., keep_states=True)`` returns them
+instead of freeing them), dy and ds_final.  dw is with respect to the
+kernel's w input; du has u's shape, each row summed over the batch rows that
+read it.  ``kernels.ops`` makes the pair an ``autograd.Function``; the plain
+backward (``ref.wkv6_bwd_ref``, autograd of the plain forward) runs on the
+CPU.
 """
 from __future__ import annotations
 
@@ -29,31 +40,56 @@ MAX_DIM = 64
 
 WKV6 = Kernel(
     "wkv6", "wkv6.cu", "launch_wkv6",
-    # r k v w u s0 y s_out states sync B S H K V dtype dev stream
-    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # r k v w u s0 y s_out states sync B S H K V u_div dtype dev stream
+    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     replaces="src/repro/kernels/wkv6.py:73",
 )
 
+WKV6_BWD = Kernel(
+    "wkv6_bwd", "wkv6_bwd.cu", "launch_wkv6_bwd",
+    # r k v w u s0 s_out states dy ds_final dr dk dv dw du ds0 dstates du_part
+    # B S H K V u_div dtype dev stream
+    [P] * 18 + [I, I, I, I, I, I, I, I, P],
+    replaces="src/repro/kernels/wkv6.py:73 (its backward: ops.py _wkv6_chunked_xla)",
+)
 
-def wkv6(r, k, v, w, u, s0):
-    """(y, s_final) of the recurrence (see the module doc)."""
-    kern = WKV6
-    if _args.on_cpu(kern.name, r):
-        return ref.wkv6_ref(r, k, v, w, u, s0, chunk=CHUNK)
+
+def _check(name, r, k, v, w, u, s0) -> int:
+    """The operand rules of both kernels (see the module doc); returns
+    u_div, the batch rows that read each row of u."""
     if r.ndim != 4:
-        raise ValueError(f"{kern.name}: r must be (B, S, H, K), got {tuple(r.shape)}")
+        raise ValueError(f"{name}: r must be (B, S, H, K), got {tuple(r.shape)}")
     B, S, H, K = r.shape
     V = v.shape[-1]
     dt, dev = r.dtype, r.device
     if dt not in _args.DTYPE_CODES:
-        raise TypeError(f"{kern.name}: dtype {dt} is not supported (f32 or bf16)")
+        raise TypeError(f"{name}: dtype {dt} is not supported (f32 or bf16)")
     if K > MAX_DIM or V > MAX_DIM:
-        raise ValueError(f"{kern.name}: K={K}, V={V}; the kernel takes K, V <= {MAX_DIM}")
+        raise ValueError(f"{name}: K={K}, V={V}; the kernel takes K, V <= {MAX_DIM}")
+    n_u = 1 if u.ndim == 2 else u.shape[0]
+    if n_u < 1 or B % n_u:
+        raise ValueError(f"{name}: {n_u} rows of u do not divide the batch of {B}")
     f32 = (torch.float32,)
     for arg, t, shape, dts in (("r", r, (B, S, H, K), (dt,)), ("k", k, (B, S, H, K), (dt,)),
                                ("v", v, (B, S, H, V), (dt,)), ("w", w, (B, S, H, K), f32),
-                               ("u", u, (H, K), f32), ("s0", s0, (B, H, K, V), f32)):
-        _args.check(kern.name, arg, t, shape, dts, dev)
+                               ("u", u, tuple(u.shape[:-2]) + (H, K), f32),
+                               ("s0", s0, (B, H, K, V), f32)):
+        _args.check(name, arg, t, shape, dts, dev)
+    return B // n_u
+
+
+def wkv6(r, k, v, w, u, s0, *, keep_states: bool = False):
+    """(y, s_final) of the recurrence (see the module doc); with
+    ``keep_states`` also the states passed between chunks, for the backward
+    (None on the CPU, whose plain backward recomputes them)."""
+    kern = WKV6
+    if _args.on_cpu(kern.name, r):
+        y, s_out = ref.wkv6_ref(r, k, v, w, u, s0, chunk=CHUNK)
+        return (y, s_out, None) if keep_states else (y, s_out)
+    u_div = _check(kern.name, r, k, v, w, u, s0)
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    dt, dev = r.dtype, r.device
     y = torch.empty((B, S, H, V), dtype=dt, device=dev)
     s_out = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
     nc = -(-S // CHUNK)
@@ -61,5 +97,33 @@ def wkv6(r, k, v, w, u, s0):
     sync = torch.zeros(1 + B * H * nc, dtype=torch.int32, device=dev)
     kern.launch(_args.ptr(r), _args.ptr(k), _args.ptr(v), _args.ptr(w), _args.ptr(u),
                 _args.ptr(s0), _args.ptr(y), _args.ptr(s_out), _args.ptr(states),
-                _args.ptr(sync), B, S, H, K, V, _args.DTYPE_CODES[dt], *_args.stream_args(dev))
-    return y, s_out
+                _args.ptr(sync), B, S, H, K, V, u_div, _args.DTYPE_CODES[dt],
+                *_args.stream_args(dev))
+    return (y, s_out, states) if keep_states else (y, s_out)
+
+
+def wkv6_bwd(r, k, v, w, u, s0, s_out, states, dy, ds_final=None):
+    """(dr, dk, dv, dw, du, ds0) of ``wkv6`` for the incoming gradients dy
+    and ds_final (None: zero), from its final state and the ``states`` that
+    ``wkv6(..., keep_states=True)`` returned (kernel 17b)."""
+    kern = WKV6_BWD
+    if _args.on_cpu(kern.name, r):
+        return ref.wkv6_bwd_ref(r, k, v, w, u, s0, dy, ds_final, chunk=CHUNK)
+    u_div = _check(kern.name, r, k, v, w, u, s0)
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    dt, dev = r.dtype, r.device
+    nc = -(-S // CHUNK)
+    _args.check(kern.name, "s_out", s_out, (B, H, K, V), (torch.float32,), dev)
+    _args.check(kern.name, "states", states, (B * H * nc * K * V,), (torch.float32,), dev)
+    _args.check(kern.name, "dy", dy, (B, S, H, V), (dt,), dev)
+    if ds_final is not None:
+        _args.check(kern.name, "ds_final", ds_final, (B, H, K, V), (torch.float32,), dev)
+    dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
+    dw, du, ds0 = torch.empty_like(w), torch.empty_like(u), torch.empty_like(s0)
+    dstates = torch.empty(B * H * nc * K * V, dtype=torch.float32, device=dev)
+    du_part = torch.empty(B * H * nc * K, dtype=torch.float32, device=dev)
+    kern.launch(*(_args.ptr(t) for t in (r, k, v, w, u, s0, s_out, states, dy, ds_final, dr, dk,
+                                          dv, dw, du, ds0, dstates, du_part)),
+                B, S, H, K, V, u_div, _args.DTYPE_CODES[dt], *_args.stream_args(dev))
+    return dr, dk, dv, dw, du, ds0

@@ -30,14 +30,15 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
-def gqa_init(gen, cfg: ArchConfig, dtype) -> dict:
+def gqa_init(keys: L.Keys, cfg: ArchConfig, dtype) -> dict:
     d, h, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
+    k1, k2, k3, k4 = keys.split(4)
     return {
-        "wq": L.dense_init(gen, (d, h, hd), dtype),
-        "wk": L.dense_init(gen, (d, hkv, hd), dtype),
-        "wv": L.dense_init(gen, (d, hkv, hd), dtype),
-        "wo": L.dense_init(gen, (h, hd, d), dtype, scale=1.0 / (h * hd) ** 0.5),
+        "wq": L.dense_init(k1, (d, h, hd), dtype),
+        "wk": L.dense_init(k2, (d, hkv, hd), dtype),
+        "wv": L.dense_init(k3, (d, hkv, hd), dtype),
+        "wo": L.dense_init(k4, (h, hd, d), dtype, scale=1.0 / (h * hd) ** 0.5),
     }
 
 

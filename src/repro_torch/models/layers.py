@@ -2,11 +2,17 @@
 head, and the init helpers; the port of ``src/repro/models/layers.py``.
 
 Parameters are plain nested dicts of tensors, laid out as the reference's
-(``convert.model_params`` carries its trees across), and drawn at random
-from a ``torch.Generator`` on the device: the same distributions, not the
-reference's numbers.  The f32 upcasts and the casts back sit where the
-reference has them.  ``torch.var`` defaults to the unbiased variance and
-``jnp.var`` is the population one, so the norms pass ``correction=0``.
+(``convert.model_params`` carries its trees across).  The init functions
+take ``keys``, a source of draws with the reference's ``split`` /
+``fold_in`` / ``normal`` tree (``Keys``): ``Keys.from_key`` walks a
+``core.prng`` key through that tree, so the draws are the reference's
+(``prng.normal`` is ``jax.random.normal`` to a few f32 roundings, which
+bf16 mostly absorbs); ``Keys.from_generator`` makes every split the same
+``torch.Generator``, which then draws in the tree's order (the serving
+path's init: the same distributions, not the reference's numbers).  The
+f32 upcasts and the casts back sit where the reference has them.
+``torch.var`` defaults to the unbiased variance and ``jnp.var`` is the
+population one, so the norms pass ``correction=0``.
 """
 from __future__ import annotations
 
@@ -16,6 +22,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -23,18 +31,69 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # init helpers
 # ---------------------------------------------------------------------------
 
-def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    """N(0, scale^2) drawn in f32 on the generator's device, cast to
-    ``dtype``."""
-    w = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
-    return (w * scale).to(dtype)
+class Keys:
+    """A source of N(0, 1) f32 draws on ``device`` with the reference's key
+    tree: ``split(n)``, ``fold_in(i)``, ``normal(shape)`` (see the module
+    doc)."""
+
+    def __init__(self, key=None, gen: Optional[torch.Generator] = None, device=None):
+        self.key, self.gen = key, gen
+        self.device = torch.device(device) if device is not None else gen.device
+
+    @classmethod
+    def from_key(cls, key, device) -> "Keys":
+        return cls(key=key, device=device)
+
+    @classmethod
+    def from_generator(cls, gen: torch.Generator) -> "Keys":
+        return cls(gen=gen)
+
+    def split(self, n: int) -> list:
+        if self.gen is not None:
+            return [self] * n
+        return [Keys(key=k, device=self.device) for k in prng.split(self.key, self.device, n)]
+
+    def fold_in(self, i: int) -> "Keys":
+        if self.gen is not None:
+            return self
+        return Keys(key=prng.fold_in(self.key, i), device=self.device)
+
+    def normal(self, shape) -> torch.Tensor:
+        shape = tuple(int(s) for s in shape)
+        if self.gen is not None:
+            return torch.randn(shape, generator=self.gen, device=self.device,
+                               dtype=torch.float32)
+        return prng.normal(self.key, math.prod(shape), self.device).reshape(shape)
 
 
-def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None):
+def as_keys(src, device=None) -> Keys:
+    """``src`` as a ``Keys``: a generator, a ``core.prng`` key (drawn on
+    ``device``) or a ``Keys`` already."""
+    if isinstance(src, Keys):
+        return src
+    if isinstance(src, torch.Generator):
+        return Keys.from_generator(src)
+    return Keys.from_key(src, device)
+
+
+def normal(keys: Keys, shape, scale: float, dtype) -> torch.Tensor:
+    """N(0, scale^2) drawn in f32 on the keys' device, cast to ``dtype``."""
+    return (keys.normal(shape) * scale).to(dtype)
+
+
+def dense_init(keys: Keys, shape, dtype, scale: Optional[float] = None):
     """N(0, scale^2) with scale 1/sqrt(fan_in) by default."""
     if scale is None:
         scale = 1.0 / math.sqrt(shape[0])
-    return normal(gen, shape, scale, dtype)
+    return normal(keys, shape, scale, dtype)
+
+
+def zeros_init(shape, dtype, device) -> torch.Tensor:
+    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
+def const_init(value, shape, dtype, device) -> torch.Tensor:
+    return torch.full(tuple(shape), value, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -106,10 +165,11 @@ def rope_apply(x, cos, sin):
 # gated MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 
-def mlp_init(gen, d_model: int, d_ff: int, dtype) -> dict:
-    return {"wi": dense_init(gen, (d_model, d_ff), dtype),
-            "wg": dense_init(gen, (d_model, d_ff), dtype),
-            "wo": dense_init(gen, (d_ff, d_model), dtype)}
+def mlp_init(keys: Keys, d_model: int, d_ff: int, dtype) -> dict:
+    k1, k2, k3 = keys.split(3)
+    return {"wi": dense_init(k1, (d_model, d_ff), dtype),
+            "wg": dense_init(k2, (d_model, d_ff), dtype),
+            "wo": dense_init(k3, (d_ff, d_model), dtype)}
 
 
 def activation(x, act: str):
@@ -127,8 +187,8 @@ def mlp_apply(params, x, act: str = "silu"):
 # embeddings / heads
 # ---------------------------------------------------------------------------
 
-def embed_init(gen, vocab: int, d_model: int, dtype) -> dict:
-    return {"w": dense_init(gen, (vocab, d_model), dtype, scale=1.0)}
+def embed_init(keys: Keys, vocab: int, d_model: int, dtype) -> dict:
+    return {"w": dense_init(keys, (vocab, d_model), dtype, scale=1.0)}
 
 
 def embed_apply(params, tokens):

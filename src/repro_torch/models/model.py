@@ -1,12 +1,17 @@
 """Top-level language model, the port of ``src/repro/models/model.py``:
-embedding, decoder stack, head and the serving paths (prefill and decode).
+embedding, decoder stack, head, the causal LM loss and the serving paths
+(prefill and decode).
 
-Batch dict: ``tokens`` (B, S) int.  ``build(cfg)`` returns a ``Model`` of
-plain functions over nested parameter dicts.  The training half (``loss``,
-``specs``) comes with the training slice, the vision frontend and
-multi-codebook heads with ``ROADMAP.md`` item 8: both raise here.  The
-reference's sharding constraints are no-ops without a mesh and have no
-counterpart.
+Batch dict: ``tokens`` (B, S) int, ``targets`` the same shape (training),
+``loss_mask`` optional (B, S) f32.  ``build(cfg)`` returns a ``Model`` of
+plain functions over nested parameter dicts.  ``init`` takes a
+``core.prng`` key (the reference's weights: its split tree, drawn on
+``device``, the card unless the caller asks for the CPU) or a
+``torch.Generator`` (the serving path's draw on the generator's device).
+The vision frontend and multi-codebook heads are ``ROADMAP.md`` item 8 and
+raise here.  The reference's sharding constraints are no-ops without a mesh
+and have no counterpart; its one-hot contraction for the target logit is a
+gather here (the one-hot sum adds zeros to the target logit, exactly).
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tree_util as T
+from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models import stack as S
 
@@ -33,17 +40,21 @@ def check_ported(cfg: ArchConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
-def model_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
-    """Random parameters from ``gen``, on its device, in the reference's
-    layout and distributions."""
+def model_init(src, cfg: ArchConfig, device="cuda") -> dict:
+    """Random parameters in the reference's layout and distributions, from
+    ``src``: a ``core.prng`` key (the reference's weights, on ``device``)
+    or a ``torch.Generator`` (on its own device)."""
     check_ported(cfg)
     dtype = L.DTYPES[cfg.dtype]
-    p: dict[str, Any] = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)}
-    p["embed"]["w"] = p["embed"]["w"] * 0.02
+    keys = L.as_keys(src, None if isinstance(src, torch.Generator) else resolve(device))
+    ks = keys.split(5)
+    p: dict[str, Any] = {"embed": L.embed_init(ks[0], cfg.vocab_size, cfg.d_model, dtype)}
+    w = p["embed"]["w"]
+    p["embed"]["w"] = w * T.weak(0.02, w)
     if not cfg.tie_embeddings:
-        p["head"] = {"w": L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype)}
-    p["stack"] = S.stack_init(gen, cfg, dtype)
-    p["final_norm"] = L.norm_init(cfg.norm_kind, cfg.d_model, gen.device)
+        p["head"] = {"w": L.dense_init(ks[1], (cfg.d_model, cfg.vocab_size), dtype)}
+    p["stack"] = S.stack_init(ks[4], cfg, dtype)
+    p["final_norm"] = L.norm_init(cfg.norm_kind, cfg.d_model, keys.device)
     return p
 
 
@@ -73,6 +84,25 @@ def forward(cfg: ArchConfig, params, batch, *, mode="train", cache=None, pos=Non
                                       cache_cap=cache_cap, window_override=window_override)
     x = L.norm_apply(cfg.norm_kind, params["final_norm"], x)
     return _head(cfg, params, x), new_cache, aux
+
+
+def _xent(logits, targets, mask=None):
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - tgt
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    """Causal LM loss; returns (loss, aux dict) as the reference's
+    ``loss_fn``: the mean token cross entropy of the f32 logits, plus 0.01
+    times the stack's auxiliary loss (0 without MoE)."""
+    logits, _, aux = forward(cfg, params, batch, mode="train")
+    loss = _xent(logits, batch["targets"], batch.get("loss_mask"))
+    total = loss + 0.01 * aux
+    return total, {"xent": loss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -117,8 +147,9 @@ def cache_shapes(cfg: ArchConfig, batch: int, cap: int, *,
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
-    init: Callable  # (torch.Generator) -> params on the generator's device
+    init: Callable  # (prng key[, device] | torch.Generator) -> params
     apply: Callable  # (params, batch) -> logits
+    loss: Callable  # (params, batch) -> (loss, aux)
     prefill: Callable  # (params, batch, cache_cap) -> (logits, cache)
     decode: Callable  # (params, cache, tokens) -> (logits, cache)
     cache_shapes: Callable  # (batch, cap) -> meta tensors in the cache's layout
@@ -128,8 +159,9 @@ def build(cfg: ArchConfig, *, window_override: Optional[int] = None) -> Model:
     check_ported(cfg)
     return Model(
         cfg=cfg,
-        init=lambda gen: model_init(gen, cfg),
+        init=lambda src, device="cuda": model_init(src, cfg, device),
         apply=lambda p, b: forward(cfg, p, b, mode="train", window_override=window_override)[0],
+        loss=lambda p, b: loss_fn(cfg, p, b),
         prefill=lambda p, b, cap: prefill(cfg, p, b, cache_cap=cap,
                                           window_override=window_override),
         decode=lambda p, c, t: decode_step(cfg, p, c, t, window_override=window_override),

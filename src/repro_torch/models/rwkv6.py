@@ -20,23 +20,25 @@ from repro_torch.models import layers as L
 DECAY_LORA = 64
 
 
-def rwkv_init(gen, cfg: ArchConfig, dtype) -> dict:
+def rwkv_init(keys: L.Keys, cfg: ArchConfig, dtype) -> dict:
     d, hd = cfg.d_model, cfg.wkv_head_dim
     h = d // hd
-    dev = gen.device
-    p = {nm: torch.full((d,), 0.5, dtype=dtype, device=dev)
+    dev = keys.device
+    ks = keys.split(12)
+    p = {nm: L.const_init(0.5, (d,), dtype, dev)
          for nm in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w")}
-    for nm in ("wr", "wk", "wv", "wg", "wo"):
-        p[nm] = L.dense_init(gen, (d, d), dtype)
-    p["w0"] = torch.full((d,), -6.0, dtype=torch.float32, device=dev)
-    p["decay_a"] = L.dense_init(gen, (d, DECAY_LORA), dtype)
-    p["decay_b"] = L.normal(gen, (DECAY_LORA, d), 0.01, dtype)
-    p["u"] = L.normal(gen, (h, hd), 0.1, torch.float32)
-    p["cm_mu_k"] = torch.full((d,), 0.5, dtype=dtype, device=dev)
-    p["cm_mu_r"] = torch.full((d,), 0.5, dtype=dtype, device=dev)
-    p["cm_wk"] = L.dense_init(gen, (d, cfg.d_ff), dtype)
-    p["cm_wv"] = L.dense_init(gen, (cfg.d_ff, d), dtype)
-    p["cm_wr"] = L.dense_init(gen, (d, d), dtype)
+    for i, nm in enumerate(("wr", "wk", "wv", "wg", "wo")):
+        p[nm] = L.dense_init(ks[i], (d, d), dtype)
+    # data-dependent decay: w = exp(-exp(w0 + tanh(xw @ A) @ B))
+    p["w0"] = L.const_init(-6.0, (d,), torch.float32, dev)
+    p["decay_a"] = L.dense_init(ks[5], (d, DECAY_LORA), dtype)
+    p["decay_b"] = L.normal(ks[6], (DECAY_LORA, d), 0.01, dtype)
+    p["u"] = L.normal(ks[7], (h, hd), 0.1, torch.float32)
+    p["cm_mu_k"] = L.const_init(0.5, (d,), dtype, dev)
+    p["cm_mu_r"] = L.const_init(0.5, (d,), dtype, dev)
+    p["cm_wk"] = L.dense_init(ks[8], (d, cfg.d_ff), dtype)
+    p["cm_wv"] = L.dense_init(ks[9], (cfg.d_ff, d), dtype)
+    p["cm_wr"] = L.dense_init(ks[10], (d, d), dtype)
     return p
 
 

@@ -49,15 +49,16 @@ def check_ported(cfg: ArchConfig) -> None:
 # single block
 # ---------------------------------------------------------------------------
 
-def block_init(gen, cfg: ArchConfig, kind: str, dtype) -> dict:
-    dev = gen.device
+def block_init(keys: L.Keys, cfg: ArchConfig, kind: str, dtype) -> dict:
+    dev = keys.device
+    k1, k2 = keys.split(2)
     p: dict[str, Any] = {"ln1": L.norm_init(cfg.norm_kind, cfg.d_model, dev),
                          "ln2": L.norm_init(cfg.norm_kind, cfg.d_model, dev)}
     if kind in ("dense", "local"):
-        p["attn"] = A.gqa_init(gen, cfg, dtype)
-        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+        p["attn"] = A.gqa_init(k1, cfg, dtype)
+        p["mlp"] = L.mlp_init(k2, cfg.d_model, cfg.d_ff, dtype)
     elif kind == "rwkv":
-        p["core"] = W.rwkv_init(gen, cfg, dtype)
+        p["core"] = W.rwkv_init(k1, cfg, dtype)
     else:
         check_ported(cfg)
         raise ValueError(kind)
@@ -120,17 +121,23 @@ def _stack(trees):
     return T.tmap(lambda *xs: torch.stack(xs), *trees)
 
 
-def stack_init(gen, cfg: ArchConfig, dtype) -> dict:
+def stack_init(keys: L.Keys, cfg: ArchConfig, dtype) -> dict:
+    """The reference's key tree: split 3 ways, the lead blocks on splits of
+    the first, unit u's block b on fold_in(split u of the second, b), tail
+    block b on fold_in(the third, b)."""
     lead, n_units, tail = layer_plan(cfg)
+    k_lead, k_units, k_tail = keys.split(3)
     p: dict[str, Any] = {}
     if lead:
-        p["lead"] = [block_init(gen, cfg, cfg.block_pattern[0], dtype) for _ in range(lead)]
+        p["lead"] = [block_init(kk, cfg, cfg.block_pattern[0], dtype)
+                     for kk in k_lead.split(lead)]
     if n_units:
-        p["units"] = _stack([{f"b{bi}": block_init(gen, cfg, kind, dtype)
+        p["units"] = _stack([{f"b{bi}": block_init(ku.fold_in(bi), cfg, kind, dtype)
                               for bi, kind in enumerate(cfg.block_pattern)}
-                             for _ in range(n_units)])
+                             for ku in k_units.split(n_units)])
     if tail:
-        p["tail"] = [block_init(gen, cfg, kind, dtype) for kind in tail]
+        p["tail"] = [block_init(k_tail.fold_in(bi), cfg, kind, dtype)
+                     for bi, kind in enumerate(tail)]
     return p
 
 

@@ -1257,3 +1257,129 @@ def test_cuda_serve_launches_the_model_kernels(cuda):
         assert torch.isfinite(out.logits).all()
         counts = P.launches()
         assert counts[kernel] == 2 and sum(counts.values()) == 2
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels 16b-17b and training through them
+# ---------------------------------------------------------------------------
+#
+# Tolerances: against autograd of the plain forward, relative to the largest
+# magnitude of each gradient, 1e-4 in f32 (sums in other orders), 2^-6 in
+# bf16 (P and dS, or the recurrence's operands, rounded to bf16 before
+# their products: two roundings of 2^-8).
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 128, 4, 4, 64, None), (1, 200, 8, 2, 128, 48),
+                                  (2, 77, 4, 2, 24, None)])
+def test_cuda_flash_attention_bwd_matches_autograd_of_plain(cuda, case, dtype):
+    B, S, H, Hkv, hd, window = case
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, do = (torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
+    o, lse = FA.flash_attention(q, k, v, window=window, lse=True)
+    pos = torch.arange(S, device=cuda)
+    P.reset_launches()
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    assert P.launches()["flash_attention_bwd"] == 1
+    want = ref.flash_attention_bwd_ref(q, k, v, do, pos, pos, window=window)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= tol * float(b.float().abs().max())
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # a fixed order: bitwise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,n_u", [(1, 1), (64, 2), (130, 1)])
+def test_cuda_wkv6_bwd_matches_autograd_of_plain(cuda, dtype, S, n_u):
+    from repro_torch.kernels import wkv6 as WK
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    r, k, v, dy = (torch.randn(2, S, 3, 64, generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    w = torch.exp(-torch.exp(torch.randn(2, S, 3, 64, generator=g, device=cuda) - 1.0))
+    u = 0.1 * torch.randn(*((n_u,) if n_u > 1 else ()), 3, 64, generator=g, device=cuda)
+    s0 = 0.1 * torch.randn(2, 3, 64, 64, generator=g, device=cuda)
+    dsf = torch.randn(2, 3, 64, 64, generator=g, device=cuda)
+    y, s, states = WK.wkv6(r, k, v, w, u, s0, keep_states=True)
+    P.reset_launches()
+    got = WK.wkv6_bwd(r, k, v, w, u, s0, s, states, dy, dsf)
+    assert P.launches()["wkv6_bwd"] == 1
+    want = ref.wkv6_bwd_ref(r, k, v, w, u, s0, dy, dsf)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if i == 3:
+            # dw = d(log w) / w: with w down to 1e-14 here the plain f32
+            # version's own dw is off from float64 by up to 1e6 of max |dw|,
+            # while d(log w) = w dw is within 3e-6; compare that
+            a, b = a * w, b * w
+        assert float((a.float() - b.float()).abs().max()) <= tol * max(
+            1e-30, float(b.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_vmap_grad_reaches_the_backward_kernels(cuda):
+    """The rounds' vmap(grad) through the Functions on the card: one launch
+    of each kernel for all clients, gradients as the CPU's plain path's."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn(3, 2, 64, 4, 32, generator=g, device=cuda) for _ in range(3))
+
+    def f(q, k, v):
+        return (P.flash_attention(q, k, v, causal=True) ** 2).sum()
+
+    P.reset_launches()
+    got = torch.func.vmap(torch.func.grad(f, argnums=(0, 1, 2)))(q, k, v)
+    counts = P.launches()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    want = torch.func.vmap(torch.func.grad(f, argnums=(0, 1, 2)))(q.cpu(), k.cpu(), v.cpu())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_vmap_grad_reaches_the_wkv6_kernels(cuda):
+    """vmap(grad) through ``ops.wkv6`` on the card, u one row a client and
+    s0 unbatched (both vmap rules fold the clients into the batch): one
+    launch of kernels 17 and 17b for all clients, gradients as the CPU's
+    plain path's."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    m, B, S, H, K = 3, 2, 70, 2, 64
+    r, k, v = (torch.randn(m, B, S, H, K, generator=g, device=cuda) for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * torch.randn(m, B, S, H, K, generator=g, device=cuda) - 1.0))
+    u = 0.1 * torch.randn(m, H, K, generator=g, device=cuda)
+    s0 = 0.1 * torch.randn(B, H, K, K, generator=g, device=cuda)
+
+    def f(r, k, v, w, u, s0):
+        y, s = P.wkv6(r, k, v, w, u, s0)
+        return (y ** 2).sum() + s.sum()
+
+    grad = torch.func.vmap(torch.func.grad(f, argnums=(0, 1, 2, 3, 4)),
+                           in_dims=(0, 0, 0, 0, 0, None))
+    P.reset_launches()
+    got = grad(r, k, v, w, u, s0)
+    counts = P.launches()
+    assert counts["wkv6"] == 1 and counts["wkv6_bwd"] == 1
+    want = grad(*(t.cpu() for t in (r, k, v, w, u, s0)))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_train_resume_is_bitwise(cuda, tmp_path):
+    """The reduced olmo-1b trained on the card: save at 2 + resume == 4
+    rounds uninterrupted, every logged value bitwise."""
+    from repro_torch.launch import train
+
+    kw = dict(reduced=True, algorithm="gpdmm", k=2, eta=0.05, m=2, per_client_batch=2,
+              seq_len=32, log_every=1)
+    a = train.run("olmo-1b", steps=2, ckpt_dir=str(tmp_path), **kw)
+    b = train.run("olmo-1b", steps=4, ckpt_dir=str(tmp_path), resume=True, **kw)
+    c = train.run("olmo-1b", steps=4, **kw)
+    assert a + b == c
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.run("olmo-1b", steps=1, eta="auto")

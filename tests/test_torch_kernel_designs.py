@@ -33,6 +33,16 @@ wrong decomposition shows before any kernel runs on a card:
   group once; the one-segment host route's row; and the per-client step
   index, which no lane of a ragged tail reads past the last client.
 
+* kernels 16b and 17b, the backward passes (``csrc/flash_attention_bwd.cu``,
+  ``csrc/wkv6_bwd.cu``): flash's two tile walks (dq by query tile over the
+  key tiles its rows can see, dk and dv by key tile over the query tiles
+  that can see it, each row's P rebuilt from lse, D = do . o) and wkv6's
+  three passes (the state gradient carried backwards over the chunks, each
+  chunk's gradients from its entering state, its leaving state and that
+  gradient, dlw as the reverse cumsum of dla less its la_prev part) --
+  within 1e-5 of the largest gradient of autograd of the plain versions,
+  every visible pair visited exactly once.
+
 Also: the route the flash wrapper picks, that every launcher's C signature
 (and the inner loop's occupancy query) has as many parameters as its
 ctypes binding declares, and that
@@ -664,3 +674,155 @@ def test_chip_smoke_reads_the_register_report():
         {"fn": "wkv6_kernel<__nv_bfloat16>", "spill": 4, "regs": 128, "smem": 1024},
         {"fn": "launch_plain", "regs": 12, "smem": 0},
     ]
+
+
+# ---------------------------------------------------------------------------
+# kernels 16b and 17b: the backward passes' walks
+# ---------------------------------------------------------------------------
+
+BWD_BR, BWD_BC = 64, 32  # csrc/flash_attention_bwd.cu kBR, kBC
+
+
+def _flash_bwd_model(q, k, v, do, q_offset, window):
+    """``csrc/flash_attention_bwd.cu`` in plain tensors: the dq grid's key
+    range per query tile, the dk/dv grid's query range per key tile, P from
+    the row logsumexp, dS = P (dP - D); returns (dq, dk, dv, visits), the
+    number of times each (query, key) pair was visited by each grid."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G, scale = H // Hkv, 1.0 / math.sqrt(hd)
+    qp = torch.arange(q_offset, q_offset + Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    ok = (kp <= qp) & ((kp > qp - window) if window else torch.ones_like(kp, dtype=bool))
+    qf, kf, vf, dof = (t.double() for t in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf.repeat_interleave(G, 2)) * scale
+    lse = torch.logsumexp(torch.where(ok, s, -torch.inf), dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - lse[..., None]) * ok,
+                     vf.repeat_interleave(G, 2))
+    D = (dof * o).sum(-1).permute(0, 2, 1)  # (B, H, Sq)
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    visits = torch.zeros(2, Sq, Sk, dtype=torch.int64)
+
+    def tile(q0, k0, h):
+        rows, cols = slice(q0, min(q0 + BWD_BR, Sq)), slice(k0, min(k0 + BWD_BC, Sk))
+        hk = h // G
+        sc = torch.einsum("qd,kd->qk", qf[:, rows, h][0], kf[:, cols, hk][0]) * scale
+        m = ok[rows, cols]
+        P = torch.where(m, torch.exp(sc - lse[0, h, rows][:, None]), 0.0)
+        dP = torch.einsum("qd,kd->qk", dof[0, rows, h], vf[0, cols, hk])
+        dS = P * (dP - D[0, h, rows][:, None])
+        return rows, cols, hk, P, dS
+
+    assert B == 1
+    for h in range(H):  # 1. dq: a block per query tile
+        for q0 in range(0, Sq, BWD_BR):
+            lo, hi = q_offset + q0, q_offset + min(q0 + BWD_BR, Sq) - 1
+            k_end = min(Sk, hi + 1)
+            k_begin = (max(0, lo - window + 1) if window else 0) // BWD_BC * BWD_BC
+            for k0 in range(k_begin, k_end, BWD_BC):
+                rows, cols, hk, P, dS = tile(q0, k0, h)
+                dq[0, rows, h] += dS @ kf[0, cols, hk] * scale
+                if h == 0:
+                    visits[0, rows, cols] += ok[rows, cols].long()
+    for hk in range(Hkv):  # 2. dk, dv: a block per key tile, the group's heads
+        for k0 in range(0, Sk, BWD_BC):
+            k_last = min(k0 + BWD_BC, Sk) - 1
+            i_begin = max(0, k0 - q_offset) // BWD_BR * BWD_BR
+            i_end = min(Sq, k_last + window - q_offset) if window else Sq
+            for h in range(hk * G, (hk + 1) * G):
+                for q0 in range(i_begin, i_end, BWD_BR):
+                    rows, cols, _, P, dS = tile(q0, k0, h)
+                    dv[0, cols, hk] += P.T @ dof[0, rows, h]
+                    dk[0, cols, hk] += dS.T @ qf[0, rows, h] * scale
+                    if h == 0:
+                        visits[1, rows, cols] += ok[rows, cols].long()
+    return dq, dk, dv, visits, ok
+
+
+@pytest.mark.parametrize("case", [(150, 150, 4, 2, 8, 0, None), (100, 100, 2, 1, 8, 0, 30),
+                                  (70, 200, 4, 4, 8, 130, None), (96, 96, 2, 2, 8, 0, 5)])
+def test_flash_bwd_walk_matches_autograd(case):
+    Sq, Sk, H, Hkv, hd, off, window = case
+    g = torch.Generator().manual_seed(11)
+    q, do = (torch.randn(1, Sq, H, hd, generator=g) for _ in range(2))
+    k, v = (torch.randn(1, Sk, Hkv, hd, generator=g) for _ in range(2))
+    dq, dk, dv, visits, ok = _flash_bwd_model(q, k, v, do, off, window)
+    assert torch.equal(visits[0], ok.long()) and torch.equal(visits[1], ok.long())
+    want = ref.flash_attention_bwd_ref(q.double(), k.double(), v.double(), do.double(),
+                                       torch.arange(off, off + Sq), torch.arange(Sk),
+                                       window=window)
+    for a, b in zip((dq, dk, dv), want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+def _wkv6_bwd_model(r, k, v, w, u, s0, dy, dsf, C=64):
+    """``csrc/wkv6_bwd.cu`` for one (b, h) in f64: the carry pass, then
+    each chunk's gradients, then du; r, k, w (S, K), v, dy (S, V)."""
+    S, K = r.shape
+    nc = -(-S // C)
+    states, s = [], s0.clone()
+    for c in range(nc):  # the forward's states entering each chunk
+        states.append(s.clone())
+        for t in range(c * C, min(S, (c + 1) * C)):
+            s = w[t][:, None] * s + k[t][:, None] * v[t][None, :]
+    s_out = s
+
+    def chunk(c):
+        n = min(C, S - c * C)
+        pad = lambda x: torch.cat([x[c * C:c * C + n], x.new_zeros(C - n, x.shape[1])])  # noqa
+        lw = pad(torch.log(torch.clamp(w, min=1e-38)))
+        la = torch.cumsum(lw, 0)
+        return n, pad, la, la - lw
+
+    dS, dst = dsf.clone(), [None] * nc
+    for c in reversed(range(nc)):  # 1. carry
+        dst[c] = dS.clone()
+        n, pad, la, lp = chunk(c)
+        dS = torch.exp(la[-1])[:, None] * dS + (pad(r) * torch.exp(lp)).T @ pad(dy)
+    ds0 = dS
+    dr, dk, dv, dw, du = (torch.zeros_like(x) for x in (r, k, v, w, u))
+    strict = torch.tril(torch.ones(C, C, dtype=torch.float64), -1)
+    for c in range(nc):  # 2. chunks
+        n, pad, la, lp = chunk(c)
+        rs, ks, vs, dys = pad(r), pad(k), pad(v), pad(dy)
+        S0, SC, dSC = states[c], states[c + 1] if c + 1 < nc else s_out, dst[c]
+        g, bb = (dys * vs).sum(1), (rs * u * ks).sum(1)
+        E = torch.exp(torch.clamp(lp[:, None] - la[None], max=0))
+        att = torch.einsum("tk,sk,tsk->ts", rs, ks, E) * strict
+        datt = dys @ vs.T * strict
+        ec = ks * torch.exp(la[-1][None] - la)
+        inter = dys @ S0.T * torch.exp(lp)
+        intra = torch.einsum("ts,sk,tsk->tk", datt, ks, E)
+        intra_k = torch.einsum("ts,tk,tsk->sk", datt, rs, E)
+        carry = vs @ dSC.T * torch.exp(la[-1][None] - la)
+        dlp, dla = rs * (inter + intra), -ks * (intra_k + carry)
+        tot = dla + dlp
+        tot[-1] += (dSC * SC).sum(1)
+        dlw = torch.flip(torch.cumsum(torch.flip(tot, [0]), 0), [0]) - dlp
+        sl = slice(c * C, c * C + n)
+        dv[sl] = (att.T @ dys + bb[:, None] * dys + ec @ dSC)[:n]
+        dr[sl] = (inter + intra + g[:, None] * u * ks)[:n]
+        dk[sl] = (intra_k + g[:, None] * u * rs + carry)[:n]
+        dw[sl] = torch.where(w[sl] >= 1e-38, dlw[:n] / w[sl], 0.0)
+        du += (g[:, None] * rs * ks).sum(0)  # 3. du, chunk by chunk
+    return dr, dk, dv, dw, du, ds0
+
+
+@pytest.mark.parametrize("S", [1, 64, 150])
+def test_wkv6_bwd_passes_match_autograd(S):
+    g = torch.Generator().manual_seed(S)
+    K, V = 8, 6
+    r, k = (torch.randn(S, K, generator=g, dtype=torch.float64) for _ in range(2))
+    v, dy = (torch.randn(S, V, generator=g, dtype=torch.float64) for _ in range(2))
+    w = torch.exp(-torch.exp(torch.randn(S, K, generator=g, dtype=torch.float64) - 1))
+    u = torch.randn(K, generator=g, dtype=torch.float64)
+    s0, dsf = (torch.randn(K, V, generator=g, dtype=torch.float64) for _ in range(2))
+    got = _wkv6_bwd_model(r, k, v, w, u, s0, dy, dsf)
+    want = ref.wkv6_bwd_ref(*(t[None, :, None] for t in (r, k, v, w)), u[None], s0[None, None],
+                            dy[None, :, None], dsf[None, None])
+    want = [want[0][0, :, 0], want[1][0, :, 0], want[2][0, :, 0], want[3][0, :, 0],
+            want[4][0], want[5][0, 0]]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b.to(a.dtype), rtol=0,
+                                   atol=1e-5 * max(1.0, float(b.abs().max())))

@@ -18,7 +18,7 @@ does: the quantiser rounds to a grid, and a free-running comparison would
 carry a rounding flip on.  None happens here; a flip fails the test.
 
 The checkpoint round trips and the train launcher of tests/test_popstore.py
-wait for their modules (``checkpoint/``, ``launch/train.py``)."""
+are mirrored in tests/test_torch_ckpt.py and tests/test_torch_train.py."""
 import json
 
 import jax
@@ -181,12 +181,40 @@ def test_popstore_requires_cohort_engine(lsq):
         popstore.Runner(FederatedConfig(algorithm="fedsplit"), prob.oracle(), device="cpu")
 
 
-def test_bf16_arena_is_refused(lsq):
-    """The store is numpy, which has no bfloat16: float32 rows only."""
+def _bf16_words(a) -> np.ndarray:
+    """A bf16 store buffer's 16-bit words: the port's CPU tensor or the
+    reference's ``ml_dtypes`` array."""
+    if torch.is_tensor(a):
+        return a.view(torch.int16).numpy().view(np.uint16)
+    return np.asarray(a).view(np.uint16)
+
+
+def test_bf16_arena_matches_reference_runner(lsq):
+    """A bf16 arena: the store keeps the rows as 16-bit words (numpy has no
+    bfloat16) and runs as the reference's bf16 store does, 3 GPDMM rounds
+    at participation 0.5 from a bf16 server row.  The store's
+    words are bitwise the reference's where the bodies round alike; they are
+    held to one bf16 rounding (2^-8 of max |a|) since the two bodies sum in
+    other orders, the f64 running sums to the f32 rounding of that scale."""
     ref, prob = lsq
-    runner = popstore.Runner(FederatedConfig(**_kw(ref, "gpdmm")), prob.oracle(), device="cpu")
-    with pytest.raises(ValueError, match="float32"):
-        runner.init(torch.zeros(prob.d, dtype=torch.bfloat16), prob.m)
+    rcfg, pcfg = _configs(_kw(ref, "gpdmm"))
+    runner = popstore.Runner(pcfg, prob.oracle(), device="cpu")
+    pop = runner.init(torch.zeros(prob.d, dtype=torch.bfloat16), prob.m)
+    rrun = ref_popstore.Runner(rcfg, ref.oracle())
+    rs = rrun.init(jnp.zeros(ref.d, jnp.bfloat16), ref.m)
+    assert pop["pop"]["u_hat"].dtype == torch.bfloat16
+    for r in range(3):
+        pop, met = runner.round(pop, prob.batch())
+        rs, rm = rrun.round(rs, ref.batch())
+        assert runner.server_params(pop).dtype == torch.bfloat16
+        for name in popstore.POP_BUFFERS["gpdmm"]:
+            a = popstore._wide(_bf16_words(pop["pop"][name]))
+            b = popstore._wide(_bf16_words(rs["pop"][name]))
+            _close(a, b, atol=2.0 ** -8, msg=f"round {r}: {name}")
+        _close(pop["x_s"].float(), np.asarray(rs["x_s"], np.float32), atol=2.0 ** -8,
+               msg=f"round {r}: x_s")
+        _close(pop["pop_sum"], rs["pop_sum"], atol=2.0 ** -8, msg=f"round {r}: pop_sum")
+        assert sorted(met) == sorted(rm)
 
 
 def test_runner_defaults_to_the_card():

@@ -1,6 +1,7 @@
-"""The port as a package: it imports neither JAX nor the reference (the
-modules of every slice, autotune, graph-PDMM, the models, the serving
-launcher, the host-resident population store, the theory instruments,
+"""The port as a package: it imports neither JAX nor the reference, nor
+``msgpack`` or ``ml_dtypes`` (the modules of every slice, autotune,
+graph-PDMM, the models, the serving and training launchers, the
+checkpoint, the host-resident population store, the theory instruments,
 telemetry and the data pipeline included), it rejects the branches the
 reference rejects (EF21 and variance reduction over a graph), it
 runs the fault, topology and early-exit branches, its configuration copy
@@ -46,14 +47,17 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
                  "repro_torch.core.theory", "repro_torch.telemetry",
                  "repro_torch.telemetry.spans", "repro_torch.telemetry.metrics",
                  "repro_torch.telemetry.torchprof", "repro_torch.data",
-                 "repro_torch.data.partition", "repro_torch.data.synthetic"):
+                 "repro_torch.data.partition", "repro_torch.data.synthetic",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.msgpack_ckpt",
+                 "repro_torch.checkpoint._msgpack", "repro_torch.launch.train"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
         f"for name in {mods!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'msgpack',\n"
+        "                                    'ml_dtypes'))\n"
         "print(bad)\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -63,7 +67,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
-                         + ["chip_smoke.py", "chip_ab.py"])
+                         + ["chip_smoke.py", "chip_ab.py"]
+                         + sorted(str(p.relative_to(ROOT))
+                                  for p in (ROOT / "examples").glob("torch_*.py")))
 def test_no_jax_or_reference_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -74,7 +80,7 @@ def test_no_jax_or_reference_import_in_source(path):
             names = [node.module]
         for n in names:
             top = n.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, n)
+            assert top not in ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes"), (path, n)
 
 
 def test_config_copy_matches_reference_fields_and_defaults():
