@@ -41,7 +41,9 @@ times; every number is a median over the pairs.  Measured, for each tree:
     the device and as the host enqueues them, with host ops a call;
   * the server step's column walks (``round_tail_mean``, ``round_tail``,
     ``client_mean``, ``server_dual``), f32 and bf16, at ``WALK_SHAPES`` on
-    the device (``server_walks``).
+    the device (``server_walks``);
+  * the backward kernels 16b and 17b at the prefill and the training
+    shapes on the device (``bwd``).
 
 And for this tree alone, the step kernel's two parameter tables (8
 segments, and the most the parameter limit holds): the launch with the
@@ -107,7 +109,8 @@ def use(tree: dict) -> SimpleNamespace:
         faults=tree["repro_torch.core.faults"], ref=tree["repro_torch.kernels.ref"],
         SoftmaxRegression=tree["repro_torch.core.softmax"].SoftmaxRegression,
         gpdmm=tree["repro_torch.core.gpdmm"], pdmm_graph=tree["repro_torch.core.pdmm_graph"],
-        build=tree["repro_torch.kernels._build"], fu=tree["repro_torch.kernels.fused_update"])
+        build=tree["repro_torch.kernels._build"], fu=tree["repro_torch.kernels.fused_update"],
+        fa=tree["repro_torch.kernels.flash_attention"], wk=tree["repro_torch.kernels.wkv6"])
 
 
 def alternate(trees, pairs: int, measure) -> dict:
@@ -572,10 +575,50 @@ def server_walks(torch, trees, pairs, out):
         torch.cuda.empty_cache()
 
 
+def bwd(torch, trees, pairs, out):
+    """The backward kernels 16b (``flash_attention_bwd``) and 17b
+    (``wkv6_bwd``) of each tree on the device (the stream pre-filled), bf16,
+    at olmo-1b's and rwkv6-1.6b's prefill shapes and at the training
+    round's folded shapes (``chip_smoke.FLASH_SHAPE``, ``FLASH_TRAIN_SHAPE``,
+    ``WKV_SHAPE``, ``WKV_TRAIN_SHAPE``).  The forward's output, row
+    logsumexp and chunk states come from this tree; both trees take the
+    same ones."""
+    gen = S.seeded(torch, 83)
+    here = use(trees["this"])
+    bf = torch.bfloat16
+    for shape in (S.FLASH_SHAPE, S.FLASH_TRAIN_SHAPE):
+        B, Sq, H, hd = shape
+        q, k, v, do = (torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(bf)
+                       for _ in range(4))
+        o, lse = here.fa.flash_attention(q, k, v, lse=True)
+        res = alternate(trees, pairs, lambda label, t: S.cuda_time_ms(
+            lambda: t.fa.flash_attention_bwd(q, k, v, o, lse, do), S.BWD_ITERS))
+        out[f"flash_attention_bwd_{'x'.join(map(str, shape))}_device_ms"] = res
+        S.log(f"flash_attention_bwd {shape} bf16, device: " + ", ".join(
+            f"{k_} {v_['median']:.4f} ms" for k_, v_ in res.items()))
+        del q, k, v, do, o, lse
+    for shape, n_u in ((S.WKV_SHAPE, 1), (S.WKV_TRAIN_SHAPE, 2)):
+        B, Sq, H, K = shape
+        r, k, v, dy = (torch.randn(B, Sq, H, K, generator=gen, device="cuda").to(bf)
+                       for _ in range(4))
+        w = torch.exp(-torch.exp(0.5 * torch.randn(B, Sq, H, K, generator=gen, device="cuda")
+                                 - 1.0))
+        u = 0.1 * torch.randn(*((n_u,) if n_u > 1 else ()), H, K, generator=gen, device="cuda")
+        s0 = 0.1 * torch.randn(B, H, K, K, generator=gen, device="cuda")
+        dsf = torch.randn(B, H, K, K, generator=gen, device="cuda")
+        _, s_out, states = here.wk.wkv6(r, k, v, w, u, s0, keep_states=True)
+        res = alternate(trees, pairs, lambda label, t: S.cuda_time_ms(
+            lambda: t.wk.wkv6_bwd(r, k, v, w, u, s0, s_out, states, dy, dsf), S.BWD_ITERS))
+        out[f"wkv6_bwd_{'x'.join(map(str, shape))}_device_ms"] = res
+        S.log(f"wkv6_bwd {shape} bf16, {n_u} row(s) of u, device: " + ", ".join(
+            f"{k_} {v_['median']:.4f} ms" for k_, v_ in res.items()))
+        del r, k, v, dy, w, u, s0, dsf, s_out, states
+
+
 SECTIONS = {"host_step": host_step, "device_step": device_step, "tables": tables,
             "rounds": rounds, "ef21": ef21, "cohort_rows": cohort_rows,
             "population": population, "screen": screen, "scaffold": scaffold,
-            "server_walks": server_walks}
+            "server_walks": server_walks, "bwd": bwd}
 
 
 def main() -> int:

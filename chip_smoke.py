@@ -179,7 +179,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      (c) each model at full width
      with 2 layers on the card against the CPU (prefill of a 256-token
      prompt and one decode step);
- 12. print one JSON line of per-kernel numbers (with each source's
+ 12. federated LM training: (a) the backward kernels 16b and 17b against
+     autograd of their plain versions (``FLASH_BWD_CASES``,
+     ``WKV_BWD_CASES``; every case run twice, the two bitwise equal), timed
+     at the prefill shapes and the training round's folded shapes beside
+     their bounds and, for 16b, SDPA's backward under each of its backends
+     ``SDPA_BACKENDS``, the fastest the library time (medians of
+     ``BWD_TRIALS`` trials), and ``vmap(grad)``
+     through ``ops.flash_attention`` and ``ops.wkv6`` (one launch of each
+     kernel); (b) olmo-1b at full width through ``launch.train.run``
+     (``TRAIN``: a resume replays the uninterrupted run bitwise), kernels
+     2-4 at its arena, rwkv6-1.6b at 2 layers, the examples and the
+     popstore's checkpoint;
+ 13. print one JSON line of per-kernel numbers (with each source's
      ``-Xptxas -v`` registers, static shared memory and spills per entry
      function when the run built it), then the result line
      ``{"ok": true, "device": {...}}`` last.
@@ -222,6 +234,7 @@ import argparse
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -266,6 +279,13 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3, prefill: bool = True,
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def med_ms(fn, iters: int, trials: int, spin_cycles: int = 400_000) -> tuple[float, list]:
+    """The median of ``trials`` timings of ``iters`` calls (``cuda_time_ms``,
+    the stream pre-filled by ``spin_cycles`` a call), and every trial's."""
+    every = [cuda_time_ms(fn, iters, spin_cycles=spin_cycles) for _ in range(trials)]
+    return statistics.median(every), every
 
 
 def bound_ms(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S
@@ -352,21 +372,27 @@ class Record:
             self.rows[k]["launches"] += n
 
     def kernel(self, name, err, fn, plain_fn, iters, nbytes, flops, library_fn=None,
-               flop_per_s=F32_FLOP_PER_S, plain_iters=None, plain_spin=400_000):
+               flop_per_s=F32_FLOP_PER_S, plain_iters=None, plain_spin=400_000, trials=1):
         """Time ``fn`` (the kernel), ``plain_fn`` and, where one PyTorch call
         computes the same function, ``library_fn`` on the device, and the
         kernel once more as the host enqueues it (``enqueue_ms``).  The bound
         takes ``flops`` at ``flop_per_s`` (f32 outside the tensor cores by
         default).  A plain version of many ops takes ``plain_iters`` calls
         behind a spin of ``plain_spin`` cycles a call, so that the host has
-        enqueued them all before the device reaches them."""
-        ms = cuda_time_ms(fn, iters)
+        enqueued them all before the device reaches them.  With ``trials`` >
+        1 the kernel's and the library's times are medians of that many
+        trials of ``iters`` calls each (``med_ms``, every trial's time
+        kept)."""
+        ms, ms_all = med_ms(fn, iters, trials)
         plain_ms = cuda_time_ms(plain_fn, plain_iters or iters, spin_cycles=plain_spin)
-        library_ms = None if library_fn is None else cuda_time_ms(library_fn, iters)
+        library_ms, lib_all = ((None, None) if library_fn is None
+                               else med_ms(library_fn, iters, trials))
         enqueue_ms = cuda_time_ms(fn, iters, prefill=False)
         b, by = bound_ms(nbytes, flops, flop_per_s)
         self.rows[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                                bound_by=by, library_ms=library_ms, enqueue_ms=enqueue_ms)
+        if trials > 1:
+            self.rows[name].update(ms_trials=ms_all, library_trials=lib_all)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"kernel {name}: max_abs_err {err:.3e}  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"library {lib}  bound {b:.4f} ms ({by})  host-paced {enqueue_ms:.4f} ms")
@@ -3955,13 +3981,20 @@ def profile_rounds(torch, label, run, round_ms, rounds, out):
 # phase 12: federated LM training, with the backward kernels 16b-17b
 # ---------------------------------------------------------------------------
 
-# (B, S, H, Hkv, hd, dtype name, window): olmo-1b's training and prefill
-# shapes in bf16 and f32, the training round's folded batch (m = 2 clients
-# of 4 rows), and a small grouped, windowed case
-FLASH_BWD_CASES = ((4, 128, 16, 16, 128, "bf16", None), (4, 1024, 16, 16, 128, "bf16", None),
-                   (4, 128, 16, 16, 128, "f32", None), (4, 1024, 16, 16, 128, "f32", None),
-                   (8, 128, 16, 16, 128, "bf16", None),
-                   (2, 256, 8, 2, 64, "bf16", 64), (2, 200, 8, 2, 24, "bf16", None))
+# (B, Sq, Sk, H, Hkv, hd, dtype name, window, q_offset): olmo-1b's training
+# and prefill shapes in bf16 and f32, the training round's folded batch
+# (m = 2 clients of 4 rows), a small grouped, windowed case, one on the
+# CUDA-core route (hd 24), and two on the tensor-core route whose queries
+# start past the first key (a continued prefill): Sq off the 64- and
+# 128-row tiles, grouped, one windowed
+FLASH_BWD_CASES = ((4, 128, 128, 16, 16, 128, "bf16", None, 0),
+                   (4, 1024, 1024, 16, 16, 128, "bf16", None, 0),
+                   (4, 128, 128, 16, 16, 128, "f32", None, 0),
+                   (4, 1024, 1024, 16, 16, 128, "f32", None, 0),
+                   (8, 128, 128, 16, 16, 128, "bf16", None, 0),
+                   (2, 256, 256, 8, 2, 64, "bf16", 64, 0), (2, 200, 200, 8, 2, 24, "bf16", None, 0),
+                   (2, 150, 280, 8, 2, 64, "bf16", 100, 130),
+                   (2, 90, 260, 8, 4, 128, "bf16", None, 170))
 # rwkv6-1.6b's shape (B, S, H, K) with bf16 r, k, v; the training round's
 # folded batch (m = 2 clients of 4 rows, one row of u a client) in bf16;
 # then f32 with one row of u per pair of batch rows
@@ -3970,6 +4003,19 @@ WKV_BWD_CASES = ((4, 1024, 32, 64, "bf16", 1), (8, 128, 32, 64, "bf16", 2),
 # vmap(grad) through ops.flash_attention and ops.wkv6 as a training round
 # takes it: m clients of (B, S, H, hd) or (B, S, H, K), bf16
 VMAP_GRAD = dict(m=2, flash=(4, 128, 16, 128), wkv=(4, 128, 32, 64))
+# the timed shapes beside the prefill shapes: the training round's folded
+# batch (m = 2 clients of 4 rows, sequences of 128)
+FLASH_TRAIN_SHAPE = (8, 128, 16, 128)
+WKV_TRAIN_SHAPE = (8, 128, 32, 64)
+# 16b's library yardstick: SDPA's backward under each of its backends in
+# turn (a pinned backend a timing), the fastest that takes the operands the
+# library time and every one logged; every backward time a median of
+# BWD_TRIALS trials of BWD_ITERS calls, the library's behind a spin long
+# enough for autograd's host work
+SDPA_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION")
+BWD_TRIALS = 5
+BWD_ITERS = 50
+BWD_LIBRARY_SPIN = 2_000_000
 # the backward against autograd of the plain forward: bf16 rounds P and dS
 # (flash) or the operands (wkv6) before their products, two roundings of
 # 2^-8 each; f32 sums in other orders
@@ -4000,55 +4046,107 @@ def train_launches(n_attn: int, k: int, rounds: int, logged: int) -> dict:
                 round_tail_mean=rounds, dual_from_uplink=rounds)
 
 
+def flash_bwd_cost(B, S, H, hd) -> tuple[float, float]:
+    """(bytes, operations) of 16b at a causal (B, S, H, hd) bf16 shape: q, k,
+    v, o, do read and dq, dk, dv written once, bf16, and lse f32; 2.5 times
+    the forward's products (S, dP, dq, dk, dv against S, p v)."""
+    return 2 * 8 * B * S * H * hd + 4 * B * H * S, 2.5 * flash_flops(B, H, S, S, hd)
+
+
+def wkv_bwd_cost(B, S, H, K, n_u) -> tuple[float, float]:
+    """(bytes, operations) of 17b at (B, S, H, K) bf16, V = K: per chunk att,
+    dr and dk take C^2 K / 2 multiply-adds each with an exp, datt and dv
+    C^2 V / 2, and four products of C K V: S0 dy (dr), dS v (dk), dS^T ec
+    (dv) and the state gradient's (r e^la)^T dy."""
+    nc, C, V = -(-S // 64), 64, K
+    flops = 2.0 * B * H * nc * (3 * C * C * K / 2 + 2 * C * C * V / 2 + 4 * C * K * V)
+    nbytes = (2 * 4 * B * S * H * K + 4 * B * S * H * K + 4 * H * K * n_u
+              + 4 * 3 * B * H * K * K + 4 * B * H * nc * K * K      # read
+              + 2 * 3 * B * S * H * K + 4 * B * S * H * K + 4 * H * K * n_u
+              + 4 * B * H * K * K)                                  # written
+    return nbytes, flops
+
+
+def sdpa_backward(torch, q, k, v, do, backend: str):
+    """One call of SDPA's autograd backward, causal, on (B, S, H, hd)
+    tensors (transposed to SDPA's layout), under ``backend``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    with sdpa_kernel(getattr(SDPBackend, backend)):
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def run():
+        with sdpa_kernel(getattr(SDPBackend, backend)):
+            return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+    return run
+
+
+def sdpa_fastest(torch, q, k, v, do) -> dict:
+    """SDPA's backward (``sdpa_backward``) under each of ``SDPA_BACKENDS``,
+    medians of ``BWD_TRIALS`` trials: ``library_ms`` is the fastest
+    backend's, ``library`` names it, ``library_trials`` are its trials and
+    ``library_also`` holds every backend's median (or why it did not run)."""
+    every, trials = {}, {}
+    for backend in SDPA_BACKENDS:
+        try:
+            every[backend], trials[backend] = med_ms(sdpa_backward(torch, q, k, v, do, backend),
+                                                     BWD_ITERS, BWD_TRIALS, BWD_LIBRARY_SPIN)
+        except RuntimeError as e:  # the backend does not take these operands here
+            every[backend] = f"not run: {str(e).splitlines()[0][:120]}"
+    ran = [b for b in SDPA_BACKENDS if b in trials]
+    check(bool(ran), f"no SDPA backend ran at {tuple(q.shape)}: {every}")
+    best = min(ran, key=lambda b: every[b])
+    return dict(library_ms=every[best], library_trials=trials[best], library_also=every,
+                library=f"autograd of scaled_dot_product_attention (causal), {best}, the "
+                        f"fastest of {len(ran)} backends")
+
+
 def check_backward_kernels(rec, torch, ops, ref, gen, out):
     """Kernels 16b and 17b against autograd of their plain versions on the
-    card, at the training shapes; timed at olmo-1b's prefill shape (flash,
-    beside autograd of ``scaled_dot_product_attention``) and rwkv6-1.6b's
-    (wkv6) with their bounds."""
-    import torch.nn.functional as F
-
+    card, every case twice (the two runs bitwise equal); timed at olmo-1b's
+    and rwkv6-1.6b's prefill shapes (``FLASH_SHAPE``, ``WKV_SHAPE``) and at
+    the training round's folded shapes (``FLASH_TRAIN_SHAPE``,
+    ``WKV_TRAIN_SHAPE``) with their bounds, the kernels and flash's library
+    call (autograd of ``scaled_dot_product_attention`` under each backend,
+    the fastest kept; ``sdpa_fastest``) as medians of ``BWD_TRIALS`` trials
+    of ``BWD_ITERS`` calls."""
     from repro_torch.kernels import flash_attention as _fa
     from repro_torch.kernels import wkv6 as _wk
 
     dev = gen.device
     dts = {"bf16": torch.bfloat16, "f32": torch.float32}
     res = out["backward_kernels"] = {}
-    for B, S, H, Hkv, hd, dn, window in FLASH_BWD_CASES:
+
+    def twice(what, fn):
+        """fn() twice; the two results bitwise equal."""
+        a, b = fn(), fn()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{what}: two runs differ")
+        return a
+
+    for B, Sq, Sk, H, Hkv, hd, dn, window, off in FLASH_BWD_CASES:
         dt = dts[dn]
-        q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
-        k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dt) for _ in range(2))
-        do = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
-        o, lse = _fa.flash_attention(q, k, v, window=window, lse=True)
-        pos = torch.arange(S, device=dev)
-        lse_w = ref.flash_attention_lse_ref(q, k, pos, pos, window=window)
-        got = _fa.flash_attention_bwd(q, k, v, o, lse, do, window=window)
-        want = ref.flash_attention_bwd_ref(q, k, v, do, pos, pos, window=window)
+        q = torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(B, Sk, Hkv, hd, generator=gen, device=dev).to(dt) for _ in range(2))
+        do = torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dt)
+        o, lse = _fa.flash_attention(q, k, v, window=window, q_offset=off, lse=True)
+        q_pos, k_pos = off + torch.arange(Sq, device=dev), torch.arange(Sk, device=dev)
+        lse_w = ref.flash_attention_lse_ref(q, k, q_pos, k_pos, window=window)
+        what = (f"flash_attention_bwd {(B, Sq, Sk, H, Hkv, hd)} {dn} window {window} "
+                f"q_offset {off}")
+        got = twice(what, lambda: _fa.flash_attention_bwd(q, k, v, o, lse, do, window=window,
+                                                          q_offset=off))
+        want = ref.flash_attention_bwd_ref(q, k, v, do, q_pos, k_pos, window=window)
         errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
         e_lse = max_err(lse, lse_w)
         tol = BWD_BF16_REL if dt == torch.bfloat16 else BWD_F32_REL
-        what = f"flash_attention_bwd {(B, S, H, Hkv, hd)} {dn} window {window}"
         check(max(errs) <= tol and e_lse <= KERNEL_F32_REL * max(1.0, float(lse_w.abs().max())),
               f"{what}: dq/dk/dv rel errors {errs} (tol {tol}), lse abs error {e_lse}")
-        log(f"{what}: dq, dk, dv rel errors {['%.3e' % e for e in errs]}, lse {e_lse:.3e}")
-        res[f"flash {(B, S, H, Hkv, hd)} {dn} {window}"] = errs
-    B, S, H, hd = FLASH_SHAPE
-    q, k, v, do = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(torch.bfloat16)
-                   for _ in range(4))
-    o, lse = _fa.flash_attention(q, k, v, lse=True)
-    pos = torch.arange(S, device=dev)
-    got = _fa.flash_attention_bwd(q, k, v, o, lse, do)
-    want = ref.flash_attention_bwd_ref(q, k, v, do, pos, pos)
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2).contiguous()
-    # 2.5 times the forward's products (S, dP, dq, dk, dv against S, p v);
-    # q, k, v, o, do read and dq, dk, dv written once, bf16, and lse f32
-    rec.kernel("flash_attention_bwd", max(max_err(a, b) for a, b in zip(got, want)),
-               lambda: _fa.flash_attention_bwd(q, k, v, o, lse, do),
-               lambda: ref.flash_attention_bwd_ref(q, k, v, do, pos, pos), 10,
-               2 * 8 * B * S * H * hd + 4 * B * H * S, 2.5 * flash_flops(B, H, S, S, hd),
-               library_fn=lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
-               flop_per_s=BF16_FLOP_PER_S)
+        log(f"{what} ({_fa.route(dt, hd)}): dq, dk, dv rel errors "
+            f"{['%.3e' % e for e in errs]}, lse {e_lse:.3e}; two runs bitwise equal")
+        res[f"flash {(B, Sq, Sk, H, Hkv, hd)} {dn} {window} {off}"] = errs
 
     for B, S, H, K, dn, n_u in WKV_BWD_CASES:
         dt = dts[dn]
@@ -4059,28 +4157,80 @@ def check_backward_kernels(rec, torch, ops, ref, gen, out):
         s0 = 0.1 * torch.randn(B, H, K, K, generator=gen, device=dev)
         dsf = torch.randn(B, H, K, K, generator=gen, device=dev)
         y, s_out, states = _wk.wkv6(r, kk, vv, w, u, s0, keep_states=True)
-        got = _wk.wkv6_bwd(r, kk, vv, w, u, s0, s_out, states, dy, dsf)
+        what = f"wkv6_bwd {(B, S, H, K)} {dn}, {n_u} row(s) of u"
+        got = twice(what, lambda: _wk.wkv6_bwd(r, kk, vv, w, u, s0, s_out, states, dy, dsf))
         want = ref.wkv6_bwd_ref(r, kk, vv, w, u, s0, dy, dsf)
         errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
         tol = BWD_BF16_REL if dt == torch.bfloat16 else BWD_F32_REL
-        what = f"wkv6_bwd {(B, S, H, K)} {dn}, {n_u} row(s) of u"
         check(max(errs) <= tol, f"{what}: dr dk dv dw du ds0 rel errors {errs} (tol {tol})")
-        log(f"{what}: dr dk dv dw du ds0 rel errors {['%.3e' % e for e in errs]}")
+        log(f"{what}: dr dk dv dw du ds0 rel errors {['%.3e' % e for e in errs]}; two runs "
+            f"bitwise equal")
         res[what] = errs
-        if (B, S, H, K) == WKV_SHAPE:
-            nc, C, V = -(-S // 64), 64, K
-            # per chunk: att, dr and dk take C^2 K / 2 multiply-adds each with
-            # an exp, datt and dv C^2 V / 2, and four products of C K V: S0 dy
-            # (dr), dS v (dk), dS^T ec (dv) and the carry's (r e^la)^T dy
-            flops = 2.0 * B * H * nc * (3 * C * C * K / 2 + 2 * C * C * V / 2 + 4 * C * K * V)
-            nbytes = (2 * 4 * B * S * H * K + 4 * B * S * H * K + 4 * H * K * n_u
-                      + 4 * 3 * B * H * K * K + 4 * B * H * nc * K * K      # read
-                      + 2 * 3 * B * S * H * K + 4 * B * S * H * K + 4 * H * K * n_u
-                      + 4 * B * H * K * K)                                  # written
-            rec.kernel("wkv6_bwd", max(max_err(a, b) for a, b in zip(got, want)),
-                       lambda: _wk.wkv6_bwd(r, kk, vv, w, u, s0, s_out, states, dy, dsf),
-                       lambda: ref.wkv6_bwd_ref(r, kk, vv, w, u, s0, dy, dsf), 10, nbytes,
-                       flops)
+
+    def flash_inputs(shape):
+        B, S, H, hd = shape
+        q, k, v, do = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = _fa.flash_attention(q, k, v, lse=True)
+        return q, k, v, o, lse, do
+
+    def wkv_inputs(shape, n_u):
+        B, S, H, K = shape
+        r, kk, vv, dy = (torch.randn(B, S, H, K, generator=gen, device=dev).to(torch.bfloat16)
+                         for _ in range(4))
+        w = torch.exp(-torch.exp(0.5 * torch.randn(B, S, H, K, generator=gen, device=dev) - 1.0))
+        u = 0.1 * torch.randn(*((n_u,) if n_u > 1 else ()), H, K, generator=gen, device=dev)
+        s0 = 0.1 * torch.randn(B, H, K, K, generator=gen, device=dev)
+        dsf = torch.randn(B, H, K, K, generator=gen, device=dev)
+        y, s_out, states = _wk.wkv6(r, kk, vv, w, u, s0, keep_states=True)
+        return r, kk, vv, w, u, s0, s_out, states, dy, dsf
+
+    # the prefill shapes: the kernels' rows (errors, times, bounds, plain and library)
+    q, k, v, o, lse, do = flash_inputs(FLASH_SHAPE)
+    pos = torch.arange(FLASH_SHAPE[1], device=dev)
+    got = _fa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, pos, pos)
+    rec.kernel("flash_attention_bwd", max(max_err(a, b) for a, b in zip(got, want)),
+               lambda: _fa.flash_attention_bwd(q, k, v, o, lse, do),
+               lambda: ref.flash_attention_bwd_ref(q, k, v, do, pos, pos), BWD_ITERS,
+               *flash_bwd_cost(*FLASH_SHAPE), flop_per_s=BF16_FLOP_PER_S, trials=BWD_TRIALS,
+               plain_iters=10)
+    row = rec.rows["flash_attention_bwd"]
+    row.update(sdpa_fastest(torch, q, k, v, do))
+    log(f"flash_attention_bwd {FLASH_SHAPE}: kernel {row['ms']:.4f} ms (trials "
+        f"{['%.4f' % t for t in row['ms_trials']]}); SDPA's backward {row['library_ms']:.4f} "
+        f"ms, {row['library']} (trials {['%.4f' % t for t in row['library_trials']]}); every "
+        f"backend {row['library_also']}")
+    del q, k, v, o, lse, do, got, want
+
+    args = wkv_inputs(WKV_SHAPE, 1)
+    got = _wk.wkv6_bwd(*args)
+    want = ref.wkv6_bwd_ref(*args[:6], *args[8:])
+    rec.kernel("wkv6_bwd", max(max_err(a, b) for a, b in zip(got, want)),
+               lambda: _wk.wkv6_bwd(*args), lambda: ref.wkv6_bwd_ref(*args[:6], *args[8:]),
+               BWD_ITERS, *wkv_bwd_cost(*WKV_SHAPE, 1), trials=BWD_TRIALS, plain_iters=10)
+    del args, got, want
+
+    # the training round's folded shapes: times beside their bounds
+    q, k, v, o, lse, do = flash_inputs(FLASH_TRAIN_SHAPE)
+    b, by = bound_ms(*flash_bwd_cost(*FLASH_TRAIN_SHAPE), BF16_FLOP_PER_S)
+    ms, ms_all = med_ms(lambda: _fa.flash_attention_bwd(q, k, v, o, lse, do), BWD_ITERS,
+                        BWD_TRIALS)
+    train = rec.rows["flash_attention_bwd"]["train"] = dict(
+        shape=FLASH_TRAIN_SHAPE, ms=ms, ms_trials=ms_all, bound_ms=b, bound_by=by,
+        **sdpa_fastest(torch, q, k, v, do))
+    log(f"flash_attention_bwd at the training shape {FLASH_TRAIN_SHAPE}: {ms:.4f} ms, bound "
+        f"{b:.4f} ms ({by}); SDPA's backward {train['library_ms']:.4f} ms, "
+        f"{train['library']}; every backend {train['library_also']}")
+    del q, k, v, o, lse, do
+    args = wkv_inputs(WKV_TRAIN_SHAPE, 2)
+    b, by = bound_ms(*wkv_bwd_cost(*WKV_TRAIN_SHAPE, 2))
+    ms, ms_all = med_ms(lambda: _wk.wkv6_bwd(*args), BWD_ITERS, BWD_TRIALS)
+    rec.rows["wkv6_bwd"]["train"] = dict(shape=WKV_TRAIN_SHAPE, ms=ms, ms_trials=ms_all,
+                                         bound_ms=b, bound_by=by)
+    log(f"wkv6_bwd at the training shape {WKV_TRAIN_SHAPE}: {ms:.4f} ms, bound {b:.4f} ms "
+        f"({by})")
+    del args
     torch.cuda.synchronize()
     check_backward_functions(torch, ops, ref, gen, out)
 

@@ -10,59 +10,587 @@
 //   dv  = P^T do,   dS = P (do v^T - D),   dq = dS k scale,   dk = dS^T q scale
 //
 // with dk and dv summed over the H / Hkv query heads of each kv head.
-// The scores are recomputed block by block from q, k and lse; nothing of
-// size Sq x Sk is stored.
-//
-// Two grids a call, on the caller's stream, and no float atomics, so that
-// every sum runs in a fixed order and a run repeats bitwise:
-//
-//   1. dq: one block per (tile of 64 query rows, b * H + h).  It forms D for
-//      its rows (and writes it to scratch), then walks the key tiles its
-//      rows can see, accumulating dq in shared memory.
-//   2. dk, dv: one block per (tile of 32 keys, b * Hkv + hk).  It walks the
-//      query heads of its group and, for each, the query tiles that can see
-//      its keys, accumulating dk and dv in shared memory.
-//
-// Products: bf16 operands with hd a multiple of 16 run on the tensor cores
-// (WMMA m16n16k16, bf16 in, f32 accumulators in shared memory; P and dS are
-// rounded to bf16 before their products, as the forward rounds p before
-// p v); f32 operands, and bf16 with another hd, run as f32 products on the
-// CUDA cores.  Elementwise work (the masks, exp, dS) is f32.
+// The scores are recomputed tile by tile from q, k and lse; nothing of size
+// Sq x Sk is stored.  No float atomics: every sum runs in a fixed order, so
+// a run repeats bitwise.
 //
 // What bounds it on an H100: operations.  Per (query, visible key) pair and
-// head, 4 products of length hd (S, dP, dq and the dk/dv pair share one
-// recomputed S in each grid: 2 in the dq grid, 3 in the dk/dv grid), so
-// about 2.5x the forward's work.
+// head the function needs 5 products of length hd (S, dP, dv, dk, dq), 2.5
+// times the forward's 2; at olmo-1b's prefill shape (4, 1024, 16, 128) bf16
+// that is 43 GFLOP, 43 us at the bf16 tensor-core rate.  Only the tensor
+// cores come near it.
+//
+// Two routes, chosen by the wrapper from the dtype and the head dim:
+//
+// * Tensor cores (bf16, hd a multiple of 16 up to 128): two grids.
+//
+//   1. dq: one block per (b * H + h, tile of 128 query rows), heaviest
+//      first, two warpgroups of 64 rows.  The block first forms D = do . o
+//      for its rows (16-byte loads, two threads a row) and lse in log2
+//      units, and writes both to scratch rows padded to a multiple of 64
+//      for the dk/dv grid (pad rows: D = 0, lse = 1e30, so that P = 0
+//      there).  q and do stay resident, k and v tiles of 64 keys come
+//      through a ring of three stages (TMA boxes in the 128-byte swizzle,
+//      each stage behind a full and an empty mbarrier); S = q k^T and dP =
+//      do v^T (m64n64k16, both operands K-major in shared memory), dS
+//      rounded to bf16 into A fragments, dq += dS k (m64nNk16, k MN-major).
+//      The split keeps dq free of atomics.
+//   2. dk, dv: one block per (b * Hkv + hk, tile of 128 keys), the
+//      heaviest causal tiles (the first keys) launched first; two
+//      warpgroups of 64 keys each.  The block's k and v tiles stay in
+//      shared memory; q and do tiles of 64 query rows, with their lse and D
+//      rows, stream through a ring of three stages (TMA and bulk copies),
+//      for each of the G = H / Hkv query heads of the kv head and each
+//      query tile that can see the block's keys.  Each warpgroup computes
+//      the transposed scores S^T = k q^T and dP^T = v do^T with wgmma
+//      m64n64k16, forms P^T = exp2(S^T scale log2 e - lse) and dS^T = P^T
+//      (dP^T - D) on its f32 accumulators in registers, rounds both to bf16
+//      straight into the A fragments of the next products (as the forward
+//      rounds p), and accumulates dv += P^T do and dk += dS^T q with wgmma
+//      m64nNk16, A from registers, B MN-major in shared memory (N = 64 for
+//      hd <= 64, else 128).  No score tile passes through shared memory
+//      (FlashAttention-2/3's transposed layout).
+//
+//   Thread 0 of each block issues the loads; there is no producer warp, so
+//   the 256 threads may hold 255 registers each: the dk/dv grid keeps dk
+//   and dv (64 x 128 f32 a warpgroup, 64 registers each a thread) plus S^T
+//   and dP^T (32 each) in registers (231 registers at hd 128, no spills).
+//   The design runs 7 products against the function's 5 (S and dP are
+//   recomputed in the dq grid), 1.4x the bound's work.  Tiles past Sq or Sk
+//   are zero-filled by TMA and masked; a query tile wholly masked for a
+//   warpgroup's keys (or a key tile for a warpgroup's rows) is skipped, and
+//   the mask is applied only on tiles that cross an edge.
+//
+//   Trials on an H100 (olmo-1b's prefill shape (4, 1024, 16, 128) and the
+//   training round's (8, 128, 16, 128), bf16, ms, each pair in one
+//   process): rings of three stages, 0.2198 at prefill, against two in the
+//   dk/dv grid 0.2229 or in the dq grid 0.2221, level at the training shape
+//   (0.0283); dq key tiles of 128 (two stages, m64n128 score products)
+//   0.2113 against 0.2208 at prefill but 0.0296 against 0.0282 at the
+//   training shape, whose 128 keys the causal mask halves, so 64 stays;
+//   waiting on the score product alone and forming P while dP's product
+//   runs (two commit groups) 0.2206 against 0.2207, no gain.  A separate
+//   pass forming D took 17.5 us of 0.227 ms; the dq grid forms it now.
+//   Refilling a stage from the last warp done with it (a shared counter)
+//   rather than thread 0 waiting on the empty barrier: 0.2162 against
+//   0.2186, 0.0284 against 0.0287, 1%, so it is not taken.  The
+//   warpgroups taking turns on the tensor cores (named barriers; a turn
+//   issues the tile before's dv, dk or dq with this tile's score products,
+//   FlashAttention-3's ping-pong): 0.2858 against 0.2166 and 0.0339
+//   against 0.0287, slower (250 registers in the dk/dv grid).  cuDNN's SDPA
+//   backward takes 0.179 ms at prefill and 0.0326 at the training shape;
+//   the work left to cut is the dq grid's recomputed S and dP (7 products
+//   to the function's 5).
+//
+// * CUDA cores (f32, or bf16 with an hd the tensor-core route does not
+//   take): two grids, f32 products out of shared memory.
+//   1. dq: one block per (tile of 64 query rows, b * H + h); it forms D for
+//      its rows (and writes it to scratch), then walks the key tiles its
+//      rows can see, accumulating dq in shared memory.
+//   2. dk, dv: one block per (tile of 32 keys, b * Hkv + hk), walking the
+//      query heads of its group and the query tiles that can see its keys.
+//   The f32 route keeps f32 products (not TF32), so it holds the 1e-4 f32
+//   comparisons.
 #include "common.cuh"
 
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "hopper.cuh"  // TMA, mbarrier and wgmma helpers shared with kernel 16
 
 namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxD = 128;
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int Sk, int causal, int window) {
+  bool ok = kpos < Sk;
+  if (causal) ok = ok && kpos <= qpos;
+  if (window > 0) ok = ok && kpos > qpos - window;
+  return ok;
+}
+
+struct Dims {
+  int B, Sq, Sk, H, Hkv, hd, q_offset, causal, window;
+  float scale;
+};
+
+// ---------------------------------------------------------------------------
+// tensor-core route
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kThreads = 256;   // two warpgroups; thread 0 also issues the loads
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 3;      // depth of the dk/dv grid's q/do ring
+constexpr int kRowsPad = 64;    // scratch rows are padded to a multiple of this
+constexpr float kPadLse = 1e30f;
+// dk/dv grid
+constexpr int kKeys = 128;      // keys per block, 64 a warpgroup
+constexpr int kQRows = 64;      // query rows per streamed tile
+// dq grid
+constexpr int kRows = 128;      // query rows per block, 64 a warpgroup
+constexpr int kKTile = 64;      // keys per streamed tile
+constexpr int kKStages = 3;     // depth of the dq grid's k/v ring
+
+__host__ __device__ constexpr int box_bytes(int hdb, int rows) { return hdb * rows * kRowBytes; }
+
+size_t dkdv_smem(int hdb) {
+  return 1024 + 2 * box_bytes(hdb, kKeys) + kStages * 2 * box_bytes(hdb, kQRows) +
+         kStages * 2 * kQRows * sizeof(float) + (2 * kStages + 1) * sizeof(uint64_t);
+}
+size_t dq_smem(int hdb) {
+  return 1024 + 2 * box_bytes(hdb, kRows) + kKStages * 2 * box_bytes(hdb, kKTile) +
+         2 * kRows * sizeof(float) + (2 * kKStages + 1) * sizeof(uint64_t);
+}
+
+// Accumulator layout of wgmma m64nN (f32), thread t of a warpgroup, warp
+// w = t / 32, lane l: register 4 i + e holds row 16 w + l / 4 + 8 (e / 2)
+// and column 8 i + 2 (l % 4) + e % 2.  The A fragment of m64k16 from
+// registers holds the same rows and, for k-step j, the columns of n8
+// blocks 2 j and 2 j + 1: so a score tile's registers 8 j .. 8 j + 7,
+// packed in pairs, are the A operand of the j-th step of the next product.
+
+// 1. dk and dv.  Block (b * Hkv + hk, tile of 128 keys).
+template <int HDB>
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+            const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+            const float* __restrict__ lse2, const float* __restrict__ Dv,
+            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq, int Sq_pad,
+            int Sk, int H, int Hkv, int hd, int q_offset, int causal, int window, float scale,
+            float scale_log2) {
+  constexpr int NV = 64 * HDB;  // columns of dk and dv
+  constexpr int OREG = NV / 2;  // f32 registers a thread holds of each
+  constexpr int KB = box_bytes(HDB, kKeys), QB = box_bytes(HDB, kQRows);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);  // 1024-aligned: the swizzle atom
+  uint8_t* ks = smem;
+  uint8_t* vs = ks + KB;
+  uint8_t* qs = vs + KB;                      // stage s: qs + 2 s QB (q), + QB (do)
+  float* rowv = reinterpret_cast<float*>(qs + kStages * 2 * QB);  // stage s: lse, then D
+  uint64_t* full = reinterpret_cast<uint64_t*>(rowv + kStages * 2 * kQRows);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bhk = blockIdx.x, b = bhk / Hkv, hk = bhk % Hkv;
+  const int G = H / Hkv;
+  const int kt0 = blockIdx.y * kKeys;  // the first key tiles see the most queries
+  const int k_last = min(kt0 + kKeys, Sk) - 1;
+  int i_begin = causal ? max(0, kt0 - q_offset) : 0;
+  i_begin = (i_begin / kQRows) * kQRows;
+  const int i_end = window > 0 ? min(Sq, k_last + window - q_offset) : Sq;
+  const int nt = i_end > i_begin ? (i_end - i_begin + kQRows - 1) / kQRows : 0;
+  const int total = G * nt;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto issue = [&](int j) {  // tile j: query head hk G + j / nt, rows i_begin + 64 (j % nt)
+    const int s = j % kStages, h = hk * G + j / nt, q0 = i_begin + (j % nt) * kQRows;
+    uint8_t* qd = qs + s * 2 * QB;
+    mbar_expect_tx(&full[s], 2 * QB + 2 * kQRows * sizeof(float));
+    for (int c = 0; c < HDB; ++c) {
+      tma_load_3d(qd + c * kQRows * kRowBytes, &tq, &full[s], h * hd + 64 * c, q0, b);
+      tma_load_3d(qd + QB + c * kQRows * kRowBytes, &tdo, &full[s], h * hd + 64 * c, q0, b);
+    }
+    const size_t row = ((size_t)b * H + h) * Sq_pad + q0;
+    bulk_load(rowv + s * 2 * kQRows, lse2 + row, kQRows * sizeof(float), &full[s]);
+    bulk_load(rowv + s * 2 * kQRows + kQRows, Dv + row, kQRows * sizeof(float), &full[s]);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(kvbar, 2 * KB);
+    for (int c = 0; c < HDB; ++c)
+      for (int hh = 0; hh < kKeys / 64; ++hh) {
+        const int off = c * kKeys * kRowBytes + hh * 64 * kRowBytes;
+        tma_load_3d(ks + off, &tk, kvbar, hk * hd + 64 * c, kt0 + 64 * hh, b);
+        tma_load_3d(vs + off, &tv, kvbar, hk * hd + 64 * c, kt0 + 64 * hh, b);
+      }
+    for (int j = 0; j < min(kStages, total); ++j) issue(j);
+  }
+  __syncwarp();
+
+  // warpgroup wg owns keys kw0 .. kw0 + 63
+  const int wg = warp >> 2;
+  const int row_a = 16 * (warp & 3) + (lane >> 2);  // and row_a + 8
+  const int quad = lane & 3;
+  const int kw0 = kt0 + 64 * wg;
+  const int key_a = kw0 + row_a, key_b = key_a + 8;
+  float dka[OREG], dva[OREG];
+#pragma unroll
+  for (int i = 0; i < OREG; ++i) dka[i] = dva[i] = 0.0f;
+  const uint32_t k_addr = smem_u32(ks) + wg * 64 * kRowBytes;
+  const uint32_t v_addr = smem_u32(vs) + wg * 64 * kRowBytes;
+  const int ksteps = hd / 16;
+
+  mbar_wait(kvbar, 0);
+  for (int j = 0; j < total; ++j) {
+    const int s = j % kStages, q0 = i_begin + (j % nt) * kQRows;
+    const int qp0 = q_offset + q0;  // position of the tile's first query
+    mbar_wait(&full[s], (j / kStages) & 1);
+    bool active = kw0 < Sk;
+    if (causal) active = active && qp0 + kQRows - 1 >= kw0;
+    if (window > 0) active = active && kw0 + 63 > qp0 - window;
+    if (active) {
+      const uint32_t q_addr = smem_u32(qs + s * 2 * QB), do_addr = q_addr + QB;
+      const float* ls = rowv + s * 2 * kQRows;
+      const float* dd = ls + kQRows;
+      float st[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dp[i] = 0.0f;
+      fence_regs<32>(st);
+      fence_regs<32>(dp);
+      wg_fence();
+      for (int kk = 0; kk < ksteps; ++kk) {  // S^T = k q^T
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_ss_n64(st, gmma_desc(k_addr + (kk >> 2) * kKeys * kRowBytes + off, 16, 1024),
+                     gmma_desc(q_addr + (kk >> 2) * kQRows * kRowBytes + off, 16, 1024), kk > 0);
+      }
+      for (int kk = 0; kk < ksteps; ++kk) {  // dP^T = v do^T
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_ss_n64(dp, gmma_desc(v_addr + (kk >> 2) * kKeys * kRowBytes + off, 16, 1024),
+                     gmma_desc(do_addr + (kk >> 2) * kQRows * kRowBytes + off, 16, 1024), kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs<32>(st);
+      fence_regs<32>(dp);
+
+      const bool need_mask = kw0 + 63 >= Sk || q0 + kQRows > Sq ||
+                             (causal && kw0 + 63 > qp0) ||
+                             (window > 0 && qp0 + kQRows - 1 - window >= kw0);
+      uint32_t pf[kQRows / 16][4], sf[kQRows / 16][4];
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int col = 8 * (e >> 2) + 2 * quad;  // and col + 1: this pair's queries
+        const int key = (e & 2) ? key_b : key_a;
+        float p0 = exp2f(st[e] * scale_log2 - ls[col]);
+        float p1 = exp2f(st[e + 1] * scale_log2 - ls[col + 1]);
+        if (need_mask) {
+          p0 = (q0 + col < Sq && visible(qp0 + col, key, Sk, causal, window)) ? p0 : 0.0f;
+          p1 = (q0 + col + 1 < Sq && visible(qp0 + col + 1, key, Sk, causal, window)) ? p1 : 0.0f;
+        }
+        const float d0 = p0 * (dp[e] - dd[col]), d1 = p1 * (dp[e + 1] - dd[col + 1]);
+        pf[e >> 3][(e & 7) >> 1] = pack_bf16(p0, p1);
+        sf[e >> 3][(e & 7) >> 1] = pack_bf16(d0, d1);
+      }
+      fence_regs<OREG>(dva);
+      fence_regs<OREG>(dka);
+#pragma unroll
+      for (int kk = 0; kk < kQRows / 16; ++kk) {
+        fence_regs<4>(pf[kk]);
+        fence_regs<4>(sf[kk]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQRows / 16; ++kk) {  // dv += P^T do, dk += dS^T q
+        wgmma_rs<HDB>(dva, pf[kk], gmma_desc(do_addr + kk * 16 * kRowBytes,
+                                             kQRows * kRowBytes, 1024));
+        wgmma_rs<HDB>(dka, sf[kk], gmma_desc(q_addr + kk * 16 * kRowBytes,
+                                             kQRows * kRowBytes, 1024));
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs<OREG>(dva);
+      fence_regs<OREG>(dka);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+    if (tid == 0 && j + kStages < total) {
+      mbar_wait(&empty[s], (j / kStages) & 1);
+      issue(j + kStages);
+    }
+    __syncwarp();
+  }
+
+  const long long row_stride = (long long)Hkv * hd;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? key_b : key_a;
+    if (key >= Sk) continue;
+    const long long base = ((long long)b * Sk + key) * row_stride + (long long)hk * hd;
+#pragma unroll
+    for (int i = 0; i < NV / 8; ++i) {
+      const int c = 8 * i + 2 * quad;
+      if (c < hd) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + base + c) = __floats2bfloat162_rn(
+            dka[4 * i + 2 * half] * scale, dka[4 * i + 2 * half + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + base + c) =
+            __floats2bfloat162_rn(dva[4 * i + 2 * half], dva[4 * i + 2 * half + 1]);
+      }
+    }
+  }
+}
+
+// 2. dq.  Block (b * H + h, tile of 128 query rows).
+template <int HDB>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+          const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+          const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+          const float* __restrict__ lse, float* __restrict__ lse2, float* __restrict__ Dv,
+          __nv_bfloat16* __restrict__ dq, int Sq, int Sq_pad, int Sk, int H, int Hkv, int hd,
+          int q_offset, int causal, int window, float scale, float scale_log2) {
+  constexpr int NQ = 64 * HDB;  // columns of dq
+  constexpr int QREG = NQ / 2;
+  constexpr int RB = box_bytes(HDB, kRows), KB = box_bytes(HDB, kKTile);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  uint8_t* qs = smem;
+  uint8_t* dos = qs + RB;
+  uint8_t* kvs = dos + RB;  // stage s: kvs + 2 s KB (k), + KB (v)
+  float* rowl = reinterpret_cast<float*>(kvs + kKStages * 2 * KB);  // the block's lse rows
+  float* rowd = rowl + kRows;                                         // and D rows
+  uint64_t* full = reinterpret_cast<uint64_t*>(rowd + kRows);
+  uint64_t* empty = full + kKStages;
+  uint64_t* qbar = empty + kKStages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest causal tiles first
+
+  // the key range the block's rows can see
+  const int qpos_lo = q_offset + q0;
+  const int qpos_hi = q_offset + min(q0 + kRows, Sq) - 1;
+  const int k_end = causal ? min(Sk, qpos_hi + 1) : Sk;
+  int k_begin = window > 0 ? max(0, qpos_lo - window + 1) : 0;
+  k_begin = (k_begin / kKTile) * kKTile;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + kKTile - 1) / kKTile : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kKStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto issue = [&](int j) {
+    const int s = j % kKStages, kt = k_begin + j * kKTile;
+    uint8_t* kd = kvs + s * 2 * KB;
+    mbar_expect_tx(&full[s], 2 * KB);
+    for (int c = 0; c < HDB; ++c) {
+      tma_load_3d(kd + c * kKTile * kRowBytes, &tk, &full[s], hk * hd + 64 * c, kt, b);
+      tma_load_3d(kd + KB + c * kKTile * kRowBytes, &tv, &full[s], hk * hd + 64 * c, kt, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(qbar, 2 * RB);
+    for (int c = 0; c < HDB; ++c)
+      for (int hh = 0; hh < kRows / 64; ++hh) {
+        const int off = c * kRows * kRowBytes + hh * 64 * kRowBytes;
+        tma_load_3d(qs + off, &tq, qbar, h * hd + 64 * c, q0 + 64 * hh, b);
+        tma_load_3d(dos + off, &tdo, qbar, h * hd + 64 * c, q0 + 64 * hh, b);
+      }
+    for (int j = 0; j < min(kKStages, ntiles); ++j) issue(j);
+  }
+  __syncwarp();
+
+  // D = do . o (two threads a row, 16-byte loads, a fixed order) and lse in
+  // log2 units for the block's rows, also into the scratch rows the dk/dv
+  // grid reads (rows past Sq: D = 0, lse = 1e30, so that P = 0 there)
+  {
+    const int r = tid >> 1, half = tid & 1, qi = q0 + r;
+    float s = 0.0f;
+    if (qi < Sq) {
+      const size_t base = (((size_t)b * Sq + qi) * H + h) * hd;
+#pragma unroll 4
+      for (int c = 8 * half; c < hd; c += 16) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + base + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dout + base + c);
+        const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(dp[e]), y = __bfloat1622float2(op[e]);
+          s = fmaf(x.x, y.x, s);
+          s = fmaf(x.y, y.y, s);
+        }
+      }
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    if (half == 0) {
+      const float d = qi < Sq ? s : 0.0f;
+      const float l = qi < Sq ? lse[(size_t)bh * Sq + qi] * kLog2e : kPadLse;
+      rowd[r] = d;
+      rowl[r] = l;
+      if (qi < Sq_pad) {
+        Dv[(size_t)bh * Sq_pad + qi] = d;
+        lse2[(size_t)bh * Sq_pad + qi] = l;
+      }
+    }
+  }
+  __syncthreads();
+
+  // warpgroup wg owns query rows 64 wg .. 64 wg + 63 of the tile
+  const int wg = warp >> 2;
+  const int row_a = 16 * (warp & 3) + (lane >> 2);  // and row_a + 8
+  const int quad = lane & 3;
+  const int qa = q0 + 64 * wg + row_a, qb = qa + 8;
+  const int pos_a = q_offset + qa, pos_b = pos_a + 8;
+  const float lse_a = rowl[64 * wg + row_a], lse_b = rowl[64 * wg + row_a + 8];
+  const float d_a = rowd[64 * wg + row_a], d_b = rowd[64 * wg + row_a + 8];
+  const int wq_lo = q_offset + q0 + 64 * wg;
+  const int wq_hi = min(wq_lo + 63, q_offset + Sq - 1);
+  float dqa[QREG];
+#pragma unroll
+  for (int i = 0; i < QREG; ++i) dqa[i] = 0.0f;
+  const uint32_t q_addr = smem_u32(qs) + wg * 64 * kRowBytes;
+  const uint32_t do_addr = smem_u32(dos) + wg * 64 * kRowBytes;
+  const int ksteps = hd / 16;
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % kKStages, kt = k_begin + j * kKTile;
+    mbar_wait(&full[s], (j / kKStages) & 1);
+    bool active = wq_lo <= wq_hi;
+    if (causal) active = active && kt <= wq_hi;
+    if (window > 0) active = active && kt + kKTile - 1 > wq_lo - window;
+    if (active) {
+      const uint32_t k_addr = smem_u32(kvs + s * 2 * KB), v_addr = k_addr + KB;
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
+      fence_regs<32>(sc);
+      fence_regs<32>(dp);
+      wg_fence();
+      for (int kk = 0; kk < ksteps; ++kk) {  // S = q k^T
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_ss_n64(sc, gmma_desc(q_addr + (kk >> 2) * kRows * kRowBytes + off, 16, 1024),
+                     gmma_desc(k_addr + (kk >> 2) * kKTile * kRowBytes + off, 16, 1024), kk > 0);
+      }
+      for (int kk = 0; kk < ksteps; ++kk) {  // dP = do v^T
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_ss_n64(dp, gmma_desc(do_addr + (kk >> 2) * kRows * kRowBytes + off, 16, 1024),
+                     gmma_desc(v_addr + (kk >> 2) * kKTile * kRowBytes + off, 16, 1024), kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs<32>(sc);
+      fence_regs<32>(dp);
+
+      const bool need_mask = kt + kKTile > Sk || (causal && kt + kKTile - 1 > wq_lo) ||
+                             (window > 0 && kt <= wq_hi - window);
+      uint32_t sf[kKTile / 16][4];
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int col = kt + 8 * (e >> 2) + 2 * quad;  // and col + 1: this pair's keys
+        const bool rb = (e & 2) != 0;
+        const float l = rb ? lse_b : lse_a, d = rb ? d_b : d_a;
+        const int pos = rb ? pos_b : pos_a;
+        float p0 = exp2f(sc[e] * scale_log2 - l), p1 = exp2f(sc[e + 1] * scale_log2 - l);
+        if (need_mask) {
+          p0 = visible(pos, col, Sk, causal, window) ? p0 : 0.0f;
+          p1 = visible(pos, col + 1, Sk, causal, window) ? p1 : 0.0f;
+        }
+        sf[e >> 3][(e & 7) >> 1] = pack_bf16(p0 * (dp[e] - d), p1 * (dp[e + 1] - d));
+      }
+      fence_regs<QREG>(dqa);
+#pragma unroll
+      for (int kk = 0; kk < kKTile / 16; ++kk) fence_regs<4>(sf[kk]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKTile / 16; ++kk)  // dq += dS k
+        wgmma_rs<HDB>(dqa, sf[kk], gmma_desc(k_addr + kk * 16 * kRowBytes,
+                                             kKTile * kRowBytes, 1024));
+      wg_commit();
+      wg_wait_all();
+      fence_regs<QREG>(dqa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (tid == 0 && j + kKStages < ntiles) {
+      mbar_wait(&empty[s], (j / kKStages) & 1);
+      issue(j + kKStages);
+    }
+    __syncwarp();
+  }
+
+  const long long row_stride = (long long)H * hd;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = half ? qb : qa;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* row = dq + ((long long)b * Sq + qi) * row_stride + (long long)h * hd;
+#pragma unroll
+    for (int i = 0; i < NQ / 8; ++i) {
+      const int c = 8 * i + 2 * quad;
+      if (c < hd)
+        *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(
+            dqa[4 * i + 2 * half] * scale, dqa[4 * i + 2 * half + 1] * scale);
+    }
+  }
+}
+
+template <int HDB>
+int launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
+           const void* dout, void* dq, void* dk, void* dv, float* scratch, const Dims& d,
+           cudaStream_t stream) {
+  const int Sq_pad = (d.Sq + kRowsPad - 1) / kRowsPad * kRowsPad;
+  const long long rows = (long long)d.B * d.H * Sq_pad;
+  float* lse2 = scratch;
+  float* Dv = scratch + rows;
+  CUtensorMap mq, mdo, mk, mv;
+  int rc = make_map(&mq, q, d.B, d.Sq, d.H * d.hd, 64);
+  if (rc == 0) rc = make_map(&mdo, dout, d.B, d.Sq, d.H * d.hd, 64);
+  if (rc == 0) rc = make_map(&mk, k, d.B, d.Sk, d.Hkv * d.hd, 64);
+  if (rc == 0) rc = make_map(&mv, v, d.B, d.Sk, d.Hkv * d.hd, 64);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<HDB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)dkdv_smem(HDB));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dq_kernel<HDB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)dq_smem(HDB));
+  if (err != cudaSuccess) return (int)err;
+  const float scale_log2 = d.scale * kLog2e;
+  dim3 g1((unsigned)(d.B * d.H), (unsigned)((d.Sq + kRows - 1) / kRows));
+  dq_kernel<HDB><<<g1, kThreads, dq_smem(HDB), stream>>>(
+      mq, mdo, mk, mv, (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, lse, lse2, Dv,
+      (__nv_bfloat16*)dq, d.Sq, Sq_pad, d.Sk, d.H, d.Hkv, d.hd, d.q_offset, d.causal, d.window,
+      d.scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || d.Sk == 0) return (int)err;
+  dim3 g2((unsigned)(d.B * d.Hkv), (unsigned)((d.Sk + kKeys - 1) / kKeys));
+  dkdv_kernel<HDB><<<g2, kThreads, dkdv_smem(HDB), stream>>>(
+      mq, mdo, mk, mv, lse2, Dv, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, d.Sq, Sq_pad, d.Sk,
+      d.H, d.Hkv, d.hd, d.q_offset, d.causal, d.window, d.scale, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// CUDA-core route
+// ---------------------------------------------------------------------------
+namespace cc {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBR = 64;   // query rows per tile
 constexpr int kBC = 32;   // keys per tile
-constexpr int kMaxD = 128;
 
-// Shared-memory element type of the products' operands: bf16 on the tensor
-// cores, f32 on the CUDA cores.
-template <bool TC> struct Op { typedef float type; };
-template <> struct Op<true> { typedef __nv_bfloat16 type; };
-
-__device__ __forceinline__ void from_f(float& d, float x) { d = x; }
-__device__ __forceinline__ void from_f(__nv_bfloat16& d, float x) { d = __float2bfloat16_rn(x); }
-
-// C (M x N, row-major, ldc) = / += A (M x K) B (K x N) on the CUDA cores,
-// f32.  A(m, k) is A[m * lda + k], or A[k * lda + m] when A_COL; B(k, n) is
-// B[k * ldb + n], or B[n * ldb + k] when B_COL.  Each output is one thread's
-// sum over k in order.
+// C (M x N, row-major, ldc) = / += A (M x K) B (K x N), f32.  A(m, k) is
+// A[m * lda + k], or A[k * lda + m] when A_COL; B(k, n) is B[k * ldb + n],
+// or B[n * ldb + k] when B_COL.  Each output is one thread's sum over k in
+// order.
 template <bool ACC, bool A_COL, bool B_COL>
-__device__ void mm_cc(float* C, int ldc, const float* A, int lda, const float* B, int ldb, int M,
-                      int N, int K) {
+__device__ void mm(float* C, int ldc, const float* A, int lda, const float* B, int ldb, int M,
+                   int N, int K) {
   for (int e = threadIdx.x; e < M * N; e += kThreads) {
     const int m = e / N, n = e % N;
     float s = 0.0f;
@@ -75,64 +603,21 @@ __device__ void mm_cc(float* C, int ldc, const float* A, int lda, const float* B
   }
 }
 
-// The same on the tensor cores: each warp takes 16 x 16 output tiles in
-// turn, M, N and K multiples of 16, bf16 operands, f32 C in shared memory.
-template <bool ACC, bool A_COL, bool B_COL>
-__device__ void mm_tc(float* C, int ldc, const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
-                      int ldb, int M, int N, int K) {
-  using namespace nvcuda;
-  typedef typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type LA;
-  typedef typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type LB;
-  const int warp = threadIdx.x >> 5;
-  const int tn = N / 16, tiles = (M / 16) * tn;
-  for (int t = warp; t < tiles; t += kWarps) {
-    const int m0 = (t / tn) * 16, n0 = (t % tn) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (ACC) wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-    else wmma::fill_fragment(c, 0.0f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> b;
-      wmma::load_matrix_sync(a, A_COL ? A + k0 * lda + m0 : A + m0 * lda + k0, lda);
-      wmma::load_matrix_sync(b, B_COL ? B + n0 * ldb + k0 : B + k0 * ldb + n0, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
-  }
-}
-
-template <bool TC, bool ACC, bool A_COL, bool B_COL, typename E>
-__device__ __forceinline__ void mm(float* C, int ldc, const E* A, int lda, const E* B, int ldb,
-                                   int M, int N, int K) {
-  if constexpr (TC) mm_tc<ACC, A_COL, B_COL>(C, ldc, A, lda, B, ldb, M, N, K);
-  else mm_cc<ACC, A_COL, B_COL>(C, ldc, A, lda, B, ldb, M, N, K);
-}
-
 // Rows [r0, r0 + R) of one head of a (B, S, heads, hd) tensor into shared
 // memory (ld columns a row, columns past hd and rows past S zero).
-template <typename T, typename E>
-__device__ void load_rows(E* dst, int ld, const T* src, long long row_stride, int r0, int R,
+template <typename T>
+__device__ void load_rows(float* dst, int ld, const T* src, long long row_stride, int r0, int R,
                           int S, int hd, int D) {
   for (int i = threadIdx.x; i < R * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const float x = (r0 + r < S && d < hd) ? load_f32(src, (size_t)((r0 + r) * row_stride + d))
-                                           : 0.0f;
-    from_f(dst[r * ld + d], x);
+    const int r = i / D, c = i % D;
+    dst[r * ld + c] = (r0 + r < S && c < hd) ? load_f32(src, (size_t)((r0 + r) * row_stride + c))
+                                             : 0.0f;
   }
-}
-
-__device__ __forceinline__ bool visible(int qpos, int kpos, int Sk, int causal, int window) {
-  bool ok = kpos < Sk;
-  if (causal) ok = ok && kpos <= qpos;
-  if (window > 0) ok = ok && kpos > qpos - window;
-  return ok;
 }
 
 // p and dS of one (query tile, key tile) pair, from the scores S and
-// dP = do v^T in f32 shared memory, into the operands of the next products
-// (E: bf16 on the tensor cores, f32 on the CUDA cores).
-template <typename E>
-__device__ void softmax_grad(const float* Ss, const float* dPs, E* Pe, E* dSe, int ldsc,
+// dP = do v^T in shared memory.
+__device__ void softmax_grad(const float* Ss, const float* dPs, float* Pe, float* dSe, int ldsc,
                              int lde, const float* lse, const float* Dv, int q0, int k0, int Sq,
                              int Sk, int q_offset, int causal, int window, float scale) {
   for (int e = threadIdx.x; e < kBR * kBC; e += kThreads) {
@@ -140,58 +625,47 @@ __device__ void softmax_grad(const float* Ss, const float* dPs, E* Pe, E* dSe, i
     const int qi = q0 + r;
     const bool ok = qi < Sq && visible(q_offset + qi, k0 + c, Sk, causal, window);
     const float p = ok ? expf(Ss[r * ldsc + c] * scale - lse[r]) : 0.0f;
-    const float ds = ok ? p * (dPs[r * ldsc + c] - Dv[r]) : 0.0f;
-    from_f(Pe[r * lde + c], p);
-    from_f(dSe[r * lde + c], ds);
+    Pe[r * lde + c] = p;
+    dSe[r * lde + c] = ok ? p * (dPs[r * ldsc + c] - Dv[r]) : 0.0f;
   }
 }
 
-struct Dims {
-  int B, Sq, Sk, H, Hkv, hd, D, q_offset, causal, window;
-  float scale;
-};
-
-__host__ __device__ constexpr int pad_ld(int D, bool tc) { return tc ? D + 8 : D + 1; }
-
-// Shared memory of either grid, in E units and floats, laid out by carve().
-template <bool TC>
-__host__ __device__ size_t smem_bytes(int D) {
-  typedef typename Op<TC>::type E;
-  const int ld = pad_ld(D, TC), ldsc = kBC + 4, lde = TC ? kBC + 8 : kBC + 1;
-  const size_t e = (size_t)(2 * kBR + 2 * kBC) * ld + 2 * (size_t)kBR * lde;
-  const size_t f = 2 * (size_t)kBR * ldsc + (size_t)kBR * (D + 4) + 2 * (size_t)kBC * (D + 4) +
+// Shared memory of either grid, in floats, laid out by carve(); D is hd
+// rounded up to 16.
+size_t smem_bytes(int D) {
+  const int ld = D + 1, ldsc = kBC + 4, lde = kBC + 1;
+  const size_t f = (size_t)(2 * kBR + 2 * kBC) * ld + 2 * (size_t)kBR * lde +
+                   2 * (size_t)kBR * ldsc + (size_t)kBR * (D + 4) + 2 * (size_t)kBC * (D + 4) +
                    2 * kBR;
-  return 128 * 16 + e * sizeof(E) + f * sizeof(float);
+  return 128 * 16 + f * sizeof(float);
 }
 
-template <typename P>
-__device__ __forceinline__ P* carve(uint8_t*& p, size_t n) {
-  P* out = reinterpret_cast<P*>(p);
-  p += (n * sizeof(P) + 127) & ~(size_t)127;  // each buffer 128-byte aligned (WMMA wants 32)
+__device__ __forceinline__ float* carve(uint8_t*& p, size_t n) {
+  float* out = reinterpret_cast<float*>(p);
+  p += (n * sizeof(float) + 127) & ~(size_t)127;
   return out;
 }
 
 // 1. dq (and D).  Block (query tile, b * H + h).
-template <typename T, bool TC>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ o, const float* __restrict__ lse, const T* __restrict__ dout,
-          T* __restrict__ dq, float* __restrict__ Dglob, Dims d) {
-  typedef typename Op<TC>::type E;
+          T* __restrict__ dq, float* __restrict__ Dglob, Dims d, int D) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* p = smem_raw + ((128 - ((uintptr_t)smem_raw & 127)) & 127);
-  const int D = d.D, ld = pad_ld(D, TC), ldsc = kBC + 4, lde = TC ? kBC + 8 : kBC + 1;
-  E* Qs = carve<E>(p, (size_t)kBR * ld);
-  E* dOs = carve<E>(p, (size_t)kBR * ld);
-  E* Ks = carve<E>(p, (size_t)kBC * ld);
-  E* Vs = carve<E>(p, (size_t)kBC * ld);
-  E* Pe = carve<E>(p, (size_t)kBR * lde);
-  E* dSe = carve<E>(p, (size_t)kBR * lde);
-  float* Ss = carve<float>(p, (size_t)kBR * ldsc);
-  float* dPs = carve<float>(p, (size_t)kBR * ldsc);
-  float* dQs = carve<float>(p, (size_t)kBR * (D + 4));
-  float* lses = carve<float>(p, kBR);
-  float* Dvs = carve<float>(p, kBR);
+  const int ld = D + 1, ldsc = kBC + 4, lde = kBC + 1;
+  float* Qs = carve(p, (size_t)kBR * ld);
+  float* dOs = carve(p, (size_t)kBR * ld);
+  float* Ks = carve(p, (size_t)kBC * ld);
+  float* Vs = carve(p, (size_t)kBC * ld);
+  float* Pe = carve(p, (size_t)kBR * lde);
+  float* dSe = carve(p, (size_t)kBR * lde);
+  float* Ss = carve(p, (size_t)kBR * ldsc);
+  float* dPs = carve(p, (size_t)kBR * ldsc);
+  float* dQs = carve(p, (size_t)kBR * (D + 4));
+  float* lses = carve(p, kBR);
+  float* Dvs = carve(p, kBR);
 
   const int q0 = blockIdx.x * kBR;
   const int bh = blockIdx.y, b = bh / d.H, h = bh % d.H;
@@ -233,13 +707,13 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     load_rows(Ks, ld, kb, ks, k0, kBC, d.Sk, d.hd, D);
     load_rows(Vs, ld, vb, ks, k0, kBC, d.Sk, d.hd, D);
     __syncthreads();
-    mm<TC, false, false, true>(Ss, ldsc, Qs, ld, Ks, ld, kBR, kBC, D);    // S = q k^T
-    mm<TC, false, false, true>(dPs, ldsc, dOs, ld, Vs, ld, kBR, kBC, D);  // dP = do v^T
+    mm<false, false, true>(Ss, ldsc, Qs, ld, Ks, ld, kBR, kBC, D);    // S = q k^T
+    mm<false, false, true>(dPs, ldsc, dOs, ld, Vs, ld, kBR, kBC, D);  // dP = do v^T
     __syncthreads();
     softmax_grad(Ss, dPs, Pe, dSe, ldsc, lde, lses, Dvs, q0, k0, d.Sq, d.Sk, d.q_offset, d.causal,
                  d.window, d.scale);
     __syncthreads();
-    mm<TC, true, false, false>(dQs, D + 4, dSe, lde, Ks, ld, kBR, D, kBC);  // dq += dS k
+    mm<true, false, false>(dQs, D + 4, dSe, lde, Ks, ld, kBR, D, kBC);  // dq += dS k
   }
   __syncthreads();
   T* dqb = dq + (long long)b * d.Sq * qs + (long long)h * d.hd;
@@ -250,27 +724,27 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 // 2. dk and dv.  Block (key tile, b * Hkv + hk).
-template <typename T, bool TC>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const float* __restrict__ lse, const T* __restrict__ dout,
-            const float* __restrict__ Dglob, T* __restrict__ dk, T* __restrict__ dv, Dims d) {
-  typedef typename Op<TC>::type E;
+            const float* __restrict__ Dglob, T* __restrict__ dk, T* __restrict__ dv, Dims d,
+            int D) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* p = smem_raw + ((128 - ((uintptr_t)smem_raw & 127)) & 127);
-  const int D = d.D, ld = pad_ld(D, TC), ldsc = kBC + 4, lde = TC ? kBC + 8 : kBC + 1;
-  E* Qs = carve<E>(p, (size_t)kBR * ld);
-  E* dOs = carve<E>(p, (size_t)kBR * ld);
-  E* Ks = carve<E>(p, (size_t)kBC * ld);
-  E* Vs = carve<E>(p, (size_t)kBC * ld);
-  E* Pe = carve<E>(p, (size_t)kBR * lde);
-  E* dSe = carve<E>(p, (size_t)kBR * lde);
-  float* Ss = carve<float>(p, (size_t)kBR * ldsc);
-  float* dPs = carve<float>(p, (size_t)kBR * ldsc);
-  float* dKs = carve<float>(p, (size_t)kBC * (D + 4));
-  float* dVs = carve<float>(p, (size_t)kBC * (D + 4));
-  float* lses = carve<float>(p, kBR);
-  float* Dvs = carve<float>(p, kBR);
+  const int ld = D + 1, ldsc = kBC + 4, lde = kBC + 1;
+  float* Qs = carve(p, (size_t)kBR * ld);
+  float* dOs = carve(p, (size_t)kBR * ld);
+  float* Ks = carve(p, (size_t)kBC * ld);
+  float* Vs = carve(p, (size_t)kBC * ld);
+  float* Pe = carve(p, (size_t)kBR * lde);
+  float* dSe = carve(p, (size_t)kBR * lde);
+  float* Ss = carve(p, (size_t)kBR * ldsc);
+  float* dPs = carve(p, (size_t)kBR * ldsc);
+  float* dKs = carve(p, (size_t)kBC * (D + 4));
+  float* dVs = carve(p, (size_t)kBC * (D + 4));
+  float* lses = carve(p, kBR);
+  float* Dvs = carve(p, kBR);
 
   const int k0 = blockIdx.x * kBC;
   const int bhk = blockIdx.y, b = bhk / d.Hkv, hk = bhk % d.Hkv;
@@ -302,14 +776,14 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         Dvs[r] = in ? Dglob[(long long)bh * d.Sq + q0 + r] : 0.0f;
       }
       __syncthreads();
-      mm<TC, false, false, true>(Ss, ldsc, Qs, ld, Ks, ld, kBR, kBC, D);
-      mm<TC, false, false, true>(dPs, ldsc, dOs, ld, Vs, ld, kBR, kBC, D);
+      mm<false, false, true>(Ss, ldsc, Qs, ld, Ks, ld, kBR, kBC, D);
+      mm<false, false, true>(dPs, ldsc, dOs, ld, Vs, ld, kBR, kBC, D);
       __syncthreads();
       softmax_grad(Ss, dPs, Pe, dSe, ldsc, lde, lses, Dvs, q0, k0, d.Sq, d.Sk, d.q_offset,
                    d.causal, d.window, d.scale);
       __syncthreads();
-      mm<TC, true, true, false>(dVs, D + 4, Pe, lde, dOs, ld, kBC, D, kBR);  // dv += P^T do
-      mm<TC, true, true, false>(dKs, D + 4, dSe, lde, Qs, ld, kBC, D, kBR);  // dk += dS^T q
+      mm<true, true, false>(dVs, D + 4, Pe, lde, dOs, ld, kBC, D, kBR);  // dv += P^T do
+      mm<true, true, false>(dKs, D + 4, dSe, lde, Qs, ld, kBC, D, kBR);  // dk += dS^T q
     }
   }
   __syncthreads();
@@ -324,41 +798,46 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
 }
 
-template <typename T, bool TC>
-int launch_typed(const void* q, const void* k, const void* v, const void* o, const float* lse,
-                 const void* dout, void* dq, void* dk, void* dv, float* Dscratch, Dims d,
-                 cudaStream_t stream) {
-  const size_t smem = smem_bytes<TC>(d.D);
-  cudaError_t err = cudaFuncSetAttribute(dq_kernel<T, TC>,
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
+           const void* dout, void* dq, void* dk, void* dv, float* Dscratch, const Dims& d,
+           cudaStream_t stream) {
+  const int D = (d.hd + 15) / 16 * 16;
+  const size_t smem = smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dkdv_kernel<T, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 g1((unsigned)((d.Sq + kBR - 1) / kBR), (unsigned)(d.B * d.H));
-  dq_kernel<T, TC><<<g1, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                                   (const T*)o, lse, (const T*)dout, (T*)dq,
-                                                   Dscratch, d);
+  dq_kernel<T><<<g1, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
+                                               (const T*)o, lse, (const T*)dout, (T*)dq,
+                                               Dscratch, d, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (d.Sk > 0) {
     dim3 g2((unsigned)((d.Sk + kBC - 1) / kBC), (unsigned)(d.B * d.Hkv));
-    dkdv_kernel<T, TC><<<g2, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, lse,
-                                                       (const T*)dout, Dscratch, (T*)dk, (T*)dv,
-                                                       d);
+    dkdv_kernel<T><<<g2, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, lse,
+                                                   (const T*)dout, Dscratch, (T*)dk, (T*)dv, d,
+                                                   D);
   }
   return (int)cudaGetLastError();
 }
+
+}  // namespace cc
 
 }  // namespace
 
 // q, o, dout, dq (B, Sq, H, hd) and k, v, dk, dv (B, Sk, Hkv, hd) of one
 // dtype (f32 or bf16), contiguous; lse (B, H, Sq) f32 from the forward;
-// ``Dscratch`` f32 scratch of B H Sq floats.  tensor_cores != 0: bf16 with
-// hd a multiple of 16.  window <= 0: no window.  Returns a CUDA error code.
+// ``scratch`` f32 of 2 B H ceil(Sq / 64) 64 floats (the tensor-core route's
+// lse and D rows; the CUDA-core route uses B H Sq of them for D).
+// tensor_cores != 0: bf16 with hd a multiple of 16, 16-byte aligned rows.
+// window <= 0: no window.  Returns a CUDA error code.
 extern "C" int launch_flash_attention_bwd(const void* q, const void* k, const void* v,
                                           const void* o, const void* lse, const void* dout,
-                                          void* dq, void* dk, void* dv, void* Dscratch, int B,
+                                          void* dq, void* dk, void* dv, void* scratch, int B,
                                           int Sq, int Sk, int H, int Hkv, int hd, int q_offset,
                                           int causal, int window, int dtype, int tensor_cores,
                                           float scale, int device, void* stream) {
@@ -366,17 +845,17 @@ extern "C" int launch_flash_attention_bwd(const void* q, const void* k, const vo
   if (err != cudaSuccess) return (int)err;
   if (hd < 1 || hd > kMaxD || Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaGetLastError();
-  Dims d{B, Sq, Sk, H, Hkv, hd, (hd + 15) / 16 * 16, q_offset, causal, window, scale};
+  const Dims d{B, Sq, Sk, H, Hkv, hd, q_offset, causal, window, scale};
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
-  float* Ds = (float*)Dscratch;
+  float* sc = (float*)scratch;
   if (tensor_cores) {
     if (dtype != kBF16 || hd % 16 != 0) return (int)cudaErrorInvalidValue;
-    return launch_typed<__nv_bfloat16, true>(q, k, v, o, l, dout, dq, dk, dv, Ds, d, st);
+    if (hd <= 64) return tc::launch<1>(q, k, v, o, l, dout, dq, dk, dv, sc, d, st);
+    return tc::launch<2>(q, k, v, o, l, dout, dq, dk, dv, sc, d, st);
   }
-  if (dtype == kF32)
-    return launch_typed<float, false>(q, k, v, o, l, dout, dq, dk, dv, Ds, d, st);
+  if (dtype == kF32) return cc::launch<float>(q, k, v, o, l, dout, dq, dk, dv, sc, d, st);
   if (dtype == kBF16)
-    return launch_typed<__nv_bfloat16, false>(q, k, v, o, l, dout, dq, dk, dv, Ds, d, st);
+    return cc::launch<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, sc, d, st);
   return (int)cudaErrorInvalidValue;
 }

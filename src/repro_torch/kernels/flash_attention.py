@@ -28,10 +28,12 @@ dim (not a fallback: each route is the kernel for its operands):
 Kernel 16b, ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), is
 the backward: (dq, dk, dv) from q, k, v, the output o, the per-row
 logsumexp ``lse`` (B, H, Sq) f32 that ``flash_attention(..., lse=True)``
-also returns, and do.  It recomputes the scores block by block, takes the
-same routes (bf16 with hd a multiple of 16 on the tensor cores, through
-WMMA; everything else f32 on the CUDA cores) and sums dk and dv over each kv
-head's query heads in one block, in a fixed order.  ``kernels.ops`` makes
+also returns, and do.  It recomputes the scores tile by tile and takes the
+same routes: bf16 with hd a multiple of 16 on the tensor cores (a dq grid,
+which also forms D = do . o, then a dk/dv grid with the transposed scores
+in registers, both on wgmma with tiles brought in by TMA), everything else
+f32 on the CUDA cores.  dk and dv are summed over each kv head's query heads
+in one block, every sum in a fixed order.  ``kernels.ops`` makes
 the pair an ``autograd.Function``; the plain backward (``ref.
 flash_attention_bwd_ref``, autograd of the plain forward) runs on the CPU.
 """
@@ -46,6 +48,7 @@ from repro_torch.kernels._build import F, I, P, Kernel
 
 MAX_HEAD_DIM = 128
 TC_HEAD_DIM_STEP = 16  # the tensor-core route's hd: a multiple of wgmma's bf16 depth
+SCRATCH_ROWS = 64  # csrc/flash_attention_bwd.cu tc::kRowsPad
 
 FLASH_ATTENTION = Kernel(
     "flash_attention", "flash_attention.cu", "launch_flash_attention",
@@ -56,7 +59,7 @@ FLASH_ATTENTION = Kernel(
 
 FLASH_ATTENTION_BWD = Kernel(
     "flash_attention_bwd", "flash_attention_bwd.cu", "launch_flash_attention_bwd",
-    # q k v o lse do dq dk dv Dscratch B Sq Sk H Hkv hd q_offset causal window dtype
+    # q k v o lse do dq dk dv scratch B Sq Sk H Hkv hd q_offset causal window dtype
     # tensor_cores scale dev stream
     [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, I, P],
     replaces="src/repro/kernels/flash_attention.py:70 (its backward: ops.py _flash_xla)",
@@ -127,7 +130,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None
     _args.check(kern.name, "do", do, (B, Sq, H, hd), (dt,), dev)
     _args.check(kern.name, "lse", lse, (B, H, Sq), (torch.float32,), dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    # the tensor-core route's lse and D rows, padded to whole query tiles
+    scratch = torch.empty(2 * B * H * -(-Sq // SCRATCH_ROWS) * SCRATCH_ROWS,
+                          dtype=torch.float32, device=dev)
     kern.launch(_args.ptr(q), _args.ptr(k), _args.ptr(v), _args.ptr(o), _args.ptr(lse),
                 _args.ptr(do), _args.ptr(dq), _args.ptr(dk), _args.ptr(dv), _args.ptr(scratch),
                 B, Sq, Sk, H, Hkv, hd, int(q_offset), int(causal),

@@ -22,7 +22,10 @@ V floats) and a zeroed int32 buffer of their flags and the chunk ticket.
 Kernel 17b, ``wkv6_bwd`` (``csrc/wkv6_bwd.cu``), is the backward: (dr, dk,
 dv, dw, du, ds0) from the forward's operands, its final state and the states
 it passed between chunks (``wkv6(..., keep_states=True)`` returns them
-instead of freeing them), dy and ds_final.  dw is with respect to the
+instead of freeing them), dy and ds_final.  Like the forward it is one
+chunk-parallel kernel, walking the chunks in reverse: each block passes the
+state gradient to the chunk before through flags in a zeroed scratch
+buffer; du is summed in a second, small grid.  dw is with respect to the
 kernel's w input; du has u's shape, each row summed over the batch rows that
 read it.  ``kernels.ops`` makes the pair an ``autograd.Function``; the plain
 backward (``ref.wkv6_bwd_ref``, autograd of the plain forward) runs on the
@@ -36,6 +39,7 @@ from repro_torch.kernels import _args, ref
 from repro_torch.kernels._build import I, P, Kernel
 
 CHUNK = 64
+SUB_CHUNKS = 4  # csrc/wkv6_bwd.cu: du's share is summed a sub-chunk of 16 steps at a time
 MAX_DIM = 64
 
 WKV6 = Kernel(
@@ -47,9 +51,9 @@ WKV6 = Kernel(
 
 WKV6_BWD = Kernel(
     "wkv6_bwd", "wkv6_bwd.cu", "launch_wkv6_bwd",
-    # r k v w u s0 s_out states dy ds_final dr dk dv dw du ds0 dstates du_part
-    # B S H K V u_div dtype dev stream
-    [P] * 18 + [I, I, I, I, I, I, I, I, P],
+    # r k v w u s0 s_out states dy ds_final dr dk dv dw du ds0 dstates du_part dk_part
+    # sync B S H K V u_div dtype dev stream
+    [P] * 20 + [I, I, I, I, I, I, I, I, P],
     replaces="src/repro/kernels/wkv6.py:73 (its backward: ops.py _wkv6_chunked_xla)",
 )
 
@@ -122,8 +126,10 @@ def wkv6_bwd(r, k, v, w, u, s0, s_out, states, dy, ds_final=None):
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dw, du, ds0 = torch.empty_like(w), torch.empty_like(u), torch.empty_like(s0)
     dstates = torch.empty(B * H * nc * K * V, dtype=torch.float32, device=dev)
-    du_part = torch.empty(B * H * nc * K, dtype=torch.float32, device=dev)
+    du_part = torch.empty(B * H * nc * SUB_CHUNKS * K, dtype=torch.float32, device=dev)
+    dk_part = torch.empty(B * H * nc * CHUNK * MAX_DIM, dtype=torch.float32, device=dev)
+    sync = torch.zeros(1 + B * H * nc, dtype=torch.int32, device=dev)
     kern.launch(*(_args.ptr(t) for t in (r, k, v, w, u, s0, s_out, states, dy, ds_final, dr, dk,
-                                          dv, dw, du, ds0, dstates, du_part)),
+                                          dv, dw, du, ds0, dstates, du_part, dk_part, sync)),
                 B, S, H, K, V, u_div, _args.DTYPE_CODES[dt], *_args.stream_args(dev))
     return dr, dk, dv, dw, du, ds0

@@ -1292,6 +1292,30 @@ def test_cuda_flash_attention_bwd_matches_autograd_of_plain(cuda, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 150, 280, 8, 2, 64, 100, 130),
+                                  (2, 90, 260, 8, 4, 128, None, 170),
+                                  (1, 70, 200, 4, 2, 24, 50, 130)])
+def test_cuda_flash_attention_bwd_with_query_offset(cuda, case):
+    """Queries that start past the first key (a continued prefill), bf16 on
+    either route: Sq off the query tiles, grouped heads, with and without a
+    window."""
+    B, Sq, Sk, H, Hkv, hd, window, off = case
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, do = (torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, Hkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = FA.flash_attention(q, k, v, window=window, q_offset=off, lse=True)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, window=window, q_offset=off)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, off + torch.arange(Sq, device=cuda),
+                                       torch.arange(Sk, device=cuda), window=window)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= 2.0 ** -6 * float(
+            b.float().abs().max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,n_u", [(1, 1), (64, 2), (130, 1)])
 def test_cuda_wkv6_bwd_matches_autograd_of_plain(cuda, dtype, S, n_u):
