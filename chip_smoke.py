@@ -164,21 +164,37 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      at olmo-1b's prefill shape (4, 1024, 16, 128) bf16, causal, with a
      window of 256, grouped (H 32, Hkv 8), in f32 and with suffix queries,
      and at the edges of its tensor-core tiles (``FLASH_EDGES``), each on
-     the route its dtype and head dim select, timed beside
-     ``scaled_dot_product_attention``; ``wkv6`` at rwkv6-1.6b's
-     (4, 1024, 32, 64) bf16 with a nonzero initial state, at a ragged
-     length with near-zero decay, and at lengths 1, 63, 65 and 100 with a
-     zero and a nonzero initial state; (b) ``repro_torch.launch.serve.run`` at
-     full width for olmo-1b and rwkv6-1.6b, batch 4, prompt 1024, 32 new
-     tokens: prefill and decode times, 16 ``flash_attention`` launches per
-     olmo prefill and 24 ``wkv6`` per rwkv prefill, none per decode token,
-     finite logits, the last decode step's logits against a prefill of the
-     extended prompt (and the same in f32 at full width with 4 layers), and
-     a profile of one prefill and 8 decode steps (busy time, idle share,
-     kernel time by name), and olmo-1b's flash on the tensor-core route;
-     (c) each model at full width
-     with 2 layers on the card against the CPU (prefill of a 256-token
-     prompt and one decode step);
+     the route its dtype and head dims select, timed beside
+     ``scaled_dot_product_attention``; at the head dims of the archs served
+     below (``FLASH_HEAD_DIMS``: deepseek's MLA hd 192 / vd 128,
+     recurrentgemma's hd 256 on one kv head with its 2,048-key window, at
+     4,096 keys too, stablelm's hd 160) and their edges
+     (``FLASH_HEAD_DIM_EDGES``: f32, the 64-key tiles, vd above and below
+     hd), those four timed with their bounds beside the fastest SDPA
+     backend that takes them (each pinned in turn); ``lru_scan`` bitwise
+     its plain recurrence at recurrentgemma's (4, 1024, 4096) and at
+     lengths 1, 511 and 513, timed with its bound; ``wkv6`` at
+     rwkv6-1.6b's (4, 1024, 32, 64) bf16 with a nonzero initial state, at
+     a ragged length with near-zero decay, and at lengths 1, 63, 65 and
+     100 with a zero and a nonzero initial state; (b)
+     ``repro_torch.launch.serve.run`` at full width for every arch of
+     ``SERVE_ARCHS`` (olmo-1b, rwkv6-1.6b, deepseek-v2-lite-16b,
+     recurrentgemma-9b, stablelm-12b, llava-next-mistral-7b,
+     musicgen-large at full depth, llama4-maverick at 2 layers), batch 4,
+     prompt 1024, 32 new tokens, the weights drawn once (the reference's,
+     from seed 0) and one warm-up prefill before the timed one: prefill
+     and decode times, the weights' draw time and peak allocation, the
+     serving peak, ``SERVE_LAUNCHES`` per prefill and none per decode
+     token, kernel 16 on the tensor cores, finite logits, the last decode
+     step's logits against a prefill of the extended prompt (MoE archs
+     drop-free, every token routed as that prefill routed it,
+     ``LOGITS_MOE_REL``; the top-k choices a free-running decode makes
+     otherwise counted) and the same in f32 at full width with 4 layers
+     (``F32_CHECK``: deepseek at full depth, maverick at 2), and a profile
+     of one prefill and 8 decode steps (busy time, idle share, kernel time
+     by name); (c) olmo-1b and rwkv6-1.6b at full width with 2 layers on
+     the card against the CPU (prefill of a 256-token prompt and one
+     decode step);
  12. federated LM training: (a) the backward kernels 16b and 17b against
      autograd of their plain versions (``FLASH_BWD_CASES``,
      ``WKV_BWD_CASES``; every case run twice, the two bitwise equal), timed
@@ -233,6 +249,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3658,11 +3675,65 @@ FLASH_EDGES = (
     (1, 100, 2, 2, 72, "bf16", None, None),
 )
 WKV_EDGES = (1, 63, 65, 100)  # lengths around the 64-step chunk
+# kernel 16 at the head dims of the archs served below, (label, (B, S, H, Hkv,
+# hd, vd), window): deepseek-v2-lite's MLA prefill (hd 192, vd 128),
+# recurrentgemma-9b's local attention (16 query heads on one kv head, hd
+# 256, its 2,048-key window) at prompt 1024 and at 4,096 keys, where the
+# window binds, and stablelm-12b's hd 160
+FLASH_HEAD_DIMS = (
+    ("mla", (4, 1024, 16, 16, 192, 128), None),
+    ("recurrentgemma", (4, 1024, 16, 1, 256, 256), 2048),
+    ("recurrentgemma_4096", (2, 4096, 16, 1, 256, 256), 2048),
+    ("stablelm", (4, 1024, 32, 8, 160, 160), None),
+)
+# (B, Sk, H, Hkv, hd, vd, dtype, window, Sq): the same head dims in f32 (the
+# CUDA-core route), the edges of the 64-key tiles that hd or vd above 128
+# take on the tensor cores (Sq and Sk off the tiles, a query offset, a window
+# below a tile, vd above and below hd), and a bf16 pair off the tensor-core
+# route (hd 200, vd 136: CUDA cores)
+FLASH_HEAD_DIM_EDGES = (
+    (1, 200, 4, 4, 192, 128, "f32", None, None),
+    (1, 200, 4, 1, 256, 256, "f32", 64, None),
+    (1, 200, 4, 2, 160, 160, "f32", None, None),
+    (2, 333, 4, 1, 256, 256, "bf16", 40, 77),
+    (1, 130, 4, 2, 192, 128, "bf16", None, 77),
+    (1, 130, 2, 2, 160, 160, "bf16", 100, None),
+    (1, 100, 2, 2, 64, 256, "bf16", None, None),
+    (1, 100, 2, 2, 256, 64, "bf16", None, None),
+    (1, 100, 2, 1, 200, 136, "bf16", None, None),
+)
+LRU_SHAPE = (4, 1024, 4096)  # recurrentgemma-9b's prefill: batch 4, prompt 1024, d_rnn 4096
+LRU_EDGES = (1, 511, 513)  # lengths around the kernel's 32-step groups, at (2, S, 300)
 SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
-SERVE_ARCHS = ("olmo-1b", "rwkv6-1.6b")
-# per prefill, one kernel per block of the model (16 dense, 24 rwkv), none per
-# decode token
-SERVE_LAUNCHES = {"olmo-1b": {"flash_attention": 16}, "rwkv6-1.6b": {"wkv6": 24}}
+SERVE_ARCHS = ("olmo-1b", "rwkv6-1.6b", "deepseek-v2-lite-16b", "recurrentgemma-9b",
+               "stablelm-12b", "llava-next-mistral-7b", "musicgen-large",
+               "llama4-maverick-400b-a17b")
+CARD_VS_CPU_ARCHS = ("olmo-1b", "rwkv6-1.6b")  # phase "11 card vs cpu"
+# full depth, but for llama4-maverick: 2 layers, its one (dense, moe) unit at
+# full width (18.6e9 parameters, 37 GB in bf16); its 48 layers (~800 GB) do
+# not fit four cards
+SERVE_LAYERS = {"llama4-maverick-400b-a17b": 2}
+# per prefill, one kernel per block of the model (attention blocks: kernel 16;
+# rwkv: 17; RG-LRU: lru_scan), none per decode token
+SERVE_LAUNCHES = {"olmo-1b": {"flash_attention": 16}, "rwkv6-1.6b": {"wkv6": 24},
+                  "deepseek-v2-lite-16b": {"flash_attention": 27},
+                  "recurrentgemma-9b": {"flash_attention": 12, "lru_scan": 26},
+                  "stablelm-12b": {"flash_attention": 40},
+                  "llava-next-mistral-7b": {"flash_attention": 32},
+                  "musicgen-large": {"flash_attention": 48},
+                  "llama4-maverick-400b-a17b": {"flash_attention": 2}}
+# MoE archs: decode is at full capacity, so decode against prefill runs a
+# drop-free pipeline (``exact_moe``) on these many batch rows (rows are
+# independent without drops; maverick's drop-free prefill of all four rows,
+# (128, 4224, 8192) expert activations, does not fit beside its weights)
+MOE_CHECK_ROWS = {"deepseek-v2-lite-16b": 4, "llama4-maverick-400b-a17b": 1}
+# decode against prefill in f32 at full width: (layers, batch, prompt); 4
+# layers, batch 2, 256 tokens, but maverick: its one MoE layer holds 64 GB of
+# f32 experts, so 2 layers, batch 1, 128 tokens; and deepseek at full depth
+# (63 GB of f32 weights), batch 1, 128 tokens, where its bf16 check takes
+# ``LOGITS_MOE_REL``
+F32_CHECK = {"llama4-maverick-400b-a17b": (2, 1, 128), "deepseek-v2-lite-16b": (27, 1, 128)}
+F32_CHECK_DEFAULT = (4, 2, 256)
 # tolerances, relative to the largest magnitude of the reference value: a
 # kernel against its plain version rounds its f32 result once to bf16 (2^-8)
 # after sums taken in another order; a bf16 model's logits pass 16-24 layers
@@ -3676,6 +3747,18 @@ KERNEL_BF16_REL = 2.0 ** -7
 KERNEL_F32_REL = 1e-4
 LOGITS_REL = 6e-2
 LOGITS_F32_REL = 1e-4
+# bf16 decode against prefill of an MoE arch, every token routed as the
+# extended prefill routed it: the bf16 roundings of decode's one-row
+# products and MLA's absorbed f32 attention against prefill's grow through
+# DeepSeek's 26 MoE layers (measured on an H100 at batch 1, prompt 256:
+# 0.013 at 2 layers, 0.031 at 4, 0.047 at 8, 0.089 at 16, 0.157 at 27;
+# 0.165 with the loop dispatch in decode too, so not its bf16 combine); the
+# same comparison holds 1e-4 in f32 at full depth (3.7e-5), so the cache is
+# right.  The reference's own bf16 decode drifts from its prefill the same
+# way: at a reduced width and 27 layers, routed alike, 0.058-0.197 over
+# four seeds against the port's 0.065-0.183 (on the CPU,
+# tests/test_torch_archs.py::test_moe_bf16_decode_drift_is_the_references)
+LOGITS_MOE_REL = 0.25
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 
 
@@ -3684,13 +3767,16 @@ def rel_err(torch, got, want) -> float:
     return max_err(got, want) / max(float(want.abs().max()), 1e-30)
 
 
-def flash_flops(B, H, Sq, Sk, hd, window=None) -> float:
-    """Multiply-adds of q k^T and p v over the valid (query, key) pairs."""
+def flash_flops(B, H, Sq, Sk, hd, window=None, vd=None) -> float:
+    """Operations (2 a multiply-add) of q k^T (hd) and p v (vd, default hd)
+    over the valid (query, key) pairs, the queries at the last Sq of Sk
+    positions."""
+    vd = hd if vd is None else vd
     pairs = 0
-    for i in range(Sq):
+    for i in range(Sk - Sq, Sk):
         lo = 0 if window is None else max(0, i - window + 1)
         pairs += i + 1 - lo
-    return 4.0 * B * H * hd * pairs
+    return 2.0 * B * H * (hd + vd) * pairs
 
 
 def check_model_kernels(rec, torch, ops, ref, gen, out):
@@ -3791,72 +3877,334 @@ def check_model_kernels(rec, torch, ops, ref, gen, out):
                lambda: ops.wkv6(r, kk, vv, w, u, s0),
                lambda: ref.wkv6_ref(r, kk, vv, w, u, s0), 10, nbytes, flops)
     out["model_kernel_errors"] = {"wkv6_y_rel": e_y, "wkv6_s_rel": e_s}
+    check_flash_head_dims(rec, torch, ops, ref, gen, out)
+    check_lru_scan(rec, torch, ops, ref, gen, out)
     torch.cuda.synchronize()
 
 
+def sdpa_forward(torch, q, k, v, window, backend: str):
+    """One call of ``scaled_dot_product_attention`` computing kernel 16's
+    function on (B, S, H, d) tensors (views in SDPA's layout), under
+    ``backend``: causal, grouped heads through ``enable_gqa``, a window that
+    binds as a boolean mask."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    S, H, Hkv = q.shape[1], q.shape[2], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = {"enable_gqa": True} if Hkv != H else {}
+    if window is None or window >= S:
+        kw["is_causal"] = True
+    else:
+        i = torch.arange(S, device=q.device)
+        kw["attn_mask"] = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+    def run():
+        with sdpa_kernel(getattr(SDPBackend, backend)):
+            return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    return run
+
+
+def sdpa_forward_fastest(torch, q, k, v, window) -> dict:
+    """SDPA (``sdpa_forward``) under each of ``SDPA_BACKENDS`` that takes
+    these operands, medians of 3 trials of 10 calls: every backend's time
+    (or why it did not run) and the fastest's name and time (None when no
+    backend takes them)."""
+    every = {}
+    for backend in SDPA_BACKENDS:
+        run = sdpa_forward(torch, q, k, v, window, backend)
+        try:
+            run()
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # the backend does not take these operands here
+            every[backend] = f"not run: {str(e).splitlines()[0][:120]}"
+            continue
+        every[backend] = med_ms(run, 10, 3)[0]
+    ran = [b for b, t in every.items() if not isinstance(t, str)]
+    best = min(ran, key=lambda b: every[b]) if ran else None
+    return {"sdpa_ms": None if best is None else every[best], "sdpa": best, "sdpa_also": every}
+
+
+def check_flash_head_dims(rec, torch, ops, ref, gen, out):
+    """Kernel 16 at the head dims of the archs this phase serves
+    (``FLASH_HEAD_DIMS``: hd 192 / vd 128, hd 256 on one kv head with a
+    window, at 4,096 keys too, hd 160) and at ``FLASH_HEAD_DIM_EDGES``,
+    against its plain version, each on its expected route; the
+    ``FLASH_HEAD_DIMS`` shapes timed (medians of 3 trials) with their bounds
+    and the fastest SDPA backend that takes them (each pinned in turn)."""
+    from repro_torch.kernels import flash_attention as _fa
+
+    dev = gen.device
+    bf16 = torch.bfloat16
+
+    def held(B, S, H, Hkv, hd, vd, dt, window, Sq=None):
+        Sq = S if Sq is None else Sq
+        q = torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dt)
+        k = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, S, Hkv, vd, generator=gen, device=dev).to(dt)
+        off = S - Sq
+        got = ops.flash_attention(q, k, v, causal=True, window=window, q_offset=off)
+        want_route = ("wgmma" if dt == bf16 and hd % 16 == 0 and vd % 16 == 0
+                      else "cuda_cores")
+        what = f"flash_attention {(B, Sq, S, H, Hkv, hd, vd)} {dt} window {window}"
+        check(_fa.last_route == want_route,
+              f"{what}: route {_fa.last_route}, expected {want_route}")
+        want = ref.flash_attention_ref(q, k, v, torch.arange(off, S, device=dev),
+                                       torch.arange(S, device=dev), causal=True, window=window)
+        check(tuple(got.shape) == (B, Sq, H, vd), f"{what}: shape {tuple(got.shape)}")
+        e = rel_err(torch, got, want)
+        tol = KERNEL_BF16_REL if dt == bf16 else KERNEL_F32_REL
+        check(e <= tol, f"{what}: rel error {e} > {tol}")
+        log(f"{what}: {_fa.last_route}, rel error {e:.3e}")
+        return q, k, v, e, max_err(got, want)
+
+    rows = {}
+    for label, (B, S, H, Hkv, hd, vd), window in FLASH_HEAD_DIMS:
+        q, k, v, e, err = held(B, S, H, Hkv, hd, vd, bf16, window)
+        route = _fa.last_route
+        pos = torch.arange(S, device=dev)
+        ms = med_ms(lambda: ops.flash_attention(q, k, v, causal=True, window=window,
+                                                q_offset=0), 10, 3)[0]
+        plain_ms = cuda_time_ms(lambda: ref.flash_attention_ref(q, k, v, pos, pos, causal=True,
+                                                                window=window), 3)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + B * S * H * vd)
+        b, by = bound_ms(nbytes, flash_flops(B, H, S, S, hd, window, vd), BF16_FLOP_PER_S)
+        rows[label] = {"shape": [B, S, H, Hkv, hd, vd], "window": window, "route": route,
+                       "rel_err": e, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b, "bound_by": by} | sdpa_forward_fastest(torch, q, k, v,
+                                                                             window)
+        r = rows[label]
+        sdpa = "none" if r["sdpa_ms"] is None else f"{r['sdpa_ms']:.4f} ms ({r['sdpa']})"
+        log(f"flash_attention {label} {tuple(r['shape'])} window {window}: {ms:.4f} ms on "
+            f"{route}, plain {plain_ms:.4f}, bound {b:.4f} ({by}), fastest SDPA {sdpa}; "
+            f"every SDPA backend {r['sdpa_also']}")
+        del q, k, v
+    for case in FLASH_HEAD_DIM_EDGES:
+        b_, sk, h_, hkv, hd, vd, dname, window, sq = case
+        held(b_, sk, h_, hkv, hd, vd, {"bf16": bf16, "f32": torch.float32}[dname], window, sq)
+    rec.rows["flash_attention"]["head_dims"] = rows
+    out["flash_head_dims"] = rows
+
+
+def check_lru_scan(rec, torch, ops, ref, gen, out):
+    """``lru_scan`` bitwise its plain sequential version at
+    recurrentgemma-9b's prefill shape and at ``LRU_EDGES``, a in [0, 1) as
+    the RG-LRU's decays, h0 nonzero; timed with its bound (each input read
+    and each output written once)."""
+    dev = gen.device
+
+    def held(B, S, D):
+        a = torch.rand(B, S, D, generator=gen, device=dev)
+        b = torch.randn(B, S, D, generator=gen, device=dev)
+        h0 = torch.randn(B, D, generator=gen, device=dev)
+        y, h = ops.lru_scan(a, b, h0)
+        y_w, h_w = ref.lru_ref(a, b, h0)
+        check(torch.equal(y, y_w) and torch.equal(h, h_w),
+              f"lru_scan {(B, S, D)}: not bitwise the plain recurrence (max error "
+              f"{max(max_err(y, y_w), max_err(h, h_w))})")
+        log(f"lru_scan {(B, S, D)}: bitwise the plain recurrence")
+        return a, b, h0
+
+    for S in LRU_EDGES:
+        held(2, S, 300)
+    B, S, D = LRU_SHAPE
+    a, b, h0 = held(B, S, D)
+    rec.kernel("lru_scan", 0.0, lambda: ops.lru_scan(a, b, h0), lambda: ref.lru_ref(a, b, h0),
+               20, 4 * (3 * B * S * D + 2 * B * D), 2.0 * B * S * D, plain_iters=2,
+               plain_spin=50_000_000, trials=3)
+    out["lru_scan"] = {k: rec.rows["lru_scan"][k] for k in ("ms", "plain_ms", "bound_ms")}
+
+
 def serve_phase(rec, torch, ops, dev, out):
-    """``serve.run`` at full width, each model twice (the first run warms
-    the card's libraries and its allocator), the launches of the second
-    read; then the last decode step's logits against a prefill of the
-    extended prompt, in bf16 and, at 4 layers, in f32."""
+    """``serve.run`` at full width for every arch of ``SERVE_ARCHS`` (full
+    depth but for ``SERVE_LAYERS``), the weights drawn once, one warm-up
+    prefill before the timed prefill and decode; the launches of the run
+    read (the warm-up's prefill included), the route of kernel 16, finite
+    logits and token shapes, the peak allocation of the draw and of the
+    serving; then the last decode step's logits against a prefill of the
+    extended prompt (``decode_against_prefill``), a profile of prefill and
+    decode, and the same comparison in f32 (``decode_against_prefill_f32``)."""
     from repro_torch.kernels import flash_attention as _fa
     from repro_torch.launch import serve
 
     res = out["serve"] = {}
     for arch in SERVE_ARCHS:
-        serve.run(arch, reduced=False, device="cuda", quiet=True, **SERVE)
-        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         ops.reset_launches()
         _fa.last_route = None
-        got = serve.run(arch, reduced=False, device="cuda", **SERVE)
+        got = serve.run(arch, reduced=False, device="cuda", layers=SERVE_LAYERS.get(arch),
+                        quiet=True, **SERVE)
         torch.cuda.synchronize()
         counts = ops.launches()
         rec.add(counts)
-        want = {n: 0 for n in counts} | SERVE_LAUNCHES[arch]
-        check(counts == want, f"serve {arch}: launches {counts}, expected {want}")
-        if counts["flash_attention"]:  # olmo-1b's bf16 prefill: the tensor-core route
+        want = {n: 0 for n in counts} | {n: 2 * c for n, c in SERVE_LAUNCHES[arch].items()}
+        check(counts == want, f"serve {arch}: launches {counts}, expected {want} (two "
+                              f"prefills: the warm-up and the timed one)")
+        if counts["flash_attention"]:  # every bf16 prefill: the tensor-core route
             check(_fa.last_route == "wgmma",
                   f"serve {arch}: flash_attention took the {_fa.last_route} route, not wgmma")
         check(bool(torch.isfinite(got.logits).all()), f"serve {arch}: logits not finite")
-        check(tuple(got.tokens.shape) == (SERVE["batch"], SERVE["new_tokens"]),
-              f"serve {arch}: tokens {tuple(got.tokens.shape)}")
-        with torch.no_grad():
-            ext = torch.cat([got.prompts, got.tokens], dim=1)
-            full, _ = got.model.prefill(got.params, {"tokens": ext}, ext.shape[1])
-        e = rel_err(torch, got.logits, full)
-        log(f"serve {arch}: prefill {got.prefill_ms:.2f} ms, decode {got.decode_ms_per_token:.3f} "
-            f"ms/token; launches {dict((n, c) for n, c in counts.items() if c)}; last decode "
-            f"logits vs prefill of the {ext.shape[1]}-token prompt: rel error {e:.3e}")
-        check(e <= LOGITS_REL, f"serve {arch}: decode vs prefill rel error {e} > {LOGITS_REL}")
-        res[arch] = {"prefill_ms": got.prefill_ms, "decode_ms_per_token": got.decode_ms_per_token,
-                     "launches": {n: c for n, c in counts.items() if c},
-                     "decode_vs_prefill_rel": e}
+        cfg = got.model.cfg
+        want_tok = ((SERVE["batch"], cfg.n_codebooks, SERVE["new_tokens"]) if cfg.n_codebooks > 1
+                    else (SERVE["batch"], SERVE["new_tokens"]))
+        check(tuple(got.tokens.shape) == want_tok, f"serve {arch}: tokens {tuple(got.tokens.shape)}")
+        res[arch] = {"layers": cfg.n_layers, "prefill_ms": got.prefill_ms,
+                     "decode_ms_per_token": got.decode_ms_per_token, "init_s": got.init_s,
+                     "init_peak_gb": got.init_peak_bytes / 1e9,
+                     "serve_peak_gb": got.serve_peak_bytes / 1e9,
+                     "launches": {n: c for n, c in counts.items() if c}}
+        res[arch] |= decode_against_prefill(torch, got, arch)
+        log(f"serve {arch} ({cfg.n_layers} layers): weights drawn in {got.init_s:.2f} s, peak "
+            f"{res[arch]['init_peak_gb']:.2f} GB; prefill {got.prefill_ms:.2f} ms, decode "
+            f"{got.decode_ms_per_token:.3f} ms/token, serving peak "
+            f"{res[arch]['serve_peak_gb']:.2f} GB; launches {res[arch]['launches']}")
         res[arch] |= profile_serve(torch, got, arch)
-        del got, full
+        del got
         torch.cuda.empty_cache()
         res[arch]["decode_vs_prefill_f32_rel"] = decode_against_prefill_f32(torch, arch)
 
 
+def moe_routes(M, record: list, forced=None):
+    """A stand-in for ``models.moe.top_k``: it appends each call's chosen
+    experts (rows of k ids) to ``record`` and, given ``forced`` (call
+    number -> rows of k ids), takes those experts instead, their gates as
+    the values; returns (the plain function, the stand-in).  The caller
+    sets ``M.top_k`` back."""
+    plain = M.top_k
+
+    def top_k(gates, k):
+        vals, idx = plain(gates, k)
+        record.append(idx)
+        if forced is not None:
+            idx = forced(len(record) - 1)
+            vals = gates.gather(-1, idx)
+        return vals, idx
+    return plain, top_k
+
+
+def routes_differing(torch, decode_routes, prefill_routes, n_moe, rows, S0, S_ext) -> int:
+    """Top-k choices (of all decode steps' tokens, every MoE layer) that the
+    decode steps route to other experts than the prefill of the extended
+    prompt: for step i, layer l, row b, k less the experts both choose for
+    the token at position S0 + i."""
+    n = 0
+    for i in range(len(decode_routes) // n_moe):
+        for layer in range(n_moe):
+            dec = decode_routes[i * n_moe + layer]  # (rows, k)
+            pre = prefill_routes[layer].reshape(rows, S_ext, -1)[:, S0 + i]
+            for b in range(rows):
+                n += dec.shape[-1] - len(set(dec[b].tolist()) & set(pre[b].tolist()))
+    return n
+
+
+def decode_against_prefill(torch, got, arch) -> dict:
+    """The last decode step's logits against a prefill of the extended
+    prompt (prompt and generated tokens; llava's patches kept) within
+    ``LOGITS_REL``.
+
+    An MoE arch reruns the served pipeline drop-free (prefill and the
+    extended prefill with ``exact_moe``; decode is always at full capacity)
+    on its first ``MOE_CHECK_ROWS`` rows.  In bf16 the decode and the
+    prefill round the hidden states at other points, a near-tied router
+    row picks another expert, and the difference grows through the layers
+    (at deepseek's 26 MoE layers the free-running decode ends far from the
+    prefill).  So the free-running comparison and the number of top-k
+    choices that differ are logged, and the check replays the decode on the
+    same tokens with every MoE block routed as the extended prefill routed
+    that token (the experts forced, their own gates as weights): that holds
+    the cache and the decode step with the routing
+    taken out, to ``LOGITS_MOE_REL``."""
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as M
+
+    model, params, cfg = got.model, got.params, got.model.cfg
+    res = {}
+    with torch.no_grad():
+        if arch not in MOE_CHECK_ROWS:
+            ext = dict(got.batch, tokens=torch.cat([got.prompts, got.tokens], dim=-1))
+            full, _ = model.prefill(params, ext, ext["tokens"].shape[-1])
+            logits = got.logits
+        else:
+            rows = MOE_CHECK_ROWS[arch]
+            S0, n_new = SERVE["prompt_len"], SERVE["new_tokens"]
+            batch = {k: v[:rows] for k, v in got.batch.items()}
+            record: list = []
+            plain, M.top_k = moe_routes(M, record)
+            try:
+                tokens, free, _, _ = serve.generate(model, params, batch, n_new, S0 + n_new,
+                                                    exact_moe=True)
+                n_moe = len(record) // (n_new + 1)
+                decode_routes = record[n_moe:]
+                record.clear()
+                ext = dict(batch, tokens=torch.cat([batch["tokens"], tokens], dim=-1))
+                S_ext = ext["tokens"].shape[-1]
+                full, _ = model.prefill(params, ext, S_ext, exact_moe=True)
+                routes = [r.reshape(rows, S_ext, -1) for r in record]
+            finally:
+                M.top_k = plain
+            res["moe_choices_differing"] = routes_differing(
+                torch, decode_routes, routes, n_moe, rows, S0, S_ext)
+            res["moe_choices_decoded"] = len(decode_routes) * rows * cfg.top_k
+            res["moe_free_rel"] = rel_err(torch, free, full)
+
+            def forced(call):  # the prompt's prefill, then one decode step a token
+                step, layer = divmod(call, n_moe)
+                r = routes[layer]
+                return (r[:, :S0] if step == 0 else r[:, S0 + step - 1]).reshape(-1, r.shape[-1])
+
+            plain, M.top_k = moe_routes(M, [], forced)
+            try:
+                logits, cache = model.prefill(params, batch, S0 + n_new, exact_moe=True)
+                for i in range(n_new):
+                    logits, cache = model.decode(params, cache, tokens[..., i:i + 1])
+            finally:
+                M.top_k = plain
+    e = rel_err(torch, logits, full)
+    tol = LOGITS_MOE_REL if arch in MOE_CHECK_ROWS else LOGITS_REL
+    moe = ("" if "moe_choices_differing" not in res else
+           f" (drop-free, {rows} rows, routed as the extended prefill routed; free-running: "
+           f"{res['moe_choices_differing']} of {res['moe_choices_decoded']} top-k choices "
+           f"differ, rel error {res['moe_free_rel']:.3e})")
+    log(f"serve {arch}: last decode logits vs prefill of the {ext['tokens'].shape[-1]}-token "
+        f"prompt{moe}: rel error {e:.3e} (tolerance {tol})")
+    check(e <= tol, f"serve {arch}: decode vs prefill rel error {e} > {tol}")
+    return res | {"decode_vs_prefill_rel": e, "tolerance": tol}
+
+
+def arch_batch(torch, cfg, B: int, S: int, gen) -> dict:
+    """A random prompt batch for ``cfg`` on the card: tokens (B, [K,] S) and,
+    for a vision frontend, its patches."""
+    shape = (B, cfg.n_codebooks, S) if cfg.n_codebooks > 1 else (B, S)
+    b = {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=gen, device="cuda")}
+    if cfg.frontend == "vision":
+        b["patches"] = torch.randn(B, cfg.n_prefix_tokens, cfg.frontend_dim, generator=gen,
+                                   device="cuda")
+    return b
+
+
 def decode_against_prefill_f32(torch, arch) -> float:
-    """Full width, 4 layers, f32: 4 greedy decode steps after a 256-token
-    prompt against a prefill of the extended prompt."""
+    """Full width, f32, ``F32_CHECK`` layers, batch and prompt (4 layers,
+    batch 2, 256 tokens by default): 4 greedy decode steps against a prefill
+    of the extended prompt, drop-free for an MoE arch."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import build
 
-    model = build(dataclasses.replace(get_arch(arch), n_layers=4, dtype="float32"))
+    layers, B, S = F32_CHECK.get(arch, F32_CHECK_DEFAULT)
+    model = build(dataclasses.replace(get_arch(arch), n_layers=layers, dtype="float32"))
+    exact = arch in MOE_CHECK_ROWS
     with torch.no_grad():
         params = model.init(seeded(torch, 53))
-        prompts = torch.randint(0, model.cfg.vocab_size, (2, 256), generator=seeded(torch, 59),
-                                device="cuda")
-        tokens, logits, _, _ = serve.generate(model, params, prompts, 4, 260)
-        ext = torch.cat([prompts, tokens], dim=1)
-        full, _ = model.prefill(params, {"tokens": ext}, ext.shape[1])
+        batch = arch_batch(torch, model.cfg, B, S, seeded(torch, 59))
+        cap = S + 4 + model.cfg.n_prefix_tokens
+        tokens, logits, _, _ = serve.generate(model, params, batch, 4, cap, exact_moe=exact)
+        ext = dict(batch, tokens=torch.cat([batch["tokens"], tokens], dim=-1))
+        full, _ = model.prefill(params, ext, cap, exact_moe=exact)
     e = rel_err(torch, logits, full)
-    log(f"serve {arch} f32, full width, 4 layers: last decode logits vs prefill of the "
-        f"260-token prompt: rel error {e:.3e}")
+    log(f"serve {arch} f32, full width, {layers} layers, batch {B}: last decode logits vs "
+        f"prefill of the {S + 4}-token prompt: rel error {e:.3e}")
     check(e <= LOGITS_F32_REL, f"serve {arch} f32: decode vs prefill rel error {e}")
     del params
     torch.cuda.empty_cache()
@@ -3870,16 +4218,16 @@ def profile_serve(torch, got, arch) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model, params, prompts = got.model, got.params, got.prompts
-    cap = prompts.shape[1] + 8
+    model, params, batch = got.model, got.params, got.batch
+    cap = batch["tokens"].shape[-1] + model.cfg.n_prefix_tokens + 8
     result = {}
 
     def prefill():
-        return model.prefill(params, {"tokens": prompts}, cap)
+        return model.prefill(params, batch, cap)
 
     with torch.no_grad():
         _, cache = prefill()
-        nxt = got.tokens[:, :1]
+        nxt = got.tokens[..., :1]
 
         def decode():
             nonlocal cache
@@ -3924,7 +4272,7 @@ def serve_against_cpu(torch, out):
     from repro_torch.models import build
 
     res = out["serve_card_vs_cpu"] = {}
-    for arch in SERVE_ARCHS:
+    for arch in CARD_VS_CPU_ARCHS:
         cfg = dataclasses.replace(get_arch(arch), n_layers=2)
         model = build(cfg)
         with torch.no_grad():
@@ -4643,6 +4991,11 @@ def main() -> int:
                          "by name and the device's idle share")
     args = ap.parse_args()
 
+    # the serve phase's models of many sizes, then training at 68 GB of the
+    # card's 79 GiB: segments that grow in place keep freed blocks usable
+    # across phases (with fixed segments training once ran out of memory
+    # with 10.8 GiB reserved but unallocated)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():

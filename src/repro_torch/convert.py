@@ -33,7 +33,9 @@ def params(tree, device="cuda"):
 def model_params(tree, device="cuda"):
     """The reference's model parameters (``Model.init``'s nested tree:
     ``{"embed": ..., "stack": {"units": ..., "tail": [...]}, "final_norm":
-    {}}``) or a model cache, -> the port's; bf16 leaves bit for bit."""
+    {}}``, MoE expert stacks (E, d, ff), the vision projector, codebook
+    heads) or a model cache, -> the port's; each leaf keeps its dtype (bf16
+    bit for bit, RG-LRU's f32 ``lam`` inside a bf16 tree)."""
     return params(tree, device)
 
 

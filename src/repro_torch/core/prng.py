@@ -98,14 +98,17 @@ def split(k, device="cpu", num: int = 2):
     return tuple((b0[i], b1[i]) for i in range(num))
 
 
-def random_bits(k, n: int, device="cpu") -> torch.Tensor:
-    """``jax.random.bits(k, (n,), uint32)``: word0 ^ word1 of the hash of
-    the counters (0, i), i < n, as int64 values in [0, 2^32)."""
-    if n >= 2 ** 32:
-        raise ValueError(f"random_bits: {n} counters need the high word, not ported")
+def random_bits(k, n: int, device="cpu", start: int = 0) -> torch.Tensor:
+    """``jax.random.bits(k, (N,), uint32)`` at the flat indices start ..
+    start + n - 1 of a draw of any N: word0 ^ word1 of the hash of the
+    counters (i >> 32, i & (2^32 - 1)), the 64-bit index as two words
+    (``iota_2x32_shape``), as int64 values in [0, 2^32).  A range of a draw
+    is the same range of the whole draw's values, so a large draw can be
+    made a range at a time."""
     dev = _device(k, device)
-    b0, b1 = threefry2x32(_as_word(k[0], dev), _as_word(k[1], dev), 0,
-                          torch.arange(n, dtype=torch.int64, device=dev))
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=dev)
+    hi = (idx >> 32) if start + n > 2 ** 32 else 0
+    b0, b1 = threefry2x32(_as_word(k[0], dev), _as_word(k[1], dev), hi, idx & MASK)
     return b0 ^ b1
 
 
@@ -129,16 +132,29 @@ def permutation(k, n: int, device="cpu") -> torch.Tensor:
     return x
 
 
-def uniform(k, n: int, device="cpu") -> torch.Tensor:
+def uniform(k, n: int, device="cpu", start: int = 0) -> torch.Tensor:
     """``jax.random.uniform(k, (n,), float32)`` in [0, 1): the top 23 of
     32 random bits as the mantissa of a float in [1, 2), less 1.0 (exact).
-    An f32 tensor on the key's device (``device`` for a host key)."""
-    bits = random_bits(k, n, device)
+    An f32 tensor on the key's device (``device`` for a host key); with
+    ``start``, the flat indices start .. start + n - 1 of a larger draw."""
+    bits = random_bits(k, n, device, start)
     one = 0x3F800000  # the bits of 1.0f
     return ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
 
 
-def normal(k, n: int, device="cpu") -> torch.Tensor:
+def uniform_range(k, n: int, minval: float, maxval: float, device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(k, (n,), float32, minval, maxval)``:
+    max(minval, u (maxval - minval) + minval), u the [0, 1) draw.  XLA
+    contracts the product and the sum into one rounding (an FMA); both are
+    exact in f64 for a 23-bit u and f32 bounds, so the f64 result rounded
+    once to f32 is jax's value."""
+    lo = float(np.float32(minval))
+    span = float(np.float32(np.float32(maxval) - np.float32(minval)))
+    u = uniform(k, n, device).to(torch.float64)
+    return torch.clamp_min((u * span + lo).to(torch.float32), lo)
+
+
+def normal(k, n: int, device="cpu", start: int = 0) -> torch.Tensor:
     """``jax.random.normal(k, (n,), float32)`` (any shape, flattened:
     the partitionable draw counts over the flat index): sqrt(2) erfinv(u)
     for u uniform in [nextafter(-1, 0), 1), u's bits exactly jax's.  torch's
@@ -146,7 +162,7 @@ def normal(k, n: int, device="cpu") -> torch.Tensor:
     roundings (6e-6 relative at most in a 256,000-value draw, 2e-5 absolute
     in the tails)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(k, n, device)
+    u = uniform(k, n, device, start)
     u = torch.clamp_min(u * (1.0 - lo) + lo, lo)
     return float(np.float32(np.sqrt(2.0))) * torch.erfinv(u)
 
@@ -175,4 +191,4 @@ def randint(k, n: int, minval: int, maxval: int, device="cpu") -> torch.Tensor:
 
 
 __all__ = ["bernoulli", "fold_in", "key", "normal", "permutation", "randint", "random_bits",
-           "shuffle_rounds", "split", "threefry2x32", "uniform"]
+           "shuffle_rounds", "split", "threefry2x32", "uniform", "uniform_range"]

@@ -6,9 +6,11 @@ port of ``src/repro/kernels/flash_attention.py``:
                          Hkv, vd) -> (B, Sq, H, vd) in q's dtype, f32
                          accumulators, query i at position q_offset + i
 
-Every dense or local block of ``models.attention.gqa_apply`` calls it once
-on prefill.  CUDA operands: q, k and v all f32 or all bf16, contiguous, hd =
-vd <= 128, H a multiple of Hkv, any Sq and Sk.  The positions are
+Every dense or local block of ``models.attention.gqa_apply`` and every MLA
+block of ``models.attention.mla_apply`` calls it once on prefill.  CUDA
+operands: q, k and v all f32 or all bf16, contiguous, hd and vd up to 256
+(MLA's 192 / 128, recurrentgemma's 256, stablelm's 160), H a multiple of
+Hkv, any Sq and Sk.  The positions are
 contiguous: keys at 0..Sk-1, queries from ``q_offset``, a Python int the
 caller passes so that no launch waits on a host read.  The plain version
 (``ref.flash_attention_ref``) takes any position vectors.
@@ -16,19 +18,22 @@ caller passes so that no launch waits on a host read.  The plain version
 Two routes on the card, chosen by ``route`` from the dtype and the head
 dim (not a fallback: each route is the kernel for its operands):
 
-  * ``"wgmma"``       bf16 with hd a multiple of 16: both products on the
-                      tensor cores (wgmma, tiles brought in by TMA), p
+  * ``"wgmma"``       bf16 with hd and vd multiples of 16: both products on
+                      the tensor cores (wgmma, tiles brought in by TMA), p
                       rounded to bf16 before p v, l and the accumulators in
-                      f32 -- olmo-1b's prefill takes it;
+                      f32; key tiles of 128 up to hd, vd = 128, of 64 beyond
+                      (shared memory and registers) -- every bf16 prefill
+                      of the ten archs takes it;
   * ``"cuda_cores"``  f32 (f32 products, not TF32, so the f32 path holds
-                      1e-4), or bf16 with another hd.
+                      1e-4), or bf16 with another hd or vd.
 
 ``last_route`` records the route of the last call on the card.
 
 Kernel 16b, ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), is
 the backward: (dq, dk, dv) from q, k, v, the output o, the per-row
 logsumexp ``lse`` (B, H, Sq) f32 that ``flash_attention(..., lse=True)``
-also returns, and do.  It recomputes the scores tile by tile and takes the
+also returns, and do, at hd = vd <= 128 (``BWD_MAX_HEAD_DIM``; training at
+the other head dims waits, ROADMAP.md item 8.1).  It recomputes the scores tile by tile and takes the
 same routes: bf16 with hd a multiple of 16 on the tensor cores (a dq grid,
 which also forms D = do . o, then a dk/dv grid with the transposed scores
 in registers, both on wgmma with tiles brought in by TMA), everything else
@@ -46,7 +51,8 @@ import torch
 from repro_torch.kernels import _args, ref
 from repro_torch.kernels._build import F, I, P, Kernel
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+BWD_MAX_HEAD_DIM = 128  # kernel 16b: hd = vd <= 128
 TC_HEAD_DIM_STEP = 16  # the tensor-core route's hd: a multiple of wgmma's bf16 depth
 SCRATCH_ROWS = 64  # csrc/flash_attention_bwd.cu tc::kRowsPad
 
@@ -68,12 +74,30 @@ FLASH_ATTENTION_BWD = Kernel(
 last_route: str | None = None
 
 
-def route(dtype: torch.dtype, hd: int) -> str:
-    """The kernel's route for these operands: ``"wgmma"`` for bf16 with hd a
-    multiple of 16, else ``"cuda_cores"`` (see the module doc)."""
-    if dtype == torch.bfloat16 and hd % TC_HEAD_DIM_STEP == 0:
+def route(dtype: torch.dtype, hd: int, vd: int | None = None) -> str:
+    """The kernel's route for these operands: ``"wgmma"`` for bf16 with hd
+    and vd (default hd) multiples of 16, else ``"cuda_cores"`` (see the
+    module doc)."""
+    vd = hd if vd is None else vd
+    if dtype == torch.bfloat16 and hd % TC_HEAD_DIM_STEP == 0 and vd % TC_HEAD_DIM_STEP == 0:
         return "wgmma"
     return "cuda_cores"
+
+
+def backward_takes(hd: int, vd: int) -> bool:
+    """Whether kernel 16b takes these head dims (hd = vd <= 128)."""
+    return hd == vd and hd <= BWD_MAX_HEAD_DIM
+
+
+def check_backward(hd: int, vd: int) -> None:
+    """Raise ``NotImplementedError`` where a gradient would reach kernel 16
+    at head dims that kernel 16b does not take (``ops.flash_attention``
+    calls it on the card when a gradient can follow)."""
+    if not backward_takes(hd, vd):
+        raise NotImplementedError(
+            f"flash_attention: no backward kernel at hd={hd}, vd={vd} (kernel 16b takes "
+            f"hd = vd <= {BWD_MAX_HEAD_DIM}); training MLA, recurrentgemma-9b and "
+            f"stablelm-12b waits for ROADMAP.md item 8.1")
 
 
 def _positions(q, k, q_offset: int):
@@ -99,13 +123,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, q_offset: int 
         return out
     _check(kern.name, q, k, v, window)
     B, Sq, H, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
     dt, dev = q.dtype, q.device
-    out = torch.empty((B, Sq, H, hd), dtype=dt, device=dev)
+    out = torch.empty((B, Sq, H, vd), dtype=dt, device=dev)
     lse_t = torch.empty((B, H, Sq), dtype=torch.float32, device=dev) if lse else None
-    path = route(dt, hd)
+    path = route(dt, hd, vd)
     kern.launch(_args.ptr(q), _args.ptr(k), _args.ptr(v), _args.ptr(out), _args.ptr(lse_t), B,
-                Sq, Sk, H, Hkv, hd, hd, int(q_offset), int(causal),
+                Sq, Sk, H, Hkv, hd, vd, int(q_offset), int(causal),
                 0 if window is None else int(window), _args.DTYPE_CODES[dt],
                 int(path == "wgmma"), 1.0 / math.sqrt(hd), *_args.stream_args(dev))
     last_route = path
@@ -126,6 +150,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dt, dev = q.dtype, q.device
+    if not backward_takes(hd, v.shape[-1]):
+        raise ValueError(f"{kern.name}: head dims hd={hd}, vd={v.shape[-1]}; the kernel takes "
+                         f"hd = vd <= {BWD_MAX_HEAD_DIM}")
     _args.check(kern.name, "o", o, (B, Sq, H, hd), (dt,), dev)
     _args.check(kern.name, "do", do, (B, Sq, H, hd), (dt,), dev)
     _args.check(kern.name, "lse", lse, (B, H, Sq), (torch.float32,), dev)
@@ -150,9 +177,9 @@ def _check(name, q, k, v, window) -> None:
     dt, dev = q.dtype, q.device
     if dt not in _args.DTYPE_CODES:
         raise TypeError(f"{name}: dtype {dt} is not supported (f32 or bf16)")
-    if hd > MAX_HEAD_DIM or vd > MAX_HEAD_DIM or vd != hd:
+    if not (1 <= hd <= MAX_HEAD_DIM and 1 <= vd <= MAX_HEAD_DIM):
         raise ValueError(f"{name}: head dims hd={hd}, vd={vd}; the kernel takes "
-                         f"hd = vd <= {MAX_HEAD_DIM}")
+                         f"hd, vd <= {MAX_HEAD_DIM}")
     if Hkv < 1 or H % Hkv:
         raise ValueError(f"{name}: {H} query heads are not a multiple of {Hkv} kv heads")
     if window is not None and window < 1:

@@ -42,6 +42,7 @@ from repro_torch.kernels import _args, ref
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import gather as _ga
 from repro_torch.kernels import inner_loop as _il
+from repro_torch.kernels import lru_scan as _lr
 from repro_torch.kernels import neighbor_reduce as _nr
 from repro_torch.kernels import residual as _rs
 from repro_torch.kernels import round_tail as _rt
@@ -68,13 +69,14 @@ from repro_torch.kernels.stale_mix import stale_mix
 # tail's variant with the client mean in its pass (kernel 2's), the
 # server step's mean pass (kernel 3's), the EF21 uplink (kernels 7-8 in
 # one pass), the screen with its keep rule (kernel 11's) and SCAFFOLD's
-# server step (kernel 5's, two launches a call)
+# server step (kernel 5's, two launches a call), the backward kernels 16b-17b
+# and the RG-LRU's recurrence, a kernel of the port's own
 KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _fu.ARENA_KERNEL,
            _rt.SCAFFOLD_CV, _fu.KERNEL, _rt.EF21_ROWMAX, _rt.EF21_APPLY, _ga.ROW_GATHER,
            _ga.ROW_SCATTER, _sc.SCREEN_UPLINK, _sm.STALE_MIX, _rs.RESIDUAL_NORM,
            _nr.NEIGHBOR_REDUCE, _nr.EDGE_FLIP, _fa.FLASH_ATTENTION, _wk.WKV6,
            _rt.ROUND_TAIL_MEAN, _rt.CLIENT_MEAN, _rt.EF21_UPDATE, _sc.SCREEN_KEEP,
-           _rt.SCAFFOLD_STEP, _fa.FLASH_ATTENTION_BWD, _wk.WKV6_BWD)
+           _rt.SCAFFOLD_STEP, _fa.FLASH_ATTENTION_BWD, _wk.WKV6_BWD, _lr.LRU_SCAN)
 
 
 def affine_inner_fits(width: int) -> bool:
@@ -308,6 +310,8 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
         off = _fa.contiguous_offset(q_pos, k_pos, q.shape[1], k.shape[1])
     if q.device.type != "cpu":
         keep = _grad_follows(q, k, v)
+        if keep:
+            _fa.check_backward(q.shape[-1], v.shape[-1])
         if keep or _transformed(q, k, v):
             return FlashAttention.apply(q, k, v, causal, window, off, keep)[0]
     return _fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
@@ -345,6 +349,19 @@ def wkv6(r, k, v, w, u, s0):
     return _wk.wkv6(r, k, v, w, u, s0)
 
 
+def lru_scan(a, b, h0):
+    """The RG-LRU recurrence h_t = a_t h_{t-1} + b_t (``kernels.lru_scan``):
+    a, b (B, S, D), h0 (B, D) -> (y (B, S, D), h_last (B, D) f32).  The
+    reference's ``chunk`` sizes its associative scan and has no
+    counterpart.  The kernel has no backward, so on the card a gradient or
+    a ``torch.func`` transform reaching it raises."""
+    if a.device.type != "cpu" and (_grad_follows(a, b, h0) or _transformed(a, b, h0)):
+        raise NotImplementedError(
+            "lru_scan: the kernel has no backward yet; training recurrentgemma-9b waits for "
+            "ROADMAP.md item 8.1")
+    return _lr.lru_scan(a, b, h0)
+
+
 def wkv6_step(r1, k1, v1, w1, u, s):
     """One decode step of the recurrence, plain tensor code as in the
     reference (``ops.py:247``).  r1, k1, w1 (B, H, K); v1 (B, H, V); s
@@ -370,7 +387,7 @@ __all__ = [
     "FlashAttention", "FlashAttentionBackward", "KERNELS", "Wkv6", "Wkv6Backward",
     "acc_mode_at", "affine_inner_fits", "attend_cache", "client_mean", "dual_from_uplink",
     "edge_flip", "ef21_apply", "ef21_rowmax", "ef21_update", "flash_attention", "fused_update",
-    "fused_update_arena", "fused_update_leaves", "inner_loop_affine", "launches",
+    "fused_update_arena", "fused_update_leaves", "inner_loop_affine", "launches", "lru_scan",
     "neighbor_reduce", "reset_launches", "residual_norm", "round_tail", "round_tail_mean",
     "row_gather", "row_gather_buffers", "row_scatter", "row_scatter_", "row_scatter_buffers",
     "row_scatter_buffers_", "scaffold_cv", "scaffold_step", "screen_keep", "screen_uplink",

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the seventeen ported kernels and the server
-step's passes.
+"""Plain PyTorch versions of the seventeen ported kernels, the server
+step's passes and the port's own ``lru_scan``, and the reference's naive
+attention oracle (``attention_ref``).
 
 Each upcasts to f32 and casts back at exactly the points where the
 ``"xla"`` branches of ``src/repro/kernels/ops.py`` do (lines 276-278,
@@ -363,6 +364,48 @@ def edge_flip_ref(z, x, c: float, rev, nbr, sgn, mask=None):
 # ---------------------------------------------------------------------------
 
 NEG = -1e30  # the masked score of the reference's online softmax
+
+
+def attention_ref(q, k, v, q_pos, k_pos, *, causal: bool = True, window=None):
+    """Naive masked softmax attention, the reference's oracle
+    (``src/repro/kernels/ref.py:16-40``): scores in f32 over sqrt(hd),
+    masked to -inf, a fully masked row 0.
+
+    q (B, Sq, H, hd); k (B, Sk, Hkv, hd); v (B, Sk, Hkv, vd); q_pos (Sq,);
+    k_pos (Sk,), -1 an empty slot.  Query group g reads kv head g // (H /
+    Hkv)."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    f32 = torch.float32
+    qf = q.to(f32).reshape(B, Sq, Hkv, H // Hkv, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(f32)) / math.sqrt(hd)
+    kp, qp = k_pos[None, :], q_pos[:, None]
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
+    if window is not None:
+        valid = valid & (kp > qp - window)
+    scores = torch.where(valid, scores, -math.inf)
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(torch.isnan(probs), 0.0, probs)
+    out = torch.einsum("bhgqk,bkhv->bqhgv", probs, v.to(f32))
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def lru_ref(a, b, h0):
+    """The linear recurrence h_t = a_t h_{t-1} + b_t, step by step in f32
+    (``src/repro/kernels/ref.py:95-106``): a, b (B, S, D), h0 (B, D) ->
+    (the states (B, S, D) in a's dtype, the last state (B, D) f32).  Each
+    step is one product and one sum, each rounded, as the CUDA kernel
+    rounds them."""
+    af, bf = a.to(torch.float32), b.to(torch.float32)
+    h = h0.to(torch.float32)
+    ys = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        ys.append(h)
+    y = torch.stack(ys, dim=1) if ys else af.new_zeros(af.shape)
+    return y.to(a.dtype), h
 
 
 def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal: bool = True, window=None):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -65,6 +66,15 @@ class Keys:
                                dtype=torch.float32)
         return prng.normal(self.key, math.prod(shape), self.device).reshape(shape)
 
+    def uniform(self, shape, minval: float, maxval: float) -> torch.Tensor:
+        """U(minval, maxval) f32, as ``jax.random.uniform`` with bounds."""
+        shape = tuple(int(s) for s in shape)
+        if self.gen is not None:
+            u = torch.rand(shape, generator=self.gen, device=self.device, dtype=torch.float32)
+            return torch.clamp_min(u * (maxval - minval) + minval, minval)
+        return prng.uniform_range(self.key, math.prod(shape), minval, maxval,
+                                  self.device).reshape(shape)
+
 
 def as_keys(src, device=None) -> Keys:
     """``src`` as a ``Keys``: a generator, a ``core.prng`` key (drawn on
@@ -76,9 +86,27 @@ def as_keys(src, device=None) -> Keys:
     return Keys.from_key(src, device)
 
 
+DRAW_CHUNK = 1 << 26  # values drawn at once from a key (f32 and the hash's int64 words)
+
+
 def normal(keys: Keys, shape, scale: float, dtype) -> torch.Tensor:
-    """N(0, scale^2) drawn in f32 on the keys' device, cast to ``dtype``."""
-    return (keys.normal(shape) * scale).to(dtype)
+    """N(0, scale^2) drawn in f32 on the keys' device, cast to ``dtype``.
+    A draw of more than ``DRAW_CHUNK`` values is made ``DRAW_CHUNK`` at a
+    time into the ``dtype`` result, so a 5.4e9-value expert leaf never
+    holds its f32 draw whole: from a key, each range of the flat index (the
+    partitionable draw gives an index the same value either way); from a
+    generator, one draw after another."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    if n <= DRAW_CHUNK:
+        return (keys.normal(shape) * scale).to(dtype)
+    out = torch.empty(n, dtype=dtype, device=keys.device)
+    for lo in range(0, n, DRAW_CHUNK):
+        hi = min(n, lo + DRAW_CHUNK)
+        draw = (keys.normal((hi - lo,)) if keys.gen is not None
+                else prng.normal(keys.key, hi - lo, keys.device, lo))
+        out[lo:hi] = (draw * scale).to(dtype)
+    return out.reshape(shape)
 
 
 def dense_init(keys: Keys, shape, dtype, scale: Optional[float] = None):
@@ -147,8 +175,9 @@ def rope_angles(positions, head_dim: int, theta: float):
     """positions (...,) -> (cos, sin) of shape (..., head_dim // 2), f32."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device),
-                            exps)
+    # theta as a scalar argument (f32 in the kernel), not a tensor copied to
+    # the card, which would wait on the device once a layer
+    freqs = 1.0 / torch.pow(float(np.float32(theta)), exps)
     ang = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

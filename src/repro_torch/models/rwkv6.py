@@ -103,3 +103,8 @@ def rwkv_state_shape(cfg: ArchConfig, batch: int, dtype):
             "cm_last": torch.empty((batch, d), dtype=dtype, **meta),
             "s": torch.empty((batch, d // hd, hd, hd), dtype=torch.float32, **meta)}
 
+
+def rwkv_state_spec():
+    """Logical axes of ``rwkv_state_shape``'s leaves."""
+    return {"tm_last": ("batch", None), "cm_last": ("batch", None),
+            "s": ("batch", "heads", None, None)}

@@ -9,14 +9,17 @@ reference groups them:
             here a Python loop walks them)
     [tail]  the remainder (< pattern length) explicit blocks
 
-Block kinds here: dense | local | rwkv.  ``moe`` (and MLA attention) and
-``rec`` raise ``NotImplementedError``: they are ``ROADMAP.md`` item 8.
-``block_apply`` returns ``(x, new_cache, aux)``; the unit caches are
-stacked along the unit dim, as the reference's scan stacks them.  Decode
-updates the stacked caches in place (``models.attention``) and writes each
-unit's recurrent state back into its slice.  ``model.build``,
-``model_init`` and ``forward`` refuse an unported config before it gets
-here (``check_ported``).
+Block kinds: dense | local | moe | rwkv | rec, with GQA or MLA attention;
+``dense_override`` builds and runs DeepSeek-V2's lead dense layer of an
+otherwise-MoE config.  ``block_apply`` returns ``(x, new_cache, aux)``; the
+unit caches are stacked along the unit dim, as the reference's scan stacks
+them.  Decode updates the stacked caches in place (``models.attention``) and
+writes each unit's recurrent state back into its slice.  MoE prefill runs
+the per-slot loop and train and decode the fused dispatch where the config
+asks for it, as the reference scopes it; ``exact_moe`` gives every MoE
+block full capacity.  The units' parameters are stacked one unit at a
+time into preallocated leaves, so the peak of an init is the model and one
+unit, not twice the model.
 """
 from __future__ import annotations
 
@@ -29,55 +32,65 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tree_util as T
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as W
-
-PORTED_BLOCKS = ("dense", "local", "rwkv")
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise for a block kind or attention this slice has not ported."""
-    kinds = set(cfg.block_pattern)
-    missing = sorted(kinds - set(PORTED_BLOCKS))
-    if missing or (cfg.attn_kind == "mla" and kinds & {"dense", "local", "moe"}):
-        what = missing or ["mla attention"]
-        raise NotImplementedError(
-            f"{cfg.name}: block kind(s) {', '.join(what)} are not ported yet "
-            f"(ROADMAP.md item 8: MoE, MLA, RG-LRU)")
 
 
 # ---------------------------------------------------------------------------
 # single block
 # ---------------------------------------------------------------------------
 
-def block_init(keys: L.Keys, cfg: ArchConfig, kind: str, dtype) -> dict:
+def block_init(keys: L.Keys, cfg: ArchConfig, kind: str, dtype,
+               dense_override: bool = False) -> dict:
+    """One block's parameters; ``dense_override`` builds the lead dense
+    layer of an otherwise-MoE config."""
     dev = keys.device
     k1, k2 = keys.split(2)
     p: dict[str, Any] = {"ln1": L.norm_init(cfg.norm_kind, cfg.d_model, dev),
                          "ln2": L.norm_init(cfg.norm_kind, cfg.d_model, dev)}
-    if kind in ("dense", "local"):
-        p["attn"] = A.gqa_init(k1, cfg, dtype)
-        p["mlp"] = L.mlp_init(k2, cfg.d_model, cfg.d_ff, dtype)
+    if kind in ("dense", "local", "moe"):
+        p["attn"] = (A.mla_init(k1, cfg, dtype) if cfg.attn_kind == "mla"
+                     else A.gqa_init(k1, cfg, dtype))
+        if kind == "moe" and not dense_override:
+            p["moe"] = M.moe_init(k2, cfg, dtype)
+        else:
+            p["mlp"] = L.mlp_init(k2, cfg.d_model, cfg.d_ff, dtype)
     elif kind == "rwkv":
         p["core"] = W.rwkv_init(k1, cfg, dtype)
+    elif kind == "rec":
+        p["rec"] = R.rglru_init(k1, cfg, dtype)
+        p["mlp"] = L.mlp_init(k2, cfg.d_model, cfg.d_ff, dtype)
     else:
-        check_ported(cfg)
         raise ValueError(kind)
     return p
 
 
 def block_apply(cfg: ArchConfig, kind: str, params, x, *, mode: str, cache=None, pos=None,
-                cache_cap: int = 0, window_override: Optional[int] = None):
+                cache_cap: int = 0, window_override: Optional[int] = None,
+                dense_override: bool = False, exact_moe: bool = False):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     nk = cfg.norm_kind
-    if kind in ("dense", "local"):
+    if kind in ("dense", "local", "moe"):
         window = cfg.window if kind == "local" else window_override
         h = L.norm_apply(nk, params["ln1"], x)
-        a_out, new_cache = A.gqa_apply(cfg, params["attn"], h, mode=mode, cache=cache, pos=pos,
-                                       window=window, cache_cap=cache_cap)
+        if cfg.attn_kind == "mla":
+            a_out, new_cache = A.mla_apply(cfg, params["attn"], h, mode=mode, cache=cache,
+                                           pos=pos, cache_cap=cache_cap)
+        else:
+            a_out, new_cache = A.gqa_apply(cfg, params["attn"], h, mode=mode, cache=cache,
+                                           pos=pos, window=window, cache_cap=cache_cap)
         x = x + a_out
         h = L.norm_apply(nk, params["ln2"], x)
-        x = x + L.mlp_apply(params["mlp"], h, cfg.act)
-        return x, new_cache, aux
+        if kind == "moe" and not dense_override:
+            # decode always at full capacity; the fused dispatch outside
+            # prefill, as the reference scopes it (stack.py:104-108)
+            m_out, aux = M.moe_apply(cfg, params["moe"], h, cfg.act,
+                                     full_capacity=(mode == "decode") or exact_moe,
+                                     fused=cfg.moe_fused_dispatch and mode != "prefill")
+        else:
+            m_out = L.mlp_apply(params["mlp"], h, cfg.act)
+        return x + m_out, new_cache, aux
     if kind == "rwkv":
         cp = params["core"]
         st_tm = None if cache is None else {"tm_last": cache["tm_last"], "s": cache["s"]}
@@ -90,19 +103,43 @@ def block_apply(cfg: ArchConfig, kind: str, params, x, *, mode: str, cache=None,
         x = x + y
         new_cache = None if mode == "train" else {**tm_state, **cm_state}
         return x, new_cache, aux
-    check_ported(cfg)
+    if kind == "rec":
+        h = L.norm_apply(nk, params["ln1"], x)
+        y, new_cache = R.rglru_apply(cfg, params["rec"], h, mode=mode, state=cache)
+        x = x + y
+        h = L.norm_apply(nk, params["ln2"], x)
+        return x + L.mlp_apply(params["mlp"], h, cfg.act), new_cache, aux
     raise ValueError(kind)
 
 
 def block_cache_shape(cfg: ArchConfig, kind: str, batch: int, cap: int, dtype,
                       window_override=None):
-    if kind == "dense":
+    if kind in ("dense", "moe"):
+        if cfg.attn_kind == "mla":
+            return A.mla_cache_shape(cfg, batch, cap, dtype)
         return A.gqa_cache_shape(cfg, batch, cap, window_override, dtype)
     if kind == "local":
         return A.gqa_cache_shape(cfg, batch, cap, cfg.window, dtype)
     if kind == "rwkv":
         return W.rwkv_state_shape(cfg, batch, dtype)
-    check_ported(cfg)
+    if kind == "rec":
+        return R.rglru_state_shape(cfg, batch, dtype)
+    raise ValueError(kind)
+
+
+def block_cache_spec(cfg: ArchConfig, kind: str, window_override=None):
+    """Logical axes of ``block_cache_shape``'s leaves (the reference's
+    sharding input; carried, not used, on one card)."""
+    if kind in ("dense", "moe"):
+        if cfg.attn_kind == "mla":
+            return A.mla_cache_spec()
+        return A.gqa_cache_spec(window_override)
+    if kind == "local":
+        return A.gqa_cache_spec(cfg.window)
+    if kind == "rwkv":
+        return W.rwkv_state_spec()
+    if kind == "rec":
+        return R.rglru_state_spec()
     raise ValueError(kind)
 
 
@@ -121,20 +158,38 @@ def _stack(trees):
     return T.tmap(lambda *xs: torch.stack(xs), *trees)
 
 
+def _stack_units(make, n: int):
+    """The trees ``make(0) .. make(n - 1)`` stacked along a new leading dim,
+    made one at a time into preallocated leaves (each unit freed once it is
+    copied); one unit is a view of itself with a unit dim, no copy."""
+    first = make(0)
+    if n == 1:
+        return T.tmap(lambda t: t[None], first)
+    out = T.tmap(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    for ui in range(n):
+        unit = first if ui == 0 else make(ui)
+        for dst, src in zip(T.leaves(out), T.leaves(unit)):
+            dst[ui].copy_(src)
+        first = unit = None
+    return out
+
+
 def stack_init(keys: L.Keys, cfg: ArchConfig, dtype) -> dict:
-    """The reference's key tree: split 3 ways, the lead blocks on splits of
-    the first, unit u's block b on fold_in(split u of the second, b), tail
-    block b on fold_in(the third, b)."""
+    """The reference's key tree: split 3 ways, the lead blocks (dense
+    overrides of the pattern's first kind) on splits of the first, unit u's
+    block b on fold_in(split u of the second, b), tail block b on
+    fold_in(the third, b)."""
     lead, n_units, tail = layer_plan(cfg)
     k_lead, k_units, k_tail = keys.split(3)
     p: dict[str, Any] = {}
     if lead:
-        p["lead"] = [block_init(kk, cfg, cfg.block_pattern[0], dtype)
+        p["lead"] = [block_init(kk, cfg, cfg.block_pattern[0], dtype, dense_override=True)
                      for kk in k_lead.split(lead)]
     if n_units:
-        p["units"] = _stack([{f"b{bi}": block_init(ku.fold_in(bi), cfg, kind, dtype)
-                              for bi, kind in enumerate(cfg.block_pattern)}
-                             for ku in k_units.split(n_units)])
+        unit_keys = k_units.split(n_units)
+        p["units"] = _stack_units(
+            lambda ui: {f"b{bi}": block_init(unit_keys[ui].fold_in(bi), cfg, kind, dtype)
+                        for bi, kind in enumerate(cfg.block_pattern)}, n_units)
     if tail:
         p["tail"] = [block_init(k_tail.fold_in(bi), cfg, kind, dtype)
                      for bi, kind in enumerate(tail)]
@@ -150,20 +205,22 @@ def _write_back(dst, src) -> None:
 
 
 def stack_apply(cfg: ArchConfig, params, x, *, mode: str, cache=None, pos=None,
-                cache_cap: int = 0, window_override: Optional[int] = None):
+                cache_cap: int = 0, window_override: Optional[int] = None,
+                exact_moe: bool = False):
     """Returns (x, new_cache, aux_sum).  Cache layout: {"lead": list,
     "units": stacked tree, "tail": list}, entries omitted when empty."""
     lead, n_units, tail = layer_plan(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict[str, Any] = {}
     ba = functools.partial(block_apply, cfg, mode=mode, pos=pos, cache_cap=cache_cap,
-                           window_override=window_override)
+                           window_override=window_override, exact_moe=exact_moe)
 
     if lead:
         caches = []
         for i in range(lead):
             c = None if cache is None else cache["lead"][i]
-            x, nc, aux = ba(cfg.block_pattern[0], params["lead"][i], x, cache=c)
+            x, nc, aux = ba(cfg.block_pattern[0], params["lead"][i], x, cache=c,
+                            dense_override=True)
             caches.append(nc)
             aux_total = aux_total + aux
         if mode != "train":
@@ -220,4 +277,23 @@ def stack_cache_shapes(cfg: ArchConfig, batch: int, cap: int, dtype, window_over
         out["units"] = T.tmap(lambda t: t.new_empty((n_units,) + tuple(t.shape)), unit)
     if tail:
         out["tail"] = [bc(kind) for kind in tail]
+    return out
+
+
+def stack_cache_specs(cfg: ArchConfig, window_override=None):
+    """Logical axes in ``stack_cache_shapes``' layout, the unit dim
+    prefixed."""
+    lead, n_units, tail = layer_plan(cfg)
+    out: dict[str, Any] = {}
+
+    def bs(kind):
+        return block_cache_spec(cfg, kind, window_override)
+
+    if lead:
+        out["lead"] = [bs(cfg.block_pattern[0]) for _ in range(lead)]
+    if n_units:
+        out["units"] = {f"b{bi}": {name: ("unit",) + axes for name, axes in bs(kind).items()}
+                        for bi, kind in enumerate(cfg.block_pattern)}
+    if tail:
+        out["tail"] = [bs(kind) for kind in tail]
     return out

@@ -1247,8 +1247,9 @@ def test_cuda_flash_route_by_dtype(cuda, dtype, hd, route):
 
 @pytest.mark.cuda
 def test_cuda_serve_launches_the_model_kernels(cuda):
-    """The reduced models served on the card: one kernel per block on
-    prefill, none per decode token."""
+    """The reduced models (two blocks) served on the card: one kernel per
+    block on each of the two prefills (the untimed warm-up and the timed
+    one), none per decode token."""
     from repro_torch.launch import serve
 
     for arch, kernel in (("olmo-1b", "flash_attention"), ("rwkv6-1.6b", "wkv6")):
@@ -1256,7 +1257,7 @@ def test_cuda_serve_launches_the_model_kernels(cuda):
         out = serve.run(arch, batch=2, prompt_len=64, new_tokens=3, quiet=True)
         assert torch.isfinite(out.logits).all()
         counts = P.launches()
-        assert counts[kernel] == 2 and sum(counts.values()) == 2
+        assert counts[kernel] == 4 and sum(counts.values()) == 4
 
 
 # ---------------------------------------------------------------------------
@@ -1407,3 +1408,73 @@ def test_cuda_train_resume_is_bitwise(cuda, tmp_path):
     assert a + b == c
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.run("olmo-1b", steps=1, eta="auto")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (4, 1024, 16, 16, 192, 128, None),  # deepseek-v2-lite's MLA prefill
+    (2, 1024, 16, 1, 256, 256, 2048),  # recurrentgemma-9b's local attention
+    (1, 4096, 16, 1, 256, 256, 2048),  # ... where its window binds
+    (2, 1024, 32, 8, 160, 160, None),  # stablelm-12b
+    (1, 333, 4, 2, 64, 256, 40),  # vd above hd, a window below a tile
+    (1, 130, 2, 2, 256, 64, None),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_attention_at_wide_head_dims(cuda, case, dtype):
+    """Kernel 16 at hd and vd up to 256 and vd != hd against its plain
+    version, on its route (bf16 with dims a multiple of 16: the tensor
+    cores), one launch, twice bitwise."""
+    B, S, H, Hkv, hd, vd, window = case
+    if dtype == torch.float32:
+        S = min(S, 300)  # the plain version's f32 scores at 4,096 keys are 1 GB a head group
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, S, Hkv, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, S, Hkv, vd, generator=g, device=cuda).to(dtype)
+    P.reset_launches()
+    got = P.flash_attention(q, k, v, causal=True, window=window)
+    assert P.launches()["flash_attention"] == 1
+    assert FA.last_route == ("wgmma" if dtype == torch.bfloat16 else "cuda_cores")
+    pos = torch.arange(S, device=cuda)
+    want = ref.flash_attention_ref(q, k, v, pos, pos, causal=True, window=window)
+    assert got.shape == want.shape == (B, S, H, vd)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(want.float().abs().max())
+    assert torch.equal(got, P.flash_attention(q, k, v, causal=True, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1024, 4096), (2, 1, 300), (2, 511, 300), (2, 513, 300)])
+def test_cuda_lru_scan_is_bitwise_the_plain_recurrence(cuda, shape):
+    g = torch.Generator(device="cuda").manual_seed(12)
+    a = torch.rand(*shape, generator=g, device=cuda)
+    b = torch.randn(*shape, generator=g, device=cuda)
+    h0 = torch.randn(shape[0], shape[2], generator=g, device=cuda)
+    P.reset_launches()
+    y, h = P.lru_scan(a, b, h0)
+    assert P.launches()["lru_scan"] == 1
+    y_w, h_w = ref.lru_ref(a, b, h0)
+    assert torch.equal(y, y_w) and torch.equal(h, h_w)
+
+
+@pytest.mark.cuda
+def test_cuda_gradients_refused_where_no_backward_kernel(cuda):
+    """On the card a gradient that would reach kernel 16 at MLA's head dims
+    or ``lru_scan`` raises, naming ROADMAP.md; at hd = vd = 128 it reaches
+    kernel 16b."""
+    q = torch.randn(1, 64, 2, 192, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    k = torch.randn(1, 64, 2, 192, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8.1"):
+        P.flash_attention(q, k, v)
+    with torch.no_grad():
+        assert P.flash_attention(q, k, v).shape == (1, 64, 2, 128)
+    a = torch.rand(1, 8, 4, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8.1"):
+        P.lru_scan(a, torch.rand(1, 8, 4, device=cuda), torch.rand(1, 4, device=cuda))
+    q2 = torch.randn(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    k2 = torch.randn(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
+    P.reset_launches()
+    P.flash_attention(q2, k2, k2.clone()).float().sum().backward()
+    assert P.launches()["flash_attention_bwd"] == 1 and q2.grad is not None
+

@@ -205,10 +205,19 @@ def test_inner_loop_resident_model_matches_plain(w, dtype):
 # kernel 16: the tensor-core flash
 # ---------------------------------------------------------------------------
 
-def flash_tc_model(q, k, v, *, causal=True, window=None, q_offset=0, bq=128, bk=128):
-    """The tensor-core route's numerics: (B, Sq, H, hd) bf16 in, bf16 out."""
+def key_tile(hd, vd):
+    """The tensor-core route's keys a tile (``csrc/flash_attention.cu``
+    ``tc::key_tile``): 128 while hd and vd fit two 64-column boxes, else 64."""
+    return 128 if -(-hd // 64) <= 2 and -(-vd // 64) <= 2 else 64
+
+
+def flash_tc_model(q, k, v, *, causal=True, window=None, q_offset=0, bq=128, bk=None):
+    """The tensor-core route's numerics: q (B, Sq, H, hd), v (B, Sk, Hkv,
+    vd) bf16 in, (B, Sq, H, vd) bf16 out; key tiles of ``key_tile(hd, vd)``
+    keys unless ``bk`` is given."""
     B, Sq, H, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
+    bk = key_tile(hd, vd) if bk is None else bk
     g = H // Hkv
     win = 0 if window is None else window
     scale_log2 = float(np.float32(1.0 / math.sqrt(hd)) * np.float32(LOG2E))
@@ -217,7 +226,7 @@ def flash_tc_model(q, k, v, *, causal=True, window=None, q_offset=0, bq=128, bk=
     nk = -(-Sk // bk) * bk
     kf = torch.nn.functional.pad(kf, (0, 0, 0, nk - Sk))  # TMA's zero fill past Sk
     vf = torch.nn.functional.pad(vf, (0, 0, 0, nk - Sk))
-    out = torch.zeros(B, Hkv, g, Sq, hd, dtype=F32)
+    out = torch.zeros(B, Hkv, g, Sq, vd, dtype=F32)
     last = q_offset + Sq - 1
     for q0 in range(0, Sq, bq):
         lo, hi = q_offset + q0, q_offset + min(q0 + bq, Sq) - 1
@@ -231,7 +240,7 @@ def flash_tc_model(q, k, v, *, causal=True, window=None, q_offset=0, bq=128, bk=
             pos = torch.arange(wq_lo, wq_lo + rows.stop - rows.start)[:, None]
             m = torch.full((B, Hkv, g, pos.shape[0], 1), NEG)
             l = torch.zeros_like(m)
-            acc = torch.zeros(B, Hkv, g, pos.shape[0], hd)
+            acc = torch.zeros(B, Hkv, g, pos.shape[0], vd)
             for kt in range(k_begin, k_end, bk):
                 if causal and kt > wq_hi or win > 0 and kt + bk - 1 <= wq_lo - win:
                     continue  # wholly masked for these rows
@@ -252,12 +261,15 @@ def flash_tc_model(q, k, v, *, causal=True, window=None, q_offset=0, bq=128, bk=
                                               vf[:, :, kt:kt + bk])
                 m = mn
             out[:, :, :, rows] = acc / torch.clamp(l, min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).bfloat16()
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, vd).bfloat16()
 
 
-# (B, Sq, Sk, H, Hkv, hd, window): causal, window of 256 and below one tile,
-# GQA 4:1 and 2:1, suffix queries at an offset that is not tile-aligned,
-# ragged Sq and Sk, hd 16 to 128 (one and two 64-column boxes)
+# (B, Sq, Sk, H, Hkv, hd, window[, vd]): causal, window of 256 and below one
+# tile, GQA 4:1 and 2:1, suffix queries at an offset that is not
+# tile-aligned, ragged Sq and Sk, hd 16 to 128 (one and two 64-column boxes);
+# then the 64-key tiles of wider heads: MLA's hd 192 with vd 128,
+# recurrentgemma's hd 256 on one kv head with a window, stablelm's 160, and
+# vd above and below hd
 FLASH_CASES = [
     (1, 256, 256, 2, 2, 128, None),
     (1, 256, 256, 2, 2, 64, 40),
@@ -267,15 +279,21 @@ FLASH_CASES = [
     (1, 200, 1000, 2, 2, 128, 256),
     (1, 130, 130, 2, 1, 48, 100),
     (2, 64, 64, 2, 2, 16, None),
+    (1, 200, 200, 2, 2, 192, None, 128),
+    (1, 77, 333, 4, 1, 256, 40, 256),
+    (1, 130, 130, 2, 2, 160, 100, 160),
+    (1, 100, 100, 2, 2, 64, None, 256),
+    (1, 100, 100, 2, 2, 256, None, 64),
 ]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_flash_tensor_core_model_matches_plain(case):
-    B, Sq, Sk, H, Hkv, hd, window = case
+    B, Sq, Sk, H, Hkv, hd, window = case[:7]
+    vd = case[7] if len(case) > 7 else hd
     rng = np.random.default_rng(sum(case[:6]))
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).bfloat16()
-               for s in ((B, Sq, H, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)))
+               for s in ((B, Sq, H, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, vd)))
     off = Sk - Sq
     got = flash_tc_model(q, k, v, window=window, q_offset=off)
     want = ref.flash_attention_ref(q, k, v, torch.arange(off, Sk), torch.arange(Sk),
@@ -300,9 +318,33 @@ def test_flash_model_rounds_p_where_the_kernel_does():
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 16, "wgmma"),
     (torch.bfloat16, 72, "cuda_cores"), (torch.bfloat16, 100, "cuda_cores"),
     (torch.float32, 128, "cuda_cores"), (torch.float32, 64, "cuda_cores"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 160, "wgmma"),
+    (torch.float32, 256, "cuda_cores"), (torch.bfloat16, 200, "cuda_cores"),
 ])
 def test_flash_route_by_dtype_and_head_dim(dtype, hd, want):
     assert FA.route(dtype, hd) == want
+
+
+@pytest.mark.parametrize("hd,vd,want", [(192, 128, "wgmma"), (64, 256, "wgmma"),
+                                        (128, 136, "cuda_cores"), (200, 136, "cuda_cores")])
+def test_flash_route_by_both_head_dims(hd, vd, want):
+    """MLA's hd 192 / vd 128 on the tensor cores; a vd off the 16-column
+    step on the CUDA cores."""
+    assert FA.route(torch.bfloat16, hd, vd) == want
+
+
+def test_flash_key_tiles_and_shared_memory_fit():
+    """The key tile the launcher picks, and the tensor-core route's shared
+    memory (q, two stages of k and v, the barriers, 1 KB of alignment
+    slack) within the H100's 227 KB at every pair of box counts."""
+    text = (CSRC / "flash_attention.cu").read_text()
+    assert "return hdb <= 2 && vdb <= 2 ? 128 : 64;" in text
+    for hdb in range(1, 5):
+        for vdb in range(1, 5):
+            bk = key_tile(64 * hdb, 64 * vdb)
+            smem = 1024 + hdb * 128 * 128 + 2 * (hdb + vdb) * bk * 128 + 5 * 8
+            assert smem <= 227 * 1024, (hdb, vdb, smem)
+    assert (key_tile(128, 128), key_tile(192, 128), key_tile(256, 256)) == (128, 64, 64)
 
 
 # ---------------------------------------------------------------------------

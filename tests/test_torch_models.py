@@ -2,14 +2,18 @@
 ``launch.serve``) against the reference, on the CPU.
 
 The reference's parameters (``Model.init``) are carried across with
-``convert.model_params``; the prompts and the teacher-forced decode tokens
-come from numpy with a seed.  For olmo-1b and rwkv6-1.6b ``.reduced()`` (two
-layers, d_model 256), in f32 and in bf16, the tests compare prefill's
-last-token logits and every cache entry, then 4 decode steps fed the same
-tokens on both sides (so that no argmax tie can diverge), with the
-reference under ``ops.set_default_impl("xla")`` and ``"pallas_interpret"``;
-also a sliding window, a ``local`` block and llama3-8b's grouped heads.
-Its prefill and decode are jitted, as ``launch/serve.py`` runs them.
+``convert.model_params``; the prompts, llava's patches and the
+teacher-forced decode tokens come from numpy with a seed.  For olmo-1b,
+rwkv6-1.6b, deepseek-v2-lite-16b (MLA, MoE, a dense lead layer),
+llama4-maverick (a dense, moe unit), recurrentgemma-9b (RG-LRU and local
+attention), llava-next (the vision prefix) and musicgen (4 codebooks),
+``.reduced()`` (two or three layers, d_model 256), in f32 and in bf16, the
+tests compare prefill's last-token logits and every cache entry, then 4
+decode steps fed the same tokens on both sides (so that no argmax tie can
+diverge), with the reference under ``ops.set_default_impl("xla")`` and
+``"pallas_interpret"``; also a sliding window, a ``local`` block and
+llama3-8b's grouped heads.  Its prefill and decode are jitted, as
+``launch/serve.py`` runs them.
 
 Tolerances, relative to the largest magnitude of the reference's value:
 f32 1e-5 (matrix products, the softmax and the chunked recurrence sum in
@@ -40,6 +44,17 @@ from repro_torch.models import build
 from repro_torch.models.model import forward
 
 B, S, STEPS = 2, 24, 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: the suite runs six workers on a
+    few cores, where torch's thread pools would oversubscribe them (the
+    port's eager ops, the keyed draws above all, slow down many times)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 TOL = {"float32": 1e-5, "bfloat16": 4e-2}
 
 
@@ -70,28 +85,46 @@ def _rel(got, want):
 
 
 def _tokens(cfg, n, seed=0):
-    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, n)).astype(np.int32)
+    """(B, n) token ids, or (B, K, n) for K codebooks."""
+    shape = (B, cfg.n_codebooks, n) if cfg.n_codebooks > 1 else (B, n)
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
 
 
+def _batches(cfg, tok):
+    """The reference's and the port's prompt batch: the tokens, and for a
+    vision frontend patches (B, P, frontend_dim) from numpy with a seed."""
+    rb, pb = {"tokens": jnp.asarray(tok)}, {"tokens": torch.from_numpy(tok).long()}
+    if cfg.frontend == "vision":
+        patches = np.random.default_rng(1).standard_normal(
+            (B, cfg.n_prefix_tokens, cfg.frontend_dim)).astype(np.float32)
+        rb["patches"], pb["patches"] = jnp.asarray(patches), torch.from_numpy(patches)
+    return rb, pb
+
+
+NEW_ARCHS = ("deepseek-v2-lite-16b", "llama4-maverick-400b-a17b", "recurrentgemma-9b",
+             "llava-next-mistral-7b", "musicgen-large")
 CASES = [("olmo-1b", "float32", None, None), ("olmo-1b", "bfloat16", None, None),
          ("rwkv6-1.6b", "float32", None, None), ("rwkv6-1.6b", "bfloat16", None, None),
          ("olmo-1b", "float32", 16, None), ("olmo-1b", "float32", None, ("dense", "local")),
-         ("llama3-8b", "float32", None, None)]
+         ("llama3-8b", "float32", None, None)] + [
+    (name, dtype, None, None) for name in NEW_ARCHS for dtype in ("float32", "bfloat16")]
+CASE_IDS = ["olmo-f32", "olmo-bf16", "rwkv-f32", "rwkv-bf16", "olmo-window16", "olmo-local",
+            "llama3-gqa-f32"] + [f"{name.split('-')[0]}-{'f32' if dt == 'float32' else 'bf16'}"
+                                 for name in NEW_ARCHS for dt in ("float32", "bfloat16")]
 
 
-@pytest.mark.parametrize("name,dtype,wo,pattern", CASES,
-                         ids=["olmo-f32", "olmo-bf16", "rwkv-f32", "rwkv-bf16",
-                              "olmo-window16", "olmo-local", "llama3-gqa-f32"])
+@pytest.mark.parametrize("name,dtype,wo,pattern", CASES, ids=CASE_IDS)
 def test_prefill_cache_and_decode_match_reference(impl, name, dtype, wo, pattern):
     rcfg, pcfg = _cfgs(name, dtype, pattern)
     rm, pm = ref_build(rcfg, window_override=wo), build(pcfg, window_override=wo)
     rp = rm.init(jax.random.key(0))
     pp = convert.model_params(jax.tree.map(np.asarray, rp), "cpu")
     tok = _tokens(rcfg, S + STEPS)
-    cap = S + STEPS + 2
-    rl, rc = jax.jit(lambda p, b: rm.prefill(p, b, cap))(rp, {"tokens": jnp.asarray(tok[:, :S])})
+    cap = S + STEPS + 2 + rcfg.n_prefix_tokens
+    rb, pb = _batches(rcfg, tok[..., :S])
+    rl, rc = jax.jit(lambda p, b: rm.prefill(p, b, cap))(rp, rb)
     with torch.no_grad():
-        pl, pc = pm.prefill(pp, {"tokens": torch.from_numpy(tok[:, :S]).long()}, cap)
+        pl, pc = pm.prefill(pp, pb, cap)
     tol = TOL[dtype]
     assert _rel(pl.numpy(), rl) < tol
     assert jax.tree.structure(rc) == jax.tree.structure(convert.to_numpy(pc))
@@ -104,7 +137,7 @@ def test_prefill_cache_and_decode_match_reference(impl, name, dtype, wo, pattern
             assert _rel(convert.to_numpy(got), want) < tol, path
     dec = jax.jit(rm.decode)
     for i in range(STEPS):
-        nt = tok[:, S + i:S + i + 1]
+        nt = tok[..., S + i:S + i + 1]
         rl, rc = dec(rp, rc, jnp.asarray(nt))
         with torch.no_grad():
             pl, pc = pm.decode(pp, pc, torch.from_numpy(nt).long())
@@ -163,16 +196,19 @@ def test_port_init_matches_reference_layout():
             assert tuple(g.shape) == w.shape and str(g.dtype).split(".")[-1] == str(w.dtype)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "rwkv6-1.6b", "musicgen-large",
+                                  "llava-next-mistral-7b"])
 def test_serve_runs_on_the_cpu(arch):
-    """``serve.run`` on the reduced configs: tokens (batch, new_tokens) in
-    the vocabulary, finite last logits, no kernel launched on the CPU."""
+    """``serve.run`` on the reduced configs: tokens (batch, [K,] new_tokens)
+    in the vocabulary, finite last logits, no kernel launched on the CPU."""
     P.reset_launches()
     out = serve.run(arch, batch=2, prompt_len=70, new_tokens=3, device="cpu", quiet=True)
     cfg = get_arch(arch).reduced()
-    assert tuple(out.tokens.shape) == (2, 3) and tuple(out.prompts.shape) == (2, 70)
+    lead = (2, cfg.n_codebooks) if cfg.n_codebooks > 1 else (2,)
+    assert tuple(out.tokens.shape) == lead + (3,) and tuple(out.prompts.shape) == lead + (70,)
     assert int(out.tokens.min()) >= 0 and int(out.tokens.max()) < cfg.vocab_size
-    assert tuple(out.logits.shape) == (2, cfg.vocab_size) and torch.isfinite(out.logits).all()
+    assert tuple(out.logits.shape) == lead + (cfg.vocab_size,)
+    assert torch.isfinite(out.logits).all()
     assert out.prefill_ms > 0 and out.decode_ms_per_token > 0
     assert P.launches() == {k.name: 0 for k in P.KERNELS}
 
@@ -186,17 +222,23 @@ def test_serve_on_cuda_without_a_card_raises():
 
 @pytest.mark.parametrize("name", sorted(n for n in REF_ARCHS
                                         if n not in ("olmo-1b", "rwkv6-1.6b")))
-def test_unported_model_parts_raise(name):
-    """MoE, MLA, RG-LRU and the frontends wait for ROADMAP.md item 8; dense
-    GQA archs build."""
-    cfg = get_arch(name).reduced()
-    dense = (set(cfg.block_pattern) <= {"dense", "local"} and cfg.attn_kind == "gqa"
-             and cfg.frontend is None and cfg.n_codebooks == 1 and not cfg.first_dense_layers)
-    if dense:
-        assert build(cfg).cfg is cfg
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 8"):
-            build(cfg)
+def test_every_arch_builds_with_the_reference_tree(name):
+    """Every other arch builds, and its init (``.reduced()``, bf16, a
+    generator's draw) has the reference's tree: paths, shapes and dtypes
+    (RG-LRU's ``lam`` f32 in a bf16 model); its cache too."""
+    rcfg, pcfg = _cfgs(name, "bfloat16")
+    want = jax.eval_shape(ref_build(rcfg).init, jax.random.key(0))
+    model = build(pcfg)
+    assert model.cfg is pcfg
+    got = model.init(torch.Generator().manual_seed(0), "cpu")
+    assert jax.tree.structure(convert.to_numpy(got)) == jax.tree.structure(want)
+    for path, w, g in zip(T.paths(got), jax.tree.leaves(want), T.leaves(got)):
+        assert tuple(g.shape) == w.shape, path
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), path
+    ref_cache = ref_build(rcfg).cache_shapes(B, 40)
+    port_cache = model.cache_shapes(B, 40)
+    for w, g in zip(jax.tree.leaves(ref_cache), T.leaves(port_cache)):
+        assert tuple(g.shape) == w.shape and str(g.dtype).split(".")[-1] == str(w.dtype)
 
 
 def test_config_copies_match_reference():

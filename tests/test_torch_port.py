@@ -40,6 +40,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
                  "repro_torch.kernels.neighbor_reduce", "repro_torch.kernels.flash_attention",
                  "repro_torch.kernels.wkv6", "repro_torch.models", "repro_torch.models.layers",
                  "repro_torch.models.attention", "repro_torch.models.rwkv6",
+                 "repro_torch.models.moe", "repro_torch.models.rglru",
+                 "repro_torch.kernels.lru_scan", "repro_torch.configs.deepseek_v2_lite_16b",
+                 "repro_torch.configs.recurrentgemma_9b",
                  "repro_torch.models.stack", "repro_torch.models.model",
                  "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.configs",
                  "repro_torch.configs.olmo_1b", "repro_torch.configs.rwkv6_1p6b",

@@ -117,3 +117,93 @@ def test_fault_draws_stay_on_the_device_of_the_round_counter():
     k = prng.fold_in(prng.key(7), meta)
     for t in (prng.uniform(k, 10), prng.bernoulli(k, 0.1, 10), prng.randint(k, 10, 1, 5)):
         assert t.device.type == "meta"
+
+
+# ---------------------------------------------------------------------------
+# draws a range at a time: a weight leaf larger than ``layers.DRAW_CHUNK``
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("start", [0, 1, 255, 4096])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_a_range_of_a_draw_is_that_range_of_the_whole_draw(seed, start):
+    """``random_bits``, ``uniform`` and ``normal`` at ``start``: the values
+    of the flat indices start .. start + n - 1 of the draw of start + n,
+    bit for bit."""
+    k, n = prng.fold_in(prng.key(seed), 3), 300
+    for draw in (prng.random_bits, prng.uniform, prng.normal):
+        assert torch.equal(draw(k, n, start=start), draw(k, start + n)[start:]), draw.__name__
+
+
+def _jax_bits_at(seed, idx):
+    """jax's partitionable 32-bit draw at the flat indices ``idx`` (uint64):
+    ``threefry_2x32`` of the counter words (i >> 32, i & (2^32 - 1)), the
+    two output words xor-ed, as ``_threefry_random_bits_partitionable``
+    makes them from ``iota_2x32_shape``."""
+    from jax._src import prng as jprng
+
+    words = jax.random.key_data(jax.random.key(seed))
+    hi, lo = (idx >> np.uint64(32)).astype(np.uint32), (idx & np.uint64(0xFFFFFFFF)).astype(
+        np.uint32)
+    out = np.asarray(jprng.threefry_2x32(words, jax.numpy.asarray(np.concatenate([hi, lo]))))
+    return (out[:idx.size] ^ out[idx.size:]).astype(np.int64)
+
+
+@pytest.mark.parametrize("start", [0, 2 ** 32 - 5, 2 ** 32, 5 * 2 ** 30 + 7, 3 * 2 ** 32 - 1])
+@pytest.mark.parametrize("seed", [0, 17])
+def test_bits_past_2_32_use_the_high_counter_word(seed, start):
+    """Past 2^32 values (llama4-maverick's (128, 5120, 8192) expert leaf
+    holds 5.4e9) the index's high word enters the hash: the port's bits at
+    ``start`` against jax's ``threefry_2x32`` of the same counter words,
+    across the 2^32 boundary too; at 0, the method against
+    ``jax.random.bits`` itself."""
+    n = 10
+    idx = np.arange(start, start + n, dtype=np.uint64)
+    want = _jax_bits_at(seed, idx)
+    if start == 0:
+        np.testing.assert_array_equal(want, np.asarray(
+            jax.random.bits(jax.random.key(seed), (n,), np.uint32)).astype(np.int64))
+    np.testing.assert_array_equal(prng.random_bits(prng.key(seed), n, start=start).numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_leaf_draw_is_the_whole_draw(monkeypatch, dtype):
+    """``layers.normal`` over a leaf of more than ``DRAW_CHUNK`` values
+    (made 64 here), drawn a range at a time into the result, equals the
+    whole draw of the same key scaled and cast (bit for bit), and jax's
+    ``normal`` of that key within ``prng.normal``'s erfinv roundings."""
+    from repro_torch.models import layers as L
+
+    monkeypatch.setattr(L, "DRAW_CHUNK", 64)
+    k, shape, scale = prng.fold_in(prng.key(5), 2), (10, 30), 0.02
+    got = L.normal(L.Keys.from_key(k, "cpu"), shape, scale, dtype)
+    assert tuple(got.shape) == shape and got.dtype == dtype
+    assert torch.equal(got, (prng.normal(k, 300).reshape(shape) * scale).to(dtype))
+    want = np.asarray(jax.random.normal(jax.random.fold_in(jax.random.key(5), 2), shape)) * scale
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(
+        torch.from_numpy(want.astype(np.float32)).to(dtype).float()), rtol=2 ** -8, atol=1e-6)
+
+
+def test_chunked_init_is_the_references(monkeypatch):
+    """A reduced deepseek-v2-lite-16b (MLA, its expert stacks, a dense lead
+    layer) initialised with ``DRAW_CHUNK`` at 4,096 values, so every leaf
+    larger than that is drawn a range at a time: each leaf is the
+    reference's ``init`` of the same key within 1e-4 relative (erfinv's
+    roundings)."""
+    from repro.configs import ARCHS as REF_ARCHS
+    from repro.models import build as ref_build
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build, layers as L
+    from repro_torch.core import tree_util as PT
+
+    monkeypatch.setattr(L, "DRAW_CHUNK", 4096)
+    name = "deepseek-v2-lite-16b"
+    want = ref_build(REF_ARCHS[name].reduced()).init(jax.random.key(9))
+    got = build(get_arch(name).reduced()).init(prng.key(9), "cpu")
+    sizes = [t.numel() for t in PT.leaves(got)]
+    assert max(sizes) > 4 * 4096  # some leaves take several ranges
+    assert len(sizes) == len(jax.tree.leaves(want))
+    for w, g in zip(jax.tree.leaves(want), PT.leaves(got)):
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape
+        err = float(np.max(np.abs(g.float().numpy() - w))) / max(float(np.max(np.abs(w))), 1e-30)
+        assert err < 1e-4
