@@ -179,8 +179,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      100 with a zero and a nonzero initial state; (b)
      ``repro_torch.launch.serve.run`` at full width for every arch of
      ``SERVE_ARCHS`` (olmo-1b, rwkv6-1.6b, deepseek-v2-lite-16b,
-     recurrentgemma-9b, stablelm-12b, llava-next-mistral-7b,
-     musicgen-large at full depth, llama4-maverick at 2 layers), batch 4,
+     recurrentgemma-9b at full depth; stablelm-12b, llava-next-mistral-7b,
+     musicgen-large and llama4-maverick at 2 layers), batch 4,
      prompt 1024, 32 new tokens, the weights drawn once (the reference's,
      from seed 0) and one warm-up prefill before the timed one: prefill
      and decode times, the weights' draw time and peak allocation, the
@@ -196,17 +196,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      the card against the CPU (prefill of a 256-token prompt and one
      decode step);
  12. federated LM training: (a) the backward kernels 16b and 17b against
-     autograd of their plain versions (``FLASH_BWD_CASES``,
+     autograd of their plain versions (``FLASH_BWD_CASES``, with 16b at the
+     trained archs' head dims ``FLASH_BWD_HEAD_DIMS``: MLA's 192 / 128,
+     recurrentgemma's 256 on one kv head with its window, stablelm's 160;
      ``WKV_BWD_CASES``; every case run twice, the two bitwise equal), timed
      at the prefill shapes and the training round's folded shapes beside
      their bounds and, for 16b, SDPA's backward under each of its backends
      ``SDPA_BACKENDS``, the fastest the library time (medians of
-     ``BWD_TRIALS`` trials), and ``vmap(grad)``
+     ``BWD_TRIALS`` trials; which backends refuse a shape logged);
+     ``lru_scan_bwd`` bitwise autograd of the plain recurrence at
+     ``LRU_BWD_SHAPES``, timed with its bound; and ``vmap(grad)``
      through ``ops.flash_attention`` and ``ops.wkv6`` (one launch of each
      kernel); (b) olmo-1b at full width through ``launch.train.run``
      (``TRAIN``: a resume replays the uninterrupted run bitwise), kernels
-     2-4 at its arena, rwkv6-1.6b at 2 layers, the examples and the
-     popstore's checkpoint;
+     2-4 at its arena, rwkv6-1.6b at 2 layers; (c) "12 train archs":
+     deepseek-v2-lite-16b (2 layers), recurrentgemma-9b (one unit) and
+     stablelm-12b (2 layers) at full block width (``TRAIN_ARCHS``, the
+     vocabulary cut to 32,000 where it would not fit), 3 GPDMM rounds each
+     through ``fed.round`` over ``vmap(grad(loss))`` with the launches
+     derived, ``lam_sum_norm`` at its rounding scale, ms a round, peak and
+     idle share, deepseek run twice more with its rows bitwise equal; (d)
+     "12 train card vs cpu": the reduced configs in f32 at the full head
+     dims, one round on the card against the CPU (``TRAIN_CPU_REL``); the
+     examples and the popstore's checkpoint;
  13. print one JSON line of per-kernel numbers (with each source's
      ``-Xptxas -v`` registers, static shared memory and spills per entry
      function when the run built it), then the result line
@@ -3711,16 +3723,20 @@ SERVE_ARCHS = ("olmo-1b", "rwkv6-1.6b", "deepseek-v2-lite-16b", "recurrentgemma-
 CARD_VS_CPU_ARCHS = ("olmo-1b", "rwkv6-1.6b")  # phase "11 card vs cpu"
 # full depth, but for llama4-maverick: 2 layers, its one (dense, moe) unit at
 # full width (18.6e9 parameters, 37 GB in bf16); its 48 layers (~800 GB) do
-# not fit four cards
-SERVE_LAYERS = {"llama4-maverick-400b-a17b": 2}
+# not fit four cards; and stablelm-12b, llava-next and musicgen-large at 2
+# layers of their 40, 32 and 48, widths unchanged, which pays for phase "12
+# train archs" within the script's time (their full depth served in PR 28:
+# PERF.md section 5); kernel 16 at their shapes is timed in (a) as before
+SERVE_LAYERS = {"llama4-maverick-400b-a17b": 2, "stablelm-12b": 2,
+                "llava-next-mistral-7b": 2, "musicgen-large": 2}
 # per prefill, one kernel per block of the model (attention blocks: kernel 16;
 # rwkv: 17; RG-LRU: lru_scan), none per decode token
 SERVE_LAUNCHES = {"olmo-1b": {"flash_attention": 16}, "rwkv6-1.6b": {"wkv6": 24},
                   "deepseek-v2-lite-16b": {"flash_attention": 27},
                   "recurrentgemma-9b": {"flash_attention": 12, "lru_scan": 26},
-                  "stablelm-12b": {"flash_attention": 40},
-                  "llava-next-mistral-7b": {"flash_attention": 32},
-                  "musicgen-large": {"flash_attention": 48},
+                  "stablelm-12b": {"flash_attention": 2},
+                  "llava-next-mistral-7b": {"flash_attention": 2},
+                  "musicgen-large": {"flash_attention": 2},
                   "llama4-maverick-400b-a17b": {"flash_attention": 2}}
 # MoE archs: decode is at full capacity, so decode against prefill runs a
 # drop-free pipeline (``exact_moe``) on these many batch rows (rows are
@@ -4329,20 +4345,49 @@ def profile_rounds(torch, label, run, round_ms, rounds, out):
 # phase 12: federated LM training, with the backward kernels 16b-17b
 # ---------------------------------------------------------------------------
 
-# (B, Sq, Sk, H, Hkv, hd, dtype name, window, q_offset): olmo-1b's training
-# and prefill shapes in bf16 and f32, the training round's folded batch
-# (m = 2 clients of 4 rows), a small grouped, windowed case, one on the
-# CUDA-core route (hd 24), and two on the tensor-core route whose queries
-# start past the first key (a continued prefill): Sq off the 64- and
-# 128-row tiles, grouped, one windowed
-FLASH_BWD_CASES = ((4, 128, 128, 16, 16, 128, "bf16", None, 0),
-                   (4, 1024, 1024, 16, 16, 128, "bf16", None, 0),
-                   (4, 128, 128, 16, 16, 128, "f32", None, 0),
-                   (4, 1024, 1024, 16, 16, 128, "f32", None, 0),
-                   (8, 128, 128, 16, 16, 128, "bf16", None, 0),
-                   (2, 256, 256, 8, 2, 64, "bf16", 64, 0), (2, 200, 200, 8, 2, 24, "bf16", None, 0),
-                   (2, 150, 280, 8, 2, 64, "bf16", 100, 130),
-                   (2, 90, 260, 8, 4, 128, "bf16", None, 170))
+# 16b at the head dims of the archs phase "12 train archs" trains, (label,
+# (B, S, H, Hkv, hd, vd), window): each at the training round's folded
+# shape (m = 2 clients of 4 rows, 128 tokens) and at the prefill shape of
+# phase 11 (batch 4, prompt 1,024; recurrentgemma's also at 4,096 keys,
+# where its 2,048-key window binds); all on the warp tensor-core route
+FLASH_BWD_HEAD_DIMS = (
+    ("mla_train", (8, 128, 16, 16, 192, 128), None),
+    ("mla", (4, 1024, 16, 16, 192, 128), None),
+    ("recurrentgemma_train", (8, 128, 16, 1, 256, 256), 2048),
+    ("recurrentgemma", (4, 1024, 16, 1, 256, 256), 2048),
+    ("recurrentgemma_4096", (2, 4096, 16, 1, 256, 256), 2048),
+    ("stablelm_train", (8, 128, 32, 8, 160, 160), None),
+    ("stablelm", (4, 1024, 32, 8, 160, 160), None),
+)
+# (B, Sq, Sk, H, Hkv, hd, vd, dtype name, window, q_offset): olmo-1b's
+# training and prefill shapes in bf16 and f32, the training round's folded
+# batch (m = 2 clients of 4 rows), a small grouped, windowed case, one on the
+# CUDA-core route (hd 24), two on the tensor-core route whose queries start
+# past the first key (a continued prefill): Sq off the 64- and 128-row
+# tiles, grouped, one windowed; then ``FLASH_BWD_HEAD_DIMS`` in bf16, MLA's
+# training shape in f32 (the CUDA cores), and the warp tensor-core route's
+# edges (Sq, Sk off its 64-row tiles, a query offset, one kv head with a
+# window below a tile, vd above hd) and a bf16 pair off it (hd 200, vd 136:
+# the CUDA cores)
+FLASH_BWD_CASES = ((4, 128, 128, 16, 16, 128, 128, "bf16", None, 0),
+                   (4, 1024, 1024, 16, 16, 128, 128, "bf16", None, 0),
+                   (4, 128, 128, 16, 16, 128, 128, "f32", None, 0),
+                   (4, 1024, 1024, 16, 16, 128, 128, "f32", None, 0),
+                   (8, 128, 128, 16, 16, 128, 128, "bf16", None, 0),
+                   (2, 256, 256, 8, 2, 64, 64, "bf16", 64, 0),
+                   (2, 200, 200, 8, 2, 24, 24, "bf16", None, 0),
+                   (2, 150, 280, 8, 2, 64, 64, "bf16", 100, 130),
+                   (2, 90, 260, 8, 4, 128, 128, "bf16", None, 170)) + tuple(
+    (B, S, S, H, Hkv, hd, vd, "bf16", window, 0)
+    for _, (B, S, H, Hkv, hd, vd), window in FLASH_BWD_HEAD_DIMS) + (
+    (8, 128, 128, 16, 16, 192, 128, "f32", None, 0),
+    (1, 77, 200, 4, 1, 256, 256, "bf16", 40, 123),
+    (2, 130, 130, 8, 2, 64, 128, "bf16", None, 0),
+    (2, 100, 100, 4, 2, 160, 160, "bf16", 30, 0),
+    (1, 100, 100, 2, 1, 200, 136, "bf16", None, 0))
+# lru_scan_bwd: recurrentgemma-9b's prefill (batch 4, prompt 1,024, d_rnn
+# 4,096) and the training round's folded batch (8, 128, 4,096)
+LRU_BWD_SHAPES = ((4, 1024, 4096), (8, 128, 4096))
 # rwkv6-1.6b's shape (B, S, H, K) with bf16 r, k, v; the training round's
 # folded batch (m = 2 clients of 4 rows, one row of u a client) in bf16;
 # then f32 with one row of u per pair of batch rows
@@ -4376,29 +4421,83 @@ TRAIN = dict(arch="olmo-1b", m=2, per_client_batch=4, seq_len=128, k=2, eta=0.05
              more=2, seed=0)
 TRAIN_RWKV = dict(arch="rwkv6-1.6b", n_layers=2, m=2, per_client_batch=4, seq_len=128, k=2,
                   eta=0.05, rounds=2)
+# phase "12 train archs": GPDMM at full block width (m = 2, batch 4, 128
+# tokens, K = 2, eta 0.05), cut in depth (deepseek: its dense first layer
+# and one MoE layer; recurrentgemma: one (rec, rec, local) unit; stablelm: 2
+# layers) and, where the untied (V, D) embedding and head would take the
+# round past the card, in vocabulary (recurrentgemma's 256,000 alone are
+# 2.10e9 parameters, ~155 GB of training state at olmo-1b's ~58 bytes a
+# parameter at m = 2); no kernel's shape depends on V
+TRAIN_ARCHS = {"deepseek-v2-lite-16b": dict(n_layers=2),
+               "recurrentgemma-9b": dict(n_layers=3, vocab_size=32000),
+               "stablelm-12b": dict(n_layers=2, vocab_size=32000)}
+TRAIN_ARCH_RUN = dict(m=2, per_client_batch=4, seq_len=128, k=2, eta=0.05, rounds=3)
+# the arch run twice more from the same seed, its logged rows bitwise equal
+TRAIN_REPEAT = dict(arch="deepseek-v2-lite-16b", rounds=2)
+# "12 train card vs cpu": the reduced configs in f32 at the full archs' head
+# dims (MLA's 192 / 128, recurrentgemma's 256 on its one kv head, stablelm's
+# 160), one round on the card against the same round on the CPU
+TRAIN_CPU_HEADS = {"deepseek-v2-lite-16b": dict(nope_head_dim=128, rope_head_dim=64,
+                                                v_head_dim=128),
+                   "recurrentgemma-9b": dict(head_dim=256),
+                   "stablelm-12b": dict(head_dim=160)}
+TRAIN_CPU = dict(m=2, per_client_batch=4, seq_len=128, k=2, eta=0.05)
+# the card's server parameters against the CPU's after one f32 round, of each
+# leaf's largest magnitude: the same ops with sums in other orders (matrix
+# products, 16b's tiles), carried through K = 2 steps
+TRAIN_CPU_REL = 1e-4
 POPSTORE_CKPT = dict(m=10 ** 5, width=1024, cohort=64, K=2, eta=0.1, rounds=2)
 TRAIN_DIR = Path(__file__).resolve().parent / ".train_smoke"
 # the LM example's small preset cut from 60 rounds: its check is finite losses
 LM_EXAMPLE_ROUNDS = 6
 
 
-def train_launches(n_attn: int, k: int, rounds: int, logged: int) -> dict:
+def train_launches(n_attn: int, k: int, rounds: int, logged: int, n_rec: int = 0) -> dict:
     """A GPDMM arena round of the LM, read off the code: each of the K
     client gradients runs every attention layer forward (16) and backward
-    (16b) once for all clients (the vmap rule folds them into the batch),
-    the K steps are K ``fused_update_arena`` launches, the server step
+    (16b), and every RG-LRU layer's ``lru_scan`` and ``lru_scan_bwd``, once
+    for all clients (the vmap rules fold them into the batch), the K steps
+    are K ``fused_update_arena`` launches, the server step
     ``round_tail_mean`` + ``dual_from_uplink``; each logged row adds one
     vmapped forward of the server model."""
-    return dict(flash_attention=n_attn * (k * rounds + logged),
+    want = dict(flash_attention=n_attn * (k * rounds + logged),
                 flash_attention_bwd=n_attn * k * rounds, fused_update_arena=k * rounds,
                 round_tail_mean=rounds, dual_from_uplink=rounds)
+    if n_rec:
+        want |= dict(lru_scan=n_rec * (k * rounds + logged), lru_scan_bwd=n_rec * k * rounds)
+    return {n: c for n, c in want.items() if c}
 
 
-def flash_bwd_cost(B, S, H, hd) -> tuple[float, float]:
-    """(bytes, operations) of 16b at a causal (B, S, H, hd) bf16 shape: q, k,
-    v, o, do read and dq, dk, dv written once, bf16, and lse f32; 2.5 times
-    the forward's products (S, dP, dq, dk, dv against S, p v)."""
-    return 2 * 8 * B * S * H * hd + 4 * B * H * S, 2.5 * flash_flops(B, H, S, S, hd)
+def pytree_step_launches(torch, params) -> int:
+    """``fused_update`` launches a step of a pytree round (a tree of mixed
+    dtypes keeps the reference's pytree path, ``core.api.use_arena``): one
+    per chunk of each dtype's segment table, as ``fused_update._launch``
+    plans it."""
+    from repro_torch.core import tree_util as T
+    from repro_torch.kernels import fused_update as _fu
+
+    groups: dict = {}
+    for leaf in T.leaves(params):
+        if leaf.numel():
+            groups.setdefault(leaf.dtype, []).append(leaf.numel())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sum(len(_fu.plan(sizes, _fu._DTYPES[dt][1], _fu.max_segments(), sms))
+               for dt, sizes in groups.items())
+
+
+def flash_bwd_cost(B, S, H, hd, vd=None, Hkv=None, window=None,
+                   itemsize=2) -> tuple[float, float]:
+    """(bytes, operations) of 16b at a causal (B, S, H, hd) shape (vd
+    default hd, Hkv default H, an optional window): q, k, v, o, do read and
+    dq, dk, dv written once, in the operands' dtype, and lse f32; the
+    products S, dk, dq of length hd and dP, dv of length vd over the visible
+    (query, key) pairs (2.5 times the forward's at hd = vd)."""
+    vd = hd if vd is None else vd
+    Hkv = H if Hkv is None else Hkv
+    nbytes = (itemsize * B * S * (H * (2 * hd + 2 * vd) + Hkv * (2 * hd + 2 * vd))
+              + 4 * B * H * S)
+    pairs2 = flash_flops(B, H, S, S, 1, window, vd=0)  # 2 B H pairs
+    return nbytes, pairs2 * (3 * hd + 2 * vd)
 
 
 def wkv_bwd_cost(B, S, H, K, n_u) -> tuple[float, float]:
@@ -4415,16 +4514,25 @@ def wkv_bwd_cost(B, S, H, K, n_u) -> tuple[float, float]:
     return nbytes, flops
 
 
-def sdpa_backward(torch, q, k, v, do, backend: str):
-    """One call of SDPA's autograd backward, causal, on (B, S, H, hd)
-    tensors (transposed to SDPA's layout), under ``backend``."""
+def sdpa_backward(torch, q, k, v, do, backend: str, window=None):
+    """One call of SDPA's autograd backward on (B, S, H, d) tensors
+    (transposed to SDPA's layout) under ``backend``, as ``sdpa_forward``
+    forms kernel 16's function: causal, grouped heads through
+    ``enable_gqa``, a window that binds as a boolean mask."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    S, H, Hkv = q.shape[1], q.shape[2], k.shape[2]
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
+    kw = {"enable_gqa": True} if Hkv != H else {}
+    if window is None or window >= S:
+        kw["is_causal"] = True
+    else:
+        i = torch.arange(S, device=q.device)
+        kw["attn_mask"] = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
     with sdpa_kernel(getattr(SDPBackend, backend)):
-        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        ot = F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
     def run():
         with sdpa_kernel(getattr(SDPBackend, backend)):
@@ -4432,22 +4540,24 @@ def sdpa_backward(torch, q, k, v, do, backend: str):
     return run
 
 
-def sdpa_fastest(torch, q, k, v, do) -> dict:
+def sdpa_fastest(torch, q, k, v, do, window=None, iters=BWD_ITERS, trials=BWD_TRIALS) -> dict:
     """SDPA's backward (``sdpa_backward``) under each of ``SDPA_BACKENDS``,
-    medians of ``BWD_TRIALS`` trials: ``library_ms`` is the fastest
-    backend's, ``library`` names it, ``library_trials`` are its trials and
-    ``library_also`` holds every backend's median (or why it did not run)."""
-    every, trials = {}, {}
+    medians of ``trials`` trials of ``iters`` calls: ``library_ms`` is the
+    fastest backend's, ``library`` names it, ``library_trials`` are its
+    trials and ``library_also`` holds every backend's median (or why it did
+    not run: a backend that refuses the operands, e.g. vd != hd)."""
+    every, trials_of = {}, {}
     for backend in SDPA_BACKENDS:
         try:
-            every[backend], trials[backend] = med_ms(sdpa_backward(torch, q, k, v, do, backend),
-                                                     BWD_ITERS, BWD_TRIALS, BWD_LIBRARY_SPIN)
+            every[backend], trials_of[backend] = med_ms(
+                sdpa_backward(torch, q, k, v, do, backend, window), iters, trials,
+                BWD_LIBRARY_SPIN)
         except RuntimeError as e:  # the backend does not take these operands here
             every[backend] = f"not run: {str(e).splitlines()[0][:120]}"
-    ran = [b for b in SDPA_BACKENDS if b in trials]
+    ran = [b for b in SDPA_BACKENDS if b in trials_of]
     check(bool(ran), f"no SDPA backend ran at {tuple(q.shape)}: {every}")
     best = min(ran, key=lambda b: every[b])
-    return dict(library_ms=every[best], library_trials=trials[best], library_also=every,
+    return dict(library_ms=every[best], library_trials=trials_of[best], library_also=every,
                 library=f"autograd of scaled_dot_product_attention (causal), {best}, the "
                         f"fastest of {len(ran)} backends")
 
@@ -4474,27 +4584,31 @@ def check_backward_kernels(rec, torch, ops, ref, gen, out):
         check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{what}: two runs differ")
         return a
 
-    for B, Sq, Sk, H, Hkv, hd, dn, window, off in FLASH_BWD_CASES:
+    for B, Sq, Sk, H, Hkv, hd, vd, dn, window, off in FLASH_BWD_CASES:
         dt = dts[dn]
         q = torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dt)
-        k, v = (torch.randn(B, Sk, Hkv, hd, generator=gen, device=dev).to(dt) for _ in range(2))
-        do = torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dt)
+        k = torch.randn(B, Sk, Hkv, hd, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, Sk, Hkv, vd, generator=gen, device=dev).to(dt)
+        do = torch.randn(B, Sq, H, vd, generator=gen, device=dev).to(dt)
         o, lse = _fa.flash_attention(q, k, v, window=window, q_offset=off, lse=True)
         q_pos, k_pos = off + torch.arange(Sq, device=dev), torch.arange(Sk, device=dev)
         lse_w = ref.flash_attention_lse_ref(q, k, q_pos, k_pos, window=window)
-        what = (f"flash_attention_bwd {(B, Sq, Sk, H, Hkv, hd)} {dn} window {window} "
+        what = (f"flash_attention_bwd {(B, Sq, Sk, H, Hkv, hd, vd)} {dn} window {window} "
                 f"q_offset {off}")
         got = twice(what, lambda: _fa.flash_attention_bwd(q, k, v, o, lse, do, window=window,
                                                           q_offset=off))
+        check(_fa.last_bwd_route == _fa.bwd_route(dt, hd, vd),
+              f"{what}: route {_fa.last_bwd_route}")
         want = ref.flash_attention_bwd_ref(q, k, v, do, q_pos, k_pos, window=window)
         errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
         e_lse = max_err(lse, lse_w)
         tol = BWD_BF16_REL if dt == torch.bfloat16 else BWD_F32_REL
         check(max(errs) <= tol and e_lse <= KERNEL_F32_REL * max(1.0, float(lse_w.abs().max())),
               f"{what}: dq/dk/dv rel errors {errs} (tol {tol}), lse abs error {e_lse}")
-        log(f"{what} ({_fa.route(dt, hd)}): dq, dk, dv rel errors "
+        log(f"{what} ({_fa.last_bwd_route}): dq, dk, dv rel errors "
             f"{['%.3e' % e for e in errs]}, lse {e_lse:.3e}; two runs bitwise equal")
-        res[f"flash {(B, Sq, Sk, H, Hkv, hd)} {dn} {window} {off}"] = errs
+        res[f"flash {(B, Sq, Sk, H, Hkv, hd, vd)} {dn} {window} {off}"] = errs
+        del q, k, v, do, o, lse, lse_w, got, want
 
     for B, S, H, K, dn, n_u in WKV_BWD_CASES:
         dt = dts[dn]
@@ -4580,7 +4694,93 @@ def check_backward_kernels(rec, torch, ops, ref, gen, out):
         f"({by})")
     del args
     torch.cuda.synchronize()
+    time_backward_head_dims(rec, torch, gen, out)
+    check_lru_scan_bwd(rec, torch, ref, gen, out)
     check_backward_functions(torch, ops, ref, gen, out)
+
+
+def time_backward_head_dims(rec, torch, gen, out):
+    """16b at ``FLASH_BWD_HEAD_DIMS`` (bf16; their errors are held in
+    ``check_backward_kernels``' cases): medians of 3 trials, the bound
+    (bf16 tensor-core rate), the plain version's time and the fastest SDPA
+    backward that takes the shape (each backend pinned in turn; which
+    refuse, and why, logged)."""
+    from repro_torch.kernels import flash_attention as _fa
+    from repro_torch.kernels import ref
+
+    dev, bf = gen.device, torch.bfloat16
+    rows = rec.rows["flash_attention_bwd"]["head_dims"] = {}
+    for label, (B, S, H, Hkv, hd, vd), window in FLASH_BWD_HEAD_DIMS:
+        q, do = (torch.randn(B, S, H, d, generator=gen, device=dev).to(bf) for d in (hd, vd))
+        k, v = (torch.randn(B, S, Hkv, d, generator=gen, device=dev).to(bf) for d in (hd, vd))
+        o, lse = _fa.flash_attention(q, k, v, window=window, lse=True)
+        pos = torch.arange(S, device=dev)
+        iters = 20 if S <= 128 else 5
+        ms, ms_all = med_ms(lambda: _fa.flash_attention_bwd(q, k, v, o, lse, do, window=window),
+                            iters, 3)
+        plain_ms = cuda_time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do, pos, pos,
+                                                                    window=window),
+                                2, spin_cycles=50_000_000)
+        b, by = bound_ms(*flash_bwd_cost(B, S, H, hd, vd, Hkv, window), BF16_FLOP_PER_S)
+        rows[label] = dict(shape=[B, S, H, Hkv, hd, vd], window=window,
+                           route=_fa.last_bwd_route, ms=ms, ms_trials=ms_all, plain_ms=plain_ms,
+                           bound_ms=b, bound_by=by,
+                           **sdpa_fastest(torch, q, k, v, do, window, iters, 3))
+        r = rows[label]
+        log(f"flash_attention_bwd {label} {(B, S, H, Hkv, hd, vd)} window {window}: "
+            f"{ms:.4f} ms on {r['route']} (trials {['%.4f' % t for t in ms_all]}), plain "
+            f"{plain_ms:.4f}, bound {b:.4f} ({by}); SDPA's backward {r['library_ms']:.4f} ms, "
+            f"{r['library']}; every backend {r['library_also']}")
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    out["flash_bwd_head_dims"] = rows
+
+
+def check_lru_scan_bwd(rec, torch, ref, gen, out):
+    """``lru_scan_bwd`` bitwise autograd of ``ref.lru_ref`` on the card at
+    ``LRU_BWD_SHAPES`` (gradients into y and h_last, a in [0, 1) as the
+    RG-LRU's decays, h0 nonzero), each run twice (bitwise equal); timed at
+    the prefill shape with its bound (a, y, dy read and da, db written
+    once, f32: 5 S D B floats) and autograd of the plain recurrence as the
+    plain version, and at the training shape beside its bound."""
+    from repro_torch.kernels import lru_scan as _lr
+
+    dev = gen.device
+    res = out["lru_scan_bwd"] = {}
+    for B, S, D in LRU_BWD_SHAPES:
+        a = torch.rand(B, S, D, generator=gen, device=dev)
+        b, dy = (torch.randn(B, S, D, generator=gen, device=dev) for _ in range(2))
+        h0, dh = (torch.randn(B, D, generator=gen, device=dev) for _ in range(2))
+        y, _ = _lr.lru_scan(a, b, h0)
+
+        def plain():
+            ins = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+            return torch.autograd.grad(ref.lru_ref(*ins), ins, (dy, dh))
+
+        got = _lr.lru_scan_bwd(a, y, h0, dy, dh)
+        again = _lr.lru_scan_bwd(a, y, h0, dy, dh)
+        want = plain()
+        check(all(torch.equal(x, z) for x, z in zip(got, again)),
+              f"lru_scan_bwd {(B, S, D)}: two runs differ")
+        check(all(torch.equal(x, w) for x, w in zip(got, want)),
+              f"lru_scan_bwd {(B, S, D)}: not bitwise autograd of the plain recurrence (max "
+              f"errors {[max_err(x, w) for x, w in zip(got, want)]})")
+        log(f"lru_scan_bwd {(B, S, D)}: da, db, dh0 bitwise autograd of the plain recurrence; "
+            f"two runs bitwise equal")
+        nbytes, flops = 4 * (5 * B * S * D + 3 * B * D), 3.0 * B * S * D
+        if (B, S, D) == LRU_BWD_SHAPES[0]:
+            rec.kernel("lru_scan_bwd", 0.0, lambda: _lr.lru_scan_bwd(a, y, h0, dy, dh), plain,
+                       20, nbytes, flops, plain_iters=1, plain_spin=200_000_000, trials=3)
+            res["prefill"] = {k: rec.rows["lru_scan_bwd"][k]
+                              for k in ("ms", "plain_ms", "bound_ms")}
+        else:
+            bnd, by = bound_ms(nbytes, flops)
+            ms, ms_all = med_ms(lambda: _lr.lru_scan_bwd(a, y, h0, dy, dh), 20, 3)
+            res["train"] = rec.rows["lru_scan_bwd"]["train"] = dict(
+                shape=[B, S, D], ms=ms, ms_trials=ms_all, bound_ms=bnd, bound_by=by)
+            log(f"lru_scan_bwd at the training shape {(B, S, D)}: {ms:.4f} ms, bound "
+                f"{bnd:.4f} ms ({by})")
+        del a, b, dy, h0, dh, y, got, again, want
 
 
 def check_backward_functions(torch, ops, ref, gen, out):
@@ -4797,13 +4997,35 @@ def check_wide_arena(torch, ops, ref, gen, out):
     torch.cuda.empty_cache()
 
 
+def lam_sum_held(torch, state, met, fcfg, m, what) -> tuple[float, float]:
+    """The round's ``lam_sum_norm`` against its rounding scale: the norm of a
+    sum that is zero in exact arithmetic, which the bf16 arena holds to eps
+    (rho m ||x_s|| + sqrt(m) ||lam||_F), eps = 2^-8 (phase 3's invariants,
+    with bf16's rounding)."""
+    from repro_torch.core import arena, resolved_rho
+    from repro_torch.core import tree_util as T
+
+    if torch.is_tensor(state["lam_s"]):  # the arena's (m, W) buffer
+        spec = arena.ArenaSpec.from_tree(state["x_s"])
+        xs = float(spec.pack(state["x_s"]).float().norm())
+        lam_f = float(state["lam_s"].float().norm())
+    else:  # the pytree path's stacked leaves
+        xs, lam_f = float(T.tree_norm(state["x_s"])), float(T.tree_norm(state["lam_s"]))
+    scale = 2.0 ** -8 * (resolved_rho(fcfg) * m * xs + math.sqrt(m) * lam_f)
+    lsn = float(met["lam_sum_norm"])
+    log(f"{what} round: lam_sum_norm {lsn:.4e} against its rounding scale {scale:.4e} "
+        f"(||x_s|| {xs:.4e}, ||lam||_F {lam_f:.4e})")
+    check(math.isfinite(lsn) and lsn <= scale, f"{what}: lam_sum_norm {lsn} > {scale}")
+    return lsn, scale
+
+
 def train_round_profile(torch, m) -> dict:
     """The launcher's round (the same model, optimiser and data calls)
     timed on its own: ms a round with CUDA synchronisation, peak allocation
     and the device's idle share under torch.profiler."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import FederatedConfig
-    from repro_torch.core import arena, make, prng, resolved_rho
+    from repro_torch.core import make, prng
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build
 
@@ -4830,17 +5052,7 @@ def train_round_profile(torch, m) -> dict:
         state, met = rnd(state, grad, b)
     torch.cuda.synchronize()
     round_ms = 1e3 * (time.perf_counter() - t0) / 2
-    # lam_sum_norm is the norm of a sum that is zero in exact arithmetic;
-    # the bf16 arena holds it to eps (rho m ||x_s|| + sqrt(m) ||lam||_F),
-    # eps = 2^-8 (phase 3's invariants, with bf16's rounding)
-    spec = arena.ArenaSpec.from_tree(state["x_s"])
-    xs = float(spec.pack(state["x_s"]).float().norm())
-    lam_f = float(state["lam_s"].float().norm())
-    scale = 2.0 ** -8 * (resolved_rho(fcfg) * m * xs + math.sqrt(m) * lam_f)
-    lsn = float(met["lam_sum_norm"])
-    log(f"train round: lam_sum_norm {lsn:.4e} against its rounding scale {scale:.4e} "
-        f"(||x_s|| {xs:.4e}, ||lam||_F {lam_f:.4e})")
-    check(math.isfinite(lsn) and lsn <= scale, f"train: lam_sum_norm {lsn} > {scale}")
+    lsn, scale = lam_sum_held(torch, state, met, fcfg, m, "train")
     holder = {"s": state}
     del state
 
@@ -4907,6 +5119,188 @@ def train_rwkv_phase(rec, torch, ops, out):
     check(all(math.isfinite(v) for r in rows for v in r.values()), f"train rwkv: {rows}")
     out["train_rwkv"] = {"rows": rows, "launches": {n: c for n, c in counts.items() if c}}
     del state, params
+    torch.cuda.empty_cache()
+
+
+def _arch_round_setup(torch, cfg, device, m, k, eta, seed=0):
+    """The launcher's round for ``cfg``: the keyed init from ``prng.key(seed)``
+    on ``device``, the GPDMM state and the client gradient
+    ``torch.func.grad`` of the model's loss (the round vmaps it)."""
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import make, prng
+    from repro_torch.models import build
+
+    model = build(cfg)
+    params = model.init(prng.key(seed), device=device)
+    fcfg = FederatedConfig(algorithm="gpdmm", inner_steps=k, eta=eta, num_clients=m)
+    fed = make(fcfg)
+
+    def grad(p, b):
+        return torch.func.grad(lambda q: model.loss(q, b)[0])(p)
+
+    return model, params, fcfg, fed, grad
+
+
+def train_arch_rounds(rec, torch, ops, arch, rounds, profile) -> dict:
+    """``rounds`` GPDMM rounds of ``arch`` cut by ``TRAIN_ARCHS`` on the card
+    (``TRAIN_ARCH_RUN``; the batches ``lm_batches`` from ``prng.key(1)``),
+    each with its logged evaluation (a vmapped forward of the server model):
+    finite loss and drift, the launches as ``train_launches`` derives them,
+    ``lam_sum_norm`` at its rounding scale; with ``profile`` 2 more rounds
+    timed (ms a round) and 2 profiled (busy, idle share), and the peak
+    allocation of all of them."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.core import tree_util as T
+    from repro_torch.core.api import use_arena
+    from repro_torch.data.synthetic import lm_batches
+
+    R = TRAIN_ARCH_RUN
+    m, k = R["m"], R["k"]
+    cfg = dataclasses.replace(get_arch(arch), **TRAIN_ARCHS[arch])
+    kinds = [cfg.block_pattern[i % cfg.pattern_len] for i in range(cfg.n_layers)]
+    n_attn = sum(b != "rec" for b in kinds)
+    n_rec = len(kinds) - n_attn
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params, fcfg, fed, grad = _arch_round_setup(torch, cfg, "cuda", m, k, R["eta"])
+    n_params = sum(p.numel() for p in T.leaves(params))
+    on_arena = use_arena(fcfg, params)
+    step_launches = 0 if on_arena else pytree_step_launches(torch, params)
+    state = fed.init(params, m)
+    del params
+    batches = list(lm_batches(prng.key(1), rounds + (4 if profile else 0), m,
+                              R["per_client_batch"], R["seq_len"], cfg.vocab_size,
+                              device="cuda"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.reset_launches()
+    rows = []
+    for b in batches[:rounds]:
+        state, met = fed.round(state, grad, b)
+        with torch.no_grad():
+            loss = torch.func.vmap(lambda x: model.loss(fed.server_params(state), x)[0])(b)
+        rows.append({"server_loss": float(loss.mean()),
+                     "client_drift": float(met["client_drift"]),
+                     "lam_sum_norm": float(met["lam_sum_norm"])})
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    rec.add(counts)
+    want = {n: 0 for n in counts} | train_launches(n_attn, k, rounds, rounds, n_rec)
+    if not on_arena:  # the pytree round: K step launches, the server step plain ops
+        for n in ("fused_update_arena", "round_tail_mean", "dual_from_uplink"):
+            want[n] = 0
+        want["fused_update"] = k * rounds * step_launches
+    cuts = dict(TRAIN_ARCHS[arch])
+    log(f"train {arch} ({cfg.n_layers} layers {kinds}, {cfg.first_dense_layers} dense first; "
+        f"cut {cuts}; full block width, {n_params:.4g} parameters; "
+        f"{'arena' if on_arena else 'pytree'} path), m={m}: {rounds} rounds; rows {rows}; "
+        f"launches { {n: c for n, c in counts.items() if c} }")
+    check(counts == want, f"train {arch}: launches {counts}, expected {want}")
+    check(all(math.isfinite(v) for r in rows for v in r.values()), f"train {arch}: {rows}")
+    res = {"layers": kinds, "cut": cuts, "parameters": n_params, "init_s": init_s,
+           "arena": on_arena, "rows": rows, "launches": {n: c for n, c in counts.items() if c}}
+    lsn, scale = lam_sum_held(torch, state, met, fcfg, m, f"train {arch}")
+    res |= {"lam_sum_norm": lsn, "lam_sum_norm_scale": scale}
+    if profile:
+        rnd = fed.round_ or fed.round
+        holder = {"s": state}
+        del state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[rounds:rounds + 2]:
+            holder["s"], _ = rnd(holder["s"], grad, b)
+        torch.cuda.synchronize()
+        round_ms = 1e3 * (time.perf_counter() - t0) / 2
+
+        def two():
+            for b in batches[rounds + 2:]:
+                holder["s"], _ = rnd(holder["s"], grad, b)
+
+        busy_ms, acts, events = device_profile(torch, two, 2, host_ops=False)
+        idle = max(0.0, 1.0 - busy_ms / round_ms)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"train {arch} round: {round_ms:.2f} ms/round, device busy {busy_ms:.2f} ms/round "
+            f"({acts:.0f} device activities), idle share {idle:.3f}, peak allocation "
+            f"{peak / 1e9:.2f} GB")
+        table = events.table(sort_by="self_device_time_total", row_limit=12)
+        log(table)
+        res |= {"round_ms": round_ms, "busy_ms_per_round": busy_ms, "idle_share": idle,
+                "peak_allocated_gb": peak / 1e9, "profile_table": table}
+        del holder
+    else:
+        del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_archs_phase(rec, torch, ops, out):
+    """The archs of ``TRAIN_ARCHS`` trained on the card (``train_arch_rounds``:
+    MLA and MoE with kernels 16/16b at hd 192 / vd 128, recurrentgemma's
+    RG-LRU with ``lru_scan``/``lru_scan_bwd`` and its local attention at hd 256
+    on one kv head, stablelm's hd 160), each timed and profiled; then
+    ``TRAIN_REPEAT``'s arch run twice more from the same seed, every logged
+    value of the two runs, and of the first run's rounds, bitwise equal."""
+    res = out["train_archs"] = {}
+    for arch in TRAIN_ARCHS:
+        res[arch] = train_arch_rounds(rec, torch, ops, arch, TRAIN_ARCH_RUN["rounds"], True)
+    arch, n = TRAIN_REPEAT["arch"], TRAIN_REPEAT["rounds"]
+    a = train_arch_rounds(rec, torch, ops, arch, n, False)["rows"]
+    b = train_arch_rounds(rec, torch, ops, arch, n, False)["rows"]
+    check(all(_rows_equal(x, y) for x, y in zip(a, b)) and len(a) == len(b) == n,
+          f"train {arch}: two runs from one seed differ: {a} != {b}")
+    check(all(_rows_equal(x, y) for x, y in zip(a, res[arch]["rows"][:n])),
+          f"train {arch}: the repeat differs from the first run's rounds")
+    log(f"train {arch}: two runs of {n} rounds from one seed, and the first run's first "
+        f"{n}, every logged value bitwise equal")
+    res["repeat"] = {"arch": arch, "rows": a}
+
+
+def train_against_cpu(torch, ops, out):
+    """``TRAIN_CPU_HEADS``: the reduced configs in f32 at the full archs' head
+    dims, the same weights (drawn on the CPU) and batch on both sides, one
+    GPDMM round on the card (kernels 16/16b on their f32 routes at those
+    dims, ``lru_scan``/``lru_scan_bwd``, the MoE dispatch's backward) against
+    the round on the CPU's plain versions: every server parameter within
+    ``TRAIN_CPU_REL`` of its leaf's largest magnitude."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.core import tree_util as T
+    from repro_torch.data.synthetic import lm_batches
+
+    res = out["train_card_vs_cpu"] = {}
+    C = TRAIN_CPU
+    for arch, heads in TRAIN_CPU_HEADS.items():
+        cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32", **heads)
+        model, params, _, fed, grad = _arch_round_setup(torch, cfg, "cpu", C["m"], C["k"],
+                                                        C["eta"])
+        batch = next(lm_batches(prng.key(1), 1, C["m"], C["per_client_batch"], C["seq_len"],
+                                cfg.vocab_size, device="cpu"))
+        want, _ = fed.round(fed.init(params, C["m"]), grad, batch)
+        ops.reset_launches()
+        got, _ = fed.round(fed.init(T.tmap(lambda x: x.cuda(), params), C["m"]), grad,
+                           {n: v.cuda() for n, v in batch.items()})
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in ops.launches().items() if c}
+        errs = [rel_err(torch, a.cpu(), b)
+                for a, b in zip(T.leaves(fed.server_params(got)),
+                                T.leaves(fed.server_params(want)))]
+        grads_k = ("flash_attention_bwd", "lru_scan_bwd") if "recurrent" in arch else (
+            "flash_attention_bwd",)
+        check(all(counts.get(n, 0) > 0 for n in grads_k),
+              f"train card vs cpu {arch}: launches {counts}, none of {grads_k}")
+        check(max(errs) <= TRAIN_CPU_REL,
+              f"train card vs cpu {arch}: server parameters off by {max(errs)}")
+        log(f"train card vs cpu {arch} reduced, f32, heads {heads}: one round's server "
+            f"parameters within {max(errs):.3e} of the CPU's (tolerance {TRAIN_CPU_REL}); "
+            f"card launches {counts}")
+        res[arch] = {"heads": heads, "max_rel_err": max(errs), "launches": counts}
+        del got, want, params
     torch.cuda.empty_cache()
 
 
@@ -5104,6 +5498,8 @@ def main() -> int:
     timed("12 train", train_phase, rec, torch, ops, out)
     timed("12 wide arena", check_wide_arena, torch, ops, ref, seeded(torch, 79), out)
     timed("12 train rwkv", train_rwkv_phase, rec, torch, ops, out)
+    timed("12 train archs", train_archs_phase, rec, torch, ops, out)
+    timed("12 train card vs cpu", train_against_cpu, torch, ops, out)
     timed("12 examples", examples_phase, torch, out)
     timed("12 popstore ckpt", popstore_ckpt_phase, torch, out)
 

@@ -1,9 +1,9 @@
 // Kernel 16b: the backward of kernel 16 (causal GQA attention, optionally
 // over a sliding window).  The reference has no backward kernel: its
 // launcher differentiates the "xla" branch (src/repro/kernels/ops.py
-// _flash_xla).  Given q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd), the
-// forward's output o (B, Sq, H, hd) and its per-row logsumexp lse (B, H,
-// Sq) f32, and the incoming gradient do (B, Sq, H, hd), it returns
+// _flash_xla).  Given q (B, Sq, H, hd), k (B, Sk, Hkv, hd), v (B, Sk, Hkv,
+// vd), the forward's output o (B, Sq, H, vd) and its per-row logsumexp lse
+// (B, H, Sq) f32, and the incoming gradient do (B, Sq, H, vd), it returns
 //
 //   P   = exp(q k^T scale - lse)          (0 where a key is not visible)
 //   D_i = sum_d do_id o_id
@@ -15,14 +15,14 @@
 // a run repeats bitwise.
 //
 // What bounds it on an H100: operations.  Per (query, visible key) pair and
-// head the function needs 5 products of length hd (S, dP, dv, dk, dq), 2.5
-// times the forward's 2; at olmo-1b's prefill shape (4, 1024, 16, 128) bf16
-// that is 43 GFLOP, 43 us at the bf16 tensor-core rate.  Only the tensor
-// cores come near it.
+// head the function needs 5 products (S, dk, dq of length hd; dP, dv of
+// length vd), 2.5 times the forward's 2 at hd = vd; at olmo-1b's prefill
+// shape (4, 1024, 16, 128) bf16 that is 43 GFLOP, 43 us at the bf16
+// tensor-core rate.  Only the tensor cores come near it.
 //
-// Two routes, chosen by the wrapper from the dtype and the head dim:
+// Three routes, chosen by the wrapper from the dtype and the head dims:
 //
-// * Tensor cores (bf16, hd a multiple of 16 up to 128): two grids.
+// * Tensor cores (bf16, hd = vd a multiple of 16 up to 128): two grids.
 //
 //   1. dq: one block per (b * H + h, tile of 128 query rows), heaviest
 //      first, two warpgroups of 64 rows.  The block first forms D = do . o
@@ -82,15 +82,43 @@
 //   the work left to cut is the dq grid's recomputed S and dP (7 products
 //   to the function's 5).
 //
-// * CUDA cores (f32, or bf16 with an hd the tensor-core route does not
-//   take): two grids, f32 products out of shared memory.
-//   1. dq: one block per (tile of 64 query rows, b * H + h); it forms D for
+// * Warp tensor cores (bf16, hd and vd multiples of 16 up to 256 that the
+//   wgmma route does not take: hd != vd or above 128; MLA's 192 / 128,
+//   recurrentgemma's 256, stablelm's 160): the same two grids on
+//   mma.sync m16n8k16 (bf16 in, f32 accumulators), operands from shared
+//   memory through ldmatrix (rows padded by 16 bytes: no bank conflict), P
+//   and dS rounded to bf16 into A fragments in registers as on wgmma.
+//   1. dq: a block of 128 query rows, eight warps of 16, stepping over the
+//      visible keys 64 at a time (S, dP, dq += dS k).
+//   2. dk, dv: a block of 64 keys; warps 0-3 form dv for 16 keys each,
+//      warps 4-7 dk for the same keys (both recompute S^T): dk and dv for
+//      16 keys at hd = vd = 256 are 128 f32 registers a thread each, which
+//      one thread cannot hold together.  The q and do tiles come through
+//      two stages of cp.async, the next in flight during this one's
+//      products.  Few kv heads split the query heads across blocks as on
+//      the CUDA cores (3.).
+//   dq's k and v tiles load between barriers (two stages would not fit
+//   beside 128 rows of q and do at hd = vd = 256), and dq recomputes S and
+//   dP: simple first (PERF.md has its times against cuDNN's).
+//
+// * CUDA cores (f32, or bf16 at head dims off a multiple of 16): up to
+//   three grids, f32 products out of shared memory, tiles of BR query rows
+//   (64 up to hd, vd = 128, 32 beyond: shared memory) and 32 keys.
+//   1. dq: one block per (tile of BR query rows, b * H + h); it forms D for
 //      its rows (and writes it to scratch), then walks the key tiles its
 //      rows can see, accumulating dq in shared memory.
-//   2. dk, dv: one block per (tile of 32 keys, b * Hkv + hk), walking the
-//      query heads of its group and the query tiles that can see its keys.
+//   2. dk, dv: one block per (tile of 32 keys, b * Hkv + hk, split),
+//      walking its split's query heads of the kv head's group and the
+//      query tiles that can see its keys.  With few kv heads the (key
+//      tile, b * Hkv) grid is small (8 blocks for recurrentgemma's one kv
+//      head at the training round's (8, 128)), so the wrapper splits the
+//      group's query heads across blocks (``splits``, chosen from the SM
+//      count): each split writes f32 partials, and
+//   3. reduce_splits adds them in split order, no atomics.
 //   The f32 route keeps f32 products (not TF32), so it holds the 1e-4 f32
-//   comparisons.
+//   comparisons; bf16 operands are widened to f32, so P and dS are not
+//   rounded to bf16 as on the tensor cores.  This route is simple and slow
+//   (one f32 multiply-add per two shared-memory loads, no register tiles).
 #include "common.cuh"
 
 #include <stdint.h>
@@ -100,7 +128,9 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;     // hd and vd, as kernel 16 takes them
+constexpr int kTcMaxD = 128;   // the wgmma route: hd = vd <= 128
+enum Route : int { kRouteCudaCores = 0, kRouteWgmma = 1, kRouteMma = 2 };
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int Sk, int causal, int window) {
   bool ok = kpos < Sk;
@@ -110,7 +140,7 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int Sk, int causal, 
 }
 
 struct Dims {
-  int B, Sq, Sk, H, Hkv, hd, q_offset, causal, window;
+  int B, Sq, Sk, H, Hkv, hd, vd, q_offset, causal, window, splits;
   float scale;
 };
 
@@ -581,7 +611,6 @@ namespace cc {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBR = 64;   // query rows per tile
 constexpr int kBC = 32;   // keys per tile
 
 // C (M x N, row-major, ldc) = / += A (M x K) B (K x N), f32.  A(m, k) is
@@ -603,24 +632,25 @@ __device__ void mm(float* C, int ldc, const float* A, int lda, const float* B, i
   }
 }
 
-// Rows [r0, r0 + R) of one head of a (B, S, heads, hd) tensor into shared
-// memory (ld columns a row, columns past hd and rows past S zero).
+// Rows [r0, r0 + R) of one head of a (B, S, heads, dim) tensor into shared
+// memory (ld columns a row, columns past dim and rows past S zero).
 template <typename T>
 __device__ void load_rows(float* dst, int ld, const T* src, long long row_stride, int r0, int R,
-                          int S, int hd, int D) {
+                          int S, int dim, int D) {
   for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    dst[r * ld + c] = (r0 + r < S && c < hd) ? load_f32(src, (size_t)((r0 + r) * row_stride + c))
-                                             : 0.0f;
+    dst[r * ld + c] = (r0 + r < S && c < dim) ? load_f32(src, (size_t)((r0 + r) * row_stride + c))
+                                              : 0.0f;
   }
 }
 
 // p and dS of one (query tile, key tile) pair, from the scores S and
 // dP = do v^T in shared memory.
+template <int BR>
 __device__ void softmax_grad(const float* Ss, const float* dPs, float* Pe, float* dSe, int ldsc,
                              int lde, const float* lse, const float* Dv, int q0, int k0, int Sq,
                              int Sk, int q_offset, int causal, int window, float scale) {
-  for (int e = threadIdx.x; e < kBR * kBC; e += kThreads) {
+  for (int e = threadIdx.x; e < BR * kBC; e += kThreads) {
     const int r = e / kBC, c = e % kBC;
     const int qi = q0 + r;
     const bool ok = qi < Sq && visible(q_offset + qi, k0 + c, Sk, causal, window);
@@ -630,64 +660,77 @@ __device__ void softmax_grad(const float* Ss, const float* dPs, float* Pe, float
   }
 }
 
-// Shared memory of either grid, in floats, laid out by carve(); D is hd
-// rounded up to 16.
-size_t smem_bytes(int D) {
-  const int ld = D + 1, ldsc = kBC + 4, lde = kBC + 1;
-  const size_t f = (size_t)(2 * kBR + 2 * kBC) * ld + 2 * (size_t)kBR * lde +
-                   2 * (size_t)kBR * ldsc + (size_t)kBR * (D + 4) + 2 * (size_t)kBC * (D + 4) +
-                   2 * kBR;
-  return 128 * 16 + f * sizeof(float);
+__host__ __device__ constexpr size_t carved(size_t n) {
+  return (n * sizeof(float) + 127) & ~(size_t)127;
 }
 
 __device__ __forceinline__ float* carve(uint8_t*& p, size_t n) {
   float* out = reinterpret_cast<float*>(p);
-  p += (n * sizeof(float) + 127) & ~(size_t)127;
+  p += carved(n);
   return out;
 }
 
-// 1. dq (and D).  Block (query tile, b * H + h).
-template <typename T>
+// Shared memory of each grid, laid out by its carve() calls: the operand
+// tiles (q, do of BR rows; k, v of kBC), the score tiles, the grid's
+// accumulators and the rows' lse and D.  Dq = hd and Dv = vd rounded up to
+// 16.  At Dq = Dv = 256 and BR = 32, the dk/dv grid's 216,320 bytes.
+size_t tiles_smem(int Dq, int Dv, int BR) {
+  const int ldsc = kBC + 4, lde = kBC + 1;
+  return 128 + carved((size_t)BR * (Dq + 1)) + carved((size_t)BR * (Dv + 1)) +
+         carved((size_t)kBC * (Dq + 1)) + carved((size_t)kBC * (Dv + 1)) +
+         2 * carved((size_t)BR * lde) + 2 * carved((size_t)BR * ldsc) + 2 * carved(BR);
+}
+size_t dq_smem(int Dq, int Dv, int BR) {
+  return tiles_smem(Dq, Dv, BR) + carved((size_t)BR * (Dq + 4));
+}
+size_t dkdv_smem(int Dq, int Dv, int BR) {
+  return tiles_smem(Dq, Dv, BR) + carved((size_t)kBC * (Dq + 4)) + carved((size_t)kBC * (Dv + 4));
+}
+
+// 1. dq (and D).  Block (query tile of BR rows, b * H + h).
+template <typename T, int BR>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ o, const float* __restrict__ lse, const T* __restrict__ dout,
-          T* __restrict__ dq, float* __restrict__ Dglob, Dims d, int D) {
+          T* __restrict__ dq, float* __restrict__ Dglob, Dims d, int Dq, int Dv) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* p = smem_raw + ((128 - ((uintptr_t)smem_raw & 127)) & 127);
-  const int ld = D + 1, ldsc = kBC + 4, lde = kBC + 1;
-  float* Qs = carve(p, (size_t)kBR * ld);
-  float* dOs = carve(p, (size_t)kBR * ld);
-  float* Ks = carve(p, (size_t)kBC * ld);
-  float* Vs = carve(p, (size_t)kBC * ld);
-  float* Pe = carve(p, (size_t)kBR * lde);
-  float* dSe = carve(p, (size_t)kBR * lde);
-  float* Ss = carve(p, (size_t)kBR * ldsc);
-  float* dPs = carve(p, (size_t)kBR * ldsc);
-  float* dQs = carve(p, (size_t)kBR * (D + 4));
-  float* lses = carve(p, kBR);
-  float* Dvs = carve(p, kBR);
+  const int ldq = Dq + 1, ldv = Dv + 1, ldsc = kBC + 4, lde = kBC + 1;
+  float* Qs = carve(p, (size_t)BR * ldq);
+  float* dOs = carve(p, (size_t)BR * ldv);
+  float* Ks = carve(p, (size_t)kBC * ldq);
+  float* Vs = carve(p, (size_t)kBC * ldv);
+  float* Pe = carve(p, (size_t)BR * lde);
+  float* dSe = carve(p, (size_t)BR * lde);
+  float* Ss = carve(p, (size_t)BR * ldsc);
+  float* dPs = carve(p, (size_t)BR * ldsc);
+  float* lses = carve(p, BR);
+  float* Dvs = carve(p, BR);
+  float* dQs = carve(p, (size_t)BR * (Dq + 4));
 
-  const int q0 = blockIdx.x * kBR;
+  const int q0 = blockIdx.x * BR;
   const int bh = blockIdx.y, b = bh / d.H, h = bh % d.H;
   const int hk = h / (d.H / d.Hkv);
-  const long long qs = (long long)d.H * d.hd, ks = (long long)d.Hkv * d.hd;
+  // row strides: q and dq H hd, o and do H vd, k Hkv hd, v Hkv vd
+  const long long qs = (long long)d.H * d.hd, os = (long long)d.H * d.vd;
+  const long long ks = (long long)d.Hkv * d.hd, vs = (long long)d.Hkv * d.vd;
   const T* qb = q + (long long)b * d.Sq * qs + (long long)h * d.hd;
-  const T* ob = o + (long long)b * d.Sq * qs + (long long)h * d.hd;
-  const T* dob = dout + (long long)b * d.Sq * qs + (long long)h * d.hd;
+  const T* ob = o + (long long)b * d.Sq * os + (long long)h * d.vd;
+  const T* dob = dout + (long long)b * d.Sq * os + (long long)h * d.vd;
   const T* kb = k + (long long)b * d.Sk * ks + (long long)hk * d.hd;
-  const T* vb = v + (long long)b * d.Sk * ks + (long long)hk * d.hd;
+  const T* vb = v + (long long)b * d.Sk * vs + (long long)hk * d.vd;
 
-  load_rows(Qs, ld, qb, qs, q0, kBR, d.Sq, d.hd, D);
-  load_rows(dOs, ld, dob, qs, q0, kBR, d.Sq, d.hd, D);
-  for (int i = threadIdx.x; i < kBR * (D + 4); i += kThreads) dQs[i] = 0.0f;
+  load_rows(Qs, ldq, qb, qs, q0, BR, d.Sq, d.hd, Dq);
+  load_rows(dOs, ldv, dob, os, q0, BR, d.Sq, d.vd, Dv);
+  for (int i = threadIdx.x; i < BR * (Dq + 4); i += kThreads) dQs[i] = 0.0f;
   // D_i = do_i . o_i: one warp a row, lanes over columns, a fixed tree
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < kBR; r += kWarps) {
+  for (int r = warp; r < BR; r += kWarps) {
     const int qi = q0 + r;
     float s = 0.0f;
     if (qi < d.Sq)
-      for (int c = lane; c < d.hd; c += 32)
-        s = fmaf(load_f32(dob, (size_t)(qi * qs + c)), load_f32(ob, (size_t)(qi * qs + c)), s);
+      for (int c = lane; c < d.vd; c += 32)
+        s = fmaf(load_f32(dob, (size_t)(qi * os + c)), load_f32(ob, (size_t)(qi * os + c)), s);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0) {
@@ -698,164 +741,656 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 
   const int qpos_lo = d.q_offset + q0;
-  const int qpos_hi = d.q_offset + min(q0 + kBR, d.Sq) - 1;
+  const int qpos_hi = d.q_offset + min(q0 + BR, d.Sq) - 1;
   const int k_end = d.causal ? min(d.Sk, qpos_hi + 1) : d.Sk;
   int k_begin = d.window > 0 ? max(0, qpos_lo - d.window + 1) : 0;
   k_begin = (k_begin / kBC) * kBC;
   for (int k0 = k_begin; k0 < k_end; k0 += kBC) {
     __syncthreads();  // the previous tile's Ks, Vs, Pe, dSe are consumed
-    load_rows(Ks, ld, kb, ks, k0, kBC, d.Sk, d.hd, D);
-    load_rows(Vs, ld, vb, ks, k0, kBC, d.Sk, d.hd, D);
+    load_rows(Ks, ldq, kb, ks, k0, kBC, d.Sk, d.hd, Dq);
+    load_rows(Vs, ldv, vb, vs, k0, kBC, d.Sk, d.vd, Dv);
     __syncthreads();
-    mm<false, false, true>(Ss, ldsc, Qs, ld, Ks, ld, kBR, kBC, D);    // S = q k^T
-    mm<false, false, true>(dPs, ldsc, dOs, ld, Vs, ld, kBR, kBC, D);  // dP = do v^T
+    mm<false, false, true>(Ss, ldsc, Qs, ldq, Ks, ldq, BR, kBC, Dq);    // S = q k^T
+    mm<false, false, true>(dPs, ldsc, dOs, ldv, Vs, ldv, BR, kBC, Dv);  // dP = do v^T
     __syncthreads();
-    softmax_grad(Ss, dPs, Pe, dSe, ldsc, lde, lses, Dvs, q0, k0, d.Sq, d.Sk, d.q_offset, d.causal,
-                 d.window, d.scale);
+    softmax_grad<BR>(Ss, dPs, Pe, dSe, ldsc, lde, lses, Dvs, q0, k0, d.Sq, d.Sk, d.q_offset,
+                     d.causal, d.window, d.scale);
     __syncthreads();
-    mm<true, false, false>(dQs, D + 4, dSe, lde, Ks, ld, kBR, D, kBC);  // dq += dS k
+    mm<true, false, false>(dQs, Dq + 4, dSe, lde, Ks, ldq, BR, Dq, kBC);  // dq += dS k
   }
   __syncthreads();
   T* dqb = dq + (long long)b * d.Sq * qs + (long long)h * d.hd;
-  for (int i = threadIdx.x; i < kBR * d.hd; i += kThreads) {
+  for (int i = threadIdx.x; i < BR * d.hd; i += kThreads) {
     const int r = i / d.hd, c = i % d.hd;
-    if (q0 + r < d.Sq) store_f32(dqb, (size_t)((q0 + r) * qs + c), dQs[r * (D + 4) + c] * d.scale);
+    if (q0 + r < d.Sq)
+      store_f32(dqb, (size_t)((q0 + r) * qs + c), dQs[r * (Dq + 4) + c] * d.scale);
   }
 }
 
-// 2. dk and dv.  Block (key tile, b * Hkv + hk).
-template <typename T>
+// 2. dk and dv.  Block (key tile, b * Hkv + hk, split z): the query heads
+// z gps .. z gps + gps - 1 of the kv head's G, gps = ceil(G / splits).
+// One split writes dk (scaled) and dv; more write f32 partials, (splits,
+// B, Sk, Hkv, hd) and then (splits, B, Sk, Hkv, vd), which reduce_splits
+// adds in split order.
+template <typename T, int BR>
 __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const float* __restrict__ lse, const T* __restrict__ dout,
-            const float* __restrict__ Dglob, T* __restrict__ dk, T* __restrict__ dv, Dims d,
-            int D) {
+            const float* __restrict__ Dglob, T* __restrict__ dk, T* __restrict__ dv,
+            float* __restrict__ part, Dims d, int Dq, int Dv) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* p = smem_raw + ((128 - ((uintptr_t)smem_raw & 127)) & 127);
-  const int ld = D + 1, ldsc = kBC + 4, lde = kBC + 1;
-  float* Qs = carve(p, (size_t)kBR * ld);
-  float* dOs = carve(p, (size_t)kBR * ld);
-  float* Ks = carve(p, (size_t)kBC * ld);
-  float* Vs = carve(p, (size_t)kBC * ld);
-  float* Pe = carve(p, (size_t)kBR * lde);
-  float* dSe = carve(p, (size_t)kBR * lde);
-  float* Ss = carve(p, (size_t)kBR * ldsc);
-  float* dPs = carve(p, (size_t)kBR * ldsc);
-  float* dKs = carve(p, (size_t)kBC * (D + 4));
-  float* dVs = carve(p, (size_t)kBC * (D + 4));
-  float* lses = carve(p, kBR);
-  float* Dvs = carve(p, kBR);
+  const int ldq = Dq + 1, ldv = Dv + 1, ldsc = kBC + 4, lde = kBC + 1;
+  float* Qs = carve(p, (size_t)BR * ldq);
+  float* dOs = carve(p, (size_t)BR * ldv);
+  float* Ks = carve(p, (size_t)kBC * ldq);
+  float* Vs = carve(p, (size_t)kBC * ldv);
+  float* Pe = carve(p, (size_t)BR * lde);
+  float* dSe = carve(p, (size_t)BR * lde);
+  float* Ss = carve(p, (size_t)BR * ldsc);
+  float* dPs = carve(p, (size_t)BR * ldsc);
+  float* lses = carve(p, BR);
+  float* Dvs = carve(p, BR);
+  float* dKs = carve(p, (size_t)kBC * (Dq + 4));
+  float* dVs = carve(p, (size_t)kBC * (Dv + 4));
 
   const int k0 = blockIdx.x * kBC;
   const int bhk = blockIdx.y, b = bhk / d.Hkv, hk = bhk % d.Hkv;
-  const int G = d.H / d.Hkv;
-  const long long qs = (long long)d.H * d.hd, ks = (long long)d.Hkv * d.hd;
+  const int G = d.H / d.Hkv, gps = (G + d.splits - 1) / d.splits;
+  const int g_lo = blockIdx.z * gps, g_hi = min(G, g_lo + gps);
+  const long long qs = (long long)d.H * d.hd, os = (long long)d.H * d.vd;
+  const long long ks = (long long)d.Hkv * d.hd, vs = (long long)d.Hkv * d.vd;
   const T* kb = k + (long long)b * d.Sk * ks + (long long)hk * d.hd;
-  const T* vb = v + (long long)b * d.Sk * ks + (long long)hk * d.hd;
-  load_rows(Ks, ld, kb, ks, k0, kBC, d.Sk, d.hd, D);
-  load_rows(Vs, ld, vb, ks, k0, kBC, d.Sk, d.hd, D);
-  for (int i = threadIdx.x; i < kBC * (D + 4); i += kThreads) dKs[i] = dVs[i] = 0.0f;
+  const T* vb = v + (long long)b * d.Sk * vs + (long long)hk * d.vd;
+  load_rows(Ks, ldq, kb, ks, k0, kBC, d.Sk, d.hd, Dq);
+  load_rows(Vs, ldv, vb, vs, k0, kBC, d.Sk, d.vd, Dv);
+  for (int i = threadIdx.x; i < kBC * (Dq + 4); i += kThreads) dKs[i] = 0.0f;
+  for (int i = threadIdx.x; i < kBC * (Dv + 4); i += kThreads) dVs[i] = 0.0f;
 
   // the query rows that can see a key of this tile
   const int k_last = min(k0 + kBC, d.Sk) - 1;
   int i_begin = d.causal ? max(0, k0 - d.q_offset) : 0;
-  i_begin = (i_begin / kBR) * kBR;
+  i_begin = (i_begin / BR) * BR;
   const int i_end = d.window > 0 ? min(d.Sq, k_last + d.window - d.q_offset) : d.Sq;
-  for (int g = 0; g < G; ++g) {
+  for (int g = g_lo; g < g_hi; ++g) {
     const int h = hk * G + g;
     const int bh = b * d.H + h;
     const T* qb = q + (long long)b * d.Sq * qs + (long long)h * d.hd;
-    const T* dob = dout + (long long)b * d.Sq * qs + (long long)h * d.hd;
-    for (int q0 = i_begin; q0 < i_end; q0 += kBR) {
+    const T* dob = dout + (long long)b * d.Sq * os + (long long)h * d.vd;
+    for (int q0 = i_begin; q0 < i_end; q0 += BR) {
       __syncthreads();  // the previous tile's Qs, dOs, Pe, dSe are consumed
-      load_rows(Qs, ld, qb, qs, q0, kBR, d.Sq, d.hd, D);
-      load_rows(dOs, ld, dob, qs, q0, kBR, d.Sq, d.hd, D);
-      for (int r = threadIdx.x; r < kBR; r += kThreads) {
+      load_rows(Qs, ldq, qb, qs, q0, BR, d.Sq, d.hd, Dq);
+      load_rows(dOs, ldv, dob, os, q0, BR, d.Sq, d.vd, Dv);
+      for (int r = threadIdx.x; r < BR; r += kThreads) {
         const bool in = q0 + r < d.Sq;
         lses[r] = in ? lse[(long long)bh * d.Sq + q0 + r] : 0.0f;
         Dvs[r] = in ? Dglob[(long long)bh * d.Sq + q0 + r] : 0.0f;
       }
       __syncthreads();
-      mm<false, false, true>(Ss, ldsc, Qs, ld, Ks, ld, kBR, kBC, D);
-      mm<false, false, true>(dPs, ldsc, dOs, ld, Vs, ld, kBR, kBC, D);
+      mm<false, false, true>(Ss, ldsc, Qs, ldq, Ks, ldq, BR, kBC, Dq);
+      mm<false, false, true>(dPs, ldsc, dOs, ldv, Vs, ldv, BR, kBC, Dv);
       __syncthreads();
-      softmax_grad(Ss, dPs, Pe, dSe, ldsc, lde, lses, Dvs, q0, k0, d.Sq, d.Sk, d.q_offset,
-                   d.causal, d.window, d.scale);
+      softmax_grad<BR>(Ss, dPs, Pe, dSe, ldsc, lde, lses, Dvs, q0, k0, d.Sq, d.Sk, d.q_offset,
+                       d.causal, d.window, d.scale);
       __syncthreads();
-      mm<true, true, false>(dVs, D + 4, Pe, lde, dOs, ld, kBC, D, kBR);  // dv += P^T do
-      mm<true, true, false>(dKs, D + 4, dSe, lde, Qs, ld, kBC, D, kBR);  // dk += dS^T q
+      mm<true, true, false>(dVs, Dv + 4, Pe, lde, dOs, ldv, kBC, Dv, BR);  // dv += P^T do
+      mm<true, true, false>(dKs, Dq + 4, dSe, lde, Qs, ldq, kBC, Dq, BR);  // dk += dS^T q
     }
   }
   __syncthreads();
-  T* dkb = dk + (long long)b * d.Sk * ks + (long long)hk * d.hd;
-  T* dvb = dv + (long long)b * d.Sk * ks + (long long)hk * d.hd;
+  if (d.splits == 1) {
+    T* dkb = dk + (long long)b * d.Sk * ks + (long long)hk * d.hd;
+    T* dvb = dv + (long long)b * d.Sk * vs + (long long)hk * d.vd;
+    for (int i = threadIdx.x; i < kBC * d.hd; i += kThreads) {
+      const int r = i / d.hd, c = i % d.hd;
+      if (k0 + r < d.Sk)
+        store_f32(dkb, (size_t)((k0 + r) * ks + c), dKs[r * (Dq + 4) + c] * d.scale);
+    }
+    for (int i = threadIdx.x; i < kBC * d.vd; i += kThreads) {
+      const int r = i / d.vd, c = i % d.vd;
+      if (k0 + r < d.Sk) store_f32(dvb, (size_t)((k0 + r) * vs + c), dVs[r * (Dv + 4) + c]);
+    }
+    return;
+  }
+  const long long nk = (long long)d.B * d.Sk * ks, nv = (long long)d.B * d.Sk * vs;
+  float* pk = part + blockIdx.z * nk + (long long)b * d.Sk * ks + (long long)hk * d.hd;
+  float* pv = part + d.splits * nk + blockIdx.z * nv + (long long)b * d.Sk * vs +
+              (long long)hk * d.vd;
   for (int i = threadIdx.x; i < kBC * d.hd; i += kThreads) {
     const int r = i / d.hd, c = i % d.hd;
-    if (k0 + r < d.Sk) {
-      store_f32(dkb, (size_t)((k0 + r) * ks + c), dKs[r * (D + 4) + c] * d.scale);
-      store_f32(dvb, (size_t)((k0 + r) * ks + c), dVs[r * (D + 4) + c]);
+    if (k0 + r < d.Sk) pk[(k0 + r) * ks + c] = dKs[r * (Dq + 4) + c];
+  }
+  for (int i = threadIdx.x; i < kBC * d.vd; i += kThreads) {
+    const int r = i / d.vd, c = i % d.vd;
+    if (k0 + r < d.Sk) pv[(k0 + r) * vs + c] = dVs[r * (Dv + 4) + c];
+  }
+}
+
+// 3. dk = scale sum_z part_k[z], dv = sum_z part_v[z], the splits added in
+// order (only when the dk/dv grid ran with more than one split).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+reduce_splits(const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
+              long long nk, long long nv, int splits, float scale) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < nk + nv; i += stride) {
+    if (i < nk) {
+      float s = part[i];
+      for (int z = 1; z < splits; ++z) s += part[z * nk + i];
+      store_f32(dk, (size_t)i, s * scale);
+    } else {
+      const long long j = i - nk;
+      const float* pv = part + splits * nk;
+      float s = pv[j];
+      for (int z = 1; z < splits; ++z) s += pv[z * nv + j];
+      store_f32(dv, (size_t)j, s);
     }
   }
 }
 
+template <typename T, int BR>
+int launch_rows(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                const void* dout, void* dq, void* dk, void* dv, float* Dscratch, float* part,
+                const Dims& d, int Dq, int Dv, cudaStream_t stream) {
+  const size_t s1 = dq_smem(Dq, Dv, BR), s2 = dkdv_smem(Dq, Dv, BR);
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel<T, BR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dkdv_kernel<T, BR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)s2);
+  if (err != cudaSuccess) return (int)err;
+  dim3 g1((unsigned)((d.Sq + BR - 1) / BR), (unsigned)(d.B * d.H));
+  dq_kernel<T, BR><<<g1, kThreads, s1, stream>>>((const T*)q, (const T*)k, (const T*)v,
+                                                 (const T*)o, lse, (const T*)dout, (T*)dq,
+                                                 Dscratch, d, Dq, Dv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || d.Sk == 0) return (int)err;
+  dim3 g2((unsigned)((d.Sk + kBC - 1) / kBC), (unsigned)(d.B * d.Hkv), (unsigned)d.splits);
+  dkdv_kernel<T, BR><<<g2, kThreads, s2, stream>>>((const T*)q, (const T*)k, (const T*)v, lse,
+                                                   (const T*)dout, Dscratch, (T*)dk, (T*)dv,
+                                                   part, d, Dq, Dv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || d.splits == 1) return (int)err;
+  const long long nk = (long long)d.B * d.Sk * d.Hkv * d.hd;
+  const long long nv = (long long)d.B * d.Sk * d.Hkv * d.vd;
+  const long long blocks = min((nk + nv + kThreads - 1) / kThreads, 132LL * 16);
+  reduce_splits<T><<<(unsigned)blocks, kThreads, 0, stream>>>(part, (T*)dk, (T*)dv, nk, nv,
+                                                             d.splits, d.scale);
+  return (int)cudaGetLastError();
+}
+
+// Query tiles of 64 rows up to hd, vd = 128, of 32 beyond (shared memory).
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
-           const void* dout, void* dq, void* dk, void* dv, float* Dscratch, const Dims& d,
-           cudaStream_t stream) {
-  const int D = (d.hd + 15) / 16 * 16;
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(dq_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 g1((unsigned)((d.Sq + kBR - 1) / kBR), (unsigned)(d.B * d.H));
-  dq_kernel<T><<<g1, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                               (const T*)o, lse, (const T*)dout, (T*)dq,
-                                               Dscratch, d, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (d.Sk > 0) {
-    dim3 g2((unsigned)((d.Sk + kBC - 1) / kBC), (unsigned)(d.B * d.Hkv));
-    dkdv_kernel<T><<<g2, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, lse,
-                                                   (const T*)dout, Dscratch, (T*)dk, (T*)dv, d,
-                                                   D);
-  }
-  return (int)cudaGetLastError();
+           const void* dout, void* dq, void* dk, void* dv, float* Dscratch, float* part,
+           const Dims& d, cudaStream_t stream) {
+  const int Dq = (d.hd + 15) / 16 * 16, Dv = (d.vd + 15) / 16 * 16;
+  if (Dq <= 128 && Dv <= 128)
+    return launch_rows<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, Dscratch, part, d, Dq, Dv,
+                              stream);
+  return launch_rows<T, 32>(q, k, v, o, lse, dout, dq, dk, dv, Dscratch, part, d, Dq, Dv, stream);
 }
 
 }  // namespace cc
 
+// ---------------------------------------------------------------------------
+// warp tensor-core route: bf16 at head dims the wgmma route does not take
+// ---------------------------------------------------------------------------
+namespace wm {
+
+constexpr int kRows = 128;  // query rows a dq block, 16 a warp
+constexpr int kKeys = 64;   // keys a dk/dv block, 16 a warp of either kind
+constexpr int kStep = 64;   // keys a dq step; query rows a dk/dv step
+constexpr int kPad = 8;     // bf16 of padding a shared-memory row: ldmatrix rows 16 B apart
+constexpr int kThreads = 256;
+
+using bf16 = __nv_bfloat16;
+
+// D (16 x 8, f32) += A (16 x 16, bf16 row) B (16 x 8, bf16 col).  Fragments
+// (lane l, g = l / 4, t = l % 4): a0 (row g, cols 2t, 2t+1), a1 (row g + 8),
+// a2 (row g, cols + 8), a3 (row g + 8, cols + 8); b0 (rows 2t, 2t+1, col g),
+// b1 (rows + 8); d0, d1 (row g, cols 2t, 2t+1), d2, d3 (row g + 8).
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// Four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8; register j holds matrix j's (row l / 4, cols
+// 2 (l % 4), + 1), or with .trans its (rows 2 (l % 4), + 1, col l / 4).
+__device__ __forceinline__ void ldsm4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// Rows [r0, r0 + R) of one head of a (B, S, heads, dim) bf16 tensor into
+// shared memory (ld elements a row), 16 bytes a thread, rows past S zero.
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
+                                          long long row_stride, int r0, int R, int S, int dim) {
+  const int chunks = dim / 8;
+  for (int i = threadIdx.x; i < R * chunks; i += kThreads) {
+    const int r = i / chunks, c = (i % chunks) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  }
+}
+
+// The same rows copied asynchronously (cp.async, 16 bytes a thread; a row
+// past S is zero-filled, its source not read), for the caller to commit and
+// wait on.
+__device__ __forceinline__ void load_tile_async(bf16* dst, int ld, const bf16* src,
+                                                long long row_stride, int r0, int R, int S,
+                                                int dim) {
+  const int chunks = dim / 8;
+  for (int i = threadIdx.x; i < R * chunks; i += kThreads) {
+    const int r = i / chunks, c = (i % chunks) * 8;
+    const bool in = r0 + r < S;
+    const bf16* from = src + (in ? (r0 + r) * row_stride + c : 0);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(smem_u32(dst + r * ld + c)), "l"(from), "r"(in ? 16 : 0));
+  }
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// C (16 x 64) += A (16 rows at a) B^T (64 rows at b), both rows of K
+// contiguous bf16 in shared memory; C as 8 n-tiles of the mma's D layout.
+__device__ __forceinline__ void nt_16x64(float (*c)[4], const bf16* a, int lda, const bf16* b,
+                                         int ldb, int K) {
+  const int lane = threadIdx.x & 31, r8 = lane & 7, j = lane >> 3;
+  const uint32_t a_addr = smem_u32(a + (r8 + 8 * (j & 1)) * lda + 8 * (j >> 1));
+  const uint32_t b_addr = smem_u32(b + (r8 + 8 * (j >> 1)) * ldb + 8 * (j & 1));
+  for (int k = 0; k < K; k += 16) {
+    uint32_t af[4];
+    ldsm4(af, a_addr + 2 * k);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {  // n-tiles 2n, 2n + 1: rows 16n .. 16n + 15 of b
+      uint32_t bf[4];
+      ldsm4(bf, b_addr + 2 * (16 * n * ldb + k));
+      mma_bf16(c[2 * n], af, bf[0], bf[1]);
+      mma_bf16(c[2 * n + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// C (16 x N) += A (16 x 64, four k-steps of A fragments in registers) B
+// (64 x N, row-major in shared memory), N a multiple of 16 up to 256.
+__device__ __forceinline__ void nn_16xN(float (*c)[4], const uint32_t (*a)[4], const bf16* b,
+                                        int ldb, int N) {
+  const int lane = threadIdx.x & 31, r8 = lane & 7, j = lane >> 3;
+  const uint32_t b_addr = smem_u32(b + (r8 + 8 * (j & 1)) * ldb + 8 * (j >> 1));
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {  // n-tiles 2n, 2n + 1: columns 16n .. 16n + 15
+      if (16 * n < N) {
+        uint32_t bf[4];
+        ldsm4t(bf, b_addr + 2 * (16 * s * ldb + 16 * n));
+        mma_bf16(c[2 * n], a[s], bf[0], bf[1]);
+        mma_bf16(c[2 * n + 1], a[s], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// A (16 x 64) fragments of a D-layout tile of 8 n-tiles, rounded to bf16.
+__device__ __forceinline__ void to_a(uint32_t (*a)[4], const float (*x)[4]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    a[s][0] = hopper::pack_bf16(x[2 * s][0], x[2 * s][1]);
+    a[s][1] = hopper::pack_bf16(x[2 * s][2], x[2 * s][3]);
+    a[s][2] = hopper::pack_bf16(x[2 * s + 1][0], x[2 * s + 1][1]);
+    a[s][3] = hopper::pack_bf16(x[2 * s + 1][2], x[2 * s + 1][3]);
+  }
+}
+
+// dq: q and do (kRows rows), k and v (kStep), lse and D of kRows; dk/dv: k
+// and v (kKeys rows), two stages of q and do (kStep) with their lse and D.
+size_t dq_smem(const Dims& d) {
+  return 128 + (size_t)2 * (kRows + kStep) * (d.hd + d.vd + 2 * kPad) +
+         2 * kRows * sizeof(float);
+}
+size_t dkdv_smem(const Dims& d) {
+  return 128 + (size_t)2 * (kKeys + 2 * kStep) * (d.hd + d.vd + 2 * kPad) +
+         4 * kStep * sizeof(float);
+}
+
+// 1. dq (and D).  Block (tile of 128 query rows, b * H + h); warp w owns rows
+// 16 w .. 16 w + 15 and steps over the visible keys 64 at a time: S = q k^T
+// and dP = do v^T on the tensor cores, P = exp(S scale - lse), dS = P (dP -
+// D) rounded to bf16 in registers, dq += dS k.
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const bf16* __restrict__ o, const float* __restrict__ lse,
+          const bf16* __restrict__ dout, bf16* __restrict__ dq, float* __restrict__ Dglob,
+          Dims d, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + ((128 - ((uintptr_t)smem_raw & 127)) & 127));
+  const int ldq = d.hd + kPad, ldv = d.vd + kPad;
+  bf16* dOs = Qs + kRows * ldq;
+  bf16* Ks = dOs + kRows * ldv;
+  bf16* Vs = Ks + kStep * ldq;
+  float* rowl = reinterpret_cast<float*>(Vs + kStep * ldv);
+  float* rowd = rowl + kRows;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kRows;
+  const int bh = blockIdx.y, b = bh / d.H, h = bh % d.H;
+  const int hk = h / (d.H / d.Hkv);
+  const long long qs = (long long)d.H * d.hd, os = (long long)d.H * d.vd;
+  const long long ks = (long long)d.Hkv * d.hd, vs = (long long)d.Hkv * d.vd;
+  const bf16* qb = q + (long long)b * d.Sq * qs + (long long)h * d.hd;
+  const bf16* ob = o + (long long)b * d.Sq * os + (long long)h * d.vd;
+  const bf16* dob = dout + (long long)b * d.Sq * os + (long long)h * d.vd;
+  const bf16* kb = k + (long long)b * d.Sk * ks + (long long)hk * d.hd;
+  const bf16* vb = v + (long long)b * d.Sk * vs + (long long)hk * d.vd;
+
+  load_tile(Qs, ldq, qb, qs, q0, kRows, d.Sq, d.hd);
+  load_tile(dOs, ldv, dob, os, q0, kRows, d.Sq, d.vd);
+  // D_i = do_i . o_i: one warp a row, lanes over columns, a fixed tree; lse
+  // in log2 units
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    const int qi = q0 + r;
+    float s = 0.0f;
+    if (qi < d.Sq)
+      for (int c = lane; c < d.vd; c += 32)
+        s = fmaf(__bfloat162float(dob[qi * os + c]), __bfloat162float(ob[qi * os + c]), s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) {
+      rowd[r] = s;
+      rowl[r] = qi < d.Sq ? lse[(long long)bh * d.Sq + qi] * kLog2e : 0.0f;
+      if (qi < d.Sq) Dglob[(long long)bh * d.Sq + qi] = s;
+    }
+  }
+
+  const int r_lo = q0 + 16 * warp;  // this warp's first row
+  const int pos_lo = d.q_offset + r_lo;
+  const int pos_hi = d.q_offset + min(r_lo + 15, d.Sq - 1);
+  const int qpos_hi = d.q_offset + min(q0 + kRows, d.Sq) - 1;
+  const int k_end = d.causal ? min(d.Sk, qpos_hi + 1) : d.Sk;
+  int k_begin = d.window > 0 ? max(0, d.q_offset + q0 - d.window + 1) : 0;
+  k_begin = (k_begin / kStep) * kStep;
+  float acc[32][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  for (int kt = k_begin; kt < k_end; kt += kStep) {
+    __syncthreads();  // the last step's k and v are consumed (and D, lse written)
+    load_tile(Ks, ldq, kb, ks, kt, kStep, d.Sk, d.hd);
+    load_tile(Vs, ldv, vb, vs, kt, kStep, d.Sk, d.vd);
+    __syncthreads();
+    bool active = r_lo < d.Sq;
+    if (d.causal) active = active && kt <= pos_hi;
+    if (d.window > 0) active = active && kt + kStep - 1 > pos_lo - d.window;
+    if (!active) continue;
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.0f;
+    nt_16x64(sc, Qs + 16 * warp * ldq, ldq, Ks, ldq, d.hd);   // S = q k^T
+    nt_16x64(dp, dOs + 16 * warp * ldv, ldv, Vs, ldv, d.vd);  // dP = do v^T
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * warp + g + 8 * (e >> 1), qi = q0 + r;
+        const int key = kt + 8 * i + 2 * t + (e & 1);
+        const float p = exp2f(sc[i][e] * scale_log2 - rowl[r]);
+        const bool ok = qi < d.Sq && visible(d.q_offset + qi, key, d.Sk, d.causal, d.window);
+        sc[i][e] = ok ? p * (dp[i][e] - rowd[r]) : 0.0f;  // dS
+      }
+    uint32_t af[4][4];
+    to_a(af, sc);
+    nn_16xN(acc, af, Ks, ldq, d.hd);  // dq += dS k
+  }
+  bf16* dqb = dq + (long long)b * d.Sq * qs + (long long)h * d.hd;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = 8 * i + 2 * t;
+    if (c >= d.hd) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qi = r_lo + g + 8 * half;
+      if (qi < d.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + qi * qs + c) = __floats2bfloat162_rn(
+            acc[i][2 * half] * d.scale, acc[i][2 * half + 1] * d.scale);
+    }
+  }
+}
+
+// 2. dk and dv.  Block (tile of 64 keys, b * Hkv + hk, split z: its share of
+// the kv head's query heads, as on the CUDA-core route).  Warps 0-3 own 16
+// keys each for dv (S^T = k q^T, P^T, dv += P^T do), warps 4-7 the same keys
+// for dk (S^T and dP^T = v do^T, dS^T = P^T (dP^T - D), dk += dS^T q): dv
+// and dk of 16 keys at vd = hd = 256 take 128 f32 registers a thread each,
+// so no warp holds both.  The q and do tiles (with their lse and D rows)
+// come through two stages, the next tile's cp.async in flight during this
+// one's products.  One split writes dk (scaled) and dv; more write f32
+// partials that cc::reduce_splits adds in split order.
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+            const float* __restrict__ lse, const bf16* __restrict__ dout,
+            const float* __restrict__ Dglob, bf16* __restrict__ dk, bf16* __restrict__ dv,
+            float* __restrict__ part, Dims d, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + ((128 - ((uintptr_t)smem_raw & 127)) & 127));
+  const int ldq = d.hd + kPad, ldv = d.vd + kPad;
+  bf16* Vs = Ks + kKeys * ldq;
+  bf16* Q0 = Vs + kKeys * ldv;  // stage s: q at Q0 + s (qstage), do after it
+  const int qstage = kStep * (ldq + ldv);
+  float* rows = reinterpret_cast<float*>(Q0 + 2 * qstage);  // stage s: lse, then D
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const bool dk_role = warp >= 4;
+  const int kw = warp & 3;
+  const int k0 = blockIdx.x * kKeys;
+  const int bhk = blockIdx.y, b = bhk / d.Hkv, hk = bhk % d.Hkv;
+  const int G = d.H / d.Hkv, gps = (G + d.splits - 1) / d.splits;
+  const int g_lo = blockIdx.z * gps, g_hi = min(G, g_lo + gps);
+  const long long qs = (long long)d.H * d.hd, os = (long long)d.H * d.vd;
+  const long long ks = (long long)d.Hkv * d.hd, vs = (long long)d.Hkv * d.vd;
+  load_tile(Ks, ldq, k + (long long)b * d.Sk * ks + (long long)hk * d.hd, ks, k0, kKeys, d.Sk,
+            d.hd);
+  load_tile(Vs, ldv, v + (long long)b * d.Sk * vs + (long long)hk * d.vd, vs, k0, kKeys, d.Sk,
+            d.vd);
+
+  const int kw0 = k0 + 16 * kw;  // this warp's first key
+  const int k_last = min(k0 + kKeys, d.Sk) - 1;
+  int i_begin = d.causal ? max(0, k0 - d.q_offset) : 0;
+  i_begin = (i_begin / kStep) * kStep;
+  const int i_end = d.window > 0 ? min(d.Sq, k_last + d.window - d.q_offset) : d.Sq;
+  const int nt = i_end > i_begin ? (i_end - i_begin + kStep - 1) / kStep : 0;
+  const int total = g_hi > g_lo ? (g_hi - g_lo) * nt : 0;
+  const int ncols = dk_role ? d.hd : d.vd;
+
+  auto issue = [&](int j) {  // tile j: query head hk G + g_lo + j / nt, rows from q0
+    const int st = j & 1, h = hk * G + g_lo + j / nt, q0 = i_begin + (j % nt) * kStep;
+    bf16* Qd = Q0 + st * qstage;
+    load_tile_async(Qd, ldq, q + (long long)b * d.Sq * qs + (long long)h * d.hd, qs, q0, kStep,
+                    d.Sq, d.hd);
+    load_tile_async(Qd + kStep * ldq, ldv, dout + (long long)b * d.Sq * os + (long long)h * d.vd,
+                    os, q0, kStep, d.Sq, d.vd);
+    const long long bh = (long long)b * d.H + h;
+    for (int r = tid; r < kStep; r += kThreads) {
+      const bool in = q0 + r < d.Sq;
+      rows[st * 2 * kStep + r] = in ? lse[bh * d.Sq + q0 + r] * kLog2e : 0.0f;
+      rows[st * 2 * kStep + kStep + r] = in ? Dglob[bh * d.Sq + q0 + r] : 0.0f;
+    }
+    cp_commit();
+  };
+
+  float acc[32][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  if (total > 0) issue(0);
+  for (int j = 0; j < total; ++j) {
+    if (j + 1 < total) {
+      issue(j + 1);  // into the stage tile j - 1 used, which every warp has left
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // tile j's copies (and k, v at j = 0) visible to every warp
+    const int st = j & 1, q0 = i_begin + (j % nt) * kStep;
+    const bf16* Qs = Q0 + st * qstage;
+    const bf16* dOs = Qs + kStep * ldq;
+    const float* rowl = rows + st * 2 * kStep;
+    const float* rowd = rowl + kStep;
+    const int qp0 = d.q_offset + q0;
+    bool active = kw0 < d.Sk;
+    if (d.causal) active = active && qp0 + kStep - 1 >= kw0;
+    if (d.window > 0) active = active && kw0 + 15 > qp0 - d.window;
+    if (active) {
+      float sc[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.0f;
+      nt_16x64(sc, Ks + 16 * kw * ldq, ldq, Qs, ldq, d.hd);  // S^T = k q^T
+      uint32_t af[4][4];
+      if (dk_role) {
+        float dp[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.0f;
+        nt_16x64(dp, Vs + 16 * kw * ldv, ldv, dOs, ldv, d.vd);  // dP^T = v do^T
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kw0 + g + 8 * (e >> 1), c = 8 * i + 2 * t + (e & 1), qi = q0 + c;
+            const float p = exp2f(sc[i][e] * scale_log2 - rowl[c]);
+            const bool ok = qi < d.Sq && visible(d.q_offset + qi, key, d.Sk, d.causal, d.window);
+            sc[i][e] = ok ? p * (dp[i][e] - rowd[c]) : 0.0f;  // dS^T
+          }
+        to_a(af, sc);
+        nn_16xN(acc, af, Qs, ldq, d.hd);  // dk += dS^T q
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kw0 + g + 8 * (e >> 1), c = 8 * i + 2 * t + (e & 1), qi = q0 + c;
+            const float p = exp2f(sc[i][e] * scale_log2 - rowl[c]);
+            const bool ok = qi < d.Sq && visible(d.q_offset + qi, key, d.Sk, d.causal, d.window);
+            sc[i][e] = ok ? p : 0.0f;  // P^T
+          }
+        to_a(af, sc);
+        nn_16xN(acc, af, dOs, ldv, d.vd);  // dv += P^T do
+      }
+    }
+    __syncthreads();  // every warp is done with stage j & 1 before tile j + 2 lands there
+  }
+  const float mult = dk_role ? d.scale : 1.0f;
+  const int dim = dk_role ? d.hd : d.vd;
+  const long long stride = dk_role ? ks : vs;
+  const long long col0 = (long long)hk * dim;
+  const long long nk = (long long)d.B * d.Sk * ks, nv = (long long)d.B * d.Sk * vs;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = 8 * i + 2 * t;
+    if (c >= ncols) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = kw0 + g + 8 * half;
+      if (key >= d.Sk) continue;
+      const long long at = ((long long)b * d.Sk + key) * stride + col0 + c;
+      if (d.splits == 1) {
+        bf16* out = dk_role ? dk : dv;
+        *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(
+            acc[i][2 * half] * mult, acc[i][2 * half + 1] * mult);
+      } else {
+        float* pz = dk_role ? part + blockIdx.z * nk : part + d.splits * nk + blockIdx.z * nv;
+        pz[at] = acc[i][2 * half];
+        pz[at + 1] = acc[i][2 * half + 1];
+      }
+    }
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
+           const void* dout, void* dq, void* dk, void* dv, float* Dscratch, float* part,
+           const Dims& d, cudaStream_t stream) {
+  const size_t s1 = dq_smem(d), s2 = dkdv_smem(d);
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)s1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)s2);
+  if (err != cudaSuccess) return (int)err;
+  const float scale_log2 = d.scale * kLog2e;
+  dim3 g1((unsigned)((d.Sq + kRows - 1) / kRows), (unsigned)(d.B * d.H));
+  dq_kernel<<<g1, kThreads, s1, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                          (const bf16*)o, lse, (const bf16*)dout, (bf16*)dq,
+                                          Dscratch, d, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || d.Sk == 0) return (int)err;
+  dim3 g2((unsigned)((d.Sk + kKeys - 1) / kKeys), (unsigned)(d.B * d.Hkv), (unsigned)d.splits);
+  dkdv_kernel<<<g2, kThreads, s2, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, lse,
+                                            (const bf16*)dout, Dscratch, (bf16*)dk, (bf16*)dv,
+                                            part, d, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || d.splits == 1) return (int)err;
+  const long long nk = (long long)d.B * d.Sk * d.Hkv * d.hd;
+  const long long nv = (long long)d.B * d.Sk * d.Hkv * d.vd;
+  const long long blocks = min((nk + nv + 255) / 256, 132LL * 16);
+  cc::reduce_splits<bf16><<<(unsigned)blocks, 256, 0, stream>>>(part, (bf16*)dk, (bf16*)dv, nk,
+                                                               nv, d.splits, d.scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wm
+
 }  // namespace
 
-// q, o, dout, dq (B, Sq, H, hd) and k, v, dk, dv (B, Sk, Hkv, hd) of one
-// dtype (f32 or bf16), contiguous; lse (B, H, Sq) f32 from the forward;
-// ``scratch`` f32 of 2 B H ceil(Sq / 64) 64 floats (the tensor-core route's
-// lse and D rows; the CUDA-core route uses B H Sq of them for D).
-// tensor_cores != 0: bf16 with hd a multiple of 16, 16-byte aligned rows.
-// window <= 0: no window.  Returns a CUDA error code.
+// q, dq (B, Sq, H, hd), o, dout (B, Sq, H, vd), k, dk (B, Sk, Hkv, hd) and
+// v, dv (B, Sk, Hkv, vd) of one dtype (f32 or bf16), contiguous; lse (B, H,
+// Sq) f32 from the forward; ``scratch`` f32 of 2 B H ceil(Sq / 64) 64 floats
+// (the tensor-core route's lse and D rows; the CUDA-core route uses B H Sq
+// of them for D), then, when ``splits`` > 1, splits B Sk Hkv (hd + vd) for
+// the dk/dv grid's partials (CUDA-core and warp tensor-core routes).
+// route: 0 CUDA cores; 1 wgmma (bf16 with hd = vd a multiple of 16 up to 128,
+// 16-byte aligned rows, splits = 1); 2 warp tensor cores (bf16 with hd and vd
+// multiples of 16).  window <= 0: no window.  Returns a CUDA error code.
 extern "C" int launch_flash_attention_bwd(const void* q, const void* k, const void* v,
                                           const void* o, const void* lse, const void* dout,
                                           void* dq, void* dk, void* dv, void* scratch, int B,
-                                          int Sq, int Sk, int H, int Hkv, int hd, int q_offset,
-                                          int causal, int window, int dtype, int tensor_cores,
-                                          float scale, int device, void* stream) {
+                                          int Sq, int Sk, int H, int Hkv, int hd, int vd,
+                                          int splits, int q_offset, int causal, int window,
+                                          int dtype, int route, float scale, int device,
+                                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (hd < 1 || hd > kMaxD || Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if (hd < 1 || hd > kMaxD || vd < 1 || vd > kMaxD || Hkv < 1 || H % Hkv != 0 || splits < 1 ||
+      splits > H / Hkv)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaGetLastError();
-  const Dims d{B, Sq, Sk, H, Hkv, hd, q_offset, causal, window, scale};
+  const Dims d{B, Sq, Sk, H, Hkv, hd, vd, q_offset, causal, window, splits, scale};
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   float* sc = (float*)scratch;
-  if (tensor_cores) {
-    if (dtype != kBF16 || hd % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (route == kRouteWgmma) {
+    if (dtype != kBF16 || hd % 16 != 0 || vd != hd || hd > kTcMaxD || splits != 1)
+      return (int)cudaErrorInvalidValue;
     if (hd <= 64) return tc::launch<1>(q, k, v, o, l, dout, dq, dk, dv, sc, d, st);
     return tc::launch<2>(q, k, v, o, l, dout, dq, dk, dv, sc, d, st);
   }
-  if (dtype == kF32) return cc::launch<float>(q, k, v, o, l, dout, dq, dk, dv, sc, d, st);
+  const long long pad = (long long)B * H * ((Sq + tc::kRowsPad - 1) / tc::kRowsPad) * tc::kRowsPad;
+  float* part = sc + 2 * pad;
+  if (route == kRouteMma) {
+    if (dtype != kBF16 || hd % 16 != 0 || vd % 16 != 0) return (int)cudaErrorInvalidValue;
+    return wm::launch(q, k, v, o, l, dout, dq, dk, dv, sc, part, d, st);
+  }
+  if (route != kRouteCudaCores) return (int)cudaErrorInvalidValue;
+  if (dtype == kF32) return cc::launch<float>(q, k, v, o, l, dout, dq, dk, dv, sc, part, d, st);
   if (dtype == kBF16)
-    return cc::launch<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, sc, d, st);
+    return cc::launch<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, sc, part, d, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -32,15 +32,29 @@ dim (not a fallback: each route is the kernel for its operands):
 Kernel 16b, ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), is
 the backward: (dq, dk, dv) from q, k, v, the output o, the per-row
 logsumexp ``lse`` (B, H, Sq) f32 that ``flash_attention(..., lse=True)``
-also returns, and do, at hd = vd <= 128 (``BWD_MAX_HEAD_DIM``; training at
-the other head dims waits, ROADMAP.md item 8.1).  It recomputes the scores tile by tile and takes the
-same routes: bf16 with hd a multiple of 16 on the tensor cores (a dq grid,
-which also forms D = do . o, then a dk/dv grid with the transposed scores
-in registers, both on wgmma with tiles brought in by TMA), everything else
-f32 on the CUDA cores.  dk and dv are summed over each kv head's query heads
-in one block, every sum in a fixed order.  ``kernels.ops`` makes
-the pair an ``autograd.Function``; the plain backward (``ref.
-flash_attention_bwd_ref``, autograd of the plain forward) runs on the CPU.
+also returns, and do, at every head dim kernel 16 takes (hd, vd <= 256,
+``BWD_MAX_HEAD_DIM``).  It recomputes the scores tile by tile and has three
+routes (``bwd_route``; ``last_bwd_route`` records the last call's):
+
+  * ``"wgmma"``       bf16 with hd = vd a multiple of 16 up to 128: a dq grid,
+                      which also forms D = do . o, then a dk/dv grid with the
+                      transposed scores in registers, both on wgmma with
+                      tiles brought in by TMA;
+  * ``"mma"``         bf16 with other hd and vd multiples of 16 (MLA's 192 /
+                      128, recurrentgemma's 256, stablelm's 160): the same
+                      two grids on the warp tensor cores (``mma.sync``), P
+                      and dS rounded to bf16 as on wgmma, dk and dv in
+                      separate warps of a block (their accumulators at 256
+                      do not fit one thread's registers together);
+  * ``"cuda_cores"``  f32 (f32 products, not TF32), and bf16 at other dims.
+
+On the last two a kv head's query heads are split across blocks when the
+(key tile, kv head) grid is small (``dkdv_splits``) and the partials added
+in a fixed order.  dk and dv are
+summed over each kv head's query heads, every sum in a fixed order.
+``kernels.ops`` makes the pair an ``autograd.Function``; the plain backward
+(``ref.flash_attention_bwd_ref``, autograd of the plain forward) runs on the
+CPU.
 """
 from __future__ import annotations
 
@@ -52,7 +66,11 @@ from repro_torch.kernels import _args, ref
 from repro_torch.kernels._build import F, I, P, Kernel
 
 MAX_HEAD_DIM = 256
-BWD_MAX_HEAD_DIM = 128  # kernel 16b: hd = vd <= 128
+BWD_MAX_HEAD_DIM = MAX_HEAD_DIM  # kernel 16b: every head dim kernel 16 takes
+BWD_TC_MAX_HEAD_DIM = 128  # 16b's tensor-core route: bf16, hd = vd <= 128
+# csrc/flash_attention_bwd.cu: keys a block of the dk/dv grid, by route
+BWD_KEY_TILE = {"cuda_cores": 32, "mma": 64}
+BWD_ROUTE_CODES = {"cuda_cores": 0, "wgmma": 1, "mma": 2}
 TC_HEAD_DIM_STEP = 16  # the tensor-core route's hd: a multiple of wgmma's bf16 depth
 SCRATCH_ROWS = 64  # csrc/flash_attention_bwd.cu tc::kRowsPad
 
@@ -65,13 +83,14 @@ FLASH_ATTENTION = Kernel(
 
 FLASH_ATTENTION_BWD = Kernel(
     "flash_attention_bwd", "flash_attention_bwd.cu", "launch_flash_attention_bwd",
-    # q k v o lse do dq dk dv scratch B Sq Sk H Hkv hd q_offset causal window dtype
-    # tensor_cores scale dev stream
-    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, I, P],
+    # q k v o lse do dq dk dv scratch B Sq Sk H Hkv hd vd splits q_offset causal window
+    # dtype route scale dev stream
+    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, F, I, P],
     replaces="src/repro/kernels/flash_attention.py:70 (its backward: ops.py _flash_xla)",
 )
 
 last_route: str | None = None
+last_bwd_route: str | None = None
 
 
 def route(dtype: torch.dtype, hd: int, vd: int | None = None) -> str:
@@ -84,9 +103,33 @@ def route(dtype: torch.dtype, hd: int, vd: int | None = None) -> str:
     return "cuda_cores"
 
 
+def bwd_route(dtype: torch.dtype, hd: int, vd: int) -> str:
+    """Kernel 16b's route for these operands: ``"wgmma"`` for bf16 with hd =
+    vd a multiple of 16 up to 128, ``"mma"`` for bf16 with other hd and vd
+    multiples of 16 (the warp tensor cores), else ``"cuda_cores"`` (see the
+    module doc)."""
+    if dtype == torch.bfloat16 and hd % TC_HEAD_DIM_STEP == 0 and vd % TC_HEAD_DIM_STEP == 0:
+        return "wgmma" if hd == vd and hd <= BWD_TC_MAX_HEAD_DIM else "mma"
+    return "cuda_cores"
+
+
+def dkdv_splits(B: int, Sk: int, Hkv: int, G: int, sms: int, key_tile: int = 32) -> int:
+    """Splits of each kv head's G query heads across the dk/dv grid's blocks
+    (the CUDA-core and warp tensor-core routes): 1 while its B Hkv ceil(Sk /
+    key_tile) blocks fill the ``sms`` SMs, else enough splits for about two
+    blocks an SM (each split a ceil(G / splits) heads' share; no split left
+    empty)."""
+    blocks = B * Hkv * -(-Sk // key_tile)
+    if blocks >= sms or G == 1:
+        return 1
+    per = -(-G // -(-2 * sms // max(blocks, 1)))
+    return -(-G // per)
+
+
 def backward_takes(hd: int, vd: int) -> bool:
-    """Whether kernel 16b takes these head dims (hd = vd <= 128)."""
-    return hd == vd and hd <= BWD_MAX_HEAD_DIM
+    """Whether kernel 16b takes these head dims (hd, vd <= 256: every head
+    dim kernel 16 takes)."""
+    return 1 <= hd <= BWD_MAX_HEAD_DIM and 1 <= vd <= BWD_MAX_HEAD_DIM
 
 
 def check_backward(hd: int, vd: int) -> None:
@@ -96,8 +139,17 @@ def check_backward(hd: int, vd: int) -> None:
     if not backward_takes(hd, vd):
         raise NotImplementedError(
             f"flash_attention: no backward kernel at hd={hd}, vd={vd} (kernel 16b takes "
-            f"hd = vd <= {BWD_MAX_HEAD_DIM}); training MLA, recurrentgemma-9b and "
-            f"stablelm-12b waits for ROADMAP.md item 8.1")
+            f"hd, vd <= {BWD_MAX_HEAD_DIM})")
+
+
+_sm_count: dict = {}
+
+
+def _sms(dev: torch.device) -> int:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _sm_count:
+        _sm_count[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_count[index]
 
 
 def _positions(q, k, q_offset: int):
@@ -146,25 +198,32 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None
         q_pos, k_pos = _positions(q, k, q_offset)
         return ref.flash_attention_bwd_ref(q, k, v, do, q_pos, k_pos, causal=causal,
                                            window=window)
+    global last_bwd_route
     _check(kern.name, q, k, v, window)
     B, Sq, H, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
     dt, dev = q.dtype, q.device
-    if not backward_takes(hd, v.shape[-1]):
-        raise ValueError(f"{kern.name}: head dims hd={hd}, vd={v.shape[-1]}; the kernel takes "
-                         f"hd = vd <= {BWD_MAX_HEAD_DIM}")
-    _args.check(kern.name, "o", o, (B, Sq, H, hd), (dt,), dev)
-    _args.check(kern.name, "do", do, (B, Sq, H, hd), (dt,), dev)
+    if not backward_takes(hd, vd):
+        raise ValueError(f"{kern.name}: head dims hd={hd}, vd={vd}; the kernel takes "
+                         f"hd, vd <= {BWD_MAX_HEAD_DIM}")
+    _args.check(kern.name, "o", o, (B, Sq, H, vd), (dt,), dev)
+    _args.check(kern.name, "do", do, (B, Sq, H, vd), (dt,), dev)
     _args.check(kern.name, "lse", lse, (B, H, Sq), (torch.float32,), dev)
+    path = bwd_route(dt, hd, vd)
+    splits = 1 if path == "wgmma" else dkdv_splits(B, Sk, Hkv, H // Hkv, _sms(dev),
+                                                   BWD_KEY_TILE[path])
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # the tensor-core route's lse and D rows, padded to whole query tiles
-    scratch = torch.empty(2 * B * H * -(-Sq // SCRATCH_ROWS) * SCRATCH_ROWS,
-                          dtype=torch.float32, device=dev)
+    # the tensor-core route's lse and D rows, padded to whole query tiles,
+    # then the CUDA-core dk/dv grid's partials when its heads are split
+    pad = B * H * -(-Sq // SCRATCH_ROWS) * SCRATCH_ROWS
+    parts = splits * B * Sk * Hkv * (hd + vd) if splits > 1 else 0
+    scratch = torch.empty(2 * pad + parts, dtype=torch.float32, device=dev)
     kern.launch(_args.ptr(q), _args.ptr(k), _args.ptr(v), _args.ptr(o), _args.ptr(lse),
                 _args.ptr(do), _args.ptr(dq), _args.ptr(dk), _args.ptr(dv), _args.ptr(scratch),
-                B, Sq, Sk, H, Hkv, hd, int(q_offset), int(causal),
+                B, Sq, Sk, H, Hkv, hd, vd, splits, int(q_offset), int(causal),
                 0 if window is None else int(window), _args.DTYPE_CODES[dt],
-                int(route(dt, hd) == "wgmma"), 1.0 / math.sqrt(hd), *_args.stream_args(dev))
+                BWD_ROUTE_CODES[path], 1.0 / math.sqrt(hd), *_args.stream_args(dev))
+    last_bwd_route = path
     return dq, dk, dv
 
 

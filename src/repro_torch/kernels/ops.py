@@ -18,12 +18,13 @@ full-arena server step (``scaffold_step``) are the port's own;
 ``attend_cache`` and ``wkv6_step`` (one decode token) are plain tensor
 code in the reference and here.
 
-Gradients through kernels 16-17.  A ctypes kernel is invisible to
-autograd, so on the card ``flash_attention`` and ``wkv6`` go through an
-``autograd.Function`` (``FlashAttention``, ``Wkv6``) whenever a gradient or
-a ``torch.func`` transform may reach them: its backward is a kernel too
-(16b ``flash_attention_bwd``, 17b ``wkv6_bwd``), itself a Function so that
-the backward can run under ``vmap``.  Each Function has an explicit vmap
+Gradients through kernels 16-17 and ``lru_scan``.  A ctypes kernel is
+invisible to autograd, so on the card ``flash_attention``, ``wkv6`` and
+``lru_scan`` go through an ``autograd.Function`` (``FlashAttention``,
+``Wkv6``, ``LruScan``) whenever a gradient or a ``torch.func`` transform
+may reach them: its backward is a kernel too (16b ``flash_attention_bwd``,
+17b ``wkv6_bwd``, ``lru_scan_bwd``), itself a Function so that the
+backward can run under ``vmap``.  Each Function has an explicit vmap
 rule that folds the vmapped dim into the kernel's batch dim ((m, B, S, H,
 d) -> (m B, S, H, d); u (m, H, K) becomes one row of u a client), which is
 how the rounds' ``vmap(grad(loss))`` reaches the kernels.  A CPU tensor
@@ -70,13 +71,14 @@ from repro_torch.kernels.stale_mix import stale_mix
 # server step's mean pass (kernel 3's), the EF21 uplink (kernels 7-8 in
 # one pass), the screen with its keep rule (kernel 11's) and SCAFFOLD's
 # server step (kernel 5's, two launches a call), the backward kernels 16b-17b
-# and the RG-LRU's recurrence, a kernel of the port's own
+# and the RG-LRU's recurrence and its backward, kernels of the port's own
 KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _fu.ARENA_KERNEL,
            _rt.SCAFFOLD_CV, _fu.KERNEL, _rt.EF21_ROWMAX, _rt.EF21_APPLY, _ga.ROW_GATHER,
            _ga.ROW_SCATTER, _sc.SCREEN_UPLINK, _sm.STALE_MIX, _rs.RESIDUAL_NORM,
            _nr.NEIGHBOR_REDUCE, _nr.EDGE_FLIP, _fa.FLASH_ATTENTION, _wk.WKV6,
            _rt.ROUND_TAIL_MEAN, _rt.CLIENT_MEAN, _rt.EF21_UPDATE, _sc.SCREEN_KEEP,
-           _rt.SCAFFOLD_STEP, _fa.FLASH_ATTENTION_BWD, _wk.WKV6_BWD, _lr.LRU_SCAN)
+           _rt.SCAFFOLD_STEP, _fa.FLASH_ATTENTION_BWD, _wk.WKV6_BWD, _lr.LRU_SCAN,
+           _lr.LRU_SCAN_BWD)
 
 
 def affine_inner_fits(width: int) -> bool:
@@ -114,7 +116,7 @@ def row_scatter(dst, idx, rows):
 
 
 # ---------------------------------------------------------------------------
-# kernels 16-17 with a gradient
+# kernels 16-17 and lru_scan with a gradient
 # ---------------------------------------------------------------------------
 
 def _grad_follows(*ts) -> bool:
@@ -290,6 +292,62 @@ class Wkv6Backward(torch.autograd.Function):
                  _unfold(ds0, m)), (0,) * 6)
 
 
+class LruScan(torch.autograd.Function):
+    """``lru_scan`` whose backward is ``lru_scan_bwd``.  ``apply(a, b, h0,
+    keep) -> (y, h_last)``: with ``keep`` the Function saves a, h0 and the
+    states y, which the backward reads; without it (a transform but no
+    gradient) nothing is saved."""
+
+    @staticmethod
+    def forward(a, b, h0, keep):
+        return _lr.lru_scan(a, b, h0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, _, h0, keep = inputs
+        ctx.keep = keep
+        if keep:
+            ctx.save_for_backward(a, h0, output[0])
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        if not ctx.keep:
+            raise RuntimeError("lru_scan: called without keep, so no backward")
+        a, h0, y = ctx.saved_tensors
+        return (*LruScanBackward.apply(a, y, h0, dy, dh_last), None)
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, h0, keep):
+        a, b, h0 = (_fold(t) for t in _batched(info, in_dims[:3], a, b, h0))
+        y, h_last = LruScan.apply(a, b, h0, keep)
+        m = info.batch_size
+        return (_unfold(y, m), _unfold(h_last, m)), (0, 0)
+
+
+class LruScanBackward(torch.autograd.Function):
+    """``lru_scan_bwd`` as a Function, so that it runs under ``vmap``; it
+    has no backward of its own."""
+
+    @staticmethod
+    def forward(a, y, h0, dy, dh_last):
+        return _lr.lru_scan_bwd(a, y, h0, dy.contiguous(), dh_last.contiguous())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("lru_scan: no second derivative (lru_scan_bwd has no "
+                                  "backward)")
+
+    @staticmethod
+    def vmap(info, in_dims, a, y, h0, dy, dh_last):
+        folded = (_fold(t) for t in _batched(info, in_dims, a, y, h0, dy, dh_last))
+        grads = LruScanBackward.apply(*folded)
+        return tuple(_unfold(g, info.batch_size) for g in grads), (0, 0, 0)
+
+
 def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
                     window=None, q_offset=None):
     """Causal (optionally sliding-window) GQA attention, kernel 16.
@@ -353,12 +411,12 @@ def lru_scan(a, b, h0):
     """The RG-LRU recurrence h_t = a_t h_{t-1} + b_t (``kernels.lru_scan``):
     a, b (B, S, D), h0 (B, D) -> (y (B, S, D), h_last (B, D) f32).  The
     reference's ``chunk`` sizes its associative scan and has no
-    counterpart.  The kernel has no backward, so on the card a gradient or
-    a ``torch.func`` transform reaching it raises."""
-    if a.device.type != "cpu" and (_grad_follows(a, b, h0) or _transformed(a, b, h0)):
-        raise NotImplementedError(
-            "lru_scan: the kernel has no backward yet; training recurrentgemma-9b waits for "
-            "ROADMAP.md item 8.1")
+    counterpart.  On the card, inside ``LruScan`` when a gradient or a
+    transform may reach it."""
+    if a.device.type != "cpu":
+        keep = _grad_follows(a, b, h0)
+        if keep or _transformed(a, b, h0):
+            return LruScan.apply(a, b, h0, keep)
     return _lr.lru_scan(a, b, h0)
 
 
@@ -384,7 +442,8 @@ def launches() -> dict[str, int]:
 
 
 __all__ = [
-    "FlashAttention", "FlashAttentionBackward", "KERNELS", "Wkv6", "Wkv6Backward",
+    "FlashAttention", "FlashAttentionBackward", "KERNELS", "LruScan", "LruScanBackward", "Wkv6",
+    "Wkv6Backward",
     "acc_mode_at", "affine_inner_fits", "attend_cache", "client_mean", "dual_from_uplink",
     "edge_flip", "ef21_apply", "ef21_rowmax", "ef21_update", "flash_attention", "fused_update",
     "fused_update_arena", "fused_update_leaves", "inner_loop_affine", "launches", "lru_scan",

@@ -408,6 +408,26 @@ def lru_ref(a, b, h0):
     return y.to(a.dtype), h
 
 
+def lru_bwd_ref(a, y, h0, dy, dh_last):
+    """(da, db, dh0) of ``lru_ref`` from its states ``y`` and the incoming
+    gradients ``dy`` (B, S, D) and ``dh_last`` (B, D), walking back in f32:
+    g_t = dy_t + a_{t+1} g_{t+1} from g_{S-1} = dy_{S-1} + dh_last, da_t =
+    g_t h_{t-1} (h_{-1} = h0), db_t = g_t, dh0 = a_0 g_0.  Each product and
+    sum is rounded on its own, as autograd of ``lru_ref`` rounds them (bit
+    for bit) and as the CUDA kernel does."""
+    f32 = torch.float32
+    af, yf, dyf = a.to(f32), y.to(f32), dy.to(f32)
+    c = dh_last.to(f32)
+    S = a.shape[1]
+    da, db = torch.empty_like(af), torch.empty_like(af)
+    for t in range(S - 1, -1, -1):
+        g = dyf[:, t] + c
+        da[:, t] = g * (yf[:, t - 1] if t else h0.to(f32))
+        db[:, t] = g
+        c = g * af[:, t]
+    return da.to(a.dtype), db.to(a.dtype), c
+
+
 def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal: bool = True, window=None):
     """Causal (optionally sliding-window) GQA attention, the online softmax
     of ``_flash_xla`` over one key chunk, in f32: scores q k^T / sqrt(hd),

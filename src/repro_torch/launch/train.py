@@ -6,8 +6,10 @@
 
 Each round takes every client's gradient as ``vmap(grad(loss))``; on the
 card the attention and RWKV-6 recurrence run as kernels 16-17 forward and
-16b-17b backward through their ``autograd.Function``s (``kernels.ops``), and
-the round's client steps and server step are kernels 4 and 2-3.
+16b-17b backward, the RG-LRU recurrence as ``lru_scan`` and ``lru_scan_bwd``,
+through their ``autograd.Function``s (``kernels.ops``), and the round's client
+steps and server step are kernels 4 and 2-3 (6 on a tree of mixed dtypes,
+which keeps the pytree path).  Every arch of ``configs`` trains.
 
 Checkpointing: ``--ckpt-dir`` saves the full federated state (every arena
 buffer, the server tree, and the round counter) at the end of the run;
@@ -138,7 +140,7 @@ def run(
     if isinstance(eta, str) and torch.device(device).type == "cuda":
         raise NotImplementedError(
             "--eta auto differentiates the client gradient forward-mode, and the backward "
-            "kernels 16b-17b have no forward-mode rule yet (ROADMAP.md, item 8.1); pass a "
+            "kernels have no forward-mode rule yet (ROADMAP.md section 1); pass a "
             "float --eta, or --device cpu")
     dev = resolve(device)
     cfg = get_arch(arch)

@@ -20,6 +20,16 @@ What the port keeps exact where PyTorch's calls promise less than jax's:
     gather too;
   * drops: slot ``cap`` and the sentinel row T are written into an extra
     column and cut off, as ``mode="drop"`` drops them.
+
+Training takes the client gradients as ``vmap(grad(loss))``, so the integer
+bookkeeping (counts, slots, the (E, cap) tables) writes into no tensor in
+place: every scatter is out of place, and the same integers come out.  The
+fused dispatch's token gather (``xt_pad[tok]``, a token in up to k rows) is
+``_DispatchGather``, whose backward gathers a token's k row gradients back
+and adds them in ascending expert order, as the combine adds the forward's:
+autograd's own backward of the gather (``index_put`` with accumulate) adds
+them with float atomics on CUDA, in no fixed order, and a round would not
+repeat bitwise.
 """
 from __future__ import annotations
 
@@ -65,7 +75,7 @@ def capacity(cfg: ArchConfig, T: int, full_capacity: bool) -> int:
 def _count(e, E: int):
     """Choices of each expert, (E,) int64 (integer sums: any order gives
     the same counts; ``bincount`` would wait on the device for its size)."""
-    return torch.zeros(E, dtype=torch.int64, device=e.device).scatter_add_(
+    return torch.zeros(E, dtype=torch.int64, device=e.device).scatter_add(
         0, e, torch.ones_like(e))
 
 
@@ -74,22 +84,51 @@ def _slots(e, E: int, cap: int, counts=None):
     of that expert (the reference's running one-hot sum), plus ``counts``
     of it, ``cap`` where it overflows; and each expert's choices.  The rank
     comes from a stable sort by expert, the same integers as the one-hot
-    cumsum without its (n, E) scan."""
+    cumsum without its (n, E) scan: a choice's place in the sorted order
+    less the choices of the experts before its own."""
+    per_expert = _count(e, E)
     sorted_e, order = torch.sort(e, stable=True)
-    starts = torch.searchsorted(sorted_e, torch.arange(E, device=e.device))
-    pos = torch.empty_like(e)
-    pos[order] = torch.arange(e.shape[0], device=e.device) - starts[sorted_e]
+    starts = torch.cumsum(per_expert, 0) - per_expert
+    rank = torch.arange(e.shape[-1], device=e.device) - starts[sorted_e]
+    pos = torch.zeros_like(e).scatter(0, order, rank)
     if counts is not None:
         pos = pos + counts[e]
-    return torch.where(pos < cap, pos, cap), _count(e, E)
+    return torch.where(pos < cap, pos, cap), per_expert
 
 
 def _table(E: int, cap: int, e, slot, ids, fill: int):
     """(E, cap) of ``ids`` at (e, slot), ``fill`` elsewhere; slot ``cap``
     (an overflow) lands in an extra column that is cut off."""
-    t = torch.full((E, cap + 1), fill, dtype=torch.int64, device=e.device)
-    t[e, slot] = ids
-    return t[:, :cap]
+    t = torch.full((E * (cap + 1),), fill, dtype=torch.int64, device=e.device)
+    return t.scatter(0, e * (cap + 1) + slot, ids).reshape(E, cap + 1)[:, :cap]
+
+
+class _DispatchGather(torch.autograd.Function):
+    """``xt_pad[tok]`` for the fused dispatch: xt (T, D), tok (E, cap) token
+    ids (T = the zero sentinel row) -> (E, cap, D).  Its backward sums each
+    token's row gradients at ``rows`` (T, k): its (expert, slot) rows in
+    ascending expert order, ``kept`` masking the dropped ones; the same
+    order as the forward's combine, in the gradient's dtype."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(xt, tok, rows, kept):
+        return torch.cat([xt, xt.new_zeros((1, xt.shape[-1]))], dim=0)[tok]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, _, rows, kept = inputs
+        ctx.save_for_backward(rows, kept)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, kept = ctx.saved_tensors
+        flat = g.reshape(-1, g.shape[-1])
+        dx = torch.zeros((rows.shape[0], flat.shape[-1]), dtype=g.dtype, device=g.device)
+        for j in range(rows.shape[1]):
+            dx = torch.where(kept[:, j:j + 1], dx + flat[rows[:, j]], dx)
+        return dx, None, None, None
 
 
 def _experts(params, xg, act: str):
@@ -158,17 +197,17 @@ def _moe_fused(cfg: ArchConfig, params, x, xt, topv, topi, gates, cap, act):
     slot, _ = _slots(e_flat, E, cap)
     fidx = _table(E, cap, e_flat, slot, torch.arange(T * k, device=dev), T * k)
 
-    xt_pad = torch.cat([xt, xt.new_zeros((1, D))], dim=0)
-    tok = torch.where(fidx < T * k, torch.div(fidx, k, rounding_mode="floor"), T)
-    y = _experts(params, xt_pad[tok], act)  # (E, cap, D)
-    w_ec = torch.where(fidx < T * k, topv.reshape(-1)[torch.clamp_max(fidx, T * k - 1)], 0.0)
-    contrib = (y * w_ec[..., None]).to(x.dtype).reshape(E * cap, D)
-
     # token t's choices in ascending expert order, each at its (e, slot)
     e_sorted, order = torch.sort(topi, dim=-1, stable=True)
     slot_sorted = torch.gather(slot.reshape(T, k), 1, order)
     kept = slot_sorted < cap
     rows = e_sorted * cap + torch.clamp_max(slot_sorted, cap - 1)
+
+    tok = torch.where(fidx < T * k, torch.div(fidx, k, rounding_mode="floor"), T)
+    y = _experts(params, _DispatchGather.apply(xt, tok, rows, kept), act)  # (E, cap, D)
+    w_ec = torch.where(fidx < T * k, topv.reshape(-1)[torch.clamp_max(fidx, T * k - 1)], 0.0)
+    contrib = (y * w_ec[..., None]).to(x.dtype).reshape(E * cap, D)
+
     out = torch.zeros((T, D), dtype=x.dtype, device=dev)
     for j in range(k):
         out = torch.where(kept[:, j:j + 1], out + contrib[rows[:, j]], out)

@@ -7,8 +7,9 @@ depthwise conv, and the RG-LRU (real-gated linear recurrent unit)
     log a_t = -c * softplus(Lambda) * r_t         (c = 8)
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t * x_t)
 
-Prefill runs the recurrence through ``ops.lru_scan`` (the port's own kernel
-on the card), decode one step in plain tensor code.  State per layer:
+Prefill and training run the recurrence through ``ops.lru_scan`` (the
+port's own kernel on the card, with ``lru_scan_bwd`` behind its gradient),
+decode one step in plain tensor code.  State per layer:
 {"h": (B, d_rnn) f32, "conv": (B, conv_width - 1, d_rnn)}.
 """
 from __future__ import annotations

@@ -503,32 +503,74 @@ def test_run_watch_serves_the_newest_checkpoint(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_flash_attention_backward_shapes():
-    """Kernel 16b takes hd = vd <= 128; ``check_backward`` refuses the rest
-    (MLA's 192 / 128, recurrentgemma's 256, stablelm's 160), naming
-    ROADMAP.md."""
-    assert FA.backward_takes(128, 128) and FA.backward_takes(64, 64)
-    FA.check_backward(128, 128)
-    for hd, vd in ((192, 128), (256, 256), (160, 160), (64, 128)):
+    """Kernel 16b takes every head dim kernel 16 takes, hd, vd <= 256 (MLA's
+    192 / 128, recurrentgemma's 256, stablelm's 160, vd != hd); its wgmma
+    route bf16 at hd = vd <= 128, a multiple of 16, its warp tensor-core
+    route bf16 at other multiples of 16, the rest the CUDA cores;
+    ``check_backward`` refuses only hd or vd above 256."""
+    for hd, vd in ((128, 128), (64, 64), (192, 128), (256, 256), (160, 160), (64, 128),
+                   (256, 64), (24, 24)):
+        assert FA.backward_takes(hd, vd)
+        FA.check_backward(hd, vd)
+    for hd, vd in ((288, 128), (128, 320), (512, 512)):
         assert not FA.backward_takes(hd, vd)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 8.1"):
+        with pytest.raises(NotImplementedError, match="hd, vd <= 256"):
             FA.check_backward(hd, vd)
+    bf, f32 = torch.bfloat16, torch.float32
+    assert FA.bwd_route(bf, 128, 128) == FA.bwd_route(bf, 64, 64) == "wgmma"
+    for hd, vd in ((192, 128), (256, 256), (160, 160), (64, 128), (256, 64)):
+        assert FA.bwd_route(bf, hd, vd) == "mma"
+    for dt, hd, vd in ((bf, 24, 24), (bf, 200, 136), (f32, 128, 128), (f32, 192, 128)):
+        assert FA.bwd_route(dt, hd, vd) == "cuda_cores"
+    # one kv head at the training round's (8, 128): 32 blocks of 32 keys
+    # (16 of 64 on the warp tensor cores), so its 16 query heads split
+    # across 8 blocks (16); enough blocks or one query head a kv head, no
+    # split
+    assert FA.dkdv_splits(8, 128, 1, 16, 132) == 8
+    assert FA.dkdv_splits(8, 128, 1, 16, 132, key_tile=64) == 16
+    assert FA.dkdv_splits(8, 128, 16, 1, 132) == FA.dkdv_splits(8, 128, 8, 4, 132) == 1
+    for B, Sk, Hkv, G in ((4, 1024, 1, 16), (1, 77, 1, 7), (2, 40, 3, 5)):
+        n = FA.dkdv_splits(B, Sk, Hkv, G, 132)
+        per = -(-G // n)
+        assert 1 <= n <= G and (n - 1) * per < G  # no empty split
 
 
-def test_gradients_off_the_cpu_are_refused_before_any_launch():
-    """Off the CPU, a gradient that would reach kernel 16 at a head dim 16b
-    does not take, or ``lru_scan`` (no backward kernel), raises
-    ``NotImplementedError`` naming ROADMAP.md before the wrapper runs;
-    meta tensors stand in for the card's here.  On the CPU the plain
-    versions differentiate as before."""
+def test_gradients_off_the_cpu_are_refused_before_any_launch(monkeypatch):
+    """Off the CPU (meta tensors stand in for the card's here), a gradient
+    reaching kernel 16 at MLA's (192, 128), recurrentgemma's (256, 256) or
+    stablelm's (160, 160) head dims, or ``lru_scan``, goes through its
+    autograd Function (``FlashAttention``, ``LruScan``); one at a head dim
+    above 256 raises ``NotImplementedError`` before any Function or
+    launch.  On the CPU the plain versions differentiate as before."""
+    seen = []
+
+    def record(name):
+        def apply(*args):
+            seen.append((name, tuple(args[0].shape)))
+            raise _Reached
+        return apply
+
+    class _Reached(Exception):
+        pass
+
+    monkeypatch.setattr(P.FlashAttention, "apply", record("flash"))
+    monkeypatch.setattr(P.LruScan, "apply", record("lru"))
     meta = {"device": "meta", "requires_grad": True}
-    q, k = torch.empty(1, 8, 2, 192, **meta), torch.empty(1, 8, 2, 192, **meta)
-    v = torch.empty(1, 8, 2, 128, **meta)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8.1"):
-        P.flash_attention(q, k, v)
+    for H, Hkv, hd, vd in ((2, 2, 192, 128), (2, 1, 256, 256), (4, 2, 160, 160)):
+        q, k = torch.empty(1, 8, H, hd, **meta), torch.empty(1, 8, Hkv, hd, **meta)
+        v = torch.empty(1, 8, Hkv, vd, **meta)
+        with pytest.raises(_Reached):
+            P.flash_attention(q, k, v, window=4 if Hkv == 1 else None)
     a, b, h0 = torch.empty(1, 8, 4, **meta), torch.empty(1, 8, 4, **meta), torch.empty(1, 4,
                                                                                       **meta)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8.1"):
+    with pytest.raises(_Reached):
         P.lru_scan(a, b, h0)
+    assert seen == [("flash", (1, 8, 2, 192)), ("flash", (1, 8, 2, 256)),
+                    ("flash", (1, 8, 4, 160)), ("lru", (1, 8, 4))]
+    q = torch.empty(1, 8, 2, 320, **meta)
+    with pytest.raises(NotImplementedError, match="hd, vd <= 256"):
+        P.flash_attention(q, q, torch.empty(1, 8, 2, 128, **meta))
+    assert len(seen) == 4
     a, b, h0 = (torch.rand(1, 5, 3, requires_grad=True), torch.rand(1, 5, 3),
                 torch.rand(1, 3))
     y, _ = P.lru_scan(a, b, h0)

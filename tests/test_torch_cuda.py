@@ -1459,22 +1459,111 @@ def test_cuda_lru_scan_is_bitwise_the_plain_recurrence(cuda, shape):
 
 @pytest.mark.cuda
 def test_cuda_gradients_refused_where_no_backward_kernel(cuda):
-    """On the card a gradient that would reach kernel 16 at MLA's head dims
-    or ``lru_scan`` raises, naming ROADMAP.md; at hd = vd = 128 it reaches
-    kernel 16b."""
+    """On the card a gradient reaches kernel 16b at every head dim kernel 16
+    takes (MLA's 192 / 128 here, on the warp tensor cores) and ``lru_scan_bwd``
+    from ``lru_scan``; only a head dim above 256 is refused, before any
+    launch."""
     q = torch.randn(1, 64, 2, 192, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     k = torch.randn(1, 64, 2, 192, device=cuda, dtype=torch.bfloat16)
     v = torch.randn(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8.1"):
-        P.flash_attention(q, k, v)
-    with torch.no_grad():
-        assert P.flash_attention(q, k, v).shape == (1, 64, 2, 128)
+    P.reset_launches()
+    P.flash_attention(q, k, v).float().sum().backward()
+    assert P.launches()["flash_attention_bwd"] == 1 and FA.last_bwd_route == "mma"
+    assert q.grad is not None and bool(torch.isfinite(q.grad.float()).all())
     a = torch.rand(1, 8, 4, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8.1"):
-        P.lru_scan(a, torch.rand(1, 8, 4, device=cuda), torch.rand(1, 4, device=cuda))
+    P.lru_scan(a, torch.rand(1, 8, 4, device=cuda), torch.rand(1, 4, device=cuda))[0].sum(
+        ).backward()
+    assert P.launches()["lru_scan_bwd"] == 1 and a.grad is not None
+    q3 = torch.randn(1, 64, 2, 288, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    P.reset_launches()
+    with pytest.raises(NotImplementedError, match="hd, vd <= 256"):
+        P.flash_attention(q3, q3.detach(), v)
+    assert sum(P.launches().values()) == 0
     q2 = torch.randn(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     k2 = torch.randn(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
-    P.reset_launches()
     P.flash_attention(q2, k2, k2.clone()).float().sum().backward()
     assert P.launches()["flash_attention_bwd"] == 1 and q2.grad is not None
+    assert FA.last_bwd_route == "wgmma"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 128, 4, 4, 192, 128, None, 0),
+                                  (1, 200, 8, 1, 256, 256, 64, 0),
+                                  (2, 96, 4, 2, 160, 160, None, 0),
+                                  (1, 77, 4, 1, 256, 256, 40, 123),
+                                  (2, 130, 8, 2, 64, 128, None, 0)])
+def test_cuda_flash_attention_bwd_wide_head_dims(cuda, case, dtype):
+    """16b at the archs' wide head dims (MLA's 192 / 128, recurrentgemma's
+    256 on one kv head with a window, its query heads split across blocks,
+    stablelm's 160; vd != hd; a query offset) on the warp tensor cores
+    (bf16) or the CUDA cores (f32) against autograd of the plain forward,
+    and bitwise from run to run; the forward's lse there against the plain
+    logsumexp."""
+    B, Sq, H, Hkv, hd, vd, window, off = case
+    Sk = Sq + off
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dtype)
+    do = torch.randn(B, Sq, H, vd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, Sk, Hkv, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Sk, Hkv, vd, generator=g, device=cuda).to(dtype)
+    o, lse = FA.flash_attention(q, k, v, window=window, q_offset=off, lse=True)
+    q_pos, k_pos = off + torch.arange(Sq, device=cuda), torch.arange(Sk, device=cuda)
+    lse_w = ref.flash_attention_lse_ref(q, k, q_pos, k_pos, window=window)
+    assert float((lse - lse_w).abs().max()) <= 1e-4 * max(1.0, float(lse_w.abs().max()))
+    P.reset_launches()
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, window=window, q_offset=off)
+    assert P.launches()["flash_attention_bwd"] == 1
+    assert FA.last_bwd_route == ("cuda_cores" if dtype == torch.float32 else "mma")
+    want = ref.flash_attention_bwd_ref(q, k, v, do, q_pos, k_pos, window=window)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= tol * float(b.float().abs().max())
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, window=window, q_offset=off)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128, 4096), (2, 1, 300), (2, 17, 300), (2, 511, 300)])
+def test_cuda_lru_scan_bwd_is_bitwise_autograd_of_plain(cuda, shape):
+    """``lru_scan_bwd`` (da, db, dh0) bitwise autograd of ``ref.lru_ref`` on
+    the card, gradients into both outputs; lengths around its 16-step
+    groups."""
+    from repro_torch.kernels import lru_scan as LR
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    B, S, D = shape
+    a = torch.rand(*shape, generator=g, device=cuda)
+    b, dy = (torch.randn(*shape, generator=g, device=cuda) for _ in range(2))
+    h0, dh = (torch.randn(B, D, generator=g, device=cuda) for _ in range(2))
+    y, _ = LR.lru_scan(a, b, h0)
+    P.reset_launches()
+    got = LR.lru_scan_bwd(a, y, h0, dy, dh)
+    assert P.launches()["lru_scan_bwd"] == 1
+    ins = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    want = torch.autograd.grad(ref.lru_ref(*ins), ins, (dy, dh))
+    assert all(torch.equal(x, w) for x, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_vmap_grad_reaches_the_lru_scan_kernels(cuda):
+    """vmap(grad) through ``ops.lru_scan`` on the card, h0 unbatched: one
+    launch of ``lru_scan`` and one of ``lru_scan_bwd`` for all clients, the
+    gradients bitwise ``vmap(grad)`` of the plain recurrence on the card."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    a = torch.rand(3, 2, 70, 64, generator=g, device=cuda)
+    b = torch.randn(3, 2, 70, 64, generator=g, device=cuda)
+    h0 = torch.randn(2, 64, generator=g, device=cuda)
+    c = torch.randn(2, 70, 64, generator=g, device=cuda)
+
+    def loss(fn):
+        return lambda a, b: (fn(a, b, h0)[0] * c).sum()
+
+    P.reset_launches()
+    got = torch.func.vmap(torch.func.grad(loss(P.lru_scan), argnums=(0, 1)))(a, b)
+    counts = P.launches()
+    assert counts["lru_scan"] == 1 and counts["lru_scan_bwd"] == 1
+    want = torch.func.vmap(torch.func.grad(loss(ref.lru_ref), argnums=(0, 1)))(a, b)
+    assert all(torch.equal(x, w) for x, w in zip(got, want))
 

@@ -880,6 +880,97 @@ def test_flash_bwd_model_rounds_p_and_ds_where_the_kernel_does(case):
         assert 0 < err <= 2.0 ** -6 * float(b.abs().max()), err
 
 
+WM_BLK, WM_STEP, WM_WARP_ROWS = 64, 64, 16  # csrc/flash_attention_bwd.cu wm::kBlk, kStep
+
+
+def _wm_bwd_walk(Sq, Sk, H, Hkv, q_offset, window, splits):
+    """The (query, key) pairs each grid of 16b's warp tensor-core route
+    (``csrc/flash_attention_bwd.cu`` namespace ``wm``) computes, for one
+    batch row and every head, read off its loops: the dq grid (a block of
+    64 query rows from ``k_begin`` to ``k_end`` in steps of 64 keys, a warp's
+    16 rows skipping a step that none of them can see) and the dk/dv grid
+    (a block of 64 keys and split z of the kv head's query heads, query
+    tiles of 64 rows from ``i_begin`` to ``i_end``, a warp's 16 keys
+    skipping a tile none of whose rows sees them; the dv warps and the dk
+    warps alike).  Returns (dq visits (H, Sq, Sk), dk/dv visits, visible
+    mask); a visit is a pair inside a step a warp computes and the mask
+    keeps."""
+    win = window or 0
+    qp = torch.arange(q_offset, q_offset + Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    ok = (kp <= qp) & ((kp > qp - win) if win else torch.ones_like(kp, dtype=bool))
+    G = H // Hkv
+    dq_v = torch.zeros(H, Sq, Sk, dtype=torch.int64)
+    kv_v = torch.zeros(H, Sq, Sk, dtype=torch.int64)
+    for h in range(H):
+        for q0 in range(0, Sq, WM_BLK):
+            qpos_hi = q_offset + min(q0 + WM_BLK, Sq) - 1
+            k_end = min(Sk, qpos_hi + 1)
+            k_begin = max(0, q_offset + q0 - win + 1) // WM_STEP * WM_STEP if win else 0
+            for w in range(WM_BLK // WM_WARP_ROWS):
+                r_lo = q0 + WM_WARP_ROWS * w
+                if r_lo >= Sq:
+                    continue
+                pos_lo, pos_hi = q_offset + r_lo, q_offset + min(r_lo + 15, Sq - 1)
+                rows = slice(r_lo, min(r_lo + WM_WARP_ROWS, Sq))
+                for kt in range(k_begin, k_end, WM_STEP):
+                    if kt > pos_hi or (win and kt + WM_STEP - 1 <= pos_lo - win):
+                        continue
+                    dq_v[h, rows, kt:kt + WM_STEP] += ok[rows, kt:kt + WM_STEP]
+    gps = -(-G // splits)
+    for hk in range(Hkv):
+        for k0 in range(0, Sk, WM_BLK):
+            k_last = min(k0 + WM_BLK, Sk) - 1
+            i_begin = max(0, k0 - q_offset) // WM_STEP * WM_STEP
+            i_end = min(Sq, k_last + win - q_offset) if win else Sq
+            for z in range(splits):
+                for g in range(z * gps, min(G, z * gps + gps)):
+                    h = hk * G + g
+                    for q0 in range(i_begin, i_end, WM_STEP):
+                        qp0 = q_offset + q0
+                        for kw in range(WM_BLK // WM_WARP_ROWS):
+                            kw0 = k0 + WM_WARP_ROWS * kw
+                            if kw0 >= Sk or qp0 + WM_STEP - 1 < kw0 or (
+                                    win and kw0 + 15 <= qp0 - win):
+                                continue
+                            keys = slice(kw0, min(kw0 + WM_WARP_ROWS, Sk))
+                            kv_v[h, q0:q0 + WM_STEP, keys] += ok[q0:q0 + WM_STEP, keys]
+    return dq_v, kv_v, ok
+
+
+@pytest.mark.parametrize("case", [(128, 128, 16, 1, 0, 2048, 8), (128, 128, 16, 16, 0, None, 1),
+                                  (77, 200, 4, 1, 123, 40, 4), (130, 130, 8, 2, 0, None, 1),
+                                  (300, 300, 4, 1, 0, 64, 3), (100, 257, 6, 2, 157, 30, 2),
+                                  (200, 200, 4, 4, 0, 5, 1)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_flash_bwd_warp_route_visits_every_visible_pair_once(case):
+    """The warp tensor-core route's two grids, with their warps' skips and
+    the dk/dv grid's split query heads (``dkdv_splits``), compute every
+    visible (query, key) pair of every head exactly once, and nothing
+    else (a skipped step or tile holds no visible pair)."""
+    Sq, Sk, H, Hkv, off, window, splits = case
+    dq_v, kv_v, ok = _wm_bwd_walk(Sq, Sk, H, Hkv, off, window, splits)
+    want = ok.long().expand(H, Sq, Sk)
+    assert torch.equal(dq_v, want) and torch.equal(kv_v, want)
+
+
+def test_dkdv_splits_take_the_routes_key_tiles():
+    """The split count the wrapper takes for each route's dk/dv grid (32
+    keys a block on the CUDA cores, 64 on the warp tensor cores): the
+    training round's one kv head at (8, 128) takes 8 and 16 splits of its 16
+    query heads, the prefill's (4, 1,024) 4 on the warp route, no split is
+    empty, and a full grid takes none."""
+    assert FA.BWD_KEY_TILE == {"cuda_cores": 32, "mma": 64}
+    assert FA.dkdv_splits(8, 128, 1, 16, 132, FA.BWD_KEY_TILE["cuda_cores"]) == 8
+    assert FA.dkdv_splits(8, 128, 1, 16, 132, FA.BWD_KEY_TILE["mma"]) == 16
+    assert FA.dkdv_splits(4, 1024, 1, 16, 132, 64) == 4
+    assert FA.dkdv_splits(8, 128, 16, 1, 132, 64) == 1
+    assert FA.dkdv_splits(4, 1024, 16, 1, 132, 64) == 1
+    for G in range(1, 33):
+        n = FA.dkdv_splits(1, 64, 1, G, 132, 64)
+        assert 1 <= n <= G and (n - 1) * -(-G // n) < G
+
+
 WKV_BWD_SUB = 16  # csrc/wkv6_bwd.cu kSub
 
 
