@@ -178,9 +178,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      a ragged length with near-zero decay, and at lengths 1, 63, 65 and
      100 with a zero and a nonzero initial state; (b)
      ``repro_torch.launch.serve.run`` at full width for every arch of
-     ``SERVE_ARCHS`` (olmo-1b, rwkv6-1.6b, deepseek-v2-lite-16b,
-     recurrentgemma-9b at full depth; stablelm-12b, llava-next-mistral-7b,
-     musicgen-large and llama4-maverick at 2 layers), batch 4,
+     ``SERVE_ARCHS`` (olmo-1b, rwkv6-1.6b and recurrentgemma-9b at full
+     depth; deepseek-v2-lite-16b at 8 layers; stablelm-12b,
+     llava-next-mistral-7b, musicgen-large and llama4-maverick at 2
+     layers), batch 4,
      prompt 1024, 32 new tokens, the weights drawn once (the reference's,
      from seed 0) and one warm-up prefill before the timed one: prefill
      and decode times, the weights' draw time and peak allocation, the
@@ -190,7 +191,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      drop-free, every token routed as that prefill routed it,
      ``LOGITS_MOE_REL``; the top-k choices a free-running decode makes
      otherwise counted) and the same in f32 at full width with 4 layers
-     (``F32_CHECK``: deepseek at full depth, maverick at 2), and a profile
+     (``F32_CHECK``: deepseek and maverick cut), and a profile
      of one prefill and 8 decode steps (busy time, idle share, kernel time
      by name); (c) olmo-1b and rwkv6-1.6b at full width with 2 layers on
      the card against the CPU (prefill of a 256-token prompt and one
@@ -218,7 +219,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      idle share, deepseek run twice more with its rows bitwise equal; (d)
      "12 train card vs cpu": the reduced configs in f32 at the full head
      dims, one round on the card against the CPU (``TRAIN_CPU_REL``); the
-     examples and the popstore's checkpoint;
+     examples and the popstore's checkpoint; (e) "12 jvp kernels": the
+     forward-mode kernels 16j, 16bj (``FLASH_JVP_CASES``: olmo-1b's training
+     shape and the trained archs' head dims, bf16 and f32) and
+     ``lru_scan_jvp``, ``lru_scan_bwd_jvp`` (``LRU_JVP_SHAPES``, bitwise
+     ``torch.func.jvp`` of the plain recurrence and of its backward) against
+     their plain versions, every case twice (bitwise equal), timed beside
+     their bounds, 16j also beside ``torch.func.jvp`` of SDPA under each
+     backend that takes it; (f) "12 eta auto": the curvature probe of
+     ``--eta auto`` (``vmap(jvp(grad(loss)))``) through the kernels:
+     olmo-1b at full width and depth through ``autotune.estimate_L``
+     (``ETA_AUTO``: L range, seconds, launches, peak allocation),
+     ``launch.train.run(eta="auto", steps=1)`` for ``TRAIN_ARCHS`` at their
+     cuts (finite loss), the reduced configs of "12 train card vs cpu"
+     against the CPU's L (``L_CARD_CPU_RTOL``) and against the plain ops on
+     the card (``L_PLAIN_RTOL``), and rwkv6-1.6b refused (kernels 17-17b
+     have no forward-mode rule yet);
  13. print one JSON line of per-kernel numbers (with each source's
      ``-Xptxas -v`` registers, static shared memory and spills per entry
      function when the run built it), then the result line
@@ -259,6 +275,7 @@ imports no JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -3726,13 +3743,16 @@ CARD_VS_CPU_ARCHS = ("olmo-1b", "rwkv6-1.6b")  # phase "11 card vs cpu"
 # not fit four cards; and stablelm-12b, llava-next and musicgen-large at 2
 # layers of their 40, 32 and 48, widths unchanged, which pays for phase "12
 # train archs" within the script's time (their full depth served in PR 28:
-# PERF.md section 5); kernel 16 at their shapes is timed in (a) as before
+# PERF.md section 5); kernel 16 at their shapes is timed in (a) as before;
+# deepseek-v2-lite-16b at 8 of its 27 layers (its dense first and seven MoE
+# layers; PERF.md section 5 has its full depth), which pays for phase "12 eta
+# auto"
 SERVE_LAYERS = {"llama4-maverick-400b-a17b": 2, "stablelm-12b": 2,
-                "llava-next-mistral-7b": 2, "musicgen-large": 2}
+                "llava-next-mistral-7b": 2, "musicgen-large": 2, "deepseek-v2-lite-16b": 8}
 # per prefill, one kernel per block of the model (attention blocks: kernel 16;
 # rwkv: 17; RG-LRU: lru_scan), none per decode token
 SERVE_LAUNCHES = {"olmo-1b": {"flash_attention": 16}, "rwkv6-1.6b": {"wkv6": 24},
-                  "deepseek-v2-lite-16b": {"flash_attention": 27},
+                  "deepseek-v2-lite-16b": {"flash_attention": 8},
                   "recurrentgemma-9b": {"flash_attention": 12, "lru_scan": 26},
                   "stablelm-12b": {"flash_attention": 2},
                   "llava-next-mistral-7b": {"flash_attention": 2},
@@ -3745,10 +3765,11 @@ SERVE_LAUNCHES = {"olmo-1b": {"flash_attention": 16}, "rwkv6-1.6b": {"wkv6": 24}
 MOE_CHECK_ROWS = {"deepseek-v2-lite-16b": 4, "llama4-maverick-400b-a17b": 1}
 # decode against prefill in f32 at full width: (layers, batch, prompt); 4
 # layers, batch 2, 256 tokens, but maverick: its one MoE layer holds 64 GB of
-# f32 experts, so 2 layers, batch 1, 128 tokens; and deepseek at full depth
-# (63 GB of f32 weights), batch 1, 128 tokens, where its bf16 check takes
-# ``LOGITS_MOE_REL``
-F32_CHECK = {"llama4-maverick-400b-a17b": (2, 1, 128), "deepseek-v2-lite-16b": (27, 1, 128)}
+# f32 experts, so 2 layers, batch 1, 128 tokens; and deepseek, where its bf16
+# check takes ``LOGITS_MOE_REL``, at 4 layers, batch 1, 128 tokens (at full
+# depth, 63 GB of f32 weights, it held 3.7e-5, as ``LOGITS_MOE_REL``'s note
+# says; cut to pay for phase "12 eta auto")
+F32_CHECK = {"llama4-maverick-400b-a17b": (2, 1, 128), "deepseek-v2-lite-16b": (4, 1, 128)}
 F32_CHECK_DEFAULT = (4, 2, 256)
 # tolerances, relative to the largest magnitude of the reference value: a
 # kernel against its plain version rounds its f32 result once to bf16 (2^-8)
@@ -4849,6 +4870,247 @@ def check_backward_functions(torch, ops, ref, gen, out):
     held(f"wkv6 {(B, S, H, K)}, u a client", got, want, counts, ("wkv6", "wkv6_bwd"))
 
 
+# ---------------------------------------------------------------------------
+# phase 12, forward mode: the tangent kernels 16j, 16bj and the RG-LRU's
+# ---------------------------------------------------------------------------
+
+# 16j and 16bj at the training round's folded batch (m = 2 clients of 4
+# rows, 128 tokens), (label, (B, S, H, Hkv, hd, vd), window): olmo-1b, MLA's
+# 192 / 128, recurrentgemma's 256 on one kv head with its window, stablelm's
+# 160 with GQA; each in bf16 and f32
+FLASH_JVP_CASES = (("olmo-1b", (8, 128, 16, 16, 128, 128), None),
+                   ("deepseek MLA", (8, 128, 16, 16, 192, 128), None),
+                   ("recurrentgemma local", (8, 128, 16, 1, 256, 256), 2048),
+                   ("stablelm", (8, 128, 32, 8, 160, 160), None))
+# lru_scan_jvp and lru_scan_bwd_jvp: recurrentgemma-9b's prefill shape and the
+# training round's folded batch
+LRU_JVP_SHAPES = ((4, 1024, 4096), (8, 128, 4096))
+# the tangents against their plain versions, relative to the largest
+# magnitude: f32 sums in other orders; bf16 one rounding of the f32 result
+# (16j), 16bj's sums cancelling more (2^-6, as 16b's)
+JVP_F32_REL = 1e-4
+JVP_BF16_REL = 2.0 ** -7
+BWD_JVP_BF16_REL = 2.0 ** -6
+JVP_ITERS = 20
+JVP_TRIALS = 3
+# torch.func.jvp of SDPA under each backend, the yardstick of 16j
+SDPA_JVP_BACKENDS = ("MATH", "CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def flash_jvp_cost(B, S, H, Hkv, hd, vd, window=None, itemsize=2) -> tuple[float, float]:
+    """(bytes, operations) of 16j at a causal (B, S, H, hd) shape: q, k, v
+    and their tangents read and o' written once in the operands' dtype, lse
+    read and lse' written in f32; S (hd), S' (two of hd), and S' v, P v', P
+    v (vd) over the visible (query, key) pairs."""
+    nbytes = itemsize * B * S * (2 * H * hd + 2 * Hkv * (hd + vd) + H * vd) + 8 * B * H * S
+    return nbytes, flash_flops(B, H, S, S, 1, window, vd=0) * (3 * hd + 3 * vd)
+
+
+def flash_bwd_jvp_cost(B, S, H, Hkv, hd, vd, window=None, itemsize=2) -> tuple[float, float]:
+    """(bytes, operations) of 16bj: q, k, v, o, do and their tangents read
+    and dq', dk', dv' written once, lse read in f32; S and S' (three of hd),
+    dP and dP' (three of vd), dq' and dk' (two of hd each), dv' (two of vd)
+    over the visible pairs: 7 hd + 5 vd, the function's count (the kernel
+    recomputes S, S', dP and dP' in its second grid)."""
+    nbytes = (itemsize * B * S * (2 * H * (hd + 2 * vd) + 2 * Hkv * (hd + vd)
+                                  + H * hd + Hkv * (hd + vd)) + 4 * B * H * S)
+    return nbytes, flash_flops(B, H, S, S, 1, window, vd=0) * (7 * hd + 5 * vd)
+
+
+def sdpa_jvp(torch, q, k, v, qt, kt, vt, backend: str, window=None):
+    """One call of ``torch.func.jvp`` of ``scaled_dot_product_attention`` on
+    (B, S, H, d) tensors (transposed to SDPA's layout) under ``backend``:
+    (o, o'), the function 16j computes beside the forward's o."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    S, H, Hkv = q.shape[1], q.shape[2], k.shape[2]
+    prim = tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+    tang = tuple(t.transpose(1, 2).contiguous() for t in (qt, kt, vt))
+    kw = {"enable_gqa": True} if Hkv != H else {}
+    if window is None or window >= S:
+        kw["is_causal"] = True
+    else:
+        i = torch.arange(S, device=q.device)
+        kw["attn_mask"] = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+    def run():
+        with sdpa_kernel(getattr(SDPBackend, backend)):
+            return torch.func.jvp(lambda a, b, c: F.scaled_dot_product_attention(a, b, c, **kw),
+                                  prim, tang)
+    run()
+    return run
+
+
+def sdpa_jvp_fastest(torch, q, k, v, qt, kt, vt, window=None) -> dict:
+    """``sdpa_jvp`` under each of ``SDPA_JVP_BACKENDS``: the fastest that runs
+    is ``library_ms``; every backend's median, or why it did not run, in
+    ``library_also``; ``library_ms`` None when none runs."""
+    every, trials_of = {}, {}
+    for backend in SDPA_JVP_BACKENDS:
+        try:
+            every[backend], trials_of[backend] = med_ms(
+                sdpa_jvp(torch, q, k, v, qt, kt, vt, backend, window), JVP_ITERS, JVP_TRIALS,
+                BWD_LIBRARY_SPIN)
+        except (RuntimeError, NotImplementedError) as e:
+            every[backend] = f"not run: {str(e).splitlines()[0][:120]}"
+    ran = [b for b in SDPA_JVP_BACKENDS if b in trials_of]
+    if not ran:
+        return dict(library_ms=None, library_also=every, library="none")
+    best = min(ran, key=lambda b: every[b])
+    return dict(library_ms=every[best], library_also=every,
+                library=f"torch.func.jvp of scaled_dot_product_attention (causal), {best}, the "
+                        f"fastest of {len(ran)} backends that ran")
+
+
+def check_jvp_kernels(rec, torch, ops, ref, gen, out):
+    """Kernels 16j and 16bj at ``FLASH_JVP_CASES`` (bf16 and f32) against
+    their plain versions (``ref.flash_attention_jvp_ref``,
+    ``flash_attention_bwd_jvp_ref``) at ``JVP_F32_REL`` / ``JVP_BF16_REL`` /
+    ``BWD_JVP_BF16_REL``, and ``lru_scan_jvp``, ``lru_scan_bwd_jvp`` at
+    ``LRU_JVP_SHAPES`` bitwise ``torch.func.jvp`` of ``ref.lru_ref`` and
+    ``ref.lru_bwd_ref``; every case run twice, the two bitwise equal.
+    Each bf16 flash case and each RG-LRU shape timed (medians of
+    ``JVP_TRIALS`` trials) beside its bound and its plain version; the
+    kernels' rows at olmo-1b's training shape in bf16 (16j beside the
+    fastest ``torch.func.jvp`` of SDPA) and recurrentgemma's prefill shape."""
+    from repro_torch.kernels import flash_attention as _fa
+    from repro_torch.kernels import lru_scan as _lr
+
+    dev = gen.device
+    res = out["jvp_kernels"] = {"flash": {}, "lru": {}}
+
+    def twice(what, fn):
+        a, b = fn(), fn()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{what}: two runs differ")
+        return a
+
+    def rel(got, want):
+        return [rel_err(torch, a, b) for a, b in zip(got, want)]
+
+    for label, (B, S, H, Hkv, hd, vd), window in FLASH_JVP_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            def rand(*shape):
+                return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+            q, qt, k, kt = rand(B, S, H, hd), rand(B, S, H, hd), rand(B, S, Hkv, hd), rand(
+                B, S, Hkv, hd)
+            v, vt, do, dot = rand(B, S, Hkv, vd), rand(B, S, Hkv, vd), rand(B, S, H, vd), rand(
+                B, S, H, vd)
+            o, lse = _fa.flash_attention(q, k, v, window=window, lse=True)
+            pos = torch.arange(S, device=dev)
+            what = f"{label} {(B, S, H, Hkv, hd, vd)} {dt} window {window}"
+
+            def fwd():
+                return _fa.flash_attention_jvp(q, k, v, lse, qt, kt, vt, window=window)
+
+            def bwd():
+                return _fa.flash_attention_bwd_jvp(q, k, v, o, lse, do, qt, kt, vt, ot, dot,
+                                                   window=window)
+
+            def fwd_plain():
+                return ref.flash_attention_jvp_ref(q, k, v, lse, qt, kt, vt, pos, pos,
+                                                   window=window)
+
+            def bwd_plain():
+                return ref.flash_attention_bwd_jvp_ref(q, k, v, o, lse, do, qt, kt, vt, ot, dot,
+                                                       pos, pos, window=window)
+
+            ot, lse_t = twice(f"flash_attention_jvp {what}", fwd)
+            e_fwd = rel((ot, lse_t), fwd_plain())
+            got = twice(f"flash_attention_bwd_jvp {what}", bwd)
+            e_bwd = rel(got, bwd_plain())
+            f32 = dt == torch.float32
+            t_fwd, t_bwd = (JVP_F32_REL, JVP_F32_REL) if f32 else (JVP_BF16_REL, BWD_JVP_BF16_REL)
+            check(e_fwd[0] <= t_fwd and e_fwd[1] <= JVP_F32_REL,
+                  f"flash_attention_jvp {what}: o', lse' rel errors {e_fwd} (tol {t_fwd})")
+            check(max(e_bwd) <= t_bwd,
+                  f"flash_attention_bwd_jvp {what}: dq', dk', dv' rel errors {e_bwd} "
+                  f"(tol {t_bwd})")
+            row = {"o_t, lse_t": e_fwd, "dq_t, dk_t, dv_t": e_bwd}
+            log(f"jvp kernels {what}: 16j o', lse' rel errors {['%.3e' % e for e in e_fwd]}; "
+                f"16bj dq', dk', dv' {['%.3e' % e for e in e_bwd]}; two runs bitwise equal")
+            if not f32:
+                for name, fn, plain_fn, cost in (
+                        ("flash_attention_jvp", fwd, fwd_plain, flash_jvp_cost),
+                        ("flash_attention_bwd_jvp", bwd, bwd_plain, flash_bwd_jvp_cost)):
+                    nbytes, flops = cost(B, S, H, Hkv, hd, vd, window)
+                    if label == FLASH_JVP_CASES[0][0]:
+                        lib = (sdpa_jvp_fastest(torch, q, k, v, qt, kt, vt, window)
+                               if name == "flash_attention_jvp" else None)
+                        rec.kernel(name, max(max_err(a, b) for a, b in zip(fn(), plain_fn())),
+                                   fn, plain_fn, JVP_ITERS, nbytes, flops,
+                                   flop_per_s=BF16_FLOP_PER_S, trials=JVP_TRIALS, plain_iters=5)
+                        if lib is not None:
+                            rec.rows[name].update(lib)
+                            log(f"{name}: {lib['library']}; every backend {lib['library_also']}")
+                        row[name] = {k: rec.rows[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                    "bound_by")}
+                    else:
+                        ms, ms_all = med_ms(fn, JVP_ITERS, JVP_TRIALS)
+                        b, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+                        plain_ms = cuda_time_ms(plain_fn, 5, spin_cycles=2_000_000)
+                        row[name] = dict(ms=ms, ms_trials=ms_all, plain_ms=plain_ms, bound_ms=b,
+                                         bound_by=by)
+                        rec.rows[name].setdefault("head_dims", {})[label] = row[name]
+                    r = row[name]
+                    log(f"{name} {what}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+                        f"{r['bound_ms']:.4f} ({r['bound_by']})")
+            res["flash"][what] = row
+            del q, qt, k, kt, v, vt, do, dot, o, lse, ot, lse_t, got
+        torch.cuda.empty_cache()
+
+    for B, S, D in LRU_JVP_SHAPES:
+        a = torch.rand(B, S, D, generator=gen, device=dev)
+        b, at, bt, dy, dyt = (torch.randn(B, S, D, generator=gen, device=dev) for _ in range(5))
+        h0, h0t, dh, dht = (torch.randn(B, D, generator=gen, device=dev) for _ in range(4))
+        y, _ = _lr.lru_scan(a, b, h0)
+
+        def fwd():
+            return _lr.lru_scan_jvp(a, y, h0, at, bt, h0t)
+
+        def fwd_plain():
+            return torch.func.jvp(ref.lru_ref, (a, b, h0), (at, bt, h0t))[1]
+
+        yt, hlt = twice(f"lru_scan_jvp {(B, S, D)}", fwd)
+
+        def bwd():
+            return _lr.lru_scan_bwd_jvp(a, y, h0, dy, dh, at, yt, h0t, dyt, dht)
+
+        def bwd_plain():
+            return torch.func.jvp(ref.lru_bwd_ref, (a, y, h0, dy, dh), (at, yt, h0t, dyt, dht))[1]
+
+        got = twice(f"lru_scan_bwd_jvp {(B, S, D)}", bwd)
+        for name, g_, w_ in (("lru_scan_jvp", (yt, hlt), fwd_plain()),
+                             ("lru_scan_bwd_jvp", got, bwd_plain())):
+            check(all(torch.equal(x, w) for x, w in zip(g_, w_)),
+                  f"{name} {(B, S, D)}: not bitwise torch.func.jvp of the plain version (max "
+                  f"errors {[max_err(x, w) for x, w in zip(g_, w_)]})")
+        log(f"lru_scan_jvp, lru_scan_bwd_jvp {(B, S, D)}: bitwise torch.func.jvp of the plain "
+            f"recurrence and of its backward; two runs bitwise equal")
+        row = res["lru"][str((B, S, D))] = {}
+        # (bytes, operations): y' reads a, y, a', b' and writes y'; the
+        # backward's reads a, y, dy and their tangents and writes da', db'
+        costs = {"lru_scan_jvp": (4 * (5 * B * S * D + 3 * B * D), 4.0 * B * S * D),
+                 "lru_scan_bwd_jvp": (4 * (8 * B * S * D + 5 * B * D), 9.0 * B * S * D)}
+        for name, fn, plain_fn in (("lru_scan_jvp", fwd, fwd_plain),
+                                   ("lru_scan_bwd_jvp", bwd, bwd_plain)):
+            nbytes, flops = costs[name]
+            if (B, S, D) == LRU_JVP_SHAPES[0]:
+                rec.kernel(name, 0.0, fn, plain_fn, JVP_ITERS, nbytes, flops, plain_iters=1,
+                           plain_spin=400_000_000, trials=JVP_TRIALS)
+                row[name] = {k: rec.rows[name][k] for k in ("ms", "plain_ms", "bound_ms")}
+            else:
+                bnd, by = bound_ms(nbytes, flops)
+                ms, ms_all = med_ms(fn, JVP_ITERS, JVP_TRIALS)
+                row[name] = rec.rows[name]["train"] = dict(
+                    shape=[B, S, D], ms=ms, ms_trials=ms_all, bound_ms=bnd, bound_by=by)
+                log(f"{name} at the training shape {(B, S, D)}: {ms:.4f} ms, bound {bnd:.4f} ms "
+                    f"({by})")
+        del a, b, at, bt, dy, dyt, h0, h0t, dh, dht, y, yt, hlt, got
+    torch.cuda.empty_cache()
+
+
 def _rows_equal(a, b) -> bool:
     return sorted(a) == sorted(b) and all(
         (a[k] == b[k]) or (a[k] != a[k] and b[k] != b[k]) for k in a)
@@ -5304,6 +5566,228 @@ def train_against_cpu(torch, ops, out):
     torch.cuda.empty_cache()
 
 
+# phase "12 eta auto": (a) olmo-1b at full width and depth at phase 12's
+# round (m = 2 clients, batch 4, 128 tokens) with 16 power iterations, not
+# the launcher's 96 (0.62-0.76 s a product on an H100: 97 do not fit
+# the script's time); (b) ``launch.train.run(eta="auto", steps=1)`` for
+# ``TRAIN_ARCHS`` at their cuts, its probe at ``ETA_AUTO_RUN["iters"]``
+# iterations; (c) the card against the CPU on the reduced configs of "12
+# train card vs cpu" in f32, 8 iterations over a probe batch of one 64-token
+# row a client (the CPU's probes at that phase's 4 x 128 took 39 s)
+ETA_AUTO = dict(arch="olmo-1b", m=2, per_client_batch=4, seq_len=128, iters=16, seed=83)
+ETA_AUTO_RUN = dict(m=2, per_client_batch=4, seq_len=128, k=2, steps=1, iters=8)
+ETA_AUTO_CPU = dict(m=2, per_client_batch=1, seq_len=64, iters=8)
+# L on the card against the CPU's: the probe's start vector (a constant plus
+# a ramp) lies almost in the Hessian's null space, so its first product is a
+# small difference of large terms (its norm and the two devices' relative
+# difference in it are logged, ``first_product``); the power iteration, 8
+# steps from converged, carries that difference into the Rayleigh quotient
+# (up to 5.2e-3 on an H100, as far with the plain ops on the card as with
+# the kernels)
+L_CARD_CPU_RTOL = 2e-2
+# L through the kernels against L through the plain ops on the same card:
+# the same start, products within 1e-6 of each other (measured 3e-5)
+L_PLAIN_RTOL = 1e-3
+
+
+def probe_launches(n_attn: int, n_rec: int, iters: int) -> dict:
+    """The curvature probe's launches, read off the code: each of its
+    iters + 1 Hessian-vector products runs every attention layer's 16, 16b,
+    16j and 16bj once for all clients (the vmap rules fold them into the
+    batch), every RG-LRU layer's ``lru_scan``, ``lru_scan_bwd`` and their
+    tangents likewise."""
+    n = iters + 1
+    want = {name: n_attn * n for name in ("flash_attention", "flash_attention_bwd",
+                                          "flash_attention_jvp", "flash_attention_bwd_jvp")}
+    if n_rec:
+        want |= {name: n_rec * n for name in ("lru_scan", "lru_scan_bwd", "lru_scan_jvp",
+                                              "lru_scan_bwd_jvp")}
+    return want
+
+
+def plain_model_ops(torch, ops, ref):
+    """Route ``ops.flash_attention`` and ``ops.lru_scan`` to their plain
+    versions for CUDA tensors (the model's calls; a comparison only, undone
+    by the returned function)."""
+    saved = ops.flash_attention, ops.lru_scan
+
+    def flash(q, k, v, q_pos=None, k_pos=None, *, causal=True, window=None, q_offset=None):
+        off = q_offset or 0
+        return ref.flash_attention_ref(q, k, v, off + torch.arange(q.shape[1], device=q.device),
+                                       torch.arange(k.shape[1], device=q.device), causal=causal,
+                                       window=window)
+
+    ops.flash_attention, ops.lru_scan = flash, ref.lru_ref
+
+    def undo():
+        ops.flash_attention, ops.lru_scan = saved
+    return undo
+
+
+def first_product(torch, autotune, arena, T, grad_fn, params, m, batch):
+    """The probe's first Hessian-vector product, at its start vector
+    (``autotune``'s own), as ``estimate_L`` forms it for a tree gradient."""
+    spec = arena.ArenaSpec.from_tree(params)
+    dev = T.leaves(params)[0].device
+    v0 = autotune._normalize(autotune._v0(m, spec.width, dev))
+    primal = T.tmap(lambda x: x, params)
+
+    def one(bi, vi):
+        return spec.pack(torch.func.jvp(lambda p: grad_fn(p, bi), (primal,),
+                                        (spec.unpack(vi),))[1])
+    return torch.func.vmap(one)(batch, v0)
+
+
+def eta_auto_phase(rec, torch, ops, ref, out):
+    """``--eta auto`` on the card: its curvature probe ``vmap(jvp(grad(loss)))``
+    through the forward-mode rules (kernels 16j, 16bj, ``lru_scan_jvp``,
+    ``lru_scan_bwd_jvp``); see ``ETA_AUTO``, ``ETA_AUTO_RUN``,
+    ``ETA_AUTO_CPU``, ``L_CARD_CPU_RTOL`` and ``L_PLAIN_RTOL``.  rwkv6-1.6b must be refused."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import arena, autotune, prng
+    from repro_torch.core import tree_util as T
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch import train
+    from repro_torch.models import build
+
+    res = out["eta_auto"] = {}
+    E = ETA_AUTO
+    cfg = get_arch(E["arch"])
+    model = build(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(seeded(torch, E["seed"]))
+    probe = next(lm_batches(prng.key(E["seed"] + 3), 1, E["m"], E["per_client_batch"],
+                            E["seq_len"], cfg.vocab_size, device="cuda"))
+
+    def client_grad(p, b):
+        return torch.func.grad(lambda q: model.loss(q, b)[0])(p)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    L = autotune.estimate_L(client_grad, params, E["m"], probe, iters=E["iters"])
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    counts = ops.launches()
+    rec.add(counts)
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: 0 for n in counts} | probe_launches(cfg.n_layers, 0, E["iters"])
+    log(f"eta auto {E['arch']} full width and depth, m={E['m']}, batch "
+        f"{E['per_client_batch']}, {E['seq_len']} tokens, {E['iters']} iterations: per-client "
+        f"L in [{L.min():.6g}, {L.max():.6g}] in {probe_s:.2f} s; peak allocation "
+        f"{peak / 1e9:.2f} GB; launches { {n: c for n, c in counts.items() if c} }")
+    check(counts == want, f"eta auto {E['arch']}: launches {counts}, expected {want}")
+    check(all(math.isfinite(float(x)) for x in L) and float(L.min()) > 0.0,
+          f"eta auto {E['arch']}: L {L}")
+    res[E["arch"]] = {"L": [float(x) for x in L], "seconds": probe_s, "iters": E["iters"],
+                      "peak_allocated_gb": peak / 1e9,
+                      "launches": {n: c for n, c in counts.items() if c}}
+    del params, probe
+    torch.cuda.empty_cache()
+
+    R = ETA_AUTO_RUN
+    get, full = train.get_arch, autotune.estimate_L
+    # the launcher's probe (train.run calls autotune.estimate_L) at R's iterations
+    autotune.estimate_L = functools.partial(full, iters=R["iters"])
+    try:
+        for arch, cuts in TRAIN_ARCHS.items():
+            train.get_arch = lambda a, _c=cuts: dataclasses.replace(get(a), **_c)
+            cut = train.get_arch(arch)
+            kinds = [cut.block_pattern[i % cut.pattern_len] for i in range(cut.n_layers)]
+            n_rec = sum(b == "rec" for b in kinds)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            rows = train.run(arch, reduced=False, eta="auto", steps=R["steps"], m=R["m"],
+                             per_client_batch=R["per_client_batch"], seq_len=R["seq_len"],
+                             k=R["k"], log_every=1, device="cuda")
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = ops.launches()
+            rec.add(counts)
+            peak = torch.cuda.max_memory_allocated()
+            log(f"eta auto train.run {arch} (cut {cuts}, probe {R['iters']} iterations), "
+                f"{R['steps']} round: rows {rows} in "
+                f"{run_s:.2f} s; peak allocation {peak / 1e9:.2f} GB; launches "
+                f"{ {n: c for n, c in counts.items() if c} }")
+            check(len(rows) == R["steps"] and all(math.isfinite(r["server_loss"]) for r in rows),
+                  f"eta auto train.run {arch}: rows {rows}")
+            probe_want = probe_launches(len(kinds) - n_rec, n_rec, R["iters"])
+            check(all(counts.get(n, 0) >= c for n, c in probe_want.items()),
+                  f"eta auto train.run {arch}: launches {counts}, the probe's {probe_want}")
+            res[arch] = {"cut": cuts, "rows": rows, "seconds": run_s,
+                         "peak_allocated_gb": peak / 1e9,
+                         "launches": {n: c for n, c in counts.items() if c}}
+    finally:
+        train.get_arch, autotune.estimate_L = get, full
+
+    C = ETA_AUTO_CPU
+    for arch, heads in TRAIN_CPU_HEADS.items():
+        cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32", **heads)
+        model = build(cfg)
+        params = model.init(prng.key(0), device="cpu")
+        batch = next(lm_batches(prng.key(3), 1, C["m"], C["per_client_batch"], C["seq_len"],
+                                cfg.vocab_size, device="cpu"))
+
+        def grad_of(m_):
+            return lambda p, b: torch.func.grad(lambda q: m_.loss(q, b)[0])(p)
+
+        it = C["iters"]
+        t0 = time.perf_counter()
+        L_cpu = autotune.estimate_L(grad_of(model), params, C["m"], batch, iters=it)
+        cpu_s = time.perf_counter() - t0
+        gp = T.tmap(lambda x: x.cuda(), params)
+        gb = {n: v.cuda() for n, v in batch.items()}
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        L_card = autotune.estimate_L(grad_of(model), gp, C["m"], gb, iters=it)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = {n: c for n, c in ops.launches().items() if c}
+        undo = plain_model_ops(torch, ops, ref)
+        try:
+            L_plain = autotune.estimate_L(grad_of(model), gp, C["m"], gb, iters=it)
+        finally:
+            undo()
+        e_cpu = float(max(abs(L_card / L_cpu - 1.0)))
+        e_plain = float(max(abs(L_card / L_plain - 1.0)))
+        h_cpu = first_product(torch, autotune, arena, T, grad_of(model), params, C["m"], batch)
+        h_card = first_product(torch, autotune, arena, T, grad_of(model), gp, C["m"], gb).cpu()
+        first = {"norm_over_L": [float(x) for x in h_cpu.norm(dim=-1) / torch.tensor(L_cpu)],
+                 "card_vs_cpu": float((h_card - h_cpu).norm() / h_cpu.norm())}
+        tangents = ("flash_attention_jvp", "flash_attention_bwd_jvp") + (
+            ("lru_scan_jvp", "lru_scan_bwd_jvp") if "recurrent" in arch else ())
+        L_card, L_cpu, L_plain = ([float(x) for x in L_] for L_ in (L_card, L_cpu, L_plain))
+        log(f"eta auto card vs cpu {arch} reduced, f32, heads {heads}, {it} iterations: L card "
+            f"{L_card}, cpu {L_cpu} (rel {e_cpu:.3e}, tol {L_CARD_CPU_RTOL}), plain ops on the "
+            f"card {L_plain} (rel {e_plain:.3e}, tol {L_PLAIN_RTOL}); first product at the "
+            f"start vector: norm {['%.3e' % x for x in first['norm_over_L']]} of L, card "
+            f"against CPU {first['card_vs_cpu']:.3e}; probes {cpu_s:.2f} s on the CPU, "
+            f"{card_s:.2f} s on the card; card launches {counts}")
+        check(all(counts.get(n, 0) > 0 for n in tangents),
+              f"eta auto card vs cpu {arch}: launches {counts}, none of {tangents}")
+        check(e_cpu <= L_CARD_CPU_RTOL and e_plain <= L_PLAIN_RTOL,
+              f"eta auto card vs cpu {arch}: L off the CPU's by {e_cpu}, the plain ops' by "
+              f"{e_plain}")
+        res[f"{arch} card vs cpu"] = {"heads": heads, "iters": it, "L_card": L_card,
+                                      "L_cpu": L_cpu, "L_plain_card": L_plain,
+                                      "rel_cpu": e_cpu, "rel_plain": e_plain, "cpu_s": cpu_s,
+                                      "card_s": card_s, "first_product": first}
+        del params, gp
+    try:
+        train.run("rwkv6-1.6b", eta="auto", steps=1, device="cuda")
+    except NotImplementedError as e:
+        check("ROADMAP" in str(e), f"eta auto rwkv6-1.6b: refused without naming ROADMAP: {e}")
+        log(f"eta auto rwkv6-1.6b on the card: refused ({e})")
+    else:
+        check(False, "eta auto rwkv6-1.6b on the card ran: kernels 17-17b have no jvp rule")
+    torch.cuda.empty_cache()
+
+
 def examples_phase(torch, out):
     """The four library examples and the LM training example on the card,
     each with its own checks (their asserts)."""
@@ -5500,6 +5984,8 @@ def main() -> int:
     timed("12 train rwkv", train_rwkv_phase, rec, torch, ops, out)
     timed("12 train archs", train_archs_phase, rec, torch, ops, out)
     timed("12 train card vs cpu", train_against_cpu, torch, ops, out)
+    timed("12 jvp kernels", check_jvp_kernels, rec, torch, ops, ref, seeded(torch, 89), out)
+    timed("12 eta auto", eta_auto_phase, rec, torch, ops, ref, out)
     timed("12 examples", examples_phase, torch, out)
     timed("12 popstore ckpt", popstore_ckpt_phase, torch, out)
 

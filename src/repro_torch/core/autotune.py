@@ -101,7 +101,9 @@ def estimate_L(grad_fn, params, m: int, batch, *, spec=None, iters: int = POWER_
     dev = T.leaves(params)[0].device
 
     def host(L):
-        return _host(L).astype(np.float64)
+        # a bf16 model's estimates come back in bf16, which numpy does not
+        # take; widening to f32 is exact (the reference's np.float64 cast)
+        return _host(L.float() if torch.is_tensor(L) else L).astype(np.float64)
 
     curv = getattr(grad_fn, "curvature_arena", None)
     if curv is not None:

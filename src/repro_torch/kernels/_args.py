@@ -19,7 +19,9 @@ def jvp_target(what: str):
     """While ``what`` (an oracle) is differentiated with ``torch.func.jvp``,
     a wrapper handed a tensor off the CPU raises, naming ``what``: a
     ctypes kernel reads raw device pointers, so the jvp cannot see through
-    it, and its tangent would come out wrong without a word."""
+    it, and its tangent would come out wrong without a word.  A kernel
+    launched inside a Function with a forward-mode rule
+    (``forward_mode_rule``) is the exception."""
     stack = _jvp.__dict__.setdefault("stack", [])
     stack.append(what)
     try:
@@ -28,17 +30,33 @@ def jvp_target(what: str):
         stack.pop()
 
 
+@contextlib.contextmanager
+def forward_mode_rule():
+    """Around the launches of an ``autograd.Function`` that has a forward-mode
+    rule (``kernels.ops``: kernel 16, 16b, the RG-LRU's pair and their
+    tangent kernels): inside ``jvp_target`` its kernels launch, since the
+    rule, not the ctypes call, carries the tangent."""
+    depth = getattr(_jvp, "ruled", 0)
+    _jvp.ruled = depth + 1
+    try:
+        yield
+    finally:
+        _jvp.ruled = depth
+
+
 def on_cpu(name: str, t: torch.Tensor) -> bool:
     """True for a CPU tensor (the plain version runs), False for a CUDA one
     (the kernel runs); raises for any other device, and inside
-    ``jvp_target`` for any tensor off the CPU."""
+    ``jvp_target`` for any tensor off the CPU unless the launch comes from
+    a Function with a forward-mode rule (``forward_mode_rule``)."""
     if t.device.type == "cpu":
         return True
     stack = getattr(_jvp, "stack", None)
-    if stack:
+    if stack and not getattr(_jvp, "ruled", 0):
         raise TypeError(
-            f"{stack[-1]} launches the CUDA kernel {name}, and a ctypes kernel cannot be a "
-            f"torch.func.jvp target: give the oracle a curvature_arena or affine_arena hook")
+            f"{stack[-1]} launches the CUDA kernel {name}, and a ctypes kernel without a "
+            f"forward-mode rule cannot be a torch.func.jvp target (the rules still to come: "
+            f"ROADMAP.md section 1): give the oracle a curvature_arena or affine_arena hook")
     if t.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {t.device} are not supported "
                          f"(CPU runs the plain version, CUDA the kernel)")

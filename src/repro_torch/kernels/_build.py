@@ -29,8 +29,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("inner_loop.cu", "round_tail.cu", "fused_update.cu", "gather.cu", "screen.cu",
            "stale_mix.cu", "residual.cu", "neighbor_reduce.cu", "flash_attention.cu", "wkv6.cu",
-           "ef21.cu", "flash_attention_bwd.cu", "wkv6_bwd.cu", "lru_scan.cu")
-HEADERS = ("common.cuh", "hopper.cuh")
+           "ef21.cu", "flash_attention_bwd.cu", "wkv6_bwd.cu", "lru_scan.cu",
+           "flash_attention_jvp.cu")
+HEADERS = ("common.cuh", "hopper.cuh", "attention_tiles.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

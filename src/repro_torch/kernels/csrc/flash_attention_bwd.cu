@@ -123,6 +123,7 @@
 
 #include <stdint.h>
 
+#include "attention_tiles.cuh"  // visible(), the CUDA-core route's tile helpers
 #include "hopper.cuh"  // TMA, mbarrier and wgmma helpers shared with kernel 16
 
 namespace {
@@ -132,12 +133,7 @@ constexpr int kMaxD = 256;     // hd and vd, as kernel 16 takes them
 constexpr int kTcMaxD = 128;   // the wgmma route: hd = vd <= 128
 enum Route : int { kRouteCudaCores = 0, kRouteWgmma = 1, kRouteMma = 2 };
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, int Sk, int causal, int window) {
-  bool ok = kpos < Sk;
-  if (causal) ok = ok && kpos <= qpos;
-  if (window > 0) ok = ok && kpos > qpos - window;
-  return ok;
-}
+using attn::visible;
 
 struct Dims {
   int B, Sq, Sk, H, Hkv, hd, vd, q_offset, causal, window, splits;
@@ -609,40 +605,14 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
 // ---------------------------------------------------------------------------
 namespace cc {
 
-constexpr int kThreads = 256;
+using attn::carve;
+using attn::carved;
+using attn::kThreads;
+using attn::load_rows;
+using attn::mm;
+
 constexpr int kWarps = kThreads / 32;
 constexpr int kBC = 32;   // keys per tile
-
-// C (M x N, row-major, ldc) = / += A (M x K) B (K x N), f32.  A(m, k) is
-// A[m * lda + k], or A[k * lda + m] when A_COL; B(k, n) is B[k * ldb + n],
-// or B[n * ldb + k] when B_COL.  Each output is one thread's sum over k in
-// order.
-template <bool ACC, bool A_COL, bool B_COL>
-__device__ void mm(float* C, int ldc, const float* A, int lda, const float* B, int ldb, int M,
-                   int N, int K) {
-  for (int e = threadIdx.x; e < M * N; e += kThreads) {
-    const int m = e / N, n = e % N;
-    float s = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float a = A_COL ? A[k * lda + m] : A[m * lda + k];
-      const float b = B_COL ? B[n * ldb + k] : B[k * ldb + n];
-      s = fmaf(a, b, s);
-    }
-    C[m * ldc + n] = ACC ? C[m * ldc + n] + s : s;
-  }
-}
-
-// Rows [r0, r0 + R) of one head of a (B, S, heads, dim) tensor into shared
-// memory (ld columns a row, columns past dim and rows past S zero).
-template <typename T>
-__device__ void load_rows(float* dst, int ld, const T* src, long long row_stride, int r0, int R,
-                          int S, int dim, int D) {
-  for (int i = threadIdx.x; i < R * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * ld + c] = (r0 + r < S && c < dim) ? load_f32(src, (size_t)((r0 + r) * row_stride + c))
-                                              : 0.0f;
-  }
-}
 
 // p and dS of one (query tile, key tile) pair, from the scores S and
 // dP = do v^T in shared memory.
@@ -658,16 +628,6 @@ __device__ void softmax_grad(const float* Ss, const float* dPs, float* Pe, float
     Pe[r * lde + c] = p;
     dSe[r * lde + c] = ok ? p * (dPs[r * ldsc + c] - Dv[r]) : 0.0f;
   }
-}
-
-__host__ __device__ constexpr size_t carved(size_t n) {
-  return (n * sizeof(float) + 127) & ~(size_t)127;
-}
-
-__device__ __forceinline__ float* carve(uint8_t*& p, size_t n) {
-  float* out = reinterpret_cast<float*>(p);
-  p += carved(n);
-  return out;
 }
 
 // Shared memory of each grid, laid out by its carve() calls: the operand

@@ -55,6 +55,23 @@ summed over each kv head's query heads, every sum in a fixed order.
 ``kernels.ops`` makes the pair an ``autograd.Function``; the plain backward
 (``ref.flash_attention_bwd_ref``, autograd of the plain forward) runs on the
 CPU.
+
+Kernels 16j and 16bj (``csrc/flash_attention_jvp.cu``) are the tangents
+(forward mode) of 16 and 16b, for the curvature probe of ``--eta auto``
+(``vmap(jvp(grad(loss)))``, ``core.autotune.estimate_L``), at every head
+dim and dtype kernel 16 takes, on the CUDA cores (f32 products):
+
+  * ``flash_attention_jvp``      q, k, v, lse and the tangents q', k', v' ->
+                                 (o', lse'), one sweep over the keys;
+  * ``flash_attention_bwd_jvp``  16b's operands q, k, v, o, lse, do and the
+                                 tangents q', k', v', o', do' -> (dq', dk',
+                                 dv'), lse' formed inside (a row grid for
+                                 lse', D, D' and dq', then a key grid for
+                                 dk', dv').
+
+Their plain versions are ``ref.flash_attention_jvp_ref`` and
+``ref.flash_attention_bwd_jvp_ref``; ``kernels.ops`` calls them from the
+forward-mode rules of ``FlashAttention`` and ``FlashAttentionBackward``.
 """
 from __future__ import annotations
 
@@ -87,6 +104,24 @@ FLASH_ATTENTION_BWD = Kernel(
     # dtype route scale dev stream
     [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, F, I, P],
     replaces="src/repro/kernels/flash_attention.py:70 (its backward: ops.py _flash_xla)",
+)
+
+FLASH_ATTENTION_JVP = Kernel(
+    "flash_attention_jvp", "flash_attention_jvp.cu", "launch_flash_attention_jvp",
+    # q k v lse qt kt vt ot lse_t B Sq Sk H Hkv hd vd q_offset causal window dtype scale dev
+    # stream
+    [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, I, P],
+    replaces="none: jax.jvp through src/repro/kernels/ops.py _flash_xla (the reference's "
+             "curvature probe, src/repro/core/autotune.py:140-159)",
+)
+
+FLASH_ATTENTION_BWD_JVP = Kernel(
+    "flash_attention_bwd_jvp", "flash_attention_jvp.cu", "launch_flash_attention_bwd_jvp",
+    # q k v o lse do qt kt vt ot dot dq_t dk_t dv_t scratch B Sq Sk H Hkv hd vd q_offset
+    # causal window dtype scale dev stream
+    [P] * 15 + [I] * 11 + [F, I, P],
+    replaces="none: jax.jvp of jax.grad through src/repro/kernels/ops.py _flash_xla (the "
+             "reference's curvature probe, src/repro/core/autotune.py:140-159)",
 )
 
 last_route: str | None = None
@@ -225,6 +260,62 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None
                 BWD_ROUTE_CODES[path], 1.0 / math.sqrt(hd), *_args.stream_args(dev))
     last_bwd_route = path
     return dq, dk, dv
+
+
+def flash_attention_jvp(q, k, v, lse, qt, kt, vt, *, causal: bool = True, window=None,
+                        q_offset: int = 0):
+    """(o', lse') of ``flash_attention`` at (q, k, v), whose row logsumexp
+    was ``lse``, along the tangents (q', k', v') (kernel 16j; see the module
+    doc): o' in q's dtype, lse' (B, H, Sq) f32."""
+    kern = FLASH_ATTENTION_JVP
+    if _args.on_cpu(kern.name, q):
+        q_pos, k_pos = _positions(q, k, q_offset)
+        return ref.flash_attention_jvp_ref(q, k, v, lse, qt, kt, vt, q_pos, k_pos,
+                                           causal=causal, window=window)
+    _check(kern.name, q, k, v, window)
+    B, Sq, H, hd = q.shape
+    Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
+    dt, dev = q.dtype, q.device
+    _args.check(kern.name, "lse", lse, (B, H, Sq), (torch.float32,), dev)
+    for name, t, like in (("qt", qt, q), ("kt", kt, k), ("vt", vt, v)):
+        _args.check(kern.name, name, t, like.shape, (dt,), dev)
+    ot = torch.empty((B, Sq, H, vd), dtype=dt, device=dev)
+    lse_t = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    kern.launch(_args.ptr(q), _args.ptr(k), _args.ptr(v), _args.ptr(lse), _args.ptr(qt),
+                _args.ptr(kt), _args.ptr(vt), _args.ptr(ot), _args.ptr(lse_t), B, Sq, Sk, H,
+                Hkv, hd, vd, int(q_offset), int(causal), 0 if window is None else int(window),
+                _args.DTYPE_CODES[dt], 1.0 / math.sqrt(hd), *_args.stream_args(dev))
+    return ot, lse_t
+
+
+def flash_attention_bwd_jvp(q, k, v, o, lse, do, qt, kt, vt, ot, dot, *, causal: bool = True,
+                            window=None, q_offset: int = 0):
+    """(dq', dk', dv'): the tangent of ``flash_attention_bwd`` at (q, k, v,
+    o, lse, do) along (q', k', v', o', do'), lse' formed inside (kernel 16bj;
+    see the module doc), in q's dtype."""
+    kern = FLASH_ATTENTION_BWD_JVP
+    if _args.on_cpu(kern.name, q):
+        q_pos, k_pos = _positions(q, k, q_offset)
+        return ref.flash_attention_bwd_jvp_ref(q, k, v, o, lse, do, qt, kt, vt, ot, dot, q_pos,
+                                               k_pos, causal=causal, window=window)
+    _check(kern.name, q, k, v, window)
+    B, Sq, H, hd = q.shape
+    Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
+    dt, dev = q.dtype, q.device
+    _args.check(kern.name, "lse", lse, (B, H, Sq), (torch.float32,), dev)
+    for name, t, like in (("o", o, do), ("do", do, do), ("qt", qt, q), ("kt", kt, k),
+                          ("vt", vt, v), ("ot", ot, do), ("dot", dot, do)):
+        _args.check(kern.name, name, t, (B, Sq, H, vd) if like is do else like.shape, (dt,),
+                    dev)
+    dq_t, dk_t, dv_t = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty(3 * B * H * Sq, dtype=torch.float32, device=dev)  # lse', D, D'
+    kern.launch(_args.ptr(q), _args.ptr(k), _args.ptr(v), _args.ptr(o), _args.ptr(lse),
+                _args.ptr(do), _args.ptr(qt), _args.ptr(kt), _args.ptr(vt), _args.ptr(ot),
+                _args.ptr(dot), _args.ptr(dq_t), _args.ptr(dk_t), _args.ptr(dv_t),
+                _args.ptr(scratch), B, Sq, Sk, H, Hkv, hd, vd, int(q_offset), int(causal),
+                0 if window is None else int(window), _args.DTYPE_CODES[dt],
+                1.0 / math.sqrt(hd), *_args.stream_args(dev))
+    return dq_t, dk_t, dv_t
 
 
 def _check(name, q, k, v, window) -> None:

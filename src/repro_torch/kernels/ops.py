@@ -30,7 +30,22 @@ d) -> (m B, S, H, d); u (m, H, K) becomes one row of u a client), which is
 how the rounds' ``vmap(grad(loss))`` reaches the kernels.  A CPU tensor
 calls the plain version directly, with no Function on the path, so autograd
 and ``torch.func.jvp`` differentiate it as before; nothing sends a CUDA
-tensor to a plain backward.  The Functions have no forward-mode rule.
+tensor to a plain backward.
+
+Forward mode.  ``FlashAttention``, ``FlashAttentionBackward``, ``LruScan``
+and ``LruScanBackward`` have a ``jvp`` rule whose tangent is a kernel too
+(16j ``flash_attention_jvp``, 16bj ``flash_attention_bwd_jvp``,
+``lru_scan_jvp``, ``lru_scan_bwd_jvp``), each called through a small
+Function of its own with a vmap rule that folds the clients into the batch,
+as the others do.  That is what ``--eta auto``'s curvature probe takes
+(``core.autotune.estimate_L``: ``vmap(jvp(grad(loss)))``): the forward's
+rule gives the tangents of o and y, and the backward Function, run on those
+duals by the gradient, its own rule the tangents of the gradients.  16j
+and 16bj form lse's tangent themselves: lse is non-differentiable, so none
+arrives.  A kernel launched inside one of these Functions may run while an
+oracle is a jvp target (``_args.forward_mode_rule``); any other ctypes
+kernel still raises there.  ``Wkv6`` and ``Wkv6Backward`` have no rule yet
+(``ROADMAP.md`` section 1): forward mode through them raises.
 """
 from __future__ import annotations
 
@@ -70,15 +85,17 @@ from repro_torch.kernels.stale_mix import stale_mix
 # tail's variant with the client mean in its pass (kernel 2's), the
 # server step's mean pass (kernel 3's), the EF21 uplink (kernels 7-8 in
 # one pass), the screen with its keep rule (kernel 11's) and SCAFFOLD's
-# server step (kernel 5's, two launches a call), the backward kernels 16b-17b
-# and the RG-LRU's recurrence and its backward, kernels of the port's own
+# server step (kernel 5's, two launches a call), the backward kernels 16b-17b,
+# the RG-LRU's recurrence and its backward, kernels of the port's own, and the
+# tangents (forward mode) of 16, 16b and the RG-LRU's pair
 KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _fu.ARENA_KERNEL,
            _rt.SCAFFOLD_CV, _fu.KERNEL, _rt.EF21_ROWMAX, _rt.EF21_APPLY, _ga.ROW_GATHER,
            _ga.ROW_SCATTER, _sc.SCREEN_UPLINK, _sm.STALE_MIX, _rs.RESIDUAL_NORM,
            _nr.NEIGHBOR_REDUCE, _nr.EDGE_FLIP, _fa.FLASH_ATTENTION, _wk.WKV6,
            _rt.ROUND_TAIL_MEAN, _rt.CLIENT_MEAN, _rt.EF21_UPDATE, _sc.SCREEN_KEEP,
            _rt.SCAFFOLD_STEP, _fa.FLASH_ATTENTION_BWD, _wk.WKV6_BWD, _lr.LRU_SCAN,
-           _lr.LRU_SCAN_BWD)
+           _lr.LRU_SCAN_BWD, _fa.FLASH_ATTENTION_JVP, _fa.FLASH_ATTENTION_BWD_JVP,
+           _lr.LRU_SCAN_JVP, _lr.LRU_SCAN_BWD_JVP)
 
 
 def affine_inner_fits(width: int) -> bool:
@@ -154,20 +171,34 @@ def _unfold(t, m: int):
     return None if t is None else t.reshape(m, t.shape[0] // m, *t.shape[1:])
 
 
+def _tangents(primals, tangents):
+    """Each tangent, or zeros like its primal where the input carries none."""
+    return tuple(torch.zeros_like(p) if t is None else t for p, t in zip(primals, tangents))
+
+
+def _no_second_derivative(name: str, kernel: str):
+    def backward(ctx, *grads):
+        raise NotImplementedError(f"{name}: no second derivative ({kernel} has no backward)")
+    return staticmethod(backward)
+
+
 class FlashAttention(torch.autograd.Function):
-    """Kernel 16 whose backward is kernel 16b.  ``apply(q, k, v, causal,
-    window, q_offset, keep) -> (o, lse)``: with ``keep`` the kernel also
-    writes each query row's logsumexp and the Function saves what 16b
-    reads; without it (a transform but no gradient, as the eval loss under
-    ``no_grad`` in ``vmap``) lse is None and nothing is saved."""
+    """Kernel 16 whose backward is kernel 16b and whose forward-mode rule is
+    kernel 16j.  ``apply(q, k, v, causal, window, q_offset, keep) -> (o,
+    lse)``: with ``keep`` the kernel also writes each query row's
+    logsumexp and the Function saves what 16b and 16j read; without it (a
+    transform but no gradient, as the eval loss under ``no_grad`` in
+    ``vmap``) lse is None and nothing is saved.  The curvature probe takes
+    the tangent of a gradient, so ``keep`` is on wherever 16j runs."""
 
     @staticmethod
     def forward(q, k, v, causal, window, q_offset, keep):
-        if keep:
+        with _args.forward_mode_rule():
+            if keep:
+                return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                           q_offset=q_offset, lse=True)
             return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset, lse=True)
-        return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset), None
+                                       q_offset=q_offset), None
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -176,6 +207,7 @@ class FlashAttention(torch.autograd.Function):
         ctx.keep = keep
         if keep:
             ctx.save_for_backward(q, k, v, o, lse)
+            ctx.save_for_forward(q, k, v, o, lse)
             ctx.args = (causal, window, q_offset)
             ctx.mark_non_differentiable(lse)
 
@@ -188,6 +220,16 @@ class FlashAttention(torch.autograd.Function):
                 None, None, None, None)
 
     @staticmethod
+    def jvp(ctx, qt, kt, vt, *_):
+        if not ctx.keep:
+            raise RuntimeError("flash_attention: called without keep, so no lse for its "
+                               "forward-mode rule")
+        q, k, v, _o, lse = ctx.saved_tensors
+        ot, _ = FlashAttentionJvp.apply(q, k, v, lse, *_tangents((q, k, v), (qt, kt, vt)),
+                                        *ctx.args)
+        return ot, None
+
+    @staticmethod
     def vmap(info, in_dims, q, k, v, causal, window, q_offset, keep):
         q, k, v = (_fold(t) for t in _batched(info, in_dims[:3], q, k, v))
         o, lse = FlashAttention.apply(q, k, v, causal, window, q_offset, keep)
@@ -196,28 +238,93 @@ class FlashAttention(torch.autograd.Function):
 
 
 class FlashAttentionBackward(torch.autograd.Function):
-    """Kernel 16b as a Function, so that it runs under ``vmap``; it has no
-    backward of its own."""
+    """Kernel 16b as a Function, so that it runs under ``vmap``; its
+    forward-mode rule is kernel 16bj, and it has no backward of its own."""
 
     @staticmethod
     def forward(q, k, v, o, lse, do, causal, window, q_offset):
-        return _fa.flash_attention_bwd(q, k, v, o, lse, do.contiguous(), causal=causal,
-                                       window=window, q_offset=q_offset)
+        with _args.forward_mode_rule():
+            return _fa.flash_attention_bwd(q, k, v, o, lse, do.contiguous(), causal=causal,
+                                           window=window, q_offset=q_offset)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        ctx.args = inputs[6:]
+        ctx.save_for_forward(*inputs[:6])
+
+    backward = _no_second_derivative("flash_attention", "kernel 16b")
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("flash_attention: no second derivative (kernel 16b has "
-                                  "no backward)")
+    def jvp(ctx, qt, kt, vt, ot, _lset, dot, *_):
+        # lse is non-differentiable (FlashAttention marks it): no tangent of
+        # it arrives, and 16bj forms lse' from q', k' itself
+        q, k, v, o, lse, do = ctx.saved_tensors
+        tangents = _tangents((q, k, v, o, do), (qt, kt, vt, ot, dot))
+        return FlashAttentionBwdJvp.apply(q, k, v, o, lse, do, *tangents, *ctx.args)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, o, lse, do, causal, window, q_offset):
         folded = (_fold(t) for t in _batched(info, in_dims[:6], q, k, v, o, lse, do))
         grads = FlashAttentionBackward.apply(*folded, causal, window, q_offset)
         return tuple(_unfold(g, info.batch_size) for g in grads), (0, 0, 0)
+
+
+class FlashAttentionJvp(torch.autograd.Function):
+    """Kernel 16j as a Function, so that ``FlashAttention``'s forward-mode
+    rule runs under ``vmap``: ``apply(q, k, v, lse, q', k', v', causal,
+    window, q_offset) -> (o', lse')``."""
+
+    @staticmethod
+    def forward(q, k, v, lse, qt, kt, vt, causal, window, q_offset):
+        with _args.forward_mode_rule():
+            return _fa.flash_attention_jvp(q, k, v, lse, qt.contiguous(), kt.contiguous(),
+                                           vt.contiguous(), causal=causal, window=window,
+                                           q_offset=q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    backward = _no_second_derivative("flash_attention_jvp", "kernel 16j")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, lse, qt, kt, vt, causal, window, q_offset):
+        folded = (_fold(t) for t in _batched(info, in_dims[:7], q, k, v, lse, qt, kt, vt))
+        ot, lse_t = FlashAttentionJvp.apply(*folded, causal, window, q_offset)
+        m = info.batch_size
+        return (_unfold(ot, m), _unfold(lse_t, m)), (0, 0)
+
+
+class FlashAttentionBwdJvp(torch.autograd.Function):
+    """Kernel 16bj as a Function, so that ``FlashAttentionBackward``'s
+    forward-mode rule runs under ``vmap``: ``apply(q, k, v, o, lse, do, q',
+    k', v', o', do', causal, window, q_offset) -> (dq', dk', dv')``."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, qt, kt, vt, ot, dot, causal, window, q_offset):
+        with _args.forward_mode_rule():
+            return _fa.flash_attention_bwd_jvp(
+                q, k, v, o, lse, do.contiguous(), *(t.contiguous() for t in (qt, kt, vt, ot, dot)),
+                causal=causal, window=window, q_offset=q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    backward = _no_second_derivative("flash_attention_bwd_jvp", "kernel 16bj")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        tensors, rest = args[:11], args[11:]
+        folded = (_fold(t) for t in _batched(info, in_dims[:11], *tensors))
+        grads = FlashAttentionBwdJvp.apply(*folded, *rest)
+        return tuple(_unfold(g, info.batch_size) for g in grads), (0, 0, 0)
+
+
+def _wkv6_no_rule():
+    raise NotImplementedError(
+        "wkv6: kernels 17 and 17b have no forward-mode rule yet (17j, 17bj: ROADMAP.md "
+        "section 1), so torch.func.jvp, and --eta auto, cannot go through them on the card")
 
 
 class Wkv6(torch.autograd.Function):
@@ -241,6 +348,10 @@ class Wkv6(torch.autograd.Function):
             ctx.save_for_backward(*inputs[:-1], s_out, states)
             if states is not None:
                 ctx.mark_non_differentiable(states)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        _wkv6_no_rule()
 
     @staticmethod
     def backward(ctx, dy, ds_final, _dstates):
@@ -272,9 +383,11 @@ class Wkv6Backward(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         pass
 
+    backward = _no_second_derivative("wkv6", "kernel 17b")
+
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("wkv6: no second derivative (kernel 17b has no backward)")
+    def jvp(ctx, *tangents):
+        _wkv6_no_rule()
 
     @staticmethod
     def vmap(info, in_dims, r, k, v, w, u, s0, s_out, states, dy, ds_final):
@@ -293,14 +406,16 @@ class Wkv6Backward(torch.autograd.Function):
 
 
 class LruScan(torch.autograd.Function):
-    """``lru_scan`` whose backward is ``lru_scan_bwd``.  ``apply(a, b, h0,
-    keep) -> (y, h_last)``: with ``keep`` the Function saves a, h0 and the
-    states y, which the backward reads; without it (a transform but no
-    gradient) nothing is saved."""
+    """``lru_scan`` whose backward is ``lru_scan_bwd`` and whose forward-mode
+    rule is ``lru_scan_jvp``.  ``apply(a, b, h0, keep) -> (y, h_last)``:
+    with ``keep`` the Function saves a, h0 and the states y, which the
+    backward reads; without it (a transform but no gradient) nothing is
+    saved for a backward."""
 
     @staticmethod
     def forward(a, b, h0, keep):
-        return _lr.lru_scan(a, b, h0)
+        with _args.forward_mode_rule():
+            return _lr.lru_scan(a, b, h0)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -308,6 +423,7 @@ class LruScan(torch.autograd.Function):
         ctx.keep = keep
         if keep:
             ctx.save_for_backward(a, h0, output[0])
+        ctx.save_for_forward(a, h0, output[0])
 
     @staticmethod
     def backward(ctx, dy, dh_last):
@@ -315,6 +431,11 @@ class LruScan(torch.autograd.Function):
             raise RuntimeError("lru_scan: called without keep, so no backward")
         a, h0, y = ctx.saved_tensors
         return (*LruScanBackward.apply(a, y, h0, dy, dh_last), None)
+
+    @staticmethod
+    def jvp(ctx, at, bt, h0t, _keep):
+        a, h0, y = ctx.saved_tensors
+        return LruScanJvp.apply(a, y, h0, *_tangents((a, a, h0), (at, bt, h0t)))
 
     @staticmethod
     def vmap(info, in_dims, a, b, h0, keep):
@@ -325,26 +446,74 @@ class LruScan(torch.autograd.Function):
 
 
 class LruScanBackward(torch.autograd.Function):
-    """``lru_scan_bwd`` as a Function, so that it runs under ``vmap``; it
-    has no backward of its own."""
+    """``lru_scan_bwd`` as a Function, so that it runs under ``vmap``; its
+    forward-mode rule is ``lru_scan_bwd_jvp``, and it has no backward of its
+    own."""
 
     @staticmethod
     def forward(a, y, h0, dy, dh_last):
-        return _lr.lru_scan_bwd(a, y, h0, dy.contiguous(), dh_last.contiguous())
+        with _args.forward_mode_rule():
+            return _lr.lru_scan_bwd(a, y, h0, dy.contiguous(), dh_last.contiguous())
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        ctx.save_for_forward(*inputs)
+
+    backward = _no_second_derivative("lru_scan", "lru_scan_bwd")
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("lru_scan: no second derivative (lru_scan_bwd has no "
-                                  "backward)")
+    def jvp(ctx, *tangents):
+        primals = ctx.saved_tensors
+        return LruScanBwdJvp.apply(*primals, *_tangents(primals, tangents))
 
     @staticmethod
     def vmap(info, in_dims, a, y, h0, dy, dh_last):
         folded = (_fold(t) for t in _batched(info, in_dims, a, y, h0, dy, dh_last))
         grads = LruScanBackward.apply(*folded)
+        return tuple(_unfold(g, info.batch_size) for g in grads), (0, 0, 0)
+
+
+class LruScanJvp(torch.autograd.Function):
+    """``lru_scan_jvp`` as a Function, so that ``LruScan``'s forward-mode rule
+    runs under ``vmap``: ``apply(a, y, h0, a', b', h0') -> (y', h_last')``."""
+
+    @staticmethod
+    def forward(a, y, h0, at, bt, h0t):
+        with _args.forward_mode_rule():
+            return _lr.lru_scan_jvp(a, y, h0, *(t.contiguous() for t in (at, bt, h0t)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    backward = _no_second_derivative("lru_scan_jvp", "lru_scan_jvp")
+
+    @staticmethod
+    def vmap(info, in_dims, *ts):
+        yt, h_last_t = LruScanJvp.apply(*(_fold(t) for t in _batched(info, in_dims, *ts)))
+        m = info.batch_size
+        return (_unfold(yt, m), _unfold(h_last_t, m)), (0, 0)
+
+
+class LruScanBwdJvp(torch.autograd.Function):
+    """``lru_scan_bwd_jvp`` as a Function, so that ``LruScanBackward``'s
+    forward-mode rule runs under ``vmap``: ``apply(a, y, h0, dy, dh_last,
+    a', y', h0', dy', dh_last') -> (da', db', dh0')``."""
+
+    @staticmethod
+    def forward(*ts):
+        with _args.forward_mode_rule():
+            return _lr.lru_scan_bwd_jvp(*(t.contiguous() for t in ts))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    backward = _no_second_derivative("lru_scan_bwd_jvp", "lru_scan_bwd_jvp")
+
+    @staticmethod
+    def vmap(info, in_dims, *ts):
+        grads = LruScanBwdJvp.apply(*(_fold(t) for t in _batched(info, in_dims, *ts)))
         return tuple(_unfold(g, info.batch_size) for g in grads), (0, 0, 0)
 
 
@@ -442,7 +611,8 @@ def launches() -> dict[str, int]:
 
 
 __all__ = [
-    "FlashAttention", "FlashAttentionBackward", "KERNELS", "LruScan", "LruScanBackward", "Wkv6",
+    "FlashAttention", "FlashAttentionBackward", "FlashAttentionBwdJvp", "FlashAttentionJvp",
+    "KERNELS", "LruScan", "LruScanBackward", "LruScanBwdJvp", "LruScanJvp", "Wkv6",
     "Wkv6Backward",
     "acc_mode_at", "affine_inner_fits", "attend_cache", "client_mean", "dual_from_uplink",
     "edge_flip", "ef21_apply", "ef21_rowmax", "ef21_update", "flash_attention", "fused_update",

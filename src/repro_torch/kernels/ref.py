@@ -486,6 +486,153 @@ def flash_attention_bwd_ref(q, k, v, do, q_pos, k_pos, *, causal: bool = True, w
         return torch.autograd.grad(o, (qq, kk, vv), do)
 
 
+def _flash_probs(q, k, lse, q_pos, k_pos, causal, window, qt=None, kt=None):
+    """The grouped operands of the tangent refs, in f32: q (B, Sq, Hkv, G,
+    hd), P = exp(q k^T / sqrt(hd) - lse) over the visible keys (0 elsewhere)
+    (B, Hkv, G, Sq, Sk) and, given the tangents q', k', the scores' tangent
+    S' = (q' k^T + q k'^T) / sqrt(hd)."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    f32 = torch.float32
+    qf, kf = q.to(f32).reshape(B, Sq, Hkv, H // Hkv, hd), k.to(f32)
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    kp, qp = k_pos[None, :], q_pos[:, None]
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
+    if window is not None:
+        valid = valid & (kp > qp - window)
+    lse_g = lse.to(f32).reshape(B, Hkv, H // Hkv, Sq)[..., None]
+    p = torch.where(valid, torch.exp(s - lse_g), 0.0)
+    if qt is None:
+        return qf, p, None
+    qtf = qt.to(f32).reshape(B, Sq, Hkv, H // Hkv, hd)
+    st = (torch.einsum("bqhgd,bkhd->bhgqk", qtf, kf)
+          + torch.einsum("bqhgd,bkhd->bhgqk", qf, kt.to(f32))) * scale
+    return qf, p, st
+
+
+def _heads_out(x, dtype):
+    """(B, Hkv, G, Sq, d) -> (B, Sq, H, d) in ``dtype``."""
+    B, Hkv, G, Sq, d = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hkv * G, d).to(dtype)
+
+
+def flash_attention_jvp_ref(q, k, v, lse, qt, kt, vt, q_pos, k_pos, *, causal: bool = True,
+                            window=None):
+    """The tangent of ``flash_attention`` (kernel 16j's plain version): from
+    the primals q, k, v, the forward's row logsumexp ``lse`` (B, H, Sq) and
+    the tangents q', k', v', in f32 with P = exp(S - lse) over the visible
+    keys (0 elsewhere) and S' = (q' k^T + q k'^T) / sqrt(hd):
+
+        lse' = sum_j P_j S'_j,    o' = sum_j P_j (S'_j v_j + v'_j) - lse' o
+
+    with o = sum_j P_j v_j.  Returns (o' (B, Sq, H, vd) in q's dtype, lse'
+    (B, H, Sq) f32).  Equal to ``torch.func.jvp`` of ``flash_attention_ref``
+    up to rounding (tests/test_torch_jvp.py)."""
+    B, Sq, H, _ = q.shape
+    Hkv = k.shape[2]
+    f32 = torch.float32
+    _, p, st = _flash_probs(q, k, lse, q_pos, k_pos, causal, window, qt, kt)
+    vf, vtf = v.to(f32), vt.to(f32)
+    lse_t = torch.sum(p * st, dim=-1)
+    o = torch.einsum("bhgqk,bkhv->bhgqv", p, vf)
+    o_t = (torch.einsum("bhgqk,bkhv->bhgqv", p * st, vf)
+           + torch.einsum("bhgqk,bkhv->bhgqv", p, vtf) - lse_t[..., None] * o)
+    return _heads_out(o_t, q.dtype), lse_t.reshape(B, H, Sq)
+
+
+def flash_attention_bwd_jvp_ref(q, k, v, o, lse, do, qt, kt, vt, ot, dot, q_pos, k_pos, *,
+                                causal: bool = True, window=None):
+    """The tangent of ``flash_attention_bwd`` (kernel 16bj's plain version):
+    of (dq, dk, dv) as 16b forms them from q, k, v, o, lse and do, for the
+    tangents q', k', v', o', do'.  lse' is formed here (lse' = sum P S',
+    ``flash_attention_jvp_ref``), not read: the Function marks lse
+    non-differentiable, so no tangent of it arrives.  With D = rowsum(do o),
+    dP = do v^T, dS = P (dP - D), in f32:
+
+        P'  = P (S' - lse'),        dP' = do' v^T + do v'^T
+        D'  = rowsum(do' o + do o'),  dS' = P' (dP - D) + P (dP' - D')
+        dq' = (dS' k + dS k') / sqrt(hd)
+        dk' = (dS'^T q + dS^T q') / sqrt(hd),  dv' = P'^T do + P^T do'
+
+    dk' and dv' summed over each kv head's query heads.  Returns (dq', dk',
+    dv') in q's dtype.  Equal to ``torch.func.jvp`` of
+    ``flash_attention_bwd_ref`` up to rounding (tests/test_torch_jvp.py)."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(hd)
+    qf, p, st = _flash_probs(q, k, lse, q_pos, k_pos, causal, window, qt, kt)
+    qtf = qt.to(f32).reshape(B, Sq, Hkv, G, hd)
+    kf, vf, ktf, vtf = (t.to(f32) for t in (k, v, kt, vt))
+    of, dof, otf, dotf = (t.to(f32).reshape(B, Sq, Hkv, G, t.shape[-1])
+                          for t in (o, do, ot, dot))
+    lse_t = torch.sum(p * st, dim=-1, keepdim=True)
+    p_t = p * (st - lse_t)
+    dp = torch.einsum("bqhgv,bkhv->bhgqk", dof, vf)
+    dp_t = (torch.einsum("bqhgv,bkhv->bhgqk", dotf, vf)
+            + torch.einsum("bqhgv,bkhv->bhgqk", dof, vtf))
+    D = torch.einsum("bqhgv,bqhgv->bhgq", dof, of)[..., None]
+    D_t = (torch.einsum("bqhgv,bqhgv->bhgq", dotf, of)
+           + torch.einsum("bqhgv,bqhgv->bhgq", dof, otf))[..., None]
+    ds = p * (dp - D)
+    ds_t = p_t * (dp - D) + p * (dp_t - D_t)
+    dq_t = (torch.einsum("bhgqk,bkhd->bhgqd", ds_t, kf)
+            + torch.einsum("bhgqk,bkhd->bhgqd", ds, ktf)) * scale
+    dk_t = (torch.einsum("bhgqk,bqhgd->bkhd", ds_t, qf)
+            + torch.einsum("bhgqk,bqhgd->bkhd", ds, qtf)) * scale
+    dv_t = (torch.einsum("bhgqk,bqhgv->bkhv", p_t, dof)
+            + torch.einsum("bhgqk,bqhgv->bkhv", p, dotf))
+    return _heads_out(dq_t, q.dtype), dk_t.to(q.dtype), dv_t.to(q.dtype)
+
+
+def lru_jvp_ref(a, y, h0, at, bt, h0t):
+    """The tangent of ``lru_ref`` (``lru_scan_jvp``'s plain version): from
+    a, the states y and h0 and the tangents a', b', h0', in f32,
+    h'_t = a_t h'_{t-1} + a'_t h_{t-1} + b'_t (h_{-1} = h0), each product
+    and sum rounded on its own in the order of torch's forward-mode rules
+    for ``a * h + b`` ((h' a + a' h) + b'), so it equals ``torch.func.jvp``
+    of ``lru_ref`` bit for bit.  Returns (y' (B, S, D), h_last' (B, D))."""
+    f32 = torch.float32
+    af, yf, atf, btf = (t.to(f32) for t in (a, y, at, bt))
+    ht = h0t.to(f32)
+    ys = []
+    for t in range(a.shape[1]):
+        hp = yf[:, t - 1] if t else h0.to(f32)
+        ht = (ht * af[:, t] + atf[:, t] * hp) + btf[:, t]
+        ys.append(ht)
+    y_t = torch.stack(ys, dim=1) if ys else atf.new_zeros(atf.shape)
+    return y_t.to(a.dtype), ht
+
+
+def lru_bwd_jvp_ref(a, y, h0, dy, dh_last, at, yt, h0t, dyt, dh_last_t):
+    """The tangent of ``lru_bwd_ref`` (``lru_scan_bwd_jvp``'s plain version)
+    for the tangents of its inputs, walking back in f32 with the primal
+    carry beside the tangent's: g_t = dy_t + c_t, g'_t = dy'_t + c'_t,
+    da'_t = h'_{t-1} g_t + g'_t h_{t-1} (h_{-1} = h0, h'_{-1} = h0'), db'_t
+    = g'_t, c_{t-1} = g_t a_t, c'_{t-1} = a'_t g_t + g'_t a_t, from c =
+    dh_last; dh0' = c'_{-1}.  Each product and sum rounded on its own in the
+    order of torch's forward-mode rules, so it equals ``torch.func.jvp`` of
+    ``lru_bwd_ref`` bit for bit.  Returns (da', db', dh0')."""
+    f32 = torch.float32
+    af, yf, dyf, atf, ytf, dytf = (t.to(f32) for t in (a, y, dy, at, yt, dyt))
+    c, ct = dh_last.to(f32), dh_last_t.to(f32)
+    da_t, db_t = torch.empty_like(af), torch.empty_like(af)
+    for t in range(a.shape[1] - 1, -1, -1):
+        g = dyf[:, t] + c
+        g_t = dytf[:, t] + ct
+        hp = yf[:, t - 1] if t else h0.to(f32)
+        hp_t = ytf[:, t - 1] if t else h0t.to(f32)
+        da_t[:, t] = hp_t * g + g_t * hp
+        db_t[:, t] = g_t
+        ct = atf[:, t] * g + g_t * af[:, t]
+        c = g * af[:, t]
+    return da_t.to(a.dtype), db_t.to(a.dtype), ct
+
+
 def wkv6_bwd_ref(r, k, v, w, u, s0, dy, ds_final=None, *, chunk: int = 64):
     """(dr, dk, dv, dw, du, ds0) of ``wkv6_ref`` for the incoming gradients
     ``dy`` and ``ds_final`` (None: zero): autograd of the plain forward (the

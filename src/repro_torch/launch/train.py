@@ -37,9 +37,13 @@ crash-safe JSONL sink; ``--profile-rounds A:B`` captures a
 All of it is off by default, and the off path adds no per-round host work.
 
 ``--eta auto`` derives per-client stepsizes from curvature probes that
-differentiate the gradient forward-mode (``torch.func.jvp``).  The plain
-versions on the CPU allow it; the card's backward kernels have no
-forward-mode rule yet, so there it raises (``ROADMAP.md``).
+differentiate the gradient forward-mode (``vmap(jvp(grad(loss)))``,
+``core.autotune.estimate_L``).  On the card the tangents run as kernels too:
+16j and 16bj for attention and its backward, ``lru_scan_jvp`` and
+``lru_scan_bwd_jvp`` for the RG-LRU (the forward-mode rules of
+``kernels.ops``' Functions).  Kernels 17 and 17b have no such rule yet
+(``ROADMAP.md``), so an arch with RWKV blocks raises there; the CPU's plain
+versions take every arch.
 """
 from __future__ import annotations
 
@@ -137,15 +141,15 @@ def run(
     profile_dir: str | None = None,
     device="cuda",
 ):
-    if isinstance(eta, str) and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            "--eta auto differentiates the client gradient forward-mode, and the backward "
-            "kernels have no forward-mode rule yet (ROADMAP.md section 1); pass a "
-            "float --eta, or --device cpu")
-    dev = resolve(device)
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
+    if isinstance(eta, str) and torch.device(device).type == "cuda" and "rwkv" in cfg.block_pattern:
+        raise NotImplementedError(
+            f"--eta auto differentiates the client gradient forward-mode, and {arch}'s RWKV "
+            f"blocks run kernels 17 and 17b, which have no forward-mode rule yet (17j, 17bj: "
+            f"ROADMAP.md section 1); pass a float --eta, or --device cpu")
+    dev = resolve(device)
     fault_cfg = FaultConfig.parse(faults) if isinstance(faults, str) else faults
     if watchdog and not ckpt_dir:
         raise ValueError("--watchdog needs --ckpt-dir (rollback anchors)")

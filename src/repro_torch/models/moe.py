@@ -108,7 +108,9 @@ class _DispatchGather(torch.autograd.Function):
     ids (T = the zero sentinel row) -> (E, cap, D).  Its backward sums each
     token's row gradients at ``rows`` (T, k): its (expert, slot) rows in
     ascending expert order, ``kept`` masking the dropped ones; the same
-    order as the forward's combine, in the gradient's dtype."""
+    order as the forward's combine, in the gradient's dtype.  Its tangent
+    (forward mode, the curvature probe of ``--eta auto``) is the same gather
+    of xt's tangent: the gather is linear in xt."""
 
     generate_vmap_rule = True
 
@@ -118,12 +120,20 @@ class _DispatchGather(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, _, rows, kept = inputs
-        ctx.save_for_backward(rows, kept)
+        _, tok, rows, kept = inputs
+        # one list for both modes: the generated vmap rule keeps one set of
+        # batch dims for what a context saves
+        ctx.save_for_backward(tok, rows, kept)
+        ctx.save_for_forward(tok, rows, kept)
+
+    @staticmethod
+    def jvp(ctx, xt_t, *_):
+        tok = ctx.saved_tensors[0]
+        return torch.cat([xt_t, xt_t.new_zeros((1, xt_t.shape[-1]))], dim=0)[tok]
 
     @staticmethod
     def backward(ctx, g):
-        rows, kept = ctx.saved_tensors
+        _, rows, kept = ctx.saved_tensors
         flat = g.reshape(-1, g.shape[-1])
         dx = torch.zeros((rows.shape[0], flat.shape[-1]), dtype=g.dtype, device=g.device)
         for j in range(rows.shape[1]):

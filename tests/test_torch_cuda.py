@@ -34,6 +34,8 @@ in another order) and 2^-7 in bf16 (one rounding of the f32 result);
 popstore rounds against the device cohort round within atol 1e-5 of the
 largest magnitude (the store's mean is the f64 running sum read at f32).
 """
+import math
+
 import pytest
 import torch
 
@@ -1406,8 +1408,10 @@ def test_cuda_train_resume_is_bitwise(cuda, tmp_path):
     b = train.run("olmo-1b", steps=4, ckpt_dir=str(tmp_path), resume=True, **kw)
     c = train.run("olmo-1b", steps=4, **kw)
     assert a + b == c
+    auto = train.run("olmo-1b", steps=1, **{**kw, "eta": "auto"})
+    assert len(auto) == 1 and math.isfinite(auto[0]["server_loss"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.run("olmo-1b", steps=1, eta="auto")
+        train.run("rwkv6-1.6b", steps=1, eta="auto")
 
 
 @pytest.mark.cuda
@@ -1567,3 +1571,141 @@ def test_cuda_vmap_grad_reaches_the_lru_scan_kernels(cuda):
     want = torch.func.vmap(torch.func.grad(loss(ref.lru_ref), argnums=(0, 1)))(a, b)
     assert all(torch.equal(x, w) for x, w in zip(got, want))
 
+
+
+# ---------------------------------------------------------------------------
+# forward mode: kernels 16j, 16bj and the RG-LRU's tangents
+# ---------------------------------------------------------------------------
+
+# (B, Sq, H, Hkv, hd, vd, window, q_offset): olmo-1b's 128, MLA's 192 / 128,
+# recurrentgemma's 256 on one kv head with a window, stablelm's 160 with
+# GQA, a query offset with Sq off the tiles, vd above hd
+JVP_CASES = [(2, 128, 16, 16, 128, 128, None, 0), (2, 128, 4, 4, 192, 128, None, 0),
+             (1, 200, 8, 1, 256, 256, 64, 0), (2, 96, 4, 2, 160, 160, None, 0),
+             (1, 77, 4, 1, 256, 256, 40, 123), (2, 130, 8, 2, 64, 128, None, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", JVP_CASES)
+def test_cuda_flash_attention_tangent_kernels_match_plain(cuda, case, dtype):
+    """16j and 16bj against their plain versions at the archs' head dims,
+    one launch each, twice bitwise: relative to the largest magnitude, 1e-4
+    in f32 (sums in another order), 2^-7 (16j) and 2^-6 (16bj) in bf16 (one
+    rounding of the f32 result, after sums that cancel more in 16bj)."""
+    B, Sq, H, Hkv, hd, vd, window, off = case
+    Sk = Sq + off
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    q, qt = rand(B, Sq, H, hd), rand(B, Sq, H, hd)
+    k, kt = rand(B, Sk, Hkv, hd), rand(B, Sk, Hkv, hd)
+    v, vt = rand(B, Sk, Hkv, vd), rand(B, Sk, Hkv, vd)
+    do, dot = rand(B, Sq, H, vd), rand(B, Sq, H, vd)
+    o, lse = FA.flash_attention(q, k, v, window=window, q_offset=off, lse=True)
+    q_pos, k_pos = off + torch.arange(Sq, device=cuda), torch.arange(Sk, device=cuda)
+    P.reset_launches()
+    ot, lse_t = FA.flash_attention_jvp(q, k, v, lse, qt, kt, vt, window=window, q_offset=off)
+    grads = FA.flash_attention_bwd_jvp(q, k, v, o, lse, do, qt, kt, vt, ot, dot, window=window,
+                                       q_offset=off)
+    counts = P.launches()
+    assert counts["flash_attention_jvp"] == 1 and counts["flash_attention_bwd_jvp"] == 1
+    want = ref.flash_attention_jvp_ref(q, k, v, lse, qt, kt, vt, q_pos, k_pos, window=window)
+    f32 = dtype == torch.float32
+    for got, w, tol in ((ot, want[0], 1e-4 if f32 else 2.0 ** -7), (lse_t, want[1], 1e-4)):
+        assert got.dtype == w.dtype and got.shape == w.shape
+        assert float((got.float() - w.float()).abs().max()) <= tol * float(w.float().abs().max())
+    want = ref.flash_attention_bwd_jvp_ref(q, k, v, o, lse, do, qt, kt, vt, ot, dot, q_pos, k_pos,
+                                           window=window)
+    for got, w in zip(grads, want):
+        assert got.dtype == w.dtype and got.shape == w.shape
+        err = float((got.float() - w.float()).abs().max())
+        assert err <= (1e-4 if f32 else 2.0 ** -6) * float(w.float().abs().max())
+    again = FA.flash_attention_bwd_jvp(q, k, v, o, lse, do, qt, kt, vt, ot, dot, window=window,
+                                       q_offset=off)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert torch.equal(ot, FA.flash_attention_jvp(q, k, v, lse, qt, kt, vt, window=window,
+                                                  q_offset=off)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128, 4096), (2, 1, 300), (2, 17, 300), (2, 513, 300)])
+def test_cuda_lru_scan_tangent_kernels_are_bitwise_jvp_of_plain(cuda, shape):
+    """``lru_scan_jvp`` and ``lru_scan_bwd_jvp`` equal ``torch.func.jvp`` of
+    ``ref.lru_ref`` and ``ref.lru_bwd_ref`` on the card bit for bit, one
+    launch each."""
+    from repro_torch.kernels import lru_scan as LR
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    B, S, D = shape
+    a = torch.rand(*shape, generator=g, device=cuda)
+    b, at, bt, dy, dyt = (torch.randn(*shape, generator=g, device=cuda) for _ in range(5))
+    h0, h0t, dh, dht = (torch.randn(B, D, generator=g, device=cuda) for _ in range(4))
+    (y, _), (yt_w, hlt_w) = torch.func.jvp(ref.lru_ref, (a, b, h0), (at, bt, h0t))
+    _, want = torch.func.jvp(ref.lru_bwd_ref, (a, y, h0, dy, dh), (at, yt_w, h0t, dyt, dht))
+    P.reset_launches()
+    yt, hlt = LR.lru_scan_jvp(a, y, h0, at, bt, h0t)
+    got = LR.lru_scan_bwd_jvp(a, y, h0, dy, dh, at, yt, h0t, dyt, dht)
+    counts = P.launches()
+    assert counts["lru_scan_jvp"] == 1 and counts["lru_scan_bwd_jvp"] == 1
+    assert torch.equal(yt, yt_w) and torch.equal(hlt, hlt_w)
+    assert all(torch.equal(x, w) for x, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_vmap_jvp_grad_reaches_the_tangent_kernels(cuda):
+    """``vmap(jvp(grad))`` through ``ops.flash_attention`` and ``ops.lru_scan``
+    on the card, inside ``jvp_target`` as the curvature probe runs it: one
+    launch each of the forward, backward and both tangent kernels for all
+    clients, within 1e-4 (attention: sums in other orders) and 1e-5 (the
+    RG-LRU: the loss's reductions) of the CPU's plain path, f32."""
+    from repro_torch.kernels import _args
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    m, B, S, H, hd = 2, 2, 64, 4, 32
+    q, k, v, qt, kt, vt = (torch.randn(m, B, S, H, hd, generator=g, device=cuda)
+                           for _ in range(6))
+    c = torch.randn(B, S, H, hd, generator=g, device=cuda)
+
+    def hvp(f, primals, tangents):
+        n = len(primals)
+
+        def one(*xs):
+            return torch.func.jvp(torch.func.grad(f, argnums=tuple(range(n))), xs[:n],
+                                  xs[n:])[1]
+        return torch.func.vmap(one)(*primals, *tangents)
+
+    def flash(q, k, v):
+        return (P.flash_attention(q, k, v, causal=True) ** 2 * c.to(q.device)).sum()
+
+    P.reset_launches()
+    with _args.jvp_target("the test's probe"):
+        got = hvp(flash, (q, k, v), (qt, kt, vt))
+    counts = P.launches()
+    assert all(counts[n] == 1 for n in ("flash_attention", "flash_attention_bwd",
+                                        "flash_attention_jvp", "flash_attention_bwd_jvp"))
+    want = hvp(flash, tuple(t.cpu() for t in (q, k, v)), tuple(t.cpu() for t in (qt, kt, vt)))
+    for a, b in zip(got, want):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+    Bl, Sl, D = 2, 40, 96
+    a = torch.rand(m, Bl, Sl, D, generator=g, device=cuda)
+    b, at, bt = (torch.randn(m, Bl, Sl, D, generator=g, device=cuda) for _ in range(3))
+    h0, h0t = (torch.randn(m, Bl, D, generator=g, device=cuda) for _ in range(2))
+    cy = torch.randn(Bl, Sl, D, generator=g, device=cuda)
+
+    def lru(a, b, h0):
+        y, h = P.lru_scan(a, b, h0)
+        return (y ** 2 * cy.to(a.device)).sum() + h.sum()
+
+    P.reset_launches()
+    with _args.jvp_target("the test's probe"):
+        got = hvp(lru, (a, b, h0), (at, bt, h0t))
+    counts = P.launches()
+    assert all(counts[n] == 1 for n in ("lru_scan", "lru_scan_bwd", "lru_scan_jvp",
+                                        "lru_scan_bwd_jvp"))
+    want = hvp(lru, tuple(t.cpu() for t in (a, b, h0)), tuple(t.cpu() for t in (at, bt, h0t)))
+    for x, w in zip(got, want):
+        assert float((x.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())

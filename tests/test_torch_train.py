@@ -354,8 +354,10 @@ def test_telemetry_rows_and_scan_driver(tmp_path):
 
 def test_cli_and_eta_auto(tmp_path):
     """``main`` takes the reference's flags and ``--device``; ``--eta auto``
-    resolves on the CPU (the plain versions take a forward-mode derivative)
-    and is refused on the card, where kernels 16b-17b have none."""
+    resolves on the CPU (the plain versions take a forward-mode derivative).
+    On the card it goes through the kernels' forward-mode rules: without a
+    card olmo-1b fails on the device itself, not on a guard; an arch with
+    RWKV blocks is refused there, kernels 17-17b having no rule yet."""
     hist = train.main(["--arch", "olmo-1b", "--steps", "2", "--clients", "2", "--batch", "2",
                        "--seq", "16", "--k", "1", "--eta", "0.05", "--log-every", "1",
                        "--device", "cpu"])
@@ -363,8 +365,11 @@ def test_cli_and_eta_auto(tmp_path):
     auto = train_run("olmo-1b", steps=1, **_kw(eta="auto", log_every=1, per_client_batch=1,
                                                seq_len=8))
     assert np.isfinite(auto[0]["server_loss"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_run("olmo-1b", steps=1, **_kw(device="cuda", eta="auto"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_run("olmo-1b", steps=1, **_kw(device="cuda", eta="auto"))
+        train_run("rwkv6-1.6b", steps=1, **_kw(device="cuda", eta="auto"))
 
 
 # ---------------------------------------------------------------------------
