@@ -43,7 +43,12 @@ times; every number is a median over the pairs.  Measured, for each tree:
     ``client_mean``, ``server_dual``), f32 and bf16, at ``WALK_SHAPES`` on
     the device (``server_walks``);
   * the backward kernels 16b and 17b at the prefill and the training
-    shapes on the device (``bwd``).
+    shapes on the device (``bwd``);
+  * the tangent kernels 16j and 16bj, and 16b on its warp tensor-core
+    route, at the training shapes of ``chip_smoke.FLASH_JVP_CASES`` on the
+    device (``jvp``);
+  * ``--eta auto``'s curvature probe on olmo-1b at full size, seconds per
+    Hessian-vector product (``probe``).
 
 And for this tree alone, the step kernel's two parameter tables (8
 segments, and the most the parameter limit holds): the launch with the
@@ -615,10 +620,109 @@ def bwd(torch, trees, pairs, out):
         del r, k, v, dy, w, u, s0, dsf, s_out, states
 
 
+def jvp(torch, trees, pairs, out):
+    """The tangent kernels 16j (``flash_attention_jvp``) and 16bj
+    (``flash_attention_bwd_jvp``) of each tree on the device (the stream
+    pre-filled), bf16, at ``chip_smoke.FLASH_JVP_CASES``, the training
+    round's folded shapes; and 16b (``flash_attention_bwd``) where this
+    tree's warp tensor-core route takes it (MLA's, recurrentgemma's and
+    stablelm's head dims).  The forward's output and row logsumexp come from
+    this tree; both trees take the same ones."""
+    gen = S.seeded(torch, 97)
+    here = use(trees["this"])
+    bf = torch.bfloat16
+    for label, (B, Sq, H, Hkv, hd, vd), window in S.FLASH_JVP_CASES:
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(bf)
+
+        q, qt, k, kt = rand(B, Sq, H, hd), rand(B, Sq, H, hd), rand(B, Sq, Hkv, hd), rand(
+            B, Sq, Hkv, hd)
+        v, vt, do, dot, ot = (rand(B, Sq, Hkv, vd), rand(B, Sq, Hkv, vd), rand(B, Sq, H, vd),
+                              rand(B, Sq, H, vd), rand(B, Sq, H, vd))
+        o, lse = here.fa.flash_attention(q, k, v, window=window, lse=True)
+        calls = {
+            "flash_attention_jvp": lambda t: t.fa.flash_attention_jvp(
+                q, k, v, lse, qt, kt, vt, window=window),
+            "flash_attention_bwd_jvp": lambda t: t.fa.flash_attention_bwd_jvp(
+                q, k, v, o, lse, do, qt, kt, vt, ot, dot, window=window)}
+        if here.fa.bwd_route(bf, hd, vd) == "mma":
+            calls["flash_attention_bwd"] = lambda t: t.fa.flash_attention_bwd(
+                q, k, v, o, lse, do, window=window)
+        for name, call in calls.items():
+            res = alternate(trees, pairs, lambda _, t: S.cuda_time_ms(lambda: call(t),
+                                                                       S.JVP_ITERS))
+            out[f"{name}_{label}_device_ms"] = res
+            S.log(f"{name} {label} {(B, Sq, H, Hkv, hd, vd)} bf16, device: " + ", ".join(
+                f"{k_} {v_['median']:.4f} ms" for k_, v_ in res.items()))
+        del q, qt, k, kt, v, vt, do, dot, ot, o, lse
+
+
+PROBE_ITERS = 4  # power iterations a timed probe: iters + 1 Hessian-vector products
+
+
+def probe(torch, trees, pairs, out):
+    """The curvature probe of ``--eta auto`` (``core.autotune.estimate_L``,
+    a power iteration of ``vmap(jvp(grad(loss)))``) of each tree on olmo-1b
+    at full width and depth and ``chip_smoke.ETA_AUTO``'s size (m = 2,
+    batch 4, 128 tokens), ``PROBE_ITERS`` iterations: host seconds per
+    Hessian-vector product, each probe ending in a synchronise.  The
+    weights (this tree's keyed draw) and the probe batch are shared; each
+    tree runs its own model, kernels and autotune.  Also each tree's per-client
+    L and, for scale, this tree's L with the model's attention and RG-LRU on
+    their plain versions (``chip_smoke.plain_model_ops``): a bf16 probe's L
+    moves with every rounding, its start vector lying near the Hessian's
+    null space."""
+    E = S.ETA_AUTO
+    here = trees["this"]
+    use(here)
+    cfg = here["repro_torch.configs"].get_arch(E["arch"])
+    params = here["repro_torch.models"].build(cfg).init(S.seeded(torch, E["seed"]))
+    batch = next(here["repro_torch.data.synthetic"].lm_batches(
+        here["repro_torch.core.prng"].key(E["seed"] + 3), 1, E["m"], E["per_client_batch"],
+        E["seq_len"], cfg.vocab_size, device="cuda"))
+
+    def run(tree, iters):
+        model = tree["repro_torch.models"].build(cfg)
+
+        def client_grad(p, b):
+            return torch.func.grad(lambda q: model.loss(q, b)[0])(p)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        L = tree["repro_torch.core.autotune"].estimate_L(client_grad, params, E["m"], batch,
+                                                         iters=iters)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / (iters + 1), [float(x) for x in L]
+
+    L_of = {}
+    for label, tree in trees.items():  # first calls: library loads, allocator growth
+        use(tree)
+        run(tree, 1)
+
+    def measure(label, t):
+        seconds, L_of[label] = run(trees[label], PROBE_ITERS)
+        return seconds
+
+    res = alternate(trees, pairs, measure)
+    out["probe_olmo-1b_s_per_product"] = res
+    u = use(here)
+    undo = S.plain_model_ops(torch, u.ops, u.ref)
+    try:
+        L_of["this, plain attention and RG-LRU"] = run(here, PROBE_ITERS)[1]
+    finally:
+        undo()
+    out["probe_olmo-1b_L"] = L_of
+    S.log(f"probe {E['arch']} m={E['m']} batch {E['per_client_batch']} {E['seq_len']} tokens, "
+          f"{PROBE_ITERS} iterations, s a Hessian-vector product: " + ", ".join(
+              f"{k} {v['median']:.4f} s" for k, v in res.items()) + f"; L {L_of}")
+    del params, batch
+    torch.cuda.empty_cache()
+
+
 SECTIONS = {"host_step": host_step, "device_step": device_step, "tables": tables,
             "rounds": rounds, "ef21": ef21, "cohort_rows": cohort_rows,
             "population": population, "screen": screen, "scaffold": scaffold,
-            "server_walks": server_walks, "bwd": bwd}
+            "server_walks": server_walks, "bwd": bwd, "jvp": jvp, "probe": probe}
 
 
 def main() -> int:

@@ -5016,46 +5016,56 @@ def check_jvp_kernels(rec, torch, ops, ref, gen, out):
                 return ref.flash_attention_bwd_jvp_ref(q, k, v, o, lse, do, qt, kt, vt, ot, dot,
                                                        pos, pos, window=window)
 
+            f32 = dt == torch.float32
+            path = _fa.jvp_route(dt, hd, vd)
+            check(path == ("cuda_cores" if f32 else "mma"), f"jvp route {path} for {what}")
             ot, lse_t = twice(f"flash_attention_jvp {what}", fwd)
+            check(_fa.last_jvp_route == path, f"flash_attention_jvp {what}: ran on "
+                                              f"{_fa.last_jvp_route}, not {path}")
             e_fwd = rel((ot, lse_t), fwd_plain())
             got = twice(f"flash_attention_bwd_jvp {what}", bwd)
+            check(_fa.last_jvp_route == path, f"flash_attention_bwd_jvp {what}: ran on "
+                                              f"{_fa.last_jvp_route}, not {path}")
             e_bwd = rel(got, bwd_plain())
-            f32 = dt == torch.float32
             t_fwd, t_bwd = (JVP_F32_REL, JVP_F32_REL) if f32 else (JVP_BF16_REL, BWD_JVP_BF16_REL)
             check(e_fwd[0] <= t_fwd and e_fwd[1] <= JVP_F32_REL,
                   f"flash_attention_jvp {what}: o', lse' rel errors {e_fwd} (tol {t_fwd})")
             check(max(e_bwd) <= t_bwd,
                   f"flash_attention_bwd_jvp {what}: dq', dk', dv' rel errors {e_bwd} "
                   f"(tol {t_bwd})")
-            row = {"o_t, lse_t": e_fwd, "dq_t, dk_t, dv_t": e_bwd}
-            log(f"jvp kernels {what}: 16j o', lse' rel errors {['%.3e' % e for e in e_fwd]}; "
-                f"16bj dq', dk', dv' {['%.3e' % e for e in e_bwd]}; two runs bitwise equal")
+            row = {"o_t, lse_t": e_fwd, "dq_t, dk_t, dv_t": e_bwd, "route": path}
+            log(f"jvp kernels {what} on {path}: 16j o', lse' rel errors "
+                f"{['%.3e' % e for e in e_fwd]}; 16bj dq', dk', dv' "
+                f"{['%.3e' % e for e in e_bwd]}; two runs bitwise equal")
             if not f32:
                 for name, fn, plain_fn, cost in (
                         ("flash_attention_jvp", fwd, fwd_plain, flash_jvp_cost),
                         ("flash_attention_bwd_jvp", bwd, bwd_plain, flash_bwd_jvp_cost)):
                     nbytes, flops = cost(B, S, H, Hkv, hd, vd, window)
+                    lib = (sdpa_jvp_fastest(torch, q, k, v, qt, kt, vt, window)
+                           if name == "flash_attention_jvp" else
+                           dict(library_ms=None, library="none"))
                     if label == FLASH_JVP_CASES[0][0]:
-                        lib = (sdpa_jvp_fastest(torch, q, k, v, qt, kt, vt, window)
-                               if name == "flash_attention_jvp" else None)
                         rec.kernel(name, max(max_err(a, b) for a, b in zip(fn(), plain_fn())),
                                    fn, plain_fn, JVP_ITERS, nbytes, flops,
                                    flop_per_s=BF16_FLOP_PER_S, trials=JVP_TRIALS, plain_iters=5)
-                        if lib is not None:
-                            rec.rows[name].update(lib)
-                            log(f"{name}: {lib['library']}; every backend {lib['library_also']}")
+                        rec.rows[name].update(lib, jvp_route=path)
                         row[name] = {k: rec.rows[name][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                                    "bound_by")}
+                                                                    "bound_by", "library_ms")}
                     else:
                         ms, ms_all = med_ms(fn, JVP_ITERS, JVP_TRIALS)
                         b, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
                         plain_ms = cuda_time_ms(plain_fn, 5, spin_cycles=2_000_000)
                         row[name] = dict(ms=ms, ms_trials=ms_all, plain_ms=plain_ms, bound_ms=b,
-                                         bound_by=by)
+                                         bound_by=by, route=path, **lib)
                         rec.rows[name].setdefault("head_dims", {})[label] = row[name]
                     r = row[name]
-                    log(f"{name} {what}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
-                        f"{r['bound_ms']:.4f} ({r['bound_by']})")
+                    libt = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+                    log(f"{name} {what} on {path}: {r['ms']:.4f} ms, plain "
+                        f"{r['plain_ms']:.4f}, library {libt}, bound {r['bound_ms']:.4f} "
+                        f"({r['bound_by']})")
+                    if "library_also" in lib:
+                        log(f"{name}: {lib['library']}; every backend {lib['library_also']}")
             res["flash"][what] = row
             del q, qt, k, kt, v, vt, do, dot, o, lse, ot, lse_t, got
         torch.cuda.empty_cache()

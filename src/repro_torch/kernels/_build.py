@@ -31,7 +31,7 @@ SOURCES = ("inner_loop.cu", "round_tail.cu", "fused_update.cu", "gather.cu", "sc
            "stale_mix.cu", "residual.cu", "neighbor_reduce.cu", "flash_attention.cu", "wkv6.cu",
            "ef21.cu", "flash_attention_bwd.cu", "wkv6_bwd.cu", "lru_scan.cu",
            "flash_attention_jvp.cu")
-HEADERS = ("common.cuh", "hopper.cuh", "attention_tiles.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "attention_tiles.cuh", "warp_mma.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

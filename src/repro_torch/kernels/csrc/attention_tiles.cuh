@@ -2,8 +2,9 @@
 // (csrc/flash_attention_bwd.cu, namespace cc) and 16j's and 16bj's
 // (csrc/flash_attention_jvp.cu).  Which keys a query sees, f32 tile
 // products and row loads out of shared memory for blocks of kThreads
-// threads, and the carving of dynamic shared memory into 128-byte aligned
-// tiles.
+// threads, the carving of dynamic shared memory into 128-byte aligned
+// tiles; and, for every route that splits a kv head's query heads across
+// the blocks of its key grid, the pass that adds their partials in order.
 #pragma once
 
 #include <stdint.h>
@@ -64,6 +65,39 @@ __device__ __forceinline__ float* carve(uint8_t*& p, size_t n) {
   float* out = reinterpret_cast<float*>(p);
   p += carved(n);
   return out;
+}
+
+// dk = scale sum_z part_k[z], dv = sum_z part_v[z], the splits added in
+// order (only when a key grid ran with more than one split): part holds
+// (splits, B, Sk, Hkv, hd) and then (splits, B, Sk, Hkv, vd) f32.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+reduce_splits(const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
+              long long nk, long long nv, int splits, float scale) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < nk + nv; i += stride) {
+    if (i < nk) {
+      float s = part[i];
+      for (int z = 1; z < splits; ++z) s += part[z * nk + i];
+      store_f32(dk, (size_t)i, s * scale);
+    } else {
+      const long long j = i - nk;
+      const float* pv = part + splits * nk;
+      float s = pv[j];
+      for (int z = 1; z < splits; ++z) s += pv[z * nv + j];
+      store_f32(dv, (size_t)j, s);
+    }
+  }
+}
+
+// Launch reduce_splits on ``stream`` (a few waves of the card at most).
+template <typename T>
+cudaError_t launch_reduce_splits(const float* part, T* dk, T* dv, long long nk, long long nv,
+                                 int splits, float scale, cudaStream_t stream) {
+  const long long blocks = min((nk + nv + kThreads - 1) / kThreads, 132LL * 16);
+  reduce_splits<T><<<(unsigned)blocks, kThreads, 0, stream>>>(part, dk, dv, nk, nv, splits,
+                                                             scale);
+  return cudaGetLastError();
 }
 
 }  // namespace attn

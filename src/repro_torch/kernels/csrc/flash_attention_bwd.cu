@@ -87,7 +87,8 @@
 //   recurrentgemma's 256, stablelm's 160): the same two grids on
 //   mma.sync m16n8k16 (bf16 in, f32 accumulators), operands from shared
 //   memory through ldmatrix (rows padded by 16 bytes: no bank conflict), P
-//   and dS rounded to bf16 into A fragments in registers as on wgmma.
+//   and dS rounded to bf16 into A fragments in registers as on wgmma (the
+//   tile helpers in csrc/warp_mma.cuh, shared with 16j and 16bj).
 //   1. dq: a block of 128 query rows, eight warps of 16, stepping over the
 //      visible keys 64 at a time (S, dP, dq += dS k).
 //   2. dk, dv: a block of 64 keys; warps 0-3 form dv for 16 keys each,
@@ -114,7 +115,8 @@
 //      head at the training round's (8, 128)), so the wrapper splits the
 //      group's query heads across blocks (``splits``, chosen from the SM
 //      count): each split writes f32 partials, and
-//   3. reduce_splits adds them in split order, no atomics.
+//   3. reduce_splits (csrc/attention_tiles.cuh) adds them in split order,
+//      no atomics.
 //   The f32 route keeps f32 products (not TF32), so it holds the 1e-4 f32
 //   comparisons; bf16 operands are widened to f32, so P and dS are not
 //   rounded to bf16 as on the tensor cores.  This route is simple and slow
@@ -125,6 +127,7 @@
 
 #include "attention_tiles.cuh"  // visible(), the CUDA-core route's tile helpers
 #include "hopper.cuh"  // TMA, mbarrier and wgmma helpers shared with kernel 16
+#include "warp_mma.cuh"  // mma.sync tiles shared with 16j and 16bj
 
 namespace {
 
@@ -826,28 +829,6 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
 }
 
-// 3. dk = scale sum_z part_k[z], dv = sum_z part_v[z], the splits added in
-// order (only when the dk/dv grid ran with more than one split).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-reduce_splits(const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
-              long long nk, long long nv, int splits, float scale) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < nk + nv; i += stride) {
-    if (i < nk) {
-      float s = part[i];
-      for (int z = 1; z < splits; ++z) s += part[z * nk + i];
-      store_f32(dk, (size_t)i, s * scale);
-    } else {
-      const long long j = i - nk;
-      const float* pv = part + splits * nk;
-      float s = pv[j];
-      for (int z = 1; z < splits; ++z) s += pv[z * nv + j];
-      store_f32(dv, (size_t)j, s);
-    }
-  }
-}
-
 template <typename T, int BR>
 int launch_rows(const void* q, const void* k, const void* v, const void* o, const float* lse,
                 const void* dout, void* dq, void* dk, void* dv, float* Dscratch, float* part,
@@ -873,10 +854,8 @@ int launch_rows(const void* q, const void* k, const void* v, const void* o, cons
   if (err != cudaSuccess || d.splits == 1) return (int)err;
   const long long nk = (long long)d.B * d.Sk * d.Hkv * d.hd;
   const long long nv = (long long)d.B * d.Sk * d.Hkv * d.vd;
-  const long long blocks = min((nk + nv + kThreads - 1) / kThreads, 132LL * 16);
-  reduce_splits<T><<<(unsigned)blocks, kThreads, 0, stream>>>(part, (T*)dk, (T*)dv, nk, nv,
-                                                             d.splits, d.scale);
-  return (int)cudaGetLastError();
+  return (int)attn::launch_reduce_splits<T>(part, (T*)dk, (T*)dv, nk, nv, d.splits, d.scale,
+                                            stream);
 }
 
 // Query tiles of 64 rows up to hd, vd = 128, of 32 beyond (shared memory).
@@ -901,118 +880,17 @@ namespace wm {
 constexpr int kRows = 128;  // query rows a dq block, 16 a warp
 constexpr int kKeys = 64;   // keys a dk/dv block, 16 a warp of either kind
 constexpr int kStep = 64;   // keys a dq step; query rows a dk/dv step
-constexpr int kPad = 8;     // bf16 of padding a shared-memory row: ldmatrix rows 16 B apart
 constexpr int kThreads = 256;
 
-using bf16 = __nv_bfloat16;
-
-// D (16 x 8, f32) += A (16 x 16, bf16 row) B (16 x 8, bf16 col).  Fragments
-// (lane l, g = l / 4, t = l % 4): a0 (row g, cols 2t, 2t+1), a1 (row g + 8),
-// a2 (row g, cols + 8), a3 (row g + 8, cols + 8); b0 (rows 2t, 2t+1, col g),
-// b1 (rows + 8); d0, d1 (row g, cols 2t, 2t+1), d2, d3 (row g + 8).
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// Four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
-// row l % 8 of matrix l / 8; register j holds matrix j's (row l / 4, cols
-// 2 (l % 4), + 1), or with .trans its (rows 2 (l % 4), + 1, col l / 4).
-__device__ __forceinline__ void ldsm4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// Rows [r0, r0 + R) of one head of a (B, S, heads, dim) bf16 tensor into
-// shared memory (ld elements a row), 16 bytes a thread, rows past S zero.
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          long long row_stride, int r0, int R, int S, int dim) {
-  const int chunks = dim / 8;
-  for (int i = threadIdx.x; i < R * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// The same rows copied asynchronously (cp.async, 16 bytes a thread; a row
-// past S is zero-filled, its source not read), for the caller to commit and
-// wait on.
-__device__ __forceinline__ void load_tile_async(bf16* dst, int ld, const bf16* src,
-                                                long long row_stride, int r0, int R, int S,
-                                                int dim) {
-  const int chunks = dim / 8;
-  for (int i = threadIdx.x; i < R * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    const bool in = r0 + r < S;
-    const bf16* from = src + (in ? (r0 + r) * row_stride + c : 0);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 ::"r"(smem_u32(dst + r * ld + c)), "l"(from), "r"(in ? 16 : 0));
-  }
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// C (16 x 64) += A (16 rows at a) B^T (64 rows at b), both rows of K
-// contiguous bf16 in shared memory; C as 8 n-tiles of the mma's D layout.
-__device__ __forceinline__ void nt_16x64(float (*c)[4], const bf16* a, int lda, const bf16* b,
-                                         int ldb, int K) {
-  const int lane = threadIdx.x & 31, r8 = lane & 7, j = lane >> 3;
-  const uint32_t a_addr = smem_u32(a + (r8 + 8 * (j & 1)) * lda + 8 * (j >> 1));
-  const uint32_t b_addr = smem_u32(b + (r8 + 8 * (j >> 1)) * ldb + 8 * (j & 1));
-  for (int k = 0; k < K; k += 16) {
-    uint32_t af[4];
-    ldsm4(af, a_addr + 2 * k);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {  // n-tiles 2n, 2n + 1: rows 16n .. 16n + 15 of b
-      uint32_t bf[4];
-      ldsm4(bf, b_addr + 2 * (16 * n * ldb + k));
-      mma_bf16(c[2 * n], af, bf[0], bf[1]);
-      mma_bf16(c[2 * n + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// C (16 x N) += A (16 x 64, four k-steps of A fragments in registers) B
-// (64 x N, row-major in shared memory), N a multiple of 16 up to 256.
-__device__ __forceinline__ void nn_16xN(float (*c)[4], const uint32_t (*a)[4], const bf16* b,
-                                        int ldb, int N) {
-  const int lane = threadIdx.x & 31, r8 = lane & 7, j = lane >> 3;
-  const uint32_t b_addr = smem_u32(b + (r8 + 8 * (j & 1)) * ldb + 8 * (j >> 1));
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {  // n-tiles 2n, 2n + 1: columns 16n .. 16n + 15
-      if (16 * n < N) {
-        uint32_t bf[4];
-        ldsm4t(bf, b_addr + 2 * (16 * s * ldb + 16 * n));
-        mma_bf16(c[2 * n], a[s], bf[0], bf[1]);
-        mma_bf16(c[2 * n + 1], a[s], bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// A (16 x 64) fragments of a D-layout tile of 8 n-tiles, rounded to bf16.
-__device__ __forceinline__ void to_a(uint32_t (*a)[4], const float (*x)[4]) {
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    a[s][0] = hopper::pack_bf16(x[2 * s][0], x[2 * s][1]);
-    a[s][1] = hopper::pack_bf16(x[2 * s][2], x[2 * s][3]);
-    a[s][2] = hopper::pack_bf16(x[2 * s + 1][0], x[2 * s + 1][1]);
-    a[s][3] = hopper::pack_bf16(x[2 * s + 1][2], x[2 * s + 1][3]);
-  }
-}
+using warp_mma::bf16;
+using warp_mma::cp_commit;
+using warp_mma::cp_wait;
+using warp_mma::kPad;
+using warp_mma::load_tile;
+using warp_mma::load_tile_async;
+using warp_mma::nn_16xN;
+using warp_mma::nt_16xN;
+using warp_mma::to_a;
 
 // dq: q and do (kRows rows), k and v (kStep), lse and D of kRows; dk/dv: k
 // and v (kKeys rows), two stages of q and do (kStep) with their lse and D.
@@ -1055,8 +933,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   const bf16* kb = k + (long long)b * d.Sk * ks + (long long)hk * d.hd;
   const bf16* vb = v + (long long)b * d.Sk * vs + (long long)hk * d.vd;
 
-  load_tile(Qs, ldq, qb, qs, q0, kRows, d.Sq, d.hd);
-  load_tile(dOs, ldv, dob, os, q0, kRows, d.Sq, d.vd);
+  load_tile<kThreads>(Qs, ldq, qb, qs, q0, kRows, d.Sq, d.hd);
+  load_tile<kThreads>(dOs, ldv, dob, os, q0, kRows, d.Sq, d.vd);
   // D_i = do_i . o_i: one warp a row, lanes over columns, a fixed tree; lse
   // in log2 units
   for (int r = warp; r < kRows; r += kThreads / 32) {
@@ -1086,8 +964,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   for (int i = 0; i < 32; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
   for (int kt = k_begin; kt < k_end; kt += kStep) {
     __syncthreads();  // the last step's k and v are consumed (and D, lse written)
-    load_tile(Ks, ldq, kb, ks, kt, kStep, d.Sk, d.hd);
-    load_tile(Vs, ldv, vb, vs, kt, kStep, d.Sk, d.vd);
+    load_tile<kThreads>(Ks, ldq, kb, ks, kt, kStep, d.Sk, d.hd);
+    load_tile<kThreads>(Vs, ldv, vb, vs, kt, kStep, d.Sk, d.vd);
     __syncthreads();
     bool active = r_lo < d.Sq;
     if (d.causal) active = active && kt <= pos_hi;
@@ -1097,8 +975,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
 #pragma unroll
     for (int i = 0; i < 8; ++i)
       sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.0f;
-    nt_16x64(sc, Qs + 16 * warp * ldq, ldq, Ks, ldq, d.hd);   // S = q k^T
-    nt_16x64(dp, dOs + 16 * warp * ldv, ldv, Vs, ldv, d.vd);  // dP = do v^T
+    nt_16xN<64>(sc, Qs + 16 * warp * ldq, ldq, Ks, ldq, d.hd);   // S = q k^T
+    nt_16xN<64>(dp, dOs + 16 * warp * ldv, ldv, Vs, ldv, d.vd);  // dP = do v^T
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -1136,7 +1014,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
 // so no warp holds both.  The q and do tiles (with their lse and D rows)
 // come through two stages, the next tile's cp.async in flight during this
 // one's products.  One split writes dk (scaled) and dv; more write f32
-// partials that cc::reduce_splits adds in split order.
+// partials that attn::reduce_splits adds in split order.
 __global__ void __launch_bounds__(kThreads, 1)
 dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
             const float* __restrict__ lse, const bf16* __restrict__ dout,
@@ -1159,10 +1037,10 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   const int g_lo = blockIdx.z * gps, g_hi = min(G, g_lo + gps);
   const long long qs = (long long)d.H * d.hd, os = (long long)d.H * d.vd;
   const long long ks = (long long)d.Hkv * d.hd, vs = (long long)d.Hkv * d.vd;
-  load_tile(Ks, ldq, k + (long long)b * d.Sk * ks + (long long)hk * d.hd, ks, k0, kKeys, d.Sk,
-            d.hd);
-  load_tile(Vs, ldv, v + (long long)b * d.Sk * vs + (long long)hk * d.vd, vs, k0, kKeys, d.Sk,
-            d.vd);
+  load_tile<kThreads>(Ks, ldq, k + (long long)b * d.Sk * ks + (long long)hk * d.hd, ks, k0,
+                      kKeys, d.Sk, d.hd);
+  load_tile<kThreads>(Vs, ldv, v + (long long)b * d.Sk * vs + (long long)hk * d.vd, vs, k0,
+                      kKeys, d.Sk, d.vd);
 
   const int kw0 = k0 + 16 * kw;  // this warp's first key
   const int k_last = min(k0 + kKeys, d.Sk) - 1;
@@ -1176,10 +1054,11 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   auto issue = [&](int j) {  // tile j: query head hk G + g_lo + j / nt, rows from q0
     const int st = j & 1, h = hk * G + g_lo + j / nt, q0 = i_begin + (j % nt) * kStep;
     bf16* Qd = Q0 + st * qstage;
-    load_tile_async(Qd, ldq, q + (long long)b * d.Sq * qs + (long long)h * d.hd, qs, q0, kStep,
-                    d.Sq, d.hd);
-    load_tile_async(Qd + kStep * ldq, ldv, dout + (long long)b * d.Sq * os + (long long)h * d.vd,
-                    os, q0, kStep, d.Sq, d.vd);
+    load_tile_async<kThreads>(Qd, ldq, q + (long long)b * d.Sq * qs + (long long)h * d.hd, qs,
+                              q0, kStep, d.Sq, d.hd);
+    load_tile_async<kThreads>(Qd + kStep * ldq, ldv,
+                              dout + (long long)b * d.Sq * os + (long long)h * d.vd, os, q0,
+                              kStep, d.Sq, d.vd);
     const long long bh = (long long)b * d.H + h;
     for (int r = tid; r < kStep; r += kThreads) {
       const bool in = q0 + r < d.Sq;
@@ -1214,13 +1093,13 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
       float sc[8][4];
 #pragma unroll
       for (int i = 0; i < 8; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.0f;
-      nt_16x64(sc, Ks + 16 * kw * ldq, ldq, Qs, ldq, d.hd);  // S^T = k q^T
+      nt_16xN<64>(sc, Ks + 16 * kw * ldq, ldq, Qs, ldq, d.hd);  // S^T = k q^T
       uint32_t af[4][4];
       if (dk_role) {
         float dp[8][4];
 #pragma unroll
         for (int i = 0; i < 8; ++i) dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.0f;
-        nt_16x64(dp, Vs + 16 * kw * ldv, ldv, dOs, ldv, d.vd);  // dP^T = v do^T
+        nt_16xN<64>(dp, Vs + 16 * kw * ldv, ldv, dOs, ldv, d.vd);  // dP^T = v do^T
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -1300,10 +1179,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
   if (err != cudaSuccess || d.splits == 1) return (int)err;
   const long long nk = (long long)d.B * d.Sk * d.Hkv * d.hd;
   const long long nv = (long long)d.B * d.Sk * d.Hkv * d.vd;
-  const long long blocks = min((nk + nv + 255) / 256, 132LL * 16);
-  cc::reduce_splits<bf16><<<(unsigned)blocks, 256, 0, stream>>>(part, (bf16*)dk, (bf16*)dv, nk,
-                                                               nv, d.splits, d.scale);
-  return (int)cudaGetLastError();
+  return (int)attn::launch_reduce_splits<bf16>(part, (bf16*)dk, (bf16*)dv, nk, nv, d.splits,
+                                               d.scale, stream);
 }
 
 }  // namespace wm

@@ -59,7 +59,7 @@ CPU.
 Kernels 16j and 16bj (``csrc/flash_attention_jvp.cu``) are the tangents
 (forward mode) of 16 and 16b, for the curvature probe of ``--eta auto``
 (``vmap(jvp(grad(loss)))``, ``core.autotune.estimate_L``), at every head
-dim and dtype kernel 16 takes, on the CUDA cores (f32 products):
+dim and dtype kernel 16 takes:
 
   * ``flash_attention_jvp``      q, k, v, lse and the tangents q', k', v' ->
                                  (o', lse'), one sweep over the keys;
@@ -68,6 +68,17 @@ dim and dtype kernel 16 takes, on the CUDA cores (f32 products):
                                  dv'), lse' formed inside (a row grid for
                                  lse', D, D' and dq', then a key grid for
                                  dk', dv').
+
+Both take two routes (``jvp_route``; ``last_jvp_route`` records the last
+call's):
+
+  * ``"mma"``         bf16 with hd and vd multiples of 16 (every bf16 arch):
+                      the warp tensor cores (``mma.sync``), f32 accumulators,
+                      16j's P and E = P S' as bf16 hi + lo pairs, 16bj's P,
+                      P', dS, dS' rounded to bf16; 16bj's key grid splits a
+                      kv head's query heads across blocks when it is small
+                      (``dkdv_splits`` with ``JVP_KEY_TILE``);
+  * ``"cuda_cores"``  f32 (f32 products, not TF32), and bf16 at other dims.
 
 Their plain versions are ``ref.flash_attention_jvp_ref`` and
 ``ref.flash_attention_bwd_jvp_ref``; ``kernels.ops`` calls them from the
@@ -88,6 +99,8 @@ BWD_TC_MAX_HEAD_DIM = 128  # 16b's tensor-core route: bf16, hd = vd <= 128
 # csrc/flash_attention_bwd.cu: keys a block of the dk/dv grid, by route
 BWD_KEY_TILE = {"cuda_cores": 32, "mma": 64}
 BWD_ROUTE_CODES = {"cuda_cores": 0, "wgmma": 1, "mma": 2}
+JVP_ROUTE_CODES = {"cuda_cores": 0, "mma": 1}
+JVP_KEY_TILE = 64  # csrc/flash_attention_jvp.cu jm::kKeys: keys a block of 16bj's key grid
 TC_HEAD_DIM_STEP = 16  # the tensor-core route's hd: a multiple of wgmma's bf16 depth
 SCRATCH_ROWS = 64  # csrc/flash_attention_bwd.cu tc::kRowsPad
 
@@ -108,24 +121,25 @@ FLASH_ATTENTION_BWD = Kernel(
 
 FLASH_ATTENTION_JVP = Kernel(
     "flash_attention_jvp", "flash_attention_jvp.cu", "launch_flash_attention_jvp",
-    # q k v lse qt kt vt ot lse_t B Sq Sk H Hkv hd vd q_offset causal window dtype scale dev
-    # stream
-    [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, I, P],
+    # q k v lse qt kt vt ot lse_t B Sq Sk H Hkv hd vd q_offset causal window dtype route scale
+    # dev stream
+    [P] * 9 + [I] * 12 + [F, I, P],
     replaces="none: jax.jvp through src/repro/kernels/ops.py _flash_xla (the reference's "
              "curvature probe, src/repro/core/autotune.py:140-159)",
 )
 
 FLASH_ATTENTION_BWD_JVP = Kernel(
     "flash_attention_bwd_jvp", "flash_attention_jvp.cu", "launch_flash_attention_bwd_jvp",
-    # q k v o lse do qt kt vt ot dot dq_t dk_t dv_t scratch B Sq Sk H Hkv hd vd q_offset
-    # causal window dtype scale dev stream
-    [P] * 15 + [I] * 11 + [F, I, P],
+    # q k v o lse do qt kt vt ot dot dq_t dk_t dv_t scratch B Sq Sk H Hkv hd vd splits
+    # q_offset causal window dtype route scale dev stream
+    [P] * 15 + [I] * 13 + [F, I, P],
     replaces="none: jax.jvp of jax.grad through src/repro/kernels/ops.py _flash_xla (the "
              "reference's curvature probe, src/repro/core/autotune.py:140-159)",
 )
 
 last_route: str | None = None
 last_bwd_route: str | None = None
+last_jvp_route: str | None = None
 
 
 def route(dtype: torch.dtype, hd: int, vd: int | None = None) -> str:
@@ -148,12 +162,21 @@ def bwd_route(dtype: torch.dtype, hd: int, vd: int) -> str:
     return "cuda_cores"
 
 
+def jvp_route(dtype: torch.dtype, hd: int, vd: int) -> str:
+    """The route of kernels 16j and 16bj for these operands: ``"mma"`` (the
+    warp tensor cores) for bf16 with hd and vd multiples of 16, else
+    ``"cuda_cores"`` (see the module doc)."""
+    if dtype == torch.bfloat16 and hd % TC_HEAD_DIM_STEP == 0 and vd % TC_HEAD_DIM_STEP == 0:
+        return "mma"
+    return "cuda_cores"
+
+
 def dkdv_splits(B: int, Sk: int, Hkv: int, G: int, sms: int, key_tile: int = 32) -> int:
     """Splits of each kv head's G query heads across the dk/dv grid's blocks
-    (the CUDA-core and warp tensor-core routes): 1 while its B Hkv ceil(Sk /
-    key_tile) blocks fill the ``sms`` SMs, else enough splits for about two
-    blocks an SM (each split a ceil(G / splits) heads' share; no split left
-    empty)."""
+    (16b's CUDA-core and warp tensor-core routes, 16bj's key grid on the
+    warp tensor cores): 1 while its B Hkv ceil(Sk / key_tile) blocks fill
+    the ``sms`` SMs, else enough splits for about two blocks an SM (each
+    split a ceil(G / splits) heads' share; no split left empty)."""
     blocks = B * Hkv * -(-Sk // key_tile)
     if blocks >= sms or G == 1:
         return 1
@@ -272,6 +295,7 @@ def flash_attention_jvp(q, k, v, lse, qt, kt, vt, *, causal: bool = True, window
         q_pos, k_pos = _positions(q, k, q_offset)
         return ref.flash_attention_jvp_ref(q, k, v, lse, qt, kt, vt, q_pos, k_pos,
                                            causal=causal, window=window)
+    global last_jvp_route
     _check(kern.name, q, k, v, window)
     B, Sq, H, hd = q.shape
     Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
@@ -281,10 +305,13 @@ def flash_attention_jvp(q, k, v, lse, qt, kt, vt, *, causal: bool = True, window
         _args.check(kern.name, name, t, like.shape, (dt,), dev)
     ot = torch.empty((B, Sq, H, vd), dtype=dt, device=dev)
     lse_t = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    path = jvp_route(dt, hd, vd)
     kern.launch(_args.ptr(q), _args.ptr(k), _args.ptr(v), _args.ptr(lse), _args.ptr(qt),
                 _args.ptr(kt), _args.ptr(vt), _args.ptr(ot), _args.ptr(lse_t), B, Sq, Sk, H,
                 Hkv, hd, vd, int(q_offset), int(causal), 0 if window is None else int(window),
-                _args.DTYPE_CODES[dt], 1.0 / math.sqrt(hd), *_args.stream_args(dev))
+                _args.DTYPE_CODES[dt], JVP_ROUTE_CODES[path], 1.0 / math.sqrt(hd),
+                *_args.stream_args(dev))
+    last_jvp_route = path
     return ot, lse_t
 
 
@@ -298,6 +325,7 @@ def flash_attention_bwd_jvp(q, k, v, o, lse, do, qt, kt, vt, ot, dot, *, causal:
         q_pos, k_pos = _positions(q, k, q_offset)
         return ref.flash_attention_bwd_jvp_ref(q, k, v, o, lse, do, qt, kt, vt, ot, dot, q_pos,
                                                k_pos, causal=causal, window=window)
+    global last_jvp_route
     _check(kern.name, q, k, v, window)
     B, Sq, H, hd = q.shape
     Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
@@ -307,14 +335,20 @@ def flash_attention_bwd_jvp(q, k, v, o, lse, do, qt, kt, vt, ot, dot, *, causal:
                           ("vt", vt, v), ("ot", ot, do), ("dot", dot, do)):
         _args.check(kern.name, name, t, (B, Sq, H, vd) if like is do else like.shape, (dt,),
                     dev)
+    path = jvp_route(dt, hd, vd)
+    splits = (dkdv_splits(B, Sk, Hkv, H // Hkv, _sms(dev), JVP_KEY_TILE) if path == "mma"
+              else 1)
     dq_t, dk_t, dv_t = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty(3 * B * H * Sq, dtype=torch.float32, device=dev)  # lse', D, D'
+    # the rows' lse', D, D', then the key grid's partials when its heads are split
+    parts = splits * B * Sk * Hkv * (hd + vd) if splits > 1 else 0
+    scratch = torch.empty(3 * B * H * Sq + parts, dtype=torch.float32, device=dev)
     kern.launch(_args.ptr(q), _args.ptr(k), _args.ptr(v), _args.ptr(o), _args.ptr(lse),
                 _args.ptr(do), _args.ptr(qt), _args.ptr(kt), _args.ptr(vt), _args.ptr(ot),
                 _args.ptr(dot), _args.ptr(dq_t), _args.ptr(dk_t), _args.ptr(dv_t),
-                _args.ptr(scratch), B, Sq, Sk, H, Hkv, hd, vd, int(q_offset), int(causal),
-                0 if window is None else int(window), _args.DTYPE_CODES[dt],
-                1.0 / math.sqrt(hd), *_args.stream_args(dev))
+                _args.ptr(scratch), B, Sq, Sk, H, Hkv, hd, vd, splits, int(q_offset),
+                int(causal), 0 if window is None else int(window), _args.DTYPE_CODES[dt],
+                JVP_ROUTE_CODES[path], 1.0 / math.sqrt(hd), *_args.stream_args(dev))
+    last_jvp_route = path
     return dq_t, dk_t, dv_t
 
 

@@ -1579,10 +1579,14 @@ def test_cuda_vmap_grad_reaches_the_lru_scan_kernels(cuda):
 
 # (B, Sq, H, Hkv, hd, vd, window, q_offset): olmo-1b's 128, MLA's 192 / 128,
 # recurrentgemma's 256 on one kv head with a window, stablelm's 160 with
-# GQA, a query offset with Sq off the tiles, vd above hd
+# GQA, a query offset with Sq off the tiles, vd above hd; recurrentgemma's
+# 16 query heads on one kv head, whose small key grid splits them across
+# blocks; a head dim off the tensor cores' 16-column step (bf16 on the CUDA
+# cores)
 JVP_CASES = [(2, 128, 16, 16, 128, 128, None, 0), (2, 128, 4, 4, 192, 128, None, 0),
              (1, 200, 8, 1, 256, 256, 64, 0), (2, 96, 4, 2, 160, 160, None, 0),
-             (1, 77, 4, 1, 256, 256, 40, 123), (2, 130, 8, 2, 64, 128, None, 0)]
+             (1, 77, 4, 1, 256, 256, 40, 123), (2, 130, 8, 2, 64, 128, None, 0),
+             (1, 100, 16, 1, 256, 256, None, 0), (1, 100, 4, 2, 72, 72, None, 0)]
 
 
 @pytest.mark.cuda
@@ -1590,10 +1594,15 @@ JVP_CASES = [(2, 128, 16, 16, 128, 128, None, 0), (2, 128, 4, 4, 192, 128, None,
 @pytest.mark.parametrize("case", JVP_CASES)
 def test_cuda_flash_attention_tangent_kernels_match_plain(cuda, case, dtype):
     """16j and 16bj against their plain versions at the archs' head dims,
-    one launch each, twice bitwise: relative to the largest magnitude, 1e-4
-    in f32 (sums in another order), 2^-7 (16j) and 2^-6 (16bj) in bf16 (one
-    rounding of the f32 result, after sums that cancel more in 16bj)."""
+    one launch each, on the route ``jvp_route`` gives (the warp tensor cores
+    for bf16 at multiples of 16, else the CUDA cores), twice bitwise:
+    relative to the largest magnitude, 1e-4 in f32 (sums in another order),
+    2^-7 (16j) and 2^-6 (16bj) in bf16 (one rounding of the f32 result, and
+    the tensor cores' rounded operands, after sums that cancel more in
+    16bj)."""
     B, Sq, H, Hkv, hd, vd, window, off = case
+    route = "mma" if dtype == torch.bfloat16 and hd % 16 == 0 and vd % 16 == 0 else "cuda_cores"
+    assert FA.jvp_route(dtype, hd, vd) == route
     Sk = Sq + off
     g = torch.Generator(device="cuda").manual_seed(13)
 
@@ -1607,9 +1616,13 @@ def test_cuda_flash_attention_tangent_kernels_match_plain(cuda, case, dtype):
     o, lse = FA.flash_attention(q, k, v, window=window, q_offset=off, lse=True)
     q_pos, k_pos = off + torch.arange(Sq, device=cuda), torch.arange(Sk, device=cuda)
     P.reset_launches()
+    FA.last_jvp_route = None
     ot, lse_t = FA.flash_attention_jvp(q, k, v, lse, qt, kt, vt, window=window, q_offset=off)
+    assert FA.last_jvp_route == route
+    FA.last_jvp_route = None
     grads = FA.flash_attention_bwd_jvp(q, k, v, o, lse, do, qt, kt, vt, ot, dot, window=window,
                                        q_offset=off)
+    assert FA.last_jvp_route == route
     counts = P.launches()
     assert counts["flash_attention_jvp"] == 1 and counts["flash_attention_bwd_jvp"] == 1
     want = ref.flash_attention_jvp_ref(q, k, v, lse, qt, kt, vt, q_pos, k_pos, window=window)

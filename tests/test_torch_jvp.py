@@ -14,6 +14,8 @@ Tolerances:
   * through ``LruScan``: bitwise (the rules' plain versions round in the
     order of torch's forward-mode formulas, and the backward in that of
     autograd's);
+  * the same through ``FlashAttention`` against the reference's
+    ``jax.vmap(jax.jvp(jax.grad))`` of its ``impl="xla"`` flash, f32: 1e-5;
   * the plain versions of the four tangents against ``torch.func.jvp`` of
     the plain forward and backward, f32: 1e-5 (flash), bitwise (RG-LRU);
   * ``_DispatchGather``'s tangent: bitwise the gather of xt's tangent, and
@@ -41,6 +43,7 @@ import torch
 from repro.configs import get_arch as ref_get_arch
 from repro.core import autotune as ref_autotune
 from repro.data.synthetic import lm_batches as ref_lm_batches
+from repro.kernels import ops as ref_ops
 from repro.models import build as ref_build
 from repro_torch import convert
 from repro_torch.configs import get_arch
@@ -125,6 +128,38 @@ def test_flash_function_vmap_jvp_grad(case, dtype):
     shared_t = (tangents[0], tangents[1][0], tangents[2][0])
     _close(_hvp(f, shared, shared_t, (0, None, None)),
            _hvp(f_plain, shared, shared_t, (0, None, None)), rel)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=["gqa_window_offset", "one_kv_head", "mha"])
+def test_flash_function_vmap_jvp_grad_matches_reference(case):
+    """``vmap(jvp(grad))`` through ``FlashAttention`` (the forward-mode rules'
+    plain versions, 16j's and 16bj's) against the reference's
+    ``jax.vmap(jax.jvp(jax.grad))`` of ``repro.kernels.ops.flash_attention(...,
+    impl="xla")`` (the branch its probe differentiates) on the same
+    numpy-seeded f32 inputs and loss: within ``F32_REL`` of the largest
+    magnitude (XLA's online softmax against P formed from lse, f32 sums in
+    other orders)."""
+    window, off = case[8], case[9]
+    primals, tangents, c = _flash_data(case, torch.float32, 3)
+    q_pos, k_pos = off + np.arange(case[2]), np.arange(case[3])
+
+    def f(q, k, v):
+        o = ops.FlashAttention.apply(q, k, v, True, window, off, True)[0]
+        return (o ** 2 * c).sum()
+
+    got = _hvp(f, primals, tangents, (0, 0, 0))
+    cj = jax.numpy.asarray(c.numpy())
+
+    def f_ref(q, k, v):
+        o = ref_ops.flash_attention(q, k, v, q_pos, k_pos, causal=True, window=window,
+                                    impl="xla")
+        return (o ** 2 * cj).sum()
+
+    def one(q, k, v, qt, kt, vt):
+        return jax.jvp(jax.grad(f_ref, argnums=(0, 1, 2)), (q, k, v), (qt, kt, vt))[1]
+
+    want = jax.vmap(one)(*(jax.numpy.asarray(t.numpy()) for t in primals + tangents))
+    _close(got, tuple(torch.from_numpy(np.array(w)) for w in want), F32_REL)
 
 
 def test_flash_tangent_plain_versions_are_jvp_of_the_plain_ops():

@@ -46,6 +46,16 @@ wrong decomposition shows before any kernel runs on a card:
   1e-5 of the largest gradient of autograd of the plain versions, and
   wkv6's within 1e-9 of autograd of the recurrence in f64.
 
+* kernels 16j and 16bj, the tangents' warp tensor-core route
+  (``csrc/flash_attention_jvp.cu``, ``jm``): 16j's 64-row blocks and
+  32-key steps with P and E carried as bf16 hi + lo pairs; 16bj's row grid
+  (one sweep forming dq' = s (X - lse' Y) at hd <= 128, two beyond) and key
+  grid (64-key blocks, 32-row query steps, the kv head's query heads split
+  across blocks and their partials added in split order), P, P', dS, dS'
+  rounded to bf16 -- exact in f64 unrounded (1e-5 of the plain versions),
+  and within the card's 2^-7 / 2^-6 rounded; every visible pair visited
+  once by each grid; and the tangents' route by dtype and head dims.
+
 Also: the route the flash wrapper picks, that every launcher's C signature
 (and the inner loop's occupancy query) has as many parameters as its
 ctypes binding declares, and that
@@ -1164,3 +1174,319 @@ def test_wkv6_bwd_model_matches_the_f64_recurrence(S, K, V, decay):
     exps = _wkv6_bwd_check(S, K, V, decay, _wkv6_f64_grads, 1e-9)
     assert exps == [4 * 144 * K] * -(-S // 64)
     assert 4 * 144 < 3 * 64 * 63 // 2
+
+
+# ---------------------------------------------------------------------------
+# kernels 16j and 16bj: the tangents' warp tensor-core route
+# ---------------------------------------------------------------------------
+
+JVP = (CSRC / "flash_attention_jvp.cu").read_text()
+# csrc/flash_attention_jvp.cu jm::kRows, kKeys, kStep, kWarpCols
+JVP_ROWS, JVP_KEYS, JVP_STEP, JVP_WARP_COLS = 64, 64, 32, 128
+JVP_WARP_ROWS = 16
+
+
+def test_jvp_model_constants_match_the_kernel():
+    """The tiles the models below walk are the kernel's own, and the
+    wrapper splits the key grid by its key tile."""
+    jm = JVP[JVP.index("namespace jm {"):]
+    assert (_bwd_const(jm, "kRows"), _bwd_const(jm, "kKeys"), _bwd_const(jm, "kStep"),
+            _bwd_const(jm, "kWarpCols")) == (JVP_ROWS, JVP_KEYS, JVP_STEP, JVP_WARP_COLS)
+    assert FA.JVP_KEY_TILE == JVP_KEYS
+
+
+def _visible(Sq, Sk, q_offset, window):
+    qp = torch.arange(q_offset, q_offset + Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    ok = kp <= qp
+    return ok & (kp > qp - window) if window else ok
+
+
+def _block_keys(q0, Sq, Sk, q_offset, window, step):
+    """``key_range``: the keys a block of rows from q0 can see, [begin, end),
+    begin a multiple of ``step``."""
+    hi = q_offset + min(q0 + JVP_ROWS, Sq) - 1
+    begin = max(0, q_offset + q0 - window + 1) if window else 0
+    return begin // step * step, min(Sk, hi + 1)
+
+
+def _warps(q0, Sq):
+    """A block's warps' rows that exist: (first row, slice)."""
+    return [(w0, slice(w0, min(w0 + JVP_WARP_ROWS, Sq)))
+            for w0 in range(q0, min(q0 + JVP_ROWS, Sq), JVP_WARP_ROWS)]
+
+
+def _rounder(bf16):
+    return (lambda x: x.to(torch.bfloat16).to(x.dtype)) if bf16 else (lambda x: x)
+
+
+def _flash_jvp_model(q, k, v, lse, qt, kt, vt, q_offset, window, bf16, pairs=True):
+    """16j's tensor-core route (``jm::fwd_kernel``) in plain tensors: blocks
+    of 64 query rows, a warp's 16 rows stepping over the block's visible
+    keys 32 at a time (skipping a step none of them sees); S, S', P = exp(S s
+    - lse), E = P S' s; lse' the sum of E; o += P v, o'acc += E v + P v'
+    with P and E each carried as a pair of bf16, hi + lo, in two products
+    (``bf16``; rounded once instead unless ``pairs``).  In f32 (the
+    kernel's accumulators), f64 for f64 inputs.  Returns (o', lse', visits
+    of head 0, visible mask)."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
+    G, s = H // Hkv, 1.0 / math.sqrt(hd)
+    f = torch.float64 if q.dtype == torch.float64 else torch.float32
+    rnd = _rounder(bf16)
+    parts = (lambda x: (rnd(x), rnd(x - rnd(x)))) if pairs else (lambda x: (rnd(x),))
+    q, k, v, qt, kt, vt, lse = (x.to(f) for x in (q, k, v, qt, kt, vt, lse))
+    ok = _visible(Sq, Sk, q_offset, window)
+    ot, lse_t = torch.zeros(B, Sq, H, vd, dtype=f), torch.zeros(B, H, Sq, dtype=f)
+    visits = torch.zeros(Sq, Sk, dtype=torch.int64)
+    for b in range(B):
+        for h in range(H):
+            hk = h // G
+            for q0 in range(0, Sq, JVP_ROWS):
+                k_begin, k_end = _block_keys(q0, Sq, Sk, q_offset, window, JVP_STEP)
+                for w0, rows in _warps(q0, Sq):
+                    lo, hi = q_offset + w0, q_offset + rows.stop - 1
+                    n = rows.stop - rows.start
+                    o, oacc, lt = (torch.zeros(n, vd, dtype=f), torch.zeros(n, vd, dtype=f),
+                                   torch.zeros(n, dtype=f))
+                    for kt0 in range(k_begin, k_end, JVP_STEP):
+                        if kt0 > hi or window and kt0 + JVP_STEP - 1 <= lo - window:
+                            continue
+                        ks = slice(kt0, min(kt0 + JVP_STEP, Sk))
+                        m = ok[rows, ks]
+                        sc = q[b, rows, h] @ k[b, ks, hk].T
+                        st = qt[b, rows, h] @ k[b, ks, hk].T + q[b, rows, h] @ kt[b, ks, hk].T
+                        p = torch.where(m, torch.exp(sc * s - lse[b, h, rows, None]), 0.0)
+                        e = p * (st * s)
+                        lt += e.sum(-1)
+                        for part in parts(p):
+                            o += part @ v[b, ks, hk]
+                            oacc += part @ vt[b, ks, hk]
+                        for part in parts(e):
+                            oacc += part @ v[b, ks, hk]
+                        if b == 0 and h == 0:
+                            visits[rows, ks] += m.long()
+                    ot[b, rows, h] = oacc - lt[:, None] * o
+                    lse_t[b, h, rows] = lt
+    return ot, lse_t, visits, ok
+
+
+def _flash_bwd_jvp_model(q, k, v, o, lse, do, qt, kt, vt, ot, dot, q_offset, window, bf16,
+                         splits=1):
+    """16bj's tensor-core route (``jm::rows_kernel``, ``jm::keys_kernel``) in
+    plain tensors.  The row grid: blocks of 64 rows, a warp's 16 rows
+    stepping over the block's keys 32 at a time; at hd <= 128 one sweep
+    accumulating X = sum F k + dS k' and Y = sum dS k beside lse' = sum E
+    (E = P S' s, F = E (dP - D) + P (dP' - D')), dq' = s (X - lse' Y); beyond,
+    a sweep for lse' and a second for dS' = P' (dP - D) + P (dP' - D') into X
+    = sum dS' k + dS k', dq' = s X; dS and F (dS') rounded.  The key grid:
+    blocks of 64 keys and ``splits`` shares of each kv head's query heads, a
+    warp's 16 keys stepping over the query tiles of 32 rows that see the
+    block's keys; dv' += P'^T do + P^T do', dk' += dS'^T q + dS^T q' with
+    P, P', dS, dS' rounded; the shares' partials added in split order.
+    Returns (dq', dk', dv', row-grid visits, key-grid visits of head 0,
+    visible mask)."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
+    G, s = H // Hkv, 1.0 / math.sqrt(hd)
+    f = torch.float64 if q.dtype == torch.float64 else torch.float32
+    rnd = _rounder(bf16)
+    q, k, v, o, do, qt, kt, vt, ot, dot, lse = (
+        x.to(f) for x in (q, k, v, o, do, qt, kt, vt, ot, dot, lse))
+    ok = _visible(Sq, Sk, q_offset, window)
+    one = hd <= JVP_WARP_COLS
+    D = torch.einsum("bqhv,bqhv->bhq", do, o)
+    Dt = torch.einsum("bqhv,bqhv->bhq", dot, o) + torch.einsum("bqhv,bqhv->bhq", do, ot)
+    lse_t = torch.zeros(B, H, Sq, dtype=f)
+    dq_t = torch.zeros(B, Sq, H, hd, dtype=f)
+    visits = torch.zeros(2, Sq, Sk, dtype=torch.int64)
+
+    def tiles(b, h, rows, ks, lt):
+        """P, E (or P' given lse' ``lt``), dP and dP' of rows against keys."""
+        hk = h // G
+        m = ok[rows, ks]
+        sc = q[b, rows, h] @ k[b, ks, hk].T
+        s1 = (qt[b, rows, h] @ k[b, ks, hk].T + q[b, rows, h] @ kt[b, ks, hk].T) * s
+        p = torch.where(m, torch.exp(sc * s - lse[b, h, rows, None]), 0.0)
+        e = p * s1 if lt is None else p * (s1 - lt[:, None])
+        dp = do[b, rows, h] @ v[b, ks, hk].T
+        dpt = dot[b, rows, h] @ v[b, ks, hk].T + do[b, rows, h] @ vt[b, ks, hk].T
+        return m, p, e, dp, dpt
+
+    for b in range(B):
+        for h in range(H):
+            hk = h // G
+            for q0 in range(0, Sq, JVP_ROWS):
+                k_begin, k_end = _block_keys(q0, Sq, Sk, q_offset, window, JVP_STEP)
+                for w0, rows in _warps(q0, Sq):
+                    lo, hi = q_offset + w0, q_offset + rows.stop - 1
+                    steps = [slice(kt0, min(kt0 + JVP_STEP, Sk))
+                             for kt0 in range(k_begin, k_end, JVP_STEP)
+                             if not (kt0 > hi or window and kt0 + JVP_STEP - 1 <= lo - window)]
+                    n = rows.stop - rows.start
+                    X, Y, lt = (torch.zeros(n, hd, dtype=f), torch.zeros(n, hd, dtype=f),
+                                torch.zeros(n, dtype=f))
+                    if not one:  # the first sweep: lse' alone
+                        for ks in steps:
+                            lt += tiles(b, h, rows, ks, None)[2].sum(-1)
+                    for ks in steps:
+                        m, p, e, dp, dpt = tiles(b, h, rows, ks, None if one else lt)
+                        if one:
+                            lt += e.sum(-1)
+                        x = dp - D[b, h, rows, None]
+                        ds = rnd(p * x)
+                        fx = rnd(e * x + p * (dpt - Dt[b, h, rows, None]))
+                        X += fx @ k[b, ks, hk] + ds @ kt[b, ks, hk]
+                        Y += ds @ k[b, ks, hk]
+                        if b == 0 and h == 0:
+                            visits[0, rows, ks] += m.long()
+                    dq_t[b, rows, h] = s * (X - lt[:, None] * Y if one else X)
+                    lse_t[b, h, rows] = lt
+    parts = torch.zeros(splits, 2, B, Sk, Hkv, max(hd, vd), dtype=f)
+    gps = -(-G // splits)
+    for b in range(B):
+        for hk in range(Hkv):
+            for k0 in range(0, Sk, JVP_KEYS):
+                k_last = min(k0 + JVP_KEYS, Sk) - 1
+                i_begin = max(0, k0 - q_offset) // JVP_STEP * JVP_STEP
+                i_end = min(Sq, k_last + window - q_offset) if window else Sq
+                for z in range(splits):
+                    for g in range(z * gps, min(G, z * gps + gps)):
+                        h = hk * G + g
+                        for q0 in range(i_begin, i_end, JVP_STEP):
+                            qp0 = q_offset + q0
+                            rows = slice(q0, min(q0 + JVP_STEP, Sq))
+                            for kw0 in range(k0, k0 + JVP_KEYS, JVP_WARP_ROWS):
+                                if kw0 >= Sk or qp0 + JVP_STEP - 1 < kw0 or (
+                                        window and kw0 + 15 <= qp0 - window):
+                                    continue
+                                ks = slice(kw0, min(kw0 + JVP_WARP_ROWS, Sk))
+                                m, p, pt, dp, dpt = tiles(b, h, rows, ks, lse_t[b, h, rows])
+                                x = dp - D[b, h, rows, None]
+                                ds, dst = p * x, pt * x + p * (dpt - Dt[b, h, rows, None])
+                                parts[z, 0, b, ks, hk, :vd] += (
+                                    rnd(pt).T @ do[b, rows, h] + rnd(p).T @ dot[b, rows, h])
+                                parts[z, 1, b, ks, hk, :hd] += (
+                                    rnd(dst).T @ q[b, rows, h] + rnd(ds).T @ qt[b, rows, h])
+                                if b == 0 and h == 0:
+                                    visits[1, rows, ks] += m.long()
+    total = parts[0]
+    for z in range(1, splits):
+        total = total + parts[z]
+    return (dq_t, s * total[1, ..., :hd], total[0, ..., :vd], visits[0], visits[1], ok)
+
+
+# The four head dims of chip_smoke.py's FLASH_JVP_CASES with short, ragged
+# sequences (B, Sq, H, Hkv, hd, vd, window, q_offset, splits): olmo-1b's
+# 128 (one sweep), MLA's 192 / 128 and stablelm's 160 with GQA (two sweeps),
+# recurrentgemma's 256 on one kv head with a window below the sequence and
+# its query heads split across key blocks; a query offset
+JVP_MODEL_CASES = [
+    (1, 100, 2, 2, 128, 128, None, 0, 1),
+    (1, 77, 2, 2, 192, 128, None, 0, 1),
+    (1, 130, 4, 1, 256, 256, 40, 0, 3),
+    (1, 70, 4, 2, 160, 160, None, 23, 2),
+]
+
+
+def _jvp_inputs(case, dtype):
+    B, Sq, H, Hkv, hd, vd, window, off, _ = case
+    Sk = Sq + off
+    rng = np.random.default_rng(sum(case[:6]))
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dtype)
+
+    q, qt = t(B, Sq, H, hd), t(B, Sq, H, hd)
+    k, kt = t(B, Sk, Hkv, hd), t(B, Sk, Hkv, hd)
+    v, vt = t(B, Sk, Hkv, vd), t(B, Sk, Hkv, vd)
+    do, dot, ot = t(B, Sq, H, vd), t(B, Sq, H, vd), t(B, Sq, H, vd)
+    q_pos, k_pos = torch.arange(off, off + Sq), torch.arange(Sk)
+    o = ref.flash_attention_ref(q, k, v, q_pos, k_pos, window=window)
+    lse = ref.flash_attention_lse_ref(q, k, q_pos, k_pos, window=window).to(
+        torch.float64 if dtype == torch.float64 else torch.float32)
+    return (q, k, v, o, lse, do, qt, kt, vt, ot, dot), (q_pos, k_pos, window, off)
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("case", JVP_MODEL_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_jvp_tile_algebra_is_exact(case):
+    """Unrounded and in f64, the models' tile walks and algebra (16bj's one
+    sweep, X - lse' Y, and its two; the key grid's split partials) equal
+    the plain versions within 1e-5 of the largest value (the plain versions
+    run in f32), and both grids of each visit every visible pair of a head
+    exactly once."""
+    (q, k, v, o, lse, do, qt, kt, vt, ot, dot), (q_pos, k_pos, window, off) = _jvp_inputs(
+        case, torch.float64)
+    got_o, got_l, visits, ok = _flash_jvp_model(q, k, v, lse, qt, kt, vt, off, window, False)
+    assert torch.equal(visits, ok.long())
+    want_o, want_l = ref.flash_attention_jvp_ref(q, k, v, lse, qt, kt, vt, q_pos, k_pos,
+                                                 window=window)
+    assert _rel(got_o, want_o) <= 1e-5 and _rel(got_l, want_l) <= 1e-5
+    *got, rv, kv, ok = _flash_bwd_jvp_model(q, k, v, o, lse, do, qt, kt, vt, ot, dot, off, window,
+                                            False, splits=case[-1])
+    assert torch.equal(rv, ok.long()) and torch.equal(kv, ok.long())
+    want = ref.flash_attention_bwd_jvp_ref(q, k, v, o, lse, do, qt, kt, vt, ot, dot, q_pos, k_pos,
+                                           window=window)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("case", JVP_MODEL_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_jvp_model_rounds_where_the_kernel_does(case):
+    """bf16 operands with dS, F (dS'), P' and the key grid's P rounded to
+    bf16 and 16j's P and E carried as hi + lo, where the kernels do so: o'
+    within 2^-7, lse' 1e-4 (summed unrounded), dq', dk', dv' within 2^-6 of
+    the plain versions -- the card's tolerances
+    (``chip_smoke.py`` ``JVP_BF16_REL``, ``BWD_JVP_BF16_REL``) -- and the
+    rounding moves the result (the model is not the plain version under
+    another name)."""
+    ins, (q_pos, k_pos, window, off) = _jvp_inputs(case, torch.bfloat16)
+    q, k, v, o, lse, do, qt, kt, vt, ot, dot = ins
+    want_o, want_l = ref.flash_attention_jvp_ref(q, k, v, lse, qt, kt, vt, q_pos, k_pos,
+                                                 window=window)
+    got_o, got_l = _flash_jvp_model(q, k, v, lse, qt, kt, vt, off, window, True)[:2]
+    exact_o = _flash_jvp_model(q, k, v, lse, qt, kt, vt, off, window, False)[0]
+    once_o = _flash_jvp_model(q, k, v, lse, qt, kt, vt, off, window, True, pairs=False)[0]
+    assert _rel(got_o.bfloat16(), want_o) <= 2.0 ** -7 and _rel(got_l, want_l) <= 1e-4
+    assert _rel(got_o, exact_o) > 0
+    # P and E rounded once each: o' = o'acc - lse' o, two terms that cancel,
+    # moves at least twice as far (four times at these cases)
+    assert 2 * _rel(got_o.bfloat16(), want_o) <= _rel(once_o.bfloat16(), want_o)
+    want = ref.flash_attention_bwd_jvp_ref(q, k, v, o, lse, do, qt, kt, vt, ot, dot, q_pos, k_pos,
+                                           window=window)
+    got = _flash_bwd_jvp_model(q, k, v, o, lse, do, qt, kt, vt, ot, dot, off, window, True,
+                               splits=case[-1])[:3]
+    exact = _flash_bwd_jvp_model(q, k, v, o, lse, do, qt, kt, vt, ot, dot, off, window, False,
+                                 splits=case[-1])[:3]
+    for a, b, c in zip(got, want, exact):
+        assert _rel(a.bfloat16(), b) <= 2.0 ** -6
+        assert _rel(a, c) > 0
+
+
+@pytest.mark.parametrize("dtype,hd,vd,want", [
+    (torch.bfloat16, 128, 128, "mma"), (torch.bfloat16, 192, 128, "mma"),
+    (torch.bfloat16, 256, 256, "mma"), (torch.bfloat16, 160, 160, "mma"),
+    (torch.bfloat16, 64, 128, "mma"), (torch.bfloat16, 16, 16, "mma"),
+    (torch.bfloat16, 72, 128, "cuda_cores"), (torch.bfloat16, 128, 136, "cuda_cores"),
+    (torch.bfloat16, 100, 100, "cuda_cores"), (torch.float32, 128, 128, "cuda_cores"),
+    (torch.float32, 256, 256, "cuda_cores"), (torch.float32, 192, 128, "cuda_cores"),
+])
+def test_jvp_route_by_dtype_and_head_dims(dtype, hd, vd, want):
+    """16j's and 16bj's route: the warp tensor cores for bf16 with hd and vd
+    multiples of 16, the CUDA cores for f32 and other dims."""
+    assert FA.jvp_route(dtype, hd, vd) == want
+
+
+def test_jvp_key_grid_splits_fill_the_card():
+    """The splits the wrapper gives 16bj's key grid at the four shapes of
+    ``chip_smoke.py``'s ``FLASH_JVP_CASES`` (B 8, 128 tokens) on 132 SMs:
+    recurrentgemma's one kv head, 16 blocks of 64 keys, splits its 16
+    query heads 16 ways, stablelm's 128 blocks its 4 two ways, and olmo-1b's
+    and MLA's 256 blocks fill the card unsplit."""
+    assert FA.dkdv_splits(8, 128, 1, 16, 132, FA.JVP_KEY_TILE) == 16
+    assert FA.dkdv_splits(8, 128, 8, 4, 132, FA.JVP_KEY_TILE) == 2
+    assert FA.dkdv_splits(8, 128, 16, 1, 132, FA.JVP_KEY_TILE) == 1
