@@ -223,18 +223,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      forward-mode kernels 16j, 16bj (``FLASH_JVP_CASES``: olmo-1b's training
      shape and the trained archs' head dims, bf16 and f32) and
      ``lru_scan_jvp``, ``lru_scan_bwd_jvp`` (``LRU_JVP_SHAPES``, bitwise
-     ``torch.func.jvp`` of the plain recurrence and of its backward) against
-     their plain versions, every case twice (bitwise equal), timed beside
-     their bounds, 16j also beside ``torch.func.jvp`` of SDPA under each
-     backend that takes it; (f) "12 eta auto": the curvature probe of
-     ``--eta auto`` (``vmap(jvp(grad(loss)))``) through the kernels:
-     olmo-1b at full width and depth through ``autotune.estimate_L``
-     (``ETA_AUTO``: L range, seconds, launches, peak allocation),
-     ``launch.train.run(eta="auto", steps=1)`` for ``TRAIN_ARCHS`` at their
-     cuts (finite loss), the reduced configs of "12 train card vs cpu"
-     against the CPU's L (``L_CARD_CPU_RTOL``) and against the plain ops on
-     the card (``L_PLAIN_RTOL``), and rwkv6-1.6b refused (kernels 17-17b
-     have no forward-mode rule yet);
+     ``torch.func.jvp`` of the plain recurrence and of its backward) and the
+     RWKV-6 tangents 17j ``wkv6_jvp``, 17bj ``wkv6_bwd_jvp``
+     (``WKV_JVP_CASES``: rwkv6-1.6b's prefill and training shapes in bf16, a
+     ragged length, the extreme decay in f32, a slow one in f32 and bf16)
+     against their plain versions, every case twice (bitwise equal), timed
+     beside their bounds,
+     16j also beside ``torch.func.jvp`` of SDPA under each backend that
+     takes it; (f) "12 eta auto": the curvature probe of ``--eta auto``
+     (``vmap(jvp(grad(loss)))``) through the kernels: olmo-1b at full width
+     and depth through ``autotune.estimate_L`` (``ETA_AUTO``: L range,
+     seconds, launches, peak allocation; ``--full-probe`` runs instead
+     rwkv6-1.6b's at full depth with witnesses of its L, ``FULL_PROBE``),
+     ``launch.train.run(eta="auto", steps=1)`` for
+     ``ETA_AUTO_ARCHS`` at their cuts (``TRAIN_ARCHS`` and rwkv6-1.6b at 2
+     layers: finite loss, the probe's launches), the reduced configs of "12
+     train card vs cpu" and rwkv6-1.6b's against the CPU's L
+     (``L_CARD_CPU_RTOL``) and against the plain ops on the card
+     (``L_PLAIN_RTOL``);
  13. print one JSON line of per-kernel numbers (with each source's
      ``-Xptxas -v`` registers, static shared memory and spills per entry
      function when the run built it), then the result line
@@ -4535,6 +4541,38 @@ def wkv_bwd_cost(B, S, H, K, n_u) -> tuple[float, float]:
     return nbytes, flops
 
 
+def wkv_jvp_cost(B, S, H, K, n_u, itemsize=2) -> tuple[float, float]:
+    """(bytes, operations) of 17j at (B, S, H, K), V = K: r, k, v and their
+    tangents read and y' written once in the operands' dtype, w, w', u, u',
+    s0, s0' and the forward's chunk states read and S_final' written in f32;
+    the function's products per chunk: att and its tangent (r' k, r k', r k
+    E': four of length K a pair), att' v and att v' (two of V a pair), and
+    four of C K V (y''s r' S and r S', S''s k' v and k v')."""
+    nc, C, V = -(-S // 64), 64, K
+    flops = 2.0 * B * H * nc * ((4 * K + 2 * V) * C * C / 2 + 4 * C * K * V)
+    nbytes = (itemsize * B * S * H * (4 * K + 3 * V) + 8 * B * S * H * K + 8 * H * K * n_u
+              + 4 * B * H * K * V * (2 + nc))  # the states entering chunks 1 .. nc - 1
+    return nbytes, flops
+
+
+def wkv_bwd_jvp_cost(B, S, H, K, n_u, itemsize=2) -> tuple[float, float]:
+    """(bytes, operations) of 17bj at (B, S, H, K), V = K: r, k, v, dy and
+    their tangents read and dr', dk', dv' written once in the operands'
+    dtype; w, w', u, u', s0, s0', s_out, ds_final, ds_final' and the
+    forward's chunk states read and dw', du', ds0' written in f32.  The
+    function's products per chunk, each primal that a tangent needs
+    counted once beside its tangent: att (4 of K a pair with its tangent),
+    datt (3 of V), dr's and dk's pair sums (4 of K each), dv''s pairs (2 of
+    V), and 13 of C K V (S dy, dS v and the state gradient's (r e^la)^T dy,
+    each with its two tangent products; dv''s dS' and dS terms; S''s k' v
+    and k v')."""
+    nc, C, V = -(-S // 64), 64, K
+    flops = 2.0 * B * H * nc * ((12 * K + 5 * V) * C * C / 2 + 13 * C * K * V)
+    nbytes = (itemsize * B * S * H * (6 * K + 5 * V) + 12 * B * S * H * K + 12 * H * K * n_u
+              + 4 * B * H * K * V * (5 + nc))
+    return nbytes, flops
+
+
 def sdpa_backward(torch, q, k, v, do, backend: str, window=None):
     """One call of SDPA's autograd backward on (B, S, H, d) tensors
     (transposed to SDPA's layout) under ``backend``, as ``sdpa_forward``
@@ -4893,6 +4931,21 @@ JVP_BF16_REL = 2.0 ** -7
 BWD_JVP_BF16_REL = 2.0 ** -6
 JVP_ITERS = 20
 JVP_TRIALS = 3
+# wkv6_jvp and wkv6_bwd_jvp (17j, 17bj), (B, S, H, K, dtype, rows of u,
+# decay): rwkv6-1.6b's prefill shape in bf16 with s0 != 0 (timed), the
+# training round's folded batch with two rows of u (timed), f32 at a ragged
+# length, f32 at phase 11's extreme decay (w = 1e-30 mixed with 0.9), and
+# f32 at a slow decay (w = exp(-0.02 exp(.)), about 0.6 over a chunk, where
+# the model's leaves near 1e-11: the state and its tangent carried into the
+# next chunk weigh in), the last also in bf16 at the training shape, nearer
+# the model's initial decay (exp(-exp(-6))); w' = w x' throughout, the chain
+# rule's form through the model's exp(-exp(.)).  Tolerances: y' as 16j's o', 17bj's outputs as 16bj's, f32
+# as theirs; dw' at the extreme decay held as dw' w, since dw' = (dlw' - dlw
+# w' / w) / w is rounding noise times 1e30 there in any order of sums
+WKV_JVP_CASES = ((*WKV_SHAPE, "bf16", 1, "model"), (*WKV_TRAIN_SHAPE, "bf16", 2, "model"),
+                 (2, 100, 4, 64, "f32", 2, "model"), (2, 100, 4, 64, "f32", 1, "extreme"),
+                 (2, 200, 4, 64, "f32", 2, "slow"), (*WKV_TRAIN_SHAPE, "bf16", 2, "slow"))
+WKV_JVP_ITERS = 10
 # torch.func.jvp of SDPA under each backend, the yardstick of 16j
 SDPA_JVP_BACKENDS = ("MATH", "CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION")
 
@@ -5119,6 +5172,114 @@ def check_jvp_kernels(rec, torch, ops, ref, gen, out):
                     f"({by})")
         del a, b, at, bt, dy, dyt, h0, h0t, dh, dht, y, yt, hlt, got
     torch.cuda.empty_cache()
+    check_wkv_jvp_kernels(rec, torch, ref, gen, out)
+
+
+def check_wkv_jvp_kernels(rec, torch, ref, gen, out):
+    """Kernels 17j and 17bj at ``WKV_JVP_CASES`` against their plain versions
+    (``ref.wkv6_jvp_ref``, ``ref.wkv6_bwd_jvp_ref``), every case run twice
+    (the two bitwise equal) and each wrapper one launch a call; timed at
+    rwkv6-1.6b's prefill shape (the kernels' rows: bound at the bf16
+    operands' tensor-core rate, as 16j's, plain version; no library call
+    computes the RWKV-6 recurrence or its tangents) and at the training
+    round's folded shape (bound and plain time beside it)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import wkv6 as _wk
+
+    dev = gen.device
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    res = out["jvp_kernels"]["wkv"] = {}
+
+    def twice(what, fn):
+        a, b = fn(), fn()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{what}: two runs differ")
+        return a
+
+    for B, S, H, K, dn, n_u, decay in WKV_JVP_CASES:
+        dt = dts[dn]
+
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+
+        r, kk, rt, kt, vv, vt, dy, dyt = (rn(B, S, H, K).to(dt) for _ in range(8))
+        if decay == "extreme":
+            w = torch.full((B, S, H, K), 1e-30, device=dev)
+            w[:, ::3] = 0.9
+        else:
+            w = torch.exp(-(0.02 if decay == "slow" else 1.0)
+                          * torch.exp(0.5 * rn(B, S, H, K) - 1.0))
+        wt = w * rn(B, S, H, K)
+        u_shape = (n_u, H, K) if n_u > 1 else (H, K)
+        u, ut = 0.1 * rn(*u_shape), 0.1 * rn(*u_shape)
+        s0, s0t = 0.1 * rn(B, H, K, K), 0.1 * rn(B, H, K, K)
+        dsf, dsft = rn(B, H, K, K), rn(B, H, K, K)
+        y, s_out, states = _wk.wkv6(r, kk, vv, w, u, s0, keep_states=True)
+        what = f"{(B, S, H, K)} {dn}, {n_u} row(s) of u, decay {decay}"
+
+        def fwd():
+            return _wk.wkv6_jvp(r, kk, vv, w, u, s0, states, rt, kt, vt, wt, ut, s0t)
+
+        def bwd():
+            return _wk.wkv6_bwd_jvp(r, kk, vv, w, u, s0, s_out, states, dy, dsf, rt, kt, vt, wt,
+                                    ut, s0t, dyt, dsft)
+
+        def fwd_plain():
+            return ref.wkv6_jvp_ref(r, kk, vv, w, u, s0, rt, kt, vt, wt, ut, s0t)
+
+        def bwd_plain():
+            return ref.wkv6_bwd_jvp_ref(r, kk, vv, w, u, s0, dy, dsf, rt, kt, vt, wt, ut, s0t,
+                                        dyt, dsft)
+
+        ops.reset_launches()
+        got_j = twice(f"wkv6_jvp {what}", fwd)
+        got_b = list(twice(f"wkv6_bwd_jvp {what}", bwd))
+        counts = ops.launches()
+        check(counts["wkv6_jvp"] == 2 and counts["wkv6_bwd_jvp"] == 2,
+              f"wkv6 tangents {what}: launches {counts}")
+        want_j, want_b = fwd_plain(), list(bwd_plain())
+        if decay == "extreme":
+            got_b[3], want_b[3] = got_b[3] * w, want_b[3] * w
+        e_j = [rel_err(torch, a, b) for a, b in zip(got_j, want_j)]
+        e_b = [rel_err(torch, a, b) for a, b in zip(got_b, want_b)]
+        f32 = dt == torch.float32
+        t_j, t_b = (JVP_F32_REL, JVP_F32_REL) if f32 else (JVP_BF16_REL, BWD_JVP_BF16_REL)
+        check(e_j[0] <= t_j and e_j[1] <= JVP_F32_REL,
+              f"wkv6_jvp {what}: y', s_final' rel errors {e_j} (tol {t_j})")
+        check(max(e_b[:3]) <= t_b and max(e_b[3:]) <= JVP_F32_REL,
+              f"wkv6_bwd_jvp {what}: dr' dk' dv' dw' du' ds0' rel errors {e_b} (tol {t_b})")
+        check(all(bool(torch.isfinite(x).all()) for x in (*got_j, *got_b)),
+              f"wkv6 tangents {what}: not finite")
+        log(f"wkv6 tangents {what}: 17j y', s_final' rel errors {['%.3e' % e for e in e_j]}; "
+            f"17bj dr' dk' dv' dw'{' w' if decay == 'extreme' else ''} du' ds0' "
+            f"{['%.3e' % e for e in e_b]}; two runs bitwise equal")
+        row = res[what] = {"y_t, s_final_t": e_j, "dr_t dk_t dv_t dw_t du_t ds0_t": e_b}
+        timed = (B, S, H, K) in (WKV_SHAPE, WKV_TRAIN_SHAPE) and dn == "bf16" and decay == "model"
+        for name, fn, plain_fn, cost in (("wkv6_jvp", fwd, fwd_plain, wkv_jvp_cost),
+                                         ("wkv6_bwd_jvp", bwd, bwd_plain, wkv_bwd_jvp_cost)):
+            if not timed:
+                continue
+            nbytes, flops = cost(B, S, H, K, n_u)
+            if (B, S, H, K) == WKV_SHAPE:
+                err = max(max_err(a, b) for a, b in zip(fn(), plain_fn()))
+                rec.kernel(name, err, fn, plain_fn, WKV_JVP_ITERS, nbytes, flops,
+                           flop_per_s=BF16_FLOP_PER_S, plain_iters=2,
+                           plain_spin=100_000_000, trials=JVP_TRIALS)
+                rec.rows[name]["library"] = ("none: no PyTorch call computes the RWKV-6 "
+                                             "recurrence or its tangents")
+                r_ = row[name] = {k: rec.rows[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                 "bound_by")}
+            else:
+                ms, ms_all = med_ms(fn, WKV_JVP_ITERS, JVP_TRIALS)
+                b_, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+                plain_ms = cuda_time_ms(plain_fn, 2, spin_cycles=100_000_000)
+                r_ = row[name] = rec.rows[name]["train"] = dict(
+                    shape=[B, S, H, K], ms=ms, ms_trials=ms_all, plain_ms=plain_ms, bound_ms=b_,
+                    bound_by=by)
+            log(f"{name} {what}: {r_['ms']:.4f} ms, plain {r_['plain_ms']:.4f}, bound "
+                f"{r_['bound_ms']:.4f} ({r_['bound_by']}); library none")
+        del r, kk, rt, kt, vv, vt, dy, dyt, w, wt, u, ut, s0, s0t, dsf, dsft, y, s_out, states
+        del got_j, got_b, want_j, want_b
+        torch.cuda.empty_cache()
 
 
 def _rows_equal(a, b) -> bool:
@@ -5579,14 +5740,20 @@ def train_against_cpu(torch, ops, out):
 # phase "12 eta auto": (a) olmo-1b at full width and depth at phase 12's
 # round (m = 2 clients, batch 4, 128 tokens) with 16 power iterations, not
 # the launcher's 96 (0.62-0.76 s a product on an H100: 97 do not fit
-# the script's time); (b) ``launch.train.run(eta="auto", steps=1)`` for
-# ``TRAIN_ARCHS`` at their cuts, its probe at ``ETA_AUTO_RUN["iters"]``
+# the script's time; ``--full-probe`` runs these settings for rwkv6-1.6b's
+# 24 layers instead, ``FULL_PROBE``); (b) ``launch.train.run(eta="auto",
+# steps=1)`` for ``ETA_AUTO_ARCHS`` at their cuts, its probe at ``ETA_AUTO_RUN["iters"]``
 # iterations; (c) the card against the CPU on the reduced configs of "12
 # train card vs cpu" in f32, 8 iterations over a probe batch of one 64-token
 # row a client (the CPU's probes at that phase's 4 x 128 took 39 s)
 ETA_AUTO = dict(arch="olmo-1b", m=2, per_client_batch=4, seq_len=128, iters=16, seed=83)
 ETA_AUTO_RUN = dict(m=2, per_client_batch=4, seq_len=128, k=2, steps=1, iters=8)
 ETA_AUTO_CPU = dict(m=2, per_client_batch=1, seq_len=64, iters=8)
+# (b)'s archs at their cuts: ``TRAIN_ARCHS``' and rwkv6-1.6b at ``TRAIN_RWKV``'s
+# 2 layers (kernels 17, 17b, 17j, 17bj); (c)'s: "12 train card vs cpu"'s and
+# rwkv6-1.6b's reduced config, whose wkv heads stay 64 wide
+ETA_AUTO_ARCHS = {**TRAIN_ARCHS, "rwkv6-1.6b": dict(n_layers=TRAIN_RWKV["n_layers"])}
+ETA_AUTO_CPU_HEADS = {**TRAIN_CPU_HEADS, "rwkv6-1.6b": {}}
 # L on the card against the CPU's: the probe's start vector (a constant plus
 # a ramp) lies almost in the Hessian's null space, so its first product is a
 # small difference of large terms (its norm and the two devices' relative
@@ -5598,28 +5765,59 @@ L_CARD_CPU_RTOL = 2e-2
 # L through the kernels against L through the plain ops on the same card:
 # the same start, products within 1e-6 of each other (measured 3e-5)
 L_PLAIN_RTOL = 1e-3
+# ``--full-probe``: rwkv6-1.6b's probe at full width and depth with
+# ``ETA_AUTO``'s settings (too long for the default call), then witnesses
+# of its L (``witness``), one set of weights each through the plain ops on
+# the card (the reference), the kernels, and controls that compute the same
+# function rounded otherwise: the plain ops with the recurrence summed in
+# 32-step chunks, and the CPU.  (a) The reduced config in f32 at all 24 layers
+# with ``ETA_AUTO_CPU``'s settings at 128 tokens (two chunks, so that 17j
+# and 17bj pass state between them), the CPU among the controls; (b) full
+# width in bf16 at ``TRAIN_RWKV``'s 2 layers and (c) at all 24, batch 1 a
+# client (the plain recurrence's pairwise decays, saved with their tangents
+# in all 24 layers, do not fit beside batch 4's).  Each holds the kernels'
+# L, and their Hessian-vector product at one random unit vector a client,
+# to the reference's within the larger of ``WITNESS_FLOORS`` (bf16 or f32
+# rounding compounded over the layers) and ``SPREAD_FACTOR`` times the
+# farthest control's distance from it; all but (c).  At 24 layers a
+# reordering of sums moves the product ~1e4 times as far as it moves the
+# operands (in (a) on an H100 the CPU's product sat 8.9e-4 from the card's,
+# the kernels' 1.1e-3, the 32-step chunks', which reorder few sums, 2e-6),
+# so in bf16, whose rounding is 2^-9, a route that reorders the recurrence's
+# sums throughout, as the kernels do, can move it O(1) and no control at
+# hand does as much: (c) is recorded, its launches and finite values checked.
+FULL_PROBE = {**ETA_AUTO, "arch": "rwkv6-1.6b"}
+FULL_PROBE_WITNESS = {**FULL_PROBE, "per_client_batch": 1}
+WITNESS_FLOORS = {"bfloat16": {"product": 5e-2, "L": 5e-2},
+                  "float32": {"product": 1e-4, "L": L_PLAIN_RTOL}}
+SPREAD_FACTOR = 2.0
 
 
-def probe_launches(n_attn: int, n_rec: int, iters: int) -> dict:
+def probe_launches(n_attn: int, n_rec: int, n_wkv: int, iters: int) -> dict:
     """The curvature probe's launches, read off the code: each of its
     iters + 1 Hessian-vector products runs every attention layer's 16, 16b,
     16j and 16bj once for all clients (the vmap rules fold them into the
     batch), every RG-LRU layer's ``lru_scan``, ``lru_scan_bwd`` and their
-    tangents likewise."""
+    tangents likewise, and every RWKV layer's 17, 17b, 17j and 17bj (17bj's
+    four launches are one call, counted once)."""
     n = iters + 1
-    want = {name: n_attn * n for name in ("flash_attention", "flash_attention_bwd",
-                                          "flash_attention_jvp", "flash_attention_bwd_jvp")}
-    if n_rec:
-        want |= {name: n_rec * n for name in ("lru_scan", "lru_scan_bwd", "lru_scan_jvp",
-                                              "lru_scan_bwd_jvp")}
+    want = {}
+    for layers, names in ((n_attn, ("flash_attention", "flash_attention_bwd",
+                                    "flash_attention_jvp", "flash_attention_bwd_jvp")),
+                          (n_rec, ("lru_scan", "lru_scan_bwd", "lru_scan_jvp",
+                                   "lru_scan_bwd_jvp")),
+                          (n_wkv, ("wkv6", "wkv6_bwd", "wkv6_jvp", "wkv6_bwd_jvp"))):
+        if layers:
+            want |= {name: layers * n for name in names}
     return want
 
 
-def plain_model_ops(torch, ops, ref):
-    """Route ``ops.flash_attention`` and ``ops.lru_scan`` to their plain
-    versions for CUDA tensors (the model's calls; a comparison only, undone
-    by the returned function)."""
-    saved = ops.flash_attention, ops.lru_scan
+def plain_model_ops(torch, ops, ref, wkv_chunk=64):
+    """Route ``ops.flash_attention``, ``ops.lru_scan`` and ``ops.wkv6`` to
+    their plain versions for CUDA tensors (the model's calls; a comparison
+    only, undone by the returned function); the plain recurrence in chunks
+    of ``wkv_chunk`` steps."""
+    saved = ops.flash_attention, ops.lru_scan, ops.wkv6
 
     def flash(q, k, v, q_pos=None, k_pos=None, *, causal=True, window=None, q_offset=None):
         off = q_offset or 0
@@ -5628,42 +5826,53 @@ def plain_model_ops(torch, ops, ref):
                                        window=window)
 
     ops.flash_attention, ops.lru_scan = flash, ref.lru_ref
+    ops.wkv6 = functools.partial(ref.wkv6_ref, chunk=wkv_chunk)
 
     def undo():
-        ops.flash_attention, ops.lru_scan = saved
+        ops.flash_attention, ops.lru_scan, ops.wkv6 = saved
     return undo
 
 
-def first_product(torch, autotune, arena, T, grad_fn, params, m, batch):
-    """The probe's first Hessian-vector product, at its start vector
-    (``autotune``'s own), as ``estimate_L`` forms it for a tree gradient."""
+def hvp_at(torch, arena, T, grad_fn, params, batch, v):
+    """Each client's Hessian-vector product at its row of ``v`` (m, width),
+    as ``estimate_L`` forms it for a tree gradient."""
     spec = arena.ArenaSpec.from_tree(params)
-    dev = T.leaves(params)[0].device
-    v0 = autotune._normalize(autotune._v0(m, spec.width, dev))
     primal = T.tmap(lambda x: x, params)
 
     def one(bi, vi):
         return spec.pack(torch.func.jvp(lambda p: grad_fn(p, bi), (primal,),
                                         (spec.unpack(vi),))[1])
-    return torch.func.vmap(one)(batch, v0)
+    return torch.func.vmap(one)(batch, v)
 
 
-def eta_auto_phase(rec, torch, ops, ref, out):
-    """``--eta auto`` on the card: its curvature probe ``vmap(jvp(grad(loss)))``
-    through the forward-mode rules (kernels 16j, 16bj, ``lru_scan_jvp``,
-    ``lru_scan_bwd_jvp``); see ``ETA_AUTO``, ``ETA_AUTO_RUN``,
-    ``ETA_AUTO_CPU``, ``L_CARD_CPU_RTOL`` and ``L_PLAIN_RTOL``.  rwkv6-1.6b must be refused."""
-    import dataclasses
+def first_product(torch, autotune, arena, T, grad_fn, params, m, batch):
+    """The probe's first Hessian-vector product, at its start vector
+    (``autotune``'s own)."""
+    spec = arena.ArenaSpec.from_tree(params)
+    dev = T.leaves(params)[0].device
+    v0 = autotune._normalize(autotune._v0(m, spec.width, dev))
+    return hvp_at(torch, arena, T, grad_fn, params, batch, v0)
 
+
+def layer_kinds(cfg) -> tuple[int, int, int]:
+    """(attention, RG-LRU, RWKV) layers of an arch config: the kernels its
+    layers run (every block that is neither "rec" nor "rwkv" attends)."""
+    kinds = [cfg.block_pattern[i % cfg.pattern_len] for i in range(cfg.n_layers)]
+    n_rec, n_wkv = kinds.count("rec"), kinds.count("rwkv")
+    return len(kinds) - n_rec - n_wkv, n_rec, n_wkv
+
+
+def full_probe(torch, ops, E) -> tuple[dict, dict]:
+    """``autotune.estimate_L`` at full width and depth for the arch and
+    settings ``E`` (``ETA_AUTO``'s keys), the weights drawn from its seed:
+    its result (L, seconds, seconds a Hessian-vector product, peak
+    allocation, launches) and the launch counts, checked against
+    ``probe_launches``."""
     from repro_torch.configs import get_arch
-    from repro_torch.core import arena, autotune, prng
-    from repro_torch.core import tree_util as T
+    from repro_torch.core import autotune, prng
     from repro_torch.data.synthetic import lm_batches
-    from repro_torch.launch import train
     from repro_torch.models import build
 
-    res = out["eta_auto"] = {}
-    E = ETA_AUTO
     cfg = get_arch(E["arch"])
     model = build(cfg)
     torch.cuda.empty_cache()
@@ -5682,32 +5891,47 @@ def eta_auto_phase(rec, torch, ops, ref, out):
     torch.cuda.synchronize()
     probe_s = time.perf_counter() - t0
     counts = ops.launches()
-    rec.add(counts)
     peak = torch.cuda.max_memory_allocated()
-    want = {n: 0 for n in counts} | probe_launches(cfg.n_layers, 0, E["iters"])
-    log(f"eta auto {E['arch']} full width and depth, m={E['m']}, batch "
+    want = {n: 0 for n in counts} | probe_launches(*layer_kinds(cfg), E["iters"])
+    nz = {n: c for n, c in counts.items() if c}
+    log(f"eta auto {E['arch']} full width and depth ({cfg.n_layers} layers), m={E['m']}, batch "
         f"{E['per_client_batch']}, {E['seq_len']} tokens, {E['iters']} iterations: per-client "
-        f"L in [{L.min():.6g}, {L.max():.6g}] in {probe_s:.2f} s; peak allocation "
-        f"{peak / 1e9:.2f} GB; launches { {n: c for n, c in counts.items() if c} }")
+        f"L in [{L.min():.6g}, {L.max():.6g}] in {probe_s:.2f} s "
+        f"({probe_s / (E['iters'] + 1):.4f} s a product); peak allocation {peak / 1e9:.2f} GB; "
+        f"launches {nz}")
     check(counts == want, f"eta auto {E['arch']}: launches {counts}, expected {want}")
     check(all(math.isfinite(float(x)) for x in L) and float(L.min()) > 0.0,
           f"eta auto {E['arch']}: L {L}")
-    res[E["arch"]] = {"L": [float(x) for x in L], "seconds": probe_s, "iters": E["iters"],
-                      "peak_allocated_gb": peak / 1e9,
-                      "launches": {n: c for n, c in counts.items() if c}}
     del params, probe
     torch.cuda.empty_cache()
+    return ({"L": [float(x) for x in L], "seconds": probe_s, "iters": E["iters"],
+             "layers": cfg.n_layers, "s_per_product": probe_s / (E["iters"] + 1),
+             "peak_allocated_gb": peak / 1e9, "launches": nz}, counts)
+
+
+def eta_auto_phase(rec, torch, ops, ref, out):
+    """``--eta auto`` on the card: its curvature probe ``vmap(jvp(grad(loss)))``
+    through the forward-mode rules (kernels 16j, 16bj, 17j, 17bj,
+    ``lru_scan_jvp``, ``lru_scan_bwd_jvp``); see ``ETA_AUTO``,
+    ``ETA_AUTO_RUN``, ``ETA_AUTO_CPU``, ``L_CARD_CPU_RTOL`` and
+    ``L_PLAIN_RTOL``."""
+    import dataclasses
+
+    from repro_torch.core import autotune
+    from repro_torch.launch import train
+
+    res = out["eta_auto"] = {}
+    res[ETA_AUTO["arch"]], counts = full_probe(torch, ops, ETA_AUTO)
+    rec.add(counts)
 
     R = ETA_AUTO_RUN
     get, full = train.get_arch, autotune.estimate_L
     # the launcher's probe (train.run calls autotune.estimate_L) at R's iterations
     autotune.estimate_L = functools.partial(full, iters=R["iters"])
     try:
-        for arch, cuts in TRAIN_ARCHS.items():
+        for arch, cuts in ETA_AUTO_ARCHS.items():
             train.get_arch = lambda a, _c=cuts: dataclasses.replace(get(a), **_c)
             cut = train.get_arch(arch)
-            kinds = [cut.block_pattern[i % cut.pattern_len] for i in range(cut.n_layers)]
-            n_rec = sum(b == "rec" for b in kinds)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launches()
@@ -5726,7 +5950,7 @@ def eta_auto_phase(rec, torch, ops, ref, out):
                 f"{ {n: c for n, c in counts.items() if c} }")
             check(len(rows) == R["steps"] and all(math.isfinite(r["server_loss"]) for r in rows),
                   f"eta auto train.run {arch}: rows {rows}")
-            probe_want = probe_launches(len(kinds) - n_rec, n_rec, R["iters"])
+            probe_want = probe_launches(*layer_kinds(cut), R["iters"])
             check(all(counts.get(n, 0) >= c for n, c in probe_want.items()),
                   f"eta auto train.run {arch}: launches {counts}, the probe's {probe_want}")
             res[arch] = {"cut": cuts, "rows": rows, "seconds": run_s,
@@ -5735,67 +5959,197 @@ def eta_auto_phase(rec, torch, ops, ref, out):
     finally:
         train.get_arch, autotune.estimate_L = get, full
 
-    C = ETA_AUTO_CPU
-    for arch, heads in TRAIN_CPU_HEADS.items():
-        cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32", **heads)
-        model = build(cfg)
-        params = model.init(prng.key(0), device="cpu")
-        batch = next(lm_batches(prng.key(3), 1, C["m"], C["per_client_batch"], C["seq_len"],
-                                cfg.vocab_size, device="cpu"))
+    for arch, cuts in ETA_AUTO_CPU_HEADS.items():
+        res[f"{arch} card vs cpu"] = reduced_card_vs_cpu(torch, ops, ref, arch, cuts)
 
-        def grad_of(m_):
-            return lambda p, b: torch.func.grad(lambda q: m_.loss(q, b)[0])(p)
 
-        it = C["iters"]
-        t0 = time.perf_counter()
-        L_cpu = autotune.estimate_L(grad_of(model), params, C["m"], batch, iters=it)
-        cpu_s = time.perf_counter() - t0
-        gp = T.tmap(lambda x: x.cuda(), params)
-        gb = {n: v.cuda() for n, v in batch.items()}
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        L_card = autotune.estimate_L(grad_of(model), gp, C["m"], gb, iters=it)
-        torch.cuda.synchronize()
-        card_s = time.perf_counter() - t0
-        counts = {n: c for n, c in ops.launches().items() if c}
-        undo = plain_model_ops(torch, ops, ref)
-        try:
-            L_plain = autotune.estimate_L(grad_of(model), gp, C["m"], gb, iters=it)
-        finally:
-            undo()
-        e_cpu = float(max(abs(L_card / L_cpu - 1.0)))
-        e_plain = float(max(abs(L_card / L_plain - 1.0)))
-        h_cpu = first_product(torch, autotune, arena, T, grad_of(model), params, C["m"], batch)
-        h_card = first_product(torch, autotune, arena, T, grad_of(model), gp, C["m"], gb).cpu()
-        first = {"norm_over_L": [float(x) for x in h_cpu.norm(dim=-1) / torch.tensor(L_cpu)],
-                 "card_vs_cpu": float((h_card - h_cpu).norm() / h_cpu.norm())}
-        tangents = ("flash_attention_jvp", "flash_attention_bwd_jvp") + (
-            ("lru_scan_jvp", "lru_scan_bwd_jvp") if "recurrent" in arch else ())
-        L_card, L_cpu, L_plain = ([float(x) for x in L_] for L_ in (L_card, L_cpu, L_plain))
-        log(f"eta auto card vs cpu {arch} reduced, f32, heads {heads}, {it} iterations: L card "
-            f"{L_card}, cpu {L_cpu} (rel {e_cpu:.3e}, tol {L_CARD_CPU_RTOL}), plain ops on the "
-            f"card {L_plain} (rel {e_plain:.3e}, tol {L_PLAIN_RTOL}); first product at the "
-            f"start vector: norm {['%.3e' % x for x in first['norm_over_L']]} of L, card "
-            f"against CPU {first['card_vs_cpu']:.3e}; probes {cpu_s:.2f} s on the CPU, "
-            f"{card_s:.2f} s on the card; card launches {counts}")
-        check(all(counts.get(n, 0) > 0 for n in tangents),
-              f"eta auto card vs cpu {arch}: launches {counts}, none of {tangents}")
-        check(e_cpu <= L_CARD_CPU_RTOL and e_plain <= L_PLAIN_RTOL,
-              f"eta auto card vs cpu {arch}: L off the CPU's by {e_cpu}, the plain ops' by "
-              f"{e_plain}")
-        res[f"{arch} card vs cpu"] = {"heads": heads, "iters": it, "L_card": L_card,
-                                      "L_cpu": L_cpu, "L_plain_card": L_plain,
-                                      "rel_cpu": e_cpu, "rel_plain": e_plain, "cpu_s": cpu_s,
-                                      "card_s": card_s, "first_product": first}
-        del params, gp
-    try:
-        train.run("rwkv6-1.6b", eta="auto", steps=1, device="cuda")
-    except NotImplementedError as e:
-        check("ROADMAP" in str(e), f"eta auto rwkv6-1.6b: refused without naming ROADMAP: {e}")
-        log(f"eta auto rwkv6-1.6b on the card: refused ({e})")
-    else:
-        check(False, "eta auto rwkv6-1.6b on the card ran: kernels 17-17b have no jvp rule")
+def full_probe_phase(torch, ops, ref, out) -> None:
+    """``--full-probe``: rwkv6-1.6b's curvature probe at full width and depth
+    (``FULL_PROBE``) and the witnesses of its L that ``FULL_PROBE``'s
+    comment names, all run before any is checked."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    res = out["full_probe"] = {}
+    res["probe"], _ = full_probe(torch, ops, FULL_PROBE)
+    full = get_arch(FULL_PROBE["arch"])
+    cut = dataclasses.replace(full.reduced(), dtype="float32", n_layers=full.n_layers)
+    small = {**ETA_AUTO_CPU, "seq_len": 128, "seed": FULL_PROBE["seed"]}
+    shallow = dataclasses.replace(full, n_layers=TRAIN_RWKV["n_layers"])
+    res["reduced f32, full depth"] = witness(torch, ops, ref, cut, small, cpu=True)
+    res["full width bf16, 2 layers"] = witness(torch, ops, ref, shallow, FULL_PROBE_WITNESS)
+    res["full size bf16"] = witness(torch, ops, ref, full, FULL_PROBE_WITNESS, held=False)
+    failed = [f for w in res.values() for f in w.get("failed", ())]
+    check(not failed, f"full probe witnesses: {failed}")
+
+
+def witness(torch, ops, ref, cfg, E, cpu: bool = False, held: bool = True) -> dict:
+    """``cfg`` at ``E``'s settings (m, per_client_batch, seq_len, iters, seed),
+    its weights drawn from ``E``'s seed, through the routes that
+    ``FULL_PROBE``'s comment names (with ``cpu``, the CPU among them): each
+    route's L, seconds, peak allocation, launches and Hessian-vector
+    product at one random unit vector a client, logged, and the checks'
+    failures (``failed``): the launches as derived (none outside the
+    kernels' route), finite values and, with ``held``, the kernels' product
+    and L within the larger of ``WITNESS_FLOORS[cfg.dtype]`` and
+    ``SPREAD_FACTOR`` times the farthest control's distance from the
+    reference's."""
+    from repro_torch.core import arena, autotune, prng
+    from repro_torch.core import tree_util as T
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build
+
+    model = build(cfg)
     torch.cuda.empty_cache()
+    params = model.init(seeded(torch, E["seed"]))
+    batch = next(lm_batches(prng.key(E["seed"] + 3), 1, E["m"], E["per_client_batch"],
+                            E["seq_len"], cfg.vocab_size, device="cuda"))
+    width = arena.ArenaSpec.from_tree(params).width
+    v = autotune._normalize(torch.randn(E["m"], width, generator=seeded(torch, E["seed"] + 5),
+                                        device="cuda")).cpu()
+
+    def client_grad(p, b):
+        return torch.func.grad(lambda q: model.loss(q, b)[0])(p)
+
+    # (name, chunk of the plain recurrence or None for the kernels, device);
+    # the reference first: each other route's product is held to its and
+    # dropped, so that the host keeps two (m, width) f32 products at most
+    routes = [("plain ops", 64, "cuda"), ("kernels", None, "cuda"),
+              ("plain ops, 32-step chunks", 32, "cuda")] + ([("cpu", None, "cpu")] if cpu
+                                                            else [])
+    res = {"layers": cfg.n_layers, "dtype": cfg.dtype, "settings": E, "product_rel": {},
+           "L_rel": {}}
+    for name, chunk, dev in routes:
+        P = params if dev == "cuda" else T.tmap(lambda x: x.to(dev), params)
+        Bt = batch if dev == "cuda" else {n: x.to(dev) for n, x in batch.items()}
+        undo = plain_model_ops(torch, ops, ref, chunk) if chunk else None
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            L = autotune.estimate_L(client_grad, P, E["m"], Bt, iters=E["iters"])
+            torch.cuda.synchronize()
+            probe_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            h = hvp_at(torch, arena, T, client_grad, P, Bt, v.to(dev)).cpu()
+            counts = ops.launches()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            if undo:
+                undo()
+        del P, Bt
+        torch.cuda.empty_cache()
+        # the probe's iters + 1 products and the one at v
+        want = {n: 0 for n in counts} | (probe_launches(*layer_kinds(cfg), E["iters"] + 1)
+                                         if name == "kernels" else {})
+        row = res[name] = {"L": [float(x) for x in L], "seconds": probe_s,
+                           "rayleigh": [float(x) for x in torch.einsum("mw,mw->m", v, h)],
+                           "peak_allocated_gb": peak / 1e9, "launches_as_derived": counts == want,
+                           "launches": {n: c for n, c in counts.items() if c}}
+        if name == "plain ops":
+            h_ref = h
+        else:
+            res["product_rel"][name] = [
+                float(x) for x in torch.linalg.vector_norm(h - h_ref, dim=-1)
+                / torch.linalg.vector_norm(h_ref, dim=-1)]
+            res["L_rel"][name] = [abs(x / y - 1.0) for x, y in zip(row["L"],
+                                                                    res["plain ops"]["L"])]
+        del h
+        log(f"full probe witness {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}, "
+            f"{E}) through the {name} on {dev}: {row}")
+    what_ = f"{cfg.name} {cfg.n_layers} layers {cfg.dtype}"
+    floors, failed = WITNESS_FLOORS[cfg.dtype], []
+    for what in ("product", "L"):
+        rel = res[f"{what}_rel"]
+        spread = max(max(r) for n, r in rel.items() if n != "kernels")
+        tol = res[f"{what}_tol"] = max(floors[what], SPREAD_FACTOR * spread)
+        if held and not max(rel["kernels"]) <= tol:
+            failed.append(f"{what_}: the kernels' {what} off the plain ops' by "
+                          f"{rel['kernels']}, tol {tol}")
+    if not all(res[n]["launches_as_derived"] for n, *_ in routes):
+        failed.append(f"{what_}: launches {[res[n]['launches'] for n, *_ in routes]}")
+    if not all(math.isfinite(x) for n, *_ in routes for x in res[n]["L"] + res[n]["rayleigh"]):
+        failed.append(f"{what_}: not finite")
+    res["held"], res["failed"] = held, failed
+    log(f"full probe witness {what_}: against the plain ops, products at a random unit vector "
+        f"{res['product_rel']} (tol {res['product_tol']:.3e}), L {res['L_rel']} (tol "
+        f"{res['L_tol']:.3e}){'' if held else ', recorded, not held'}; failed {failed}")
+    del params, batch, v, h_ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def reduced_card_vs_cpu(torch, ops, ref, arch, cuts) -> dict:
+    """``autotune.estimate_L`` of ``arch``'s reduced config in f32, with
+    ``cuts`` applied, at ``ETA_AUTO_CPU``'s settings: the card through the
+    kernels against the CPU (``L_CARD_CPU_RTOL``) and against the plain
+    ops on the card (``L_PLAIN_RTOL``), the tangent kernels of its layers
+    launched, and the first product at the start vector beside it."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import arena, autotune, prng
+    from repro_torch.core import tree_util as T
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build
+
+    C = ETA_AUTO_CPU
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32", **cuts)
+    model = build(cfg)
+    params = model.init(prng.key(0), device="cpu")
+    batch = next(lm_batches(prng.key(3), 1, C["m"], C["per_client_batch"], C["seq_len"],
+                            cfg.vocab_size, device="cpu"))
+
+    def grad_of(m_):
+        return lambda p, b: torch.func.grad(lambda q: m_.loss(q, b)[0])(p)
+
+    it = C["iters"]
+    t0 = time.perf_counter()
+    L_cpu = autotune.estimate_L(grad_of(model), params, C["m"], batch, iters=it)
+    cpu_s = time.perf_counter() - t0
+    gp = T.tmap(lambda x: x.cuda(), params)
+    gb = {n: v.cuda() for n, v in batch.items()}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    L_card = autotune.estimate_L(grad_of(model), gp, C["m"], gb, iters=it)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = {n: c for n, c in ops.launches().items() if c}
+    undo = plain_model_ops(torch, ops, ref)
+    try:
+        L_plain = autotune.estimate_L(grad_of(model), gp, C["m"], gb, iters=it)
+    finally:
+        undo()
+    e_cpu = float(max(abs(L_card / L_cpu - 1.0)))
+    e_plain = float(max(abs(L_card / L_plain - 1.0)))
+    h_cpu = first_product(torch, autotune, arena, T, grad_of(model), params, C["m"], batch)
+    h_card = first_product(torch, autotune, arena, T, grad_of(model), gp, C["m"], gb).cpu()
+    first = {"norm_over_L": [float(x) for x in h_cpu.norm(dim=-1) / torch.tensor(L_cpu)],
+             "card_vs_cpu": float((h_card - h_cpu).norm() / h_cpu.norm())}
+    n_attn, n_rec, n_wkv = layer_kinds(cfg)
+    tangents = ((("flash_attention_jvp", "flash_attention_bwd_jvp") if n_attn else ())
+                + (("lru_scan_jvp", "lru_scan_bwd_jvp") if n_rec else ())
+                + (("wkv6_jvp", "wkv6_bwd_jvp") if n_wkv else ()))
+    L_card, L_cpu, L_plain = ([float(x) for x in L_] for L_ in (L_card, L_cpu, L_plain))
+    log(f"eta auto card vs cpu {arch} reduced, f32, cuts {cuts}, {it} iterations: L card "
+        f"{L_card}, cpu {L_cpu} (rel {e_cpu:.3e}, tol {L_CARD_CPU_RTOL}), plain ops on the "
+        f"card {L_plain} (rel {e_plain:.3e}, tol {L_PLAIN_RTOL}); first product at the "
+        f"start vector: norm {['%.3e' % x for x in first['norm_over_L']]} of L, card "
+        f"against CPU {first['card_vs_cpu']:.3e}; probes {cpu_s:.2f} s on the CPU, "
+        f"{card_s:.2f} s on the card; card launches {counts}")
+    check(all(counts.get(n, 0) > 0 for n in tangents),
+          f"eta auto card vs cpu {arch}: launches {counts}, none of {tangents}")
+    check(e_cpu <= L_CARD_CPU_RTOL and e_plain <= L_PLAIN_RTOL,
+          f"eta auto card vs cpu {arch}: L off the CPU's by {e_cpu}, the plain ops' by "
+          f"{e_plain}")
+    result = {"cuts": cuts, "iters": it, "L_card": L_card, "L_cpu": L_cpu,
+              "L_plain_card": L_plain, "rel_cpu": e_cpu, "rel_plain": e_plain, "cpu_s": cpu_s,
+              "card_s": card_s, "first_product": first}
+    del params, gp
+    torch.cuda.empty_cache()
+    return result
 
 
 def examples_phase(torch, out):
@@ -5877,6 +6231,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after each algorithm's rounds, profile 3 more: kernel times "
                          "by name and the device's idle share")
+    ap.add_argument("--full-probe", action="store_true",
+                    help="run only rwkv6-1.6b's --eta auto curvature probe at full width and "
+                         "depth and the witnesses of its L (FULL_PROBE), after the build; "
+                         "prints their JSON line and no result line")
     args = ap.parse_args()
 
     # the serve phase's models of many sizes, then training at 68 GB of the
@@ -5916,6 +6274,13 @@ def main() -> int:
     out["build_s"] = build_s
 
     rec = Record(ops, _build.build_logs())
+    if args.full_probe:
+        full_probe_phase(torch, ops, ref, out)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(out, indent=1))
+        log(json.dumps(out["full_probe"]))
+        return 0
     t0 = time.perf_counter()
     prob = quadratic.generate(seeded(torch, 0), m=LSQ["m"], n=LSQ["n"], d=LSQ["d"],
                               device="cuda")

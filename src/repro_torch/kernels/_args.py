@@ -33,9 +33,9 @@ def jvp_target(what: str):
 @contextlib.contextmanager
 def forward_mode_rule():
     """Around the launches of an ``autograd.Function`` that has a forward-mode
-    rule (``kernels.ops``: kernel 16, 16b, the RG-LRU's pair and their
-    tangent kernels): inside ``jvp_target`` its kernels launch, since the
-    rule, not the ctypes call, carries the tangent."""
+    rule (``kernels.ops``: kernels 16, 16b, 17, 17b, the RG-LRU's pair and
+    their tangent kernels): inside ``jvp_target`` its kernels launch, since
+    the rule, not the ctypes call, carries the tangent."""
     depth = getattr(_jvp, "ruled", 0)
     _jvp.ruled = depth + 1
     try:
@@ -55,8 +55,8 @@ def on_cpu(name: str, t: torch.Tensor) -> bool:
     if stack and not getattr(_jvp, "ruled", 0):
         raise TypeError(
             f"{stack[-1]} launches the CUDA kernel {name}, and a ctypes kernel without a "
-            f"forward-mode rule cannot be a torch.func.jvp target (the rules still to come: "
-            f"ROADMAP.md section 1): give the oracle a curvature_arena or affine_arena hook")
+            f"forward-mode rule cannot be a torch.func.jvp target: give the oracle a "
+            f"curvature_arena or affine_arena hook")
     if t.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {t.device} are not supported "
                          f"(CPU runs the plain version, CUDA the kernel)")

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("inner_loop.cu", "round_tail.cu", "fused_update.cu", "gather.cu", "screen.cu",
            "stale_mix.cu", "residual.cu", "neighbor_reduce.cu", "flash_attention.cu", "wkv6.cu",
            "ef21.cu", "flash_attention_bwd.cu", "wkv6_bwd.cu", "lru_scan.cu",
-           "flash_attention_jvp.cu")
+           "flash_attention_jvp.cu", "wkv6_jvp.cu")
 HEADERS = ("common.cuh", "hopper.cuh", "attention_tiles.cuh", "warp_mma.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",

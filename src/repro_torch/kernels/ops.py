@@ -32,20 +32,25 @@ calls the plain version directly, with no Function on the path, so autograd
 and ``torch.func.jvp`` differentiate it as before; nothing sends a CUDA
 tensor to a plain backward.
 
-Forward mode.  ``FlashAttention``, ``FlashAttentionBackward``, ``LruScan``
-and ``LruScanBackward`` have a ``jvp`` rule whose tangent is a kernel too
-(16j ``flash_attention_jvp``, 16bj ``flash_attention_bwd_jvp``,
+Forward mode.  ``FlashAttention``, ``FlashAttentionBackward``, ``Wkv6``,
+``Wkv6Backward``, ``LruScan`` and ``LruScanBackward`` have a ``jvp`` rule
+whose tangent is a kernel too (16j ``flash_attention_jvp``, 16bj
+``flash_attention_bwd_jvp``, 17j ``wkv6_jvp``, 17bj ``wkv6_bwd_jvp``,
 ``lru_scan_jvp``, ``lru_scan_bwd_jvp``), each called through a small
 Function of its own with a vmap rule that folds the clients into the batch,
-as the others do.  That is what ``--eta auto``'s curvature probe takes
+as the others do (u and u' one row a client, or each client's rows, as
+``Wkv6``'s own rule folds u).
+That is what ``--eta auto``'s curvature probe takes
 (``core.autotune.estimate_L``: ``vmap(jvp(grad(loss)))``): the forward's
-rule gives the tangents of o and y, and the backward Function, run on those
-duals by the gradient, its own rule the tangents of the gradients.  16j
-and 16bj form lse's tangent themselves: lse is non-differentiable, so none
-arrives.  A kernel launched inside one of these Functions may run while an
-oracle is a jvp target (``_args.forward_mode_rule``); any other ctypes
-kernel still raises there.  ``Wkv6`` and ``Wkv6Backward`` have no rule yet
-(``ROADMAP.md`` section 1): forward mode through them raises.
+rule gives the tangents of o, y and the final state, and the backward
+Function, run on those duals by the gradient, its own rule the tangents of
+the gradients.  16j and 16bj form lse's tangent themselves, and 17j and
+17bj the tangents of the chunk states: lse and the states are
+non-differentiable, so none arrives.  ``Wkv6`` keeps its chunk states
+whenever a gradient or a transform may reach it, since 17j reads them.  A
+kernel launched inside one of these Functions may run while an oracle is a
+jvp target (``_args.forward_mode_rule``); any other ctypes kernel still
+raises there.
 """
 from __future__ import annotations
 
@@ -87,7 +92,7 @@ from repro_torch.kernels.stale_mix import stale_mix
 # one pass), the screen with its keep rule (kernel 11's) and SCAFFOLD's
 # server step (kernel 5's, two launches a call), the backward kernels 16b-17b,
 # the RG-LRU's recurrence and its backward, kernels of the port's own, and the
-# tangents (forward mode) of 16, 16b and the RG-LRU's pair
+# tangents (forward mode) of 16, 16b, the RG-LRU's pair, 17 and 17b
 KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _fu.ARENA_KERNEL,
            _rt.SCAFFOLD_CV, _fu.KERNEL, _rt.EF21_ROWMAX, _rt.EF21_APPLY, _ga.ROW_GATHER,
            _ga.ROW_SCATTER, _sc.SCREEN_UPLINK, _sm.STALE_MIX, _rs.RESIDUAL_NORM,
@@ -95,7 +100,7 @@ KERNELS = (_il.KERNEL, _rt.ROUND_TAIL, _rt.DUAL_FROM_UPLINK, _fu.ARENA_KERNEL,
            _rt.ROUND_TAIL_MEAN, _rt.CLIENT_MEAN, _rt.EF21_UPDATE, _sc.SCREEN_KEEP,
            _rt.SCAFFOLD_STEP, _fa.FLASH_ATTENTION_BWD, _wk.WKV6_BWD, _lr.LRU_SCAN,
            _lr.LRU_SCAN_BWD, _fa.FLASH_ATTENTION_JVP, _fa.FLASH_ATTENTION_BWD_JVP,
-           _lr.LRU_SCAN_JVP, _lr.LRU_SCAN_BWD_JVP)
+           _lr.LRU_SCAN_JVP, _lr.LRU_SCAN_BWD_JVP, _wk.WKV6_JVP, _wk.WKV6_BWD_JVP)
 
 
 def affine_inner_fits(width: int) -> bool:
@@ -321,73 +326,76 @@ class FlashAttentionBwdJvp(torch.autograd.Function):
         return tuple(_unfold(g, info.batch_size) for g in grads), (0, 0, 0)
 
 
-def _wkv6_no_rule():
-    raise NotImplementedError(
-        "wkv6: kernels 17 and 17b have no forward-mode rule yet (17j, 17bj: ROADMAP.md "
-        "section 1), so torch.func.jvp, and --eta auto, cannot go through them on the card")
-
-
 class Wkv6(torch.autograd.Function):
-    """Kernel 17 whose backward is kernel 17b.  ``apply(r, k, v, w, u, s0,
-    keep) -> (y, s_final, states)``; u (H, K) or one row per group of batch
-    rows (n, H, K).  With ``keep`` the Function keeps the states passed
-    between chunks and saves what 17b reads; without it states is None and
-    nothing is saved."""
+    """Kernel 17 whose backward is kernel 17b and whose forward-mode rule is
+    kernel 17j.  ``apply(r, k, v, w, u, s0) -> (y, s_final, states)``; u
+    (H, K) or one row per group of batch rows (n, H, K).  The Function keeps
+    the states passed between chunks (None on the CPU, whose plain versions
+    recompute them) and saves what 17b and 17j read."""
 
     @staticmethod
-    def forward(r, k, v, w, u, s0, keep):
-        if keep:
+    def forward(r, k, v, w, u, s0):
+        with _args.forward_mode_rule():
             return _wk.wkv6(r, k, v, w, u, s0, keep_states=True)
-        return (*_wk.wkv6(r, k, v, w, u, s0), None)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        y, s_out, states = output
-        ctx.keep = inputs[-1]
-        if ctx.keep:
-            ctx.save_for_backward(*inputs[:-1], s_out, states)
-            if states is not None:
-                ctx.mark_non_differentiable(states)
+        _y, s_out, states = output
+        ctx.save_for_backward(*inputs, s_out, states)
+        ctx.save_for_forward(*inputs, s_out, states)
+        if states is not None:
+            ctx.mark_non_differentiable(states)
 
     @staticmethod
-    def jvp(ctx, *tangents):
-        _wkv6_no_rule()
+    def jvp(ctx, rt, kt, vt, wt, ut, s0t):
+        r, k, v, w, u, s0, _s_out, states = ctx.saved_tensors
+        primals = (r, k, v, w, u, s0)
+        yt, s_out_t = Wkv6Jvp.apply(*primals, states,
+                                    *_tangents(primals, (rt, kt, vt, wt, ut, s0t)))
+        return yt, s_out_t, None
 
     @staticmethod
     def backward(ctx, dy, ds_final, _dstates):
-        if not ctx.keep:
-            raise RuntimeError("wkv6: called without keep, so no backward")
         r, k, v, w, u, s0, s_out, states = ctx.saved_tensors
-        return (*Wkv6Backward.apply(r, k, v, w, u, s0, s_out, states, dy, ds_final), None)
+        return Wkv6Backward.apply(r, k, v, w, u, s0, s_out, states, dy, ds_final)
 
     @staticmethod
-    def vmap(info, in_dims, r, k, v, w, u, s0, keep):
+    def vmap(info, in_dims, r, k, v, w, u, s0):
         m = info.batch_size
-        r, k, v, w, u, s0 = _batched(info, in_dims[:6], r, k, v, w, u, s0)
+        r, k, v, w, u, s0 = _batched(info, in_dims, r, k, v, w, u, s0)
         u = u.contiguous() if u.ndim == 3 else _fold(u)  # one row of u a client, or its n rows
-        y, s_out, states = Wkv6.apply(*(_fold(t) for t in (r, k, v, w)), u, _fold(s0), keep)
+        y, s_out, states = Wkv6.apply(*(_fold(t) for t in (r, k, v, w)), u, _fold(s0))
         states = None if states is None else states.reshape(m, -1)
         return (_unfold(y, m), _unfold(s_out, m), states), (0, 0, None if states is None else 0)
 
 
 class Wkv6Backward(torch.autograd.Function):
-    """Kernel 17b as a Function, so that it runs under ``vmap``; it has no
-    backward of its own."""
+    """Kernel 17b as a Function, so that it runs under ``vmap``; its
+    forward-mode rule is kernel 17bj, and it has no backward of its own."""
 
     @staticmethod
     def forward(r, k, v, w, u, s0, s_out, states, dy, ds_final):
-        return _wk.wkv6_bwd(r, k, v, w, u, s0, s_out, states, dy.contiguous(),
-                            None if ds_final is None else ds_final.contiguous())
+        with _args.forward_mode_rule():
+            return _wk.wkv6_bwd(r, k, v, w, u, s0, s_out, states, dy.contiguous(),
+                                None if ds_final is None else ds_final.contiguous())
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        ctx.save_for_forward(*inputs)
 
     backward = _no_second_derivative("wkv6", "kernel 17b")
 
     @staticmethod
-    def jvp(ctx, *tangents):
-        _wkv6_no_rule()
+    def jvp(ctx, rt, kt, vt, wt, ut, s0t, _s_out_t, _states_t, dyt, ds_final_t):
+        # the forward's states are non-differentiable (Wkv6 marks them) and
+        # 17bj forms the tangents of every state itself, s_out's included
+        r, k, v, w, u, s0, s_out, states, dy, ds_final = ctx.saved_tensors
+        primals = (r, k, v, w, u, s0, dy)
+        tangents = _tangents(primals, (rt, kt, vt, wt, ut, s0t, dyt))
+        if ds_final is None:
+            ds_final_t = None
+        return Wkv6BwdJvp.apply(*primals[:6], s_out, states, dy, ds_final, *tangents,
+                                ds_final_t)
 
     @staticmethod
     def vmap(info, in_dims, r, k, v, w, u, s0, s_out, states, dy, ds_final):
@@ -403,6 +411,75 @@ class Wkv6Backward(torch.autograd.Function):
         du = du if shared_rows else _unfold(du, m)
         return ((_unfold(dr, m), _unfold(dk, m), _unfold(dv, m), _unfold(dw, m), du,
                  _unfold(ds0, m)), (0,) * 6)
+
+
+class Wkv6Jvp(torch.autograd.Function):
+    """Kernel 17j as a Function, so that ``Wkv6``'s forward-mode rule runs
+    under ``vmap``: ``apply(r, k, v, w, u, s0, states, r', k', v', w', u',
+    s0') -> (y', s_final')``."""
+
+    @staticmethod
+    def forward(r, k, v, w, u, s0, states, rt, kt, vt, wt, ut, s0t):
+        with _args.forward_mode_rule():
+            return _wk.wkv6_jvp(r, k, v, w, u, s0, states,
+                                *(t.contiguous() for t in (rt, kt, vt, wt, ut, s0t)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    backward = _no_second_derivative("wkv6_jvp", "kernel 17j")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        m = info.batch_size
+        r, k, v, w, u, s0, states, rt, kt, vt, wt, ut, s0t = _batched(info, in_dims, *args)
+        u, ut = (x.contiguous() if x.ndim == 3 else _fold(x) for x in (u, ut))
+        states = None if states is None else states.reshape(-1)
+        yt, s_out_t = Wkv6Jvp.apply(*(_fold(t) for t in (r, k, v, w)), u, _fold(s0), states,
+                                    *(_fold(t) for t in (rt, kt, vt, wt)), ut, _fold(s0t))
+        return (_unfold(yt, m), _unfold(s_out_t, m)), (0, 0)
+
+
+class Wkv6BwdJvp(torch.autograd.Function):
+    """Kernel 17bj as a Function, so that ``Wkv6Backward``'s forward-mode rule
+    runs under ``vmap``: ``apply(r, k, v, w, u, s0, s_out, states, dy,
+    ds_final, r', k', v', w', u', s0', dy', ds_final') -> (dr', dk', dv',
+    dw', du', ds0')``; ds_final and ds_final' may be None (zero)."""
+
+    @staticmethod
+    def forward(r, k, v, w, u, s0, s_out, states, dy, ds_final, rt, kt, vt, wt, ut, s0t, dyt,
+                ds_final_t):
+        with _args.forward_mode_rule():
+            return _wk.wkv6_bwd_jvp(
+                r, k, v, w, u, s0, s_out, states, dy.contiguous(),
+                None if ds_final is None else ds_final.contiguous(),
+                *(t.contiguous() for t in (rt, kt, vt, wt, ut, s0t, dyt)),
+                None if ds_final_t is None else ds_final_t.contiguous())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    backward = _no_second_derivative("wkv6_bwd_jvp", "kernel 17bj")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        m = info.batch_size
+        ts = _batched(info, in_dims, *args)
+        r, k, v, w, u, s0, s_out, states, dy, ds_final = ts[:10]
+        rt, kt, vt, wt, ut, s0t, dyt, ds_final_t = ts[10:]
+        shared_rows = u.ndim == 3  # a (H, K) u each client: one row of u a client
+        u, ut = (x.contiguous() if shared_rows else _fold(x) for x in (u, ut))
+        states = None if states is None else states.reshape(-1)
+        grads = Wkv6BwdJvp.apply(*(_fold(t) for t in (r, k, v, w)), u, _fold(s0), _fold(s_out),
+                                 states, _fold(dy), _fold(ds_final),
+                                 *(_fold(t) for t in (rt, kt, vt, wt)), ut, _fold(s0t),
+                                 _fold(dyt), _fold(ds_final_t))
+        drt, dkt, dvt, dwt, dut, ds0t = grads
+        dut = dut if shared_rows else _unfold(dut, m)
+        return ((_unfold(drt, m), _unfold(dkt, m), _unfold(dvt, m), _unfold(dwt, m), dut,
+                 _unfold(ds0t, m)), (0,) * 6)
 
 
 class LruScan(torch.autograd.Function):
@@ -567,11 +644,10 @@ def attend_cache(q, k_cache, v_cache, q_pos, k_pos, *, window=None):
 def wkv6(r, k, v, w, u, s0):
     """The RWKV-6 recurrence, kernel 17 (see ``kernels.wkv6``): (y,
     s_final).  On the card, inside ``Wkv6`` when a gradient or a transform
-    may reach it."""
+    may reach it, keeping the chunk states that 17b and 17j read."""
     if r.device.type != "cpu":
-        keep = _grad_follows(r, k, v, w, u, s0)
-        if keep or _transformed(r, k, v, w, u, s0):
-            y, s_out, _ = Wkv6.apply(r, k, v, w, u, s0, keep)
+        if _grad_follows(r, k, v, w, u, s0) or _transformed(r, k, v, w, u, s0):
+            y, s_out, _ = Wkv6.apply(r, k, v, w, u, s0)
             return y, s_out
     return _wk.wkv6(r, k, v, w, u, s0)
 
@@ -613,7 +689,7 @@ def launches() -> dict[str, int]:
 __all__ = [
     "FlashAttention", "FlashAttentionBackward", "FlashAttentionBwdJvp", "FlashAttentionJvp",
     "KERNELS", "LruScan", "LruScanBackward", "LruScanBwdJvp", "LruScanJvp", "Wkv6",
-    "Wkv6Backward",
+    "Wkv6Backward", "Wkv6BwdJvp", "Wkv6Jvp",
     "acc_mode_at", "affine_inner_fits", "attend_cache", "client_mean", "dual_from_uplink",
     "edge_flip", "ef21_apply", "ef21_rowmax", "ef21_update", "flash_attention", "fused_update",
     "fused_update_arena", "fused_update_leaves", "inner_loop_affine", "launches", "lru_scan",

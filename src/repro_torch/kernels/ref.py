@@ -646,6 +646,234 @@ def wkv6_bwd_ref(r, k, v, w, u, s0, dy, ds_final=None, *, chunk: int = 64):
         return torch.autograd.grad(outs, ins, grads, allow_unused=True)
 
 
+def _wkv6_u_rows(u, B: int):
+    """u (H, K) or (n, H, K) in f32 as it meets the batch rows: (1, 1, H, K)
+    or one row a batch row (B, 1, H, K)."""
+    u = u.to(torch.float32)
+    return u[None, None] if u.ndim == 2 else u.repeat_interleave(B // u.shape[0], dim=0)[:, None]
+
+
+def _wkv6_operands(r, k, v, w, u, rt, kt, vt, wt, ut):
+    """The f32 operands of the tangent refs: r, k, v and their tangents, lw
+    = log max(w, 1e-38) and lw' = w' / w where w >= 1e-38 (0 elsewhere, the
+    clamp's), u and u' as they meet the batch rows (``_wkv6_u_rows``)."""
+    B = r.shape[0]
+    f32 = torch.float32
+    rf, kf, vf, rtf, ktf, vtf = (a.to(f32) for a in (r, k, v, rt, kt, vt))
+    wf = w.to(f32)
+    lw = torch.log(torch.clamp(wf, min=1e-38))
+    lwt = torch.where(wf >= 1e-38, wt.to(f32) / wf, 0.0)
+    return rf, kf, vf, rtf, ktf, vtf, lw, lwt, _wkv6_u_rows(u, B), _wkv6_u_rows(ut, B)
+
+
+def _wkv6_chunk_decays(lwc, lwtc):
+    """Within a chunk: la = cumsum lw, la_prev = la - lw, their tangents, the
+    pairwise decay E[t, tau] = exp(min(la_prev_t - la_tau, 0)) (B, t, tau, H,
+    K) and its tangent E (la'_prev_t - la'_tau) where the clamp passes."""
+    la, lat = torch.cumsum(lwc, dim=1), torch.cumsum(lwtc, dim=1)
+    lp, lpt = la - lwc, lat - lwtc
+    diff = lp[:, :, None] - la[:, None, :]
+    dec = torch.exp(torch.clamp(diff, max=0.0))
+    dect = torch.where(diff <= 0.0, lpt[:, :, None] - lat[:, None, :], 0.0) * dec
+    return la, lat, lp, lpt, dec, dect
+
+
+def _wkv6_next_state(s, st, kc, ktc, vc, vtc, la, lat):
+    """The state leaving a chunk and its tangent, from those entering it and
+    the chunk's la, la' (cumsums down the chunk): S <- exp(la_C) S + (k
+    exp(la_C - la))^T v, and the line's tangent."""
+    ec = torch.exp(la[:, -1:] - la)
+    e_end = torch.exp(la[:, -1])[..., None]
+    kd, kdt = kc * ec, (ktc + kc * (lat[:, -1:] - lat)) * ec
+    st = (e_end * (st + lat[:, -1][..., None] * s)
+          + torch.einsum("bchk,bchv->bhkv", kdt, vc) + torch.einsum("bchk,bchv->bhkv", kd, vtc))
+    return e_end * s + torch.einsum("bchk,bchv->bhkv", kd, vc), st
+
+
+def wkv6_jvp_ref(r, k, v, w, u, s0, rt, kt, vt, wt, ut, s0t, *, chunk: int = 64):
+    """The tangent of ``wkv6_ref`` (kernel 17j's plain version): from the
+    primals and the tangents r', k', v', w', u', s0', the chunk form with
+    the tangent carried through each line (la' = cumsum lw', lw' = w' / w
+    where w >= 1e-38, else 0; ' marks a tangent):
+
+        y'_t = ((r'_t + r_t la'_prev_t) exp(la_prev_t)) S + (r_t exp(la_prev_t)) S'
+             + sum_{tau<t} (att'_{t,tau} v_tau + att_{t,tau} v'_tau) + bonus'_t v_t + bonus_t v'_t
+        att'_{t,tau} = sum_k (r'_tk k_tau,k + r_tk k'_tau,k
+                              + r_tk k_tau,k (la'_prev_tk - la'_tau,k)) E_{t,tau,k}
+        bonus'_t = sum_k r'_tk u_k k_tk + r_tk u'_k k_tk + r_tk u_k k'_tk
+        S'  <- exp(la_C) (S' + la'_C S) + sum_tau [(k'_tau + k_tau (la'_C - la'_tau))
+                                                   exp(la_C - la_tau)]^T v_tau
+                                                + (k_tau exp(la_C - la_tau))^T v'_tau
+
+    with E, att, bonus and S the forward's (``wkv6_ref``).  u' has u's
+    shape.  Returns (y' (B, S, H, V) in r's dtype, S_final' (B, H, K, V)
+    f32); equal to ``torch.func.jvp`` of ``wkv6_ref`` up to rounding
+    (tests/test_torch_jvp.py)."""
+    C_ = chunk
+    B, S, H, K = r.shape
+    f32 = torch.float32
+    rf, kf, vf, rtf, ktf, vtf, lw, lwt, uf, utf = _wkv6_operands(r, k, v, w, u, rt, kt, vt, wt, ut)
+    s, st = s0.to(f32), s0t.to(f32)
+    ys = []
+    for c0 in range(0, S, C_):
+        sl = slice(c0, c0 + C_)
+        rc, kc, vc, rtc, ktc, vtc = (a[:, sl] for a in (rf, kf, vf, rtf, ktf, vtf))
+        C = rc.shape[1]
+        strict = torch.tril(torch.ones(C, C, dtype=torch.bool, device=r.device), diagonal=-1)
+        la, lat, lp, lpt, dec, dect = _wkv6_chunk_decays(lw[:, sl], lwt[:, sl])
+        ep = torch.exp(lp)
+        y_t = (torch.einsum("bchk,bhkv->bchv", (rtc + rc * lpt) * ep, s)
+               + torch.einsum("bchk,bhkv->bchv", rc * ep, st))
+        att = torch.where(strict, torch.einsum("bthk,bchk,btchk->bhtc", rc, kc, dec), 0.0)
+        att_t = torch.where(strict, torch.einsum("bthk,bchk,btchk->bhtc", rtc, kc, dec)
+                            + torch.einsum("bthk,bchk,btchk->bhtc", rc, ktc, dec)
+                            + torch.einsum("bthk,bchk,btchk->bhtc", rc, kc, dect), 0.0)
+        bonus = torch.einsum("bthk,bthk->bth", rc * uf, kc)
+        bonus_t = (torch.einsum("bthk,bthk->bth", rtc * uf, kc)
+                   + torch.einsum("bthk,bthk->bth", rc * utf, kc)
+                   + torch.einsum("bthk,bthk->bth", rc * uf, ktc))
+        ys.append(y_t + torch.einsum("bhtc,bchv->bthv", att_t, vc)
+                  + torch.einsum("bhtc,bchv->bthv", att, vtc)
+                  + bonus_t[..., None] * vc + bonus[..., None] * vtc)
+        s, st = _wkv6_next_state(s, st, kc, ktc, vc, vtc, la, lat)
+    y_t = torch.cat(ys, dim=1) if ys else vf.new_zeros(vf.shape)
+    return y_t.to(r.dtype), st
+
+
+def _u_rows_sum(x, u):
+    """(B, H, K) per batch row -> u's shape: each row of u summed over the
+    batch rows that read it."""
+    if u.ndim == 2:
+        return x.sum(0)
+    n = u.shape[0]
+    return x.reshape(n, x.shape[0] // n, *x.shape[1:]).sum(1)
+
+
+def wkv6_bwd_jvp_ref(r, k, v, w, u, s0, dy, ds_final, rt, kt, vt, wt, ut, s0t, dyt,
+                     ds_final_t=None, *, chunk: int = 64):
+    """The tangent of ``wkv6_bwd_ref`` (kernel 17bj's plain version): (dr',
+    dk', dv', dw', du', ds0') for the tangents r', k', v', w', u', s0', dy',
+    ds_final' (None: zero, as ds_final None is).  The backward in the chunk
+    form, each line with its tangent beside it.  A forward pass keeps the
+    state entering each chunk, S, and its tangent S' (``wkv6_jvp_ref``'s
+    recurrence); then the chunks in reverse carry the pair (dS, dS'), the
+    gradient at the state leaving the chunk, from (ds_final, ds_final'):
+
+        g_t = dy_t . v_t, b_t = r_t . u . k_t, datt[t, tau] = dy_t . v_tau (tau < t)
+        X_t = exp(la_prev_t) (S dy_t) + sum_{tau<t} datt[t, tau] k_tau E     dr = X + g u k
+        Y_tau = exp(la_C - la_tau) (dS v_tau) + sum_{t>tau} datt[t, tau] r_t E  dk = Y + g u r
+        dv_tau = sum_{t>tau} att[t, tau] dy_t + b_tau dy_tau + dS^T (k_tau exp(la_C - la_tau))
+        du = sum_t g_t r_t k_t
+        dla_prev = r X, dla = -k Y, plus sum_v dS S_C at la_C (the chunk's last row);
+        dlw_s = sum_{t>=s} (dla_t + dla_prev_t) - dla_prev_s;  dw = dlw / w (w >= 1e-38)
+        dS <- exp(la_C) dS + sum_t (r_t exp(la_prev_t))^T dy_t
+
+    and the tangent of each (E' = E (la'_prev_t - la'_tau) where the clamp
+    passes; dw' = (dlw' - dlw w' / w) / w).  Returns dr', dk', dv' in r's
+    dtype, dw' and du' f32 (du' in u's shape) and ds0' f32; equal to
+    ``torch.func.jvp`` of ``wkv6_bwd_ref`` up to rounding
+    (tests/test_torch_jvp.py)."""
+    C_ = chunk
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    rf, kf, vf, rtf, ktf, vtf, lw, lwt, uf, utf = _wkv6_operands(r, k, v, w, u, rt, kt, vt, wt, ut)
+    dyf, dytf = dy.to(f32), dyt.to(f32)
+    wf = w.to(f32)
+    # the forward: the state entering each chunk and its tangent
+    starts = list(range(0, S, C_))
+    s, st = s0.to(f32), s0t.to(f32)
+    states = []
+    for c0 in starts:
+        sl = slice(c0, c0 + C_)
+        states.append((s, st))
+        s, st = _wkv6_next_state(s, st, kf[:, sl], ktf[:, sl], vf[:, sl], vtf[:, sl],
+                                 torch.cumsum(lw[:, sl], dim=1), torch.cumsum(lwt[:, sl], dim=1))
+    zeros = torch.zeros(B, H, K, V, dtype=f32, device=r.device)
+    ds = zeros if ds_final is None else ds_final.to(f32)
+    dst = zeros if ds_final_t is None else ds_final_t.to(f32)
+    s_end, st_end = s, st
+    outs = {n: [] for n in ("dr", "dk", "dv", "dw")}
+    du_t = torch.zeros(B, H, K, dtype=f32, device=r.device)
+    for i in range(len(starts) - 1, -1, -1):
+        sl = slice(starts[i], starts[i] + C_)
+        s_in, st_in = states[i]
+        s_c, st_c = (states[i + 1] if i + 1 < len(starts) else (s_end, st_end))
+        rc, kc, vc, rtc, ktc, vtc, dyc, dytc = (
+            a[:, sl] for a in (rf, kf, vf, rtf, ktf, vtf, dyf, dytf))
+        C = rc.shape[1]
+        strict = torch.tril(torch.ones(C, C, dtype=torch.bool, device=r.device), diagonal=-1)
+        la, lat, lp, lpt, dec, dect = _wkv6_chunk_decays(lw[:, sl], lwt[:, sl])
+        g = torch.einsum("bthv,bthv->bth", dyc, vc)[..., None]
+        gt = (torch.einsum("bthv,bthv->bth", dytc, vc)
+              + torch.einsum("bthv,bthv->bth", dyc, vtc))[..., None]
+        b_ = torch.einsum("bthk,bthk->bth", rc * uf, kc)
+        bt = (torch.einsum("bthk,bthk->bth", rtc * uf, kc)
+              + torch.einsum("bthk,bthk->bth", rc * utf, kc)
+              + torch.einsum("bthk,bthk->bth", rc * uf, ktc))
+        att = torch.where(strict, torch.einsum("bthk,bchk,btchk->bhtc", rc, kc, dec), 0.0)
+        att_t = torch.where(strict, torch.einsum("bthk,bchk,btchk->bhtc", rtc, kc, dec)
+                            + torch.einsum("bthk,bchk,btchk->bhtc", rc, ktc, dec)
+                            + torch.einsum("bthk,bchk,btchk->bhtc", rc, kc, dect), 0.0)
+        datt = torch.where(strict, torch.einsum("bthv,bchv->bhtc", dyc, vc), 0.0)
+        datt_t = torch.where(strict, torch.einsum("bthv,bchv->bhtc", dytc, vc)
+                             + torch.einsum("bthv,bchv->bhtc", dyc, vtc), 0.0)
+        ep = torch.exp(lp)
+        ept = lpt * ep
+        la_c, lat_c = la[:, -1:], lat[:, -1:]
+        ec = torch.exp(la_c - la)
+        ect = (lat_c - lat) * ec
+        # dr: X = ep (S dy) + pairs
+        A = torch.einsum("bhkv,bthv->bthk", s_in, dyc)
+        At = (torch.einsum("bhkv,bthv->bthk", st_in, dyc)
+              + torch.einsum("bhkv,bthv->bthk", s_in, dytc))
+        X = ep * A + torch.einsum("bhtc,bchk,btchk->bthk", datt, kc, dec)
+        Xt = (ept * A + ep * At + torch.einsum("bhtc,bchk,btchk->bthk", datt_t, kc, dec)
+              + torch.einsum("bhtc,bchk,btchk->bthk", datt, ktc, dec)
+              + torch.einsum("bhtc,bchk,btchk->bthk", datt, kc, dect))
+        outs["dr"].append(Xt + gt * uf * kc + g * utf * kc + g * uf * ktc)
+        # dk: Y = ec (dS v) + pairs
+        Bm = torch.einsum("bhkv,bchv->bchk", ds, vc)
+        Bmt = torch.einsum("bhkv,bchv->bchk", dst, vc) + torch.einsum("bhkv,bchv->bchk", ds, vtc)
+        Y = ec * Bm + torch.einsum("bhtc,bthk,btchk->bchk", datt, rc, dec)
+        Yt = (ect * Bm + ec * Bmt + torch.einsum("bhtc,bthk,btchk->bchk", datt_t, rc, dec)
+              + torch.einsum("bhtc,bthk,btchk->bchk", datt, rtc, dec)
+              + torch.einsum("bhtc,bthk,btchk->bchk", datt, rc, dect))
+        outs["dk"].append(Yt + gt * uf * rc + g * utf * rc + g * uf * rtc)
+        # dv
+        kd, kdt = kc * ec, ktc * ec + kc * ect
+        dvt = (torch.einsum("bhtc,bthv->bchv", att_t, dyc) + torch.einsum("bhtc,bthv->bchv", att, dytc)
+               + bt[..., None] * dyc + b_[..., None] * dytc
+               + torch.einsum("bhkv,bchk->bchv", dst, kd) + torch.einsum("bhkv,bchk->bchv", ds, kdt))
+        outs["dv"].append(dvt)
+        # du
+        du_t = du_t + (gt * rc * kc + g * rtc * kc + g * rc * ktc).sum(1)
+        # dw: the gradients at la_prev and la, la_C's on the last row
+        dlp, dlpt = rc * X, rtc * X + rc * Xt
+        dla, dlat = -kc * Y, -(ktc * Y + kc * Yt)
+        dlc = (ds * s_c).sum(-1)
+        dlct = (dst * s_c + ds * st_c).sum(-1)
+        dla = torch.cat([dla[:, :-1], dla[:, -1:] + dlc[:, None]], dim=1)
+        dlat = torch.cat([dlat[:, :-1], dlat[:, -1:] + dlct[:, None]], dim=1)
+        dlw = torch.flip(torch.cumsum(torch.flip(dla + dlp, [1]), 1), [1]) - dlp
+        dlwt = torch.flip(torch.cumsum(torch.flip(dlat + dlpt, [1]), 1), [1]) - dlpt
+        wc, lwtc = wf[:, sl], lwt[:, sl]
+        outs["dw"].append(torch.where(wc >= 1e-38, (dlwt - dlw * lwtc) / wc, 0.0))
+        # the state gradient entering the chunk, and its tangent
+        e_c = torch.exp(la_c[:, 0])[..., None]
+        rd, rdt = rc * ep, rtc * ep + rc * ept
+        dst = (e_c * (dst + lat_c[:, 0][..., None] * ds)
+               + torch.einsum("bthk,bthv->bhkv", rdt, dyc) + torch.einsum("bthk,bthv->bhkv", rd, dytc))
+        ds = e_c * ds + torch.einsum("bthk,bthv->bhkv", rd, dyc)
+
+    def cat(name, like):
+        parts = outs[name][::-1]
+        return torch.cat(parts, dim=1) if parts else torch.zeros(like.shape, dtype=f32,
+                                                                  device=like.device)
+    return (cat("dr", r).to(r.dtype), cat("dk", k).to(k.dtype), cat("dv", v).to(v.dtype),
+            cat("dw", w), _u_rows_sum(du_t, u), dst)
+
+
 def wkv6_ref(r, k, v, w, u, s0, *, chunk: int = 64):
     """The RWKV-6 recurrence S_t = diag(w_t) S_{t-1} + k_t v_t^T, y_t =
     r_t^T (S_{t-1} + diag(u) k_t v_t^T), in the chunked form of
@@ -668,9 +896,7 @@ def wkv6_ref(r, k, v, w, u, s0, *, chunk: int = 64):
     f32 = torch.float32
     rf, kf, vf = (a.to(f32) for a in (r, k, v))
     lw = torch.log(torch.clamp(w.to(f32), min=1e-38))
-    uf = u.to(f32)
-    uf = (uf[None, None] if uf.ndim == 2
-          else uf.repeat_interleave(B // uf.shape[0], dim=0)[:, None])
+    uf = _wkv6_u_rows(u, B)
     s = s0.to(f32)
     ys = []
     for c0 in range(0, S, chunk):

@@ -30,6 +30,22 @@ kernel's w input; du has u's shape, each row summed over the batch rows that
 read it.  ``kernels.ops`` makes the pair an ``autograd.Function``; the plain
 backward (``ref.wkv6_bwd_ref``, autograd of the plain forward) runs on the
 CPU.
+
+Kernels 17j and 17bj (``csrc/wkv6_jvp.cu``) are their tangents, the
+forward-mode rules of ``ops.Wkv6`` and ``ops.Wkv6Backward``:
+
+  * ``wkv6_jvp``      (y', s_final') from the primals, the forward's
+                      ``states`` and the tangents r', k', v' (r's dtype), w',
+                      u', s0' (f32, u' u's shape): one chunk-parallel launch
+                      passing the state's tangent from chunk to chunk;
+  * ``wkv6_bwd_jvp``  (dr', dk', dv', dw', du', ds0') of ``wkv6_bwd``'s
+                      outputs for the tangents of its inputs, dy' and
+                      ds_final' with them (None: zero): one call, four
+                      launches (the state tangents forward, the state
+                      gradient and its tangent in reverse, the outputs, du').
+
+Their plain versions, ``ref.wkv6_jvp_ref`` and ``ref.wkv6_bwd_jvp_ref``, run
+on the CPU.
 """
 from __future__ import annotations
 
@@ -55,6 +71,24 @@ WKV6_BWD = Kernel(
     # sync B S H K V u_div dtype dev stream
     [P] * 20 + [I, I, I, I, I, I, I, I, P],
     replaces="src/repro/kernels/wkv6.py:73 (its backward: ops.py _wkv6_chunked_xla)",
+)
+
+
+WKV6_JVP = Kernel(
+    "wkv6_jvp", "wkv6_jvp.cu", "launch_wkv6_jvp",
+    # r k v w u s0 states rt kt vt wt ut s0t yt s_out_t tstates sync
+    # B S H K V u_div dtype dev stream
+    [P] * 17 + [I, I, I, I, I, I, I, I, P],
+    replaces="src/repro/kernels/ops.py:184 _wkv6_chunked_xla (its jvp)",
+)
+
+WKV6_BWD_JVP = Kernel(
+    "wkv6_bwd_jvp", "wkv6_jvp.cu", "launch_wkv6_bwd_jvp",
+    # r k v w u s0 s_out states dy ds_final rt kt vt wt ut s0t dyt ds_final_t
+    # drt dkt dvt dwt dut ds0t tstates s_out_t dstates dstates_t du_part sync
+    # B S H K V u_div dtype dev stream
+    [P] * 30 + [I, I, I, I, I, I, I, I, P],
+    replaces="src/repro/kernels/ops.py:184 _wkv6_chunked_xla (the jvp of its grad)",
 )
 
 
@@ -133,3 +167,74 @@ def wkv6_bwd(r, k, v, w, u, s0, s_out, states, dy, ds_final=None):
                                           dv, dw, du, ds0, dstates, du_part, dk_part, sync)),
                 B, S, H, K, V, u_div, _args.DTYPE_CODES[dt], *_args.stream_args(dev))
     return dr, dk, dv, dw, du, ds0
+
+
+def _check_tangents(name, r, k, v, w, u, s0, rt, kt, vt, wt, ut, s0t) -> None:
+    """Each tangent takes its primal's shape and dtype (``_check``'s rules)."""
+    for arg, t, p in (("r'", rt, r), ("k'", kt, k), ("v'", vt, v), ("w'", wt, w), ("u'", ut, u),
+                      ("s0'", s0t, s0)):
+        _args.check(name, arg, t, tuple(p.shape), (p.dtype,), p.device)
+
+
+def wkv6_jvp(r, k, v, w, u, s0, states, rt, kt, vt, wt, ut, s0t):
+    """(y', s_final') of ``wkv6`` for the tangents r', k', v', w', u', s0'
+    (kernel 17j), from the ``states`` that ``wkv6(..., keep_states=True)``
+    returned (None on the CPU, whose plain version recomputes them)."""
+    kern = WKV6_JVP
+    if _args.on_cpu(kern.name, r):
+        return ref.wkv6_jvp_ref(r, k, v, w, u, s0, rt, kt, vt, wt, ut, s0t, chunk=CHUNK)
+    u_div = _check(kern.name, r, k, v, w, u, s0)
+    _check_tangents(kern.name, r, k, v, w, u, s0, rt, kt, vt, wt, ut, s0t)
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    dt, dev = r.dtype, r.device
+    nc = -(-S // CHUNK)
+    _args.check(kern.name, "states", states, (B * H * nc * K * V,), (torch.float32,), dev)
+    yt = torch.empty((B, S, H, V), dtype=dt, device=dev)
+    s_out_t = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
+    tstates = torch.empty(B * H * nc * K * V, dtype=torch.float32, device=dev)
+    sync = torch.zeros(1 + B * H * nc, dtype=torch.int32, device=dev)
+    kern.launch(*(_args.ptr(t) for t in (r, k, v, w, u, s0, states, rt, kt, vt, wt, ut, s0t, yt,
+                                          s_out_t, tstates, sync)),
+                B, S, H, K, V, u_div, _args.DTYPE_CODES[dt], *_args.stream_args(dev))
+    return yt, s_out_t
+
+
+def wkv6_bwd_jvp(r, k, v, w, u, s0, s_out, states, dy, ds_final, rt, kt, vt, wt, ut, s0t, dyt,
+                 ds_final_t=None):
+    """(dr', dk', dv', dw', du', ds0') of ``wkv6_bwd`` for the tangents of
+    its inputs (kernel 17bj): r', k', v', w', u', s0' as ``wkv6_jvp`` takes
+    them, dy' (dy's shape and dtype) and ds_final' (None: zero; ds_final None
+    is zero too).  The tangents of the forward's states are formed inside,
+    so none is taken."""
+    kern = WKV6_BWD_JVP
+    if _args.on_cpu(kern.name, r):
+        return ref.wkv6_bwd_jvp_ref(r, k, v, w, u, s0, dy, ds_final, rt, kt, vt, wt, ut, s0t,
+                                    dyt, ds_final_t, chunk=CHUNK)
+    u_div = _check(kern.name, r, k, v, w, u, s0)
+    _check_tangents(kern.name, r, k, v, w, u, s0, rt, kt, vt, wt, ut, s0t)
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    dt, dev = r.dtype, r.device
+    nc = -(-S // CHUNK)
+    f32 = (torch.float32,)
+    _args.check(kern.name, "s_out", s_out, (B, H, K, V), f32, dev)
+    _args.check(kern.name, "states", states, (B * H * nc * K * V,), f32, dev)
+    _args.check(kern.name, "dy", dy, (B, S, H, V), (dt,), dev)
+    _args.check(kern.name, "dy'", dyt, (B, S, H, V), (dt,), dev)
+    for arg, t in (("ds_final", ds_final), ("ds_final'", ds_final_t)):
+        if t is not None:
+            _args.check(kern.name, arg, t, (B, H, K, V), f32, dev)
+    drt, dkt, dvt = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
+    dwt, dut, ds0t = torch.empty_like(w), torch.empty_like(u), torch.empty_like(s0)
+    tstates, dstates, dstates_t = (torch.empty(B * H * nc * K * V, dtype=torch.float32, device=dev)
+                                   for _ in range(3))
+    s_out_t = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
+    du_part = torch.empty(B * H * nc * K, dtype=torch.float32, device=dev)
+    sync = torch.zeros(2 * (1 + B * H * nc), dtype=torch.int32, device=dev)
+    kern.launch(*(_args.ptr(t) for t in (r, k, v, w, u, s0, s_out, states, dy, ds_final, rt, kt,
+                                          vt, wt, ut, s0t, dyt, ds_final_t, drt, dkt, dvt, dwt,
+                                          dut, ds0t, tstates, s_out_t, dstates, dstates_t, du_part,
+                                          sync)),
+                B, S, H, K, V, u_div, _args.DTYPE_CODES[dt], *_args.stream_args(dev))
+    return drt, dkt, dvt, dwt, dut, ds0t

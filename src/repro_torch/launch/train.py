@@ -39,11 +39,10 @@ All of it is off by default, and the off path adds no per-round host work.
 ``--eta auto`` derives per-client stepsizes from curvature probes that
 differentiate the gradient forward-mode (``vmap(jvp(grad(loss)))``,
 ``core.autotune.estimate_L``).  On the card the tangents run as kernels too:
-16j and 16bj for attention and its backward, ``lru_scan_jvp`` and
-``lru_scan_bwd_jvp`` for the RG-LRU (the forward-mode rules of
-``kernels.ops``' Functions).  Kernels 17 and 17b have no such rule yet
-(``ROADMAP.md``), so an arch with RWKV blocks raises there; the CPU's plain
-versions take every arch.
+16j and 16bj for attention and its backward, 17j and 17bj for the RWKV-6
+recurrence and its backward, ``lru_scan_jvp`` and ``lru_scan_bwd_jvp`` for
+the RG-LRU (the forward-mode rules of ``kernels.ops``' Functions), so every
+arch takes it on the card as on the CPU.
 """
 from __future__ import annotations
 
@@ -144,11 +143,6 @@ def run(
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
-    if isinstance(eta, str) and torch.device(device).type == "cuda" and "rwkv" in cfg.block_pattern:
-        raise NotImplementedError(
-            f"--eta auto differentiates the client gradient forward-mode, and {arch}'s RWKV "
-            f"blocks run kernels 17 and 17b, which have no forward-mode rule yet (17j, 17bj: "
-            f"ROADMAP.md section 1); pass a float --eta, or --device cpu")
     dev = resolve(device)
     fault_cfg = FaultConfig.parse(faults) if isinstance(faults, str) else faults
     if watchdog and not ckpt_dir:

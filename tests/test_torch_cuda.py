@@ -1399,7 +1399,8 @@ def test_cuda_vmap_grad_reaches_the_wkv6_kernels(cuda):
 @pytest.mark.cuda
 def test_cuda_train_resume_is_bitwise(cuda, tmp_path):
     """The reduced olmo-1b trained on the card: save at 2 + resume == 4
-    rounds uninterrupted, every logged value bitwise."""
+    rounds uninterrupted, every logged value bitwise; ``--eta auto`` on the
+    card for olmo-1b and for rwkv6-1.6b (kernels 17j and 17bj)."""
     from repro_torch.launch import train
 
     kw = dict(reduced=True, algorithm="gpdmm", k=2, eta=0.05, m=2, per_client_batch=2,
@@ -1410,8 +1411,8 @@ def test_cuda_train_resume_is_bitwise(cuda, tmp_path):
     assert a + b == c
     auto = train.run("olmo-1b", steps=1, **{**kw, "eta": "auto"})
     assert len(auto) == 1 and math.isfinite(auto[0]["server_loss"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.run("rwkv6-1.6b", steps=1, eta="auto")
+    auto = train.run("rwkv6-1.6b", steps=1, **{**kw, "eta": "auto"})
+    assert len(auto) == 1 and math.isfinite(auto[0]["server_loss"])
 
 
 @pytest.mark.cuda
@@ -1669,10 +1670,11 @@ def test_cuda_lru_scan_tangent_kernels_are_bitwise_jvp_of_plain(cuda, shape):
 
 @pytest.mark.cuda
 def test_cuda_vmap_jvp_grad_reaches_the_tangent_kernels(cuda):
-    """``vmap(jvp(grad))`` through ``ops.flash_attention`` and ``ops.lru_scan``
-    on the card, inside ``jvp_target`` as the curvature probe runs it: one
-    launch each of the forward, backward and both tangent kernels for all
-    clients, within 1e-4 (attention: sums in other orders) and 1e-5 (the
+    """``vmap(jvp(grad))`` through ``ops.flash_attention``, ``ops.lru_scan``
+    and ``ops.wkv6`` (u one row a client) on the card, inside
+    ``jvp_target`` as the curvature probe runs it: one launch each of the
+    forward, backward and both tangent kernels for all clients, within 1e-4
+    (attention and wkv6: sums and exps in other orders) and 1e-5 (the
     RG-LRU: the loss's reductions) of the CPU's plain path, f32."""
     from repro_torch.kernels import _args
 
@@ -1722,3 +1724,85 @@ def test_cuda_vmap_jvp_grad_reaches_the_tangent_kernels(cuda):
     want = hvp(lru, tuple(t.cpu() for t in (a, b, h0)), tuple(t.cpu() for t in (at, bt, h0t)))
     for x, w in zip(got, want):
         assert float((x.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+    Bw, Sw, Hw, K = 2, 70, 2, 64
+    r, kw, vw = (torch.randn(m, Bw, Sw, Hw, K, generator=g, device=cuda) for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * torch.randn(m, Bw, Sw, Hw, K, generator=g, device=cuda) - 1.0))
+    u = 0.1 * torch.randn(m, Hw, K, generator=g, device=cuda)
+    s0 = 0.1 * torch.randn(m, Bw, Hw, K, K, generator=g, device=cuda)
+    primals = (r, kw, vw, w, u, s0)
+    tangents = tuple(torch.randn(p.shape, generator=g, device=cuda) for p in primals)
+    tangents = tangents[:3] + (w * tangents[3],) + tangents[4:]
+    cw = torch.randn(Bw, Sw, Hw, K, generator=g, device=cuda)
+
+    def wkv(r, k, v, w, u, s0):
+        y, s = P.wkv6(r, k, v, w, u, s0)
+        return (y ** 2 * cw.to(r.device)).sum() + s.sum()
+
+    P.reset_launches()
+    with _args.jvp_target("the test's probe"):
+        got = hvp(wkv, primals, tangents)
+    counts = P.launches()
+    assert all(counts[n] == 1 for n in ("wkv6", "wkv6_bwd", "wkv6_jvp", "wkv6_bwd_jvp"))
+    want = hvp(wkv, tuple(t.cpu() for t in primals), tuple(t.cpu() for t in tangents))
+    for x, w_ in zip(got, want):
+        assert x.shape == w_.shape
+        assert float((x.cpu() - w_).abs().max()) <= 1e-4 * float(w_.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (2, 100, 4, 64, 64, "f32", 2, "model"),     # ragged, two rows of u
+    (2, 130, 3, 64, 48, "bf16", 1, "model"),    # V < K, u shared
+    (2, 100, 4, 64, 64, "f32", 1, "extreme"),   # decay 1e-30 mixed with 0.9
+    (1, 1, 2, 32, 16, "f32", 1, "model"),       # one step
+    (2, 200, 4, 64, 64, "f32", 2, "slow"),      # the state carries across chunks
+])
+def test_cuda_wkv6_tangent_kernels_match_plain(cuda, case):
+    """Kernels 17j and 17bj against their plain versions
+    (``ref.wkv6_jvp_ref``, ``ref.wkv6_bwd_jvp_ref``): relative to the
+    largest magnitude, 1e-4 in f32 (sums and exps in another order) and
+    2^-6 in bf16 (17b's bf16 tolerance: the outputs rounded once, after f32
+    sums in other orders); dw' held as dw' w (at w = 1e-30 dw' is rounding
+    noise times 1e30 in any order of sums); one launch each, and 17bj's two
+    runs bitwise equal (no atomics on floats)."""
+    from repro_torch.kernels import wkv6 as WK
+
+    B, S, H, K, V, dn, n_u, decay = case
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dn]
+    g = torch.Generator(device="cuda").manual_seed(16)
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda)
+
+    r, k, rt, kt = (rn(B, S, H, K).to(dt) for _ in range(4))
+    v, vt, dy, dyt = (rn(B, S, H, V).to(dt) for _ in range(4))
+    if decay == "extreme":
+        w = torch.full((B, S, H, K), 1e-30, device=cuda)
+        w[:, ::3] = 0.9
+    else:  # "slow": about 0.6 over a chunk, where the model's decay leaves 1e-11
+        w = torch.exp(-(0.02 if decay == "slow" else 1.0) * torch.exp(0.5 * rn(B, S, H, K) - 1.0))
+    wt = w * rn(B, S, H, K)
+    u_shape = (n_u, H, K) if n_u > 1 else (H, K)
+    u, ut = 0.1 * rn(*u_shape), 0.1 * rn(*u_shape)
+    s0, s0t, dsf, dsft = (rn(B, H, K, V) for _ in range(4))
+    y, s_out, states = WK.wkv6(r, k, v, w, u, s0, keep_states=True)
+    P.reset_launches()
+    got_j = WK.wkv6_jvp(r, k, v, w, u, s0, states, rt, kt, vt, wt, ut, s0t)
+    got_b = WK.wkv6_bwd_jvp(r, k, v, w, u, s0, s_out, states, dy, dsf, rt, kt, vt, wt, ut, s0t,
+                            dyt, dsft)
+    assert P.launches()["wkv6_jvp"] == 1 and P.launches()["wkv6_bwd_jvp"] == 1
+    again = WK.wkv6_bwd_jvp(r, k, v, w, u, s0, s_out, states, dy, dsf, rt, kt, vt, wt, ut, s0t,
+                            dyt, dsft)
+    assert all(torch.equal(a, b) for a, b in zip(got_b, again))
+    want_j = ref.wkv6_jvp_ref(r, k, v, w, u, s0, rt, kt, vt, wt, ut, s0t)
+    want_b = list(ref.wkv6_bwd_jvp_ref(r, k, v, w, u, s0, dy, dsf, rt, kt, vt, wt, ut, s0t, dyt,
+                                       dsft))
+    got_b = list(got_b)
+    got_b[3], want_b[3] = got_b[3] * w, want_b[3] * w
+    tol = 1e-4 if dt == torch.float32 else 2.0 ** -6
+    for a, b in zip((*got_j, *got_b), (*want_j, *want_b)):
+        assert a.shape == b.shape and a.dtype == b.dtype and bool(torch.isfinite(a).all())
+        err = float((a.float() - b.float()).abs().max()) / max(1e-30, float(b.float().abs().max()))
+        assert err <= tol, (err, tol)
+

@@ -14,10 +14,17 @@ Tolerances:
   * through ``LruScan``: bitwise (the rules' plain versions round in the
     order of torch's forward-mode formulas, and the backward in that of
     autograd's);
-  * the same through ``FlashAttention`` against the reference's
-    ``jax.vmap(jax.jvp(jax.grad))`` of its ``impl="xla"`` flash, f32: 1e-5;
-  * the plain versions of the four tangents against ``torch.func.jvp`` of
-    the plain forward and backward, f32: 1e-5 (flash), bitwise (RG-LRU);
+  * through ``Wkv6`` and its backward against ``ref.wkv6_ref``'s, f32:
+    1e-5 of the largest magnitude (the rules' plain versions sum each
+    tangent's terms in the chunk form, ``torch.func`` in the order of its
+    formulas); bf16: 2^-6 (both round y, y' and the gradients to bf16 after
+    f32 sums in other orders);
+  * the same through ``FlashAttention`` and ``Wkv6`` against the
+    reference's ``jax.vmap(jax.jvp(jax.grad))`` of its ``impl="xla"``
+    flash and wkv6, f32: 1e-5;
+  * the plain versions of the six tangents against ``torch.func.jvp`` of
+    the plain forward and backward, f32: 1e-5 (flash, wkv6), bitwise
+    (RG-LRU);
   * ``_DispatchGather``'s tangent: bitwise the gather of xt's tangent, and
     ``vmap(jvp(grad))`` through the fused MoE block within 1e-5 of the
     same with a plain gather (its backward adds in another order);
@@ -242,17 +249,121 @@ def test_lru_tangent_plain_versions_are_bitwise_jvp():
     assert all(torch.equal(x, w) for x, w in zip(got, want))
 
 
-def test_wkv6_functions_refuse_forward_mode():
-    """``Wkv6`` has no forward-mode rule yet: jvp through it raises, naming
-    ROADMAP.md (a ctypes kernel would give a wrong tangent silently)."""
-    rng = np.random.default_rng(6)
-    B, S, H, K = 1, 4, 2, 4
-    r, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, K)).astype(np.float32))
-               for _ in range(3))
-    w = torch.full((B, S, H, K), 0.9)
-    u, s0 = torch.zeros(H, K), torch.zeros(B, H, K, K)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch.func.jvp(lambda r: ops.Wkv6.apply(r, k, v, w, u, s0, False)[0], (r,), (r,))
+# (m, B, S, H, K, V, u rows a client (0: u not vmapped, shared), s0 zero):
+# u shared, one chunk; u one row a client over two chunks, the last ragged
+# (70 = 64 + 6 steps); two rows of u a client with s0 = 0
+WKV_CASES = ((2, 2, 9, 2, 4, 3, 0, False), (2, 1, 70, 2, 4, 4, 1, False),
+             (3, 2, 12, 1, 4, 2, 2, True))
+WKV_IDS = ["u_shared", "u_per_client_ragged", "u_rows_s0_zero"]
+
+
+def _wkv_data(case, dtype, seed):
+    """Primals and tangents of ``Wkv6`` for m clients, numpy-seeded: w =
+    exp(-exp(x)) as the model forms it, and w' = w x' (the chain rule's
+    form through it); the loss's weights on y and the final state."""
+    m, B, S, H, K, V, n_u, s0_zero = case
+    rng = np.random.default_rng(seed)
+    t = (lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)))
+    x = 0.5 * t(m, B, S, H, K) - 1.0
+    w = torch.exp(-torch.exp(x))
+    u_shape = (H, K) if n_u == 0 else (m, H, K) if n_u == 1 else (m, n_u, H, K)
+    u = 0.3 * t(*u_shape)
+    s0 = torch.zeros(m, B, H, K, V) if s0_zero else 0.5 * t(m, B, H, K, V)
+    primals = (t(m, B, S, H, K).to(dtype), t(m, B, S, H, K).to(dtype), t(m, B, S, H, V).to(dtype),
+               w, u, s0)
+    tangents = (t(m, B, S, H, K).to(dtype), t(m, B, S, H, K).to(dtype),
+                t(m, B, S, H, V).to(dtype), w * t(*w.shape), 0.3 * t(*u.shape),
+                0.5 * t(*s0.shape))
+    return primals, tangents, t(B, S, H, V), t(B, H, K, V)
+
+
+def _wkv_loss(fn, cy, cs):
+    def f(r, k, v, w, u, s0):
+        y, s = fn(r, k, v, w, u, s0)
+        return (y.float() ** 2 * cy).sum() + (s * cs).sum()
+    return f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", WKV_CASES, ids=WKV_IDS)
+def test_wkv6_function_vmap_jvp_grad(case, dtype):
+    """``vmap(jvp(grad))`` through ``Wkv6`` (forward rule 17j's plain
+    version, backward 17b's, whose rule is 17bj's) equals the same
+    transform of ``ref.wkv6_ref``: f32 within ``F32_REL`` of the largest
+    magnitude (the rules' plain versions sum the tangents' terms in the
+    chunk form, ``torch.func`` in the order of its formulas), bf16 within
+    ``BF16_REL`` (each side rounds y, y' and the gradients to bf16 after
+    f32 sums in other orders, as 17b's bf16 check holds them)."""
+    primals, tangents, cy, cs = _wkv_data(case, dtype, 10)
+    dims = (0, 0, 0, 0, None if case[6] == 0 else 0, 0)
+    got = _hvp(_wkv_loss(lambda *a: ops.Wkv6.apply(*a)[:2], cy, cs), primals, tangents,
+               dims)
+    want = _hvp(_wkv_loss(ref.wkv6_ref, cy, cs), primals, tangents, dims)
+    _close(got, want, F32_REL if dtype == torch.float32 else BF16_REL)
+
+
+@pytest.mark.parametrize("case", WKV_CASES[:2], ids=WKV_IDS[:2])
+def test_wkv6_function_vmap_jvp_grad_matches_reference(case):
+    """``vmap(jvp(grad))`` through ``Wkv6`` against the reference's
+    ``jax.vmap(jax.jvp(jax.grad))`` of ``repro.kernels.ops.wkv6(...,
+    impl="xla")`` (``_wkv6_chunked_xla``, the branch its probe
+    differentiates) on the same numpy-seeded f32 inputs and loss, at a
+    length whose chunks both take (S a multiple of 64, or one chunk):
+    within ``F32_REL`` of the largest magnitude (f32 sums in other
+    orders)."""
+    m, B, S, H, K, V, n_u, s0_zero = case
+    S = 9 if S < 64 else 128
+    primals, tangents, cy, cs = _wkv_data((m, B, S, H, K, V, n_u, s0_zero), torch.float32, 11)
+    dims = (0, 0, 0, 0, None if n_u == 0 else 0, 0)
+    got = _hvp(_wkv_loss(lambda *a: ops.Wkv6.apply(*a)[:2], cy, cs), primals, tangents,
+               dims)
+    cyj, csj = (jax.numpy.asarray(c.numpy()) for c in (cy, cs))
+
+    def f_ref(*a):
+        y, s = ref_ops.wkv6(*a, impl="xla")
+        return (y ** 2 * cyj).sum() + (s * csj).sum()
+
+    def one(*a):
+        return jax.jvp(jax.grad(f_ref, argnums=tuple(range(6))), a[:6], a[6:])[1]
+
+    want = jax.vmap(one, in_axes=dims + dims)(
+        *(jax.numpy.asarray(t.numpy()) for t in primals + tangents))
+    _close(got, tuple(torch.from_numpy(np.array(w)) for w in want), F32_REL)
+
+
+@pytest.mark.parametrize("n_u, ds_final", [(1, True), (2, False)],
+                         ids=["u_shared_ds_final", "u_rows_no_ds_final"])
+def test_wkv6_tangent_plain_versions_are_jvp_of_the_plain_ops(n_u, ds_final):
+    """``ref.wkv6_jvp_ref`` and ``wkv6_bwd_jvp_ref`` (the formulas kernels
+    17j and 17bj compute, the states' tangents formed inside the
+    backward's) equal ``torch.func.jvp`` of ``wkv6_ref`` and of its vjp,
+    within ``F32_REL`` of the largest magnitude, over three chunks of 4
+    steps, the last ragged; ds_final given or None (zero)."""
+    case = (1, 2, 10, 2, 3, 4, n_u, False)
+    (r, k, v, w, u, s0), tangents, _, _ = _wkv_data(case, torch.float32, 12)
+    primals = tuple(x[0] for x in (r, k, v, w, u, s0))
+    tangents = tuple(x[0] for x in tangents)
+    chunk = 4
+
+    def fwd(*a):
+        return ref.wkv6_ref(*a, chunk=chunk)
+
+    _, want = torch.func.jvp(fwd, primals, tangents)
+    _close(ref.wkv6_jvp_ref(*primals, *tangents, chunk=chunk), want, F32_REL)
+    rng = np.random.default_rng(13)
+    t = (lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)))
+    dy, dyt = t(2, 10, 2, 4), t(2, 10, 2, 4)
+    dsf, dsft = (t(2, 2, 3, 4), t(2, 2, 3, 4)) if ds_final else (None, None)
+
+    def bwd(*a):
+        if ds_final:
+            return torch.func.vjp(fwd, *a[:6])[1]((a[6], a[7]))
+        return torch.func.vjp(lambda *x: fwd(*x)[0], *a[:6])[1](a[6])
+
+    extra, extra_t = ((dy, dsf), (dyt, dsft)) if ds_final else ((dy,), (dyt,))
+    _, want = torch.func.jvp(bwd, primals + extra, tangents + extra_t)
+    got = ref.wkv6_bwd_jvp_ref(*primals, dy, dsf, *tangents, dyt, dsft, chunk=chunk)
+    _close(got, want, F32_REL)
 
 
 def test_forward_mode_rule_lets_a_kernel_launch_inside_a_probe():
@@ -323,7 +434,8 @@ def test_fused_moe_block_vmap_jvp_grad():
 # estimate_L on reduced LMs against the reference's
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-v2-lite-16b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-v2-lite-16b", "recurrentgemma-9b",
+                                  "rwkv6-1.6b"])
 def test_estimate_L_matches_reference(arch):
     """The launcher's probe (``vmap(jvp(grad(loss)))`` power iteration,
     ``estimate_L`` with 8 iterations) at the reference's keyed weights and

@@ -56,6 +56,16 @@ wrong decomposition shows before any kernel runs on a card:
   and within the card's 2^-7 / 2^-6 rounded; every visible pair visited
   once by each grid; and the tangents' route by dtype and head dims.
 
+* kernels 17j and 17bj, the RWKV-6 recurrence's tangents
+  (``csrc/wkv6_jvp.cu``): 17j's chunk-major tickets, each chunk's pairs
+  with the direct clamped exp and its tangent, the state's tangent passed
+  from chunk to chunk; 17bj's four launches (that state pass, the reverse
+  walk carrying the state gradient and its tangent together, the outputs
+  from the states at each chunk's two ends, du' over the chunks in order)
+  -- within 1e-9 of forward-mode AD of the recurrence and of its gradient
+  in f64, extreme decays included; the kernel's constants and shared
+  memory.
+
 Also: the route the flash wrapper picks, that every launcher's C signature
 (and the inner loop's occupancy query) has as many parameters as its
 ctypes binding declares, and that
@@ -1490,3 +1500,243 @@ def test_jvp_key_grid_splits_fill_the_card():
     assert FA.dkdv_splits(8, 128, 1, 16, 132, FA.JVP_KEY_TILE) == 16
     assert FA.dkdv_splits(8, 128, 8, 4, 132, FA.JVP_KEY_TILE) == 2
     assert FA.dkdv_splits(8, 128, 16, 1, 132, FA.JVP_KEY_TILE) == 1
+
+
+# ---------------------------------------------------------------------------
+# kernels 17j and 17bj: the RWKV-6 recurrence's tangents
+# ---------------------------------------------------------------------------
+
+WKV_JVP = (CSRC / "wkv6_jvp.cu").read_text()
+WKV_JVP_THREADS, WKV_JVP_ITEMS = 256, 16   # csrc/wkv6_jvp.cu kThreads, kItems
+H100_SMEM_OPTIN = 227 * 1024               # the most dynamic shared memory a block may ask
+
+
+def test_wkv6_tangent_model_constants_match_the_kernel():
+    """The chunk and the largest K and V the model below walks are the
+    kernel's and the wrappers'; each thread's items cover a (64, 64) tile
+    once; and the shared memory each of the three chunk kernels asks for
+    (whole (64, 64) f32 tiles and 64-float rows) fits an H100 block."""
+    assert (_bwd_const(WKV_JVP, "kC"), _bwd_const(WKV_JVP, "kD")) == (WK.CHUNK, WK.MAX_DIM)
+    assert _bwd_const(WKV_JVP, "kThreads") == WKV_JVP_THREADS
+    assert WKV_JVP_THREADS // WK.MAX_DIM * WKV_JVP_ITEMS == WK.CHUNK
+    sizes = re.findall(r"sizeof\(float\) \* \(\(size_t\)(\(kOut \? 12 : 6\)|\d+) \* kTile \+ "
+                       r"(\d+) \* kD\) \+ 16", WKV_JVP)
+    assert len(sizes) == 3, sizes
+    for tiles, rows in sizes:
+        n = 12 if tiles.startswith("(") else int(tiles)
+        assert 4 * (n * WK.CHUNK * WK.MAX_DIM + int(rows) * WK.MAX_DIM) + 16 <= H100_SMEM_OPTIN
+
+
+def wkv6_jvp_tickets(nc, BH):
+    """(chunk, b * H + h) of each ticket in the order 17j's blocks (and
+    17bj's state pass) draw them: chunk-major."""
+    return [(t // BH, t % BH) for t in range(nc * BH)]
+
+
+def test_wkv6_jvp_tickets_reach_a_started_chunk():
+    """Chunk-major tickets: the block of chunk c - 1 of the same (b, h),
+    which a block of chunk c waits on, drew an earlier ticket."""
+    for nc, BH in ((1, 3), (16, 128), (3, 5)):
+        order = wkv6_jvp_tickets(nc, BH)
+        seen = {x: i for i, x in enumerate(order)}
+        assert sorted(order) == sorted((c, bh) for c in range(nc) for bh in range(BH))
+        assert all(seen[(c - 1, bh)] < i for i, (c, bh) in enumerate(order) if c > 0)
+
+
+def _wkv6_chunk_view(c, n, C, *xs):
+    """Rows c C .. c C + n - 1 of each (S, .) tensor, zero-padded to C rows."""
+    return [torch.cat([x[c * C:c * C + n], x.new_zeros(C - n, x.shape[1])]) for x in xs]
+
+
+def _wkv6_tangent_model(r, k, v, w, u, s0, dy, dsf, rt, kt, vt, wt, ut, s0t, dyt, dsft, C=64):
+    """``csrc/wkv6_jvp.cu`` for one (b, h), in the inputs' dtype: r, k, w
+    (S, K), v, dy (S, V), u (K,), s0, ds_final (K, V) and their tangents.
+    17j: the chunks in ticket order (chunk-major), each forming la, la' and
+    la_prev, la'_prev down its columns, att and att' of every pair with the
+    direct clamped exp and its tangent E (la'_prev_t - la'_tau), the bonus
+    on the diagonal, its own part of S'_C, then S' from the chunk before
+    (published), S'_C published for the next, and y' from S and S'.  17bj:
+    (a) that state pass, (b) the reverse walk carrying (dS, dS'), (c) every
+    output of a chunk from the states at its two ends, (d) du' summed over
+    the chunks in order.  Returns (y', S_final') and (dr', dk', dv', dw',
+    du', ds0')."""
+    S, K = r.shape
+    V = v.shape[1]
+    nc = -(-S // C)
+    states, s = [], s0.clone()  # the forward's (kernel 17's) states entering each chunk
+    for c in range(nc):
+        states.append(s.clone())
+        for t in range(c * C, min(S, (c + 1) * C)):
+            s = w[t][:, None] * s + k[t][:, None] * v[t][None, :]
+    states.append(s)
+    strict = torch.tril(torch.ones(C, C, dtype=torch.bool), -1)
+    eye = torch.eye(C, dtype=torch.bool)
+
+    def chunk(c):
+        n = min(C, S - c * C)
+        rs, ks, vs, rts, kts, vts, dys, dyts = _wkv6_chunk_view(
+            c, n, C, r, k, v, rt, kt, vt, dy, dyt)
+        ws, wts = _wkv6_chunk_view(c, n, C, w, wt)
+        ws = ws + (torch.arange(C) >= n)[:, None]  # w = 1 past the chunk: lw = lw' = 0
+        lw = torch.log(torch.clamp(ws, min=1e-38))
+        lwt = torch.where(ws >= 1e-38, wts / ws, 0.0)
+        la, lat = torch.cumsum(lw, 0), torch.cumsum(lwt, 0)
+        lp, lpt = la - lw, lat - lwt
+        d = lp[:, None] - la[None]  # (t, tau, k)
+        E = torch.exp(torch.clamp(d, max=0.0))
+        Et = torch.where(d <= 0, lpt[:, None] - lat[None], 0.0) * E
+        return dict(n=n, r=rs, k=ks, v=vs, rt=rts, kt=kts, vt=vts, dy=dys, dyt=dyts, w=ws,
+                    wt=wts, la=la, lat=lat, lp=lp, lpt=lpt, E=E, Et=Et)
+
+    def att_pair(x):  # att, att' of every pair, the bonus and its tangent on the diagonal
+        rs, ks, rts, kts = x["r"], x["k"], x["rt"], x["kt"]
+        att = torch.einsum("tk,sk,tsk->ts", rs, ks, x["E"])
+        att_t = (torch.einsum("tk,sk,tsk->ts", rts, ks, x["E"])
+                 + torch.einsum("tk,sk,tsk->ts", rs, kts, x["E"])
+                 + torch.einsum("tk,sk,tsk->ts", rs, ks, x["Et"]))
+        b, bt = (rs * u * ks).sum(1), (rts * u * ks + rs * ut * ks + rs * u * kts).sum(1)
+        att = torch.where(strict, att, 0.0) + torch.diag(b)
+        att_t = torch.where(strict, att_t, 0.0) + torch.diag(bt)
+        return att, att_t, b, bt
+
+    def k_to_end(x):  # k e^{la_C - la} and its tangent
+        ec = torch.exp(x["la"][-1] - x["la"])
+        return x["k"] * ec, (x["kt"] + x["k"] * (x["lat"][-1] - x["lat"])) * ec
+
+    # 17j, and 17bj's pass (a): S' at every chunk entry, published in ticket order
+    tstates, yt = {0: s0t.clone()}, torch.zeros_like(v)
+    for c, _ in wkv6_jvp_tickets(nc, 1):
+        x = chunk(c)
+        kd, kdt = k_to_end(x)
+        own = kdt.T @ x["v"] + kd.T @ x["vt"]
+        assert c in tstates  # the awaited chunk has published
+        Sc, Sct = states[c], tstates[c]
+        tstates[c + 1] = torch.exp(x["la"][-1])[:, None] * (x["lat"][-1][:, None] * Sc + Sct) + own
+        ep = torch.exp(x["lp"])
+        rd, rdt = x["r"] * ep, (x["rt"] + x["r"] * x["lpt"]) * ep
+        att, att_t, _, _ = att_pair(x)
+        y = rdt @ Sc + rd @ Sct + att_t @ x["v"] + att @ x["vt"]
+        yt[c * C:c * C + x["n"]] = y[:x["n"]]
+    jvp_out = (yt, tstates[nc])
+
+    # 17bj (b): the pair (dS, dS') at each chunk's end, in reverse ticket order
+    dstates = {nc: (dsf.clone(), dsft.clone())}
+    for c, _ in wkv6_bwd_tickets(nc, 1):
+        x = chunk(c)
+        ep = torch.exp(x["lp"])
+        rd, rdt = x["r"] * ep, (x["rt"] + x["r"] * x["lpt"]) * ep
+        xa, xt = rd.T @ x["dy"], rdt.T @ x["dy"] + rd.T @ x["dyt"]
+        assert c + 1 in dstates
+        g, gt = dstates[c + 1]
+        ec = torch.exp(x["la"][-1])[:, None]
+        dstates[c] = (ec * g + xa, ec * (x["lat"][-1][:, None] * g + gt) + xt)
+
+    # 17bj (c): every output of a chunk; (d) du' over the chunks in order
+    drt, dkt, dvt, dwt = (torch.zeros_like(t) for t in (r, k, v, w))
+    du_part = []
+    for c in range(nc):
+        x = chunk(c)
+        n = x["n"]
+        rs, ks, vs, rts, kts, vts, dys, dyts = (x[a] for a in ("r", "k", "v", "rt", "kt", "vt",
+                                                               "dy", "dyt"))
+        E, Et, lp, lpt = x["E"], x["Et"], x["lp"], x["lpt"]
+        g, gt = (dys * vs).sum(1), (dyts * vs + dys * vts).sum(1)
+        datt = torch.where(strict, dys @ vs.T, 0.0)
+        datt_t = torch.where(strict, dyts @ vs.T + dys @ vts.T, 0.0)
+        xr = torch.einsum("ts,sk,tsk->tk", datt, ks, E)
+        xrt = (torch.einsum("ts,sk,tsk->tk", datt_t, ks, E)
+               + torch.einsum("ts,sk,tsk->tk", datt, kts, E)
+               + torch.einsum("ts,sk,tsk->tk", datt, ks, Et))
+        yk = torch.einsum("ts,tk,tsk->sk", datt, rs, E)
+        ykt = (torch.einsum("ts,tk,tsk->sk", datt_t, rs, E)
+               + torch.einsum("ts,tk,tsk->sk", datt, rts, E)
+               + torch.einsum("ts,tk,tsk->sk", datt, rs, Et))
+        att, att_t, _, _ = att_pair(x)
+        dS, dSt = dstates[c + 1]
+        kd, kdt = k_to_end(x)
+        S_C, S_Ct = states[c + 1], tstates[c + 1]
+        dlc, dlct = (dS * S_C).sum(1), (dSt * S_C + dS * S_Ct).sum(1)
+        tri = strict | eye  # t >= tau
+        dv_t = (torch.where(tri, att_t, 0.0).T @ dys + torch.where(tri, att, 0.0).T @ dyts
+                + kd @ dSt + kdt @ dS)
+        ec = torch.exp(x["la"][-1] - x["la"])
+        lt = x["lat"][-1] - x["lat"]
+        bm, bmt = vs @ dS.T, vts @ dS.T + vs @ dSt.T
+        ykt, yk = ykt + ec * (lt * bm + bmt), yk + ec * bm
+        Sc, Sct = states[c], tstates[c]
+        a, at = dys @ Sc.T, dys @ Sct.T + dyts @ Sc.T
+        ep = torch.exp(lp)
+        xrt, xr = xrt + ep * (lpt * a + at), xr + ep * a
+        dr_t = xrt + gt[:, None] * u * ks + g[:, None] * ut * ks + g[:, None] * u * kts
+        dk_t = ykt + gt[:, None] * u * rs + g[:, None] * ut * rs + g[:, None] * u * rts
+        dlp, dlpt = rs * xr, rts * xr + rs * xrt
+        dla, dlat = -ks * yk, -(kts * yk + ks * ykt)
+        dlw, dlwt = torch.empty_like(dla), torch.empty_like(dla)
+        run, runt = dlc.clone(), dlct.clone()
+        for s_ in reversed(range(C)):  # down each column from la_C's gradient
+            run, runt = run + dla[s_] + dlp[s_], runt + dlat[s_] + dlpt[s_]
+            dlw[s_], dlwt[s_] = run - dlp[s_], runt - dlpt[s_]
+        ws, wts = x["w"], x["wt"]
+        dw_t = torch.where(ws >= 1e-38, (dlwt - dlw * (wts / ws)) / ws, 0.0)
+        sl = slice(c * C, c * C + n)
+        drt[sl], dkt[sl], dvt[sl], dwt[sl] = dr_t[:n], dk_t[:n], dv_t[:n], dw_t[:n]
+        du_part.append((gt[:, None] * rs * ks + g[:, None] * rts * ks
+                        + g[:, None] * rs * kts).sum(0))
+    dut = torch.zeros_like(u)
+    for p in du_part:
+        dut = dut + p
+    return jvp_out, (drt, dkt, dvt, dwt, dut, dstates[0][1])
+
+
+def _wkv6_f64_recurrence(r, k, v, w, u, s0):
+    """The recurrence itself, step by step: (y, S_final)."""
+    ys, s = [], s0
+    for t in range(r.shape[0]):
+        kv = k[t][:, None] * v[t][None, :]
+        ys.append(r[t] @ (s + u[:, None] * kv))
+        s = w[t][:, None] * s + kv
+    return torch.stack(ys), s
+
+
+def _wkv6_tangent_inputs(S, K, V, seed, decay):
+    """f64 primals (``_wkv6_bwd_inputs``'; decay "slow": w = exp(-0.02
+    exp(x)), so that a chunk's state and its tangent carry into the next,
+    where the model's decay leaves e^{la_C} near 1e-11), the tangents with w'
+    = w x' (the chain rule's form through the model's exp(-exp(.)))."""
+    r, k, v, w, u, s0, dy, dsf = _wkv6_bwd_inputs(S, K, V, seed,
+                                                  "model" if decay == "slow" else decay)
+    if decay == "slow":
+        w = torch.exp(0.02 * torch.log(w))
+    g = torch.Generator().manual_seed(seed + 1)
+    f = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64)  # noqa: E731
+    tangents = (f(S, K), f(S, K), f(S, V), w * f(S, K), f(K), f(K, V), f(S, V), f(K, V))
+    return (r, k, v, w, u, s0, dy, dsf), tangents
+
+
+@pytest.mark.parametrize("S,K,V,decay", [
+    (1, 8, 6, "model"), (64, 8, 6, "model"), (150, 8, 6, "model"), (65, 4, 8, "model"),
+    (150, 8, 6, "slow"), (130, 4, 8, "slow"), (100, 8, 6, "extreme"), (130, 4, 6, "extreme"),
+])
+def test_wkv6_tangent_model_matches_f64_forward_mode(S, K, V, decay):
+    """17j's and 17bj's arithmetic (``_wkv6_tangent_model``) in f64 against
+    forward-mode AD (``torch.func.jvp``) of the recurrence step by step and
+    of its gradient (``torch.func.vjp``): 1e-9 of the largest value, and
+    at decay 1e-30 mixed with 0.9 every output finite.  dw' is held as dw'
+    w, the tangent in the log-decay's terms, dlw' - dlw w' / w: the chunk
+    form's dw' = (dlw' - dlw w' / w) / w divides a difference of sums of
+    size 1 by w, so where w is small its rounding is magnified by 1 / w
+    (1e30 at decay 1e-30, and 1e11 at the w = 9.4e-12 that the model's
+    exp(-exp(.)) draws at S = 1 here) in any order of sums."""
+    primals, tangents = _wkv6_tangent_inputs(S, K, V, S + 7, decay)
+    (yt, st), grads_t = _wkv6_tangent_model(*primals, *tangents)
+    _, want_j = torch.func.jvp(_wkv6_f64_recurrence, primals[:6], tangents[:6])
+
+    def grads(r, k, v, w, u, s0, dy, dsf):
+        return torch.func.vjp(_wkv6_f64_recurrence, r, k, v, w, u, s0)[1]((dy, dsf))
+
+    _, want_b = torch.func.jvp(grads, primals, tangents)
+    got, want = [yt, st, *grads_t], [*want_j, *want_b]
+    got[5], want[5] = got[5] * primals[3], want[5] * primals[3]
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-9 * max(1.0, float(b.abs().max())))

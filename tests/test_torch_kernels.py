@@ -383,7 +383,7 @@ def test_ops_surface_and_width_rule():
         "edge_flip", "flash_attention", "wkv6", "round_tail_mean", "client_mean",
         "ef21_update", "screen_keep", "scaffold_step", "flash_attention_bwd", "wkv6_bwd",
         "lru_scan", "lru_scan_bwd", "flash_attention_jvp", "flash_attention_bwd_jvp",
-        "lru_scan_jvp", "lru_scan_bwd_jvp"]
+        "lru_scan_jvp", "lru_scan_bwd_jvp", "wkv6_jvp", "wkv6_bwd_jvp"]
     assert P.affine_inner_fits(512) and P.affine_inner_fits(7936)
     assert not P.affine_inner_fits(500)  # not a multiple of 128
     widest = inner_loop.SMEM_CAP_BYTES // (4 * inner_loop.SMEM_ROWS)

@@ -354,10 +354,10 @@ def test_telemetry_rows_and_scan_driver(tmp_path):
 
 def test_cli_and_eta_auto(tmp_path):
     """``main`` takes the reference's flags and ``--device``; ``--eta auto``
-    resolves on the CPU (the plain versions take a forward-mode derivative).
-    On the card it goes through the kernels' forward-mode rules: without a
-    card olmo-1b fails on the device itself, not on a guard; an arch with
-    RWKV blocks is refused there, kernels 17-17b having no rule yet."""
+    resolves on the CPU (the plain versions take a forward-mode derivative),
+    olmo-1b's and rwkv6-1.6b's.  On the card it goes through the kernels'
+    forward-mode rules, 17j and 17bj for the RWKV blocks: without a card
+    both archs fail on the device itself, not on a guard."""
     hist = train.main(["--arch", "olmo-1b", "--steps", "2", "--clients", "2", "--batch", "2",
                        "--seq", "16", "--k", "1", "--eta", "0.05", "--log-every", "1",
                        "--device", "cpu"])
@@ -365,11 +365,13 @@ def test_cli_and_eta_auto(tmp_path):
     auto = train_run("olmo-1b", steps=1, **_kw(eta="auto", log_every=1, per_client_batch=1,
                                                seq_len=8))
     assert np.isfinite(auto[0]["server_loss"])
+    auto = train_run("rwkv6-1.6b", steps=1, **_kw(eta="auto", log_every=1, per_client_batch=1,
+                                                  seq_len=8))
+    assert np.isfinite(auto[0]["server_loss"])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            train_run("olmo-1b", steps=1, **_kw(device="cuda", eta="auto"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_run("rwkv6-1.6b", steps=1, **_kw(device="cuda", eta="auto"))
+        for arch in ("olmo-1b", "rwkv6-1.6b"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                train_run(arch, steps=1, **_kw(device="cuda", eta="auto"))
 
 
 # ---------------------------------------------------------------------------
@@ -435,7 +437,7 @@ def test_wkv6_function_vmap_grad(u_batched):
     s0 = 0.1 * torch.randn(B, H, K, K, generator=g)
 
     def f(r, k, v, w, u):
-        y, s, _ = ops.Wkv6.apply(r, k, v, w, u, s0, True)
+        y, s, _ = ops.Wkv6.apply(r, k, v, w, u, s0)
         return (y ** 2).sum() + s.sum()
 
     def f_ref(r, k, v, w, u):
@@ -478,9 +480,11 @@ def test_dispatch_reads_grad_and_transforms():
 
 @pytest.mark.parametrize("which", ["flash", "wkv6"])
 def test_function_without_grad_keeps_nothing(which):
-    """Under ``vmap`` with no gradient (the eval loss) the Function runs its
-    forward with ``keep`` off: no lse or chunk states come back, nothing is
-    saved, and the output is the plain forward's."""
+    """Under ``vmap`` with no gradient (the eval loss) the Function's output
+    is the plain forward's and nothing extra comes back: ``FlashAttention``
+    runs with ``keep`` off (no lse), and ``Wkv6``, which keeps its chunk
+    states on the card for 17b and 17j, returns none on the CPU, whose
+    plain versions recompute them."""
     g = torch.Generator().manual_seed(4)
     m, B, S, H, K = 2, 2, 20, 2, 8
     a, b, c = (torch.randn(m, B, S, H, K, generator=g) for _ in range(3))
@@ -498,7 +502,7 @@ def test_function_without_grad_keeps_nothing(which):
             w = torch.full((m, B, S, H, K), 0.8)
             u, s0 = 0.1 * torch.randn(H, K, generator=g), torch.zeros(B, H, K, K)
             y, s, states = torch.func.vmap(
-                lambda r, k, v, w: ops.Wkv6.apply(r, k, v, w, u, s0, False),
+                lambda r, k, v, w: ops.Wkv6.apply(r, k, v, w, u, s0),
                 out_dims=(0, 0, None))(a, b, c, w)
             want = torch.func.vmap(lambda r, k, v, w: ref.wkv6_ref(r, k, v, w, u, s0))(a, b, c, w)
             assert states is None
